@@ -1,0 +1,1 @@
+"""Two-phase VCMR/VR corpus evaluation (the serving path) and its metrics."""
