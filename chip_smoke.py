@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's VCMR serving path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's VCMR serving path and VSM train step on one
+GPU and check them.
 
     python3 chip_smoke.py                  # on a machine with one CUDA card
     python3 chip_smoke.py --json-out F     # also write the full record to F
@@ -23,11 +24,23 @@ What the card run does, in order (any failure exits non-zero):
    after, and checks the submission and metrics;
 6. checks, in fp32, that a small corpus ranked through the kernels on the
    card gives the same top-10 videos per query as the plain path on the
-   CPU, with scores within tolerance.
+   CPU, with scores within tolerance;
+7. the train phase: holds the training kernels (the forward with dropout
+   and saved probabilities, the attention and LayerNorm backwards, the
+   Philox masks) against their plain versions in fp32 and bf16 at the
+   train step's shapes; times the VSM train step at ``bench.py``'s layout
+   (32 TV videos a step, the packed bucket and its overflow bucket, bf16,
+   dropout 0.1, ``drop_svmr_prob`` 0.8) as the median of 3 runs of 20 fit
+   and 8 overflow steps with the launch counters read from 0 around them;
+   checks that the loss falls over 20 steps on one batch; and holds one
+   fp32 train step through the kernels against the plain path on the CPU.
 
-It prints one ``phases`` JSON line, one ``kernels`` JSON line, the card's
-name and power limit (nvidia-smi), and as the last line
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+It prints one ``phases`` JSON line, one train JSON line with
+``train_examples_per_s``, one ``kernels`` JSON line, the card's name and
+power limit (nvidia-smi), and as the last line ``{"ok": true, "device":
+{...}}``.  ``--profile`` adds torch.profiler breakdowns of a phase-1
+batch, a query batch and one fit-bucket train step to the JSON record.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -67,12 +80,17 @@ def time_ms(torch, fn, iters=20, warmup=3):
     call whose launch costs the host more than the card's work (the
     30-key attention, the plain versions' many small ops) is timed on the
     card, not at the host's launch rate.  The spin is lengthened until
-    the start event is still pending when the last call is queued."""
+    the start event is still pending when the last call is queued.  A
+    function that launches more kernels than the card's launch queue
+    holds (the plain Philox dropout: hundreds of elementwise launches a
+    call) blocks the host behind the spin; it is timed without the spin,
+    and its card time, far above its launch cost, is then what the
+    events measure."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     spin = 1 << 22                                   # clock cycles
-    while True:
+    while spin <= 1 << 30:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(spin)
@@ -84,10 +102,15 @@ def time_ms(torch, fn, iters=20, warmup=3):
         torch.cuda.synchronize()
         if queued_in_time:
             return start.elapsed_time(end) / iters
-        if spin >= 1 << 34:
-            raise RuntimeError("the host did not queue the timed calls "
-                               "within a spin of 2^34 cycles")
         spin *= 4
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def bound_ms(n_bytes, n_flops, dtype_name):
@@ -97,8 +120,12 @@ def bound_ms(n_bytes, n_flops, dtype_name):
 
 
 def _kernel_class(name):
+    if "packed_attention_bwd_kernel" in name:
+        return "attention_bwd_kernel"
     if "packed_attention_kernel" in name:
         return "attention_kernel"
+    if "layer_norm_bwd" in name:
+        return "layer_norm_bwd_kernels"
     if "layer_norm_kernel" in name:
         return "layer_norm_kernel"
     if any(t in name.lower() for t in ("gemm", "cutlass", "sm90_xmma",
@@ -176,7 +203,7 @@ def check_attention(torch, F, att, B, L, D, H, mask, seg_mode,
             (torch.bfloat16, _bf16_tol, "bf16: one bf16 ulp of max|out|")):
         qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(dtype)
         q, k, v = qkv.split(D, dim=-1)
-        out = launch(q, k, v, H, mask)
+        out = launch(q, k, v, H, mask)[0]
         ref = att.packed_reference(q, k, v, H, **kw)
         err = float((out.float() - ref.float()).abs().max())
         tol = tol_fn(ref)
@@ -331,6 +358,266 @@ def check_kernels(torch, first_batch, query_masks, cfg):
 
 
 # ---------------------------------------------------------------------------
+# training kernel checks
+# ---------------------------------------------------------------------------
+
+TRAIN_SEED = 2 ** 33 + 12345       # Philox key of the kernel checks
+TRAIN_RATE = 0.1                   # the model's dropout rate
+
+
+def _err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def _train_tol(ref, dtype):
+    """fp32: sums of <= 144 products (attention) or <= 4352 terms (LN)
+    taken in other orders, ~1e-4 of the largest value; bf16: both sides
+    read the same bf16 inputs, compute in fp32 and round once: one bf16
+    ulp of the largest value."""
+    top = float(ref.float().abs().max())
+    if dtype == "float32":
+        return 1e-4 * max(1.0, top)
+    return top * 2.0 ** -7
+
+
+def check_attention_train(torch, F, att, B, L, D, H, mask, seg_mode):
+    """The forward with dropout and saved probabilities and the backward
+    kernel, in fp32 and bf16, at rate 0 and 0.1, against the plain
+    versions on the same inputs; determinism; bf16 timings at rate 0.1."""
+    dev = mask.device
+    gen = torch.Generator(device=dev).manual_seed(7 * B + L)
+    kw = {"seg": mask} if seg_mode else {"kv_mask": mask}
+    launch = att.seg_attention_cuda if seg_mode else att.valid_attention_cuda
+    d = D // H
+    checks, rows = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(dtype)
+        q, k, v = qkv.split(D, dim=-1)
+        dout = torch.randn((B, L, D), generator=gen, device=dev).to(dtype)
+        for rate in (0.0, TRAIN_RATE):
+            out, probs = launch(q, k, v, H, mask, rate, TRAIN_SEED, True)
+            ref, rprobs = att.packed_forward_reference(
+                q, k, v, H, dropout_rate=rate, seed=TRAIN_SEED,
+                save_probs=True, **kw)
+            grads = att.attention_bwd_cuda(probs, q, k, v, dout, H, rate,
+                                           TRAIN_SEED)
+            rgrads = att.packed_backward_reference(probs, q, k, v, dout, H,
+                                                   rate, TRAIN_SEED)
+            again = att.attention_bwd_cuda(probs, q, k, v, dout, H, rate,
+                                           TRAIN_SEED)
+            out2 = launch(q, k, v, H, mask, rate, TRAIN_SEED, True)[0]
+            rec = {"fwd_err": _err(out, ref), "fwd_tol": _train_tol(ref, name),
+                   "probs_err": _err(probs, rprobs),
+                   "probs_tol": _train_tol(rprobs, name),
+                   "bwd_err": max(_err(a, b) for a, b in zip(grads, rgrads)),
+                   "bwd_tol": min(_train_tol(b, name) for b in rgrads),
+                   "deterministic": bool(torch.equal(out, out2) and all(
+                       torch.equal(a, b) for a, b in zip(grads, again)))}
+            rec["ok"] = (rec["fwd_err"] <= rec["fwd_tol"]
+                         and rec["probs_err"] <= rec["probs_tol"]
+                         and rec["bwd_err"] <= rec["bwd_tol"]
+                         and rec["deterministic"]
+                         and all(bool(torch.isfinite(g).all())
+                                 for g in grads))
+            checks[f"{name}_rate{rate}"] = rec
+            if not rec["ok"]:
+                raise AssertionError(f"attention training kernels "
+                                     f"{[B, L, D]} {name} rate {rate}: "
+                                     f"{rec}")
+        rows[name] = (q, k, v, dout)
+    q, k, v, dout = rows["bfloat16"]
+    rate = TRAIN_RATE
+    probs = launch(q, k, v, H, mask, rate, TRAIN_SEED, True)[1]
+    fwd_ms = time_ms(torch, lambda: launch(q, k, v, H, mask, rate,
+                                           TRAIN_SEED, True))
+    fwd_plain = time_ms(torch, lambda: att.packed_forward_reference(
+        q, k, v, H, dropout_rate=rate, seed=TRAIN_SEED, save_probs=True,
+        **kw))
+    bwd_ms = time_ms(torch, lambda: att.attention_bwd_cuda(
+        probs, q, k, v, dout, H, rate, TRAIN_SEED))
+    bwd_plain = time_ms(torch, lambda: att.packed_backward_reference(
+        probs, q, k, v, dout, H, rate, TRAIN_SEED))
+    if seg_mode:
+        allowed = ((mask[:, :, None] == mask[:, None, :])
+                   & (mask >= 0)[:, :, None])
+    else:
+        allowed = (mask[:, None, :] > 0).expand(B, L, L)
+    bias = torch.where(allowed, 0.0, -1e4).to(q.dtype)[:, None]
+
+    def heads(t):
+        return t.reshape(B, L, H, d).transpose(1, 2).detach(
+            ).requires_grad_(True)
+
+    hq, hk, hv = heads(q), heads(k), heads(v)
+    with torch.enable_grad():
+        lib_out = F.scaled_dot_product_attention(hq, hk, hv, attn_mask=bias,
+                                                 dropout_p=rate)
+    hdo = dout.reshape(B, L, H, d).transpose(1, 2)
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        hq.detach(), hk.detach(), hv.detach(), attn_mask=bias,
+        dropout_p=rate))
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (hq, hk, hv), hdo, retain_graph=True))
+    elt = q.element_size()
+    p_bytes = B * H * L * L * elt
+    fb, fby = bound_ms(4 * B * L * D * elt + B * L * 4 + p_bytes,
+                       4 * B * H * L * L * d, "bfloat16")
+    bb, bby = bound_ms(p_bytes + 7 * B * L * D * elt, 8 * B * H * L * L * d,
+                       "bfloat16")
+    bf = checks["bfloat16_rate0.1"]
+    return (
+        {"shape": [B, L, D], "mode": "train: dropout 0.1, probs saved",
+         "max_abs_err": bf["fwd_err"], "tol": bf["fwd_tol"], "ms": fwd_ms,
+         "plain_ms": fwd_plain, "bound_ms": fb, "bound_by": fby,
+         "library_ms": lib_fwd, "checks": checks},
+        {"shape": [B, L, D], "heads": H, "dtype": "bfloat16",
+         "mask": "segment" if seg_mode else "validity",
+         "max_abs_err": bf["bwd_err"], "tol": bf["bwd_tol"], "ms": bwd_ms,
+         "plain_ms": bwd_plain, "bound_ms": bb, "bound_by": bby,
+         "library_ms": lib_bwd, "checks": checks})
+
+
+def check_dropout_masks(torch, att, drop, shape):
+    """The keep mask the kernels draw equals the plain Philox mask, keeps
+    Bernoulli(0.9) within 4 sigma, and is the same for one seed."""
+    B, H, L = shape
+    dev = torch.device("cuda")
+    got = att.dropout_keep_mask_cuda(TRAIN_SEED, B, H, L, L, TRAIN_RATE, dev)
+    want = drop.attention_keep_mask(TRAIN_SEED, B, H, L, L, TRAIN_RATE,
+                                    device=dev)
+    again = att.dropout_keep_mask_cuda(TRAIN_SEED, B, H, L, L, TRAIN_RATE,
+                                       dev)
+    n = got.numel()
+    keep = float(got.float().mean())
+    sigma = (TRAIN_RATE * (1 - TRAIN_RATE) / n) ** 0.5
+    rec = {"shape": [B, H, L, L], "identical_to_plain": bool(
+        torch.equal(got, want)), "keep_rate": keep, "sigma": sigma,
+        "same_for_one_seed": bool(torch.equal(got, again))}
+    rec["ok"] = (rec["identical_to_plain"] and rec["same_for_one_seed"]
+                 and abs(keep - (1 - TRAIN_RATE)) <= 4 * sigma)
+    if not rec["ok"]:
+        raise AssertionError(f"dropout mask: {rec}")
+    return rec
+
+
+def check_layer_norm_bwd(torch, F, lnm, n, d):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(n + 3 * d)
+    w = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    x32 = torch.randn((n, d), generator=gen, device=dev) * 2.0 + 0.5
+    g32 = torch.randn((n, d), generator=gen, device=dev)
+    checks = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        x, g = x32.to(dtype), g32.to(dtype)
+        got = lnm.layer_norm_bwd_cuda(x, w, g)
+        want = lnm.layer_norm_bwd_reference(x, w, g)
+        again = lnm.layer_norm_bwd_cuda(x, w, g)
+        rec = {"dx_err": _err(got[0], want[0]),
+               "dx_tol": _train_tol(want[0], name),
+               "dwdb_err": max(_err(got[1], want[1]), _err(got[2], want[2])),
+               # fp32 sums of n terms |g xhat| <~ 8 in another order
+               "dwdb_tol": 1e-6 * n,
+               "deterministic": all(bool(torch.equal(a, b))
+                                    for a, b in zip(got, again))}
+        rec["ok"] = (rec["dx_err"] <= rec["dx_tol"]
+                     and rec["dwdb_err"] <= rec["dwdb_tol"]
+                     and rec["deterministic"])
+        checks[name] = rec
+        if not rec["ok"]:
+            raise AssertionError(f"layer_norm backward {[n, d]} {name}: "
+                                 f"{rec}")
+    x, g = x32.to(torch.bfloat16), g32.to(torch.bfloat16)
+    ms = time_ms(torch, lambda: lnm.layer_norm_bwd_cuda(x, w, g))
+    plain_ms = time_ms(torch, lambda: lnm.layer_norm_bwd_reference(x, w, g))
+    xl = x.detach().requires_grad_(True)
+    wl = w.to(x.dtype).requires_grad_(True)
+    bl = torch.zeros_like(wl).requires_grad_(True)
+    with torch.enable_grad():
+        y = F.layer_norm(xl, (d,), wl, bl, 1e-5)
+    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        y, (xl, wl, bl), g, retain_graph=True))
+    # read x and g, write dx (bf16); w read and dw/db written in fp32;
+    # ~12 fp32 operations per element on the CUDA cores
+    b_ms, by = bound_ms(3 * n * d * x.element_size() + 3 * d * 4,
+                        12 * n * d, "float32")
+    return {"shape": [n, d], "dtype": "bfloat16",
+            "max_abs_err": checks["bfloat16"]["dx_err"],
+            "tol": checks["bfloat16"]["dx_tol"], "checks": checks, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def check_train_kernels(torch, b_fit, b_over, cfg, kernels):
+    """Every kernel of the train step at its shapes.  Adds the training
+    forward shapes to the forward kernels' rows of ``kernels`` and returns
+    the rows of the two backward kernels."""
+    import torch.nn.functional as F
+    from hero_tpu_torch.ops import attention as att
+    from hero_tpu_torch.ops import dropout as drop
+    from hero_tpu_torch.ops import layernorm as lnm
+    dev = torch.device("cuda")
+    D, H = cfg.f_config.hidden_size, cfg.f_config.num_attention_heads
+
+    def seg_of(b):
+        B, S, Lt = b["sub_input_ids"].shape
+        Fs = b["sub_frame_idx"].shape[2]
+        seg = np.concatenate([b["sub_frame_seg"], b["sub_txt_seg"]], 2)
+        return torch.from_numpy(seg.reshape(B * S, Fs + Lt)).to(dev)
+
+    qm = b_fit["query_attn_masks"]
+    qm = torch.from_numpy(qm.reshape(-1, qm.shape[-1])).to(dev)
+    cm = torch.from_numpy(b_fit["c_attn_masks"]).to(dev)
+    fwd, bwd = {"attention_seg": [], "attention_valid": []}, []
+    for key, mask, seg_mode in (
+            ("attention_seg", seg_of(b_fit), True),
+            ("attention_seg", seg_of(b_over), True),
+            ("attention_valid", cm, False),
+            ("attention_valid", qm, False)):
+        f_row, b_row = check_attention_train(
+            torch, F, att, mask.shape[0], mask.shape[1], D, H, mask,
+            seg_mode)
+        fwd[key].append(f_row)
+        bwd.append(b_row)
+    for row in kernels:
+        if row["name"] in fwd:
+            row["shapes"] += fwd[row["name"]]
+    masks = check_dropout_masks(torch, att, drop, (128, H, 104))
+    B, S = b_fit["sub_mask"].shape
+    Fs_fit = b_fit["sub_frame_idx"].shape[2]
+    F_ = b_fit["c_attn_masks"].shape[1]
+    Lf = b_fit["sub_input_ids"].shape[2] + Fs_fit
+    Lo = b_over["sub_input_ids"].shape[2] + b_over["sub_frame_idx"].shape[2]
+    ln = [check_layer_norm_bwd(torch, F, lnm, n, d) for n, d in (
+        (B * F_, cfg.vfeat_dim),                 # frame_transform LN
+        (B * S * Fs_fit, cfg.vfeat_dim),         # img_ln, fit bucket
+        (B * S * Lf, D),                         # f-encoder LNs, fit
+        (B * S * Lo, D))]                        # f-encoder LNs, overflow
+    return [
+        {"name": "attention_bwd", "route": "cuda",
+         "source": "hero_tpu_torch/ops/csrc/attention.cu",
+         "replaces": "hero_tpu/ops/attention.py:342",
+         "tpu_kernel": "_bwd3_kernel", "counter": "attention_bwd_cuda",
+         "library_call": "autograd of F.scaled_dot_product_attention "
+                         "(additive mask, dropout_p 0.1): its backward",
+         **{k: bwd[0][k] for k in (
+             "shape", "dtype", "max_abs_err", "tol", "ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")},
+         "shapes": bwd, "dropout_masks": masks},
+        {"name": "layer_norm_bwd", "route": "cuda",
+         "source": "hero_tpu_torch/ops/csrc/layernorm.cu",
+         "replaces": "hero_tpu/ops/layernorm.py:64",
+         "tpu_kernel": "_bwd_kernel", "counter": "layer_norm_bwd_cuda",
+         "library_call": "autograd of F.layer_norm (bf16 weights): its "
+                         "backward",
+         **{k: ln[0][k] for k in (
+             "shape", "dtype", "max_abs_err", "tol", "ms", "plain_ms",
+             "bound_ms", "bound_by", "library_ms")},
+         "shapes": ln}]
+
+
+# ---------------------------------------------------------------------------
 # workload
 # ---------------------------------------------------------------------------
 
@@ -343,7 +630,9 @@ def make_corpus(n_videos, video_bs, shape, seed=3):
     for i in range(n_videos // video_bs):
         videos = [sample_tv_video(r) for _ in range(video_bs)]
         b, drop = tv_vsm_batch(videos, shape, seed=seed + 1 + i)
-        batches.append(b)
+        # serving reads the backbone keys only
+        batches.append({k: v for k, v in b.items()
+                        if k.startswith(("sub_", "c_"))})
         dropped.append(drop)
     return batches, float(np.mean(dropped))
 
@@ -379,7 +668,9 @@ def counters():
     from hero_tpu_torch.ops import layernorm as lnm
     return {"seg_attention_cuda": att.seg_attention_cuda,
             "valid_attention_cuda": att.valid_attention_cuda,
-            "layer_norm_cuda": lnm.layer_norm_cuda}
+            "attention_bwd_cuda": att.attention_bwd_cuda,
+            "layer_norm_cuda": lnm.layer_norm_cuda,
+            "layer_norm_bwd_cuda": lnm.layer_norm_bwd_cuda}
 
 
 def reset_counts():
@@ -449,6 +740,219 @@ def integration_check(torch, cfg, flat, vsm, opts, batches, queries,
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the train step
+# ---------------------------------------------------------------------------
+
+TRAIN_BS = 32                      # videos a step (bench.py)
+TRAIN_SAMPLED = 32 * 32            # videos bench.py samples to route
+WARMUP_STEPS, FIT_STEPS, OVER_STEPS, TRAIN_RUNS = 3, 20, 8, 3
+SIGNAL_STEPS, SIGNAL_LR = 20, 1e-4
+BENCH_VSM = dict(lw_neg_ctx=8.0, lw_neg_q=8.0, lw_st_ed=0.01)
+
+
+def make_train_buckets(vfeat_dim, batch, n_sampled):
+    """bench.py's layout: TV videos from RandomState(0), routed to
+    TV_PACKED when they pack drop-free and to TV_PACKED_OVERFLOW
+    otherwise; one batch of ``batch`` videos per bucket (cycled), seed 2.
+    Returns (fit batch, overflow batch, overflow share, subs dropped,
+    the fit videos)."""
+    from hero_tpu_torch.data.occupancy import sample_tv_video
+    from hero_tpu_torch.data.synthetic import (TV_PACKED, TV_PACKED_OVERFLOW,
+                                               partition_videos,
+                                               tv_vsm_batch)
+    r = np.random.RandomState(0)
+    videos = [sample_tv_video(r) for _ in range(n_sampled)]
+    fit, over = partition_videos(videos, TV_PACKED)
+    p_over = len(over) / len(videos)
+
+    def mk(vs, shape):
+        shape = dataclasses.replace(shape, batch=batch, vfeat_dim=vfeat_dim)
+        return tv_vsm_batch([vs[i % len(vs)] for i in range(batch)], shape,
+                            seed=2)
+
+    (b_fit, d_fit), (b_over, d_over) = mk(fit, TV_PACKED), mk(
+        over, TV_PACKED_OVERFLOW)
+    return b_fit, b_over, p_over, (1 - p_over) * d_fit + p_over * d_over, fit
+
+
+def vsm_loss_fn(cfg, vsm, dtype, train):
+    from hero_tpu_torch.models.pretrain import forward_vsm
+
+    def loss_fn(params, batch, seed):
+        a, b, c = forward_vsm(params, cfg, vsm, batch, train=train,
+                              seed=seed, dtype=dtype)
+        return a + b + c, {"loss_st_ed": a, "loss_neg_ctx": b,
+                           "loss_neg_q": c}
+    return loss_fn
+
+
+def train_throughput(torch, cfg, flat, b_fit, b_over, p_over, dev, dtype,
+                     steps, sync, profile):
+    """bench.py's measurement on the port: warm-up steps on both buckets,
+    then ``TRAIN_RUNS`` runs of (fit steps, overflow steps), each bucket
+    timed on the host clock up to a synchronise, amortised by the
+    overflow share; the median run.  The launch counts are read from 0
+    around the timed runs (the train step's main-path run)."""
+    from hero_tpu_torch.convert.from_jax import load_jax_params
+    from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
+    from hero_tpu_torch.models.pretrain import VsmConfig
+    from hero_tpu_torch.training.step import (TrainSpec, TrainState,
+                                              make_train_step)
+    warmup, n_fit, n_over, n_runs = steps
+    vsm = VsmConfig(drop_svmr_prob=0.8, **BENCH_VSM)
+    spec = TrainSpec(learning_rate=3e-5, warmup_steps=10000,
+                     num_train_steps=100000, grad_norm=2.0)
+    step = make_train_step(vsm_loss_fn(cfg, vsm, dtype, True), spec)
+    bf, bo = batch_to_device(b_fit, dev), batch_to_device(b_over, dev)
+    st = {"state": TrainState.create(load_jax_params(flat, device=dev)),
+          "seed": 1000}
+
+    def run(batch, n):
+        for _ in range(n):
+            st["state"], m = step(st["state"], batch, st["seed"])
+            st["seed"] += 1
+        return m
+
+    for _ in range(warmup):
+        run(bf, 1)
+        m = run(bo, 1)
+    warm_loss = float(m["loss"])
+    reset_counts()
+    run(bf, 1)
+    sync()
+    per_fit = read_counts()
+    reset_counts()
+    run(bo, 1)
+    sync()
+    per_over = read_counts()
+    reset_counts()
+    runs, fit_s, over_s = [], [], []
+    for _ in range(n_runs):
+        t0 = time.perf_counter()
+        run(bf, n_fit)
+        sync()
+        t1 = time.perf_counter()
+        m = run(bo, n_over)
+        sync()
+        t2 = time.perf_counter()
+        t_fit, t_over = (t1 - t0) / n_fit, (t2 - t1) / n_over
+        fit_s.append(t_fit)
+        over_s.append(t_over)
+        runs.append(b_fit["sub_mask"].shape[0]
+                    / ((1 - p_over) * t_fit + p_over * t_over))
+    launches = read_counts()
+    final = {k: float(v) for k, v in m.items()}
+    if not all(math.isfinite(v) for v in final.values()):
+        raise AssertionError(f"train step metrics not finite: {final}")
+    rec = {"train_examples_per_s": float(np.median(runs)),
+           "runs_examples_per_s": runs, "fit_step_s": fit_s,
+           "overflow_step_s": over_s, "overflow_video_frac": p_over,
+           "steps_per_run": [n_fit, n_over], "warmup_loss": warm_loss,
+           "last_metrics": final, "launches_per_fit_step": per_fit,
+           "launches_per_overflow_step": per_over,
+           "main_path_launches": launches}
+    if profile:
+        rec["profile_fit_step"] = profile_breakdown(
+            torch, lambda: step(st["state"], bf, 7))
+    return rec
+
+
+def learning_signal(torch, cfg, flat, b_fit, dev, dtype, n_steps):
+    """On one fixed batch with dropout and drop_svmr off (train=False),
+    lr 1e-4 from the first step (warm-up 1): the loss of the last step
+    must be below the first."""
+    from hero_tpu_torch.convert.from_jax import load_jax_params
+    from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
+    from hero_tpu_torch.models.pretrain import VsmConfig
+    from hero_tpu_torch.training.step import (TrainSpec, TrainState,
+                                              make_train_step)
+    spec = TrainSpec(learning_rate=SIGNAL_LR, warmup_steps=1,
+                     num_train_steps=1000, grad_norm=2.0)
+    step = make_train_step(vsm_loss_fn(cfg, VsmConfig(**BENCH_VSM), dtype,
+                                       False), spec)
+    state = TrainState.create(load_jax_params(flat, device=dev))
+    batch = batch_to_device(b_fit, dev)
+    losses = []
+    for _ in range(n_steps):
+        state, m = step(state, batch, None)
+        losses.append(float(m["loss"]))
+    rec = {"lr": SIGNAL_LR, "warmup_steps": 1, "losses": losses,
+           "ok": losses[-1] < losses[0]}
+    if not rec["ok"]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    return rec
+
+
+def train_parity(torch, cfg, videos, dev_kernel, dev_plain):
+    """fp32, dropout off: one whole train step through the kernels on the
+    card against the plain path on the CPU, at the flagship widths with
+    the f-encoder cut to 2 layers and the c-encoder to 1, on a batch of 4
+    fit-bucket videos.  Compares the loss, every gradient and every
+    updated parameter."""
+    from hero_tpu_torch.convert.from_jax import load_jax_params
+    from hero_tpu_torch.data.synthetic import TV_PACKED, tv_vsm_batch
+    from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
+    from hero_tpu_torch.models.pretrain import VsmConfig, init_flat_params
+    from hero_tpu_torch.training import optim
+    from hero_tpu_torch.training.step import (TrainSpec, TrainState,
+                                              loss_and_grads,
+                                              make_train_step)
+    small = cfg.replace(
+        f_config=cfg.f_config.replace(num_hidden_layers=2),
+        c_config=cfg.c_config.replace(num_hidden_layers=1))
+    vsm = VsmConfig(**BENCH_VSM)
+    flat = init_flat_params(small, vsm, seed=1)
+    shape = dataclasses.replace(TV_PACKED, batch=4, vfeat_dim=cfg.vfeat_dim)
+    batch, _ = tv_vsm_batch(videos[:4], shape, seed=2)
+    spec = TrainSpec(learning_rate=1e-4, warmup_steps=1,
+                     num_train_steps=1000, grad_norm=2.0)
+    loss_fn = vsm_loss_fn(small, vsm, torch.float32, False)
+    out = {}
+    for dev in (dev_kernel, dev_plain):
+        params = load_jax_params(flat, device=dev)
+        b = batch_to_device(batch, dev)
+        loss, _, grads = loss_and_grads(loss_fn, params, b, None)
+        state, m = make_train_step(loss_fn, spec)(TrainState.create(params),
+                                                   b, None)
+        out[dev] = (float(loss), [g.cpu() for g in optim.tree_leaves(grads)],
+                    [p.cpu() for p in optim.tree_leaves(state.params)],
+                    float(m["loss"]), float(m["grad_norm"]))
+    (lk, gk, pk, mk, nk), (lp, gp, pp, mp, np_) = out[dev_kernel], out[
+        dev_plain]
+    adam = spec.adamw
+    sf = math.sqrt(1 - adam.beta2) / (1 - adam.beta1)
+    paths = ["/".join(p) for p in optim.tree_paths(
+        load_jax_params(flat, device="cpu"))]
+    worst_g, worst_p = (0.0, ""), (0.0, "")
+    for path, a, b, pa, pb in zip(paths, gk, gp, pk, pp):
+        g_err = float((a - b).abs().max())
+        # fp32 sums in other orders, and the atomics of the card's
+        # scatter-add (index_add_, the embedding and gather backward):
+        # within 1e-3 of the leaf's largest gradient
+        g_tol = 1e-3 * float(b.abs().max()) + 1e-7
+        # AdamW's first step moves an element by lr*sf*g/(|g| + eps),
+        # whose slope in g is at most lr*sf/eps: the gradients' noise
+        # (4x the measured difference) moves it by at most that much,
+        # and never by more than 2*lr*sf
+        p_tol = (spec.learning_rate * sf * min(2.0, 4 * g_err / adam.eps)
+                 + 1e-6)
+        p_err = float((pa - pb).abs().max())
+        worst_g = max(worst_g, (g_err / g_tol, path))
+        worst_p = max(worst_p, (p_err / p_tol, path))
+    rec = {"depth": [2, 1], "batch": 4, "loss": [lk, lp],
+           "loss_rel_err": abs(lk - lp) / abs(lp), "loss_rtol": 1e-5,
+           "step_loss": [mk, mp], "grad_norm": [nk, np_],
+           "worst_grad_err_over_tol": worst_g,
+           "worst_param_err_over_tol": worst_p}
+    rec["ok"] = (rec["loss_rel_err"] <= 1e-5 and worst_g[0] <= 1.0
+                 and worst_p[0] <= 1.0
+                 and abs(nk - np_) <= 1e-4 * abs(np_))
+    if not rec["ok"]:
+        raise AssertionError(f"fp32 train step, kernels vs plain: {rec}")
+    return rec
+
+
 def gpu_identity():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -467,9 +971,10 @@ def main(argv=None):
                     help="CPU rehearsal at a tiny size with the plain "
                          "versions; prints no result line")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one phase-1 batch and one query batch "
-                         "with torch.profiler and record device time by "
-                         "kernel class (in the --json-out record)")
+                    help="also trace one phase-1 batch, one query batch "
+                         "and one fit-bucket train step with "
+                         "torch.profiler and record device time by kernel "
+                         "class (in the --json-out record)")
     args = ap.parse_args(argv)
 
     import torch
@@ -609,7 +1114,9 @@ def main(argv=None):
     record["main_path_launches"] = launches
     check_submission(submission, metrics, n_queries, n_videos, opts)
     record["metrics"] = {t: metrics[t] for t in ("VCMR", "SVMR", "VR")}
-    if not rehearse and min(launches.values()) == 0:
+    serving = ("seg_attention_cuda", "valid_attention_cuda",
+               "layer_norm_cuda")
+    if not rehearse and min(launches[k] for k in serving) == 0:
         raise AssertionError(f"a kernel was never launched: {launches}")
 
     small = dataclasses.replace(shape, batch=10)
@@ -619,6 +1126,34 @@ def main(argv=None):
     record["integration_fp32"] = integration_check(
         torch, cfg, flat, vsm, opts, small_batches, small_q[0],
         "cpu" if rehearse else "cuda", "cpu")
+    log(f"serving phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # the VSM train step at bench.py's layout
+    t0 = time.perf_counter()
+    train_bs = 4 if rehearse else TRAIN_BS
+    b_fit, b_over, p_over, t_dropped, fit_videos = make_train_buckets(
+        cfg.vfeat_dim, train_bs, 64 if rehearse else TRAIN_SAMPLED)
+    record["train_setup_s"] = time.perf_counter() - t0
+    if not rehearse:
+        record["kernels"] += check_train_kernels(torch, b_fit, b_over, cfg,
+                                                 record["kernels"])
+        log("training kernel checks passed")
+    steps = ((1, 2, 1, 1) if rehearse
+             else (WARMUP_STEPS, FIT_STEPS, OVER_STEPS, TRAIN_RUNS))
+    train = train_throughput(torch, cfg, flat, b_fit, b_over, p_over, dev,
+                             dtype, steps, sync,
+                             args.profile and not rehearse)
+    train["subs_dropped_frac"] = t_dropped
+    train_launches = train["main_path_launches"]
+    if not rehearse and min(train_launches.values()) == 0:
+        raise AssertionError(f"a kernel of the train step was never "
+                             f"launched: {train_launches}")
+    record["train"] = train
+    log(f"train step: {train['train_examples_per_s']:.1f} examples/s")
+    record["learning_signal"] = learning_signal(
+        torch, cfg, flat, b_fit, dev, dtype, SIGNAL_STEPS)
+    record["train_parity_fp32"] = train_parity(
+        torch, cfg, fit_videos, "cpu" if rehearse else "cuda", "cpu")
     record["total_s"] = time.perf_counter() - t_start
 
     if args.json_out:
@@ -629,6 +1164,19 @@ def main(argv=None):
     print(json.dumps({"phases": record["phases"],
                       "main_path_wall_s": record["main_path_wall_s"],
                       "integration_fp32": record["integration_fp32"]}))
+    print(json.dumps({
+        "train_examples_per_s": train["train_examples_per_s"],
+        "runs_examples_per_s": train["runs_examples_per_s"],
+        "layout": "packed 4x(16f+88t) + overflow 4x(24f+120t), "
+                  f"{train_bs} videos a step",
+        "overflow_video_frac": p_over,
+        "launches_per_fit_step": train["launches_per_fit_step"],
+        "launches_per_overflow_step": train["launches_per_overflow_step"],
+        "learning_signal_losses": [record["learning_signal"]["losses"][i]
+                                   for i in (0, -1)],
+        "train_parity_fp32": {k: record["train_parity_fp32"][k] for k in (
+            "loss_rel_err", "worst_grad_err_over_tol",
+            "worst_param_err_over_tol", "ok")}}))
     if rehearse:
         log(f"rehearsal passed in {record['total_s']:.1f} s")
         return 0
@@ -636,10 +1184,15 @@ def main(argv=None):
         "name", "route", "source", "replaces", "tpu_kernel", "shape", "dtype",
         "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms")}
-        | {"launches": launches[row["counter"]],
+        | {"launches": launches[row["counter"]]
+           + train_launches[row["counter"]],
+           "launches_by_path": {"serving": launches[row["counter"]],
+                                "train": train_launches[row["counter"]]},
            "shapes": [{k: sh[k] for k in (
                "shape", "max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
-               "bound_by", "library_ms")} for sh in row["shapes"]]}
+               "bound_by", "library_ms")} | ({"mode": sh["mode"]}
+                                              if "mode" in sh else {})
+               for sh in row["shapes"]]}
         for row in record["kernels"]]
     print(json.dumps({"kernels": kernels}))
     print(gpu_identity())

@@ -1,13 +1,15 @@
-"""hero_tpu_torch — HERO's two-phase VCMR serving path in PyTorch + CUDA.
+"""hero_tpu_torch — HERO in PyTorch + CUDA: the two-phase VCMR serving path
+and the VSM pretraining step.
 
 A port of ``hero_tpu`` (the JAX/Pallas package beside it, which stays the
 reference) to one NVIDIA H100.  Module names mirror ``hero_tpu`` so each
 port module has an obvious counterpart; the package imports ``torch`` and
 never ``jax`` or ``hero_tpu``.
 
-Every Pallas kernel on the serving path has a hand-written CUDA kernel for
+Every Pallas kernel on those paths has a hand-written CUDA kernel for
 ``sm_90a`` under ``ops/csrc`` (built with nvcc at first use, bound with
-ctypes).  Entry points run on the card (``device="cuda"``) unless the caller
+ctypes), behind a ``torch.autograd.Function`` whose backward is a kernel
+too.  Entry points run on the card (``device="cuda"``) unless the caller
 passes ``device="cpu"``; with no card they raise instead of falling back.
 """
 

@@ -10,6 +10,11 @@ the encoder layers are stacked on a leading axis.  The port's tree
 
 The bridge fails on any missing or unexpected key: every JAX key is either
 read into the port's tree or named in :data:`UNUSED_JAX_KEYS`.
+
+The map is linear (transpose, concatenation, per-layer split), so it
+carries any tree shaped like the parameters: AdamW's ``mu`` and ``nu``
+(:func:`load_jax_train_state`, which resumes a JAX run in the port) and
+gradients (the tests compare the port's with ``jax.grad``'s through it).
 """
 
 from __future__ import annotations
@@ -165,3 +170,21 @@ def load_jax_params(flat: Mapping[str, np.ndarray], device="cuda"
         raise KeyError(f"JAX parameters do not match the port: missing "
                        f"{sorted(missing)}, unexpected {sorted(unexpected)}")
     return params
+
+
+def load_jax_train_state(flat_params: Mapping[str, np.ndarray],
+                         flat_mu: Mapping[str, np.ndarray],
+                         flat_nu: Mapping[str, np.ndarray], opt_step: int,
+                         global_step: int, device="cuda"):
+    """The port's ``TrainState`` from the flat parameters, AdamW moments
+    and step counters of a JAX ``TrainState``.  The moments of the JAX
+    keys outside the slice (:data:`UNUSED_JAX_KEYS`) are dropped with
+    their parameters."""
+    from hero_tpu_torch.training.optim import AdamWState
+    from hero_tpu_torch.training.step import TrainState
+    return TrainState(
+        params=load_jax_params(flat_params, device),
+        opt=AdamWState(step=int(opt_step),
+                       mu=load_jax_params(flat_mu, device),
+                       nu=load_jax_params(flat_nu, device)),
+        global_step=int(global_step))

@@ -1,2 +1,2 @@
 """Numpy batch builders (copies of the hero_tpu.data pieces the serving
-path needs)."""
+and training paths need)."""

@@ -1,10 +1,12 @@
-"""Synthetic fixed-shape serving batches (copies from
-``hero_tpu/data/synthetic.py``; the same seed gives the same arrays).
+"""Synthetic fixed-shape batches (copies from ``hero_tpu/data/synthetic.py``
+and ``bench.py``; the same seed gives the same arrays).
 
 - :func:`base_batch`: backbone ('repr') batch, one sub per row.
 - :func:`tv_vsm_batch`: TV-distribution videos (``occupancy.sample_tv_video``)
-  in the packed layout, with the serving keys only (the backbone keys plus
-  the four segment/position keys).
+  in the packed layout: the backbone keys, the four segment/position keys
+  and the VSM query keys.
+- ``TV_PACKED`` / ``TV_PACKED_OVERFLOW`` and :func:`partition_videos`:
+  ``bench.py``'s two buckets and its routing of each video between them.
 """
 
 from __future__ import annotations
@@ -44,6 +46,22 @@ TINY = BatchShape(batch=2, n_subs=3, txt_len=8, frames_per_sub=4,
 TV_PACKED = BatchShape(batch=32, n_subs=4, txt_len=88,
                        frames_per_sub=16, n_frames=100, n_queries=2,
                        query_len=30)
+# bench.py's overflow bucket for the TV videos the primary packed bucket
+# cannot hold drop-free (4 x (24 f + 120 t) packs every one of them)
+TV_PACKED_OVERFLOW = TV_PACKED.replace(txt_len=120, frames_per_sub=24)
+
+
+def partition_videos(videos, shape: BatchShape):
+    """(fit, overflow): a video goes to ``shape``'s bucket iff the
+    first-fit packer places all its subs there (``bench.py``
+    ``_partition_videos``)."""
+    fit, over = [], []
+    for v in videos:
+        lens = list(zip(v.sub_txt_lens, v.sub_n_frames))
+        ok = all(pl is not None for pl in pack_subs(
+            lens, shape.n_subs, shape.txt_len, shape.frames_per_sub))
+        (fit if ok else over).append(v)
+    return fit, over
 
 
 def base_batch(shape: BatchShape, seed: int = 0) -> Dict[str, np.ndarray]:
@@ -87,20 +105,25 @@ def base_batch(shape: BatchShape, seed: int = 0) -> Dict[str, np.ndarray]:
 
 def tv_vsm_batch(videos, shape: BatchShape, seed: int = 0
                  ) -> tuple[Dict[str, np.ndarray], float]:
-    """Serving batch holding ``videos`` (occupancy.VideoShape list) in the
+    """VSM batch holding ``videos`` (occupancy.VideoShape list) in the
     packed layout (first-fit, segment ids).  Returns (batch dict, fraction
     of subs dropped).  Equal, key for key, to the JAX package's
-    ``tv_vsm_batch(videos, shape, packed=True, seed)`` on the keys it
-    returns."""
+    ``tv_vsm_batch(videos, shape, packed=True, seed)``: the random draws
+    come in its order (features, query ids, span targets)."""
     r = np.random.RandomState(seed)
     B, S, Lt, Fs = (len(videos), shape.n_subs, shape.txt_len,
                     shape.frames_per_sub)
+    Q, F = shape.n_queries, shape.n_frames
     out = {
-        # the first draw of the JAX builder's stream; its later (query)
-        # draws do not reach these keys
-        "c_v_feats": r.randn(B, shape.n_frames,
-                             shape.vfeat_dim).astype(np.float16),
-        "c_attn_masks": np.zeros((B, shape.n_frames), np.float32),
+        "c_v_feats": r.randn(B, F, shape.vfeat_dim).astype(np.float16),
+        "c_attn_masks": np.zeros((B, F), np.float32),
+        "query_input_ids": r.randint(
+            3, shape.vocab_size, (B, Q, shape.query_len)).astype(np.int32),
+        "query_attn_masks": np.ones((B, Q, shape.query_len), np.float32),
+        "q_mask": np.ones((B, Q), np.float32),
+        "targets": np.stack([r.randint(0, F // 2, (B, Q)),
+                             r.randint(F // 2, F - 1, (B, Q))],
+                            -1).astype(np.int32),
         "sub_input_ids": np.ones((B, S, Lt), np.int32),
         "sub_txt_mask": np.zeros((B, S, Lt), np.float32),
         "sub_frame_idx": np.zeros((B, S, Fs), np.int32),

@@ -7,6 +7,9 @@
   features -> LN -> linear -> + position + type -> LN.
 - :func:`frame_embeddings`: clip-level positions for the temporal encoder.
 - :func:`query_feat_embeddings`: positions over projected query features.
+
+Each embedding ends in dropout (``dropout_rate``, drawn from ``seed``; none
+when ``seed`` is None), as the JAX package's four embedders do.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ def _arange_like(x: torch.Tensor, n: int) -> torch.Tensor:
 
 def sub_embeddings(p: Params, input_ids: torch.Tensor,
                    position_ids: Optional[torch.Tensor] = None, *,
+                   dropout_rate: float = 0.0, seed: Optional[int] = None,
                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
     if position_ids is None:
         position_ids = _arange_like(input_ids, input_ids.shape[-1]).clamp(
@@ -37,7 +41,8 @@ def sub_embeddings(p: Params, input_ids: torch.Tensor,
     # reference default: type id 1 for every token (embed.py:47-50)
     type_idx = min(1, p["type_emb"].shape[0] - 1)
     types = p["type_emb"][type_idx].to(dtype)
-    return nn.apply_layer_norm(p["ln"], words + pos + types)
+    x = nn.apply_layer_norm(p["ln"], words + pos + types)
+    return nn.dropout(x, dropout_rate, nn.rng_for(seed, "sub_emb"))
 
 
 def project_image_features(p: Params, img_feat: torch.Tensor, *,
@@ -51,26 +56,33 @@ def project_image_features(p: Params, img_feat: torch.Tensor, *,
 def image_embeddings(p: Params, img_feat: torch.Tensor,
                      type_embedding: torch.Tensor,
                      img_pos_ids: Optional[torch.Tensor] = None, *,
+                     dropout_rate: float = 0.0, seed: Optional[int] = None,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """img_feat (..., L, img_dim) -> (..., L, D)."""
     h = project_image_features(p, img_feat, dtype=dtype)
     if img_pos_ids is None:
         img_pos_ids = _arange_like(img_feat, img_feat.shape[-2])
     pos = nn.embedding_lookup(p["pos_emb"], img_pos_ids, dtype)
-    return nn.apply_layer_norm(p["ln"], h + pos + type_embedding.to(dtype))
+    x = nn.apply_layer_norm(p["ln"], h + pos + type_embedding.to(dtype))
+    return nn.dropout(x, dropout_rate, nn.rng_for(seed, "img_emb"))
 
 
 def frame_embeddings(p: Params, frame_feat: torch.Tensor, *,
+                     dropout_rate: float = 0.0, seed: Optional[int] = None,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """frame_feat (B, L, D), already in hidden space."""
     pos = nn.embedding_lookup(
         p["pos_emb"], _arange_like(frame_feat, frame_feat.shape[1]), dtype)
-    return nn.apply_layer_norm(p["ln"], frame_feat.to(dtype) + pos)
+    x = nn.apply_layer_norm(p["ln"], frame_feat.to(dtype) + pos)
+    return nn.dropout(x, dropout_rate, nn.rng_for(seed, "frame_emb"))
 
 
 def query_feat_embeddings(p: Params, input_feat: torch.Tensor, *,
+                          dropout_rate: float = 0.0,
+                          seed: Optional[int] = None,
                           dtype: torch.dtype = torch.float32
                           ) -> torch.Tensor:
     pos = nn.embedding_lookup(
         p["pos_emb"], _arange_like(input_feat, input_feat.shape[1]), dtype)
-    return nn.apply_layer_norm(p["ln"], input_feat.to(dtype) + pos)
+    x = nn.apply_layer_norm(p["ln"], input_feat.to(dtype) + pos)
+    return nn.dropout(x, dropout_rate, nn.rng_for(seed, "query_emb"))

@@ -6,6 +6,9 @@ slots]`` with per-slot validity.  A packed row (``hero_tpu_torch/data``
 sub packing) holds several subs behind a block-diagonal segment mask,
 given as int32 segment ids (-1 = pad slot) with positions restarting per
 segment.
+
+Training threads ``train`` and an integer ``seed`` down to every dropout
+site, with the JAX package's sub-seed tags.
 """
 
 from __future__ import annotations
@@ -27,8 +30,14 @@ def _img_type_embedding(p: Params) -> torch.Tensor:
     return table[min(1, table.shape[0] - 1)]
 
 
-def _fused_embeddings(p: Params, sub_input_ids, txt_mask, v_feats, v_mask,
+def _emb_rate(cfg: TransformerConfig, train: bool) -> float:
+    return cfg.hidden_dropout_prob if train else 0.0
+
+
+def _fused_embeddings(p: Params, cfg: TransformerConfig, sub_input_ids,
+                      txt_mask, v_feats, v_mask,
                       packed: Optional[Dict[str, torch.Tensor]] = None, *,
+                      train: bool = False, seed: Optional[int] = None,
                       dtype: torch.dtype = torch.float32
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Embed ``[frames ; text]`` rows.  Returns (hidden (N, Fs+Lt, D), the
@@ -38,10 +47,12 @@ def _fused_embeddings(p: Params, sub_input_ids, txt_mask, v_feats, v_mask,
     txt_emb = embed.sub_embeddings(
         p["embeddings"], sub_input_ids,
         position_ids=None if packed is None else packed["txt_pos"],
+        dropout_rate=_emb_rate(cfg, train), seed=nn.rng_for(seed, "txt"),
         dtype=dtype)
     img_emb = embed.image_embeddings(
         p["img_embeddings"], v_feats, _img_type_embedding(p),
         img_pos_ids=None if packed is None else packed["frame_pos"],
+        dropout_rate=_emb_rate(cfg, train), seed=nn.rng_for(seed, "img"),
         dtype=dtype)
     hidden = torch.cat([img_emb, txt_emb], dim=1)
     if packed is not None:
@@ -56,28 +67,39 @@ def _fused_embeddings(p: Params, sub_input_ids, txt_mask, v_feats, v_mask,
 
 def cross_modal_repr(p: Params, cfg: TransformerConfig, sub_input_ids,
                      txt_mask, v_feats, v_mask, *, packed=None,
+                     train: bool = False, seed: Optional[int] = None,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Fused encoding ('repr'): (N, Fs+Lt, D), frame outputs first."""
-    hidden, mask = _fused_embeddings(p, sub_input_ids, txt_mask, v_feats,
-                                     v_mask, packed, dtype=dtype)
-    return transformer.encoder(p["encoder"], hidden, cfg, dtype=dtype,
+    hidden, mask = _fused_embeddings(p, cfg, sub_input_ids, txt_mask,
+                                     v_feats, v_mask, packed, train=train,
+                                     seed=seed, dtype=dtype)
+    return transformer.encoder(p["encoder"], hidden, cfg, train=train,
+                               seed=nn.rng_for(seed, "enc"), dtype=dtype,
                                **mask)
 
 
 def cross_modal_txt(p: Params, cfg: TransformerConfig, input_ids, mask, *,
+                    train: bool = False, seed: Optional[int] = None,
                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Text-only encoding ('txt') for queries."""
-    hidden = embed.sub_embeddings(p["embeddings"], input_ids, dtype=dtype)
+    hidden = embed.sub_embeddings(
+        p["embeddings"], input_ids, dropout_rate=_emb_rate(cfg, train),
+        seed=nn.rng_for(seed, "txt"), dtype=dtype)
     return transformer.encoder(p["encoder"], hidden, cfg,
-                               kv_mask=mask.float(), dtype=dtype)
+                               kv_mask=mask.float(), train=train,
+                               seed=nn.rng_for(seed, "enc"), dtype=dtype)
 
 
 def temporal_trm(p: Params, cfg: TransformerConfig, frame_feat, attn_mask,
-                 *, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                 *, train: bool = False, seed: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Clip-level temporal encoding (c-encoder)."""
-    hidden = embed.frame_embeddings(p["embeddings"], frame_feat, dtype=dtype)
+    hidden = embed.frame_embeddings(
+        p["embeddings"], frame_feat, dropout_rate=_emb_rate(cfg, train),
+        seed=nn.rng_for(seed, "emb"), dtype=dtype)
     return transformer.encoder(p["encoder"], hidden, cfg,
-                               kv_mask=attn_mask.float(), dtype=dtype)
+                               kv_mask=attn_mask.float(), train=train,
+                               seed=nn.rng_for(seed, "enc"), dtype=dtype)
 
 
 def get_modularized_queries(p: Params, query: torch.Tensor, query_mask,
@@ -91,13 +113,19 @@ def get_modularized_queries(p: Params, query: torch.Tensor, query_mask,
 
 
 def query_feat_encoder(p: Params, cfg: TransformerConfig, query_feat,
-                       query_mask, *,
+                       query_mask, *, train: bool = False,
+                       seed: Optional[int] = None,
                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Project -> position-embed -> one self-attention block -> modular
-    pooling: (N, L, qdim) -> (N, D)."""
+    pooling: (N, L, qdim) -> (N, D)
+    (``hero_tpu/models/encoder.py:252-269``)."""
     h = nn.linear_layer(p["query_input_proj"], query_feat, relu=True,
-                        dtype=dtype)
-    h = embed.query_feat_embeddings(p["pos_embed"], h, dtype=dtype)
+                        dropout_rate=_emb_rate(cfg, train),
+                        seed=nn.rng_for(seed, "proj"), dtype=dtype)
+    h = embed.query_feat_embeddings(
+        p["pos_embed"], h, dropout_rate=_emb_rate(cfg, train),
+        seed=nn.rng_for(seed, "pos"), dtype=dtype)
     h = transformer.attention(p["attention"], h, cfg,
-                              kv_mask=query_mask.float(), dtype=dtype)
+                              kv_mask=query_mask.float(), train=train,
+                              seed=nn.rng_for(seed, "attn"), dtype=dtype)
     return get_modularized_queries(p, h, query_mask, dtype)

@@ -21,7 +21,7 @@ slot) and positions restarting per segment.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -84,10 +84,12 @@ def _packed_extras(batch: Dict[str, torch.Tensor], flat
 
 
 def forward_repr(p: Params, cfg: HeroConfig, batch: Dict[str, torch.Tensor],
-                 *, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                 *, train: bool = False, seed: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Stage-1 fused encoding per sub row -> scatter onto the clip timeline
     -> residual with the projected raw features -> stage-2 temporal
-    encoding.  Returns (B, F, D) (``hero_tpu/models/model.py:198-260``)."""
+    encoding.  Returns (B, F, D) (``hero_tpu/models/model.py:198-260``).
+    ``train`` with a ``seed`` turns on every dropout site."""
     B, S, Lt, Fs, flat = _flatten_subs(batch)
     c_v_feats = batch["c_v_feats"]
     F = c_v_feats.shape[1]
@@ -99,21 +101,42 @@ def forward_repr(p: Params, cfg: HeroConfig, batch: Dict[str, torch.Tensor],
         p["f_encoder"], cfg.f_config,
         flat(batch["sub_input_ids"]), flat(batch["sub_txt_mask"]),
         flat(sub_v_feats), flat(batch["sub_frame_mask"]),
-        packed=_packed_extras(batch, flat), dtype=dtype)
+        packed=_packed_extras(batch, flat), train=train,
+        seed=nn.rng_for(seed, "f_enc"), dtype=dtype)
 
     frame_part = seq_out[:, :Fs].reshape(B, S, Fs, -1)
     valid = batch["sub_frame_mask"] * batch["sub_mask"][..., None]
     matched = collect_frame_outputs(frame_part, batch["sub_frame_idx"],
                                     valid, F)
-    transformed = nn.linear_layer(p["frame_transform"], c_v_feats.to(dtype),
-                                  relu=True, dtype=dtype)
+    transformed = nn.linear_layer(
+        p["frame_transform"], c_v_feats.to(dtype), relu=True,
+        dropout_rate=cfg.f_config.hidden_dropout_prob if train else 0.0,
+        seed=nn.rng_for(seed, "frame_tf"), dtype=dtype)
     transformed = transformed + matched.to(dtype)
     return enc.temporal_trm(p["c_encoder"], cfg.c_config, transformed,
-                            batch["c_attn_masks"], dtype=dtype)
+                            batch["c_attn_masks"], train=train,
+                            seed=nn.rng_for(seed, "c_enc"), dtype=dtype)
 
 
 def forward_txt(p: Params, cfg: HeroConfig, input_ids, attn_mask, *,
+                train: bool = False, seed: Optional[int] = None,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Text-only path through the f-encoder ('txt' mode)."""
     return enc.cross_modal_txt(p["f_encoder"], cfg.f_config, input_ids,
-                               attn_mask, dtype=dtype)
+                               attn_mask, train=train, seed=seed,
+                               dtype=dtype)
+
+
+def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                         ignore_index: int = -1
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the cross entropy over labels != ignore_index, their count)
+    (``hero_tpu/models/model.py:316-332``).  The log-sum-exp is fp32 with
+    the row max held constant, so the backward is the exact softmax."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0).long()
+    m = logits.detach().amax(-1, keepdim=True).float()
+    lse = m[..., 0] + torch.log(torch.exp(logits.float() - m).sum(-1))
+    picked = logits.gather(-1, safe[..., None])[..., 0].float()
+    nll = torch.where(valid, lse - picked, 0.0)
+    return nll.sum(), valid.sum().float()

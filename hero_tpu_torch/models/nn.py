@@ -8,11 +8,16 @@ Parameters are plain nested dicts of tensors in PyTorch's layout:
 
 Parameters are fp32; compute runs in a caller-chosen ``dtype`` (bf16 on the
 card), with each weight cast where it is used, as the JAX package does.
-Dropout is absent: the serving path runs in eval mode.
+
+Randomness is an integer seed instead of a JAX PRNG key: :func:`rng_for`
+derives a named sub-seed, and each dropout site draws from a
+``torch.Generator`` seeded with its own.  ``seed=None`` means eval mode
+(no dropout), as ``rng=None`` does in the JAX package.
 """
 
 from __future__ import annotations
 
+import zlib
 from typing import Any, Dict, Optional
 
 import torch
@@ -22,6 +27,29 @@ from hero_tpu_torch.const import NEG_INF
 from hero_tpu_torch.ops.layernorm import layer_norm
 
 Params = Dict[str, Any]
+
+
+def rng_for(seed: Optional[int], tag: str) -> Optional[int]:
+    """A named sub-seed of an optional seed: the crc32 of ``tag`` started
+    from the seed (``hero_tpu/models/nn.py:32-36`` folds the same crc32
+    into a PRNG key).  Sub-seeds are 32-bit."""
+    if seed is None:
+        return None
+    return zlib.crc32(tag.encode(), seed & 0xFFFFFFFF)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            seed: Optional[int]) -> torch.Tensor:
+    """Inverted dropout with an exact Bernoulli(1 - rate) keep mask drawn
+    from a generator on x's device seeded with ``seed``; the identity when
+    ``seed`` is None or ``rate`` is 0 (``hero_tpu/models/nn.py:115-128``,
+    without its uint16 quantisation of the rate, a TPU workaround)."""
+    if seed is None or rate <= 0.0:
+        return x
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.empty(x.shape, dtype=torch.float32,
+                       device=x.device).bernoulli_(1.0 - rate, generator=gen)
+    return torch.where(keep.bool(), x / (1.0 - rate), 0.0)
 
 
 def tree_to(p: Any, device) -> Any:
@@ -58,10 +86,13 @@ def apply_layer_norm(p: Params, x: torch.Tensor,
 
 
 def linear_layer(p: Params, x: torch.Tensor, *, relu: bool = True,
+                 dropout_rate: float = 0.1, seed: Optional[int] = None,
                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """LinearLayer: [LN] -> linear -> [relu] (eval mode: no dropout)."""
+    """LinearLayer: [LN] -> dropout -> linear -> [relu]
+    (``hero_tpu/models/nn.py:160-169``)."""
     if "ln" in p:
         x = apply_layer_norm(p["ln"], x)
+    x = dropout(x, dropout_rate, seed)
     x = linear(p["dense"], x, dtype)
     return torch.relu(x) if relu else x
 

@@ -1,5 +1,10 @@
-"""VSM heads used by serving, and a numpy parameter init
+"""The VSM heads and losses, the VSM forward, and a numpy parameter init
 (counterpart of ``hero_tpu/models/pretrain.py``).
+
+:func:`forward_vsm` is the pretraining VSM task: clip and query encoding,
+the span loss and the in-batch ranking losses over all negatives.  The
+sampled-negative branch (``use_all_neg=False``) is not ported yet
+(ROADMAP A2) and raises.
 
 :func:`init_flat_params` draws weights with the same tree and
 distributions as ``init_hero_for_pretraining`` but with numpy, in the flat
@@ -10,13 +15,14 @@ how a run with no JAX (the card's machine) gets weights.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from hero_tpu_torch.config.model_config import HeroConfig, TransformerConfig
+from hero_tpu_torch.const import NEG_INF
 from hero_tpu_torch.models import encoder as enc
 from hero_tpu_torch.models import model as backbone
 from hero_tpu_torch.models import nn
@@ -58,13 +64,16 @@ def conv1d_same(kernel: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def encode_query(params: Params, cfg: HeroConfig, input_ids, attn_mask, *,
+                 train: bool = False, seed: Optional[int] = None,
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Query text -> f-encoder ('txt') -> query-feature encoder pooled
     vector (N, D) (``hero_tpu/models/pretrain.py:105-115``)."""
     txt_out = backbone.forward_txt(params["v_encoder"], cfg, input_ids,
-                                   attn_mask, dtype=dtype)
+                                   attn_mask, train=train,
+                                   seed=nn.rng_for(seed, "txt"), dtype=dtype)
     return enc.query_feat_encoder(params["head"]["q_feat_attn"],
                                   cfg.q_config, txt_out, attn_mask,
+                                  train=train, seed=nn.rng_for(seed, "qattn"),
                                   dtype=dtype)
 
 
@@ -98,6 +107,141 @@ def get_video_level_scores(mod_query: torch.Tensor, frame_emb: torch.Tensor,
     scores = torch.einsum("md,nld->mnl", q.float(), c.float())
     scores = nn.mask_logits(scores, frame_mask[None])            # (Nq,Nv,L)
     return scores.max(dim=-1).values
+
+
+def get_st_ed_logits(head: Params, mod_query: torch.Tensor,
+                     frame_emb: torch.Tensor, frame_mask: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Paired-mode span logits: query n scores its own video.
+    mod_query (B, Q, D), frame_emb (B, L, D), frame_mask (B, L) ->
+    st, ed (B, Q, L) fp32 (``hero_tpu/models/pretrain.py:164-181``; the
+    JAX package repeats each video's frames per query, the einsum over
+    the video axis gives the same products)."""
+    q = nn.linear(head["video_query_linear"], mod_query, mod_query.dtype)
+    sim = torch.einsum("bqd,bld->bql", q.float(), frame_emb.float())
+    return conv_st_ed_masked(head, sim, frame_mask[:, None, :])
+
+
+def ranking_loss(pos: torch.Tensor, neg: torch.Tensor, loss_type: str,
+                 margin: float) -> torch.Tensor:
+    """hinge: max(0, m + S_neg - S_pos); lse: log1p(exp(S_neg - S_pos))
+    (``hero_tpu/models/pretrain.py:206-214``)."""
+    if loss_type == "hinge":
+        return torch.clamp(margin + neg - pos, min=0.0)
+    if loss_type == "lse":
+        return torch.log1p(torch.exp(neg - pos))
+    raise NotImplementedError(loss_type)
+
+
+def video_level_loss(scores: torch.Tensor, q_mask: torch.Tensor,
+                     num_q_per_v: int, vsm: VsmConfig, *,
+                     use_hard_negative: bool = False,
+                     hard_pool_size: int = 20, hard_neg_weight: float = 10.0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """In-batch ranking losses over (Nq, Nv) scores, all negatives
+    (``hero_tpu/models/pretrain.py:217-285``).  Query j's positive video
+    is j // num_q_per_v; hard-negative weights apply to the sorted
+    negative columns; ``q_mask`` (Nq,) drops padded queries out of the
+    means.  Returns (loss_neg_ctx, loss_neg_q)."""
+    nq, nv = scores.shape
+    if nv == 1:
+        # a one-video batch has no negative contexts (the reference
+        # returns zero losses for bsz_v == 1)
+        zero = scores.new_zeros(())
+        return zero, zero
+    if not vsm.use_all_neg:
+        raise NotImplementedError(
+            "the sampled-negative branch (use_all_neg=False) is not ported "
+            "yet (ROADMAP A2)")
+    dev = scores.device
+    q_mask = q_mask.float()
+    pos_vid = torch.arange(nq, device=dev) // num_q_per_v
+    is_pos = torch.arange(nv, device=dev)[None, :] == pos_vid[:, None]
+    pos_scores = scores.gather(1, pos_vid[:, None])[:, 0]
+    big = 999.0
+    scores_masked = torch.where(is_pos, big, scores)
+
+    def weights(n_cols):
+        if not use_hard_negative:
+            return torch.ones(n_cols, device=dev)
+        col = torch.arange(n_cols, device=dev)
+        return torch.where(col < hard_pool_size, float(hard_neg_weight), 0.1)
+
+    def sort_desc(x):
+        return torch.sort(x, dim=1, descending=True, stable=True).values
+
+    # negative contexts per query: the masked positive sorts first
+    neg_ctx = sort_desc(scores_masked)[:, 1:]                  # (Nq, Nv-1)
+    l_ctx = ranking_loss(pos_scores[:, None], neg_ctx, vsm.ranking_loss_type,
+                         vsm.margin) * weights(nv - 1)[None, :]
+    l_ctx_per_q = l_ctx.mean(1) * q_mask
+
+    # negative queries per video: invalid queries sort last, the
+    # num_q_per_v positives first
+    vq = torch.where(q_mask[None, :] > 0, scores_masked.T, NEG_INF)
+    vq = torch.where(is_pos.T, big, vq)
+    neg_q = sort_desc(vq)[:, num_q_per_v:]                     # (Nv, Nq-Q)
+    pos_per_v = pos_scores.reshape(nv, num_q_per_v)
+    l_q = ranking_loss(pos_per_v[:, :, None], neg_q[:, None, :],
+                       vsm.ranking_loss_type, vsm.margin)
+    l_q = l_q * weights(nq - num_q_per_v)[None, None, :]
+    l_q_per_q = l_q.mean(2).reshape(nq) * q_mask
+
+    n_valid = torch.clamp(q_mask.sum(), min=1.0)
+    return l_ctx_per_q.sum() / n_valid, l_q_per_q.sum() / n_valid
+
+
+def forward_vsm(params: Params, cfg: HeroConfig, vsm: VsmConfig,
+                batch: Dict[str, torch.Tensor], *, train: bool = False,
+                seed: Optional[int] = None,
+                dtype: torch.dtype = torch.float32
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """VSM losses (``hero_tpu/models/pretrain.py:333-416``): clip encoding
+    and query encoding, then (lw_st_ed * span loss, lw_neg_ctx *
+    loss_neg_ctx, lw_neg_q * loss_neg_q), fp32 scalars.
+
+    ``train`` with an integer ``seed`` turns on dropout and the
+    ``drop_svmr_prob`` skip of the span loss, drawn on the host from a
+    generator seeded with the ``drop_svmr`` sub-seed (the JAX package
+    draws it on the device and branches with ``lax.cond``).  Hard-negative
+    weighting is :func:`video_level_loss`'s; no caller turns it on yet."""
+    frame_emb = backbone.forward_repr(params["v_encoder"], cfg, batch,
+                                      train=train,
+                                      seed=nn.rng_for(seed, "repr"),
+                                      dtype=dtype)                 # (B, F, D)
+    B, Q, Lq = batch["query_input_ids"].shape
+    mod_query = encode_query(
+        params, cfg, batch["query_input_ids"].reshape(B * Q, Lq),
+        batch["query_attn_masks"].reshape(B * Q, Lq), train=train,
+        seed=nn.rng_for(seed, "query"), dtype=dtype)              # (B*Q, D)
+    frame_mask = batch["c_attn_masks"].float()
+    q_mask = batch["q_mask"].reshape(B * Q)
+    zero = frame_emb.new_zeros((), dtype=torch.float32)
+
+    loss_st_ed = zero
+    keep_span = vsm.lw_st_ed != 0
+    if keep_span and train and vsm.drop_svmr_prob > 0 and seed is not None:
+        gen = torch.Generator().manual_seed(nn.rng_for(seed, "drop_svmr"))
+        keep_span = float(torch.rand((), generator=gen)) > vsm.drop_svmr_prob
+    if keep_span:
+        targets = batch["targets"].reshape(B * Q, 2)
+        st, ed = get_st_ed_logits(params["head"],
+                                  mod_query.reshape(B, Q, -1), frame_emb,
+                                  frame_mask)
+        L = st.shape[-1]
+        s_sum, s_cnt = backbone.masked_cross_entropy(st.reshape(B * Q, L),
+                                                     targets[:, 0])
+        e_sum, e_cnt = backbone.masked_cross_entropy(ed.reshape(B * Q, L),
+                                                     targets[:, 1])
+        loss_st_ed = (s_sum / torch.clamp(s_cnt, min=1.0)
+                      + e_sum / torch.clamp(e_cnt, min=1.0))
+
+    loss_neg_ctx = loss_neg_q = zero
+    if vsm.lw_neg_ctx != 0 or vsm.lw_neg_q != 0:
+        scores = get_video_level_scores(mod_query, frame_emb, frame_mask)
+        loss_neg_ctx, loss_neg_q = video_level_loss(scores, q_mask, Q, vsm)
+    return (vsm.lw_st_ed * loss_st_ed, vsm.lw_neg_ctx * loss_neg_ctx,
+            vsm.lw_neg_q * loss_neg_q)
 
 
 # ---------------------------------------------------------------------------

@@ -1,2 +1,3 @@
-"""Kernels of the serving path: packed attention and row LayerNorm, each a
-CUDA kernel beside its plain PyTorch version."""
+"""Kernels of the serving and training paths: packed attention (forward
+with Philox dropout, backward) and row LayerNorm (forward, backward), each
+a CUDA kernel beside its plain PyTorch version."""

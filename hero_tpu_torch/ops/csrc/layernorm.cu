@@ -1,16 +1,30 @@
-// Row LayerNorm forward.
+// Row LayerNorm: forward, and the backward in two passes.
 //
-// Replaces the Pallas kernel hero_tpu/ops/layernorm.py _fwd_kernel (:53),
-// reached through _fused_layer_norm / layer_norm.  Per row of x (n, d):
+// Forward.  Replaces the Pallas kernel hero_tpu/ops/layernorm.py _fwd_kernel
+// (:53), reached through _fused_layer_norm / layer_norm.  Per row of x (n, d):
 //   mean = sum(x) / d;  var = sum((x - mean)^2) / d   (two-pass, fp32)
 //   y = (x - mean) * rsqrt(var + eps) * w + b         (fp32 w, b)
 // rounded once to the input type (fp32 or bf16).
 //
 // Bound on the H100: ~8 flops per element against 2 * sizeof(T) bytes, so
-// memory-bound at every width (768 and 4352 on the serving path).  Design:
-// one block per row; the row is read from device memory once into shared
+// memory-bound at every width (768 and 4352 on the path).  Design: one
+// block per row; the row is read from device memory once into shared
 // memory as fp32 (17 KB at d = 4352), both reduction passes and the affine
 // pass run from there, and the output is written once.
+//
+// Backward.  Replaces _bwd_kernel (hero_tpu/ops/layernorm.py:64, pallas_call
+// at :128).  It recomputes each row's statistics and gives
+//   dx = rstd * (g w - mean(g w) - xhat * mean(g w xhat)),
+//   dw = sum over rows of g xhat,   db = sum over rows of g   (fp32).
+// The TPU kernel adds dw/db into one output block across its sequential
+// grid; blocks on the card run in no order, and atomics would make the
+// sums differ from run to run.  So pass 1 gives each block a fixed run of
+// rows and writes that run's partial dw/db (each thread owns fixed
+// columns and sums its rows in order), and pass 2 reduces the partials of
+// every block in block order, a thread per column.  The grads are the same
+// from run to run.  Bound: memory (x and g read once, dx written once);
+// pass 1 keeps x and g rows and the partial sums in shared memory (70 KB
+// at d = 4352) and reads each input element once.
 #include "common.cuh"
 
 namespace {
@@ -75,6 +89,111 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* y,
   return cudaGetLastError();
 }
 
+template <typename T>
+__global__ void layer_norm_bwd_kernel(const T* __restrict__ x,
+                                      const float* __restrict__ w,
+                                      const T* __restrict__ g,
+                                      T* __restrict__ dx,
+                                      float* __restrict__ partial,
+                                      long long n, int d, int rows_per_block,
+                                      float eps) {
+  extern __shared__ float sm[];
+  float* xr = sm;             // [d] centred row, then xhat
+  float* gr = xr + d;         // [d] g * w
+  float* pdw = gr + d;        // [d] this block's partial dw
+  float* pdb = pdw + d;       // [d] this block's partial db
+  __shared__ float red[32];
+  for (int i = threadIdx.x; i < d; i += blockDim.x) {
+    pdw[i] = 0.f;
+    pdb[i] = 0.f;
+  }
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_block;
+  const long long r1 = min(r0 + rows_per_block, n);
+  const float inv_d = 1.f / static_cast<float>(d);
+  for (long long r = r0; r < r1; ++r) {
+    const T* xrow = x + r * d;
+    const T* grow = g + r * d;
+    float s = 0.f;
+    for (int i = threadIdx.x; i < d; i += blockDim.x) {
+      const float t = to_float(xrow[i]);
+      xr[i] = t;
+      s += t;
+    }
+    const float mean = block_sum(s, red) * inv_d;
+    float s2 = 0.f;
+    for (int i = threadIdx.x; i < d; i += blockDim.x) {
+      const float c = xr[i] - mean;
+      xr[i] = c;
+      s2 += c * c;
+    }
+    const float rstd = rsqrtf(block_sum(s2, red) * inv_d + eps);
+    float m1 = 0.f, m2 = 0.f;
+    for (int i = threadIdx.x; i < d; i += blockDim.x) {
+      const float xh = xr[i] * rstd;
+      const float gv = to_float(grow[i]);
+      const float gw = gv * w[i];
+      xr[i] = xh;
+      gr[i] = gw;
+      m1 += gw;
+      m2 += gw * xh;
+      pdw[i] += gv * xh;
+      pdb[i] += gv;
+    }
+    m1 = block_sum(m1, red) * inv_d;
+    m2 = block_sum(m2, red) * inv_d;
+    T* dxrow = dx + r * d;
+    for (int i = threadIdx.x; i < d; i += blockDim.x)
+      dxrow[i] = from_float<T>(rstd * (gr[i] - m1 - xr[i] * m2));
+    __syncthreads();
+  }
+  float* out = partial + static_cast<long long>(blockIdx.x) * 2 * d;
+  for (int i = threadIdx.x; i < d; i += blockDim.x) {
+    out[i] = pdw[i];
+    out[d + i] = pdb[i];
+  }
+}
+
+// dw[c] = sum_b partial[b][0][c], db[c] = sum_b partial[b][1][c], summed
+// in block order.
+__global__ void layer_norm_bwd_reduce_kernel(const float* __restrict__ partial,
+                                             int n_blocks, int d,
+                                             float* __restrict__ dw,
+                                             float* __restrict__ db) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= d) return;
+  float sw = 0.f, sb = 0.f;
+  for (int b = 0; b < n_blocks; ++b) {
+    sw += partial[static_cast<long long>(b) * 2 * d + c];
+    sb += partial[static_cast<long long>(b) * 2 * d + d + c];
+  }
+  dw[c] = sw;
+  db[c] = sb;
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* w, const void* g, void* dx,
+                       float* partial, float* dw, float* db, long long n,
+                       int d, int n_blocks, int rows_per_block, float eps,
+                       cudaStream_t stream) {
+  const size_t smem = sizeof(float) * 4 * static_cast<size_t>(d);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        layer_norm_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int threads = d <= 1024 ? 256 : 512;
+  layer_norm_bwd_kernel<T><<<n_blocks, threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w),
+      static_cast<const T*>(g), static_cast<T*>(dx), partial, n, d,
+      rows_per_block, eps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  layer_norm_bwd_reduce_kernel<<<(d + 255) / 256, 256, 0, stream>>>(
+      partial, n_blocks, d, dw, db);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Returns a cudaError_t code (0 = launched).  x, y: contiguous (n, d);
@@ -87,6 +206,34 @@ extern "C" int hero_layer_norm_fwd(int dtype, const void* x, const void* w,
   switch (dtype) {
     case kFloat32: e = launch<float>(x, w, b, y, n, d, eps, s); break;
     case kBFloat16: e = launch<__nv_bfloat16>(x, w, b, y, n, d, eps, s); break;
+    default: e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
+}
+
+// Returns a cudaError_t code (0 = launched).  x, g, dx: contiguous (n, d);
+// w: contiguous fp32 (d,); partial: fp32 scratch (n_blocks, 2, d); dw, db:
+// fp32 (d,).  Block i takes rows [i * rows_per_block, (i + 1) *
+// rows_per_block) of n.
+extern "C" int hero_layer_norm_bwd(int dtype, const void* x, const void* w,
+                                   const void* g, void* dx, void* partial,
+                                   void* dw, void* db, long long n, int d,
+                                   int n_blocks, int rows_per_block,
+                                   float eps, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pp = static_cast<float*>(partial);
+  float* pw = static_cast<float*>(dw);
+  float* pb = static_cast<float*>(db);
+  cudaError_t e;
+  switch (dtype) {
+    case kFloat32:
+      e = launch_bwd<float>(x, w, g, dx, pp, pw, pb, n, d, n_blocks,
+                            rows_per_block, eps, s);
+      break;
+    case kBFloat16:
+      e = launch_bwd<__nv_bfloat16>(x, w, g, dx, pp, pw, pb, n, d, n_blocks,
+                                    rows_per_block, eps, s);
+      break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

@@ -1,12 +1,17 @@
-"""Row LayerNorm: the plain PyTorch version and the CUDA kernel.
+"""Row LayerNorm: the plain PyTorch versions, the CUDA kernels and the
+``torch.autograd.Function`` that joins them.
 
-Counterpart of ``hero_tpu/ops/layernorm.py``.  Statistics are fp32 whatever
-the input type, the affine weights are applied in fp32 and the output keeps
-the input type.  :func:`layer_norm` dispatches on the tensor's device: a
-CPU tensor takes :func:`layer_norm_reference`; a CUDA tensor launches the
-kernel (``csrc/layernorm.cu``) or raises -- there is no fallback and no
-width threshold, so every LayerNorm of the model runs the kernel on the
-card.
+Counterpart of ``hero_tpu/ops/layernorm.py`` (``_fused_layer_norm`` and its
+custom VJP).  Statistics are fp32 whatever the input type, the affine
+weights are applied in fp32 and the output keeps the input type.  The
+backward recomputes the row statistics and gives
+``dx = rstd * (g w - mean(g w) - xhat * mean(g w xhat))`` in the input
+type and fp32 ``dw = sum g xhat``, ``db = sum g`` over rows.
+
+:func:`layer_norm` goes through :class:`LayerNorm`.  A CPU tensor takes
+the plain versions; a CUDA tensor launches the kernels
+(``csrc/layernorm.cu``) or raises -- there is no fallback and no width
+threshold, so every LayerNorm of the model runs the kernels on the card.
 """
 
 from __future__ import annotations
@@ -29,32 +34,62 @@ def layer_norm_reference(x: torch.Tensor, weight: torch.Tensor,
     return (y * weight.float() + bias.float()).to(x.dtype)
 
 
+def layer_norm_bwd_reference(x: torch.Tensor, weight: torch.Tensor,
+                             g: torch.Tensor, eps: float = 1e-5):
+    """The plain backward (``hero_tpu/ops/layernorm.py:64-90``): (dx in
+    x's dtype, dw, db in fp32) for upstream gradient ``g``."""
+    d = x.shape[-1]
+    xf = x.reshape(-1, d).float()
+    gf = g.reshape(-1, d).float()
+    mean = xf.mean(-1, keepdim=True)
+    xc = xf - mean
+    rstd = torch.rsqrt(xc.square().mean(-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    gw = gf * weight.float()
+    m1 = gw.mean(-1, keepdim=True)
+    m2 = (gw * xhat).mean(-1, keepdim=True)
+    dx = rstd * (gw - m1 - xhat * m2)
+    return (dx.to(x.dtype).reshape(x.shape), (gf * xhat).sum(0),
+            gf.sum(0))
+
+
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.library("layernorm")
-    fn = lib.hero_layer_norm_fwd
-    if fn.argtypes is None:
-        vp = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int, vp, vp, vp, vp, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_float, vp]
-        fn.restype = ctypes.c_int
+    if lib.hero_layer_norm_fwd.argtypes is None:
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.hero_layer_norm_fwd.argtypes = [i32, vp, vp, vp, vp,
+                                            ctypes.c_longlong, i32,
+                                            ctypes.c_float, vp]
+        lib.hero_layer_norm_bwd.argtypes = ([i32] + [vp] * 7
+                                            + [ctypes.c_longlong, i32, i32,
+                                               i32, ctypes.c_float, vp])
+        lib.hero_layer_norm_fwd.restype = ctypes.c_int
+        lib.hero_layer_norm_bwd.restype = ctypes.c_int
     return lib
+
+
+def _check(x, weight, bias=None):
+    if x.dtype not in cuda_build.DTYPE_CODES:
+        raise TypeError(f"layer_norm kernel takes float32/bfloat16, "
+                        f"got {x.dtype}")
+    d = x.shape[-1]
+    if weight.shape != (d,) or (bias is not None and bias.shape != (d,)):
+        raise ValueError(f"weight/bias must be ({d},), got "
+                         f"{tuple(weight.shape)}/"
+                         f"{None if bias is None else tuple(bias.shape)}")
+    if weight.device != x.device or (bias is not None
+                                     and bias.device != x.device):
+        raise ValueError("x, weight and bias must be on one device")
+    if d * 4 * 4 > 227 * 1024:
+        raise ValueError(f"row width {d} exceeds the kernels' shared memory")
+    return d
 
 
 def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
                     bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Launch the LayerNorm kernel over the last axis of a CUDA tensor.
     ``layer_norm_cuda.launches`` counts the launches."""
-    if x.dtype not in cuda_build.DTYPE_CODES:
-        raise TypeError(f"layer_norm kernel takes float32/bfloat16, "
-                        f"got {x.dtype}")
-    d = x.shape[-1]
-    if weight.shape != (d,) or bias.shape != (d,):
-        raise ValueError(f"weight/bias must be ({d},), got "
-                         f"{tuple(weight.shape)}/{tuple(bias.shape)}")
-    if weight.device != x.device or bias.device != x.device:
-        raise ValueError("x, weight and bias must be on one device")
-    if d * 4 > 227 * 1024:
-        raise ValueError(f"row width {d} exceeds the kernel's shared memory")
+    d = _check(x, weight, bias)
     x2 = x.reshape(-1, d).contiguous()
     w = weight.float().contiguous()
     b = bias.float().contiguous()
@@ -71,14 +106,77 @@ def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
     return out.reshape(x.shape)
 
 
+# rows of one pass-1 block of the backward: enough blocks to fill the
+# card's 132 SMs a few times over, and a fixed function of n, so the
+# partial sums (and the grads) are the same from run to run
+BWD_MAX_BLOCKS = 528
+
+
+def layer_norm_bwd_cuda(x: torch.Tensor, weight: torch.Tensor,
+                        g: torch.Tensor, eps: float = 1e-5):
+    """Launch the backward kernels: (dx in x's dtype, dw, db fp32).
+    ``layer_norm_bwd_cuda.launches`` counts the launches (one per call:
+    the row pass and the reduction run as one)."""
+    d = _check(x, weight)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError("g must have x's shape, dtype and device")
+    x2 = x.reshape(-1, d).contiguous()
+    g2 = g.reshape(-1, d).contiguous()
+    w = weight.float().contiguous()
+    n = x2.shape[0]
+    dx = torch.empty_like(x2)
+    dw = torch.zeros(d, dtype=torch.float32, device=x.device)
+    db = torch.zeros(d, dtype=torch.float32, device=x.device)
+    if n:
+        rows = -(-n // BWD_MAX_BLOCKS)
+        n_blocks = -(-n // rows)
+        partial = torch.empty((n_blocks, 2, d), dtype=torch.float32,
+                              device=x.device)
+        lib = _lib()
+        with torch.cuda.device(x.device):
+            err = lib.hero_layer_norm_bwd(
+                cuda_build.DTYPE_CODES[x.dtype], x2.data_ptr(), w.data_ptr(),
+                g2.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+                dw.data_ptr(), db.data_ptr(), n, d, n_blocks, rows,
+                float(eps), cuda_build.stream_ptr(x))
+        cuda_build.check(lib, err, "layer_norm backward kernel")
+        layer_norm_bwd_cuda.launches += 1
+    return dx.reshape(x.shape), dw, db
+
+
 layer_norm_cuda.launches = 0
+layer_norm_bwd_cuda.launches = 0
+
+
+class LayerNorm(torch.autograd.Function):
+    """LayerNorm over the last axis with the recompute backward; dw and db
+    come back in the parameters' own dtype."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        if x.device.type == "cpu":
+            out = layer_norm_reference(x, weight, bias, eps)
+        elif x.device.type == "cuda":
+            out = layer_norm_cuda(x, weight, bias, eps)
+        else:
+            raise ValueError(f"layer_norm runs on cpu or cuda, not "
+                             f"{x.device}")
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(x, weight)
+            ctx.eps = eps
+            ctx.dtypes = (weight.dtype, bias.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        bwd = (layer_norm_bwd_reference if x.device.type == "cpu"
+               else layer_norm_bwd_cuda)
+        dx, dw, db = bwd(x, weight, g.to(x.dtype), ctx.eps)
+        return dx, dw.to(ctx.dtypes[0]), db.to(ctx.dtypes[1]), None
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis; any leading shape."""
-    if x.device.type == "cpu":
-        return layer_norm_reference(x, weight, bias, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"layer_norm runs on cpu or cuda, not {x.device}")
-    return layer_norm_cuda(x, weight, bias, eps)
+    return LayerNorm.apply(x, weight, bias, float(eps))

@@ -7,7 +7,9 @@ The kernel tests need a CUDA card and skip without one; on the card run
 (``--noconftest``: the suite's conftest imports JAX, which the card's
 machine need not have; this file imports only torch, numpy and the port).
 The CPU tests check the dispatch: a CPU tensor takes the plain version
-and launches nothing.
+and launches nothing.  The kernels of the backward (attention and
+LayerNorm) and the in-kernel Philox dropout are held against their plain
+versions on the same inputs, and for determinism.
 """
 
 import numpy as np
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from hero_tpu_torch.ops import attention as tatt
+from hero_tpu_torch.ops import dropout as tdrop
 from hero_tpu_torch.ops import layernorm as tln
 
 
@@ -125,10 +128,16 @@ def test_attention_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv(15, 2, 8, 96, cuda, torch.float32)
     with pytest.raises(ValueError, match="head_dim"):
         tatt.packed_attention(q, k, v, 2)               # head_dim 48
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="seed"):
         tatt.packed_attention(q, k, v, 3, dropout_rate=0.1)
     with pytest.raises(TypeError):
         tatt.packed_attention(q.half(), k.half(), v.half(), 3)
+    # the backward's fp32 tiles for 144 keys at head_dim 128 exceed the
+    # shared memory a block may use
+    q, k, v = _qkv(15, 1, 144, 256, cuda, torch.float32)
+    p = torch.zeros((1, 2, 144, 144), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        tatt.attention_bwd_cuda(p, q, k, v, q.contiguous(), 2)
 
 
 @pytest.mark.cuda
@@ -151,12 +160,130 @@ def test_layer_norm_kernel_matches_plain(cuda, n, d, dtype):
                                                                    dtype)
 
 
+BWD_SHAPES = [  # (B, L, heads, head_dim): the train step's rows, cut in B
+    (3, 104, 12, 64),      # f-encoder, fit bucket
+    (2, 144, 12, 64),      # f-encoder, overflow bucket
+    (4, 100, 12, 64),      # c-encoder
+    (5, 30, 12, 64),       # query rows and q_feat_attn
+    (2, 17, 2, 32),
+    (2, 9, 1, 128),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("mode", ["validity", "segment"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BWD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_attention_training_kernels_match_plain(cuda, rate, mode, dtype,
+                                                shape):
+    """Forward with saved probabilities and dropout, then the backward
+    kernel from those probabilities, each against its plain version on
+    the same inputs; a second launch with the same seed is identical."""
+    B, L, H, d = shape
+    q, k, v = _qkv(30, B, L, H * d, cuda, dtype)
+    r = np.random.RandomState(31)
+    dout = torch.from_numpy(r.randn(B, L, H * d).astype(np.float32)).to(
+        cuda, dtype)
+    if mode == "validity":
+        mask, seg_mode = _validity_mask(32, B, L).to(cuda), False
+        launch, kw = tatt.valid_attention_cuda, {"kv_mask": mask}
+    else:
+        mask, seg_mode = _segments(33, B, L).to(cuda), True
+        launch, kw = tatt.seg_attention_cuda, {"seg": mask}
+    seed = 2 ** 33 + 5
+    out, probs = launch(q, k, v, H, mask, rate, seed, True)
+    want, wprobs = tatt.packed_forward_reference(
+        q, k, v, H, dropout_rate=rate, seed=seed, save_probs=True, **kw)
+    assert float((out.float() - want.float()).abs().max()) <= _tol(want,
+                                                                   dtype)
+    assert float((probs.float() - wprobs.float()).abs().max()) <= _tol(
+        wprobs, dtype)
+    before = tatt.attention_bwd_cuda.launches
+    got = tatt.attention_bwd_cuda(probs, q, k, v, dout, H, rate, seed)
+    assert tatt.attention_bwd_cuda.launches == before + 1
+    ref = tatt.packed_backward_reference(probs, q, k, v, dout, H, rate, seed)
+    for a, b in zip(got, ref):
+        # fp32: sums of <= 144 products in other orders; bf16: one ulp
+        # of the largest gradient (both round the fp32 sums once)
+        tol = (1e-4 * max(1.0, float(b.abs().max()))
+               if dtype == torch.float32 else _tol(b, dtype))
+        assert float((a.float() - b.float()).abs().max()) <= tol
+    again = tatt.attention_bwd_cuda(probs, q, k, v, dout, H, rate, seed)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(launch(q, k, v, H, mask, rate, seed, True)[0], out)
+
+
+@pytest.mark.cuda
+def test_dropout_mask_kernel_matches_plain(cuda):
+    for seed, rate in ((0, 0.1), (2 ** 64 - 1, 0.1), (12345, 0.5)):
+        got = tatt.dropout_keep_mask_cuda(seed, 3, 12, 104, 104, rate, cuda)
+        want = tdrop.attention_keep_mask(seed, 3, 12, 104, 104, rate,
+                                         device=cuda)
+        assert torch.equal(got, want)
+        assert torch.equal(got.cpu(), tdrop.attention_keep_mask(
+            seed, 3, 12, 104, 104, rate))
+        n = got.numel()
+        sigma = (rate * (1 - rate) / n) ** 0.5
+        assert abs(float(got.float().mean()) - (1 - rate)) < 4 * sigma
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, d", [(37, 768), (13312, 768), (11, 4352),
+                                  (3200, 4352)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_backward_kernel_matches_plain(cuda, n, d, dtype):
+    r = np.random.RandomState(34)
+    x = torch.from_numpy((r.randn(n, d) * 2.0 + 0.5).astype(np.float32))
+    g = torch.from_numpy(r.randn(n, d).astype(np.float32))
+    w = torch.from_numpy((1.0 + 0.1 * r.randn(d)).astype(np.float32))
+    x, g, w = x.to(cuda, dtype), g.to(cuda, dtype), w.to(cuda)
+    before = tln.layer_norm_bwd_cuda.launches
+    got = tln.layer_norm_bwd_cuda(x, w, g)
+    torch.cuda.synchronize()
+    assert tln.layer_norm_bwd_cuda.launches == before + 1
+    want = tln.layer_norm_bwd_reference(x, w, g)
+    # dx: fp32 row means of <= 4352 terms, then one rounding to the input
+    # type; dw/db: fp32 sums of n terms of |g * xhat| <~ 8 in another
+    # order, at most n * 2^-23 * 8 ~ 1e-6 * n apart
+    assert float((got[0].float() - want[0].float()).abs().max()) <= _tol(
+        want[0], dtype)
+    for a, b in zip(got[1:], want[1:]):
+        assert a.dtype == torch.float32
+        assert float((a - b).abs().max()) <= 1e-6 * n
+    again = tln.layer_norm_bwd_cuda(x, w, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_autograd_runs_the_backward_kernels(cuda):
+    """A loss built from the kernels' outputs gets its gradient through
+    the backward kernels, for fp32 parameters."""
+    q, k, v = _qkv(35, 2, 40, 128, cuda, torch.float32)
+    qkv = torch.cat([q, k, v], -1).requires_grad_(True)
+    w = torch.ones(128, device=cuda, requires_grad=True)
+    b = torch.zeros(128, device=cuda, requires_grad=True)
+    counts = (tatt.attention_bwd_cuda.launches,
+              tln.layer_norm_bwd_cuda.launches)
+    out = tatt.packed_attention(*qkv.split(128, -1), 2, dropout_rate=0.1,
+                                seed=3)
+    loss = tln.layer_norm(out, w, b).square().sum()
+    gq, gw, gb = torch.autograd.grad(loss, (qkv, w, b))
+    assert (tatt.attention_bwd_cuda.launches,
+            tln.layer_norm_bwd_cuda.launches) == (counts[0] + 1,
+                                                  counts[1] + 1)
+    assert gw.dtype == torch.float32 and float(gq.abs().max()) > 0
+    assert bool(torch.isfinite(gq).all())
+
+
 def test_cpu_tensors_take_the_plain_version():
     """On the CPU the wrappers call the plain versions and count no
     launch (the counts say only what ran on the card)."""
     counts = (tatt.seg_attention_cuda.launches,
               tatt.valid_attention_cuda.launches,
-              tln.layer_norm_cuda.launches)
+              tatt.attention_bwd_cuda.launches,
+              tln.layer_norm_cuda.launches, tln.layer_norm_bwd_cuda.launches)
     q, k, v = _qkv(17, 2, 12, 64, "cpu", torch.float32)
     seg = _segments(18, 2, 12)
     torch.testing.assert_close(tatt.packed_attention(q, k, v, 2, seg=seg),
@@ -167,6 +294,13 @@ def test_cpu_tensors_take_the_plain_version():
     torch.testing.assert_close(tln.layer_norm(x, w, b),
                                tln.layer_norm_reference(x, w, b),
                                atol=0, rtol=0)
+    qg = q.detach().requires_grad_(True)
+    out = tatt.packed_attention(qg, k, v, 2, seg=seg, dropout_rate=0.1,
+                                seed=1)
+    tln.layer_norm(out, w.requires_grad_(True), b).sum().backward()
+    assert qg.grad is not None and w.grad is not None
     assert counts == (tatt.seg_attention_cuda.launches,
                       tatt.valid_attention_cuda.launches,
-                      tln.layer_norm_cuda.launches)
+                      tatt.attention_bwd_cuda.launches,
+                      tln.layer_norm_cuda.launches,
+                      tln.layer_norm_bwd_cuda.launches)

@@ -1,11 +1,14 @@
-"""hero_tpu_torch ops: the plain attention and LayerNorm against the JAX
-package (its jnp path and its Pallas kernels in interpret mode), and the
-rule that a CUDA entry point raises instead of falling back when there is
-no card.  The CUDA kernels are held against the plain versions in
+"""hero_tpu_torch ops: the plain attention and LayerNorm, forward and
+backward, against the JAX package (its jnp path and its Pallas kernels in
+interpret mode), the Philox dropout draws against a scalar Python Philox,
+and the rule that a CUDA entry point raises instead of falling back when
+there is no card.  The CUDA kernels are held against the plain versions in
 ``test_torch_kernels.py``, which runs on the card.
 
 Inputs are numpy arrays from a seed, handed to both frameworks; all
-comparisons are fp32.
+comparisons are fp32.  JAX's TPU PRNG has no CPU lowering, so dropout is
+tested on its own (keep rate, determinism, the bits themselves), as
+``tests/test_ops.py`` does for the JAX package.
 """
 
 import jax
@@ -16,7 +19,9 @@ import torch
 
 from hero_tpu.ops import attention as jatt
 from hero_tpu.ops import layernorm as jln
+from hero_tpu_torch.models import nn as tnn
 from hero_tpu_torch.ops import attention as tatt
+from hero_tpu_torch.ops import dropout as tdrop
 from hero_tpu_torch.ops import layernorm as tln
 
 # fp32 on the CPU: the two frameworks sum 64-term dots and <= 40-term
@@ -107,9 +112,67 @@ def test_plain_attention_on_fused_qkv_views():
 
 
 def test_attention_dropout_is_not_served():
+    """A serving call (no gradient, no rate) draws no dropout and records
+    no graph; a rate without a seed is refused, not ignored."""
     q, k, v = (_t(x) for x in _qkv(8))
-    with pytest.raises(NotImplementedError):
+    with torch.inference_mode():
+        out = tatt.packed_attention(q, k, v, HEADS)
+    assert out.grad_fn is None
+    torch.testing.assert_close(out, tatt.packed_reference(q, k, v, HEADS),
+                               atol=0, rtol=0)
+    with pytest.raises(ValueError, match="seed"):
         tatt.packed_attention(q, k, v, HEADS, dropout_rate=0.1)
+
+
+@pytest.mark.parametrize("mode", ["validity", "segment"])
+def test_plain_attention_backward_matches_pallas_interpret(mode):
+    """The plain saved-probabilities backward (through the autograd
+    Function) against ``jax.grad`` of the Pallas path in interpret mode,
+    which runs ``_bwd3_kernel``.  Lk = 64 is a multiple of the Pallas key
+    padding, so no padded column joins any softmax."""
+    r = np.random.RandomState(20)
+    L2 = 64
+    q, k, v, g = (r.randn(B, L2, D).astype(np.float32) for _ in range(4))
+    if mode == "validity":
+        lens = np.array([L2, 37])
+        m = (np.arange(L2)[None, :] < lens[:, None]).astype(np.float32)
+        jmask, tkw = jnp.asarray(m), {"kv_mask": _t(m)}
+    else:
+        seg = np.repeat(np.arange(8, dtype=np.int32)[None], B, 0)
+        seg = np.repeat(seg, 8, axis=1)                       # 8 x 8 slots
+        jmask = jax.nn.one_hot(seg, 16, dtype=jnp.float32)
+        tkw = {"seg": _t(seg)}
+
+    def jloss(q, k, v):
+        out = jatt.packed_attention(q, k, v, HEADS, jmask, use_pallas=True)
+        return jnp.sum(out * g)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (_t(x).requires_grad_(True) for x in (q, k, v))
+    out = tatt.packed_attention(tq, tk, tv, HEADS, **tkw)
+    got = torch.autograd.grad(out, (tq, tk, tv), _t(g))
+    for a, b in zip(got, want):
+        # 64-term fp32 products in other orders; grads are O(10)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
+                                   rtol=0)
+
+
+def test_plain_attention_backward_regenerates_the_dropout_mask():
+    """With dropout the backward of the Function equals autograd of the
+    plain forward that drew the same Philox mask."""
+    q, k, v = (_t(x).double().float().requires_grad_(True)
+               for x in _qkv(21))
+    seg = _t(_segments(22))
+    g = torch.from_numpy(np.random.RandomState(23).randn(B, L, D).astype(
+        np.float32))
+    kw = dict(seg=seg, dropout_rate=0.25, seed=2 ** 40 + 7)
+    out = tatt.packed_attention(q, k, v, HEADS, **kw)
+    ref = tatt.packed_reference(q, k, v, HEADS, **kw)
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    want = torch.autograd.grad(ref, (q, k, v), g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
 
 
 def _ln_inputs(seed, n=16, d=4352):
@@ -130,6 +193,91 @@ def test_plain_layer_norm_matches_jax_reference_and_interpret():
         jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), 1e-5, True))
     np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
     np.testing.assert_allclose(got, kern, atol=1e-5, rtol=0)
+
+
+def test_plain_layer_norm_backward_matches_pallas_interpret():
+    """The plain backward (through the autograd Function) against
+    ``jax.grad`` of the Pallas LayerNorm in interpret mode, which runs
+    ``_bwd_kernel``: dx, and dw/db summed over the rows."""
+    x, w, b = _ln_inputs(24, n=32, d=768)
+    g = np.random.RandomState(25).randn(32, 768).astype(np.float32)
+
+    def jloss(x, w, b):
+        return jnp.sum(jln._fused_layer_norm(x, w, b, 1e-5, True) * g)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (x, w, b)))
+    tx, tw, tb = (_t(a).requires_grad_(True) for a in (x, w, b))
+    out = tln.layer_norm(tx, tw, tb)
+    got = torch.autograd.grad(out, (tx, tw, tb), _t(g))
+    assert got[1].dtype == got[2].dtype == torch.float32
+    # fp32 row means of 768 terms (dx) and column sums of 32 terms (dw,
+    # db) taken in other orders
+    for a, w_ in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w_), atol=2e-5,
+                                   rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Philox dropout
+# ---------------------------------------------------------------------------
+
+def _philox_scalar(seed, ctr):
+    """Philox4x32-10, word 0, in Python ints (Random123's definition)."""
+    m = 0xFFFFFFFF
+    k0, k1 = seed & m, (seed >> 32) & m
+    c0, c1, c2, c3 = ctr
+    for rnd in range(10):
+        if rnd:
+            k0, k1 = (k0 + 0x9E3779B9) & m, (k1 + 0xBB67AE85) & m
+        p0, p1 = 0xD2511F53 * c0, 0xCD9E8D57 * c2
+        c0, c1, c2, c3 = ((p1 >> 32) ^ c1 ^ k0, p1 & m,
+                          (p0 >> 32) ^ c3 ^ k1, p0 & m)
+    return c0
+
+
+def test_philox_matches_the_scalar_definition():
+    r = np.random.RandomState(26)
+    for seed in (0, 1, 12345, 2 ** 32 + 99, 2 ** 64 - 1):
+        ctr = r.randint(0, 2 ** 32, (300, 4), dtype=np.uint64)
+        ctr[:4] = [[0, 0, 0, 0], [2 ** 32 - 1] * 4, [1, 2, 3, 4],
+                   [2 ** 31, 0, 2 ** 31, 0]]
+        cols = [torch.from_numpy(ctr[:, i].astype(np.int64))
+                for i in range(4)]
+        got = tdrop.philox4x32(seed, *cols).tolist()
+        assert got == [_philox_scalar(seed, tuple(int(c) for c in row))
+                       for row in ctr]
+
+
+def test_attention_keep_mask_rate_determinism_and_layout():
+    B_, H_, Lq_, Lk_ = 3, 4, 50, 70
+    keep = tdrop.attention_keep_mask(99, B_, H_, Lq_, Lk_, 0.1)
+    n = keep.numel()
+    # Bernoulli(0.9): within 4 sigma of the keep rate
+    assert abs(float(keep.float().mean()) - 0.9) < 4 * (0.09 / n) ** 0.5
+    assert torch.equal(keep, tdrop.attention_keep_mask(99, B_, H_, Lq_, Lk_,
+                                                       0.1))
+    assert not torch.equal(keep, tdrop.attention_keep_mask(
+        100, B_, H_, Lq_, Lk_, 0.1))
+    # element (b, h, i, j) depends on its coordinates, not on the shape
+    sub = tdrop.attention_keep_mask(99, 2, 2, 20, 30, 0.1)
+    assert torch.equal(sub, keep[:2, :2, :20, :30])
+    bits = _philox_scalar(99, (5, 7, 1, 2))
+    assert bool(keep[2, 1, 7, 5]) == ((bits >> 8) / 2 ** 24 >= np.float32(
+        0.1))
+
+
+def test_model_dropout_is_exact_bernoulli_and_seeded():
+    x = torch.ones(200, 500)
+    y = tnn.dropout(x, 0.1, 7)
+    kept = y != 0
+    assert abs(float(kept.float().mean()) - 0.9) < 4 * (0.09 / x.numel()
+                                                        ) ** 0.5
+    torch.testing.assert_close(y[kept], torch.full_like(y[kept], 1 / 0.9))
+    assert torch.equal(y, tnn.dropout(x, 0.1, 7))
+    assert not torch.equal(y, tnn.dropout(x, 0.1, 8))
+    assert tnn.dropout(x, 0.1, None) is x
+    assert tnn.rng_for(None, "a") is None
+    assert tnn.rng_for(5, "a") != tnn.rng_for(5, "b") != tnn.rng_for(6, "b")
 
 
 # ---------------------------------------------------------------------------
