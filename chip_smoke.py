@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's VCMR serving path and VSM train step on one
-GPU and check them.
+"""Drive the PyTorch/CUDA port's VCMR serving path, VSM train step and TVC
+caption serving on one GPU and check them.
 
     python3 chip_smoke.py                  # on a machine with one CUDA card
     python3 chip_smoke.py --json-out F     # also write the full record to F
@@ -33,13 +33,29 @@ What the card run does, in order (any failure exits non-zero):
    dropout 0.1, ``drop_svmr_prob`` 0.8) as the median of 3 runs of 20 fit
    and 8 overflow steps with the launch counters read from 0 around them;
    checks that the loss falls over 20 steps on one batch; and holds one
-   fp32 train step through the kernels against the plain path on the CPU.
+   fp32 train step through the kernels against the plain path on the CPU;
+8. the TVC phase, at ``config/hero_tvc.json``'s model (the flagship
+   backbone and a 2-layer decoder): holds the head-major attention
+   kernel (#4) against its plain version at the decode step's shapes
+   (greedy 32 rows, beam-3 96 rows, 30 keys; causal Lq = Lk = 31; a
+   fully masked row; its dropout bits against the plain Philox mask) and
+   #2 at the decoder's causal and cross-attention shapes; builds 64
+   synthetic TV videos with 4 clips each in an in-memory store; times
+   greedy ``generate_clip_captions`` over all 256 clips in bf16 (8
+   videos = 32 caption rows a batch, 30 steps; median of 3 runs after a
+   warm-up batch, launch counters read from 0 around the first) and one
+   beam-3 pass over 2 batches; checks the records (every clip once, the
+   schema, ids cut at EOS); and, in fp32 on one batch, that the card's
+   greedy ids equal the plain path's on the CPU and a teacher-forced
+   replay through ``decode``, both up to the first step whose reference
+   top-2 logit gap is below ``TVC_GAP_TOL``.
 
 It prints one ``phases`` JSON line, one train JSON line with
-``train_examples_per_s``, one ``kernels`` JSON line, the card's name and
-power limit (nvidia-smi), and as the last line ``{"ok": true, "device":
-{...}}``.  ``--profile`` adds torch.profiler breakdowns of a phase-1
-batch, a query batch and one fit-bucket train step to the JSON record.
+``train_examples_per_s``, one TVC JSON line with ``tvc_captions_per_s``,
+one ``kernels`` JSON line, the card's name and power limit (nvidia-smi),
+and as the last line ``{"ok": true, "device": {...}}``.  ``--profile``
+adds torch.profiler breakdowns of a phase-1 batch, a query batch, one
+fit-bucket train step and one greedy TVC batch to the JSON record.
 Imports nothing of JAX.
 """
 
@@ -53,6 +69,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -120,6 +137,8 @@ def bound_ms(n_bytes, n_flops, dtype_name):
 
 
 def _kernel_class(name):
+    if "mha_attention_kernel" in name:
+        return "mha_attention_kernel"
     if "packed_attention_bwd_kernel" in name:
         return "attention_bwd_kernel"
     if "packed_attention_kernel" in name:
@@ -669,6 +688,7 @@ def counters():
     return {"seg_attention_cuda": att.seg_attention_cuda,
             "valid_attention_cuda": att.valid_attention_cuda,
             "attention_bwd_cuda": att.attention_bwd_cuda,
+            "mha_attention_cuda": att.mha_attention_cuda,
             "layer_norm_cuda": lnm.layer_norm_cuda,
             "layer_norm_bwd_cuda": lnm.layer_norm_bwd_cuda}
 
@@ -953,6 +973,423 @@ def train_parity(torch, cfg, videos, dev_kernel, dev_plain):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# TVC caption serving
+# ---------------------------------------------------------------------------
+
+TVC_VIDEOS, TVC_CLIPS, TVC_BS = 64, 4, 8   # videos, clips a video, batch
+TVC_MAX_STEP, TVC_BOS, TVC_EOS, TVC_BEAM = 30, 0, 2, 3
+TVC_SEG_LEN = 100                  # seg_len = max_clip_len (train-tvc.json)
+TVC_CLIP_FRAMES = (2, 40)          # clip lengths in frames, 1.5 s apart
+TVC_RUNS = 3
+# fp32 greedy ids are compared up to the first step at which the
+# reference's top-2 logit gap is below this (logits are O(1); the two
+# paths' fp32 logits differ by ~1e-5)
+TVC_GAP_TOL = 1e-3
+
+
+class MemVideoStore:
+    """In-memory video store for ``TvcClipDataset``: the packed backbone
+    arrays of each video (``tv_vsm_batch`` in ``shape``'s layout), its
+    frame count and the 1.5 s frame interval."""
+
+    def __init__(self, videos, shape, seed):
+        from hero_tpu_torch.data.synthetic import tv_vsm_batch
+        b, self.dropped = tv_vsm_batch(videos, shape, seed=seed)
+        self.vids = [f"tv{i:04d}" for i in range(len(videos))]
+        self._items = {vid: {k: v[i] for k, v in b.items()
+                             if k.startswith(("sub_", "c_"))}
+                       for i, vid in enumerate(self.vids)}
+        self._n = {vid: v.n_frames for vid, v in zip(self.vids, videos)}
+        self.img_db = types.SimpleNamespace(frame_interval=1.5)
+
+    def video_item(self, vid):
+        return {k: v.copy() for k, v in self._items[vid].items()}
+
+    def nframes(self, vid):
+        return self._n[vid]
+
+
+def make_tvc_data(n_videos, vfeat_dim, seed=21):
+    """``n_videos`` TV videos in the packed ``TV_PACKED`` layout, each with
+    ``TVC_CLIPS`` clips of 2-40 frames at random starts: (the video store,
+    the clips (vid, clip id, ts, None) in corpus order, the share of subs
+    the packer dropped)."""
+    from hero_tpu_torch.data.occupancy import sample_tv_video
+    from hero_tpu_torch.data.synthetic import TV_PACKED
+    r = np.random.RandomState(seed)
+    videos = [sample_tv_video(r) for _ in range(n_videos)]
+    shape = dataclasses.replace(TV_PACKED, batch=n_videos, n_queries=1,
+                                vfeat_dim=vfeat_dim)
+    store = MemVideoStore(videos, shape, seed + 1)
+    clips = []
+    for vid in store.vids:
+        for c in range(TVC_CLIPS):
+            n = int(r.randint(TVC_CLIP_FRAMES[0], TVC_CLIP_FRAMES[1] + 1))
+            n = min(n, store.nframes(vid))
+            st = int(r.randint(0, store.nframes(vid) - n + 1))
+            clips.append((vid, f"{vid}c{c}", [st * 1.5, (st + n) * 1.5],
+                          None))
+    return store, clips, store.dropped
+
+
+def tvc_dataset(store, clips):
+    from hero_tpu_torch.data.downstream_tasks import TvcClipDataset
+    return TvcClipDataset(store, clips, clips_per_item=TVC_CLIPS,
+                          seg_len=TVC_SEG_LEN)
+
+
+def _mha_case(torch, B, H, Lq, Lk, d, kind, dtype, gen, dev):
+    q = torch.randn((B, H, Lq, d), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((B, H, Lk, d), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    if kind == "step":             # decode step t: keys <= t valid
+        t = torch.randint(0, Lk, (B, 1), generator=gen, device=dev)
+        mask = (torch.arange(Lk, device=dev)[None] <= t).float()
+    elif kind == "step0":          # the first step: key 0 only
+        mask = (torch.arange(Lk, device=dev) == 0).float()[None].repeat(B, 1)
+    else:
+        mask = torch.ones((B, Lk), device=dev)
+    mask[-1] = 0.0                 # a fully masked row
+    return q, k, v, mask
+
+
+def _sdpa_bias(torch, mask, Lq, causal, dtype):
+    """The additive (B, 1, Lq, Lk) mask that gives
+    ``F.scaled_dot_product_attention`` the kernels' function."""
+    B, Lk = mask.shape
+    allowed = (mask[:, None, :] > 0).expand(B, Lq, Lk)
+    if causal:
+        row = torch.arange(Lq, device=mask.device)[:, None]
+        allowed = allowed & (torch.arange(Lk, device=mask.device)[None]
+                             <= row + (Lk - Lq))
+    return torch.where(allowed, 0.0, -1e4).to(dtype)[:, None]
+
+
+def check_mha(torch, F, att, B, H, Lq, Lk, d, kind, causal):
+    """Hold the head-major kernel (#4) against ``mha_reference``: fp32
+    within 1e-5 and bf16 within one bf16 ulp on the rows with a valid key;
+    the fully masked last row finite and equal to the unmasked attention
+    up to the rounding of s - 1e4.  bf16 timings."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(B * Lq + Lk)
+    record, rows = {}, {}
+    for dtype, tol_fn, why in (
+            (torch.float32, lambda ref: 1e-5,
+             "fp32: 64-term dots and <= 31-term softmax/P.V sums in "
+             "another order, outputs O(1)"),
+            (torch.bfloat16, _bf16_tol, "bf16: one bf16 ulp of max|out|")):
+        q, k, v, mask = _mha_case(torch, B, H, Lq, Lk, d, kind, dtype, gen,
+                                  dev)
+        out = att.mha_attention_cuda(q, k, v, mask, causal=causal)
+        ref = att.mha_reference(q, k, v, mask, causal=causal)
+        err = _err(out[:-1], ref[:-1])
+        tol = tol_fn(ref)
+        free = att.mha_reference(q[-1:], k[-1:], v[-1:], causal=causal)
+        row_err = _err(out[-1:], free)
+        row_tol = 2.0 ** -9 * float(v[-1].float().abs().max()) + tol
+        rec = {"max_abs_err": err, "tol": tol, "tol_reason": why,
+               "masked_row_err": row_err, "masked_row_tol": row_tol,
+               "finite": bool(torch.isfinite(out).all())}
+        rec["ok"] = err <= tol and row_err <= row_tol and rec["finite"]
+        record[str(dtype).split(".")[1]] = rec
+        rows[dtype] = (q, k, v, mask)
+        if not rec["ok"]:
+            raise AssertionError(f"mha attention {[B, H, Lq, Lk, d]} "
+                                 f"{kind} causal={causal} {dtype}: {rec}")
+    q, k, v, mask = rows[torch.bfloat16]
+    ms = time_ms(torch, lambda: att.mha_attention_cuda(q, k, v, mask,
+                                                       causal=causal))
+    plain_ms = time_ms(torch, lambda: att.mha_reference(q, k, v, mask,
+                                                        causal=causal))
+    bias = _sdpa_bias(torch, mask, Lq, causal, q.dtype)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=bias))
+    elt = q.element_size()
+    b_ms, by = bound_ms(2 * B * H * (Lq + Lk) * d * elt + B * Lk * 4,
+                        4 * B * H * Lq * Lk * d, "bfloat16")
+    return {"shape": [B, H, Lq, Lk, d], "mode": f"{kind}"
+            + (", causal" if causal else ""), "dtype": "bfloat16",
+            "max_abs_err": record["bfloat16"]["max_abs_err"],
+            "tol": record["bfloat16"]["tol"], "checks": record, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def check_mha_dropout(torch, att, drop, B, H, Lk, d):
+    """The kernel's in-kernel keep bits at the decode shape: with value
+    rows e_j its output holds drop(p), whose zeros must equal the plain
+    Philox mask bit for bit."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((B, H, 1, d), generator=gen, device=dev)
+    k = torch.randn((B, H, Lk, d), generator=gen, device=dev)
+    v = torch.eye(Lk, d, device=dev).expand(B, H, Lk, d)
+    mask = torch.ones((B, Lk), device=dev)
+    out = att.mha_attention_cuda(q, k, v, mask, TRAIN_RATE, TRAIN_SEED)
+    got = out[..., :Lk] != 0
+    want = drop.attention_keep_mask(TRAIN_SEED, B, H, 1, Lk, TRAIN_RATE,
+                                    device=dev)
+    ref = att.mha_reference(q, k, v, mask, TRAIN_RATE, TRAIN_SEED)
+    rec = {"shape": [B, H, 1, Lk], "identical_to_plain": bool(
+        torch.equal(got, want)), "keep_rate": float(got.float().mean()),
+        "max_abs_err": _err(out, ref), "tol": 1e-5}
+    rec["ok"] = rec["identical_to_plain"] and rec["max_abs_err"] <= 1e-5
+    if not rec["ok"]:
+        raise AssertionError(f"mha attention dropout: {rec}")
+    return rec
+
+
+def check_packed_tvc(torch, F, att, B, Lq, Lk, D, H, causal):
+    """#2 at a TVC decoder shape against ``packed_reference``: causal
+    self-attention (Lq == Lk) or the decode step's cross-attention
+    (Lq = 1 over a clip), the last row a padded clip slot with no valid
+    key.  fp32 1e-4 and bf16 one ulp on the other rows; bf16 timings."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3 * B + Lq + Lk)
+    lens = torch.randint(2, Lk + 1, (B, 1), generator=gen, device=dev)
+    mask = (torch.arange(Lk, device=dev)[None] < lens).float()
+    mask[-1] = 0.0
+    record, rows = {}, {}
+    for dtype, tol_fn in ((torch.float32, lambda ref: 1e-4),
+                          (torch.bfloat16, _bf16_tol)):
+        q = torch.randn((B, Lq, D), generator=gen, device=dev).to(dtype)
+        kv = torch.randn((B, Lk, 2 * D), generator=gen, device=dev).to(dtype)
+        k, v = kv.split(D, dim=-1)
+        out = att.valid_attention_cuda(q, k, v, H, mask, causal=causal)[0]
+        ref = att.packed_reference(q, k, v, H, kv_mask=mask, causal=causal)
+        rec = {"max_abs_err": _err(out[:-1], ref[:-1]), "tol": tol_fn(ref),
+               "finite": bool(torch.isfinite(out).all())}
+        rec["ok"] = rec["max_abs_err"] <= rec["tol"] and rec["finite"]
+        record[str(dtype).split(".")[1]] = rec
+        rows[dtype] = (q, k, v)
+        if not rec["ok"]:
+            raise AssertionError(f"packed attention {[B, Lq, Lk, D]} "
+                                 f"causal={causal} {dtype}: {rec}")
+    q, k, v = rows[torch.bfloat16]
+    ms = time_ms(torch, lambda: att.valid_attention_cuda(q, k, v, H, mask,
+                                                         causal=causal))
+    plain_ms = time_ms(torch, lambda: att.packed_reference(
+        q, k, v, H, kv_mask=mask, causal=causal))
+    bias = _sdpa_bias(torch, mask, Lq, causal, q.dtype)
+    d = D // H
+
+    def heads(t):
+        return t.unflatten(-1, (H, d)).transpose(1, 2)
+
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        heads(q), heads(k), heads(v), attn_mask=bias))
+    elt = q.element_size()
+    b_ms, by = bound_ms(2 * B * (Lq + Lk) * D * elt + B * Lk * 4,
+                        4 * B * H * Lq * Lk * d, "bfloat16")
+    return {"shape": [B, Lq, Lk, D], "mode": "tvc causal self-attention"
+            if causal else "tvc cross-attention", "dtype": "bfloat16",
+            "max_abs_err": record["bfloat16"]["max_abs_err"],
+            "tol": record["bfloat16"]["tol"], "checks": record, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def check_tvc_kernels(torch, cfg, kernels):
+    """#4 at the decode shapes and #2 at the decoder's shapes.  Adds #2's
+    rows to ``kernels`` and returns #4's row."""
+    import torch.nn.functional as F
+    from hero_tpu_torch.ops import attention as att
+    from hero_tpu_torch.ops import dropout as drop
+    d_cfg = cfg.d_config
+    D, H = d_cfg.hidden_size, d_cfg.num_attention_heads
+    d = D // H
+    greedy, beam = TVC_BS * TVC_CLIPS, TVC_BS * TVC_CLIPS * TVC_BEAM
+    L = TVC_MAX_STEP + 1
+    # the decode step attends over all TVC_MAX_STEP cache slots
+    shapes = [check_mha(torch, F, att, greedy, H, 1, TVC_MAX_STEP, d,
+                        "step", False),
+              check_mha(torch, F, att, beam, H, 1, TVC_MAX_STEP, d, "step0",
+                        False),
+              check_mha(torch, F, att, greedy, H, L, L, d, "valid", True)]
+    masks = check_mha_dropout(torch, att, drop, greedy, H, TVC_MAX_STEP, d)
+    for row in kernels:
+        if row["name"] == "attention_valid":
+            row["shapes"] += [
+                check_packed_tvc(torch, F, att, greedy, L, L, D, H, True),
+                check_packed_tvc(torch, F, att, greedy, 1, TVC_SEG_LEN, D,
+                                 H, False)]
+    return {"name": "mha_attention", "route": "cuda",
+            "source": "hero_tpu_torch/ops/csrc/attention.cu",
+            "replaces": "hero_tpu/ops/attention.py:121",
+            "tpu_kernel": "_fwd_kernel", "counter": "mha_attention_cuda",
+            "library_call": "F.scaled_dot_product_attention, additive mask",
+            **{k: shapes[0][k] for k in (
+                "shape", "dtype", "max_abs_err", "tol", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")},
+            "shapes": shapes, "dropout_masks": masks}
+
+
+def gap_rule(ids, logits, ref_ids, tol):
+    """``ids`` (N, T) must equal ``ref_ids`` up to the first step at which
+    the reference's top-2 gap of ``logits`` (N, T, V) is below ``tol``.
+    Returns (ok, rows stopped early by a small gap, steps compared)."""
+    top2 = logits.float().topk(2, dim=-1).values
+    small = (top2[..., 0] - top2[..., 1]) < tol
+    ok, stopped, compared = True, 0, 0
+    for row in range(ids.shape[0]):
+        hits = small[row].nonzero()
+        stop = int(hits[0, 0]) if len(hits) else ids.shape[1]
+        stopped += stop < ids.shape[1]
+        compared += stop
+        ok = ok and bool((ids[row, :stop] == ref_ids[row, :stop]).all())
+    return ok, stopped, compared
+
+
+def tvc_replay(torch, tvc, params, cfg, batch, ids):
+    """Teacher-forced logits (N, T, V) of the prefix [BOS, ids[:, :-1]]
+    through ``decode``: step t sees positions <= t by the causal bias."""
+    enc = tvc.encode(params, cfg, batch, dtype=torch.float32)
+    prefix = torch.cat([torch.full_like(ids[:, :1], TVC_BOS), ids[:, :-1]],
+                       dim=1)
+    return tvc.decode(params, cfg, enc, batch["seg_mask"], prefix,
+                      dtype=torch.float32)
+
+
+def tvc_fp32_checks(torch, cfg, flat, store, clips, dev_kernel, dev_plain):
+    """fp32, one batch: (a) the card's KV-cached greedy ids equal the
+    plain path's on the CPU, and (b) they equal a teacher-forced replay
+    through ``decode`` on the card (#4 against #2's causal mode), both
+    under the gap rule."""
+    from hero_tpu_torch.convert.from_jax import load_jax_tvc_params
+    from hero_tpu_torch.data.downstream_tasks import build_tvc_clip_batch
+    from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
+    from hero_tpu_torch.models import tvc
+    ds = tvc_dataset(store, clips[:TVC_BS * TVC_CLIPS])
+    batch = build_tvc_clip_batch(ds, list(range(len(ds))))
+    out = {}
+    with torch.inference_mode():
+        for dev in (dev_kernel, dev_plain):
+            params = load_jax_tvc_params(flat, device=dev)
+            b = batch_to_device(batch, dev)
+            ids = tvc.greedy_decode(params, cfg, b, max_step=TVC_MAX_STEP,
+                                    bos=TVC_BOS, eos=TVC_EOS,
+                                    dtype=torch.float32)
+            out[dev] = (ids, tvc_replay(torch, tvc, params, cfg, b, ids))
+            del params
+    (ik, lk), (ip, lp) = out[dev_kernel], out[dev_plain]
+    ok_cpu, stop_cpu, n_cpu = gap_rule(ik.cpu(), lp.cpu(), ip.cpu(),
+                                       TVC_GAP_TOL)
+    ok_rep, stop_rep, n_rep = gap_rule(ik, lk, lk.argmax(-1).int(),
+                                       TVC_GAP_TOL)
+    rec = {"rows": int(ik.shape[0]), "steps": TVC_MAX_STEP,
+           "gap_tol": TVC_GAP_TOL,
+           "card_vs_cpu_equal": ok_cpu, "card_vs_cpu_rows_stopped": stop_cpu,
+           "card_vs_cpu_steps_compared": n_cpu,
+           "ids_identical_to_cpu": bool(torch.equal(ik.cpu(), ip.cpu())),
+           "kv_vs_replay_equal": ok_rep, "kv_vs_replay_rows_stopped":
+           stop_rep, "kv_vs_replay_steps_compared": n_rep,
+           "logits_max_abs_err_vs_cpu": _err(lk.cpu(), lp.cpu())}
+    if not (ok_cpu and ok_rep):
+        raise AssertionError(f"fp32 TVC greedy ids: {rec}")
+    return rec
+
+
+def check_records(records, clips, max_step, eos):
+    """Every clip exactly once, in the reference schema, its ids cut at
+    the first EOS."""
+    want = {(vid, cid): ts for vid, cid, ts, _ in clips}
+    got = [(r["vid_name"], r["clip_id"]) for r in records]
+    if len(got) != len(want) or set(got) != set(want):
+        raise AssertionError(f"records cover {len(set(got))} of "
+                             f"{len(want)} clips in {len(got)} records")
+    for r in records:
+        if set(r) != {"vid_name", "clip_id", "ts", "descs"} or len(
+                r["descs"]) != 1 or set(r["descs"][0]) != {"desc"}:
+            raise AssertionError(f"record schema: {r}")
+        toks = [int(t) for t in r["descs"][0]["desc"].split()]
+        if eos in toks or len(toks) > max_step or r["ts"] != want[
+                (r["vid_name"], r["clip_id"])]:
+            raise AssertionError(f"record not cut at EOS: {r}")
+
+
+def tvc_phase(torch, cfg, flat, store, clips, dev, dtype, sync, rehearse,
+              profile):
+    """``generate_clip_captions`` greedy over every clip (median of
+    ``TVC_RUNS`` timed runs after a warm-up batch; launch counters read
+    from 0 around the first), one beam pass over two batches, the record
+    checks, and the fp32 checks."""
+    from hero_tpu_torch.convert.from_jax import load_jax_tvc_params
+    from hero_tpu_torch.data.downstream_tasks import build_tvc_clip_batch
+    from hero_tpu_torch.drivers.inf_tvc import (cut_at_eos,
+                                                generate_clip_captions)
+    from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
+    from hero_tpu_torch.models import tvc
+    bs = 2 if rehearse else TVC_BS
+    params = load_jax_tvc_params(flat, device=dev)
+    kw = dict(bos=TVC_BOS, eos=TVC_EOS, batch_size=bs,
+              max_gen_step=TVC_MAX_STEP, dtype=dtype, device=dev)
+    ds = tvc_dataset(store, clips)
+    generate_clip_captions(params, cfg,                         # warm-up
+                           tvc_dataset(store, clips[:bs * TVC_CLIPS]), **kw)
+    sync()
+    runs = []
+    for i in range(TVC_RUNS):
+        if i == 0:
+            reset_counts()
+        t0 = time.perf_counter()
+        records = generate_clip_captions(params, cfg, ds, **kw)
+        sync()
+        runs.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = read_counts()
+    check_records(records, clips, TVC_MAX_STEP, TVC_EOS)
+    # the records of the first batch are its greedy ids cut at EOS
+    b0 = build_tvc_clip_batch(ds, list(range(bs)))
+    with torch.inference_mode():
+        ids0 = tvc.greedy_decode(params, cfg, batch_to_device(b0, dev),
+                                 max_step=TVC_MAX_STEP, bos=TVC_BOS,
+                                 eos=TVC_EOS, dtype=dtype).cpu()
+    for ri, rec in enumerate(records[:bs * TVC_CLIPS]):
+        want = " ".join(map(str, cut_at_eos(ids0[ri].tolist(), TVC_EOS)))
+        if rec["descs"][0]["desc"] != want:
+            raise AssertionError(f"record {ri} is not its ids cut at EOS")
+    n_batches = -(-len(ds) // bs)
+    n_layers = cfg.d_config.num_hidden_layers
+    want_mha = n_batches * TVC_MAX_STEP * n_layers
+    if not rehearse and (launches["mha_attention_cuda"] != want_mha or
+                         launches["valid_attention_cuda"] < want_mha):
+        raise AssertionError(f"TVC launches {launches}, want "
+                             f"mha_attention_cuda == {want_mha}")
+    beam_clips = clips[:2 * bs * TVC_CLIPS]
+    t0 = time.perf_counter()
+    beam_records = generate_clip_captions(
+        params, cfg, tvc_dataset(store, beam_clips), beam=TVC_BEAM, **kw)
+    sync()
+    beam_s = time.perf_counter() - t0
+    check_records(beam_records, beam_clips, TVC_MAX_STEP, TVC_EOS)
+    n_caps = len(records)
+    t_med = float(np.median(runs))
+    rec = {"clips": n_caps, "batch": bs, "rows_per_batch": bs * TVC_CLIPS,
+           "max_gen_step": TVC_MAX_STEP, "tvc_captions_per_s": n_caps / t_med,
+           "wall_s": t_med, "wall_s_runs": runs,
+           "runs_captions_per_s": [n_caps / t for t in runs],
+           "main_path_launches": launches, "mha_launches_expected": want_mha,
+           "beam": TVC_BEAM, "beam_clips": len(beam_records),
+           "beam_wall_s": beam_s,
+           "beam_captions_per_s": len(beam_records) / beam_s,
+           "distinct_descs": len({r["descs"][0]["desc"] for r in records})}
+    if profile:
+        b = batch_to_device(b0, dev)
+
+        def greedy_batch():
+            with torch.inference_mode():
+                tvc.greedy_decode(params, cfg, b, max_step=TVC_MAX_STEP,
+                                  bos=TVC_BOS, eos=TVC_EOS, dtype=dtype)
+
+        rec["profile_greedy_batch"] = profile_breakdown(torch, greedy_batch,
+                                                        iters=2)
+    del params
+    rec["fp32"] = tvc_fp32_checks(torch, cfg, flat, store, clips,
+                                  "cpu" if rehearse else "cuda", "cpu")
+    return rec
+
+
 def gpu_identity():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -971,8 +1408,9 @@ def main(argv=None):
                     help="CPU rehearsal at a tiny size with the plain "
                          "versions; prints no result line")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one phase-1 batch, one query batch "
-                         "and one fit-bucket train step with "
+                    help="also trace one phase-1 batch, one query batch, "
+                         "one fit-bucket train step and one greedy TVC "
+                         "batch with "
                          "torch.profiler and record device time by kernel "
                          "class (in the --json-out record)")
     args = ap.parse_args(argv)
@@ -986,7 +1424,8 @@ def main(argv=None):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from hero_tpu_torch.config.model_config import (HeroConfig,
                                                     TransformerConfig,
-                                                    flagship_config)
+                                                    flagship_config,
+                                                    flagship_tvc_config)
     from hero_tpu_torch.convert.from_jax import load_jax_params
     from hero_tpu_torch.data.synthetic import TV_PACKED
     from hero_tpu_torch.evaluation.vcmr_eval import (VcmrEvalOpts,
@@ -994,6 +1433,7 @@ def main(argv=None):
                                                      make_query_scorer,
                                                      validate_full_vcmr)
     from hero_tpu_torch.models.pretrain import VsmConfig, init_flat_params
+    from hero_tpu_torch.models.tvc import init_flat_tvc_params
     from hero_tpu_torch.ops import cuda_build
 
     t_start = time.perf_counter()
@@ -1145,7 +1585,8 @@ def main(argv=None):
                              args.profile and not rehearse)
     train["subs_dropped_frac"] = t_dropped
     train_launches = train["main_path_launches"]
-    if not rehearse and min(train_launches.values()) == 0:
+    if not rehearse and min(v for k, v in train_launches.items()
+                            if k != "mha_attention_cuda") == 0:
         raise AssertionError(f"a kernel of the train step was never "
                              f"launched: {train_launches}")
     record["train"] = train
@@ -1154,6 +1595,32 @@ def main(argv=None):
         torch, cfg, flat, b_fit, dev, dtype, SIGNAL_STEPS)
     record["train_parity_fp32"] = train_parity(
         torch, cfg, fit_videos, "cpu" if rehearse else "cuda", "cpu")
+    log(f"train phases done at {time.perf_counter() - t_start:.1f} s")
+
+    # TVC caption serving at config/hero_tvc.json's model
+    t0 = time.perf_counter()
+    tcfg = (cfg.replace(d_config=cfg.f_config) if rehearse
+            else flagship_tvc_config())
+    tvc_flat = init_flat_tvc_params(tcfg, seed=0)
+    store, clips, tvc_dropped = make_tvc_data(
+        5 if rehearse else TVC_VIDEOS, tcfg.vfeat_dim)
+    record["tvc_setup_s"] = time.perf_counter() - t0
+    if not rehearse:
+        record["kernels"].append(check_tvc_kernels(torch, tcfg,
+                                                   record["kernels"]))
+        log("TVC kernel checks passed")
+    tvc = tvc_phase(torch, tcfg, tvc_flat, store, clips, dev, dtype, sync,
+                    rehearse, args.profile and not rehearse)
+    tvc["subs_dropped_frac"] = tvc_dropped
+    tvc_launches = tvc["main_path_launches"]
+    if not rehearse and min(tvc_launches[k] for k in (
+            "seg_attention_cuda", "valid_attention_cuda",
+            "mha_attention_cuda", "layer_norm_cuda")) == 0:
+        raise AssertionError(f"a kernel of TVC serving was never "
+                             f"launched: {tvc_launches}")
+    record["tvc"] = tvc
+    log(f"TVC: {tvc['tvc_captions_per_s']:.1f} captions/s greedy, "
+        f"{tvc['beam_captions_per_s']:.1f} beam {TVC_BEAM}")
     record["total_s"] = time.perf_counter() - t_start
 
     if args.json_out:
@@ -1177,6 +1644,14 @@ def main(argv=None):
         "train_parity_fp32": {k: record["train_parity_fp32"][k] for k in (
             "loss_rel_err", "worst_grad_err_over_tol",
             "worst_param_err_over_tol", "ok")}}))
+    print(json.dumps({
+        "tvc_captions_per_s": tvc["tvc_captions_per_s"],
+        "runs_captions_per_s": tvc["runs_captions_per_s"],
+        "clips": tvc["clips"], "rows_per_batch": tvc["rows_per_batch"],
+        "max_gen_step": TVC_MAX_STEP,
+        "beam_captions_per_s": tvc["beam_captions_per_s"],
+        "beam": TVC_BEAM, "beam_clips": tvc["beam_clips"],
+        "launches": tvc_launches, "fp32": tvc["fp32"]}))
     if rehearse:
         log(f"rehearsal passed in {record['total_s']:.1f} s")
         return 0
@@ -1185,9 +1660,10 @@ def main(argv=None):
         "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms")}
         | {"launches": launches[row["counter"]]
-           + train_launches[row["counter"]],
+           + train_launches[row["counter"]] + tvc_launches[row["counter"]],
            "launches_by_path": {"serving": launches[row["counter"]],
-                                "train": train_launches[row["counter"]]},
+                                "train": train_launches[row["counter"]],
+                                "tvc": tvc_launches[row["counter"]]},
            "shapes": [{k: sh[k] for k in (
                "shape", "max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")} | ({"mode": sh["mode"]}

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+from pathlib import Path
 from typing import Any, Optional
 
 
@@ -130,3 +131,15 @@ def flagship_config() -> HeroConfig:
         c_config=base.replace(num_hidden_layers=3),
         q_config=base.replace(num_hidden_layers=0, type_vocab_size=1),
         vfeat_dim=4352, max_frm_seq_len=100, max_clip_len=100)
+
+
+TVC_CONFIG_JSON = (Path(__file__).resolve().parents[2] / "config"
+                   / "hero_tvc.json")
+
+
+def flagship_tvc_config() -> HeroConfig:
+    """The TVC model of ``config/hero_tvc.json``, as the JAX package loads
+    it: the flagship backbone (f-encoder 6 layers, c-encoder 3) and a
+    2-layer decoder of hidden 768, 12 heads, FFN 3072, vocab 50272 and
+    1024 positions."""
+    return HeroConfig.from_json(str(TVC_CONFIG_JSON))

@@ -9,7 +9,9 @@ the encoder layers are stacked on a leading axis.  The port's tree
 (rows ordered query, key, value), and a list of per-layer dicts per encoder.
 
 The bridge fails on any missing or unexpected key: every JAX key is either
-read into the port's tree or named in :data:`UNUSED_JAX_KEYS`.
+read into the port's tree or named in :data:`UNUSED_JAX_KEYS` (the
+pretraining tree) or :data:`UNUSED_TVC_JAX_KEYS` (``init_hero_for_tvc``'s
+tree, :func:`load_jax_tvc_params`).
 
 The map is linear (transpose, concatenation, per-layer split), so it
 carries any tree shaped like the parameters: AdamW's ``mu`` and ``nu``
@@ -55,6 +57,10 @@ UNUSED_JAX_KEYS = frozenset({
     "v_encoder/fom_output/linear_2/bias",
 })
 
+# The TVC tree reads the f-encoder's tied LM head and has no VSM head.
+UNUSED_TVC_JAX_KEYS = frozenset(
+    k for k in UNUSED_JAX_KEYS if "/lm_head/" not in k)
+
 Getter = Callable[[str], torch.Tensor]
 
 
@@ -78,51 +84,63 @@ def _attention(get: Getter, key: str) -> Dict[str, Any]:
             "out_ln": _ln(get, f"{key}/out_ln")}
 
 
-def _encoder(get: Getter, key: str) -> Dict[str, Any]:
-    """Stacked (n_layers, ...) JAX layers -> a list of per-layer dicts."""
-    stacked = {
-        "attention": _attention(get, f"{key}/layers/attention"),
-        "ffn": {"intermediate": _linear(get, f"{key}/layers/ffn/intermediate"),
-                "output": _linear(get, f"{key}/layers/ffn/output"),
-                "ln": _ln(get, f"{key}/layers/ffn/ln")},
-    }
+def _ffn(get: Getter, key: str) -> Dict[str, Any]:
+    return {"intermediate": _linear(get, f"{key}/intermediate"),
+            "output": _linear(get, f"{key}/output"),
+            "ln": _ln(get, f"{key}/ln")}
 
+
+def _layers(stacked: Dict[str, Any]) -> Dict[str, Any]:
+    """Stacked (n_layers, ...) JAX layers -> a list of per-layer dicts."""
     def layer(tree, i):
         if isinstance(tree, dict):
             return {k: layer(v, i) for k, v in tree.items()}
         return tree[i]
 
-    n = stacked["attention"]["out_ln"]["weight"].shape[0]
+    n = next(iter(stacked.values()))["out_ln"]["weight"].shape[0]
     return {"layers": [layer(stacked, i) for i in range(n)]}
 
 
-def _port_tree(get: Getter) -> Dict[str, Any]:
+def _encoder(get: Getter, key: str) -> Dict[str, Any]:
+    return _layers({"attention": _attention(get, f"{key}/layers/attention"),
+                    "ffn": _ffn(get, f"{key}/layers/ffn")})
+
+
+def _v_encoder(get: Getter, lm_head: bool) -> Dict[str, Any]:
     fe, ce = "v_encoder/f_encoder", "v_encoder/c_encoder"
+    f_encoder = {
+        "embeddings": {
+            "word_emb": get(f"{fe}/embeddings/word_emb"),
+            "pos_emb": get(f"{fe}/embeddings/pos_emb"),
+            "type_emb": get(f"{fe}/embeddings/type_emb"),
+            "ln": _ln(get, f"{fe}/embeddings/ln")},
+        "img_embeddings": {
+            "img_ln": _ln(get, f"{fe}/img_embeddings/img_ln"),
+            "img_linear": _linear(get, f"{fe}/img_embeddings/img_linear"),
+            "pos_emb": get(f"{fe}/img_embeddings/pos_emb"),
+            "ln": _ln(get, f"{fe}/img_embeddings/ln")},
+        "encoder": _encoder(get, f"{fe}/encoder")}
+    if lm_head:
+        f_encoder["lm_head"] = {"dense": _linear(get, f"{fe}/lm_head/dense"),
+                                "ln": _ln(get, f"{fe}/lm_head/ln"),
+                                "bias": get(f"{fe}/lm_head/bias")}
+    return {
+        "f_encoder": f_encoder,
+        "frame_transform": {
+            "dense": _linear(get, "v_encoder/frame_transform/dense"),
+            "ln": _ln(get, "v_encoder/frame_transform/ln")},
+        "c_encoder": {
+            "embeddings": {
+                "pos_emb": get(f"{ce}/embeddings/pos_emb"),
+                "ln": _ln(get, f"{ce}/embeddings/ln")},
+            "encoder": _encoder(get, f"{ce}/encoder")},
+    }
+
+
+def _port_tree(get: Getter) -> Dict[str, Any]:
     qa = "head/q_feat_attn"
     return {
-        "v_encoder": {
-            "f_encoder": {
-                "embeddings": {
-                    "word_emb": get(f"{fe}/embeddings/word_emb"),
-                    "pos_emb": get(f"{fe}/embeddings/pos_emb"),
-                    "type_emb": get(f"{fe}/embeddings/type_emb"),
-                    "ln": _ln(get, f"{fe}/embeddings/ln")},
-                "img_embeddings": {
-                    "img_ln": _ln(get, f"{fe}/img_embeddings/img_ln"),
-                    "img_linear": _linear(get,
-                                          f"{fe}/img_embeddings/img_linear"),
-                    "pos_emb": get(f"{fe}/img_embeddings/pos_emb"),
-                    "ln": _ln(get, f"{fe}/img_embeddings/ln")},
-                "encoder": _encoder(get, f"{fe}/encoder")},
-            "frame_transform": {
-                "dense": _linear(get, "v_encoder/frame_transform/dense"),
-                "ln": _ln(get, "v_encoder/frame_transform/ln")},
-            "c_encoder": {
-                "embeddings": {
-                    "pos_emb": get(f"{ce}/embeddings/pos_emb"),
-                    "ln": _ln(get, f"{ce}/embeddings/ln")},
-                "encoder": _encoder(get, f"{ce}/encoder")},
-        },
+        "v_encoder": _v_encoder(get, lm_head=False),
         "head": {
             "video_query_linear": _linear(get, "head/video_query_linear"),
             "video_st_predictor": {
@@ -143,9 +161,24 @@ def _port_tree(get: Getter) -> Dict[str, Any]:
     }
 
 
-def convert(flat: Mapping[str, np.ndarray], device="cuda"
+def _tvc_tree(get: Getter) -> Dict[str, Any]:
+    dec = "decoder/layers"
+    return {
+        "v_encoder": _v_encoder(get, lm_head=True),
+        "position_embeddings": get("position_embeddings"),
+        "emb_ln": _ln(get, "emb_ln"),
+        "decoder": _layers({
+            "self_attention": _attention(get, f"{dec}/self_attention"),
+            "cross_attention": _attention(get, f"{dec}/cross_attention"),
+            "ffn": _ffn(get, f"{dec}/ffn")}),
+    }
+
+
+def convert(flat: Mapping[str, np.ndarray], device="cuda",
+            tree: Callable[[Getter], Dict[str, Any]] = _port_tree
             ) -> Tuple[Dict[str, Any], Set[str]]:
-    """(port tree on ``device``, the JAX keys it was built from)."""
+    """(port tree on ``device``, the JAX keys it was built from).
+    ``tree`` builds the pretraining tree or, with ``_tvc_tree``, TVC's."""
     device = resolve_device(device)
     used: Set[str] = set()
 
@@ -156,20 +189,35 @@ def convert(flat: Mapping[str, np.ndarray], device="cuda"
         return torch.from_numpy(
             np.array(flat[key], dtype=np.float32)).to(device)
 
-    return _port_tree(get), used
+    return tree(get), used
+
+
+def _load(flat, device, tree, unused_keys) -> Dict[str, Any]:
+    params, used = convert(flat, device, tree)
+    missing = unused_keys - set(flat)
+    unexpected = set(flat) - used - unused_keys
+    if missing or unexpected:
+        raise KeyError(f"JAX parameters do not match the port: missing "
+                       f"{sorted(missing)}, unexpected {sorted(unexpected)}")
+    return params
 
 
 def load_jax_params(flat: Mapping[str, np.ndarray], device="cuda"
                     ) -> Dict[str, Any]:
     """The port's fp32 parameter tree from flat JAX parameters.  Raises
     KeyError if a key is missing or not accounted for."""
-    params, used = convert(flat, device)
-    missing = UNUSED_JAX_KEYS - set(flat)
-    unexpected = set(flat) - used - UNUSED_JAX_KEYS
-    if missing or unexpected:
-        raise KeyError(f"JAX parameters do not match the port: missing "
-                       f"{sorted(missing)}, unexpected {sorted(unexpected)}")
-    return params
+    return _load(flat, device, _port_tree, UNUSED_JAX_KEYS)
+
+
+def load_jax_tvc_params(flat: Mapping[str, np.ndarray], device="cuda"
+                        ) -> Dict[str, Any]:
+    """The port's fp32 TVC tree from the flat parameters of
+    ``init_hero_for_tvc`` (``hero_tpu/models/tvc.py:35-46``): the backbone
+    with its tied LM head, the decoder position embedding and LayerNorm,
+    and the decoder layers (self-attention, cross-attention, FFN; each
+    attention block with one fused ``qkv``).  Raises KeyError if a key is
+    missing or not accounted for (:data:`UNUSED_TVC_JAX_KEYS`)."""
+    return _load(flat, device, _tvc_tree, UNUSED_TVC_JAX_KEYS)
 
 
 def load_jax_train_state(flat_params: Mapping[str, np.ndarray],

@@ -248,7 +248,7 @@ def forward_vsm(params: Params, cfg: HeroConfig, vsm: VsmConfig,
 # numpy init in the JAX parameter layout
 # ---------------------------------------------------------------------------
 
-class _Init:
+class FlatInit:
     """Accumulates ``{"a/b/c": array}`` entries from one numpy Generator."""
 
     def __init__(self, seed: int):
@@ -293,15 +293,11 @@ class _Init:
         self.layer_norm(f"{key}/layers/ffn/ln", cfg.hidden_size, lead)
 
 
-def init_flat_params(cfg: HeroConfig, vsm: VsmConfig = VsmConfig(),
-                     seed: int = 0) -> Dict[str, np.ndarray]:
-    """Random weights in the flat JAX layout of ``init_hero_for_pretraining``
-    (``hero_tpu/models/pretrain.py:55-82``): normal(initializer_range)
-    weights with the padding rows zeroed, zero biases, LayerNorm 1/0, and
-    the st/ed conv taps U(-1/sqrt(k), 1/sqrt(k))."""
-    f, c, q = cfg.f_config, cfg.c_config, cfg.q_config
+def init_flat_v_encoder(it: FlatInit, cfg: HeroConfig) -> None:
+    """The backbone's ``v_encoder/...`` entries
+    (``hero_tpu/models/model.py:45-70``), drawn from ``it``."""
+    f, c = cfg.f_config, cfg.c_config
     D, V = f.hidden_size, cfg.vfeat_dim
-    it = _Init(seed)
     fe = "v_encoder/f_encoder"
     it.normal(f"{fe}/embeddings/word_emb", (f.vocab_size, D),
               f.initializer_range, zero_row=PAD_IDX)
@@ -341,7 +337,17 @@ def init_flat_params(cfg: HeroConfig, vsm: VsmConfig = VsmConfig(),
     it.layer_norm("v_encoder/fom_output/ln", 2 * Dc)
     it.linear("v_encoder/fom_output/linear_2", 2 * Dc, cfg.max_clip_len)
 
-    Dq, k = q.hidden_size, vsm.conv_kernel_size
+
+def init_flat_params(cfg: HeroConfig, vsm: VsmConfig = VsmConfig(),
+                     seed: int = 0) -> Dict[str, np.ndarray]:
+    """Random weights in the flat JAX layout of ``init_hero_for_pretraining``
+    (``hero_tpu/models/pretrain.py:55-82``): normal(initializer_range)
+    weights with the padding rows zeroed, zero biases, LayerNorm 1/0, and
+    the st/ed conv taps U(-1/sqrt(k), 1/sqrt(k))."""
+    it = FlatInit(seed)
+    init_flat_v_encoder(it, cfg)
+    q, D = cfg.q_config, cfg.f_config.hidden_size
+    Dq, Dc, k = q.hidden_size, cfg.c_config.hidden_size, vsm.conv_kernel_size
     it.linear("head/video_query_linear", Dq, Dc)
     bound = 1.0 / (k ** 0.5)
     for name in ("video_st_predictor", "video_ed_predictor"):

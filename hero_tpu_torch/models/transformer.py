@@ -1,11 +1,22 @@
-"""Transformer encoder stack (counterpart of ``hero_tpu/models/transformer.py``).
+"""Transformer encoder and decoder stacks (counterpart of
+``hero_tpu/models/transformer.py``).
 
 Post-LN residual wiring as in the reference: attention -> dense + LN
-residual, FFN -> dense + LN residual.  Self-attention uses one fused QKV
-projection (``qkv``: (3D, D), rows ordered query, key, value) whose output
-feeds the packed attention kernel through column views, with no head
-transposes.  The JAX package scans one layer body over stacked parameters;
-here ``p["layers"]`` is a list and the stack is a Python loop.
+residual, FFN -> dense + LN residual.  Every attention block keeps one
+fused QKV projection (``qkv``: (3D, D), rows ordered query, key, value):
+self-attention runs it whole and feeds the packed attention kernel
+through column views, with no head transposes; cross-attention (the TVC
+decoder) projects the queries with its first D rows and the keys and
+values of the encoder output with the other 2D.  The JAX package scans one
+layer body over stacked parameters; here ``p["layers"]`` is a list and the
+stack is a Python loop.
+
+The TVC decoder (:func:`decoder`, teacher-forced, and :func:`decoder_step`,
+one token against a KV cache) attends causally over the caption, then
+over the clip's encoder outputs.  The decode step's self-attention reads
+one layer of the (layers, B, H, T, d) cache through the head-major
+attention (``multi_head_attention``); its cross-attention re-projects the
+encoder outputs every step, as the JAX package does.
 
 Training (``train=True`` with an integer ``seed``) adds the three dropout
 sites of the JAX package: attention probabilities (inside the attention
@@ -15,13 +26,14 @@ rematerialisation (``set_remat``) is not ported (ROADMAP A2).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from hero_tpu_torch.config.model_config import TransformerConfig
 from hero_tpu_torch.models import nn
-from hero_tpu_torch.ops.attention import packed_attention
+from hero_tpu_torch.ops.attention import (merge_heads, multi_head_attention,
+                                          packed_attention, split_heads)
 
 Params = Dict[str, Any]
 
@@ -32,19 +44,27 @@ def _rate(rate: float, train: bool, seed: Optional[int]) -> float:
 
 def attention(p: Params, x: torch.Tensor, cfg: TransformerConfig, *,
               kv_mask: Optional[torch.Tensor] = None,
-              seg: Optional[torch.Tensor] = None, train: bool = False,
-              seed: Optional[int] = None,
+              seg: Optional[torch.Tensor] = None,
+              kv: Optional[torch.Tensor] = None, causal: bool = False,
+              train: bool = False, seed: Optional[int] = None,
               dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Self-attention plus the output projection, dropout and residual
-    LayerNorm (``hero_tpu/models/transformer.py:73-101``).  ``kv_mask``
-    (B, L) or ``seg`` (B, L) segment ids select the mask mode."""
+    """Self- (``kv`` None) or cross-attention plus the output projection,
+    dropout and residual LayerNorm
+    (``hero_tpu/models/transformer.py:73-101``).  ``kv_mask`` (B, Lk) or
+    ``seg`` (B, L) segment ids select the mask mode; ``causal`` adds the
+    decoder's causal bias."""
     D = x.shape[-1]
-    qkv = nn.linear(p["qkv"], x, dtype)
-    q, k, v = qkv.split(D, dim=-1)
+    if kv is None:
+        q, k, v = nn.linear(p["qkv"], x, dtype).split(D, dim=-1)
+    else:
+        w, b = p["qkv"]["weight"], p["qkv"]["bias"]
+        q = nn.linear({"weight": w[:D], "bias": b[:D]}, x, dtype)
+        k, v = nn.linear({"weight": w[D:], "bias": b[D:]}, kv,
+                         dtype).split(D, dim=-1)
     ctx = packed_attention(
         q, k, v, cfg.num_attention_heads, kv_mask=kv_mask, seg=seg,
         dropout_rate=_rate(cfg.attention_probs_dropout_prob, train, seed),
-        seed=nn.rng_for(seed, "attn_probs"))
+        seed=nn.rng_for(seed, "attn_probs"), causal=causal)
     y = nn.linear(p["out"], ctx, dtype)
     y = nn.dropout(y, _rate(cfg.hidden_dropout_prob, train, seed),
                    nn.rng_for(seed, "attn_out"))
@@ -85,3 +105,87 @@ def encoder(p: Params, x: torch.Tensor, cfg: TransformerConfig, *,
                           train=train, seed=nn.rng_for(seed, f"layer{i}"),
                           dtype=dtype)
     return x
+
+
+# ---------------------------------------------------------------------------
+# LM head
+# ---------------------------------------------------------------------------
+
+def lm_head(p: Params, word_emb: torch.Tensor, x: torch.Tensor,
+            cfg: TransformerConfig,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Tied LM head: dense -> GELU -> LN -> (.) @ word_emb^T + bias
+    (``hero_tpu/models/transformer.py:234-247``).  The logits stay in the
+    model dtype, as in the JAX package."""
+    if cfg.hidden_act != "gelu":
+        raise NotImplementedError(f"hidden_act {cfg.hidden_act!r}")
+    h = nn.gelu(nn.linear(p["dense"], x, dtype))
+    h = nn.apply_layer_norm(p["ln"], h)
+    return torch.matmul(h.to(dtype), word_emb.to(dtype).T) + p["bias"].to(
+        dtype)
+
+
+# ---------------------------------------------------------------------------
+# TVC decoder, with a KV cache for generation
+# ---------------------------------------------------------------------------
+
+def decoder(p: Params, x: torch.Tensor, enc_out: torch.Tensor,
+            enc_mask: torch.Tensor, cfg: TransformerConfig, *,
+            dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Full-sequence decoder (teacher-forced scoring), eval mode: per
+    layer, causal self-attention, cross-attention over ``enc_out``
+    (B, Lv, D) with ``enc_mask`` (B, Lv), then the FFN
+    (``hero_tpu/models/transformer.py:267-299``; its dropout sites come
+    with TVC training)."""
+    for layer in p["layers"]:
+        x = attention(layer["self_attention"], x, cfg, causal=True,
+                      dtype=dtype)
+        x = attention(layer["cross_attention"], x, cfg, kv_mask=enc_mask,
+                      kv=enc_out, dtype=dtype)
+        x = ffn(layer["ffn"], x, cfg, dtype=dtype)
+    return x
+
+
+def init_decode_cache(cfg: TransformerConfig, batch: int, max_len: int,
+                      dtype: torch.dtype = torch.float32,
+                      device="cpu") -> Dict[str, torch.Tensor]:
+    """Zero self-attention keys and values {"k", "v"}, each
+    (layers, batch, H, max_len, d)."""
+    shape = (cfg.num_hidden_layers, batch, cfg.num_attention_heads, max_len,
+             cfg.head_dim)
+    return {n: torch.zeros(shape, dtype=dtype, device=device)
+            for n in ("k", "v")}
+
+
+def decoder_step(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                 step: int, enc_out: torch.Tensor, enc_mask: torch.Tensor,
+                 cfg: TransformerConfig,
+                 dtype: torch.dtype = torch.float32
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One incremental decode step (``hero_tpu/models/transformer.py:
+    302-344``): ``x`` (B, 1, D) is the embedding of the token at position
+    ``step``; ``cache`` holds the keys and values of the positions before
+    it.  Returns (output (B, 1, D), cache).
+
+    The cache is updated IN PLACE (the JAX package returns a new one):
+    position ``step`` of every layer is written, and the same dict is
+    returned.  Self-attention attends over all T cache slots with the
+    positions after ``step`` masked, as the JAX package does."""
+    H = cfg.num_attention_heads
+    B, T = x.shape[0], cache["k"].shape[3]
+    self_mask = (torch.arange(T, device=x.device) <= step).float()
+    self_mask = self_mask[None].expand(B, T)
+    for i, layer in enumerate(p["layers"]):
+        ap = layer["self_attention"]
+        q, k_new, v_new = (split_heads(t, H) for t in nn.linear(
+            ap["qkv"], x, dtype).split(x.shape[-1], dim=-1))
+        cache["k"][i, :, :, step] = k_new[:, :, 0]
+        cache["v"][i, :, :, step] = v_new[:, :, 0]
+        ctx = multi_head_attention(q, cache["k"][i], cache["v"][i],
+                                   self_mask)
+        y = nn.linear(ap["out"], merge_heads(ctx), dtype)
+        x = nn.apply_layer_norm(ap["out_ln"], y + x, cfg.layer_norm_eps)
+        x = attention(layer["cross_attention"], x, cfg, kv_mask=enc_mask,
+                      kv=enc_out, dtype=dtype)
+        x = ffn(layer["ffn"], x, cfg, dtype=dtype)
+    return x, cache

@@ -1,6 +1,7 @@
 // Packed multi-head attention: forward (validity-mask and segment-mask
-// modes, optional probability dropout, optional saved probabilities) and
-// the saved-probabilities backward.
+// modes, optional causal bias, probability dropout and saved
+// probabilities) and the saved-probabilities backward; and the head-major
+// (B, H, L, d) forward of the decode step (at the end of the file).
 //
 // Forward.  Replaces the Pallas kernels hero_tpu/ops/attention.py
 // _fwd3_kernel (validity mask, :277) and _fwd3_seg_kernel (segment mask,
@@ -15,6 +16,10 @@
 // allowed iff mask[b, j] == 1 (bias = (1 - mask) * -1e4).  Segment mode:
 // allowed iff seg[b, j] == seg[b, i] and seg[b, i] >= 0 (-1 = pad slot);
 // this is the one-hot seg . seg^T of the TPU kernel without the matmul.
+// Validity mode may add the causal bias (the TVC decoder's self-attention):
+// -1e4 more where j > i + (Lk - Lq), aligned by (Lk - Lq) as mha_reference
+// defines it for every Lq and Lk, with nothing padded (the Pallas path pads
+// both lengths to 64 and so takes its kernel only for Lq == Lk).
 // keep_ij is the Philox bit of philox.cuh for (seed, b, h, i, j), the
 // same bit the plain version (ops/dropout.py) and the backward draw.  When
 // asked (training), the kernel writes the PRE-dropout p to a
@@ -79,6 +84,7 @@ struct AttnArgs {
   const void* mask;  // float (B, Lk) validity, or int32 (B, Lk) segment ids
   void* probs;       // (B, H, Lq, Lk) in T, or null
   int B, H, Lq, Lk;
+  int causal;        // validity mode: add the causal bias
   long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs;
   float scale;
   float rate;        // dropout rate; 0 = no dropout
@@ -133,6 +139,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     for (int c = 0; c < DCH; ++c)
       qw[lane + 32 * c] = to_float(qb[r * a.q_rs + lane + 32 * c]);
     const int sq = SEG ? kseg[r] : 0;
+    const int last = a.causal ? r + (Lk - a.Lq) : Lk;  // last causal key
     __syncwarp();
 
     float mx = -INFINITY;
@@ -142,10 +149,12 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll 16
       for (int c = 0; c < D; ++c) acc = fmaf(qw[c], kr[c], acc);
       float s = acc * a.scale;
-      if (SEG)
+      if (SEG) {
         s += (kseg[j] == sq && sq >= 0) ? 0.f : kNegInf;
-      else
+      } else {
         s += kbias[j];
+        if (j > last) s += kNegInf;
+      }
       pw[j] = s;
       mx = fmaxf(mx, s);
     }
@@ -405,6 +414,154 @@ __global__ void keep_mask_kernel(PhiloxKey key, int B, int H, int Lq, int Lk,
   }
 }
 
+// ---------------------------------------------------------------------------
+// head-major attention
+// ---------------------------------------------------------------------------
+//
+// Replaces the Pallas kernel hero_tpu/ops/attention.py _fwd_kernel (v2,
+// :121, pallas_call at :203), reached through multi_head_attention: q, k,
+// v are (B, H, L, d) tensors addressed through their batch, head and row
+// strides (the TVC decode step passes one layer of its (layers, B, H, T, d)
+// KV cache and head views of its projections, none of them copied); out is
+// a contiguous (B, H, Lq, d) tensor.  Per (b, h, i) it computes what
+// mha_reference defines, unpadded:
+//   s_j = q_i . k_j * scale + (1 - mask[b, j]) * -1e4
+//         [+ -1e4 where causal and j > i + (Lk - Lq)]
+//   out_i = sum_j drop(softmax(s)_j) v_j
+// with the dropout bit of philox.cuh for (seed, b, h, i, j), so a backward
+// can regenerate it.  Scores, softmax statistics and the probability-value
+// products are fp32 (the Pallas kernel rounds p to the input type before
+// P.V; mha_reference, the plain version, keeps it fp32, and so does this).
+//
+// Bound on the H100: at the decode step's shape (Lq = 1, Lk = 30, d = 64,
+// B*H = 384 or 1152 rows) every row is 2*Lk*d reads for 4*Lk*d flops, so
+// the ideal is memory-bound; the whole call reads 3 MB (greedy, bf16) to
+// 9 MB (beam 3), one to three microseconds at the memory rate.  Design: a
+// warp per query row, kMhaWarps rows per block, nothing staged in shared
+// memory but the row's q and its scores (a key is read by one row only
+// when Lq = 1): lanes over keys for the scores (warp shuffles for the max
+// and the sum), lanes over d for P.V, which reads each value row
+// coalesced.  Shared memory is kMhaWarps * (d + Lk) floats, so Lk is
+// bounded only by the 227 KB a block may use.
+
+constexpr int kMhaWarps = 4;
+
+struct MhaArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;
+  const float* mask;  // (B, Lk) validity, unit stride over keys
+  int B, H, Lq, Lk, causal;
+  long long q_bs, q_hs, q_rs, k_bs, k_hs, k_rs, v_bs, v_hs, v_rs, m_bs;
+  float scale, rate, keep_scale;
+  PhiloxKey key;
+};
+
+template <typename T, int DCH>
+__global__ void __launch_bounds__(kMhaWarps * 32)
+    mha_attention_kernel(MhaArgs a) {
+  constexpr int D = DCH * 32;
+  const int Lk = a.Lk;
+  extern __shared__ float smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* qw = smem + warp * (D + Lk);  // [D] the query row
+  float* pw = qw + D;                  // [Lk] its scores, then probabilities
+
+  const long long row = static_cast<long long>(blockIdx.x) * kMhaWarps + warp;
+  if (row >= static_cast<long long>(a.B) * a.H * a.Lq) return;
+  const int i = static_cast<int>(row % a.Lq);
+  const int h = static_cast<int>((row / a.Lq) % a.H);
+  const int b = static_cast<int>(row / (static_cast<long long>(a.Lq) * a.H));
+  const T* qr = static_cast<const T*>(a.q) + b * a.q_bs + h * a.q_hs +
+                i * a.q_rs;
+  const T* kb = static_cast<const T*>(a.k) + b * a.k_bs + h * a.k_hs;
+  const T* vb = static_cast<const T*>(a.v) + b * a.v_bs + h * a.v_hs;
+  const float* mr = a.mask + b * a.m_bs;
+  T* orow = static_cast<T*>(a.out) + row * D;
+  const int last = a.causal ? i + (Lk - a.Lq) : Lk;  // last causal key
+
+#pragma unroll
+  for (int c = 0; c < DCH; ++c)
+    qw[lane + 32 * c] = to_float(qr[lane + 32 * c]);
+  __syncwarp();
+
+  float mx = -INFINITY;
+  for (int j = lane; j < Lk; j += 32) {
+    const T* kr = kb + j * a.k_rs;
+    float acc = 0.f;
+#pragma unroll 16
+    for (int c = 0; c < D; ++c) acc = fmaf(qw[c], to_float(kr[c]), acc);
+    float s = acc * a.scale;
+    s += (1.f - mr[j]) * kNegInf;
+    if (j > last) s += kNegInf;
+    pw[j] = s;
+    mx = fmaxf(mx, s);
+  }
+  mx = warp_max(mx);
+  float sum = 0.f;
+  for (int j = lane; j < Lk; j += 32) {
+    const float e = expf(pw[j] - mx);
+    pw[j] = e;
+    sum += e;
+  }
+  sum = warp_sum(sum);
+  const bool drop = a.rate > 0.f;
+  for (int j = lane; j < Lk; j += 32) {
+    float p = pw[j] / sum;
+    if (drop)
+      p = dropout_keep(a.key, b, h, i, j, a.rate) ? p * a.keep_scale : 0.f;
+    pw[j] = p;
+  }
+  __syncwarp();
+
+  float acc[DCH];
+#pragma unroll
+  for (int c = 0; c < DCH; ++c) acc[c] = 0.f;
+  for (int j = 0; j < Lk; ++j) {
+    const float p = pw[j];
+    const T* vr = vb + j * a.v_rs;
+#pragma unroll
+    for (int c = 0; c < DCH; ++c)
+      acc[c] = fmaf(p, to_float(vr[lane + 32 * c]), acc[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < DCH; ++c) orow[lane + 32 * c] = from_float<T>(acc[c]);
+}
+
+size_t mha_smem(int Lk, int D) {
+  return sizeof(float) * kMhaWarps * (static_cast<size_t>(D) + Lk);
+}
+
+template <typename T, int DCH>
+cudaError_t launch_mha(const MhaArgs& a, cudaStream_t stream) {
+  constexpr int D = DCH * 32;
+  const size_t smem = mha_smem(a.Lk, D);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mha_attention_kernel<T, DCH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const long long rows = static_cast<long long>(a.B) * a.H * a.Lq;
+  const long long blocks = (rows + kMhaWarps - 1) / kMhaWarps;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  mha_attention_kernel<T, DCH><<<static_cast<unsigned>(blocks),
+                                 kMhaWarps * 32, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t mha_dim(const MhaArgs& a, int head_dim, cudaStream_t s) {
+  switch (head_dim) {
+    case 32: return launch_mha<T, 1>(a, s);
+    case 64: return launch_mha<T, 2>(a, s);
+    case 128: return launch_mha<T, 4>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Shared memory (bytes) the kernels need at these shapes, so the wrapper
@@ -417,16 +574,23 @@ extern "C" long long hero_attention_smem_bytes(int backward, int Lq, int Lk,
 
 extern "C" long long hero_attention_smem_limit() { return kMaxSmem; }
 
+extern "C" long long hero_mha_smem_bytes(int Lk, int head_dim) {
+  return static_cast<long long>(mha_smem(Lk, head_dim));
+}
+
 // Returns a cudaError_t code (0 = launched).  Strides are in elements.
-// ``probs`` may be null (serving); ``rate`` 0 draws no dropout.
+// ``probs`` may be null (serving); ``rate`` 0 draws no dropout; ``causal``
+// applies to the validity mode only.
 extern "C" int hero_packed_attention_fwd(
-    int dtype, int seg_mode, const void* q, const void* k, const void* v,
-    void* out, const void* mask, void* probs, int B, int H, int Lq, int Lk,
-    int head_dim, long long q_bs, long long q_rs, long long k_bs,
-    long long k_rs, long long v_bs, long long v_rs, long long o_bs,
-    long long o_rs, float scale, float rate, float keep_scale,
-    unsigned int seed_lo, unsigned int seed_hi, void* stream) {
+    int dtype, int seg_mode, int causal, const void* q, const void* k,
+    const void* v, void* out, const void* mask, void* probs, int B, int H,
+    int Lq, int Lk, int head_dim, long long q_bs, long long q_rs,
+    long long k_bs, long long k_rs, long long v_bs, long long v_rs,
+    long long o_bs, long long o_rs, float scale, float rate,
+    float keep_scale, unsigned int seed_lo, unsigned int seed_hi,
+    void* stream) {
   const AttnArgs a{q, k, v, out, mask, probs, B, H, Lq, Lk,
+                   seg_mode ? 0 : causal,
                    q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs,
                    scale, rate, keep_scale, PhiloxKey{seed_lo, seed_hi}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -461,6 +625,32 @@ extern "C" int hero_packed_attention_bwd(
   switch (dtype) {
     case kFloat32: e = bwd_dim<float>(a, head_dim, s); break;
     case kBFloat16: e = bwd_dim<__nv_bfloat16>(a, head_dim, s); break;
+    default: e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
+}
+
+// Head-major attention.  Returns a cudaError_t code (0 = launched).
+// q/k/v: (B, H, L, d) with unit stride over d, the other strides in
+// elements; out: contiguous (B, H, Lq, d); mask: float (B, Lk) with unit
+// stride over keys and batch stride m_bs (0 = one row for every batch).
+extern "C" int hero_mha_attention_fwd(
+    int dtype, const void* q, const void* k, const void* v, void* out,
+    const void* mask, int B, int H, int Lq, int Lk, int head_dim, int causal,
+    long long q_bs, long long q_hs, long long q_rs, long long k_bs,
+    long long k_hs, long long k_rs, long long v_bs, long long v_hs,
+    long long v_rs, long long m_bs, float scale, float rate,
+    float keep_scale, unsigned int seed_lo, unsigned int seed_hi,
+    void* stream) {
+  const MhaArgs a{q, k, v, out, static_cast<const float*>(mask),
+                  B, H, Lq, Lk, causal,
+                  q_bs, q_hs, q_rs, k_bs, k_hs, k_rs, v_bs, v_hs, v_rs, m_bs,
+                  scale, rate, keep_scale, PhiloxKey{seed_lo, seed_hi}};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (dtype) {
+    case kFloat32: e = mha_dim<float>(a, head_dim, s); break;
+    case kBFloat16: e = mha_dim<__nv_bfloat16>(a, head_dim, s); break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

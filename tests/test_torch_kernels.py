@@ -9,7 +9,9 @@ machine need not have; this file imports only torch, numpy and the port).
 The CPU tests check the dispatch: a CPU tensor takes the plain version
 and launches nothing.  The kernels of the backward (attention and
 LayerNorm) and the in-kernel Philox dropout are held against their plain
-versions on the same inputs, and for determinism.
+versions on the same inputs, and for determinism; so are the head-major
+attention of the TVC decode step (#4) and the causal and cross-attention
+shapes of the packed forward (#2).
 """
 
 import numpy as np
@@ -304,3 +306,141 @@ def test_cpu_tensors_take_the_plain_version():
                       tatt.attention_bwd_cuda.launches,
                       tln.layer_norm_cuda.launches,
                       tln.layer_norm_bwd_cuda.launches)
+
+
+# ---------------------------------------------------------------------------
+# the head-major kernel (#4) and the causal mode of the packed forward (#2)
+# ---------------------------------------------------------------------------
+
+MHA_SHAPES = [  # (B, H, Lq, Lk, head_dim, causal, mask): the TVC decode path
+    (32, 12, 1, 30, 64, False, "step"),        # greedy decode step
+    (96, 12, 1, 30, 64, False, "step0"),       # beam 3, step 0: key 0 only
+    (32, 12, 31, 31, 64, True, "valid"),       # causal, Lq == Lk
+    (4, 2, 7, 19, 32, True, "valid"),          # causal, Lq < Lk
+    (3, 2, 5, 300, 128, False, "valid"),
+]
+
+
+def _mha_inputs(seed, B, H, Lq, Lk, d, mask_kind, device, dtype):
+    r = np.random.RandomState(seed)
+    q = torch.from_numpy(r.randn(B, H, Lq, d).astype(np.float32))
+    k, v = (torch.from_numpy(r.randn(B, H, Lk, d).astype(np.float32))
+            for _ in range(2))
+    if mask_kind == "step":
+        mask = (np.arange(Lk)[None] <= r.randint(0, Lk, (B, 1)))
+    elif mask_kind == "step0":
+        mask = np.broadcast_to(np.arange(Lk) == 0, (B, Lk))
+    else:
+        mask = np.arange(Lk)[None] < r.randint(1, Lk + 1, (B, 1))
+    mask = torch.from_numpy(mask.astype(np.float32))
+    mask[-1] = 0.0                                # a fully masked row
+    return [t.to(device, dtype) for t in (q, k, v)] + [mask.to(device)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MHA_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mha_kernel_matches_plain(cuda, dtype, shape):
+    B, H, Lq, Lk, d, causal, kind = shape
+    q, k, v, mask = _mha_inputs(60, B, H, Lq, Lk, d, kind, cuda, dtype)
+    before = tatt.mha_attention_cuda.launches
+    got = tatt.multi_head_attention(q, k, v, mask, causal=causal)
+    torch.cuda.synchronize()
+    assert tatt.mha_attention_cuda.launches == before + 1
+    want = tatt.mha_reference(q, k, v, mask, causal=causal)
+    assert bool(torch.isfinite(got).all())
+    # rows with a valid key: fp32 within 1e-5 (<= 300-term sums in other
+    # orders), bf16 one ulp; the fully masked row is the unmasked
+    # attention up to the rounding of s - 1e4
+    tol = 1e-5 if dtype == torch.float32 else _tol(want, dtype)
+    assert float((got[:-1].float() - want[:-1].float()).abs().max()) <= tol
+    free = tatt.mha_reference(q[-1:], k[-1:], v[-1:], causal=causal)
+    row_tol = 2.0 ** -9 * float(v[-1].float().abs().max()) + _tol(want,
+                                                                   dtype)
+    assert float((got[-1:].float() - free.float()).abs().max()) <= row_tol
+
+
+@pytest.mark.cuda
+def test_mha_kernel_reads_cache_views(cuda):
+    """A layer of a (layers, B, H, T, d) cache and head views of a packed
+    projection, as the decode step passes them, give the result of
+    contiguous copies."""
+    r = np.random.RandomState(61)
+    cache = torch.from_numpy(r.randn(2, 2, 8, 3, 30, 64).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    proj = torch.from_numpy(r.randn(8, 1, 3 * 3 * 64).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    q = tatt.split_heads(proj[..., :192], 3)
+    mask = (torch.arange(30, device=cuda) <= 11).float()[None].expand(8, 30)
+    k, v = cache[0, 1], cache[1, 1]
+    a = tatt.multi_head_attention(q, k, v, mask)
+    b = tatt.multi_head_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), mask.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mha_kernel_dropout_is_the_philox_mask(cuda, dtype):
+    """With value rows e_j the output holds drop(p): its zeros are the
+    kernel's keep bits, equal to the plain Philox mask bit for bit."""
+    B, H, Lq, Lk, d = 32, 12, 1, 30, 64
+    q, k, _, _ = _mha_inputs(62, B, H, Lq, Lk, d, "valid", cuda, dtype)
+    v = torch.eye(Lk, d, device=cuda, dtype=dtype).expand(B, H, Lk, d)
+    seed, rate = 2 ** 35 + 3, 0.1
+    out = tatt.multi_head_attention(q, k, v, dropout_rate=rate, seed=seed)
+    keep = tdrop.attention_keep_mask(seed, B, H, Lq, Lk, rate, device=cuda)
+    assert torch.equal(out[..., :Lk] != 0, keep)
+    want = tatt.mha_reference(q, k, v, dropout_rate=rate, seed=seed)
+    assert float((out.float() - want.float()).abs().max()) <= (
+        1e-5 if dtype == torch.float32 else _tol(want, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, Lq, Lk, causal", [
+    (32, 31, 31, True),       # teacher-forced decoder self-attention
+    (6, 9, 40, True),         # causal, Lq < Lk
+    (32, 1, 100, False),      # decode-step cross-attention over a clip
+])
+def test_packed_causal_and_cross_kernel_match_plain(cuda, dtype, B, Lq, Lk,
+                                                    causal):
+    H, d = 12, 64
+    r = np.random.RandomState(63)
+    q = torch.from_numpy(r.randn(B, Lq, H * d).astype(np.float32)).to(
+        cuda, dtype)
+    kv = torch.from_numpy(r.randn(B, Lk, 2 * H * d).astype(np.float32)).to(
+        cuda, dtype)
+    k, v = kv.split(H * d, dim=-1)
+    mask = _validity_mask(64, B, Lk).to(cuda)
+    mask[-1] = 0.0                          # a padded clip slot
+    got = tatt.packed_attention(q, k, v, H, kv_mask=mask, causal=causal)
+    want = tatt.packed_reference(q, k, v, H, kv_mask=mask, causal=causal)
+    assert bool(torch.isfinite(got).all())
+    assert float((got[:-1].float() - want[:-1].float()).abs().max()) <= \
+        _tol(want, dtype)
+    # with saved probabilities and dropout, and the backward from them
+    seed, rate = 2 ** 33 + 9, 0.1
+    out, probs = tatt.valid_attention_cuda(q, k, v, H, mask, rate, seed,
+                                           True, causal)
+    ref, rprobs = tatt.packed_forward_reference(
+        q, k, v, H, kv_mask=mask, dropout_rate=rate, seed=seed,
+        save_probs=True, causal=causal)
+    assert float((probs[:-1].float() - rprobs[:-1].float()).abs().max()) \
+        <= _tol(rprobs, dtype)
+    assert float((out[:-1].float() - ref[:-1].float()).abs().max()) <= \
+        _tol(ref, dtype)
+
+
+def test_cpu_mha_takes_the_plain_version():
+    """On the CPU the head-major wrapper calls the plain version and
+    counts no launch."""
+    before = tatt.mha_attention_cuda.launches
+    q, k, v, mask = _mha_inputs(65, 2, 3, 4, 9, 16, "step", "cpu",
+                                torch.float32)
+    torch.testing.assert_close(
+        tatt.multi_head_attention(q, k, v, mask, causal=True),
+        tatt.mha_reference(q, k, v, mask, causal=True), atol=0, rtol=0)
+    assert tatt.mha_attention_cuda.launches == before
