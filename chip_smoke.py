@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's VCMR serving path, VSM train step and TVC
-caption serving on one GPU and check them.
+"""Drive the PyTorch/CUDA port's VCMR serving path, VSM train step, TVC
+caption serving, TVC train step and kernel components on one GPU and
+check them.
 
     python3 chip_smoke.py                  # on a machine with one CUDA card
     python3 chip_smoke.py --json-out F     # also write the full record to F
@@ -48,15 +49,47 @@ What the card run does, in order (any failure exits non-zero):
    schema, ids cut at EOS); and, in fp32 on one batch, that the card's
    greedy ids equal the plain path's on the CPU and a teacher-forced
    replay through ``decode``, both up to the first step whose reference
-   top-2 logit gap is below ``TVC_GAP_TOL``.
+   top-2 logit gap is below ``TVC_GAP_TOL``;
+9. the TVC train phase, at the same model with dropout 0.1 and bf16
+   compute on fp32 parameters: holds #2 (causal self-attention 62 -> 62
+   and cross-attention 62 -> 100, with dropout and saved probabilities)
+   and #3 at the decoder's shapes against their plain versions in fp32
+   and bf16; gives the 64 TV videos 2-6 synthetic captions each (lengths
+   N(14, 4) clipped to [5, 60], in an in-memory caption store with the
+   caption store's BOS/EOS shift) and times
+   ``drivers/train_tvc.make_tvc_train_step`` with
+   ``config/train-tvc.json``'s options on 4 videos x 2 captions a step
+   (cap_len 62, seg_len 100) as the median of 3 runs of 20 steps after 3
+   warm-up steps, the launch counters read from 0 around the runs;
+   checks that the loss falls over 20 steps on one batch (dropout off,
+   lr 1e-4, warm-up 1) and holds one fp32 step on the card against the
+   plain path on the CPU (loss, every gradient, every new parameter);
+10. the components phase (``tools/component_bench.py`` and the DALN
+   checks of ``tools/kernel_smoke.py`` and ``tools/tpu_kernel_drive.py``):
+   holds every kernel the components launch against its plain version in
+   fp32 and bf16 at the components' shapes: #2 and #3 at the f-encoder's
+   (256, 56, 768) with dropout and the c-encoder's (32, 100, 768), #4 and
+   #5 at (256, 12, 56, 64) (#5 also causal 31 -> 31 and 62 -> 100, with a
+   fully masked row), #6 and #7 at (14336, 768), (3200, 768) and
+   (256, 4352), #8 and #9 at (14336, 768) and (256, 4352) (#8/#9's Philox
+   bits equal the plain mask, the keep rate lies in its band, a repeat is
+   bit-identical, the dropped entries of y do not reach the output), then
+   drives every component once with
+   the counters from 0 and times it: the FFN matmul pair,
+   ``layer_norm``, ``multi_head_attention`` and its plain version,
+   ``dropout_add_layer_norm`` and the unfused chain, the 6-layer
+   f-encoder with and without dropout and the 3-layer c-encoder,
+   forward and forward+backward.
 
 It prints one ``phases`` JSON line, one train JSON line with
 ``train_examples_per_s``, one TVC JSON line with ``tvc_captions_per_s``,
-one ``kernels`` JSON line, the card's name and power limit (nvidia-smi),
-and as the last line ``{"ok": true, "device": {...}}``.  ``--profile``
-adds torch.profiler breakdowns of a phase-1 batch, a query batch, one
-fit-bucket train step and one greedy TVC batch to the JSON record.
-Imports nothing of JAX.
+one TVC train JSON line with ``tvc_train_captions_per_s``, one
+``components`` JSON line, one ``kernels`` JSON line (all nine kernels,
+launches by path), the card's name and power limit (nvidia-smi), and as
+the last line ``{"ok": true, "device": {...}}``.  ``--profile`` adds
+torch.profiler breakdowns of a phase-1 batch, a query batch, one
+fit-bucket train step, one greedy TVC batch and one TVC train step to the
+JSON record.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -381,6 +414,15 @@ def check_kernels(torch, first_batch, query_masks, cfg):
 # ---------------------------------------------------------------------------
 
 TRAIN_SEED = 2 ** 33 + 12345       # Philox key of the kernel checks
+# the kernels the train steps (VSM and TVC) launch, and the components
+TRAIN_KERNELS = ("seg_attention_cuda", "valid_attention_cuda",
+                 "attention_bwd_cuda", "layer_norm_cuda",
+                 "layer_norm_bwd_cuda")
+COMPONENT_KERNELS = ("valid_attention_cuda", "attention_bwd_cuda",
+                     "mha_attention_cuda", "mha_attention_bwd_cuda",
+                     "layer_norm_cuda", "layer_norm_bwd_cuda",
+                     "dropout_add_layer_norm_cuda",
+                     "dropout_add_layer_norm_bwd_cuda")
 TRAIN_RATE = 0.1                   # the model's dropout rate
 
 
@@ -689,8 +731,12 @@ def counters():
             "valid_attention_cuda": att.valid_attention_cuda,
             "attention_bwd_cuda": att.attention_bwd_cuda,
             "mha_attention_cuda": att.mha_attention_cuda,
+            "mha_attention_bwd_cuda": att.mha_attention_bwd_cuda,
             "layer_norm_cuda": lnm.layer_norm_cuda,
-            "layer_norm_bwd_cuda": lnm.layer_norm_bwd_cuda}
+            "layer_norm_bwd_cuda": lnm.layer_norm_bwd_cuda,
+            "dropout_add_layer_norm_cuda": lnm.dropout_add_layer_norm_cuda,
+            "dropout_add_layer_norm_bwd_cuda":
+                lnm.dropout_add_layer_norm_bwd_cuda}
 
 
 def reset_counts():
@@ -1076,7 +1122,7 @@ def check_mha(torch, F, att, B, H, Lq, Lk, d, kind, causal):
     record, rows = {}, {}
     for dtype, tol_fn, why in (
             (torch.float32, lambda ref: 1e-5,
-             "fp32: 64-term dots and <= 31-term softmax/P.V sums in "
+             "fp32: 64-term dots and <= 56-term softmax/P.V sums in "
              "another order, outputs O(1)"),
             (torch.bfloat16, _bf16_tol, "bf16: one bf16 ulp of max|out|")):
         q, k, v, mask = _mha_case(torch, B, H, Lq, Lk, d, kind, dtype, gen,
@@ -1390,6 +1436,770 @@ def tvc_phase(torch, cfg, flat, store, clips, dev, dtype, sync, rehearse,
     return rec
 
 
+# ---------------------------------------------------------------------------
+# TVC training
+# ---------------------------------------------------------------------------
+
+TVC_TRAIN_VIDEOS = 4                             # a step: 4 x 2 caption rows
+TVC_CAPS_RANGE = (2, 6)                          # captions a video
+TVC_TRAIN_STEPS = (3, 20, 3)                     # warm-up, steps a run, runs
+TVC_PAD = 1
+
+
+class MemCaptionStore:
+    """In-memory caption store answering as ``TvcCaptionStore`` does:
+    ``vid2caps``, ``pad``/``bos``/``eos``, and ``store[cid]`` with the
+    BOS/EOS shift and the ``max_txt_len`` truncation of its
+    ``__getitem__``."""
+
+    def __init__(self, caps, max_txt_len):
+        self.caps = caps
+        self.max_txt_len = max_txt_len
+        self.pad, self.bos, self.eos = TVC_PAD, TVC_BOS, TVC_EOS
+        self.vid2caps = {}
+        for cid, c in caps.items():
+            self.vid2caps.setdefault(c["vid"], []).append(cid)
+
+    def __getitem__(self, cid):
+        d = dict(self.caps[cid])
+        cap = list(d["input_ids"])
+        input_ids, tgt_ids = [self.bos] + cap, cap + [self.eos]
+        if self.max_txt_len != -1:
+            input_ids = input_ids[:self.max_txt_len]
+            tgt_ids = tgt_ids[:self.max_txt_len]
+        d["input_ids"], d["tgt_ids"] = input_ids, tgt_ids
+        return d
+
+
+def make_tvc_captions(store, vocab, max_txt_len, seed=31):
+    """2-6 synthetic captions a video, lengths N(14, 4) clipped to
+    [5, 60] tokens, each over a clip of 2-40 frames inside its video."""
+    r = np.random.RandomState(seed)
+    caps = {}
+    for vid in store.vids:
+        for c in range(int(r.randint(TVC_CAPS_RANGE[0],
+                                     TVC_CAPS_RANGE[1] + 1))):
+            n_tok = int(np.clip(round(r.normal(14.0, 4.0)), 5, 60))
+            n = min(int(r.randint(TVC_CLIP_FRAMES[0],
+                                  TVC_CLIP_FRAMES[1] + 1)),
+                    store.nframes(vid))
+            st = int(r.randint(0, store.nframes(vid) - n + 1))
+            caps[f"{vid}k{c}"] = {
+                "vid": vid, "ts": [st * 1.5, (st + n) * 1.5],
+                "input_ids": r.randint(3, vocab, n_tok).tolist()}
+    return MemCaptionStore(caps, max_txt_len)
+
+
+def tvc_train_data(store, vocab):
+    """The synthetic captions of ``store``'s videos and
+    ``drivers/train_tvc.tvc_train_dataset`` over them, with
+    ``config/train-tvc.json``'s options (cap_len 62, seg_len 100,
+    caps_per_video 2, seed 77)."""
+    from hero_tpu_torch.drivers import train_tvc
+    opts = train_tvc.load_train_opts()
+    cap_db = make_tvc_captions(store, vocab, opts["max_txt_len"])
+    return train_tvc.tvc_train_dataset(store, cap_db, opts)
+
+
+def tvc_train_batches(ds, n_videos):
+    """The batches of ``n_videos`` videos of ``ds`` through
+    ``build_tvc_batch``, host meta dropped."""
+    from hero_tpu_torch.data.downstream_tasks import build_tvc_batch
+    out = []
+    for s in range(0, len(ds) - n_videos + 1, n_videos):
+        b = build_tvc_batch(ds, list(range(s, s + n_videos)))
+        out.append({k: v for k, v in b.items() if not k.startswith("__")})
+    return out
+
+
+def check_decoder_train(torch, F, att, B, Lq, Lk, D, H, causal):
+    """#2 with dropout 0.1, saved probabilities and (self-attention) the
+    causal bias, and #3 from those probabilities, at a TVC train decoder
+    shape, fp32 and bf16 at rate 0 and 0.1, against the plain versions;
+    the last batch row a padded clip slot with no valid key (finite);
+    repeats identical.  bf16 timings at rate 0.1."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11 * B + Lq + Lk)
+    lens = torch.randint(2, Lk + 1, (B, 1), generator=gen, device=dev)
+    mask = (torch.arange(Lk, device=dev)[None] < lens).float()
+    mask[-1] = 0.0
+    d = D // H
+    checks, rows = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        q = torch.randn((B, Lq, D), generator=gen, device=dev).to(dtype)
+        kv = torch.randn((B, Lk, 2 * D), generator=gen, device=dev).to(dtype)
+        k, v = kv.split(D, dim=-1)
+        dout = torch.randn((B, Lq, D), generator=gen, device=dev).to(dtype)
+        for rate in (0.0, TRAIN_RATE):
+            out, probs = att.valid_attention_cuda(q, k, v, H, mask, rate,
+                                                  TRAIN_SEED, True, causal)
+            ref, rprobs = att.packed_forward_reference(
+                q, k, v, H, kv_mask=mask, dropout_rate=rate,
+                seed=TRAIN_SEED, save_probs=True, causal=causal)
+            grads = att.attention_bwd_cuda(probs, q, k, v, dout, H, rate,
+                                           TRAIN_SEED)
+            rgrads = att.packed_backward_reference(probs, q, k, v, dout, H,
+                                                   rate, TRAIN_SEED)
+            again = att.attention_bwd_cuda(probs, q, k, v, dout, H, rate,
+                                           TRAIN_SEED)
+            rec = {"fwd_err": _err(out[:-1], ref[:-1]),
+                   "fwd_tol": _train_tol(ref, name),
+                   "probs_err": _err(probs[:-1], rprobs[:-1]),
+                   "probs_tol": _train_tol(rprobs, name),
+                   "bwd_err": max(_err(a, b) for a, b in zip(grads, rgrads)),
+                   "bwd_tol": min(_train_tol(b, name) for b in rgrads),
+                   "finite": all(bool(torch.isfinite(t).all())
+                                 for t in (out, probs, *grads)),
+                   "deterministic": all(torch.equal(a, b)
+                                        for a, b in zip(grads, again))}
+            rec["ok"] = (rec["fwd_err"] <= rec["fwd_tol"]
+                         and rec["probs_err"] <= rec["probs_tol"]
+                         and rec["bwd_err"] <= rec["bwd_tol"]
+                         and rec["finite"] and rec["deterministic"])
+            checks[f"{name}_rate{rate}"] = rec
+            if not rec["ok"]:
+                raise AssertionError(f"decoder attention {[B, Lq, Lk, D]} "
+                                     f"causal={causal} {name} rate {rate}: "
+                                     f"{rec}")
+        rows[name] = (q, k, v, dout)
+    q, k, v, dout = rows["bfloat16"]
+    rate = TRAIN_RATE
+    probs = att.valid_attention_cuda(q, k, v, H, mask, rate, TRAIN_SEED,
+                                     True, causal)[1]
+    fwd_ms = time_ms(torch, lambda: att.valid_attention_cuda(
+        q, k, v, H, mask, rate, TRAIN_SEED, True, causal))
+    fwd_plain = time_ms(torch, lambda: att.packed_forward_reference(
+        q, k, v, H, kv_mask=mask, dropout_rate=rate, seed=TRAIN_SEED,
+        save_probs=True, causal=causal))
+    bwd_ms = time_ms(torch, lambda: att.attention_bwd_cuda(
+        probs, q, k, v, dout, H, rate, TRAIN_SEED))
+    bwd_plain = time_ms(torch, lambda: att.packed_backward_reference(
+        probs, q, k, v, dout, H, rate, TRAIN_SEED))
+    bias = _sdpa_bias(torch, mask, Lq, causal, q.dtype)
+
+    def heads(t):
+        return t.unflatten(-1, (H, d)).transpose(1, 2).detach(
+            ).requires_grad_(True)
+
+    hq, hk, hv = heads(q), heads(k), heads(v)
+    with torch.enable_grad():
+        lib_out = F.scaled_dot_product_attention(hq, hk, hv, attn_mask=bias,
+                                                 dropout_p=rate)
+    hdo = dout.unflatten(-1, (H, d)).transpose(1, 2)
+    lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        hq.detach(), hk.detach(), hv.detach(), attn_mask=bias,
+        dropout_p=rate))
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (hq, hk, hv), hdo, retain_graph=True))
+    elt = q.element_size()
+    p_bytes = B * H * Lq * Lk * elt
+    fb, fby = bound_ms(2 * B * (Lq + Lk) * D * elt + B * Lk * 4 + p_bytes,
+                       4 * B * H * Lq * Lk * d, "bfloat16")
+    bb, bby = bound_ms(p_bytes + (3 * Lq + 4 * Lk) * B * D * elt,
+                       8 * B * H * Lq * Lk * d, "bfloat16")
+    bf = checks["bfloat16_rate0.1"]
+    mode = ("tvc train: causal self-attention" if causal
+            else "tvc train: cross-attention") + ", dropout 0.1"
+    shape = [B, Lq, Lk, D]
+    return (
+        {"shape": shape, "mode": mode + ", probs saved",
+         "max_abs_err": bf["fwd_err"], "tol": bf["fwd_tol"], "ms": fwd_ms,
+         "plain_ms": fwd_plain, "bound_ms": fb, "bound_by": fby,
+         "library_ms": lib_fwd, "checks": checks},
+        {"shape": shape, "mode": mode, "max_abs_err": bf["bwd_err"],
+         "tol": bf["bwd_tol"], "ms": bwd_ms, "plain_ms": bwd_plain,
+         "bound_ms": bb, "bound_by": bby, "library_ms": lib_bwd,
+         "checks": checks})
+
+
+def check_tvc_train_kernels(torch, cfg, ds, kernels):
+    """#2 and #3 at the TVC train step's decoder shapes (8 caption rows of
+    ``ds``, causal 62 -> 62 and cross 62 -> 100); adds the rows to
+    ``kernels``."""
+    import torch.nn.functional as F
+    from hero_tpu_torch.ops import attention as att
+    d_cfg = cfg.d_config
+    D, H = d_cfg.hidden_size, d_cfg.num_attention_heads
+    B = TVC_TRAIN_VIDEOS * ds.caps_per_video
+    new = [check_decoder_train(torch, F, att, B, ds.cap_len, ds.cap_len, D,
+                               H, True),
+           check_decoder_train(torch, F, att, B, ds.cap_len, ds.seg_len, D,
+                               H, False)]
+    for row in kernels:
+        if row["name"] == "attention_valid":
+            row["shapes"] += [f for f, _ in new]
+        elif row["name"] == "attention_bwd":
+            row["shapes"] += [b for _, b in new]
+
+
+def tvc_learning_signal(torch, cfg, params, batch, dtype, n_steps):
+    """On one batch with dropout off, lr 1e-4 from the first step (warm-up
+    1): the loss of the last step must be below the first."""
+    from hero_tpu_torch.drivers import train_tvc
+    from hero_tpu_torch.training.step import TrainState, make_train_step
+    opts = dict(train_tvc.load_train_opts(), learning_rate=SIGNAL_LR,
+                warmup_steps=1)
+    step = make_train_step(train_tvc.make_loss_fn(cfg, opts["lsr"], dtype,
+                                                  train=False),
+                           train_tvc.train_spec(opts))
+    state = TrainState.create(params)
+    losses = []
+    for _ in range(n_steps):
+        state, m = step(state, batch, None)
+        losses.append(float(m["loss"]))
+    rec = {"lr": SIGNAL_LR, "warmup_steps": 1, "losses": losses,
+           "ok": losses[-1] < losses[0]}
+    if not rec["ok"]:
+        raise AssertionError(f"the TVC loss did not fall: {losses}")
+    return rec
+
+
+def tvc_train_parity(torch, cfg, batch, caps_per_video, dev_kernel,
+                     dev_plain):
+    """fp32, dropout off: one TVC train step through the kernels on the
+    card against the plain path on the CPU, at the flagship widths with
+    the f-encoder cut to 2 layers, the c-encoder to 1 and the decoder to
+    1, on 2 videos' caption rows.  Compares the loss, every gradient and
+    every updated parameter."""
+    from hero_tpu_torch.convert.from_jax import load_jax_tvc_params
+    from hero_tpu_torch.drivers import train_tvc
+    from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
+    from hero_tpu_torch.models.tvc import init_flat_tvc_params
+    from hero_tpu_torch.training import optim
+    from hero_tpu_torch.training.step import (TrainState, loss_and_grads,
+                                              make_train_step)
+    small = cfg.replace(
+        f_config=cfg.f_config.replace(num_hidden_layers=2),
+        c_config=cfg.c_config.replace(num_hidden_layers=1),
+        d_config=cfg.d_config.replace(num_hidden_layers=1))
+    flat = init_flat_tvc_params(small, seed=1)
+    opts = dict(train_tvc.load_train_opts(), learning_rate=SIGNAL_LR,
+                warmup_steps=1)
+    spec = train_tvc.train_spec(opts)
+    loss_fn = train_tvc.make_loss_fn(small, opts["lsr"], torch.float32,
+                                     train=False)
+    rows = caps_per_video * 2
+    half = {k: (v[:2] if k.startswith(("sub_", "c_")) else v[:rows])
+            for k, v in batch.items()}
+    out = {}
+    for dev in (dev_kernel, dev_plain):
+        params = load_jax_tvc_params(flat, device=dev)
+        b = batch_to_device(half, dev)
+        loss, _, grads = loss_and_grads(loss_fn, params, b, None)
+        state, m = make_train_step(loss_fn, spec)(TrainState.create(params),
+                                                   b, None)
+        out[dev] = (float(loss), [g.cpu() for g in optim.tree_leaves(grads)],
+                    [p.cpu() for p in optim.tree_leaves(state.params)],
+                    float(m["loss"]), float(m["grad_norm"]))
+        del params, state, grads
+    (lk, gk, pk, mk, nk), (lp, gp, pp, mp, np_) = out[dev_kernel], out[
+        dev_plain]
+    adam = spec.adamw
+    sf = math.sqrt(1 - adam.beta2) / (1 - adam.beta1)
+    paths = optim.tree_paths(load_jax_tvc_params(flat, device="cpu"))
+    worst_g, worst_p = (0.0, ""), (0.0, "")
+    for path, a, b, pa, pb in zip(paths, gk, gp, pk, pp):
+        g_err = float((a - b).abs().max())
+        # fp32 sums in other orders, and the atomics of the card's
+        # scatter-adds (the embedding and gather backwards): within 1e-3
+        # of the leaf's largest gradient
+        g_tol = 1e-3 * float(b.abs().max()) + 1e-7
+        # AdamW's first step moves an element by lr'*sf*g/(|g| + eps)
+        # (lr' = lr * lr_mul outside v_encoder), whose slope in g is at
+        # most lr'*sf/eps: the gradients' noise (4x the measured
+        # difference) moves it by at most that much, and never by more
+        # than 2*lr'*sf
+        lr = spec.learning_rate * (adam.lr_mul if optim.is_top(path)
+                                   else 1.0)
+        p_tol = lr * sf * min(2.0, 4 * g_err / adam.eps) + 1e-6
+        p_err = float((pa - pb).abs().max())
+        name = "/".join(path)
+        worst_g = max(worst_g, (g_err / g_tol, name))
+        worst_p = max(worst_p, (p_err / p_tol, name))
+    rec = {"depth": [2, 1, 1], "caption_rows": rows, "loss": [lk, lp],
+           "loss_rel_err": abs(lk - lp) / abs(lp), "loss_rtol": 1e-5,
+           "step_loss": [mk, mp], "grad_norm": [nk, np_],
+           "worst_grad_err_over_tol": worst_g,
+           "worst_param_err_over_tol": worst_p}
+    rec["ok"] = (rec["loss_rel_err"] <= 1e-5 and worst_g[0] <= 1.0
+                 and worst_p[0] <= 1.0
+                 and abs(nk - np_) <= 1e-4 * abs(np_))
+    if not rec["ok"]:
+        raise AssertionError(f"fp32 TVC train step, kernels vs plain: {rec}")
+    return rec
+
+
+def tvc_train_phase(torch, cfg, flat, ds, dev, dtype, sync, rehearse,
+                    profile):
+    """The TVC train step (``drivers/train_tvc.make_tvc_train_step`` with
+    ``config/train-tvc.json``'s options, bf16, dropout 0.1) on 4 videos x
+    2 captions a step: the median of ``TVC_TRAIN_STEPS[2]`` runs of
+    ``TVC_TRAIN_STEPS[1]`` steps after the warm-up, the launch counters
+    read from 0 around the timed runs; then the learning signal and the
+    fp32 card-vs-CPU step."""
+    from hero_tpu_torch.convert.from_jax import load_jax_tvc_params
+    from hero_tpu_torch.drivers import train_tvc
+    from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
+    from hero_tpu_torch.training.step import TrainState
+    n_videos = 2 if rehearse else TVC_TRAIN_VIDEOS
+    host = tvc_train_batches(ds, n_videos)
+    batches = [batch_to_device(b, dev) for b in host]
+    warmup, n_steps, n_runs = (1, 2, 1) if rehearse else TVC_TRAIN_STEPS
+    opts = train_tvc.load_train_opts()
+    step = train_tvc.make_tvc_train_step(cfg, opts, dtype)
+    st = {"state": TrainState.create(load_jax_tvc_params(flat, device=dev)),
+          "i": 0}
+
+    def run(n):
+        for _ in range(n):
+            b = batches[st["i"] % len(batches)]
+            st["state"], m = step(st["state"], b, 5000 + st["i"])
+            st["i"] += 1
+        return m
+
+    m = run(warmup)
+    warm_loss = float(m["loss"])
+    reset_counts()
+    run(1)
+    sync()
+    per_step = read_counts()
+    reset_counts()
+    runs = []
+    rows = int(host[0]["cap_input_ids"].shape[0])
+    for _ in range(n_runs):
+        t0 = time.perf_counter()
+        m = run(n_steps)
+        sync()
+        runs.append(rows * n_steps / (time.perf_counter() - t0))
+    launches = read_counts()
+    final = {k: float(v) for k, v in m.items()}
+    if not all(math.isfinite(v) for v in final.values()):
+        raise AssertionError(f"TVC train metrics not finite: {final}")
+    rec = {"tvc_train_captions_per_s": float(np.median(runs)),
+           "runs_captions_per_s": runs, "steps_per_run": n_steps,
+           "caption_rows_per_step": rows, "videos_per_step": n_videos,
+           "batches": len(batches), "warmup_loss": warm_loss,
+           "last_metrics": final, "launches_per_step": per_step,
+           "main_path_launches": launches,
+           "layout": f"{n_videos} videos x {ds.caps_per_video} captions, "
+                     f"cap_len {ds.cap_len}, seg_len {ds.seg_len}, "
+                     "videos packed 4x(16 f + 88 t)",
+           "captions": len(ds.caption_db.caps)}
+    if profile:
+        rec["profile_step"] = profile_breakdown(
+            torch, lambda: step(st["state"], batches[0], 7), iters=2)
+    del st
+    params = load_jax_tvc_params(flat, device=dev)
+    rec["learning_signal"] = tvc_learning_signal(
+        torch, cfg, params, batches[0], dtype,
+        4 if rehearse else SIGNAL_STEPS)
+    del params
+    rec["fp32"] = tvc_train_parity(torch, cfg, host[0], ds.caps_per_video,
+                                   "cpu" if rehearse else "cuda", "cpu")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# components: tools/component_bench.py and the DALN checks of
+# tools/kernel_smoke.py and tools/tpu_kernel_drive.py
+# ---------------------------------------------------------------------------
+
+COMP_ROWS, COMP_LEN = 256, 56          # f-encoder token rows at bench shape
+COMP_CLIPS, COMP_CLIP_LEN = 32, 100    # c-encoder clips
+DALN_SHAPES = ((COMP_ROWS * COMP_LEN, 768), (COMP_ROWS, 4352))
+DALN_KEEP_BANDS = {(1024, 768): (0.88, 0.92), (256, 4352): (0.87, 0.93)}
+
+
+def check_mha_bwd(torch, F, att, B, H, Lq, Lk, d, causal):
+    """#5 against ``mha_backward_reference``, fp32 and bf16 at rate 0 and
+    0.1, with a partial key mask and a fully masked last batch row
+    (finite, and the unmasked attention's gradients up to the rounding of
+    s - 1e4); repeats identical.  bf16 timings at rate 0.1 against the
+    plain backward and SDPA's autograd backward."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(B * Lq + Lk + 1)
+    lens = torch.randint(1, Lk + 1, (B, 1), generator=gen, device=dev)
+    mask = (torch.arange(Lk, device=dev)[None] < lens).float()
+    mask[-1] = 0.0
+    checks, rows = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        q = torch.randn((B, H, Lq, d), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((B, H, Lk, d), generator=gen, device=dev).to(
+            dtype) for _ in range(2))
+        g = torch.randn((B, H, Lq, d), generator=gen, device=dev).to(dtype)
+        for rate in (0.0, TRAIN_RATE):
+            got = att.mha_attention_bwd_cuda(q, k, v, mask, g, rate,
+                                             TRAIN_SEED, causal)
+            want = att.mha_backward_reference(q, k, v, mask, g, rate,
+                                              TRAIN_SEED, causal)
+            again = att.mha_attention_bwd_cuda(q, k, v, mask, g, rate,
+                                               TRAIN_SEED, causal)
+            top = max(float(w.float().abs().max()) for w in want)
+            rec = {"err": max(_err(a[:-1], w[:-1])
+                              for a, w in zip(got, want)),
+                   "tol": min(_train_tol(w[:-1], name) for w in want),
+                   # the masked row's probabilities carry the rounding of
+                   # s - 1e4 (~2^-10 relative)
+                   "masked_row_err": max(_err(a[-1], w[-1])
+                                         for a, w in zip(got, want)),
+                   "masked_row_tol": 2.0 ** -6 * max(1.0, top),
+                   "finite": all(bool(torch.isfinite(a).all())
+                                 for a in got),
+                   "deterministic": all(torch.equal(a, b)
+                                        for a, b in zip(got, again))}
+            rec["ok"] = (rec["err"] <= rec["tol"] and rec["finite"]
+                         and rec["masked_row_err"] <= rec["masked_row_tol"]
+                         and rec["deterministic"])
+            checks[f"{name}_rate{rate}"] = rec
+            if not rec["ok"]:
+                raise AssertionError(f"mha backward {[B, H, Lq, Lk, d]} "
+                                     f"causal={causal} {name} rate {rate}: "
+                                     f"{rec}")
+        rows[name] = (q, k, v, g)
+    q, k, v, g = rows["bfloat16"]
+    rate = TRAIN_RATE
+    ms = time_ms(torch, lambda: att.mha_attention_bwd_cuda(
+        q, k, v, mask, g, rate, TRAIN_SEED, causal))
+    plain_ms = time_ms(torch, lambda: att.mha_backward_reference(
+        q, k, v, mask, g, rate, TRAIN_SEED, causal))
+    bias = _sdpa_bias(torch, mask, Lq, causal, q.dtype)
+    hq, hk, hv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    with torch.enable_grad():
+        lib_out = F.scaled_dot_product_attention(hq, hk, hv, attn_mask=bias,
+                                                 dropout_p=rate)
+    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (hq, hk, hv), g, retain_graph=True))
+    elt = q.element_size()
+    # q, do read and dq written (Lq rows), k, v read and dk, dv written (Lk
+    # rows), each once, the mask read; the probabilities recomputed
+    # (2 Lq Lk d), dp, dv, dq, dk (2 Lq Lk d each)
+    b_ms, by = bound_ms((3 * Lq + 4 * Lk) * B * H * d * elt + B * Lk * 4,
+                        10 * B * H * Lq * Lk * d, "bfloat16")
+    bf = checks["bfloat16_rate0.1"]
+    return {"shape": [B, H, Lq, Lk, d],
+            "mode": ("causal, " if causal else "") + "dropout 0.1",
+            "dtype": "bfloat16", "max_abs_err": bf["err"], "tol": bf["tol"],
+            "checks": checks, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms}
+
+
+def check_daln(torch, lnm, drop, n, d):
+    """#8 and #9 against their plain versions at (n, d), fp32 and bf16 at
+    rate 0 and 0.1; the kernels' Philox bits equal the plain row mask
+    (#9's dy is keep * dx / (1 - rate) bit for bit, and adding 100 to the
+    entries of y that the plain mask drops leaves #8's output and #9's dx
+    bit-identical); the plain mask's keep rate at 0.1 within its band
+    (``tools/tpu_kernel_drive.py``: [0.88, 0.92] at (1024, 768), and
+    [0.87, 0.93] at (256, 4352), ``tools/kernel_smoke.py``'s band) or else
+    within 4 sigma of 0.9; a repeat bit-identical.  bf16 timings at rate
+    0.1 against the plain versions and the unfused chain (``nn.dropout``,
+    the add and ``layer_norm``, fwd and fwd+bwd through its kernels)."""
+    from hero_tpu_torch.models import nn
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(n + 7 * d)
+    w = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    b = 0.1 * torch.randn(d, generator=gen, device=dev)
+    y32, x32, g32 = (torch.randn((n, d), generator=gen, device=dev)
+                     for _ in range(3))
+    keep = drop.row_keep_mask(TRAIN_SEED, n, d, TRAIN_RATE, device=dev)
+    rate_obs = float(keep.float().mean())
+    lo, hi = DALN_KEEP_BANDS.get((n, d), (
+        0.9 - 4 * (0.09 / (n * d)) ** 0.5, 0.9 + 4 * (0.09 / (n * d)) ** 0.5))
+    dy, dx = lnm.dropout_add_layer_norm_bwd_cuda(y32, x32, w, g32, TRAIN_RATE,
+                                                 TRAIN_SEED)[:2]
+    masks = {"identical_to_plain": bool(torch.equal(dy, torch.where(
+        keep, dx * drop.keep_scale(TRAIN_RATE), 0.0))),
+        "keep_rate": rate_obs, "keep_band": [lo, hi]}
+    y2 = torch.where(keep, y32, y32 + 100.0)
+    out = lnm.dropout_add_layer_norm_cuda(y32, x32, w, b, TRAIN_RATE,
+                                          TRAIN_SEED)
+    masks["perturbed_dropped_identical"] = bool(torch.equal(
+        out, lnm.dropout_add_layer_norm_cuda(y2, x32, w, b, TRAIN_RATE,
+                                             TRAIN_SEED)) and torch.equal(
+        dx, lnm.dropout_add_layer_norm_bwd_cuda(y2, x32, w, g32, TRAIN_RATE,
+                                                TRAIN_SEED)[1]))
+    masks["ok"] = (masks["identical_to_plain"] and lo <= rate_obs <= hi
+                   and masks["perturbed_dropped_identical"])
+    if not masks["ok"]:
+        raise AssertionError(f"dropout_add_layer_norm mask {[n, d]}: "
+                             f"{masks}")
+    checks = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        y, x, g = (t.to(dtype) for t in (y32, x32, g32))
+        for rate in (0.0, TRAIN_RATE):
+            out = lnm.dropout_add_layer_norm_cuda(y, x, w, b, rate,
+                                                  TRAIN_SEED)
+            ref = lnm.dropout_add_layer_norm_reference(y, x, w, b, rate,
+                                                       TRAIN_SEED)
+            got = lnm.dropout_add_layer_norm_bwd_cuda(y, x, w, g, rate,
+                                                      TRAIN_SEED)
+            want = lnm.dropout_add_layer_norm_bwd_reference(y, x, w, g, rate,
+                                                            TRAIN_SEED)
+            again = lnm.dropout_add_layer_norm_bwd_cuda(y, x, w, g, rate,
+                                                        TRAIN_SEED)
+            rec = {"fwd_err": _err(out, ref), "fwd_tol": _train_tol(ref,
+                                                                    name),
+                   "bwd_err": max(_err(a, c) for a, c in zip(got[:2],
+                                                             want[:2])),
+                   "bwd_tol": min(_train_tol(c, name) for c in want[:2]),
+                   "dwdb_err": max(_err(a, c) for a, c in zip(got[2:],
+                                                              want[2:])),
+                   # fp32 sums of n terms in another order
+                   "dwdb_tol": 1e-6 * n,
+                   "deterministic": bool(torch.equal(
+                       out, lnm.dropout_add_layer_norm_cuda(
+                           y, x, w, b, rate, TRAIN_SEED))) and all(
+                       torch.equal(a, c) for a, c in zip(got, again))}
+            rec["ok"] = (rec["fwd_err"] <= rec["fwd_tol"]
+                         and rec["bwd_err"] <= rec["bwd_tol"]
+                         and rec["dwdb_err"] <= rec["dwdb_tol"]
+                         and rec["deterministic"])
+            checks[f"{name}_rate{rate}"] = rec
+            if not rec["ok"]:
+                raise AssertionError(f"dropout_add_layer_norm {[n, d]} "
+                                     f"{name} rate {rate}: {rec}")
+    y, x, g = (t.to(torch.bfloat16) for t in (y32, x32, g32))
+    rate = TRAIN_RATE
+    fwd_ms = time_ms(torch, lambda: lnm.dropout_add_layer_norm_cuda(
+        y, x, w, b, rate, TRAIN_SEED))
+    fwd_plain = time_ms(torch, lambda: lnm.dropout_add_layer_norm_reference(
+        y, x, w, b, rate, TRAIN_SEED))
+    bwd_ms = time_ms(torch, lambda: lnm.dropout_add_layer_norm_bwd_cuda(
+        y, x, w, g, rate, TRAIN_SEED))
+    bwd_plain = time_ms(torch, lambda:
+                        lnm.dropout_add_layer_norm_bwd_reference(
+                            y, x, w, g, rate, TRAIN_SEED))
+    fwd_chain = time_ms(torch, lambda: lnm.layer_norm(
+        nn.dropout(y, rate, TRAIN_SEED) + x, w, b))
+    yl, xl, wl, bl = (t.detach().requires_grad_(True) for t in (y, x, w, b))
+    with torch.enable_grad():
+        chain_out = lnm.layer_norm(nn.dropout(yl, rate, TRAIN_SEED) + xl, wl,
+                                   bl)
+    bwd_chain = time_ms(torch, lambda: torch.autograd.grad(
+        chain_out, (yl, xl, wl, bl), g, retain_graph=True))
+    elt = y.element_size()
+    # ~10 fp32 operations an element for the sum and the LayerNorm and ~60
+    # 32-bit integer operations for the Philox draw (10 rounds), all on
+    # the CUDA cores, taken at their fp32 rate
+    fb, fby = bound_ms(3 * n * d * elt + 2 * d * 4, 70 * n * d, "float32")
+    bb, bby = bound_ms(5 * n * d * elt + 3 * d * 4, 80 * n * d, "float32")
+    bf = checks["bfloat16_rate0.1"]
+    common = {"shape": [n, d], "dtype": "bfloat16", "library_ms": None,
+              "checks": checks, "dropout_masks": masks}
+    return ({**common, "mode": "dropout 0.1", "max_abs_err": bf["fwd_err"],
+             "tol": bf["fwd_tol"], "ms": fwd_ms, "plain_ms": fwd_plain,
+             "bound_ms": fb, "bound_by": fby, "chain_ms": fwd_chain},
+            {**common, "mode": "dropout 0.1", "max_abs_err": bf["bwd_err"],
+             "tol": bf["bwd_tol"], "ms": bwd_ms, "plain_ms": bwd_plain,
+             "bound_ms": bb, "bound_by": bby,
+             "chain_ms": bwd_chain})
+
+
+def _component_row(row, what):
+    return {**row, "mode": f"components: {what}"
+            + (f", {row['mode']}" if "mode" in row else "")}
+
+
+def check_component_kernels(torch, cfg, ds, kernels):
+    """Every kernel of the component path at that path's shapes: #2, #3,
+    #4, #6 and #7's rows are added to ``kernels``; returns the rows of
+    #5, #8 and #9 (#5 also at the TVC shapes: causal 31 -> 31 and the
+    cross-attention ``ds.cap_len`` -> ``ds.seg_len``)."""
+    import torch.nn.functional as F
+    from hero_tpu_torch.ops import attention as att
+    from hero_tpu_torch.ops import dropout as drop
+    from hero_tpu_torch.ops import layernorm as lnm
+    dev = torch.device("cuda")
+    D, H = cfg.f_config.hidden_size, cfg.f_config.num_attention_heads
+    d = D // H
+    gen = torch.Generator(device=dev).manual_seed(17)
+    f_mask = torch.ones((COMP_ROWS, COMP_LEN), device=dev)
+    c_mask = torch.ones((COMP_CLIPS, COMP_CLIP_LEN), device=dev)
+    f_fwd, f_bwd = check_attention_train(torch, F, att, COMP_ROWS, COMP_LEN,
+                                         D, H, f_mask, False)
+    c_fwd, c_bwd = check_attention_train(torch, F, att, COMP_CLIPS,
+                                         COMP_CLIP_LEN, D, H, c_mask, False)
+    ln_shapes = (("f-encoder", COMP_ROWS * COMP_LEN, D),
+                 ("c-encoder", COMP_CLIPS * COMP_CLIP_LEN, D),
+                 ("unfused chain", COMP_ROWS, cfg.vfeat_dim))
+    new = {
+        "attention_valid": [
+            _component_row(check_attention(
+                torch, F, att, COMP_ROWS, COMP_LEN, D, H, f_mask, False,
+                torch.bfloat16), "f-encoder"),
+            _component_row(f_fwd, "f-encoder"),
+            _component_row(c_fwd, "c-encoder")],
+        "attention_bwd": [_component_row(f_bwd, "f-encoder"),
+                          _component_row(c_bwd, "c-encoder")],
+        "mha_attention": [_component_row(check_mha(
+            torch, F, att, COMP_ROWS, H, COMP_LEN, COMP_LEN, d, "valid",
+            False), "multi_head_attention")],
+        "layer_norm": [_component_row(check_layer_norm(
+            torch, F, lnm, n, w, torch.randn((n, w), generator=gen,
+                                             device=dev).to(torch.bfloat16)),
+            what) for what, n, w in ln_shapes],
+        "layer_norm_bwd": [_component_row(check_layer_norm_bwd(
+            torch, F, lnm, n, w), what) for what, n, w in ln_shapes]}
+    for row in kernels:
+        row["shapes"] += new.get(row["name"], [])
+    mha = [check_mha_bwd(torch, F, att, COMP_ROWS, H, COMP_LEN, COMP_LEN, d,
+                         False),
+           check_mha_bwd(torch, F, att, 32, H, TVC_MAX_STEP + 1,
+                         TVC_MAX_STEP + 1, d, True),
+           check_mha_bwd(torch, F, att, 8, H, ds.cap_len, ds.seg_len, d,
+                         False)]
+    daln = [check_daln(torch, lnm, drop, n, w)
+            for n, w in DALN_SHAPES + ((1024, 768),)]
+    keys = ("shape", "dtype", "max_abs_err", "tol", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    return [
+        {"name": "mha_attention_bwd", "route": "cuda",
+         "source": "hero_tpu_torch/ops/csrc/attention.cu",
+         "replaces": "hero_tpu/ops/attention.py:138",
+         "tpu_kernel": "_bwd_kernel", "counter": "mha_attention_bwd_cuda",
+         "library_call": "autograd of F.scaled_dot_product_attention "
+                         "(additive mask, dropout_p 0.1): its backward",
+         **{k: mha[0][k] for k in keys}, "shapes": mha},
+        {"name": "dropout_add_layer_norm", "route": "cuda",
+         "source": "hero_tpu_torch/ops/csrc/layernorm.cu",
+         "replaces": "hero_tpu/ops/layernorm.py:175",
+         "tpu_kernel": "_daln_fwd_kernel",
+         "counter": "dropout_add_layer_norm_cuda",
+         "library_call": None, "chain": "nn.dropout, add, layer_norm",
+         **{k: daln[0][0][k] for k in keys},
+         "chain_ms": daln[0][0]["chain_ms"], "shapes": [f for f, _ in daln]},
+        {"name": "dropout_add_layer_norm_bwd", "route": "cuda",
+         "source": "hero_tpu_torch/ops/csrc/layernorm.cu",
+         "replaces": "hero_tpu/ops/layernorm.py:195",
+         "tpu_kernel": "_daln_bwd_kernel",
+         "counter": "dropout_add_layer_norm_bwd_cuda",
+         "library_call": None,
+         "chain": "autograd of nn.dropout, add, layer_norm: its backward",
+         **{k: daln[0][1][k] for k in keys},
+         "chain_ms": daln[0][1]["chain_ms"], "shapes": [b for _, b in daln]}]
+
+
+def make_components(torch, cfg, enc_params, dev, dtype, small):
+    """``tools/component_bench.py``'s components on the port, each a
+    (name, fn) whose call runs it once: the FFN matmul pair,
+    ``layer_norm``, ``multi_head_attention`` and its plain version,
+    ``dropout_add_layer_norm`` and the unfused chain, the 6-layer
+    f-encoder and the 3-layer c-encoder, forward and forward+backward."""
+    from hero_tpu_torch.models import nn, transformer
+    from hero_tpu_torch.ops import attention as att
+    from hero_tpu_torch.ops import layernorm as lnm
+    gen = torch.Generator(device=dev).manual_seed(99)
+    D, I = cfg.f_config.hidden_size, cfg.f_config.intermediate_size
+    H = cfg.f_config.num_attention_heads
+    d = D // H
+    rows, L = (8, 12) if small else (COMP_ROWS, COMP_LEN)
+    clips, Lc = (4, 16) if small else (COMP_CLIPS, COMP_CLIP_LEN)
+    vfeat = cfg.vfeat_dim
+
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(
+            dtype)
+
+    x = rnd(rows * L, D)
+    w1, w2 = rnd(D, I, scale=0.02), rnd(I, D, scale=0.02)
+    lw = torch.ones(D, device=dev)
+    lb = torch.zeros(D, device=dev)
+    q = rnd(rows, H, L, d)
+    m = torch.ones((rows, L), device=dev)
+    xf, mf = rnd(rows, L, D), torch.ones((rows, L), device=dev)
+    xc, mc = rnd(clips, Lc, D), torch.ones((clips, Lc), device=dev)
+    f_enc = enc_params["f"]
+    c_enc = enc_params["c"]
+
+    def grad_of(fn, *args):
+        leaves = [a.detach().requires_grad_(True) for a in args]
+
+        def run():
+            with torch.enable_grad():
+                out = fn(*leaves)
+                return torch.autograd.grad(out.float().sum(), leaves)
+        return run
+
+    def daln(n, width):
+        y, r = rnd(n, width), rnd(n, width)
+        w, b = torch.ones(width, device=dev), torch.zeros(width, device=dev)
+
+        def fused(y, r, w, b):
+            return lnm.dropout_add_layer_norm(y, r, w, b, TRAIN_RATE,
+                                              TRAIN_SEED)
+
+        def chain(y, r, w, b):
+            return lnm.layer_norm(nn.dropout(y, TRAIN_RATE, TRAIN_SEED) + r,
+                                  w, b)
+        tag = f"({n},{width})"
+        return [(f"dropout_add_layer_norm {tag} fwd",
+                 lambda: fused(y, r, w, b)),
+                (f"dropout_add_layer_norm {tag} fwd+bwd",
+                 grad_of(fused, y, r, w, b)),
+                (f"unfused chain {tag} fwd", lambda: chain(y, r, w, b)),
+                (f"unfused chain {tag} fwd+bwd", grad_of(chain, y, r, w, b))]
+
+    def enc(p, c, mask, train):
+        return lambda t: transformer.encoder(
+            p, t, c, kv_mask=mask, train=train, seed=3 if train else None,
+            dtype=dtype)
+
+    f_cfg, c_cfg = cfg.f_config, cfg.c_config
+    comps = [
+        ("ffn matmul pair", lambda: torch.matmul(torch.matmul(x, w1), w2)),
+        ("layer_norm fwd", lambda: lnm.layer_norm(xf, lw, lb)),
+        ("layer_norm fwd+bwd", grad_of(lambda t: lnm.layer_norm(t, lw, lb),
+                                       xf)),
+        ("multi_head_attention fwd",
+         lambda: att.multi_head_attention(q, q, q, m)),
+        ("multi_head_attention fwd+bwd",
+         grad_of(lambda t: att.multi_head_attention(t, t, t, m), q)),
+        ("mha_reference fwd", lambda: att.mha_reference(q, q, q, m)),
+        ("mha_reference fwd+bwd",
+         grad_of(lambda t: att.mha_reference(t, t, t, m), q)),
+        *daln(rows * L, D), *daln(rows, vfeat),
+        ("f_enc 6L fwd no-dropout",
+         lambda: enc(f_enc, f_cfg, mf, False)(xf)),
+        ("f_enc 6L fwd+bwd no-dropout",
+         grad_of(enc(f_enc, f_cfg, mf, False), xf)),
+        ("f_enc 6L fwd train(dropout)",
+         lambda: enc(f_enc, f_cfg, mf, True)(xf)),
+        ("f_enc 6L fwd+bwd train(dropout)",
+         grad_of(enc(f_enc, f_cfg, mf, True), xf)),
+        ("c_enc 3L fwd+bwd", grad_of(enc(c_enc, c_cfg, mc, False), xc)),
+    ]
+    shapes = {"ffn": [rows * L, D, I], "layer_norm": [rows, L, D],
+              "attention": [rows, H, L, d], "daln": [[rows * L, D],
+                                                     [rows, vfeat]],
+              "f_enc": [rows, L, D], "c_enc": [clips, Lc, D]}
+    return comps, shapes
+
+
+def components_phase(torch, cfg, params, dev, dtype, sync, rehearse):
+    """Drive every component once with the launch counters read from 0
+    around (the component path), then time each with ``time_ms``."""
+    enc_params = {"f": params["v_encoder"]["f_encoder"]["encoder"],
+                  "c": params["v_encoder"]["c_encoder"]["encoder"]}
+    comps, shapes = make_components(torch, cfg, enc_params, dev, dtype,
+                                    rehearse)
+    reset_counts()
+    for _, fn in comps:
+        fn()
+    sync()
+    launches = read_counts()
+    rec = {"shapes": shapes, "main_path_launches": launches}
+    if not rehearse:
+        times = {name: time_ms(torch, fn) for name, fn in comps}
+        n_ffn = shapes["ffn"]
+        rec["ms"] = times
+        rec["ffn_tflops"] = (4 * n_ffn[0] * n_ffn[1] * n_ffn[2]
+                             / times["ffn matmul pair"] / 1e9)
+    return rec
+
+
 def gpu_identity():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1409,8 +2219,8 @@ def main(argv=None):
                          "versions; prints no result line")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one phase-1 batch, one query batch, "
-                         "one fit-bucket train step and one greedy TVC "
-                         "batch with "
+                         "one fit-bucket train step, one greedy TVC "
+                         "batch and one TVC train step with "
                          "torch.profiler and record device time by kernel "
                          "class (in the --json-out record)")
     args = ap.parse_args(argv)
@@ -1585,8 +2395,7 @@ def main(argv=None):
                              args.profile and not rehearse)
     train["subs_dropped_frac"] = t_dropped
     train_launches = train["main_path_launches"]
-    if not rehearse and min(v for k, v in train_launches.items()
-                            if k != "mha_attention_cuda") == 0:
+    if not rehearse and min(train_launches[k] for k in TRAIN_KERNELS) == 0:
         raise AssertionError(f"a kernel of the train step was never "
                              f"launched: {train_launches}")
     record["train"] = train
@@ -1621,6 +2430,33 @@ def main(argv=None):
     record["tvc"] = tvc
     log(f"TVC: {tvc['tvc_captions_per_s']:.1f} captions/s greedy, "
         f"{tvc['beam_captions_per_s']:.1f} beam {TVC_BEAM}")
+
+    # TVC training at the same model, on the same videos
+    tvc_ds = tvc_train_data(store, tcfg.f_config.vocab_size)
+    if not rehearse:
+        check_tvc_train_kernels(torch, tcfg, tvc_ds, record["kernels"])
+        log("TVC train kernel checks passed")
+    tvc_train = tvc_train_phase(torch, tcfg, tvc_flat, tvc_ds, dev, dtype,
+                                sync, rehearse, args.profile and not rehearse)
+    tt_launches = tvc_train["main_path_launches"]
+    if not rehearse and min(tt_launches[k] for k in TRAIN_KERNELS) == 0:
+        raise AssertionError(f"a kernel of the TVC train step was never "
+                             f"launched: {tt_launches}")
+    record["tvc_train"] = tvc_train
+    log(f"TVC train: {tvc_train['tvc_train_captions_per_s']:.1f} "
+        f"captions/s")
+
+    # the components of tools/component_bench.py
+    if not rehearse:
+        record["kernels"] += check_component_kernels(torch, cfg, tvc_ds,
+                                                     record["kernels"])
+        log("component kernel checks passed")
+    comps = components_phase(torch, cfg, params, dev, dtype, sync, rehearse)
+    comp_launches = comps["main_path_launches"]
+    if not rehearse and min(comp_launches[k] for k in COMPONENT_KERNELS) == 0:
+        raise AssertionError(f"a kernel of the components was never "
+                             f"launched: {comp_launches}")
+    record["components"] = comps
     record["total_s"] = time.perf_counter() - t_start
 
     if args.json_out:
@@ -1652,24 +2488,44 @@ def main(argv=None):
         "beam_captions_per_s": tvc["beam_captions_per_s"],
         "beam": TVC_BEAM, "beam_clips": tvc["beam_clips"],
         "launches": tvc_launches, "fp32": tvc["fp32"]}))
+    print(json.dumps({
+        "tvc_train_captions_per_s": tvc_train["tvc_train_captions_per_s"],
+        "runs_captions_per_s": tvc_train["runs_captions_per_s"],
+        "layout": tvc_train["layout"],
+        "steps_per_run": tvc_train["steps_per_run"],
+        "launches_per_step": tvc_train["launches_per_step"],
+        "learning_signal_losses": [tvc_train["learning_signal"]["losses"][i]
+                                   for i in (0, -1)],
+        "fp32": {k: tvc_train["fp32"][k] for k in (
+            "loss_rel_err", "worst_grad_err_over_tol",
+            "worst_param_err_over_tol", "ok")}}))
+    print(json.dumps({"components": {
+        "ms": comps.get("ms"), "ffn_tflops": comps.get("ffn_tflops"),
+        "shapes": comps["shapes"], "launches": comp_launches}}))
     if rehearse:
         log(f"rehearsal passed in {record['total_s']:.1f} s")
         return 0
+    paths = {"serving": launches, "train": train_launches,
+             "tvc": tvc_launches, "tvc_train": tt_launches,
+             "components": comp_launches}
     kernels = [{k: row[k] for k in (
         "name", "route", "source", "replaces", "tpu_kernel", "shape", "dtype",
         "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms")}
-        | {"launches": launches[row["counter"]]
-           + train_launches[row["counter"]] + tvc_launches[row["counter"]],
-           "launches_by_path": {"serving": launches[row["counter"]],
-                                "train": train_launches[row["counter"]],
-                                "tvc": tvc_launches[row["counter"]]},
+        | {"launches": sum(p[row["counter"]] for p in paths.values()),
+           "launches_by_path": {name: p[row["counter"]]
+                                for name, p in paths.items()},
            "shapes": [{k: sh[k] for k in (
                "shape", "max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
-               "bound_by", "library_ms")} | ({"mode": sh["mode"]}
-                                              if "mode" in sh else {})
+               "bound_by", "library_ms")} | {k: sh[k] for k in (
+                   "mode", "chain_ms") if k in sh}
                for sh in row["shapes"]]}
+        | ({"chain_ms": row["chain_ms"]} if "chain_ms" in row else {})
         for row in record["kernels"]]
+    idle = [row["name"] for row in kernels if row["launches"] == 0]
+    if idle or len(kernels) != 9:
+        raise AssertionError(f"{len(kernels)} kernel rows, never launched: "
+                             f"{idle}")
     print(json.dumps({"kernels": kernels}))
     print(gpu_identity())
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,15 @@
 """hero_tpu_torch — HERO in PyTorch + CUDA: the two-phase VCMR serving path,
-the VSM pretraining step and TVC caption serving.
+the VSM pretraining step, TVC caption serving and the TVC train step.
 
 A port of ``hero_tpu`` (the JAX/Pallas package beside it, which stays the
 reference) to one NVIDIA H100.  Module names mirror ``hero_tpu`` so each
 port module has an obvious counterpart; the package imports ``torch`` and
 never ``jax`` or ``hero_tpu``.
 
-Every Pallas kernel on those paths has a hand-written CUDA kernel for
+Every Pallas kernel of the JAX package has a hand-written CUDA kernel for
 ``sm_90a`` under ``ops/csrc`` (built with nvcc at first use, bound with
 ctypes), behind a ``torch.autograd.Function`` whose backward is a kernel
-too, except the head-major attention's (Pallas #5, not ported yet: it
-raises).  Entry points run on the card (``device="cuda"``) unless the caller
+too.  Entry points run on the card (``device="cuda"``) unless the caller
 passes ``device="cpu"``; with no card they raise instead of falling back.
 """
 

@@ -220,6 +220,17 @@ def load_jax_tvc_params(flat: Mapping[str, np.ndarray], device="cuda"
     return _load(flat, device, _tvc_tree, UNUSED_TVC_JAX_KEYS)
 
 
+def _train_state(load, flat_params, flat_mu, flat_nu, opt_step,
+                 global_step, device):
+    from hero_tpu_torch.training.optim import AdamWState
+    from hero_tpu_torch.training.step import TrainState
+    return TrainState(
+        params=load(flat_params, device),
+        opt=AdamWState(step=int(opt_step), mu=load(flat_mu, device),
+                       nu=load(flat_nu, device)),
+        global_step=int(global_step))
+
+
 def load_jax_train_state(flat_params: Mapping[str, np.ndarray],
                          flat_mu: Mapping[str, np.ndarray],
                          flat_nu: Mapping[str, np.ndarray], opt_step: int,
@@ -228,11 +239,17 @@ def load_jax_train_state(flat_params: Mapping[str, np.ndarray],
     and step counters of a JAX ``TrainState``.  The moments of the JAX
     keys outside the slice (:data:`UNUSED_JAX_KEYS`) are dropped with
     their parameters."""
-    from hero_tpu_torch.training.optim import AdamWState
-    from hero_tpu_torch.training.step import TrainState
-    return TrainState(
-        params=load_jax_params(flat_params, device),
-        opt=AdamWState(step=int(opt_step),
-                       mu=load_jax_params(flat_mu, device),
-                       nu=load_jax_params(flat_nu, device)),
-        global_step=int(global_step))
+    return _train_state(load_jax_params, flat_params, flat_mu, flat_nu,
+                        opt_step, global_step, device)
+
+
+def load_jax_tvc_train_state(flat_params: Mapping[str, np.ndarray],
+                             flat_mu: Mapping[str, np.ndarray],
+                             flat_nu: Mapping[str, np.ndarray],
+                             opt_step: int, global_step: int,
+                             device="cuda"):
+    """:func:`load_jax_train_state` for the TVC tree
+    (:func:`load_jax_tvc_params`): a JAX TVC run's parameters and AdamW
+    moments, so a step of each package starts from one state."""
+    return _train_state(load_jax_tvc_params, flat_params, flat_mu, flat_nu,
+                        opt_step, global_step, device)

@@ -3,6 +3,13 @@
 arrays).
 
 - :func:`get_st_ed_label`: seconds -> frame-index span.
+- :class:`TvcTrainDataset` and :func:`build_tvc_batch`: TVC training,
+  ``caps_per_video`` caption rows per video with their clip gather
+  indices, the batch flattened to caption rows with ``cap_vidx``.  The
+  caption store is duck-typed as ``TvcCaptionStore``: ``vid2caps``,
+  ``pad``/``bos``/``eos`` and ``store[cid]`` -> ``input_ids`` (BOS
+  first), ``tgt_ids`` (EOS last), ``ts``; the herostore reader waits for
+  the herostore readers.
 - :class:`TvcClipDataset`: every clip exactly once, ``clips_per_item``
   clip rows per item.  The caption-store and jsonl readers
   (``from_caption_db``, ``from_jsonl``) wait for the herostore readers.
@@ -17,6 +24,7 @@ The video store is duck-typed: ``img_db.frame_interval``,
 from __future__ import annotations
 
 import math
+import random
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,6 +41,61 @@ def get_st_ed_label(ts, max_idx: int, frame_interval: float,
         ed = min(max(math.ceil(ts[1] / frame_interval) - 1, st + 1),
                  max_idx)
     return st, ed
+
+
+class TvcTrainDataset:
+    """TVC captioning (reference TvcTrainDataset, data/tvc.py:72-161).
+
+    Fixed shape: exactly ``caps_per_video`` captions per item (sample or
+    repeat-fill), segment gather indices of length ``seg_len``."""
+
+    def __init__(self, video_db, caption_db, caps_per_video: int = 2,
+                 cap_len: int = 32, seg_len: int = 48, seed: int = 0):
+        self.video_db = video_db
+        self.caption_db = caption_db
+        self.caps_per_video = caps_per_video
+        self.cap_len = cap_len
+        self.seg_len = seg_len
+        self.seed = seed
+        self.vids = list(caption_db.vid2caps.keys())
+        self.frame_interval = video_db.img_db.frame_interval
+
+    def __len__(self):
+        return len(self.vids)
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        rng = random.Random(self.seed * 1_000_003 + i)
+        vid = self.vids[i]
+        cap_ids = list(self.caption_db.vid2caps[vid])
+        if len(cap_ids) > self.caps_per_video:
+            cap_ids = rng.sample(cap_ids, self.caps_per_video)
+        while len(cap_ids) < self.caps_per_video:
+            cap_ids.append(cap_ids[-1])
+        item = self.video_db.video_item(vid)
+        nframes = self.video_db.nframes(vid)
+        C, Lt, Lv = self.caps_per_video, self.cap_len, self.seg_len
+        cap_input_ids = np.full((C, Lt), self.caption_db.pad, np.int32)
+        cap_tgt_ids = np.full((C, Lt), -1, np.int32)
+        seg_idx = np.zeros((C, Lv), np.int32)
+        seg_mask = np.zeros((C, Lv), np.float32)
+        for ci, cid in enumerate(cap_ids):
+            ex = self.caption_db[cid]
+            st, ed = get_st_ed_label(ex["ts"], nframes,
+                                     self.frame_interval, round_ed=True)
+            n = min(ed - st, Lv)
+            seg_idx[ci, :n] = np.arange(st, st + n)
+            seg_mask[ci, :n] = 1.0
+            ids = ex["input_ids"][:Lt]
+            tgts = ex["tgt_ids"][:Lt]
+            cap_input_ids[ci, :len(ids)] = ids
+            cap_tgt_ids[ci, :len(tgts)] = tgts
+        item["cap_input_ids"] = cap_input_ids
+        item["cap_tgt_ids"] = cap_tgt_ids
+        item["seg_idx"] = seg_idx
+        item["seg_mask"] = seg_mask
+        item["__cap_ids__"] = cap_ids
+        item["__vid__"] = vid
+        return item
 
 
 class TvcClipDataset:
@@ -124,4 +187,24 @@ def build_tvc_clip_batch(dataset: TvcClipDataset,
     batch["__ts__"] = [t for it in items for t in it["__ts__"]]
     batch["__gts__"] = [g for it in items for g in it["__gts__"]]
     batch["__vids__"] = [it["__vid__"] for it in items for _ in range(C)]
+    return batch
+
+
+def build_tvc_batch(dataset: TvcTrainDataset,
+                    indices: Sequence[int]) -> Dict[str, np.ndarray]:
+    """TVC training batch: the backbone keys of each item's video (with the
+    packed segment/position keys), its caption rows flattened to
+    (len(indices) * caps_per_video, ...) and ``cap_vidx``."""
+    items = [dataset[i] for i in indices]
+    batch = {}
+    for k in VIDEO_KEYS:
+        if k not in items[0]:
+            continue
+        batch[k] = np.stack([it[k] for it in items])
+    C = dataset.caps_per_video
+    for k in ("cap_input_ids", "cap_tgt_ids", "seg_idx", "seg_mask"):
+        batch[k] = np.concatenate([it[k] for it in items], 0)
+    batch["cap_vidx"] = np.repeat(np.arange(len(items), dtype=np.int32), C)
+    batch["__cap_ids__"] = [c for it in items for c in it["__cap_ids__"]]
+    batch["__vids__"] = [it["__vid__"] for it in items]
     return batch

@@ -1,1 +1,2 @@
-"""Entry points over whole datasets (TVC caption generation)."""
+"""Entry points over whole datasets: TVC caption generation and the TVC
+train step."""

@@ -127,16 +127,23 @@ def forward_txt(p: Params, cfg: HeroConfig, input_ids, attn_mask, *,
                                dtype=dtype)
 
 
+def streamed_lse(logits: torch.Tensor) -> torch.Tensor:
+    """fp32 log-sum-exp over the last axis of logits kept in the model
+    dtype (``hero_tpu/models/model.py:300-313``): the row max is held
+    constant (no gradient), so the backward is the exact softmax.  Shared
+    by :func:`masked_cross_entropy` and TVC's label-smoothing loss."""
+    m = logits.detach().amax(-1, keepdim=True).float()
+    return m[..., 0] + torch.log(torch.exp(logits.float() - m).sum(-1))
+
+
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                          ignore_index: int = -1
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum of the cross entropy over labels != ignore_index, their count)
-    (``hero_tpu/models/model.py:316-332``).  The log-sum-exp is fp32 with
-    the row max held constant, so the backward is the exact softmax."""
+    (``hero_tpu/models/model.py:316-332``), through :func:`streamed_lse`."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, 0).long()
-    m = logits.detach().amax(-1, keepdim=True).float()
-    lse = m[..., 0] + torch.log(torch.exp(logits.float() - m).sum(-1))
+    lse = streamed_lse(logits)
     picked = logits.gather(-1, safe[..., None])[..., 0].float()
     nll = torch.where(valid, lse - picked, 0.0)
     return nll.sum(), valid.sum().float()

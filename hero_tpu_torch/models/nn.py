@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from hero_tpu_torch.const import NEG_INF
+from hero_tpu_torch.ops import layernorm as _ln
 from hero_tpu_torch.ops.layernorm import layer_norm
 
 Params = Dict[str, Any]
@@ -36,6 +37,17 @@ def rng_for(seed: Optional[int], tag: str) -> Optional[int]:
     if seed is None:
         return None
     return zlib.crc32(tag.encode(), seed & 0xFFFFFFFF)
+
+
+def dropout_add_layer_norm(p: Params, y: torch.Tensor, x: torch.Tensor,
+                           rate: float, seed: Optional[int],
+                           eps: float = 1e-5) -> torch.Tensor:
+    """``LN(dropout(y) + x)``, the fused kernels #8 and #9 on the card
+    (``hero_tpu/models/nn.py:105-112``).  No model code calls it: the
+    transformer keeps dropout, add and :func:`apply_layer_norm` apart,
+    as the JAX package does."""
+    return _ln.dropout_add_layer_norm(y, x, p["weight"], p["bias"],
+                                      rate=rate, seed=seed, eps=eps)
 
 
 def dropout(x: torch.Tensor, rate: float,

@@ -20,7 +20,8 @@ encoder outputs every step, as the JAX package does.
 
 Training (``train=True`` with an integer ``seed``) adds the three dropout
 sites of the JAX package: attention probabilities (inside the attention
-kernel), the attention output and the FFN output.  Layer
+kernel), the attention output and the FFN output -- in the encoder layers
+and in each of the decoder's self-attention, cross-attention and FFN.  Layer
 rematerialisation (``set_remat``) is not ported (ROADMAP A2).
 """
 
@@ -131,18 +132,23 @@ def lm_head(p: Params, word_emb: torch.Tensor, x: torch.Tensor,
 
 def decoder(p: Params, x: torch.Tensor, enc_out: torch.Tensor,
             enc_mask: torch.Tensor, cfg: TransformerConfig, *,
+            train: bool = False, seed: Optional[int] = None,
             dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Full-sequence decoder (teacher-forced scoring), eval mode: per
+    """Full-sequence decoder (training and teacher-forced scoring): per
     layer, causal self-attention, cross-attention over ``enc_out``
     (B, Lv, D) with ``enc_mask`` (B, Lv), then the FFN
-    (``hero_tpu/models/transformer.py:267-299``; its dropout sites come
-    with TVC training)."""
-    for layer in p["layers"]:
+    (``hero_tpu/models/transformer.py:267-299``).  Layer i draws from the
+    sub-seed ``layer{i}`` and its three blocks from ``sa``, ``ca`` and
+    ``f`` under it, as the JAX package keys them."""
+    for i, layer in enumerate(p["layers"]):
+        ls = nn.rng_for(seed, f"layer{i}")
         x = attention(layer["self_attention"], x, cfg, causal=True,
-                      dtype=dtype)
+                      train=train, seed=nn.rng_for(ls, "sa"), dtype=dtype)
         x = attention(layer["cross_attention"], x, cfg, kv_mask=enc_mask,
-                      kv=enc_out, dtype=dtype)
-        x = ffn(layer["ffn"], x, cfg, dtype=dtype)
+                      kv=enc_out, train=train, seed=nn.rng_for(ls, "ca"),
+                      dtype=dtype)
+        x = ffn(layer["ffn"], x, cfg, train=train, seed=nn.rng_for(ls, "f"),
+                dtype=dtype)
     return x
 
 

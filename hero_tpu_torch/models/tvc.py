@@ -6,6 +6,9 @@
   ``seg_idx``/``seg_mask`` (Ncap, Lv) its frames.
 - :func:`decode`: shared word embedding + decoder position embedding + LN
   -> the causal/cross decoder -> the tied LM head (teacher-forced logits).
+- :func:`forward_tvc`: the training forward, encode then decode with
+  dropout, and the label-smoothed loss (:func:`label_smoothing_loss`) or,
+  at ``lsr`` 0, the cross entropy.
 - :func:`greedy_decode` and :func:`beam_decode`: generation with the
   decoder's KV cache, one Python step per token.  Beam search orders its
   candidates as ``jax.lax.top_k`` does (value descending, ties to the
@@ -17,7 +20,8 @@ layout that ``convert/from_jax.load_jax_tvc_params`` loads.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import math
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,10 +37,14 @@ LENGTH_PENALTY = 0.6   # beam_decode's default in the JAX package
 
 
 def encode(params: Params, cfg: HeroConfig, batch: Dict[str, torch.Tensor],
-           *, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+           *, train: bool = False, seed: Optional[int] = None,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Clip-segment encoder outputs per caption: (Ncap, Lv, D)
-    (``hero_tpu/models/tvc.py:49-57``, eval mode)."""
+    (``hero_tpu/models/tvc.py:49-57``).  The gather's backward adds each
+    caption's gradient into its video's frames."""
     frame_emb = backbone.forward_repr(params["v_encoder"], cfg, batch,
+                                      train=train,
+                                      seed=nn.rng_for(seed, "repr"),
                                       dtype=dtype)                # (B, F, D)
     seg = frame_emb[batch["cap_vidx"].long()[:, None],
                     batch["seg_idx"].long()]                      # (N, Lv, D)
@@ -62,14 +70,63 @@ def _logits(params: Params, cfg: HeroConfig, h: torch.Tensor,
 
 def decode(params: Params, cfg: HeroConfig, enc_outputs: torch.Tensor,
            enc_masks: torch.Tensor, caption_ids: torch.Tensor, *,
+           train: bool = False, seed: Optional[int] = None,
            dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Teacher-forced decode -> vocab logits (Ncap, Lt, V) in ``dtype``
-    (``hero_tpu/models/tvc.py:68-84``, eval mode, positions 0..Lt-1)."""
+    (``hero_tpu/models/tvc.py:68-84``, positions 0..Lt-1)."""
     pos_ids = torch.arange(caption_ids.shape[1], device=caption_ids.device)
     h = _embed_captions(params, caption_ids, pos_ids, dtype)
     h = transformer.decoder(params["decoder"], h, enc_outputs,
-                            enc_masks.float(), cfg.d_config, dtype=dtype)
+                            enc_masks.float(), cfg.d_config, train=train,
+                            seed=nn.rng_for(seed, "dec"), dtype=dtype)
     return _logits(params, cfg, h, dtype)
+
+
+def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor,
+                         label_smoothing: float, ignore_index: int = -1
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """KL(q_smooth || softmax(logits)) summed over targets !=
+    ``ignore_index``, and their count (``hero_tpu/models/tvc.py:87-115``):
+    q puts 1 - ``label_smoothing`` on the target and ``label_smoothing`` /
+    (V - 1) on every other entry of the (padded) vocabulary.  The logits
+    stay in the model dtype; the sums are fp32 through
+    :func:`~hero_tpu_torch.models.model.streamed_lse`, and q's entropy is a
+    constant."""
+    V = logits.shape[-1]
+    valid = targets != ignore_index
+    safe = torch.where(valid, targets, 0).long()
+    eps = label_smoothing / (V - 1)
+    conf = 1.0 - label_smoothing
+    lse = backbone.streamed_lse(logits)
+    tgt_logp = logits.gather(-1, safe[..., None])[..., 0].float() - lse
+    sum_logp = logits.float().sum(-1) - V * lse
+    cross = -(eps * (sum_logp - tgt_logp) + conf * tgt_logp)
+    q_ent = ((V - 1) * eps * math.log(eps) if eps > 0 else 0.0) \
+        + conf * math.log(conf)
+    loss = torch.where(valid, cross + q_ent, 0.0)
+    return loss.sum(), valid.sum().float()
+
+
+def forward_tvc(params: Params, cfg: HeroConfig,
+                batch: Dict[str, torch.Tensor], *, lsr: float = 0.1,
+                compute_loss: bool = True, train: bool = False,
+                seed: Optional[int] = None,
+                dtype: torch.dtype = torch.float32):
+    """The training forward (``hero_tpu/models/tvc.py:118-132``): the
+    logits of ``cap_input_ids`` over each caption's clip, and with
+    ``compute_loss`` (sum, count) of the loss against ``cap_tgt_ids``,
+    label-smoothed at ``lsr`` > 0 and plain cross entropy at 0.
+    ``train`` with a ``seed`` turns on every dropout site."""
+    enc_out = encode(params, cfg, batch, train=train,
+                     seed=nn.rng_for(seed, "enc"), dtype=dtype)
+    logits = decode(params, cfg, enc_out, batch["seg_mask"],
+                    batch["cap_input_ids"], train=train,
+                    seed=nn.rng_for(seed, "dec"), dtype=dtype)
+    if not compute_loss:
+        return logits
+    if lsr > 0:
+        return label_smoothing_loss(logits, batch["cap_tgt_ids"], lsr)
+    return backbone.masked_cross_entropy(logits, batch["cap_tgt_ids"])
 
 
 def _step(params, cfg, tok, cache, t, enc_out, enc_mask, dtype):

@@ -4,8 +4,8 @@ the ``torch.autograd.Function``s that join them.
 Counterpart of ``hero_tpu/ops/attention.py``: ``packed_attention`` with its
 saved-probabilities backward, on the packed (B, L, H*d) layout, and
 ``multi_head_attention`` on the head-major (B, H, L, d) layout of the TVC
-decode step's KV cache (forward only: its backward, Pallas kernel #5, is
-not ported yet and raises).  Mask modes:
+decode step's KV cache, whose backward recomputes the probabilities from
+q and k (Pallas kernel #5) instead of reading them saved.  Mask modes:
 
 - validity: ``kv_mask`` (B, Lk), 1 = valid key, optionally with the causal
   bias of the TVC decoder: key j is masked for query i when
@@ -23,7 +23,8 @@ to 64 with -1e4 columns, which join the softmax of fully masked rows only).
 
 Training adds attention-probability dropout, drawn from Philox
 (``ops/dropout.py``) per element (b, h, i, j) and regenerated in the
-backward, which reads the saved pre-dropout probabilities:
+backward, which reads the saved pre-dropout probabilities (the packed
+layout) or recomputes them (the head-major one):
 
     pd = keep * p / (1 - r),  dv = pd^T do
     dp = keep * (do v^T) / (1 - r),  ds = p o (dp - rowsum(dp o p))
@@ -46,15 +47,10 @@ import torch
 
 from hero_tpu_torch.const import NEG_INF
 from hero_tpu_torch.ops import cuda_build
-from hero_tpu_torch.ops.dropout import attention_keep_mask, float32
+from hero_tpu_torch.ops.dropout import (attention_keep_mask, keep_scale,
+                                        seed_words)
 
 KERNEL_HEAD_DIMS = (32, 64, 128)
-
-
-def _keep_scale(rate: float) -> float:
-    """1 / (1 - rate) rounded once to fp32, as the kernels take it (a
-    Python float, so the plain versions copy nothing to the device)."""
-    return float32(1.0 / (1.0 - rate))
 
 
 def _check_dropout(rate: float, seed: Optional[int]) -> None:
@@ -93,7 +89,7 @@ def _drop(x: torch.Tensor, rate: float, seed: Optional[int]) -> torch.Tensor:
     if not rate:
         return x
     keep = attention_keep_mask(seed, *x.shape, rate, device=x.device)
-    return torch.where(keep, x * _keep_scale(rate), 0.0)
+    return torch.where(keep, x * keep_scale(rate), 0.0)
 
 
 def split_heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -149,6 +145,20 @@ def packed_forward_reference(q, k, v, n_heads: int, kv_mask=None, seg=None,
     return merge_heads(out), (p.to(q.dtype) if save_probs else None)
 
 
+def _grads_from_probs(pf, qh, kh, vh, gh, dropout_rate, seed):
+    """fp32 head-major (dq, dk, dv) from the fp32 pre-dropout
+    probabilities ``pf`` (B, H, Lq, Lk) and fp32 (B, H, L, d) q, k, v and
+    output gradient."""
+    scale = 1.0 / (qh.shape[-1] ** 0.5)
+    pd = _drop(pf, dropout_rate, seed)
+    dv = torch.einsum("bhqk,bhqd->bhkd", pd, gh)
+    dp = _drop(torch.einsum("bhqd,bhkd->bhqk", gh, vh), dropout_rate, seed)
+    ds = pf * (dp - (dp * pf).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kh) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qh) * scale
+    return dq, dk, dv
+
+
 def packed_backward_reference(p: torch.Tensor, q, k, v, dout,
                               n_heads: int, dropout_rate: float = 0.0,
                               seed: Optional[int] = None):
@@ -157,18 +167,25 @@ def packed_backward_reference(p: torch.Tensor, q, k, v, dout,
     tensors from the saved pre-dropout ``p`` (B, H, Lq, Lk), in fp32 and
     rounded once to the inputs' dtypes."""
     _check_dropout(dropout_rate, seed)
-    scale = 1.0 / ((q.shape[-1] // n_heads) ** 0.5)
-    qh, kh, vh, gh = (split_heads(t, n_heads).float()
-                      for t in (q, k, v, dout))
-    pf = p.float()
-    pd = _drop(pf, dropout_rate, seed)
-    dv = torch.einsum("bhqk,bhqd->bhkd", pd, gh)
-    dp = _drop(torch.einsum("bhqd,bhkd->bhqk", gh, vh), dropout_rate, seed)
-    ds = pf * (dp - (dp * pf).sum(-1, keepdim=True))
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kh) * scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qh) * scale
+    dq, dk, dv = _grads_from_probs(
+        p.float(), *(split_heads(t, n_heads).float()
+                     for t in (q, k, v, dout)), dropout_rate, seed)
     return (merge_heads(dq).to(q.dtype), merge_heads(dk).to(k.dtype),
             merge_heads(dv).to(v.dtype))
+
+
+def mha_backward_reference(q, k, v, kv_mask, dout, dropout_rate: float = 0.0,
+                           seed: Optional[int] = None, causal: bool = False):
+    """The plain head-major backward (``_bwd_kernel``,
+    ``hero_tpu/ops/attention.py:138-175``): (dq, dk, dv) of (B, H, L, d)
+    tensors, the probabilities recomputed from q and k as
+    :func:`mha_reference` computes them, in fp32 and rounded once to the
+    inputs' dtypes."""
+    _check_dropout(dropout_rate, seed)
+    pf = _probs_reference(q, k, kv_mask, None, causal)
+    dq, dk, dv = _grads_from_probs(pf, *(t.float() for t in (q, k, v, dout)),
+                                   dropout_rate, seed)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -197,16 +214,17 @@ def _lib() -> ctypes.CDLL:
                    lib.hero_mha_attention_fwd, lib.hero_dropout_keep_mask):
             fn.restype = ctypes.c_int
         lib.hero_attention_smem_bytes.restype = i64
+        lib.hero_mha_attention_bwd.argtypes = (
+            [i32] + [vp] * 8 + [i32] * 6 + [i64] * 13
+            + [f32, f32, f32, u32, u32, vp])
+        lib.hero_mha_attention_bwd.restype = ctypes.c_int
         lib.hero_mha_smem_bytes.argtypes = [i32, i32]
         lib.hero_mha_smem_bytes.restype = i64
+        lib.hero_mha_bwd_smem_bytes.argtypes = [i32, i32, i32]
+        lib.hero_mha_bwd_smem_bytes.restype = i64
         lib.hero_attention_smem_limit.argtypes = []
         lib.hero_attention_smem_limit.restype = i64
     return lib
-
-
-def _seed_words(seed: Optional[int]) -> Tuple[int, int]:
-    seed = seed or 0
-    return seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF
 
 
 def _check_smem(lib, need: int, what: str, Lq: int, Lk: int, d: int
@@ -278,8 +296,8 @@ def _launch(q, k, v, n_heads: int, mask: torch.Tensor, seg_mode: bool,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
             1.0 / (d ** 0.5), float(dropout_rate),
-            _keep_scale(dropout_rate) if dropout_rate else 1.0,
-            *_seed_words(seed), cuda_build.stream_ptr(q))
+            keep_scale(dropout_rate),
+            *seed_words(seed), cuda_build.stream_ptr(q))
     cuda_build.check(lib, err, "attention kernel")
     return out, probs
 
@@ -343,20 +361,16 @@ def attention_bwd_cuda(p, q, k, v, dout, n_heads: int,
             *(s for t in (q, k, v, dout, dq, dk, dv)
               for s in (t.stride(0), t.stride(1))),
             1.0 / (d ** 0.5), float(dropout_rate),
-            _keep_scale(dropout_rate) if dropout_rate else 1.0,
-            *_seed_words(seed), cuda_build.stream_ptr(q))
+            keep_scale(dropout_rate),
+            *seed_words(seed), cuda_build.stream_ptr(q))
     cuda_build.check(lib, err, "attention backward kernel")
     attention_bwd_cuda.launches += 1
     return dq, dk, dv
 
 
-def mha_attention_cuda(q, k, v, kv_mask: torch.Tensor,
-                       dropout_rate: float = 0.0, seed: Optional[int] = None,
-                       causal: bool = False) -> torch.Tensor:
-    """Head-major forward kernel launch: q (B, H, Lq, d), k and v
-    (B, H, Lk, d), read through their strides (unit stride over d), and
-    ``kv_mask`` (B, Lk) -> a contiguous (B, H, Lq, d) tensor.
-    ``mha_attention_cuda.launches`` counts the launches."""
+def _check_mha(q, k, v, kv_mask, dropout_rate, seed) -> torch.Tensor:
+    """Check what the head-major kernels take; the fp32 mask with a unit
+    stride over keys."""
     _check_dropout(dropout_rate, seed)
     B, H, Lq, d = q.shape
     Lk = k.shape[2]
@@ -367,8 +381,19 @@ def mha_attention_cuda(q, k, v, kv_mask: torch.Tensor,
         raise ValueError(f"mask must be ({B}, {Lk}), got "
                          f"{tuple(kv_mask.shape)}")
     mask = kv_mask.float()
-    if mask.stride(1) != 1:
-        mask = mask.contiguous()
+    return mask if mask.stride(1) == 1 else mask.contiguous()
+
+
+def mha_attention_cuda(q, k, v, kv_mask: torch.Tensor,
+                       dropout_rate: float = 0.0, seed: Optional[int] = None,
+                       causal: bool = False) -> torch.Tensor:
+    """Head-major forward kernel launch: q (B, H, Lq, d), k and v
+    (B, H, Lk, d), read through their strides (unit stride over d), and
+    ``kv_mask`` (B, Lk) -> a contiguous (B, H, Lq, d) tensor.
+    ``mha_attention_cuda.launches`` counts the launches."""
+    B, H, Lq, d = q.shape
+    Lk = k.shape[2]
+    mask = _check_mha(q, k, v, kv_mask, dropout_rate, seed)
     out = torch.empty((B, H, Lq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -381,17 +406,55 @@ def mha_attention_cuda(q, k, v, kv_mask: torch.Tensor,
             v.data_ptr(), out.data_ptr(), mask.data_ptr(), B, H, Lq, Lk, d,
             int(causal), *(s for t in (q, k, v) for s in t.stride()[:3]),
             mask.stride(0), 1.0 / (d ** 0.5), float(dropout_rate),
-            _keep_scale(dropout_rate) if dropout_rate else 1.0,
-            *_seed_words(seed), cuda_build.stream_ptr(q))
+            keep_scale(dropout_rate),
+            *seed_words(seed), cuda_build.stream_ptr(q))
     cuda_build.check(lib, err, "head-major attention kernel")
     mha_attention_cuda.launches += 1
     return out
+
+
+def mha_attention_bwd_cuda(q, k, v, kv_mask: torch.Tensor, dout,
+                           dropout_rate: float = 0.0,
+                           seed: Optional[int] = None, causal: bool = False):
+    """Head-major backward kernel launch (#5): (dq, dk, dv), contiguous
+    (B, H, L, d) tensors, for the forward's q, k, v, mask, rate, seed and
+    causal flag.  ``mha_attention_bwd_cuda.launches`` counts the
+    launches."""
+    B, H, Lq, d = q.shape
+    Lk = k.shape[2]
+    mask = _check_mha(q, k, v, kv_mask, dropout_rate, seed)
+    if dout.shape != q.shape or dout.dtype != q.dtype or \
+            dout.device != q.device:
+        raise ValueError("dout must have q's shape, dtype and device")
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    dq = torch.empty((B, H, Lq, d), dtype=q.dtype, device=q.device)
+    dk = torch.zeros((B, H, Lk, d), dtype=k.dtype, device=q.device)
+    dv = torch.zeros((B, H, Lk, d), dtype=v.dtype, device=q.device)
+    if dq.numel() == 0 or Lk == 0:
+        return dq.zero_(), dk, dv
+    lib = _lib()
+    _check_smem(lib, lib.hero_mha_bwd_smem_bytes(Lq, Lk, d),
+                "head-major attention backward", Lq, Lk, d)
+    with torch.cuda.device(q.device):
+        err = lib.hero_mha_attention_bwd(
+            cuda_build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), dout.data_ptr(), mask.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, Lq, Lk, d, int(causal),
+            *(s for t in (q, k, v, dout) for s in t.stride()[:3]),
+            mask.stride(0), 1.0 / (d ** 0.5), float(dropout_rate),
+            keep_scale(dropout_rate),
+            *seed_words(seed), cuda_build.stream_ptr(q))
+    cuda_build.check(lib, err, "head-major attention backward kernel")
+    mha_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
 
 
 seg_attention_cuda.launches = 0
 valid_attention_cuda.launches = 0
 attention_bwd_cuda.launches = 0
 mha_attention_cuda.launches = 0
+mha_attention_bwd_cuda.launches = 0
 
 
 def dropout_keep_mask_cuda(seed: int, B: int, H: int, Lq: int, Lk: int,
@@ -402,7 +465,7 @@ def dropout_keep_mask_cuda(seed: int, B: int, H: int, Lq: int, Lk: int,
     out = torch.empty((B, H, Lq, Lk), dtype=torch.uint8, device=device)
     lib = _lib()
     with torch.cuda.device(out.device):
-        err = lib.hero_dropout_keep_mask(*_seed_words(seed), B, H, Lq, Lk,
+        err = lib.hero_dropout_keep_mask(*seed_words(seed), B, H, Lq, Lk,
                                          float(rate), out.data_ptr(),
                                          cuda_build.stream_ptr(out))
     cuda_build.check(lib, err, "dropout mask kernel")
@@ -457,26 +520,32 @@ class PackedAttention(torch.autograd.Function):
 
 
 class MultiHeadAttention(torch.autograd.Function):
-    """Head-major attention, forward only: the backward (Pallas kernel #5,
-    ``_bwd_kernel``, ``hero_tpu/ops/attention.py:138``) is not ported yet
-    and raises.  Inputs: q, k, v (B, H, L, d), kv_mask (B, Lk),
+    """Head-major attention with the recompute backward (Pallas kernels #4
+    and #5).  Inputs: q, k, v (B, H, L, d), kv_mask (B, Lk),
     dropout_rate, seed, causal."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, dropout_rate, seed, causal):
         if q.device.type == "cpu":
-            return mha_reference(q, k, v, kv_mask, dropout_rate, seed, causal)
-        if q.device.type == "cuda":
-            return mha_attention_cuda(q, k, v, kv_mask, dropout_rate, seed,
-                                      causal)
-        raise ValueError(f"multi_head_attention runs on cpu or cuda, not "
-                         f"{q.device}")
+            out = mha_reference(q, k, v, kv_mask, dropout_rate, seed, causal)
+        elif q.device.type == "cuda":
+            out = mha_attention_cuda(q, k, v, kv_mask, dropout_rate, seed,
+                                     causal)
+        else:
+            raise ValueError(f"multi_head_attention runs on cpu or cuda, "
+                             f"not {q.device}")
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v, kv_mask)
+            ctx.args = (dropout_rate, seed, causal)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        raise NotImplementedError(
-            "the backward of multi_head_attention (Pallas kernel #5, "
-            "_bwd_kernel) is not ported yet (ROADMAP B4)")
+        q, k, v, kv_mask = ctx.saved_tensors
+        bwd = (mha_backward_reference if q.device.type == "cpu"
+               else mha_attention_bwd_cuda)
+        grads = bwd(q, k, v, kv_mask, dout.to(q.dtype), *ctx.args)
+        return (*grads, None, None, None, None)
 
 
 def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -516,8 +585,8 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``kv_mask`` (B, Lk), 1 = valid key; ``causal`` masks key j for query i
     when j > i + (Lk - Lq).  The JAX package dispatches by shape (its
     Pallas path pads both lengths to 64 and takes causal only at
-    Lq == Lk); here every call on the card takes the kernel, unpadded.
-    Forward only: a gradient through it raises."""
+    Lq == Lk); here every call on the card takes the kernel, unpadded,
+    and a gradient takes the backward kernel."""
     _check_dropout(dropout_rate, seed)
     if kv_mask is None:
         kv_mask = torch.ones((q.shape[0], k.shape[2]), dtype=torch.float32,

@@ -1,7 +1,8 @@
 // Packed multi-head attention: forward (validity-mask and segment-mask
 // modes, optional causal bias, probability dropout and saved
 // probabilities) and the saved-probabilities backward; and the head-major
-// (B, H, L, d) forward of the decode step (at the end of the file).
+// (B, H, L, d) forward of the decode step and its backward (at the end of
+// the file).
 //
 // Forward.  Replaces the Pallas kernels hero_tpu/ops/attention.py
 // _fwd3_kernel (validity mask, :277) and _fwd3_seg_kernel (segment mask,
@@ -562,6 +563,208 @@ cudaError_t mha_dim(const MhaArgs& a, int head_dim, cudaStream_t s) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// head-major attention backward
+// ---------------------------------------------------------------------------
+//
+// Replaces the Pallas kernel hero_tpu/ops/attention.py _bwd_kernel (v2,
+// :138, pallas_call at :232), the backward of multi_head_attention.  The
+// forward saves no probabilities, so the backward recomputes them from q
+// and k, with the forward's mask, causal bias and scale (the same fp32
+// arithmetic, in the same order, as mha_attention_kernel), and then
+// forms what the saved-probabilities backward above does:
+//   pd = drop(p)          dv = pd^T . do
+//   dp = drop(do . v^T)   ds = p o (dp - rowsum(dp o p))
+//   dq = ds . k * scale   dk = ds^T . q * scale
+// with the forward's Philox bits for (seed, b, h, i, j) regenerated.  q,
+// k, v and do are read through batch, head and row strides; dq, dk, dv
+// are contiguous (B, H, L, d).
+//
+// Bound on the H100: at the component shape (B*H = 3072 heads of
+// 56 x 56, d = 64) each head reads q, k, v, do and writes dq, dk, dv
+// (7 * 56 * 64 elements) for ~10 * 56^2 * 64 flops: memory-bound, as the
+// forward is.  Design: the saved-probabilities backward's, one block per
+// (b, h) and no atomics.  Pass 0 (a warp per query row, K staged in shared
+// memory padded against bank conflicts) writes the fp32 probabilities to
+// a shared (Lq, Lk) tile; pass A (V staged) turns them into drop(p) and dS
+// tiles; pass B stages dO, Q and K in turn and forms dv, dk and dq with
+// one thread per (output rows, channel), each summing its terms in a
+// fixed order, so the gradients are the same from run to run.  Shared
+// memory is (max(Lq, Lk) * (d + 1) + 2 * Lq * Lk + 8 * d + Lk) floats:
+// 42 KB at 56 x 56, d = 64; the wrapper refuses a shape over the 227 KB a
+// block may use.
+
+struct MhaBwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* mask;  // (B, Lk) validity, unit stride over keys
+  void* dq;           // contiguous (B, H, Lq, d)
+  void* dk;           // contiguous (B, H, Lk, d)
+  void* dv;           // contiguous (B, H, Lk, d)
+  int B, H, Lq, Lk, causal;
+  long long q_bs, q_hs, q_rs, k_bs, k_hs, k_rs, v_bs, v_hs, v_rs;
+  long long do_bs, do_hs, do_rs, m_bs;
+  float scale, rate, keep_scale;
+  PhiloxKey key;
+};
+
+// Stage rows [0, n) of a (., L, D) head into xs[n][D + 1] as fp32.
+template <typename T, int D>
+__device__ void stage_padded(const T* src, long long row_stride, int n,
+                             float* xs) {
+  for (int i = threadIdx.x; i < n * D; i += blockDim.x) {
+    const int r = i / D, c = i - r * D;
+    xs[r * (D + 1) + c] = to_float(src[r * row_stride + c]);
+  }
+}
+
+template <typename T, int DCH>
+__global__ void __launch_bounds__(kWarps * 32)
+    mha_attention_bwd_kernel(MhaBwdArgs a) {
+  constexpr int D = DCH * 32;
+  const int Lq = a.Lq, Lk = a.Lk;
+  extern __shared__ float smem[];
+  float* region = smem;                                // [max(Lq,Lk)][D+1]
+  float* dsm = region + max(Lq, Lk) * (D + 1);         // [Lq][Lk] dS
+  float* pdm = dsm + Lq * Lk;                          // [Lq][Lk] p, drop(p)
+  float* rows = pdm + Lq * Lk;                         // [kWarps][D]
+  float* kbias = rows + kWarps * D;                    // [Lk]
+
+  const int b = blockIdx.x / a.H;
+  const int h = blockIdx.x - b * a.H;
+  const T* qb = static_cast<const T*>(a.q) + b * a.q_bs + h * a.q_hs;
+  const T* kb = static_cast<const T*>(a.k) + b * a.k_bs + h * a.k_hs;
+  const T* vb = static_cast<const T*>(a.v) + b * a.v_bs + h * a.v_hs;
+  const T* gb = static_cast<const T*>(a.dout) + b * a.do_bs + h * a.do_hs;
+  const float* mr = a.mask + b * a.m_bs;
+  const bool drop = a.rate > 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* w = rows + warp * D;
+
+  // pass 0: the probabilities, a warp per query row
+  stage_padded<T, D>(kb, a.k_rs, Lk, region);
+  for (int j = threadIdx.x; j < Lk; j += blockDim.x)
+    kbias[j] = (1.f - mr[j]) * kNegInf;
+  __syncthreads();
+  for (int r = warp; r < Lq; r += kWarps) {
+#pragma unroll
+    for (int c = 0; c < DCH; ++c)
+      w[lane + 32 * c] = to_float(qb[r * a.q_rs + lane + 32 * c]);
+    __syncwarp();
+    const int last = a.causal ? r + (Lk - Lq) : Lk;  // last causal key
+    float* pr = pdm + r * Lk;
+    float mx = -INFINITY;
+    for (int j = lane; j < Lk; j += 32) {
+      const float* kr = region + j * (D + 1);
+      float acc = 0.f;
+#pragma unroll 16
+      for (int c = 0; c < D; ++c) acc = fmaf(w[c], kr[c], acc);
+      float s = acc * a.scale;
+      s += kbias[j];
+      if (j > last) s += kNegInf;
+      pr[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < Lk; j += 32) {
+      const float e = expf(pr[j] - mx);
+      pr[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < Lk; j += 32) pr[j] = pr[j] / sum;
+    __syncwarp();
+  }
+  __syncthreads();
+
+  // pass A: dS and drop(p), a warp per query row, V staged
+  stage_padded<T, D>(vb, a.v_rs, Lk, region);
+  __syncthreads();
+  for (int r = warp; r < Lq; r += kWarps) {
+#pragma unroll
+    for (int c = 0; c < DCH; ++c)
+      w[lane + 32 * c] = to_float(gb[r * a.do_rs + lane + 32 * c]);
+    __syncwarp();
+    float* pr = pdm + r * Lk;
+    float* dsr = dsm + r * Lk;
+    float acc = 0.f;
+    for (int j = lane; j < Lk; j += 32) {
+      const float* vr = region + j * (D + 1);
+      float dpd = 0.f;
+#pragma unroll 16
+      for (int c = 0; c < D; ++c) dpd = fmaf(w[c], vr[c], dpd);
+      float dp = dpd;
+      if (drop)
+        dp = dropout_keep(a.key, b, h, r, j, a.rate) ? dpd * a.keep_scale
+                                                      : 0.f;
+      dsr[j] = dp;
+      acc = fmaf(dp, pr[j], acc);
+    }
+    const float rowsum = warp_sum(acc);
+    for (int j = lane; j < Lk; j += 32) {
+      const float p = pr[j];
+      dsr[j] = p * (dsr[j] - rowsum);
+      if (drop)
+        pr[j] = dropout_keep(a.key, b, h, r, j, a.rate) ? p * a.keep_scale
+                                                         : 0.f;
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+
+  // pass B: dv = PD^T dO, dk = dS^T Q * scale, dq = dS K * scale
+  const long long head = static_cast<long long>(blockIdx.x);
+  stage<T, D>(gb, a.do_rs, Lq, region);
+  __syncthreads();
+  contract<T, D>(pdm, 1, Lk, region, Lk, Lq, 1.f,
+                 static_cast<T*>(a.dv) + head * Lk * D, D);
+  __syncthreads();
+  stage<T, D>(qb, a.q_rs, Lq, region);
+  __syncthreads();
+  contract<T, D>(dsm, 1, Lk, region, Lk, Lq, a.scale,
+                 static_cast<T*>(a.dk) + head * Lk * D, D);
+  __syncthreads();
+  stage<T, D>(kb, a.k_rs, Lk, region);
+  __syncthreads();
+  contract<T, D>(dsm, Lk, 1, region, Lq, Lk, a.scale,
+                 static_cast<T*>(a.dq) + head * Lq * D, D);
+}
+
+size_t mha_bwd_smem(int Lq, int Lk, int D) {
+  return sizeof(float) * (static_cast<size_t>(Lq > Lk ? Lq : Lk) * (D + 1)
+                          + 2 * static_cast<size_t>(Lq) * Lk + kWarps * D
+                          + Lk);
+}
+
+template <typename T, int DCH>
+cudaError_t launch_mha_bwd(const MhaBwdArgs& a, cudaStream_t stream) {
+  constexpr int D = DCH * 32;
+  const size_t smem = mha_bwd_smem(a.Lq, a.Lk, D);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mha_attention_bwd_kernel<T, DCH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  mha_attention_bwd_kernel<T, DCH>
+      <<<a.B * a.H, kWarps * 32, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t mha_bwd_dim(const MhaBwdArgs& a, int head_dim, cudaStream_t s) {
+  switch (head_dim) {
+    case 32: return launch_mha_bwd<T, 1>(a, s);
+    case 64: return launch_mha_bwd<T, 2>(a, s);
+    case 128: return launch_mha_bwd<T, 4>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // Shared memory (bytes) the kernels need at these shapes, so the wrapper
@@ -576,6 +779,10 @@ extern "C" long long hero_attention_smem_limit() { return kMaxSmem; }
 
 extern "C" long long hero_mha_smem_bytes(int Lk, int head_dim) {
   return static_cast<long long>(mha_smem(Lk, head_dim));
+}
+
+extern "C" long long hero_mha_bwd_smem_bytes(int Lq, int Lk, int head_dim) {
+  return static_cast<long long>(mha_bwd_smem(Lq, Lk, head_dim));
 }
 
 // Returns a cudaError_t code (0 = launched).  Strides are in elements.
@@ -651,6 +858,34 @@ extern "C" int hero_mha_attention_fwd(
   switch (dtype) {
     case kFloat32: e = mha_dim<float>(a, head_dim, s); break;
     case kBFloat16: e = mha_dim<__nv_bfloat16>(a, head_dim, s); break;
+    default: e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
+}
+
+// Head-major attention backward.  Returns a cudaError_t code (0 =
+// launched).  q/k/v/dout: (B, H, L, d) with unit stride over d, the other
+// strides in elements; mask: float (B, Lk) with unit stride over keys and
+// batch stride m_bs (0 = one row for every batch); dq, dk, dv contiguous.
+extern "C" int hero_mha_attention_bwd(
+    int dtype, const void* q, const void* k, const void* v, const void* dout,
+    const void* mask, void* dq, void* dk, void* dv, int B, int H, int Lq,
+    int Lk, int head_dim, int causal, long long q_bs, long long q_hs,
+    long long q_rs, long long k_bs, long long k_hs, long long k_rs,
+    long long v_bs, long long v_hs, long long v_rs, long long do_bs,
+    long long do_hs, long long do_rs, long long m_bs, float scale,
+    float rate, float keep_scale, unsigned int seed_lo, unsigned int seed_hi,
+    void* stream) {
+  const MhaBwdArgs a{q, k, v, dout, static_cast<const float*>(mask),
+                     dq, dk, dv, B, H, Lq, Lk, causal,
+                     q_bs, q_hs, q_rs, k_bs, k_hs, k_rs, v_bs, v_hs, v_rs,
+                     do_bs, do_hs, do_rs, m_bs,
+                     scale, rate, keep_scale, PhiloxKey{seed_lo, seed_hi}};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (dtype) {
+    case kFloat32: e = mha_bwd_dim<float>(a, head_dim, s); break;
+    case kBFloat16: e = mha_bwd_dim<__nv_bfloat16>(a, head_dim, s); break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

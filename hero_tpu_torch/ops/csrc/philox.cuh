@@ -1,12 +1,15 @@
-// Philox4x32-10 keep bits for the attention-probability dropout.
+// Philox4x32-10 keep bits for the attention-probability dropout and the
+// row dropout of the fused dropout-add-LayerNorm.
 //
 // Stands in for the TPU PRNG (pltpu.prng_random_bits) of the Pallas
-// attention kernels, hero_tpu/ops/attention.py _dropout_keep_mask (:89).
-// Bit for bit the plain PyTorch version hero_tpu_torch/ops/dropout.py:
-// key = (seed lo, seed hi), counter = (j, i, h, b), bits = word 0,
-// keep = (bits >> 8) * 2^-24 >= rate in fp32.  The counter holds the
-// element's coordinates, so the mask does not depend on the launch
-// geometry and the backward regenerates the forward's mask exactly.
+// kernels, hero_tpu/ops/attention.py _dropout_keep_mask (:89) and
+// hero_tpu/ops/layernorm.py _daln_fwd_kernel (:175).  Bit for bit the
+// plain PyTorch version hero_tpu_torch/ops/dropout.py: key = (seed lo,
+// seed hi), counter = (j, i, h, b) for attention element (b, h, i, j) or
+// (col, row lo, row hi, 0xFFFFFFFF) for row-tensor element (row, col),
+// bits = word 0, keep = (bits >> 8) * 2^-24 >= rate in fp32.  The counter
+// holds the element's coordinates, so the mask does not depend on the
+// launch geometry and the backward regenerates the forward's mask exactly.
 #pragma once
 
 #include <stdint.h>
@@ -36,11 +39,24 @@ __device__ __forceinline__ uint32_t philox_bits(PhiloxKey key, uint32_t c0,
   return c0;
 }
 
+__device__ __forceinline__ bool keep_bit(uint32_t bits, float rate) {
+  return static_cast<float>(bits >> 8) * (1.0f / 16777216.0f) >= rate;
+}
+
 __device__ __forceinline__ bool dropout_keep(PhiloxKey key, int b, int h,
                                              int i, int j, float rate) {
-  const uint32_t bits = philox_bits(key, static_cast<uint32_t>(j),
-                                    static_cast<uint32_t>(i),
-                                    static_cast<uint32_t>(h),
-                                    static_cast<uint32_t>(b));
-  return static_cast<float>(bits >> 8) * (1.0f / 16777216.0f) >= rate;
+  return keep_bit(philox_bits(key, static_cast<uint32_t>(j),
+                              static_cast<uint32_t>(i),
+                              static_cast<uint32_t>(h),
+                              static_cast<uint32_t>(b)),
+                  rate);
+}
+
+__device__ __forceinline__ bool row_dropout_keep(PhiloxKey key, long long row,
+                                                 int col, float rate) {
+  const unsigned long long r = static_cast<unsigned long long>(row);
+  return keep_bit(philox_bits(key, static_cast<uint32_t>(col),
+                              static_cast<uint32_t>(r),
+                              static_cast<uint32_t>(r >> 32), 0xFFFFFFFFu),
+                  rate);
 }

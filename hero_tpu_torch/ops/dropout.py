@@ -1,11 +1,15 @@
 """Counter-based dropout masks: Philox4x32-10 in plain PyTorch.
 
-Stands in for the TPU PRNG of the Pallas attention kernels
-(``hero_tpu/ops/attention.py:89-99``, ``_dropout_keep_mask``).  The keep
-bit of attention-probability element (b, h, i, j) is a pure function of
-(seed, b, h, i, j):
+Stands in for the TPU PRNG of the Pallas kernels: the attention kernels'
+(``hero_tpu/ops/attention.py:89-99``, ``_dropout_keep_mask``) and the fused
+dropout-add-LayerNorm's (``hero_tpu/ops/layernorm.py:179-185``).  A keep
+bit is a pure function of the seed and the element's coordinates:
 
-- key = (seed mod 2^32, seed >> 32 mod 2^32), counter = (j, i, h, b);
+- key = (seed mod 2^32, seed >> 32 mod 2^32);
+- counter = (j, i, h, b) for attention-probability element (b, h, i, j),
+  and (col, row mod 2^32, row >> 32, 2^32 - 1) for element (row, col) of a
+  row tensor (:func:`row_keep_mask`; the last word, which no attention
+  batch index reaches, keeps the two streams apart);
 - bits = word 0 of Philox4x32-10(key, counter);
 - keep = (bits >> 8) * 2^-24 >= rate, in fp32, as ``_dropout_keep_mask``.
 
@@ -22,6 +26,7 @@ The 32x32 -> 64-bit products of the Philox round would overflow int64, so
 from __future__ import annotations
 
 import struct
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,12 +36,25 @@ PHILOX_W0 = 0x9E3779B9
 PHILOX_W1 = 0xBB67AE85
 PHILOX_ROUNDS = 10
 MASK32 = 0xFFFFFFFF
+ROW_STREAM = 0xFFFFFFFF            # counter word 3 of the row-tensor draws
 
 
 def float32(x: float) -> float:
     """``x`` rounded to the nearest fp32 value, as a Python float (exact
     in fp32 arithmetic, and no device copy when it meets a tensor)."""
     return struct.unpack("f", struct.pack("f", x))[0]
+
+
+def keep_scale(rate: float) -> float:
+    """1 / (1 - rate) rounded once to fp32, as the kernels take it (a
+    Python float, so the plain versions copy nothing to the device)."""
+    return float32(1.0 / (1.0 - rate))
+
+
+def seed_words(seed: Optional[int]) -> Tuple[int, int]:
+    """The Philox key (seed lo, seed hi) the kernels take; no seed is 0."""
+    seed = seed or 0
+    return seed & MASK32, (seed >> 32) & MASK32
 
 
 def _mulhilo(m: int, a: torch.Tensor):
@@ -79,5 +97,23 @@ def attention_keep_mask(seed: int, B: int, H: int, Lq: int, Lk: int,
         return torch.arange(n, dtype=torch.int64, device=device).view(shape)
 
     bits = philox4x32(seed, ax(Lk, 3), ax(Lq, 2), ax(H, 1), ax(B, 0))
+    return _keep(bits, rate)
+
+
+def _keep(bits: torch.Tensor, rate: float) -> torch.Tensor:
     u = (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
     return u >= float32(rate)
+
+
+def row_keep_mask(seed: int, n: int, d: int, rate: float,
+                  device="cpu") -> torch.Tensor:
+    """(n, d) bool keep mask of a row tensor's dropout with this ``seed``
+    and ``rate`` (the fused dropout-add-LayerNorm's draw)."""
+    if not 0 <= seed < 2 ** 64:
+        raise ValueError(f"seed must be a 64-bit unsigned int, got {seed}")
+    row = torch.arange(n, dtype=torch.int64, device=device)[:, None]
+    col = torch.arange(d, dtype=torch.int64, device=device)[None, :]
+    bits = philox4x32(seed, col, row & MASK32, row >> 32,
+                      torch.full((1, 1), ROW_STREAM, dtype=torch.int64,
+                                 device=device))
+    return _keep(bits, rate)

@@ -1,5 +1,6 @@
-"""Row LayerNorm: the plain PyTorch versions, the CUDA kernels and the
-``torch.autograd.Function`` that joins them.
+"""Row LayerNorm and the fused dropout-add-LayerNorm: the plain PyTorch
+versions, the CUDA kernels and the ``torch.autograd.Function``s that join
+them.
 
 Counterpart of ``hero_tpu/ops/layernorm.py`` (``_fused_layer_norm`` and its
 custom VJP).  Statistics are fp32 whatever the input type, the affine
@@ -12,6 +13,16 @@ type and fp32 ``dw = sum g xhat``, ``db = sum g`` over rows.
 the plain versions; a CUDA tensor launches the kernels
 (``csrc/layernorm.cu``) or raises -- there is no fallback and no width
 threshold, so every LayerNorm of the model runs the kernels on the card.
+
+:func:`dropout_add_layer_norm` is ``LN(dropout(y) + x)``, the counterpart
+of ``hero_tpu/ops/layernorm.py:175-342`` (Pallas kernels #8 and #9) and
+of its jnp path: the dropout keeps ``y`` where the Philox bit of
+(seed, row, col) says so (``ops/dropout.row_keep_mask``) and scales it by
+1 / (1 - rate); the sum stays fp32 through the LayerNorm; the output
+takes ``x``'s dtype (the jnp path's: the Pallas path returns ``y``'s,
+which differs only when the two dtypes do).  The backward regenerates
+the bits and gives dy = keep * ds / (1 - rate) in y's dtype, dx = ds in
+x's, and fp32 dw, db.  As in the JAX package, no model code calls it.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ import ctypes
 import torch
 
 from hero_tpu_torch.ops import cuda_build
+from hero_tpu_torch.ops.dropout import keep_scale, row_keep_mask, seed_words
 
 
 def layer_norm_reference(x: torch.Tensor, weight: torch.Tensor,
@@ -63,8 +75,16 @@ def _lib() -> ctypes.CDLL:
         lib.hero_layer_norm_bwd.argtypes = ([i32] + [vp] * 7
                                             + [ctypes.c_longlong, i32, i32,
                                                i32, ctypes.c_float, vp])
-        lib.hero_layer_norm_fwd.restype = ctypes.c_int
-        lib.hero_layer_norm_bwd.restype = ctypes.c_int
+        f32, u32 = ctypes.c_float, ctypes.c_uint
+        lib.hero_daln_fwd.argtypes = ([i32] + [vp] * 5
+                                      + [ctypes.c_longlong, i32, f32, f32,
+                                         f32, u32, u32, vp])
+        lib.hero_daln_bwd.argtypes = ([i32] + [vp] * 9
+                                      + [ctypes.c_longlong, i32, i32, i32,
+                                         f32, f32, f32, u32, u32, vp])
+        for fn in (lib.hero_layer_norm_fwd, lib.hero_layer_norm_bwd,
+                   lib.hero_daln_fwd, lib.hero_daln_bwd):
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -180,3 +200,181 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis; any leading shape."""
     return LayerNorm.apply(x, weight, bias, float(eps))
+
+
+# ---------------------------------------------------------------------------
+# fused dropout + add + LayerNorm
+# ---------------------------------------------------------------------------
+
+def _daln_rate(rate: float, seed) -> float:
+    """The rate the op runs at: a rate with no seed is rate 0, as the JAX
+    package's ``rng=None`` is (``hero_tpu/ops/layernorm.py:310-311``)."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must lie in [0, 1), got {rate}")
+    if seed is not None and not 0 <= seed < 2 ** 64:
+        raise ValueError(f"seed must be a 64-bit unsigned int, got {seed}")
+    return float(rate) if seed is not None else 0.0
+
+
+def _dropped_sum(y, x, rate: float, seed) -> torch.Tensor:
+    """fp32 drop(y) + x over (n, d) rows, and the keep mask (or None)."""
+    yf = y.float()
+    keep = None
+    if rate:
+        keep = row_keep_mask(seed, y.shape[0], y.shape[1], rate, y.device)
+        yf = torch.where(keep, yf * keep_scale(rate), 0.0)
+    return yf + x.float(), keep
+
+
+def dropout_add_layer_norm_reference(y, x, weight, bias, rate: float = 0.0,
+                                     seed=None, eps: float = 1e-5
+                                     ) -> torch.Tensor:
+    """The plain forward (``hero_tpu/ops/layernorm.py:312-319``, with the
+    Philox draw): LN(drop(y) + x) over the last axis in x's dtype."""
+    rate = _daln_rate(rate, seed)
+    d = x.shape[-1]
+    s, _ = _dropped_sum(y.reshape(-1, d), x.reshape(-1, d), rate, seed)
+    return layer_norm_reference(s, weight, bias, eps).to(x.dtype).reshape(
+        x.shape)
+
+
+def dropout_add_layer_norm_bwd_reference(y, x, weight, g, rate: float = 0.0,
+                                         seed=None, eps: float = 1e-5):
+    """The plain backward (``_daln_bwd_kernel``,
+    ``hero_tpu/ops/layernorm.py:195-235``): (dy in y's dtype, dx in x's,
+    dw, db fp32) for upstream gradient ``g``."""
+    rate = _daln_rate(rate, seed)
+    d = x.shape[-1]
+    s, keep = _dropped_sum(y.reshape(-1, d), x.reshape(-1, d), rate, seed)
+    ds, dw, db = layer_norm_bwd_reference(s, weight, g.reshape(-1, d), eps)
+    dy = ds if keep is None else torch.where(keep, ds * keep_scale(rate),
+                                             0.0)
+    return (dy.to(y.dtype).reshape(y.shape), ds.to(x.dtype).reshape(x.shape),
+            dw, db)
+
+
+def _daln_rows(y, x, weight, bias=None):
+    """The (n, d) rows the kernels take: one dtype (two dtypes are both
+    taken to fp32, exactly, and the results rounded once to their own
+    types), contiguous."""
+    d = _check(x, weight, bias)
+    if y.shape != x.shape or y.device != x.device:
+        raise ValueError(f"y and x must share shape and device, got "
+                         f"{tuple(y.shape)} {y.device} / {tuple(x.shape)} "
+                         f"{x.device}")
+    if y.dtype not in cuda_build.DTYPE_CODES:
+        raise TypeError(f"dropout_add_layer_norm kernel takes "
+                        f"float32/bfloat16, got {y.dtype}")
+    if y.dtype != x.dtype:
+        y, x = y.float(), x.float()
+    n = x.numel() // d
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} rows exceed the kernels' grid")
+    return y.reshape(-1, d).contiguous(), x.reshape(-1, d).contiguous(), d
+
+
+def dropout_add_layer_norm_cuda(y, x, weight, bias, rate: float = 0.0,
+                                seed=None, eps: float = 1e-5
+                                ) -> torch.Tensor:
+    """Launch the fused forward kernel (#8) over the last axis of CUDA
+    tensors: LN(drop(y) + x) in x's dtype.
+    ``dropout_add_layer_norm_cuda.launches`` counts the launches."""
+    rate = _daln_rate(rate, seed)
+    y2, x2, d = _daln_rows(y, x, weight, bias)
+    w = weight.float().contiguous()
+    b = bias.float().contiguous()
+    out = torch.empty_like(x2)
+    if x2.shape[0]:
+        lib = _lib()
+        with torch.cuda.device(x.device):
+            err = lib.hero_daln_fwd(
+                cuda_build.DTYPE_CODES[x2.dtype], y2.data_ptr(),
+                x2.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                x2.shape[0], d, float(eps), rate,
+                keep_scale(rate),
+                *seed_words(seed), cuda_build.stream_ptr(x))
+        cuda_build.check(lib, err, "dropout_add_layer_norm kernel")
+        dropout_add_layer_norm_cuda.launches += 1
+    return out.to(x.dtype).reshape(x.shape)
+
+
+def dropout_add_layer_norm_bwd_cuda(y, x, weight, g, rate: float = 0.0,
+                                    seed=None, eps: float = 1e-5):
+    """Launch the fused backward kernels (#9): (dy in y's dtype, dx in
+    x's, dw, db fp32).  ``dropout_add_layer_norm_bwd_cuda.launches``
+    counts the launches (one per call: the row pass and the reduction
+    run as one)."""
+    rate = _daln_rate(rate, seed)
+    if g.shape != x.shape or g.device != x.device:
+        raise ValueError("g must have x's shape and device")
+    y2, x2, d = _daln_rows(y, x, weight)
+    g2 = g.to(x2.dtype).reshape(-1, d).contiguous()
+    w = weight.float().contiguous()
+    n = x2.shape[0]
+    dy, dx = torch.empty_like(y2), torch.empty_like(x2)
+    dw = torch.zeros(d, dtype=torch.float32, device=x.device)
+    db = torch.zeros(d, dtype=torch.float32, device=x.device)
+    if n:
+        rows = -(-n // BWD_MAX_BLOCKS)
+        n_blocks = -(-n // rows)
+        partial = torch.empty((n_blocks, 2, d), dtype=torch.float32,
+                              device=x.device)
+        lib = _lib()
+        with torch.cuda.device(x.device):
+            err = lib.hero_daln_bwd(
+                cuda_build.DTYPE_CODES[x2.dtype], y2.data_ptr(),
+                x2.data_ptr(), w.data_ptr(), g2.data_ptr(), dy.data_ptr(),
+                dx.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+                db.data_ptr(), n, d, n_blocks, rows, float(eps), rate,
+                keep_scale(rate), *seed_words(seed),
+                cuda_build.stream_ptr(x))
+        cuda_build.check(lib, err, "dropout_add_layer_norm backward kernel")
+        dropout_add_layer_norm_bwd_cuda.launches += 1
+    return (dy.to(y.dtype).reshape(y.shape), dx.to(x.dtype).reshape(x.shape),
+            dw, db)
+
+
+dropout_add_layer_norm_cuda.launches = 0
+dropout_add_layer_norm_bwd_cuda.launches = 0
+
+
+class DropoutAddLayerNorm(torch.autograd.Function):
+    """LN(drop(y) + x) over the last axis with the mask-regenerating
+    backward; dw and db come back in the parameters' own dtype."""
+
+    @staticmethod
+    def forward(ctx, y, x, weight, bias, rate, seed, eps):
+        if x.device.type == "cpu":
+            out = dropout_add_layer_norm_reference(y, x, weight, bias, rate,
+                                                   seed, eps)
+        elif x.device.type == "cuda":
+            out = dropout_add_layer_norm_cuda(y, x, weight, bias, rate, seed,
+                                              eps)
+        else:
+            raise ValueError(f"dropout_add_layer_norm runs on cpu or cuda, "
+                             f"not {x.device}")
+        if any(ctx.needs_input_grad[:4]):
+            ctx.save_for_backward(y, x, weight)
+            ctx.args = (rate, seed, eps)
+            ctx.dtypes = (weight.dtype, bias.dtype)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        y, x, weight = ctx.saved_tensors
+        bwd = (dropout_add_layer_norm_bwd_reference if x.device.type == "cpu"
+               else dropout_add_layer_norm_bwd_cuda)
+        dy, dx, dw, db = bwd(y, x, weight, g.to(x.dtype), *ctx.args)
+        return (dy, dx, dw.to(ctx.dtypes[0]), db.to(ctx.dtypes[1]), None,
+                None, None)
+
+
+def dropout_add_layer_norm(y: torch.Tensor, x: torch.Tensor,
+                           weight: torch.Tensor, bias: torch.Tensor,
+                           rate: float = 0.0, seed=None,
+                           eps: float = 1e-5) -> torch.Tensor:
+    """``LN(dropout(y) + x)`` over the last axis
+    (``hero_tpu/ops/layernorm.py:298-342``); ``rate`` > 0 with no ``seed``
+    runs at rate 0."""
+    return DropoutAddLayerNorm.apply(y, x, weight, bias,
+                                     _daln_rate(rate, seed), seed, float(eps))

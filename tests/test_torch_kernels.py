@@ -11,7 +11,10 @@ and launches nothing.  The kernels of the backward (attention and
 LayerNorm) and the in-kernel Philox dropout are held against their plain
 versions on the same inputs, and for determinism; so are the head-major
 attention of the TVC decode step (#4) and the causal and cross-attention
-shapes of the packed forward (#2).
+shapes of the packed forward (#2), the head-major backward (#5), the
+saved-probabilities backward (#3) at the TVC decoder's shapes, and the
+fused dropout-add-LayerNorm forward and backward (#8, #9) with their
+Philox row mask.
 """
 
 import numpy as np
@@ -444,3 +447,236 @@ def test_cpu_mha_takes_the_plain_version():
         tatt.multi_head_attention(q, k, v, mask, causal=True),
         tatt.mha_reference(q, k, v, mask, causal=True), atol=0, rtol=0)
     assert tatt.mha_attention_cuda.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the head-major backward (#5), #3 at the decoder's shapes, and the fused
+# dropout-add-LayerNorm (#8, #9)
+# ---------------------------------------------------------------------------
+
+MHA_BWD_SHAPES = [  # (B, H, Lq, Lk, head_dim, causal): the component path
+    (16, 12, 56, 56, 64, False),      # component_bench's shape, cut in B
+    (8, 12, 31, 31, 64, True),        # causal, Lq == Lk
+    (8, 12, 62, 100, 64, False),      # Lq != Lk
+    (4, 2, 7, 19, 32, True),          # causal, Lq < Lk
+    (3, 2, 9, 40, 128, False),
+]
+
+
+def _grad_tol(want, dtype):
+    # fp32: sums of <= 100 products in other orders, and the recomputed
+    # probabilities' own rounding: ~1e-4 of the largest gradient; bf16:
+    # both sides read the same bf16 inputs, compute in fp32 and round
+    # once: one bf16 ulp of the largest gradient
+    top = float(want.float().abs().max())
+    return 1e-4 * max(1.0, top) if dtype == torch.float32 else top * 2.0 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", MHA_BWD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mha_backward_kernel_matches_plain(cuda, rate, dtype, shape):
+    """#5 against ``mha_backward_reference`` on the same inputs, with a
+    partial key mask and a fully masked last batch row (finite, and the
+    unmasked attention's gradients up to the rounding of s - 1e4); a
+    second launch is identical; autograd through ``multi_head_attention``
+    launches it."""
+    B, H, Lq, Lk, d, causal = shape
+    q, k, v, mask = _mha_inputs(70, B, H, Lq, Lk, d, "valid", cuda, dtype)
+    r = np.random.RandomState(71)
+    g = torch.from_numpy(r.randn(B, H, Lq, d).astype(np.float32)).to(
+        cuda, dtype)
+    seed = 2 ** 34 + 17
+    before = tatt.mha_attention_bwd_cuda.launches
+    got = tatt.mha_attention_bwd_cuda(q, k, v, mask, g, rate, seed, causal)
+    torch.cuda.synchronize()
+    assert tatt.mha_attention_bwd_cuda.launches == before + 1
+    want = tatt.mha_backward_reference(q, k, v, mask, g, rate, seed, causal)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert bool(torch.isfinite(a).all())
+        assert float((a[:-1].float() - b[:-1].float()).abs().max()) <= \
+            _grad_tol(b[:-1], dtype)
+        # the masked row's probabilities carry the rounding of s - 1e4
+        # (~2^-10 relative): within 2^-6 of the largest gradient
+        assert float((a[-1].float() - b[-1].float()).abs().max()) <= \
+            2.0 ** -6 * max(1.0, float(b.float().abs().max()))
+    again = tatt.mha_attention_bwd_cuda(q, k, v, mask, g, rate, seed, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = tatt.multi_head_attention(*qkv, mask, dropout_rate=rate,
+                                    seed=seed, causal=causal)
+    auto = torch.autograd.grad(out, qkv, g)
+    assert tatt.mha_attention_bwd_cuda.launches == before + 3
+    assert all(torch.equal(a, b) for a, b in zip(auto, got))
+
+
+@pytest.mark.cuda
+def test_mha_backward_kernel_reads_strided_views(cuda):
+    """Head views of a packed projection give the gradients of contiguous
+    copies; a shape over the shared-memory limit raises."""
+    r = np.random.RandomState(72)
+    B, L, H, d = 4, 40, 3, 64
+    proj = torch.from_numpy(r.randn(B, L, 3 * H * d).astype(np.float32)).to(
+        cuda)
+    q, k, v = (tatt.split_heads(t, H) for t in proj.split(H * d, dim=-1))
+    g = torch.from_numpy(r.randn(B, H, L, d).astype(np.float32)).to(cuda)
+    mask = torch.ones((B, L), device=cuda)
+    a = tatt.mha_attention_bwd_cuda(q, k, v, mask, g, 0.1, 5)
+    b = tatt.mha_attention_bwd_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), mask, g, 0.1, 5)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    big = torch.zeros((1, 1, 300, 128), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        tatt.mha_attention_bwd_cuda(big, big, big, torch.ones((1, 300),
+                                                               device=cuda),
+                                    big)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B, Lq, Lk, causal", [
+    (8, 62, 62, True),        # TVC train: decoder causal self-attention
+    (8, 62, 100, False),      # TVC train: cross-attention over the clip
+])
+def test_packed_backward_at_the_decoder_shapes(cuda, dtype, B, Lq, Lk,
+                                               causal):
+    """#2 with the causal bias, dropout and saved probabilities, then #3
+    from those probabilities (Lq != Lk for the cross-attention), each
+    against its plain version; a padded clip slot (no valid key) stays
+    finite."""
+    H, d = 12, 64
+    r = np.random.RandomState(73)
+    q = torch.from_numpy(r.randn(B, Lq, H * d).astype(np.float32)).to(
+        cuda, dtype)
+    kv = torch.from_numpy(r.randn(B, Lk, 2 * H * d).astype(np.float32)).to(
+        cuda, dtype)
+    k, v = kv.split(H * d, dim=-1)
+    dout = torch.from_numpy(r.randn(B, Lq, H * d).astype(np.float32)).to(
+        cuda, dtype)
+    mask = _validity_mask(74, B, Lk).to(cuda)
+    mask[-1] = 0.0
+    seed, rate = 2 ** 33 + 21, 0.1
+    out, probs = tatt.valid_attention_cuda(q, k, v, H, mask, rate, seed,
+                                           True, causal)
+    ref, rprobs = tatt.packed_forward_reference(
+        q, k, v, H, kv_mask=mask, dropout_rate=rate, seed=seed,
+        save_probs=True, causal=causal)
+    assert float((out[:-1].float() - ref[:-1].float()).abs().max()) <= \
+        _tol(ref, dtype)
+    assert float((probs[:-1].float() - rprobs[:-1].float()).abs().max()) \
+        <= _tol(rprobs, dtype)
+    got = tatt.attention_bwd_cuda(probs, q, k, v, dout, H, rate, seed)
+    want = tatt.packed_backward_reference(probs, q, k, v, dout, H, rate,
+                                          seed)
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert float((a.float() - b.float()).abs().max()) <= _grad_tol(
+            b, dtype)
+
+
+DALN_SHAPES = [(1024, 768), (256, 4352), (37, 768), (5, 4352)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n, d", DALN_SHAPES)
+def test_daln_kernels_match_plain(cuda, rate, dtype, n, d):
+    """#8 and #9 against their plain versions on the same inputs: the
+    output, dy, dx within the LayerNorm kernels' tolerances, dw/db within
+    fp32 sums of n terms; repeats identical."""
+    r = np.random.RandomState(75)
+    y, x, g = (torch.from_numpy((r.randn(n, d) * 1.5).astype(
+        np.float32)).to(cuda, dtype) for _ in range(3))
+    w = torch.from_numpy((1.0 + 0.1 * r.randn(d)).astype(np.float32)).to(
+        cuda)
+    b = torch.from_numpy((0.1 * r.randn(d)).astype(np.float32)).to(cuda)
+    seed = 2 ** 35 + 1
+    before = (tln.dropout_add_layer_norm_cuda.launches,
+              tln.dropout_add_layer_norm_bwd_cuda.launches)
+    out = tln.dropout_add_layer_norm_cuda(y, x, w, b, rate, seed)
+    want = tln.dropout_add_layer_norm_reference(y, x, w, b, rate, seed)
+    assert out.dtype == dtype
+    assert float((out.float() - want.float()).abs().max()) <= _tol(want,
+                                                                   dtype)
+    got = tln.dropout_add_layer_norm_bwd_cuda(y, x, w, g, rate, seed)
+    ref = tln.dropout_add_layer_norm_bwd_reference(y, x, w, g, rate, seed)
+    for a, b_ in zip(got[:2], ref[:2]):
+        assert float((a.float() - b_.float()).abs().max()) <= _grad_tol(
+            b_, dtype)
+    for a, b_ in zip(got[2:], ref[2:]):
+        assert a.dtype == torch.float32
+        assert float((a - b_).abs().max()) <= 1e-6 * n
+    assert (tln.dropout_add_layer_norm_cuda.launches,
+            tln.dropout_add_layer_norm_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(out, tln.dropout_add_layer_norm_cuda(y, x, w, b, rate,
+                                                            seed))
+    again = tln.dropout_add_layer_norm_bwd_cuda(y, x, w, g, rate, seed)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, d, lo, hi", [(1024, 768, 0.88, 0.92),
+                                          (256, 4352, 0.87, 0.93)])
+def test_daln_mask_keep_rate_and_consistency(cuda, n, d, lo, hi):
+    """The kernels' Philox bits equal the plain row mask: dy is
+    keep * dx / (1 - rate) bit for bit, and perturbing only the dropped
+    entries of y leaves the output and dx bit-identical (the forward and
+    backward draw one mask); the keep rate at 0.1 lies in
+    ``tools/tpu_kernel_drive.py``'s band; autograd launches both
+    kernels."""
+    seed, rate = 2 ** 37 + 9, 0.1
+    keep = tdrop.row_keep_mask(seed, n, d, rate, device=cuda)
+    assert lo < float(keep.float().mean()) < hi
+    r = np.random.RandomState(76)
+    y, x, g = (torch.from_numpy(r.randn(n, d).astype(np.float32)).to(cuda)
+               for _ in range(3))
+    w, b = torch.ones(d, device=cuda), torch.zeros(d, device=cuda)
+    out = tln.dropout_add_layer_norm_cuda(y, x, w, b, rate, seed)
+    y2 = torch.where(keep, y, y + 100.0)
+    assert torch.equal(out, tln.dropout_add_layer_norm_cuda(y2, x, w, b,
+                                                            rate, seed))
+    dy, dx, _, _ = tln.dropout_add_layer_norm_bwd_cuda(y, x, w, g, rate,
+                                                       seed)
+    assert torch.equal(dx, tln.dropout_add_layer_norm_bwd_cuda(
+        y2, x, w, g, rate, seed)[1])
+    assert torch.equal(dy, torch.where(keep, dx * tdrop.keep_scale(rate),
+                                       0.0))
+    before = (tln.dropout_add_layer_norm_cuda.launches,
+              tln.dropout_add_layer_norm_bwd_cuda.launches)
+    args = [t.detach().requires_grad_(True) for t in (y, x, w, b)]
+    torch.autograd.grad(tln.dropout_add_layer_norm(
+        *args, rate=rate, seed=seed), args, g)
+    assert (tln.dropout_add_layer_norm_cuda.launches,
+            tln.dropout_add_layer_norm_bwd_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_cpu_backward_and_daln_take_the_plain_versions():
+    """On the CPU the head-major backward and the fused dropout-add-
+    LayerNorm call their plain versions and count no launch."""
+    counts = (tatt.mha_attention_bwd_cuda.launches,
+              tln.dropout_add_layer_norm_cuda.launches,
+              tln.dropout_add_layer_norm_bwd_cuda.launches)
+    q, k, v, mask = _mha_inputs(77, 2, 3, 4, 9, 16, "step", "cpu",
+                                torch.float32)
+    qkv = [t.requires_grad_(True) for t in (q, k, v)]
+    g = torch.randn(2, 3, 4, 16)
+    got = torch.autograd.grad(tatt.multi_head_attention(
+        *qkv, mask, dropout_rate=0.2, seed=4, causal=True), qkv, g)
+    want = tatt.mha_backward_reference(q, k, v, mask, g, 0.2, 4, True)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    y, x = torch.randn(6, 32), torch.randn(6, 32)
+    w, b = torch.ones(32), torch.zeros(32)
+    torch.testing.assert_close(
+        tln.dropout_add_layer_norm(y, x, w, b, rate=0.1, seed=3),
+        tln.dropout_add_layer_norm_reference(y, x, w, b, 0.1, 3),
+        atol=0, rtol=0)
+    assert counts == (tatt.mha_attention_bwd_cuda.launches,
+                      tln.dropout_add_layer_norm_cuda.launches,
+                      tln.dropout_add_layer_norm_bwd_cuda.launches)

@@ -123,10 +123,16 @@ def test_multi_head_attention_dropout_is_the_philox_mask():
 
 
 def test_multi_head_attention_has_no_backward_yet():
+    """The backward (Pallas #5) is ported now: a gradient through the
+    head-major attention no longer raises, and equals autograd through
+    the plain forward (``tests/test_torch_tvc_train.py`` holds it to
+    ``jax.grad``)."""
     q = torch.randn(1, 2, 3, 8, requires_grad=True)
     out = tatt.multi_head_attention(q, q.detach(), q.detach())
-    with pytest.raises(NotImplementedError, match="#5"):
-        out.sum().backward()
+    (got,) = torch.autograd.grad(out.sum(), q)
+    (want,) = torch.autograd.grad(
+        tatt.mha_reference(q, q.detach(), q.detach()).sum(), q)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
 
 
 @pytest.mark.parametrize("Lq, Lk", [(20, 20), (6, 15)])
