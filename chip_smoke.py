@@ -29,12 +29,20 @@ What the card run does, in order (any failure exits non-zero):
 7. the train phase: holds the training kernels (the forward with dropout
    and saved probabilities, the attention and LayerNorm backwards, the
    Philox masks) against their plain versions in fp32 and bf16 at the
-   train step's shapes; times the VSM train step at ``bench.py``'s layout
+   train step's shapes, and the bf16 packed forward and backward at the
+   tensor-core kernels' tile edges (``check_packed_edges``: 1, 17, 63,
+   65, 200 and 417 keys, the backward at 154 and 240 rows, one query over
+   each key count, fully masked rows in both modes, the keep bits read
+   back from both kernels); times the VSM train step at ``bench.py``'s layout
    (32 TV videos a step, the packed bucket and its overflow bucket, bf16,
    dropout 0.1, ``drop_svmr_prob`` 0.8) as the median of 3 runs of 20 fit
    and 8 overflow steps with the launch counters read from 0 around them;
-   checks that the loss falls over 20 steps on one batch; and holds one
-   fp32 train step through the kernels against the plain path on the CPU;
+   checks that the loss falls over 20 steps on one batch; holds one
+   fp32 train step through the kernels against the plain path on the
+   CPU; and, in bf16 with dropout on both buckets at full depth, holds
+   one step's loss and gradients through the tensor-core attention
+   kernels against the same step with the plain attention versions on
+   the card, within the bf16 step's own distance from the fp32 step;
 8. the TVC phase, at ``config/hero_tvc.json``'s model (the flagship
    backbone and a 2-layer decoder): holds the head-major attention
    kernel (#4) against its plain version at the decode step's shapes
@@ -62,8 +70,10 @@ What the card run does, in order (any failure exits non-zero):
    (cap_len 62, seg_len 100) as the median of 3 runs of 20 steps after 3
    warm-up steps, the launch counters read from 0 around the runs;
    checks that the loss falls over 20 steps on one batch (dropout off,
-   lr 1e-4, warm-up 1) and holds one fp32 step on the card against the
-   plain path on the CPU (loss, every gradient, every new parameter);
+   lr 1e-4, warm-up 1), holds one fp32 step on the card against the
+   plain path on the CPU (loss, every gradient, every new parameter) and
+   one bf16 step through the kernels against the plain attention
+   versions on the card, as in 7;
 10. the components phase (``tools/component_bench.py`` and the DALN
    checks of ``tools/kernel_smoke.py`` and ``tools/tpu_kernel_drive.py``):
    holds every kernel the components launch against its plain version in
@@ -89,12 +99,14 @@ launches by path), the card's name and power limit (nvidia-smi), and as
 the last line ``{"ok": true, "device": {...}}``.  ``--profile`` adds
 torch.profiler breakdowns of a phase-1 batch, a query batch, one
 fit-bucket train step, one greedy TVC batch and one TVC train step to the
-JSON record.  Imports nothing of JAX.
+JSON record, and fails if a CUDA-core packed attention kernel ran in any
+of these bf16 windows.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -172,9 +184,14 @@ def bound_ms(n_bytes, n_flops, dtype_name):
 def _kernel_class(name):
     if "mha_attention_kernel" in name:
         return "mha_attention_kernel"
-    if "packed_attention_bwd_kernel" in name:
+    # the tensor-core kernels (bf16) and the CUDA-core ones (fp32) apart
+    if "packed_attention_bwd_mma" in name:
+        return "attention_bwd_mma_kernel"
+    if "packed_attention_mma" in name:
+        return "attention_mma_kernel"
+    if "packed_attention_bwd" in name:
         return "attention_bwd_kernel"
-    if "packed_attention_kernel" in name:
+    if "packed_attention" in name:
         return "attention_kernel"
     if "layer_norm_bwd" in name:
         return "layer_norm_bwd_kernels"
@@ -194,7 +211,9 @@ def profile_breakdown(torch, fn, iters=3):
     """Device time of ``fn`` by kernel class over ``iters`` calls, from a
     torch.profiler trace, beside the host wall time of the same window:
     the idle share is 1 - busy / wall (one stream, so kernels do not
-    overlap)."""
+    overlap).  Every traced window is a bf16 path, whose packed attention
+    must run on the tensor-core kernels: a CUDA-core packed attention
+    kernel in the trace fails the run."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -217,6 +236,12 @@ def profile_breakdown(torch, fn, iters=3):
     if not n_events:
         return {"device_events": 0, "note": "the trace holds no device "
                 "events: device time not measured"}
+    cuda_core = {c for c in ("attention_kernel", "attention_bwd_kernel")
+                 if c in by_class}
+    if cuda_core:
+        raise AssertionError(f"a bf16 window ran the CUDA-core packed "
+                             f"attention kernels {sorted(cuda_core)}: "
+                             f"{by_kernel}")
     busy = sum(by_class.values())
     wall_ms = wall * 1e3 / iters
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
@@ -678,6 +703,129 @@ def check_train_kernels(torch, b_fit, b_over, cfg, kernels):
          "shapes": ln}]
 
 
+# Shapes at the bf16 tensor-core kernels' tile edges (16-key chunks,
+# 16-row warp tiles, 64-row forward blocks): key counts, the old fp32
+# forward's limit at head_dim 64 (417 keys), and the longest rows the
+# backward takes (154, the fp32 kernel's limit; 240, the bf16 kernel's).
+EDGE_KEYS = (1, 17, 63, 65, 200, 417)
+EDGE_BWD = (154, 240)
+EDGE_BWD_MAX = 240
+
+
+def _edge_segments(B, L, seed):
+    """Segment ids (B, L): runs of 3-20 slots with -1 pad slots between."""
+    r = np.random.RandomState(seed)
+    seg = np.full((B, L), -1, np.int32)
+    for b in range(B):
+        pos, s = int(r.randint(0, 3)), 0
+        while pos < L - 3:
+            n = int(r.randint(3, 21))
+            seg[b, pos:pos + n] = s
+            pos, s = pos + n + int(r.randint(0, 3)), s + 1
+    return seg
+
+
+def check_packed_edges(torch, att, drop):
+    """The bf16 packed forward (#1/#2) and backward (#3) at the tile-edge
+    shapes, against the plain versions on the same inputs, with the
+    train tolerances (one bf16 ulp of the largest value): self-attention
+    at every ``EDGE_KEYS`` length in both mask modes, rate 0 and 0.1, saved
+    probabilities, batch row 0 fully masked (finite); the backward at
+    every length it takes and at ``EDGE_BWD``; one query over each key
+    count (Lq = 1); and the keep bits read back from the kernels (value
+    rows e_j give drop(p), output-gradient rows e_i give dv = drop(p)^T)
+    equal to the plain Philox mask."""
+    dev = torch.device("cuda")
+    H, d = 12, 64
+    D = H * d
+    gen = torch.Generator(device=dev).manual_seed(91)
+    rows = []
+
+    def one(B, Lq, Lk, seg_mode, rate, backward):
+        q = torch.randn((B, Lq, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        kv = torch.randn((B, Lk, 3 * D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k, v, dout = kv[..., :D], kv[..., D:2 * D], None
+        if seg_mode:
+            qkv = torch.cat([q, kv[..., :2 * D]], -1)
+            q, k, v = qkv.split(D, dim=-1)      # strided self-attention
+            mask = torch.from_numpy(_edge_segments(B, Lk, Lk)).to(dev)
+            mask[0] = -1
+            kw = {"seg": mask}
+            launch = att.seg_attention_cuda
+        else:
+            lens = torch.randint(1, Lk + 1, (B, 1), generator=gen,
+                                 device=dev)
+            mask = (torch.arange(Lk, device=dev)[None] < lens).float()
+            mask[0] = 0.0
+            kw = {"kv_mask": mask}
+            launch = att.valid_attention_cuda
+        out, probs = launch(q, k, v, H, mask, rate, TRAIN_SEED, True)
+        ref, rprobs = att.packed_forward_reference(
+            q, k, v, H, dropout_rate=rate, seed=TRAIN_SEED, save_probs=True,
+            **kw)
+        rec = {"shape": [B, Lq, Lk, D], "mask": "segment" if seg_mode
+               else "validity", "rate": rate,
+               "fwd_err": _err(out, ref),
+               "fwd_tol": _train_tol(ref, "bfloat16"),
+               "probs_err": _err(probs, rprobs),
+               "probs_tol": _train_tol(rprobs, "bfloat16")}
+        ok = (rec["fwd_err"] <= rec["fwd_tol"]
+              and rec["probs_err"] <= rec["probs_tol"]
+              and bool(torch.isfinite(out).all()))
+        if backward:
+            dout = torch.randn((B, Lq, D), generator=gen, device=dev).to(
+                torch.bfloat16)
+            grads = att.attention_bwd_cuda(probs, q, k, v, dout, H, rate,
+                                           TRAIN_SEED)
+            rgrads = att.packed_backward_reference(probs, q, k, v, dout, H,
+                                                   rate, TRAIN_SEED)
+            again = att.attention_bwd_cuda(probs, q, k, v, dout, H, rate,
+                                           TRAIN_SEED)
+            rec["bwd_err"] = max(_err(a, b) for a, b in zip(grads, rgrads))
+            rec["bwd_tol"] = min(_train_tol(b, "bfloat16") for b in rgrads)
+            rec["deterministic"] = all(torch.equal(a, b)
+                                       for a, b in zip(grads, again))
+            ok = (ok and rec["bwd_err"] <= rec["bwd_tol"]
+                  and rec["deterministic"]
+                  and all(bool(torch.isfinite(g).all()) for g in grads))
+        rec["ok"] = ok
+        rows.append(rec)
+        if not ok:
+            raise AssertionError(f"packed attention edge shape: {rec}")
+
+    for L in EDGE_KEYS + EDGE_BWD:
+        for seg_mode in (False, True):
+            for rate in (0.0, TRAIN_RATE):
+                one(2, L, L, seg_mode, rate, L <= EDGE_BWD_MAX)
+    for Lk in EDGE_KEYS:
+        one(4, 1, Lk, False, TRAIN_RATE, Lk <= EDGE_BWD_MAX)
+
+    B, L = 2, 60
+    q, k, _ = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(
+        torch.bfloat16).split(D, dim=-1)
+    v = torch.eye(L, d, device=dev, dtype=torch.bfloat16).repeat(
+        1, H).expand(B, L, D)
+    keep = drop.attention_keep_mask(TRAIN_SEED, B, H, L, L, TRAIN_RATE,
+                                    device=dev)
+    out, probs = att.valid_attention_cuda(
+        q, k, v, H, torch.ones((B, L), device=dev), TRAIN_RATE, TRAIN_SEED,
+        True)
+    dv = att.attention_bwd_cuda(probs, q, k, v, v, H, TRAIN_RATE,
+                                TRAIN_SEED)[2]
+    fwd_bits = out.view(B, L, H, d).transpose(1, 2)[..., :L] != 0
+    bwd_bits = dv.view(B, L, H, d).transpose(1, 2)[..., :L] != 0
+    masks = {"shape": [B, H, L, L],
+             "forward_equals_plain": bool(torch.equal(fwd_bits, keep)),
+             "backward_equals_plain": bool(torch.equal(
+                 bwd_bits, keep.transpose(-1, -2)))}
+    if not (masks["forward_equals_plain"]
+            and masks["backward_equals_plain"]):
+        raise AssertionError(f"packed attention keep bits: {masks}")
+    return {"cases": rows, "n_cases": len(rows), "keep_bits": masks}
+
+
 # ---------------------------------------------------------------------------
 # workload
 # ---------------------------------------------------------------------------
@@ -1017,6 +1165,100 @@ def train_parity(torch, cfg, videos, dev_kernel, dev_plain):
     if not rec["ok"]:
         raise AssertionError(f"fp32 train step, kernels vs plain: {rec}")
     return rec
+
+
+@contextlib.contextmanager
+def plain_packed_attention():
+    """Within the context the packed attention wrappers compute with their
+    plain versions, on the card as on the CPU, and count no launches: the
+    reference path of :func:`bf16_step_check`."""
+    from hero_tpu_torch.ops import attention as att
+    names = ("seg_attention_cuda", "valid_attention_cuda",
+             "attention_bwd_cuda")
+    saved = {n: getattr(att, n) for n in names}
+
+    def seg(q, k, v, n_heads, seg, dropout_rate=0.0, seed=None,
+            save_probs=False):
+        return att.packed_forward_reference(
+            q, k, v, n_heads, seg=seg, dropout_rate=dropout_rate, seed=seed,
+            save_probs=save_probs)
+
+    def valid(q, k, v, n_heads, kv_mask, dropout_rate=0.0, seed=None,
+              save_probs=False, causal=False):
+        return att.packed_forward_reference(
+            q, k, v, n_heads, kv_mask=kv_mask, dropout_rate=dropout_rate,
+            seed=seed, save_probs=save_probs, causal=causal)
+
+    att.seg_attention_cuda, att.valid_attention_cuda = seg, valid
+    att.attention_bwd_cuda = att.packed_backward_reference
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(att, n, f)
+
+
+def bf16_step_check(torch, make_loss_fn, params, batches, seed, paths):
+    """bf16 with dropout, at the main path's model and batches: the loss
+    and every gradient of one step through the tensor-core packed
+    attention kernels against the same step with the plain attention
+    versions, on the card at the same inputs and Philox seed.  The fp32
+    step (the CUDA-core kernels, which the fp32 parity holds against the
+    CPU) measures the bf16 step's own rounding, and the kernels' step
+    must stay within a few times it: for the loss and each gradient
+    leaf, |kernels - plain| <= 4 |plain - fp32| + 2^-9 |fp32| (max over
+    the leaf).  A perturbation of one bf16 ulp anywhere in the step
+    spreads through the later bf16 roundings, so the two bf16 steps
+    differ by about as much as either differs from fp32 (up to 2.05x it,
+    leaf by leaf, on an NVIDIA H100 80GB HBM3); a wrong row or key in a
+    kernel moves its terms by their own size, far above that."""
+    from hero_tpu_torch.training import optim
+    from hero_tpu_torch.training.step import loss_and_grads
+
+    def step(dtype, batch):
+        loss, _, grads = loss_and_grads(make_loss_fn(dtype), params, batch,
+                                        seed)
+        return float(loss), [g.float() for g in optim.tree_leaves(grads)]
+
+    recs = []
+    for batch in batches:
+        lk, gk = step(torch.bfloat16, batch)
+        with plain_packed_attention():
+            lp, gp = step(torch.bfloat16, batch)
+        lr, gr = step(torch.float32, batch)
+        worst = (0.0, "")
+        for path, a, b, r in zip(paths, gk, gp, gr):
+            tol = (4 * float((b - r).abs().max())
+                   + 2.0 ** -9 * float(r.abs().max()))
+            worst = max(worst, (float((a - b).abs().max()) / max(tol, 1e-30),
+                                path))
+        rec = {"loss": [lk, lp, lr], "loss_kernel_vs_plain": abs(lk - lp),
+               "loss_tol": 4 * abs(lp - lr) + 2.0 ** -9 * abs(lr),
+               "worst_grad_err_over_tol": worst}
+        rec["ok"] = (rec["loss_kernel_vs_plain"] <= rec["loss_tol"]
+                     and worst[0] <= 1.0
+                     and all(math.isfinite(x) for x in rec["loss"]))
+        recs.append(rec)
+        del gk, gp, gr
+    if not all(r["ok"] for r in recs):
+        raise AssertionError(f"bf16 step, kernels vs plain: {recs}")
+    return recs
+
+
+def vsm_bf16_step(torch, cfg, flat, b_fit, b_over, dev):
+    """:func:`bf16_step_check` on the VSM train step of
+    :func:`train_throughput`: the flagship model and both of its buckets
+    (fit and overflow), dropout on."""
+    from hero_tpu_torch.convert.from_jax import load_jax_params
+    from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
+    from hero_tpu_torch.models.pretrain import VsmConfig
+    from hero_tpu_torch.training import optim
+    vsm = VsmConfig(drop_svmr_prob=0.8, **BENCH_VSM)
+    params = load_jax_params(flat, device=dev)
+    paths = ["/".join(p) for p in optim.tree_paths(params)]
+    return bf16_step_check(
+        torch, lambda dt: vsm_loss_fn(cfg, vsm, dt, True), params,
+        [batch_to_device(b, dev) for b in (b_fit, b_over)], 7, paths)
 
 
 # ---------------------------------------------------------------------------
@@ -1736,11 +1978,12 @@ def tvc_train_phase(torch, cfg, flat, ds, dev, dtype, sync, rehearse,
     ``config/train-tvc.json``'s options, bf16, dropout 0.1) on 4 videos x
     2 captions a step: the median of ``TVC_TRAIN_STEPS[2]`` runs of
     ``TVC_TRAIN_STEPS[1]`` steps after the warm-up, the launch counters
-    read from 0 around the timed runs; then the learning signal and the
-    fp32 card-vs-CPU step."""
+    read from 0 around the timed runs; then the learning signal, the
+    fp32 card-vs-CPU step and the bf16 kernels-vs-plain step."""
     from hero_tpu_torch.convert.from_jax import load_jax_tvc_params
     from hero_tpu_torch.drivers import train_tvc
     from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
+    from hero_tpu_torch.training import optim
     from hero_tpu_torch.training.step import TrainState
     n_videos = 2 if rehearse else TVC_TRAIN_VIDEOS
     host = tvc_train_batches(ds, n_videos)
@@ -1797,6 +2040,13 @@ def tvc_train_phase(torch, cfg, flat, ds, dev, dtype, sync, rehearse,
     del params
     rec["fp32"] = tvc_train_parity(torch, cfg, host[0], ds.caps_per_video,
                                    "cpu" if rehearse else "cuda", "cpu")
+    params = load_jax_tvc_params(flat, device=dev)
+    rec["bf16_step"] = bf16_step_check(
+        torch, lambda dt: train_tvc.make_loss_fn(cfg, opts["lsr"], dt,
+                                                 train=True),
+        params, batches[:1], 5000,
+        ["/".join(p) for p in optim.tree_paths(params)])
+    del params
     return rec
 
 
@@ -2388,6 +2638,11 @@ def main(argv=None):
         record["kernels"] += check_train_kernels(torch, b_fit, b_over, cfg,
                                                  record["kernels"])
         log("training kernel checks passed")
+        from hero_tpu_torch.ops import attention as att
+        from hero_tpu_torch.ops import dropout as drop
+        record["edge_checks"] = check_packed_edges(torch, att, drop)
+        log(f"{record['edge_checks']['n_cases']} tile-edge checks of the "
+            f"packed attention kernels passed")
     steps = ((1, 2, 1, 1) if rehearse
              else (WARMUP_STEPS, FIT_STEPS, OVER_STEPS, TRAIN_RUNS))
     train = train_throughput(torch, cfg, flat, b_fit, b_over, p_over, dev,
@@ -2404,6 +2659,8 @@ def main(argv=None):
         torch, cfg, flat, b_fit, dev, dtype, SIGNAL_STEPS)
     record["train_parity_fp32"] = train_parity(
         torch, cfg, fit_videos, "cpu" if rehearse else "cuda", "cpu")
+    record["train_bf16_step"] = vsm_bf16_step(torch, cfg, flat, b_fit,
+                                              b_over, dev)
     log(f"train phases done at {time.perf_counter() - t_start:.1f} s")
 
     # TVC caption serving at config/hero_tvc.json's model
@@ -2479,7 +2736,8 @@ def main(argv=None):
                                    for i in (0, -1)],
         "train_parity_fp32": {k: record["train_parity_fp32"][k] for k in (
             "loss_rel_err", "worst_grad_err_over_tol",
-            "worst_param_err_over_tol", "ok")}}))
+            "worst_param_err_over_tol", "ok")},
+        "bf16_step": record["train_bf16_step"]}))
     print(json.dumps({
         "tvc_captions_per_s": tvc["tvc_captions_per_s"],
         "runs_captions_per_s": tvc["runs_captions_per_s"],
@@ -2498,7 +2756,8 @@ def main(argv=None):
                                    for i in (0, -1)],
         "fp32": {k: tvc_train["fp32"][k] for k in (
             "loss_rel_err", "worst_grad_err_over_tol",
-            "worst_param_err_over_tol", "ok")}}))
+            "worst_param_err_over_tol", "ok")},
+        "bf16_step": tvc_train["bf16_step"]}))
     print(json.dumps({"components": {
         "ms": comps.get("ms"), "ffn_tflops": comps.get("ffn_tflops"),
         "shapes": comps["shapes"], "launches": comp_launches}}))

@@ -33,9 +33,13 @@ layout) or recomputes them (the head-major one):
 :func:`packed_attention` always goes through :class:`PackedAttention`,
 :func:`multi_head_attention` through :class:`MultiHeadAttention`.  A CPU
 tensor takes the plain versions; a CUDA tensor launches
-``csrc/attention.cu`` or raises.  Probabilities are written, and dropout
-drawn, only when the call needs a gradient or a rate is set, so a serving
-call launches the forward kernel exactly as an inference-only kernel would.
+``csrc/attention.cu`` or raises.  On the packed layout a bf16 call takes
+the tensor-core kernels and an fp32 call the CUDA-core ones, each dtype
+one kernel, chosen inside the C entry point; a shape whose tiles exceed
+a block's shared memory raises (``_check_smem``).  Probabilities are
+written, and dropout drawn, only when the call needs a gradient or a rate
+is set, so a serving call launches the forward kernel exactly as an
+inference-only kernel would.
 """
 
 from __future__ import annotations
@@ -208,7 +212,7 @@ def _lib() -> ctypes.CDLL:
             + [f32, f32, f32, u32, u32, vp])
         lib.hero_dropout_keep_mask.argtypes = [u32, u32] + [i32] * 4 + [
             f32, vp, vp]
-        lib.hero_attention_smem_bytes.argtypes = [i32] * 4
+        lib.hero_attention_smem_bytes.argtypes = [i32] * 5
         for fn in (lib.hero_packed_attention_fwd,
                    lib.hero_packed_attention_bwd,
                    lib.hero_mha_attention_fwd, lib.hero_dropout_keep_mask):
@@ -284,8 +288,9 @@ def _launch(q, k, v, n_heads: int, mask: torch.Tensor, seg_mode: bool,
     if B == 0 or Lq == 0:
         return out, probs
     lib = _lib()
-    _check_smem(lib, lib.hero_attention_smem_bytes(0, Lq, Lk, d),
-                "attention forward", Lq, Lk, d)
+    _check_smem(lib, lib.hero_attention_smem_bytes(
+        cuda_build.DTYPE_CODES[q.dtype], 0, Lq, Lk, d), "attention forward",
+        Lq, Lk, d)
     with torch.cuda.device(q.device):
         err = lib.hero_packed_attention_fwd(
             cuda_build.DTYPE_CODES[q.dtype], int(seg_mode), int(causal),
@@ -351,8 +356,9 @@ def attention_bwd_cuda(p, q, k, v, dout, n_heads: int,
     if B == 0 or Lq == 0:
         return dq, dk.zero_(), dv.zero_()
     lib = _lib()
-    _check_smem(lib, lib.hero_attention_smem_bytes(1, Lq, Lk, d),
-                "attention backward", Lq, Lk, d)
+    _check_smem(lib, lib.hero_attention_smem_bytes(
+        cuda_build.DTYPE_CODES[q.dtype], 1, Lq, Lk, d),
+        "attention backward", Lq, Lk, d)
     with torch.cuda.device(q.device):
         err = lib.hero_packed_attention_bwd(
             cuda_build.DTYPE_CODES[q.dtype], p.data_ptr(), q.data_ptr(),

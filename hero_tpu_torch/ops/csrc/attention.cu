@@ -43,29 +43,96 @@
 // strides (q, k and v are column slices of one (B, L, 3*H*d) tensor), so
 // no head transposes.
 //
-// Bound on the H100: at the path's shapes (L <= 144, d = 64) a head's
-// tiles fit in shared memory and the work is ~4*L^2*d flops (forward) or
-// ~8*L^2*d (backward) per (row, head) against ~8*L*d bytes of q/k/v/out
-// plus, in training, the 2*L^2 bytes of saved bf16 probabilities, so the
-// ideal is memory-bound.  These first kernels do the products on the CUDA
-// cores in fp32 (no wgmma yet).
+// Each dtype has one kernel of each kind: bf16, the dtype of every timed
+// path, takes the tensor-core kernels (packed_attention_mma_kernel,
+// packed_attention_bwd_mma_kernel); fp32, which only the checks and the
+// fp32 card-versus-CPU parity runs use, takes the CUDA-core kernels
+// (packed_attention_kernel, packed_attention_bwd_kernel).
 //
-// Forward design: one block per (batch row, head) stages K (padded to d+1
-// floats per key, so lanes reading different keys hit different banks)
-// and V in shared memory once; each warp owns one query row at a time --
-// lanes over keys for the scores, warp shuffles for the softmax max/sum,
-// lanes over d for P.V.
+// Bound on the H100: per (row, head) the forward does ~4*L^2*d flops
+// against ~8*L*d bytes of q/k/v/out (plus, in training, the 2*L^2 bytes
+// of saved bf16 probabilities), the backward ~8*L^2*d flops against the
+// saved p and 14*L*d bytes of q/k/v/do/dq/dk/dv: at the paths' shapes
+// (L <= 144, d = 64) under 300 flops a byte, so both are memory-bound.
+// The serving f-encoder's (200, 104, 768) forward moves 128 MB (38 us at
+// 3.35 TB/s) for 6.6 GFLOP (7 us on the tensor cores).
 //
-// Backward design: one block per (batch row, head).  dk and dv are sums
-// over query rows, which a warp-per-row pass cannot write without atomics.
-// So pass A (a warp per query row, lanes over keys, V staged in shared
-// memory) writes the fp32 tiles PD = drop(p) and dS for the whole head to
-// shared memory; pass B then stages dO, Q and K in turn in the space V
-// used and forms dv, dk and dq with one thread per (output row block,
-// channel), each summing its terms in a fixed order: the gradients are the
-// same from run to run.  Shared memory is (max(Lq, Lk) * (d + 1)
-// + 2 * Lq * Lk + 8 * d) floats: 201 KB at L = 144, d = 64, under the
-// 227 KB a block may use; the wrapper refuses larger shapes.
+// What holds the bf16 kernels back on the H100 is instruction issue, not
+// bytes and not the tensor cores: every score costs a mask, an exp and a
+// hi/lo split on the CUDA cores, and in training a Philox draw (~60
+// integer instructions, the largest single cost of both kernels there).
+// So the exp goes to the special-function unit (ex2.approx of x log2 e,
+// relative error near 2^-22), p takes one reciprocal of l per row, and the
+// causal and padding fix-ups run only on the chunks that can hold them.
+//
+// bf16 forward: a block per (batch row, head, tile of up to 64 query
+// rows) of 4 warps, a warp per 16 rows.  K, V and the tile's Q are staged
+// in shared memory by cp.async, all copies in flight at once (Q and K in
+// a first group, V in a second that lands during sweep 1), as bf16 rows of
+// d + 8 elements: the 8 of padding put the 8 rows of every fragment load
+// and ldmatrix in distinct banks (K and V take 32 KB at Lk = 104); padded
+// keys are zero rows.  Sweep 1 forms S = Q K^T on the tensor cores
+// (mma.sync m16n8k16, fp32 accumulation; bf16 x bf16 products are exact
+// in fp32, so the sums are the CUDA-core kernel's in another order) a
+// 16-key chunk at a time, masks it and keeps the online row max and sum,
+// combined over the 4 lanes of a row by shuffles.  Sweep 2 forms S again
+// and p = exp(s - m) / l, final before P.V as the plain version has it
+// (no rescaling of the accumulator, no register ceiling on Lk), writes p
+// if asked, applies the Philox bit of (b, h, i, j) at each accumulator
+// element and accumulates O += P V.  A key past Lk scores -inf, so its p
+// is exactly 0 and it never joins the softmax (a -1e4 pad would change
+// fully masked rows).  A tile of one or two 16-row groups (the decode
+// step's single query, the 30-token query rows) would leave warps idle
+// and walk every key on one warp, so its warps split the key chunks
+// instead and combine their (max, sum) and partial outputs through shared
+// memory in a fixed order.
+//
+// The hi/lo split: p (and dS in the backward) are fp32 values that meet a
+// bf16 tensor core.  Rounding them to bf16, as the Pallas kernel rounds p,
+// would move the kernel a bf16 ulp away from the plain version, which
+// keeps them in fp32.  So each is split as x = hi + lo, hi = bf16(x),
+// lo = bf16(x - hi), and multiplied twice: ~16 mantissa bits, relative
+// errors near 2^-17, and a second mma that the tensor cores have room
+// for.  (Without dropout, the backward's pd = p is the saved bf16 p
+// itself and takes one mma.)
+//
+// bf16 backward: a block per (batch row, head) of up to 9 warps (the VSM
+// overflow bucket's 144 rows in one round); dO, V, K and the head's saved
+// p (as it lies in memory) staged by cp.async, all in flight at once.  dK
+// and dV are sums over query rows and dQ over keys, so the two reductions
+// go to two passes and neither needs atomics.  Pass A, a warp per 16 query
+// rows: dP = dO V^T on the tensor cores; sweep 1 draws the keep bits (kept
+// in shared memory, 16 bits a (row, 16-key chunk), for the later sweeps)
+// and Delta_i = sum_j dp_ij p_ij from the saved p in fp32, the rowsum of
+// _bwd3_kernel (not dO . O, which would read a rounded output); sweep 2
+// forms dS = p o (dp - Delta) again and accumulates dQ = dS K * scale.
+// Q then replaces K in shared memory, its copy in flight during pass B1, a
+// warp per 16 keys: dV = pd^T dO with pd^T read from the saved p; pass B2
+// forms dK = dS^T Q * scale with dP^T = V dO^T formed again.  Sharing K's
+// space keeps a 144-row head at 107 KB, two blocks an SM.  Each gradient
+// row is summed by one warp in a fixed order and written once, so the
+// gradients are the same bits from run to run.
+//
+// Shape limits (bytes of shared memory <= the 227 KB a block may use; the
+// wrappers ask hero_attention_smem_bytes and refuse larger shapes): the
+// bf16 forward takes Lk <= 752 keys at d = 64 (384 at d = 128; the fp32
+// forward 417 and 214), the bf16 backward Lq = Lk <= 240 at d = 64 (187
+// at d = 128; the fp32 backward, whose fp32 (Lq, Lk) tiles of PD and dS
+// cap it, 154 and 139).
+//
+// fp32 forward design: one block per (batch row, head) stages K (padded
+// to d+1 floats per key, so lanes reading different keys hit different
+// banks) and V in shared memory once; each warp owns one query row at a
+// time -- lanes over keys for the scores, warp shuffles for the softmax
+// max/sum, lanes over d for P.V.
+//
+// fp32 backward design: one block per (batch row, head).  Pass A (a warp
+// per query row, lanes over keys, V staged in shared memory) writes the
+// fp32 tiles PD = drop(p) and dS for the whole head to shared memory; pass
+// B then stages dO, Q and K in turn in the space V used and forms dv, dk
+// and dq with one thread per (output row block, channel), each summing
+// its terms in a fixed order.  Shared memory is (max(Lq, Lk) * (d + 1)
+// + 2 * Lq * Lk + 8 * d) floats: 201 KB at L = 144, d = 64.
 #include <math.h>
 
 #include "common.cuh"
@@ -83,7 +150,7 @@ struct AttnArgs {
   const void* v;
   void* out;
   const void* mask;  // float (B, Lk) validity, or int32 (B, Lk) segment ids
-  void* probs;       // (B, H, Lq, Lk) in T, or null
+  void* probs;       // (B, H, Lq, Lk) in the input type, or null
   int B, H, Lq, Lk;
   int causal;        // validity mode: add the causal bias
   long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, o_bs, o_rs;
@@ -93,7 +160,7 @@ struct AttnArgs {
   PhiloxKey key;
 };
 
-template <typename T, int DCH, bool SEG>
+template <int DCH, bool SEG>
 __global__ void __launch_bounds__(kWarps * 32)
     packed_attention_kernel(AttnArgs a) {
   constexpr int D = DCH * 32;
@@ -108,20 +175,20 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   const int b = blockIdx.x / a.H;
   const int h = blockIdx.x - b * a.H;
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_bs + h * D;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_bs + h * D;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_bs + h * D;
-  T* ob = static_cast<T*>(a.out) + b * a.o_bs + h * D;
-  T* pb = a.probs == nullptr
-              ? nullptr
-              : static_cast<T*>(a.probs) +
-                    static_cast<long long>(blockIdx.x) * a.Lq * Lk;
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_bs + h * D;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_bs + h * D;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_bs + h * D;
+  float* ob = static_cast<float*>(a.out) + b * a.o_bs + h * D;
+  float* pb = a.probs == nullptr
+                  ? nullptr
+                  : static_cast<float*>(a.probs) +
+                        static_cast<long long>(blockIdx.x) * a.Lq * Lk;
   const bool drop = a.rate > 0.f;
 
   for (int i = threadIdx.x; i < Lk * D; i += blockDim.x) {
     const int j = i / D, c = i - j * D;
-    ks[j * (D + 1) + c] = to_float(kb[j * a.k_rs + c]);
-    vs[j * D + c] = to_float(vb[j * a.v_rs + c]);
+    ks[j * (D + 1) + c] = kb[j * a.k_rs + c];
+    vs[j * D + c] = vb[j * a.v_rs + c];
   }
   for (int j = threadIdx.x; j < Lk; j += blockDim.x) {
     const long long m = static_cast<long long>(b) * Lk + j;
@@ -138,7 +205,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int r = warp; r < a.Lq; r += kWarps) {
 #pragma unroll
     for (int c = 0; c < DCH; ++c)
-      qw[lane + 32 * c] = to_float(qb[r * a.q_rs + lane + 32 * c]);
+      qw[lane + 32 * c] = qb[r * a.q_rs + lane + 32 * c];
     const int sq = SEG ? kseg[r] : 0;
     const int last = a.causal ? r + (Lk - a.Lq) : Lk;  // last causal key
     __syncwarp();
@@ -169,7 +236,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     sum = warp_sum(sum);
     for (int j = lane; j < Lk; j += 32) {
       float p = pw[j] / sum;
-      if (pb != nullptr) pb[static_cast<long long>(r) * Lk + j] = from_float<T>(p);
+      if (pb != nullptr) pb[static_cast<long long>(r) * Lk + j] = p;
       if (drop)
         p = dropout_keep(a.key, b, h, r, j, a.rate) ? p * a.keep_scale : 0.f;
       pw[j] = p;
@@ -187,7 +254,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
 #pragma unroll
     for (int c = 0; c < DCH; ++c)
-      ob[r * a.o_rs + lane + 32 * c] = from_float<T>(acc[c]);
+      ob[r * a.o_rs + lane + 32 * c] = acc[c];
     __syncwarp();
   }
 }
@@ -197,37 +264,36 @@ size_t fwd_smem(int Lk, int D) {
                           + kWarps * (D + Lk));
 }
 
-template <typename T, int DCH, bool SEG>
+template <int DCH, bool SEG>
 cudaError_t launch_fwd(const AttnArgs& a, cudaStream_t stream) {
   constexpr int D = DCH * 32;
   const size_t smem = fwd_smem(a.Lk, D);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        packed_attention_kernel<T, DCH, SEG>,
+        packed_attention_kernel<DCH, SEG>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  packed_attention_kernel<T, DCH, SEG>
+  packed_attention_kernel<DCH, SEG>
       <<<a.B * a.H, kWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, bool SEG>
+template <bool SEG>
 cudaError_t fwd_dim(const AttnArgs& a, int head_dim, cudaStream_t s) {
   switch (head_dim) {
-    case 32: return launch_fwd<T, 1, SEG>(a, s);
-    case 64: return launch_fwd<T, 2, SEG>(a, s);
-    case 128: return launch_fwd<T, 4, SEG>(a, s);
+    case 32: return launch_fwd<1, SEG>(a, s);
+    case 64: return launch_fwd<2, SEG>(a, s);
+    case 128: return launch_fwd<4, SEG>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
 cudaError_t fwd_mode(const AttnArgs& a, int seg, int head_dim,
                      cudaStream_t s) {
-  return seg ? fwd_dim<T, true>(a, head_dim, s)
-             : fwd_dim<T, false>(a, head_dim, s);
+  return seg ? fwd_dim<true>(a, head_dim, s)
+             : fwd_dim<false>(a, head_dim, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -235,7 +301,7 @@ cudaError_t fwd_mode(const AttnArgs& a, int seg, int head_dim,
 // ---------------------------------------------------------------------------
 
 struct BwdArgs {
-  const void* p;  // (B, H, Lq, Lk) saved pre-dropout probabilities, in T
+  const void* p;  // (B, H, Lq, Lk) saved pre-dropout p, in the input type
   const void* q;
   const void* k;
   const void* v;
@@ -290,7 +356,7 @@ __device__ void contract(const float* m, int sx, int sy, const float* xs,
   }
 }
 
-template <typename T, int DCH>
+template <int DCH>
 __global__ void __launch_bounds__(kWarps * 32)
     packed_attention_bwd_kernel(BwdArgs a) {
   constexpr int D = DCH * 32;
@@ -303,19 +369,19 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   const int b = blockIdx.x / a.H;
   const int h = blockIdx.x - b * a.H;
-  const T* pb = static_cast<const T*>(a.p) +
-                static_cast<long long>(blockIdx.x) * Lq * Lk;
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_bs + h * D;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_bs + h * D;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_bs + h * D;
-  const T* gb = static_cast<const T*>(a.dout) + b * a.do_bs + h * D;
+  const float* pb = static_cast<const float*>(a.p) +
+                    static_cast<long long>(blockIdx.x) * Lq * Lk;
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_bs + h * D;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_bs + h * D;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_bs + h * D;
+  const float* gb = static_cast<const float*>(a.dout) + b * a.do_bs + h * D;
   const bool drop = a.rate > 0.f;
 
   // pass A: PD and dS, a warp per query row, V padded against bank
   // conflicts
   for (int i = threadIdx.x; i < Lk * D; i += blockDim.x) {
     const int j = i / D, c = i - j * D;
-    region[j * (D + 1) + c] = to_float(vb[j * a.v_rs + c]);
+    region[j * (D + 1) + c] = vb[j * a.v_rs + c];
   }
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -323,9 +389,9 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int r = warp; r < Lq; r += kWarps) {
 #pragma unroll
     for (int c = 0; c < DCH; ++c)
-      gw[lane + 32 * c] = to_float(gb[r * a.do_rs + lane + 32 * c]);
+      gw[lane + 32 * c] = gb[r * a.do_rs + lane + 32 * c];
     __syncwarp();
-    const T* pr = pb + static_cast<long long>(r) * Lk;
+    const float* pr = pb + static_cast<long long>(r) * Lk;
     float* dsr = dsm + r * Lk;
     float* pdr = pdm + r * Lk;
     float acc = 0.f;
@@ -334,7 +400,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       float dpd = 0.f;
 #pragma unroll 16
       for (int c = 0; c < D; ++c) dpd = fmaf(gw[c], vr[c], dpd);
-      const float p = to_float(pr[j]);
+      const float p = pr[j];
       float dp = dpd, pd = p;
       if (drop) {
         const bool keep = dropout_keep(a.key, b, h, r, j, a.rate);
@@ -347,26 +413,26 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
     const float rowsum = warp_sum(acc);
     for (int j = lane; j < Lk; j += 32)
-      dsr[j] = to_float(pr[j]) * (dsr[j] - rowsum);
+      dsr[j] = pr[j] * (dsr[j] - rowsum);
     __syncwarp();
   }
   __syncthreads();
 
   // pass B: dv = PD^T dO, dk = dS^T Q * scale, dq = dS K * scale
-  stage<T, D>(gb, a.do_rs, Lq, region);
+  stage<float, D>(gb, a.do_rs, Lq, region);
   __syncthreads();
-  contract<T, D>(pdm, 1, Lk, region, Lk, Lq, 1.f,
-                 static_cast<T*>(a.dv) + b * a.dv_bs + h * D, a.dv_rs);
+  contract<float, D>(pdm, 1, Lk, region, Lk, Lq, 1.f,
+                     static_cast<float*>(a.dv) + b * a.dv_bs + h * D, a.dv_rs);
   __syncthreads();
-  stage<T, D>(qb, a.q_rs, Lq, region);
+  stage<float, D>(qb, a.q_rs, Lq, region);
   __syncthreads();
-  contract<T, D>(dsm, 1, Lk, region, Lk, Lq, a.scale,
-                 static_cast<T*>(a.dk) + b * a.dk_bs + h * D, a.dk_rs);
+  contract<float, D>(dsm, 1, Lk, region, Lk, Lq, a.scale,
+                     static_cast<float*>(a.dk) + b * a.dk_bs + h * D, a.dk_rs);
   __syncthreads();
-  stage<T, D>(kb, a.k_rs, Lk, region);
+  stage<float, D>(kb, a.k_rs, Lk, region);
   __syncthreads();
-  contract<T, D>(dsm, Lk, 1, region, Lq, Lk, a.scale,
-                 static_cast<T*>(a.dq) + b * a.dq_bs + h * D, a.dq_rs);
+  contract<float, D>(dsm, Lk, 1, region, Lq, Lk, a.scale,
+                     static_cast<float*>(a.dq) + b * a.dq_bs + h * D, a.dq_rs);
 }
 
 size_t bwd_smem(int Lq, int Lk, int D) {
@@ -374,28 +440,27 @@ size_t bwd_smem(int Lq, int Lk, int D) {
                           + 2 * static_cast<size_t>(Lq) * Lk + kWarps * D);
 }
 
-template <typename T, int DCH>
+template <int DCH>
 cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   constexpr int D = DCH * 32;
   const size_t smem = bwd_smem(a.Lq, a.Lk, D);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        packed_attention_bwd_kernel<T, DCH>,
+        packed_attention_bwd_kernel<DCH>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  packed_attention_bwd_kernel<T, DCH>
+  packed_attention_bwd_kernel<DCH>
       <<<a.B * a.H, kWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t bwd_dim(const BwdArgs& a, int head_dim, cudaStream_t s) {
   switch (head_dim) {
-    case 32: return launch_bwd<T, 1>(a, s);
-    case 64: return launch_bwd<T, 2>(a, s);
-    case 128: return launch_bwd<T, 4>(a, s);
+    case 32: return launch_bwd<1>(a, s);
+    case 64: return launch_bwd<2>(a, s);
+    case 128: return launch_bwd<4>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -412,6 +477,792 @@ __global__ void keep_mask_kernel(PhiloxKey key, int B, int H, int Lq, int Lk,
     const int h = static_cast<int>(t % H);
     const int b = static_cast<int>(t / H);
     out[e] = dropout_keep(key, b, h, i, j, rate) ? 1 : 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 packed attention on the tensor cores (forward and backward)
+// ---------------------------------------------------------------------------
+//
+// mma.sync.m16n8k16 fragments (g = lane / 4, t = lane % 4): A (16 x 16,
+// row-major) a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
+// a3 = (g+8, 2t+8..); B (16 x 8) b0 = (k 2t..2t+1, n g), b1 = (k 2t+8..,
+// n g); C (16 x 8, fp32) c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..).  So
+// the C tiles of two neighbouring 8-column blocks are, element for element,
+// the A fragment of their 16 columns: a probability or dS tile goes from
+// one product into the next in registers.
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kTcFwdWarps = 4;   // a forward block: 64 query rows
+constexpr int kTcBwdWarps = 9;   // the VSM overflow bucket's 144 rows at once
+
+__host__ __device__ inline int round16(int n) { return (n + 15) & ~15; }
+
+// bf16 elements of the backward's buffer for a head's saved p: Lq * Lk
+// and up to 7 of alignment shift, rounded to 16 bytes.
+__host__ __device__ inline int p_stage_elems(int Lq, int Lk) {
+  return (Lq * Lk + 8 + 7) & ~7;
+}
+
+// Query rows of a forward block: up to 64, fewer for short queries (the
+// block keeps its 4 warps, which all stage K and V).
+__host__ __device__ inline int tc_fwd_rows(int Lq) {
+  return min(16 * kTcFwdWarps, round16(Lq));
+}
+
+// Key parts of a forward block: its warps over its 16-row tiles, rounded
+// down (4 parts for one tile, 2 for two, 1 for three, one warp idle).
+__host__ __device__ inline int tc_fwd_split(int rows) {
+  return max(1, kTcFwdWarps * 16 / rows);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices, transposed, from shared memory: lane l names
+// row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const bf16* p) {
+  const uint32_t addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t lds_pair(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) = hi + lo with hi and lo bf16 pairs: ~16 mantissa bits of the
+// fp32 values, so an fp32 probability or dS tile meets a bf16 tensor core
+// with a relative error near 2^-17 (two mmas instead of one).
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack_bf16(x0, x1);
+  lo = pack_bf16(x0 - __uint_as_float(hi << 16),
+                 x1 - __uint_as_float(hi & 0xffff0000u));
+}
+
+// exp(x) as 2^(x log2 e) on the special-function unit: relative error
+// near 2^-22, far inside a bf16 ulp; exp(-inf) = 0
+__device__ __forceinline__ float exp_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// C tiles c[0] (columns 0-7) and c[1] (8-15) of 16 rows -> A fragments hi
+// and lo of the 16 x 16 tile.
+__device__ __forceinline__ void c_to_a(const float (&c)[2][4],
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_bf16(c[0][0], c[0][1], hi[0], lo[0]);
+  split_bf16(c[0][2], c[0][3], hi[1], lo[1]);
+  split_bf16(c[1][0], c[1][1], hi[2], lo[2]);
+  split_bf16(c[1][2], c[1][3], hi[3], lo[3]);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool fill) {
+  const uint32_t addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
+               "l"(src), "r"(fill ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stage rows [0, n) of one head of a packed (., L, H*D) bf16 tensor into
+// dst[n_pad][D + 8] (8 elements of padding a row, so the fragment loads and
+// ldmatrix rows fall in distinct banks); rows n..n_pad are zero, so a
+// padded key or query multiplies as 0 and never as garbage.  ``vec``: the
+// source rows are 16-byte aligned and go by cp.async, every copy in flight
+// at once (the caller waits for its group); else by 2-byte loads.
+template <int D>
+__device__ void stage_rows(const bf16* src, long long rs, int n, int n_pad,
+                           bool vec, bf16* dst) {
+  constexpr int S = D + 8, C = D / 8;
+  for (int e = threadIdx.x; e < n_pad * C; e += blockDim.x) {
+    const int r = e / C, c = (e - r * C) * 8;
+    if (vec) {
+      cp_async16(dst + r * S + c, r < n ? src + r * rs + c : src, r < n);
+      continue;
+    }
+    union {
+      uint4 u;
+      bf16 h[8];
+    } v;
+    v.u = make_uint4(0u, 0u, 0u, 0u);
+    if (r < n) {
+#pragma unroll
+      for (int x = 0; x < 8; ++x) v.h[x] = src[r * rs + c + x];
+    }
+    *reinterpret_cast<uint4*>(dst + r * S + c) = v.u;
+  }
+}
+
+// Stage n contiguous bf16 elements at src into a 16-byte aligned buffer
+// at dst + (src's element offset mod 8), so that src and dst agree mod 16
+// bytes and the middle goes by 16-byte cp.async; returns that offset.
+__device__ int stage_flat(const bf16* src, int n, bf16* dst) {
+  const int shift = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(src) / sizeof(bf16)) % 8);
+  const int head = min((8 - shift) % 8, n);
+  const int chunks = (n - head) / 8;
+  bf16* d = dst + shift;
+  for (int e = threadIdx.x; e < head; e += blockDim.x) d[e] = src[e];
+  for (int c = threadIdx.x; c < chunks; c += blockDim.x)
+    cp_async16(d + head + 8 * c, src + head + 8 * c, true);
+  for (int e = head + 8 * chunks + threadIdx.x; e < n; e += blockDim.x)
+    d[e] = src[e];
+  return shift;
+}
+
+// A fragments of the 16 rows [r0, r0 + 16) of a staged tile, all D/16
+// k-steps.
+template <int D>
+__device__ __forceinline__ void load_a(const bf16* xs, int r0,
+                                       uint32_t (&f)[D / 16][4]) {
+  constexpr int S = D + 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const bf16* p = xs + (r0 + g) * S + kk * 16 + 2 * t;
+    f[kk][0] = lds_pair(p);
+    f[kk][1] = lds_pair(p + 8 * S);
+    f[kk][2] = lds_pair(p + 8);
+    f[kk][3] = lds_pair(p + 8 * S + 8);
+  }
+}
+
+// c[n] += A . Y^T for the 16 rows [y0, y0 + 16) of a staged tile Y (two
+// 8-column C tiles): the scores q . k, or do . v.
+template <int D>
+__device__ __forceinline__ void mma_abt(const uint32_t (&a)[D / 16][4],
+                                        const bf16* ys, int y0,
+                                        float (&c)[2][4]) {
+  constexpr int S = D + 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {   // two independent chains, interleaved
+      const bf16* p = ys + (y0 + 8 * n + g) * S + kk * 16 + 2 * t;
+      mma_bf16(c[n], a[kk], lds_pair(p), lds_pair(p + 8));
+    }
+}
+
+// acc += A . Y[y0:y0+16, :] for a 16 x 16 A (hi and lo parts) and the
+// staged rows of Y, B fragments by ldmatrix.trans: P.V, dS.K, pd^T.dO,
+// dS^T.Q.
+template <int D>
+__device__ __forceinline__ void mma_ay(const uint32_t (&hi)[4],
+                                       const uint32_t (&lo)[4], bool with_lo,
+                                       const bf16* ys, int y0,
+                                       float (&acc)[D / 8][4]) {
+  constexpr int S = D + 8;
+  const int lane = threadIdx.x & 31;
+  const bf16* row = ys + (y0 + (lane & 7) + ((lane >> 3) & 1) * 8) * S +
+                    (lane >> 4) * 8;
+#pragma unroll
+  for (int c0 = 0; c0 < D; c0 += 16) {
+    uint32_t b[4];
+    ldsm_x4_trans(b, row + c0);
+    if (with_lo) {
+      mma_bf16(acc[c0 / 8], lo, b[0], b[1]);
+      mma_bf16(acc[c0 / 8 + 1], lo, b[2], b[3]);
+    }
+    mma_bf16(acc[c0 / 8], hi, b[0], b[1]);
+    mma_bf16(acc[c0 / 8 + 1], hi, b[2], b[3]);
+  }
+}
+
+// Write the 16 x D C tiles of rows (r_lo, r_lo + 8) * scale to a packed
+// bf16 output with an even row stride, skipping rows >= n.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
+                                           float scale, bf16* out,
+                                           long long rs, int r_lo, int n) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    const int c = nt * 8 + 2 * t;
+    if (r_lo < n)
+      *reinterpret_cast<uint32_t*>(out + r_lo * rs + c) =
+          pack_bf16(acc[nt][0] * scale, acc[nt][1] * scale);
+    if (r_lo + 8 < n)
+      *reinterpret_cast<uint32_t*>(out + (r_lo + 8) * rs + c) =
+          pack_bf16(acc[nt][2] * scale, acc[nt][3] * scale);
+  }
+}
+
+// Saved probabilities p[i][j], j and j + 1, as fp32 (0 past Lk); ``even``:
+// Lk is even, so a pair at an even j is one aligned 4-byte load.
+__device__ __forceinline__ void load_p2(const bf16* row, int j, int Lk,
+                                        bool even, float& p0, float& p1) {
+  if (even && j < Lk) {
+    const float2 f = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(row + j));
+    p0 = f.x;
+    p1 = f.y;
+  } else {
+    p0 = j < Lk ? __bfloat162float(row[j]) : 0.f;
+    p1 = j + 1 < Lk ? __bfloat162float(row[j + 1]) : 0.f;
+  }
+}
+
+// Forward: a block per (b, h, tile of up to 64 query rows), a warp per 16
+// rows; K, V and the block's Q staged as bf16.  Sweep 1 forms S = Q K^T a
+// 16-key chunk at a time on the tensor cores, masks it and keeps the
+// running row max and sum; sweep 2 forms S again, p = exp(s - m) / l
+// (final before P.V, as the plain version has it), writes p if asked,
+// applies the Philox keep bit of (b, h, i, j) and accumulates O += P V with
+// p split into bf16 hi + lo.
+template <int D, bool SEG>
+__global__ void __launch_bounds__(kTcFwdWarps * 32)
+    packed_attention_mma_kernel(AttnArgs a, int vec) {
+  constexpr int S = D + 8, KS = D / 16;
+  const int Lq = a.Lq, Lk = a.Lk, lk_pad = round16(Lk);
+  const int rows = tc_fwd_rows(Lq), q0 = blockIdx.y * rows;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);    // [lk_pad][S]
+  bf16* vs = ks + lk_pad * S;                      // [lk_pad][S]
+  bf16* qs = vs + lk_pad * S;                      // [rows][S]
+  float* kbias = reinterpret_cast<float*>(qs + rows * S);  // [lk_pad]
+  int* kseg = reinterpret_cast<int*>(kbias);
+
+  const int b = blockIdx.x / a.H;
+  const int h = blockIdx.x - b * a.H;
+  stage_rows<D>(static_cast<const bf16*>(a.q) + b * a.q_bs + h * D +
+                    q0 * a.q_rs,
+                a.q_rs, min(Lq - q0, rows), rows, vec & 1, qs);
+  stage_rows<D>(static_cast<const bf16*>(a.k) + b * a.k_bs + h * D, a.k_rs,
+                Lk, lk_pad, vec & 2, ks);
+  cp_async_commit();   // group 1: Q and K, for sweep 1
+  stage_rows<D>(static_cast<const bf16*>(a.v) + b * a.v_bs + h * D, a.v_rs,
+                Lk, lk_pad, vec & 4, vs);
+  cp_async_commit();   // group 2: V, arriving during sweep 1
+  for (int j = threadIdx.x; j < lk_pad; j += blockDim.x) {
+    const long long m = static_cast<long long>(b) * Lk + j;
+    if (SEG)
+      kseg[j] = j < Lk ? static_cast<const int*>(a.mask)[m] : -1;
+    else
+      kbias[j] = j < Lk
+                     ? (1.f - static_cast<const float*>(a.mask)[m]) * kNegInf
+                     : 0.f;
+  }
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // every warp stages; warp w takes the 16-row tile w / split of the
+  // block's rows and every split-th 16-key chunk from w % split, so a short
+  // query tile (the decode step's one query) spreads its keys over the
+  // warps instead of walking them on one
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int split = tc_fwd_split(rows), part = warp % split;
+  const int r0 = (warp / split) * 16, n_chunks = lk_pad / 16;
+  const bool active = r0 < rows && q0 + r0 < Lq;
+  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  int sq[2] = {-1, -1}, last[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (SEG && row[r] < Lq)
+      sq[r] = static_cast<const int*>(a.mask)[static_cast<long long>(b) *
+                                              Lk + row[r]];
+    last[r] = a.causal ? row[r] + (Lk - Lq) : Lk;  // last causal key
+  }
+  uint32_t qf[KS][4];
+  if (active) load_a<D>(qs, r0, qf);
+
+  // the masked, scaled scores of keys [j0, j0 + 16); -inf past Lk (the
+  // causal bias and the padding only where a chunk can hold them)
+  auto scores = [&](int j0, float (&s)[2][4]) {
+    mma_abt<D>(qf, ks, j0, s);
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, j = j0 + 8 * n + 2 * t + (e & 1);
+        float x = s[n][e] * a.scale;
+        if (SEG)
+          x += (kseg[j] == sq[r] && sq[r] >= 0) ? 0.f : kNegInf;
+        else
+          x += kbias[j];
+        s[n][e] = x;
+      }
+    // the causal bias, from the first chunk past the last key of the
+    // warp's first row
+    if (!SEG && a.causal && j0 + 15 > q0 + r0 + (Lk - Lq))
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j0 + 8 * n + 2 * t + (e & 1) > last[e >> 1])
+            s[n][e] += kNegInf;
+    if (j0 + 16 > Lk)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j0 + 8 * n + 2 * t + (e & 1) >= Lk) s[n][e] = -INFINITY;
+  };
+  // (m, l) <- the softmax statistics of both key sets; -inf is "none yet"
+  auto combine = [](float& m, float& l, float mo, float lo) {
+    const float mn = fmaxf(m, mo);
+    l = (m == -INFINITY ? 0.f : l * exp_fast(m - mn)) +
+        (mo == -INFINITY ? 0.f : lo * exp_fast(mo - mn));
+    m = mn;
+  };
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int c = part; active && c < n_chunks; c += split) {
+    float s[2][4];
+    scores(16 * c, s);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(m[r], fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                                         fmaxf(s[1][2 * r], s[1][2 * r + 1])));
+      if (mn == -INFINITY) continue;   // only padded keys so far
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        sum += exp_fast(s[n][2 * r] - mn) + exp_fast(s[n][2 * r + 1] - mn);
+      l[r] = l[r] * exp_fast(m[r] - mn) + sum;
+      m[r] = mn;
+    }
+  }
+  // the quad's four threads hold the row's columns: combine (m, l); the
+  // butterfly is symmetric, so all four end with the same bits
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1)
+      combine(m[r], l[r], __shfl_xor_sync(0xffffffffu, m[r], o),
+              __shfl_xor_sync(0xffffffffu, l[r], o));
+  // the tile's key parts: every warp of it combines them in part order
+  float* obuf = kbias + lk_pad;                    // [4][16][D + 4]
+  float* mlbuf = obuf + kTcFwdWarps * 16 * (D + 4);  // [4][16][2]
+  if (split > 1 && t == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mlbuf[(warp * 16 + g + 8 * r) * 2] = m[r];
+      mlbuf[(warp * 16 + g + 8 * r) * 2 + 1] = l[r];
+    }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (split > 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[r] = -INFINITY;
+      l[r] = 0.f;
+#pragma unroll
+      for (int k = 0; k < kTcFwdWarps; ++k)
+        if (k < split) {
+          const float* x = mlbuf + ((warp - part + k) * 16 + g + 8 * r) * 2;
+          combine(m[r], l[r], x[0], x[1]);
+        }
+    }
+
+  bf16* pb = a.probs == nullptr
+                 ? nullptr
+                 : static_cast<bf16*>(a.probs) +
+                       static_cast<long long>(blockIdx.x) * Lq * Lk;
+  const bool drop = a.rate > 0.f, even = (Lk & 1) == 0;
+  const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
+  float o[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+  for (int c = part; active && c < n_chunks; c += split) {
+    const int j0 = 16 * c;
+    float s[2][4];
+    scores(j0, s);
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = row[r], j = j0 + 8 * n + 2 * t;
+        float p0 = exp_fast(s[n][2 * r] - m[r]) * inv_l[r];
+        float p1 = exp_fast(s[n][2 * r + 1] - m[r]) * inv_l[r];
+        if (i < Lq) {
+          if (pb != nullptr) {
+            bf16* pr = pb + static_cast<long long>(i) * Lk + j;
+            if (even && j < Lk) {
+              *reinterpret_cast<uint32_t*>(pr) = pack_bf16(p0, p1);
+            } else {
+              if (j < Lk) pr[0] = __float2bfloat16_rn(p0);
+              if (j + 1 < Lk) pr[1] = __float2bfloat16_rn(p1);
+            }
+          }
+          if (drop) {
+            if (j < Lk)
+              p0 = dropout_keep(a.key, b, h, i, j, a.rate) ? p0 * a.keep_scale
+                                                           : 0.f;
+            if (j + 1 < Lk)
+              p1 = dropout_keep(a.key, b, h, i, j + 1, a.rate)
+                       ? p1 * a.keep_scale
+                       : 0.f;
+          }
+        }
+        s[n][2 * r] = p0;
+        s[n][2 * r + 1] = p1;
+      }
+    uint32_t hi[4], lo[4];
+    c_to_a(s, hi, lo);
+    mma_ay<D>(hi, lo, true, vs, j0, o);
+  }
+  bf16* ob = static_cast<bf16*>(a.out) + b * a.o_bs + h * D;
+  if (split == 1) {
+    if (active) store_rows<D>(o, 1.f, ob, a.o_rs, row[0], Lq);
+    return;
+  }
+  // the key parts' partial outputs, summed in part order by the tile's
+  // first warp
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      obuf[(warp * 16 + g + 8 * (e >> 1)) * (D + 4) + nt * 8 + 2 * t +
+           (e & 1)] = o[nt][e];
+  __syncthreads();
+  if (!active || part != 0) return;
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* x = obuf + (warp * 16 + g + 8 * (e >> 1)) * (D + 4) +
+                       nt * 8 + 2 * t + (e & 1);
+      float sum = 0.f;
+#pragma unroll
+      for (int k = 0; k < kTcFwdWarps; ++k)
+        if (k < split) sum += x[k * 16 * (D + 4)];
+      o[nt][e] = sum;
+    }
+  store_rows<D>(o, 1.f, ob, a.o_rs, row[0], Lq);
+}
+
+size_t fwd_mma_smem(int Lq, int Lk, int D) {
+  const size_t lk = round16(Lk), rows = tc_fwd_rows(Lq);
+  const size_t parts = tc_fwd_split(rows) > 1
+                           ? kTcFwdWarps * 16 * (D + 4 + 2) * sizeof(float)
+                           : 0;
+  return (2 * lk + rows) * (D + 8) * sizeof(bf16) + lk * sizeof(float) +
+         parts;
+}
+
+bool rows_aligned16(const void* p, long long bs, long long rs) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && bs % 8 == 0 &&
+         rs % 8 == 0;
+}
+
+template <int D, bool SEG>
+cudaError_t launch_fwd_mma(const AttnArgs& a, cudaStream_t stream) {
+  const size_t smem = fwd_mma_smem(a.Lq, a.Lk, D);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        packed_attention_mma_kernel<D, SEG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int vec = (rows_aligned16(a.q, a.q_bs, a.q_rs) ? 1 : 0) |
+                  (rows_aligned16(a.k, a.k_bs, a.k_rs) ? 2 : 0) |
+                  (rows_aligned16(a.v, a.v_bs, a.v_rs) ? 4 : 0);
+  const int rows = tc_fwd_rows(a.Lq);
+  const dim3 grid(a.B * a.H, (a.Lq + rows - 1) / rows);
+  packed_attention_mma_kernel<D, SEG>
+      <<<grid, kTcFwdWarps * 32, smem, stream>>>(a, vec);
+  return cudaGetLastError();
+}
+
+template <bool SEG>
+cudaError_t fwd_mma_dim(const AttnArgs& a, int head_dim, cudaStream_t s) {
+  switch (head_dim) {
+    case 32: return launch_fwd_mma<32, SEG>(a, s);
+    case 64: return launch_fwd_mma<64, SEG>(a, s);
+    case 128: return launch_fwd_mma<128, SEG>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Backward: a block per (b, h); dO, V, K and the saved p staged as bf16.
+// Pass A, a warp per 16 query rows: dP = dO V^T on the tensor cores; sweep
+// 1 draws the keep bits (kept in shared memory for the later sweeps) and
+// forms Delta_i = sum_j dp_ij p_ij in fp32 from the saved p; sweep 2 forms
+// dS = p o (dp - Delta) again and accumulates dQ = dS K (dS hi + lo).  Q
+// then replaces K in shared memory, its copy in flight while pass B1, a
+// warp per 16 keys, forms dV = pd^T dO from the saved p; pass B2 forms
+// dK = dS^T Q with dP^T = V dO^T formed again.  Every gradient row is
+// summed by one warp in a fixed order and written once: no atomics.  At
+// d <= 64 two blocks of 9 warps fit an SM's registers.
+template <int D>
+__global__ void __launch_bounds__(kTcBwdWarps * 32, D <= 64 ? 2 : 1)
+    packed_attention_bwd_mma_kernel(BwdArgs a, int vec) {
+  constexpr int S = D + 8, KS = D / 16;
+  const int Lq = a.Lq, Lk = a.Lk;
+  const int lq_pad = round16(Lq), lk_pad = round16(Lk), kw = lk_pad / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* gs = reinterpret_cast<bf16*>(smem_raw);    // [lq_pad][S] dO
+  bf16* vs = gs + lq_pad * S;                      // [lk_pad][S]
+  bf16* ks = vs + lk_pad * S;                      // [max(lq, lk)_pad][S]
+  bf16* qs = ks;                                   // Q, after pass A
+  bf16* praw = ks + max(lq_pad, lk_pad) * S;       // [Lq * Lk + 8]
+  float* delta = reinterpret_cast<float*>(praw + p_stage_elems(Lq, Lk));
+  uint16_t* keep =
+      reinterpret_cast<uint16_t*>(delta + lq_pad);  // [lq_pad][kw]
+
+  const int b = blockIdx.x / a.H;
+  const int h = blockIdx.x - b * a.H;
+  stage_rows<D>(static_cast<const bf16*>(a.dout) + b * a.do_bs + h * D,
+                a.do_rs, Lq, lq_pad, vec & 8, gs);
+  stage_rows<D>(static_cast<const bf16*>(a.k) + b * a.k_bs + h * D, a.k_rs,
+                Lk, lk_pad, vec & 2, ks);
+  stage_rows<D>(static_cast<const bf16*>(a.v) + b * a.v_bs + h * D, a.v_rs,
+                Lk, lk_pad, vec & 4, vs);
+  // the head's saved p, read four times below, from shared memory
+  const bf16* p_head = static_cast<const bf16*>(a.p) +
+                       static_cast<long long>(blockIdx.x) * Lq * Lk;
+  const int shift = stage_flat(p_head, Lq * Lk, praw);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const bf16* pb = praw + shift;                   // [Lq][Lk]
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool drop = a.rate > 0.f, even = ((Lk | shift) & 1) == 0;
+
+  // pass A: Delta and dQ, a warp per 16 query rows
+  for (int r0 = warp * 16; r0 < lq_pad; r0 += nw * 16) {
+    uint32_t gf[KS][4];
+    load_a<D>(gs, r0, gf);
+    const int row[2] = {r0 + g, r0 + g + 8};
+    float dsum[2] = {0.f, 0.f};
+    for (int j0 = 0; j0 < lk_pad; j0 += 16) {
+      float dp[2][4];
+      mma_abt<D>(gf, vs, j0, dp);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = row[r];
+        uint32_t bits = 0;
+        if (i < Lq) {
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            const int j = j0 + 8 * n + 2 * t;
+            float p0, p1;
+            load_p2(pb + static_cast<long long>(i) * Lk, j, Lk, even, p0,
+                    p1);
+            float d0 = dp[n][2 * r], d1 = dp[n][2 * r + 1];
+            if (drop) {
+              const bool k0 = j < Lk &&
+                              dropout_keep(a.key, b, h, i, j, a.rate);
+              const bool k1 = j + 1 < Lk &&
+                              dropout_keep(a.key, b, h, i, j + 1, a.rate);
+              d0 = k0 ? d0 * a.keep_scale : 0.f;
+              d1 = k1 ? d1 * a.keep_scale : 0.f;
+              bits |= (k0 ? 1u : 0u) << (8 * n + 2 * t);
+              bits |= (k1 ? 1u : 0u) << (8 * n + 2 * t + 1);
+            }
+            dsum[r] = fmaf(d0, p0, dsum[r]);
+            dsum[r] = fmaf(d1, p1, dsum[r]);
+          }
+        }
+        if (drop) {
+          bits |= __shfl_xor_sync(0xffffffffu, bits, 1);
+          bits |= __shfl_xor_sync(0xffffffffu, bits, 2);
+          if (t == 0) keep[i * kw + j0 / 16] = static_cast<uint16_t>(bits);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 1);
+      dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 2);
+      if (t == 0) delta[row[r]] = dsum[r];
+    }
+    __syncwarp();
+
+    float dq[D / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[nt][e] = 0.f;
+    for (int j0 = 0; j0 < lk_pad; j0 += 16) {
+      float ds[2][4];
+      mma_abt<D>(gf, vs, j0, ds);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = row[r];
+        const uint32_t bits = drop && i < Lq ? keep[i * kw + j0 / 16] : 0u;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int j = j0 + 8 * n + 2 * t;
+          float p0 = 0.f, p1 = 0.f;
+          if (i < Lq)
+            load_p2(pb + static_cast<long long>(i) * Lk, j, Lk, even, p0,
+                    p1);
+          float d0 = ds[n][2 * r], d1 = ds[n][2 * r + 1];
+          if (drop) {
+            d0 = (bits >> (8 * n + 2 * t)) & 1u ? d0 * a.keep_scale : 0.f;
+            d1 = (bits >> (8 * n + 2 * t + 1)) & 1u ? d1 * a.keep_scale
+                                                     : 0.f;
+          }
+          ds[n][2 * r] = p0 * (d0 - dsum[r]);
+          ds[n][2 * r + 1] = p1 * (d1 - dsum[r]);
+        }
+      }
+      uint32_t hi[4], lo[4];
+      c_to_a(ds, hi, lo);
+      mma_ay<D>(hi, lo, true, ks, j0, dq);
+    }
+    store_rows<D>(dq, a.scale,
+                  static_cast<bf16*>(a.dq) + b * a.dq_bs + h * D, a.dq_rs,
+                  row[0], Lq);
+  }
+  __syncthreads();
+
+  // pass B1: dV = pd^T dO, a warp per 16 keys, the A fragment (key,
+  // query) read from the saved p; Q replaces K meanwhile
+  stage_rows<D>(static_cast<const bf16*>(a.q) + b * a.q_bs + h * D, a.q_rs,
+                Lq, lq_pad, vec & 1, qs);
+  cp_async_commit();
+  for (int j0 = warp * 16; j0 < lk_pad; j0 += nw * 16) {
+    const int key[2] = {j0 + g, j0 + g + 8};
+    float acc[D / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+    for (int i0 = 0; i0 < lq_pad; i0 += 16) {
+      float pd[2][4];
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = key[e >> 1], i = i0 + 8 * n + 2 * t + (e & 1);
+          float p = 0.f;
+          if (i < Lq && j < Lk) {
+            p = __bfloat162float(pb[i * Lk + j]);
+            if (drop)
+              p = (keep[i * kw + j0 / 16] >> (j - j0)) & 1u
+                      ? p * a.keep_scale
+                      : 0.f;
+          }
+          pd[n][e] = p;
+        }
+      uint32_t hi[4], lo[4];
+      c_to_a(pd, hi, lo);   // without dropout p is bf16 and lo is 0
+      mma_ay<D>(hi, lo, drop, gs, i0, acc);
+    }
+    store_rows<D>(acc, 1.f, static_cast<bf16*>(a.dv) + b * a.dv_bs + h * D,
+                  a.dv_rs, key[0], Lk);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // pass B2: dK = dS^T Q * scale, dP^T = V dO^T formed again
+  for (int j0 = warp * 16; j0 < lk_pad; j0 += nw * 16) {
+    const int key[2] = {j0 + g, j0 + g + 8};
+    uint32_t vf[KS][4];
+    load_a<D>(vs, j0, vf);
+    float acc[D / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+    for (int i0 = 0; i0 < lq_pad; i0 += 16) {
+      float ds[2][4];
+      mma_abt<D>(vf, gs, i0, ds);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = key[e >> 1], i = i0 + 8 * n + 2 * t + (e & 1);
+          float x = 0.f;
+          if (i < Lq && j < Lk) {
+            const float p = __bfloat162float(pb[i * Lk + j]);
+            float d = ds[n][e];
+            if (drop)
+              d = (keep[i * kw + j0 / 16] >> (j - j0)) & 1u
+                      ? d * a.keep_scale
+                      : 0.f;
+            x = p * (d - delta[i]);
+          }
+          ds[n][e] = x;
+        }
+      uint32_t hi[4], lo[4];
+      c_to_a(ds, hi, lo);
+      mma_ay<D>(hi, lo, true, qs, i0, acc);
+    }
+    store_rows<D>(acc, a.scale,
+                  static_cast<bf16*>(a.dk) + b * a.dk_bs + h * D, a.dk_rs,
+                  key[0], Lk);
+  }
+}
+
+// a warp per 16-row tile of the longer side, at least 4 to stage
+int tc_bwd_warps(int Lq, int Lk) {
+  return min(kTcBwdWarps, max(4, max((Lq + 15) / 16, (Lk + 15) / 16)));
+}
+
+size_t bwd_mma_smem(int Lq, int Lk, int D) {
+  const size_t lq = round16(Lq), lk = round16(Lk);
+  return (lq + lk + (lq > lk ? lq : lk)) * (D + 8) * sizeof(bf16) +
+         p_stage_elems(Lq, Lk) * sizeof(bf16) + lq * sizeof(float) +
+         lq * (lk / 16) * sizeof(uint16_t);
+}
+
+template <int D>
+cudaError_t launch_bwd_mma(const BwdArgs& a, cudaStream_t stream) {
+  const size_t smem = bwd_mma_smem(a.Lq, a.Lk, D);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        packed_attention_bwd_mma_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int vec = (rows_aligned16(a.q, a.q_bs, a.q_rs) ? 1 : 0) |
+                  (rows_aligned16(a.k, a.k_bs, a.k_rs) ? 2 : 0) |
+                  (rows_aligned16(a.v, a.v_bs, a.v_rs) ? 4 : 0) |
+                  (rows_aligned16(a.dout, a.do_bs, a.do_rs) ? 8 : 0);
+  packed_attention_bwd_mma_kernel<D>
+      <<<a.B * a.H, tc_bwd_warps(a.Lq, a.Lk) * 32, smem, stream>>>(a, vec);
+  return cudaGetLastError();
+}
+
+cudaError_t bwd_mma_dim(const BwdArgs& a, int head_dim, cudaStream_t s) {
+  switch (head_dim) {
+    case 32: return launch_bwd_mma<32>(a, s);
+    case 64: return launch_bwd_mma<64>(a, s);
+    case 128: return launch_bwd_mma<128>(a, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -769,8 +1620,11 @@ cudaError_t mha_bwd_dim(const MhaBwdArgs& a, int head_dim, cudaStream_t s) {
 
 // Shared memory (bytes) the kernels need at these shapes, so the wrapper
 // can refuse a shape before launching.
-extern "C" long long hero_attention_smem_bytes(int backward, int Lq, int Lk,
-                                               int head_dim) {
+extern "C" long long hero_attention_smem_bytes(int dtype, int backward,
+                                               int Lq, int Lk, int head_dim) {
+  if (dtype == kBFloat16)
+    return static_cast<long long>(backward ? bwd_mma_smem(Lq, Lk, head_dim)
+                                           : fwd_mma_smem(Lq, Lk, head_dim));
   return static_cast<long long>(backward ? bwd_smem(Lq, Lk, head_dim)
                                          : fwd_smem(Lk, head_dim));
 }
@@ -803,9 +1657,10 @@ extern "C" int hero_packed_attention_fwd(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (dtype) {
-    case kFloat32: e = fwd_mode<float>(a, seg_mode, head_dim, s); break;
+    case kFloat32: e = fwd_mode(a, seg_mode, head_dim, s); break;
     case kBFloat16:
-      e = fwd_mode<__nv_bfloat16>(a, seg_mode, head_dim, s);
+      e = seg_mode ? fwd_mma_dim<true>(a, head_dim, s)
+                   : fwd_mma_dim<false>(a, head_dim, s);
       break;
     default: e = cudaErrorInvalidValue;
   }
@@ -830,8 +1685,8 @@ extern "C" int hero_packed_attention_bwd(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (dtype) {
-    case kFloat32: e = bwd_dim<float>(a, head_dim, s); break;
-    case kBFloat16: e = bwd_dim<__nv_bfloat16>(a, head_dim, s); break;
+    case kFloat32: e = bwd_dim(a, head_dim, s); break;
+    case kBFloat16: e = bwd_mma_dim(a, head_dim, s); break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

@@ -14,7 +14,10 @@ attention of the TVC decode step (#4) and the causal and cross-attention
 shapes of the packed forward (#2), the head-major backward (#5), the
 saved-probabilities backward (#3) at the TVC decoder's shapes, and the
 fused dropout-add-LayerNorm forward and backward (#8, #9) with their
-Philox row mask.
+Philox row mask.  The bf16 packed forward and backward (tensor-core
+kernels) are held at their tile edges (1 to 417 keys, backward rows to
+240, one query), for bit-identical gradients, and for keep bits equal
+to the plain Philox mask.
 """
 
 import numpy as np
@@ -75,6 +78,15 @@ SHAPES = [  # (B, L, heads, head_dim): the serving path's rows, cut in B
     (5, 30, 12, 64),       # query rows and the query-feature attention
     (2, 17, 2, 32),
     (2, 9, 1, 128),
+    # the tile edges of the bf16 tensor-core forward (16-key chunks,
+    # 16-row warp tiles, 64-row blocks), and the old forward's limit at
+    # head_dim 64 (417 keys of fp32 K and V in shared memory)
+    (3, 1, 12, 64),
+    (2, 17, 12, 64),
+    (2, 63, 12, 64),
+    (2, 65, 12, 64),
+    (2, 200, 12, 64),
+    (1, 417, 4, 64),
 ]
 
 
@@ -143,6 +155,16 @@ def test_attention_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     p = torch.zeros((1, 2, 144, 144), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         tatt.attention_bwd_cuda(p, q, k, v, q.contiguous(), 2)
+    # the bf16 kernels: the backward's Q, dO, K, V and p tiles for 384
+    # rows at head_dim 64, and the forward's K and V for 500 keys at head_dim
+    # 128, exceed it too
+    q, k, v = _qkv(15, 1, 384, 128, cuda, torch.bfloat16)
+    p = torch.zeros((1, 2, 384, 384), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        tatt.attention_bwd_cuda(p, q, k, v, q.contiguous(), 2)
+    q, k, v = _qkv(15, 1, 500, 128, cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        tatt.packed_attention(q, k, v, 1)
 
 
 @pytest.mark.cuda
@@ -172,6 +194,13 @@ BWD_SHAPES = [  # (B, L, heads, head_dim): the train step's rows, cut in B
     (5, 30, 12, 64),       # query rows and q_feat_attn
     (2, 17, 2, 32),
     (2, 9, 1, 128),
+    # the tile edges of the bf16 tensor-core kernels, and the longest
+    # row the fp32 backward takes at head_dim 64 (154)
+    (3, 1, 12, 64),
+    (2, 17, 12, 64),
+    (2, 63, 12, 64),
+    (2, 65, 12, 64),
+    (1, 154, 12, 64),
 ]
 
 
@@ -218,6 +247,83 @@ def test_attention_training_kernels_match_plain(cuda, rate, mode, dtype,
     again = tatt.attention_bwd_cuda(probs, q, k, v, dout, H, rate, seed)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert torch.equal(launch(q, k, v, H, mask, rate, seed, True)[0], out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("mode", ["validity", "segment"])
+@pytest.mark.parametrize("L", [200, 240])
+def test_bf16_training_kernels_past_the_fp32_limit(cuda, rate, mode, L):
+    """The bf16 tensor-core kernels take rows the fp32 backward refuses
+    (its fp32 tiles stop at 154 keys at head_dim 64): 240 is the longest
+    the bf16 backward takes.  Forward with saved probabilities and
+    dropout, then the backward, against the plain versions; one bf16 ulp
+    of the largest value, as in the test above."""
+    B, H, d = 1, 12, 64
+    dtype = torch.bfloat16
+    q, k, v = _qkv(36, B, L, H * d, cuda, dtype)
+    r = np.random.RandomState(37)
+    dout = torch.from_numpy(r.randn(B, L, H * d).astype(np.float32)).to(
+        cuda, dtype)
+    if mode == "validity":
+        mask, launch = _validity_mask(38, B, L).to(cuda), \
+            tatt.valid_attention_cuda
+        kw = {"kv_mask": mask}
+    else:
+        mask, launch = _segments(39, B, L).to(cuda), tatt.seg_attention_cuda
+        kw = {"seg": mask}
+    seed = 2 ** 33 + 7
+    out, probs = launch(q, k, v, H, mask, rate, seed, True)
+    want, wprobs = tatt.packed_forward_reference(
+        q, k, v, H, dropout_rate=rate, seed=seed, save_probs=True, **kw)
+    assert float((out.float() - want.float()).abs().max()) <= _tol(want,
+                                                                   dtype)
+    assert float((probs.float() - wprobs.float()).abs().max()) <= _tol(
+        wprobs, dtype)
+    got = tatt.attention_bwd_cuda(probs, q, k, v, dout, H, rate, seed)
+    ref = tatt.packed_backward_reference(probs, q, k, v, dout, H, rate, seed)
+    for a, b in zip(got, ref):
+        assert bool(torch.isfinite(a).all())
+        assert float((a.float() - b.float()).abs().max()) <= _tol(b, dtype)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_is_bit_identical_across_runs(cuda):
+    """The bf16 backward sums every gradient in a fixed order and uses no
+    atomics: five launches on the same inputs give the same bits."""
+    B, L, H, d = 4, 144, 12, 64
+    q, k, v = _qkv(40, B, L, H * d, cuda, torch.bfloat16)
+    r = np.random.RandomState(41)
+    dout = torch.from_numpy(r.randn(B, L, H * d).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    seg = _segments(42, B, L).to(cuda)
+    _, probs = tatt.seg_attention_cuda(q, k, v, H, seg, 0.1, 11, True)
+    first = tatt.attention_bwd_cuda(probs, q, k, v, dout, H, 0.1, 11)
+    for _ in range(4):
+        again = tatt.attention_bwd_cuda(probs, q, k, v, dout, H, 0.1, 11)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_kernels_dropout_is_the_philox_mask(cuda, dtype):
+    """With value rows e_j the forward's output holds drop(p), and with
+    output-gradient rows e_i the backward's dv holds drop(p)^T: the zeros
+    of both are the kernels' keep bits, equal to the plain Philox mask
+    bit for bit."""
+    B, L, H, d = 2, 60, 2, 64
+    q, k, _ = _qkv(43, B, L, H * d, cuda, dtype)
+    eye = torch.eye(L, d, device=cuda, dtype=dtype)
+    v = eye.repeat(1, H).expand(B, L, H * d)
+    seed, rate = 2 ** 36 + 5, 0.1
+    keep = tdrop.attention_keep_mask(seed, B, H, L, L, rate, device=cuda)
+    out, probs = tatt.valid_attention_cuda(q, k, v, H, torch.ones(
+        (B, L), device=cuda), rate, seed, True)
+    heads = out.view(B, L, H, d).transpose(1, 2)[..., :L]
+    assert torch.equal(heads != 0, keep)
+    _, _, dv = tatt.attention_bwd_cuda(probs, q, k, v, v, H, rate, seed)
+    dvh = dv.view(B, L, H, d).transpose(1, 2)[..., :L]
+    assert torch.equal(dvh != 0, keep.transpose(-1, -2))
 
 
 @pytest.mark.cuda
@@ -407,6 +513,9 @@ def test_mha_kernel_dropout_is_the_philox_mask(cuda, dtype):
     (32, 31, 31, True),       # teacher-forced decoder self-attention
     (6, 9, 40, True),         # causal, Lq < Lk
     (32, 1, 100, False),      # decode-step cross-attention over a clip
+    (4, 1, 417, False),       # one query over the old forward's limit
+    (4, 17, 63, True),        # causal across the 16-key chunk edges
+    (2, 65, 200, True),       # causal, two 64-row query blocks
 ])
 def test_packed_causal_and_cross_kernel_match_plain(cuda, dtype, B, Lq, Lk,
                                                     causal):
