@@ -48,7 +48,11 @@ What the card run does, in order (any failure exits non-zero):
    kernel (#4) against its plain version at the decode step's shapes
    (greedy 32 rows, beam-3 96 rows, 30 keys; causal Lq = Lk = 31; a
    fully masked row; its dropout bits against the plain Philox mask) and
-   #2 at the decoder's causal and cross-attention shapes; builds 64
+   #2 at the decoder's causal and cross-attention shapes; holds the bf16
+   #4 and #5 at their tile edges (``check_mha_edges``: 1 to 1000 keys, 1
+   to 65 queries, head_dim 32, 64 and 128, the backward to 400 rows, rate
+   0 and 0.1, fully masked rows, keep bits read back from both kernels,
+   repeats of the backward bit-identical); builds 64
    synthetic TV videos with 4 clips each in an in-memory store; times
    greedy ``generate_clip_captions`` over all 256 clips in bf16 (8
    videos = 32 caption rows a batch, 30 steps; median of 3 runs after a
@@ -57,7 +61,10 @@ What the card run does, in order (any failure exits non-zero):
    schema, ids cut at EOS); and, in fp32 on one batch, that the card's
    greedy ids equal the plain path's on the CPU and a teacher-forced
    replay through ``decode``, both up to the first step whose reference
-   top-2 logit gap is below ``TVC_GAP_TOL``;
+   top-2 logit gap is below ``TVC_GAP_TOL``; and, in bf16 on one batch,
+   that the ids through #4 equal those with #4's plain version on the
+   card up to the first step whose plain top-2 gap is below
+   ``TVC_BF16_GAP_TOL`` (the fp32 checks reach only the CUDA-core #4);
 9. the TVC train phase, at the same model with dropout 0.1 and bf16
    compute on fp32 parameters: holds #2 (causal self-attention 62 -> 62
    and cross-attention 62 -> 100, with dropout and saved probabilities)
@@ -99,8 +106,9 @@ launches by path), the card's name and power limit (nvidia-smi), and as
 the last line ``{"ok": true, "device": {...}}``.  ``--profile`` adds
 torch.profiler breakdowns of a phase-1 batch, a query batch, one
 fit-bucket train step, one greedy TVC batch and one TVC train step to the
-JSON record, and fails if a CUDA-core packed attention kernel ran in any
-of these bf16 windows.  Imports nothing of JAX.
+JSON record, and fails if a CUDA-core attention kernel (packed or
+head-major) ran in any of these bf16 windows, or if the greedy window ran
+no ``mha_attention_mma_kernel``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -181,10 +189,21 @@ def bound_ms(n_bytes, n_flops, dtype_name):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# the CUDA-core attention kernels, which only fp32 calls may take
+CUDA_CORE_ATTENTION = ("attention_kernel", "attention_bwd_kernel",
+                       "mha_attention_kernel", "mha_attention_bwd_kernel")
+
+
 def _kernel_class(name):
-    if "mha_attention_kernel" in name:
-        return "mha_attention_kernel"
     # the tensor-core kernels (bf16) and the CUDA-core ones (fp32) apart
+    if "mha_attention_bwd_mma" in name:
+        return "mha_attention_bwd_mma_kernel"
+    if "mha_attention_mma" in name:
+        return "mha_attention_mma_kernel"
+    if "mha_attention_bwd" in name:
+        return "mha_attention_bwd_kernel"
+    if "mha_attention" in name:
+        return "mha_attention_kernel"
     if "packed_attention_bwd_mma" in name:
         return "attention_bwd_mma_kernel"
     if "packed_attention_mma" in name:
@@ -211,9 +230,9 @@ def profile_breakdown(torch, fn, iters=3):
     """Device time of ``fn`` by kernel class over ``iters`` calls, from a
     torch.profiler trace, beside the host wall time of the same window:
     the idle share is 1 - busy / wall (one stream, so kernels do not
-    overlap).  Every traced window is a bf16 path, whose packed attention
-    must run on the tensor-core kernels: a CUDA-core packed attention
-    kernel in the trace fails the run."""
+    overlap).  Every traced window is a bf16 path, whose attention (packed
+    and head-major) must run on the tensor-core kernels: a CUDA-core
+    attention kernel in the trace fails the run."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -236,12 +255,10 @@ def profile_breakdown(torch, fn, iters=3):
     if not n_events:
         return {"device_events": 0, "note": "the trace holds no device "
                 "events: device time not measured"}
-    cuda_core = {c for c in ("attention_kernel", "attention_bwd_kernel")
-                 if c in by_class}
+    cuda_core = {c for c in CUDA_CORE_ATTENTION if c in by_class}
     if cuda_core:
-        raise AssertionError(f"a bf16 window ran the CUDA-core packed "
-                             f"attention kernels {sorted(cuda_core)}: "
-                             f"{by_kernel}")
+        raise AssertionError(f"a bf16 window ran the CUDA-core attention "
+                             f"kernels {sorted(cuda_core)}: {by_kernel}")
     busy = sum(by_class.values())
     wall_ms = wall * 1e3 / iters
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
@@ -824,6 +841,122 @@ def check_packed_edges(torch, att, drop):
             and masks["backward_equals_plain"]):
         raise AssertionError(f"packed attention keep bits: {masks}")
     return {"cases": rows, "n_cases": len(rows), "keep_bits": masks}
+
+
+# Shapes at the bf16 head-major kernels' tile edges (16-key chunks, 64-key
+# streamed tiles, 16-row warp tiles, 64-row forward blocks): every query
+# count of MHA_EDGE_QUERIES over every key count of MHA_EDGE_KEYS at
+# head_dim 64, and (B, H, Lq, Lk, head_dim, causal, backward) beside them:
+# a forward past the packed forward's 752 keys, head_dim 32 and 128, and
+# the backward at the fp32 kernel's longest square head (154 rows) and
+# the bf16 kernel's (400 at head_dim 64, 208 at 128).
+MHA_EDGE_KEYS = (1, 16, 17, 64, 65, 129)
+MHA_EDGE_QUERIES = (1, 16, 17, 65)
+MHA_EDGE_EXTRA = ((2, 2, 3, 1000, 64, False, False),
+                  (3, 2, 17, 65, 32, True, True),
+                  (3, 2, 17, 65, 128, True, True),
+                  (2, 4, 154, 154, 64, True, True),
+                  (2, 2, 400, 400, 64, False, True),
+                  (2, 2, 208, 208, 128, True, True))
+
+
+def check_mha_edges(torch, att, drop):
+    """The bf16 head-major forward (#4) and backward (#5) at their tile
+    edges, against the plain versions on the same inputs with the train
+    tolerances (one bf16 ulp of each output's largest value), at rate 0
+    and 0.1: every ``MHA_EDGE_QUERIES`` x ``MHA_EDGE_KEYS`` pair at
+    head_dim 64, causal and not, and ``MHA_EDGE_EXTRA``; the last batch
+    row fully masked (finite, and the unmasked attention up to the
+    rounding of s - 1e4, as in :func:`check_mha` and
+    :func:`check_mha_bwd`); every backward repeated bit for bit; and the
+    keep bits read back from both kernels (value rows e_j give drop(p),
+    output-gradient rows e_i give dv = drop(p)^T) equal to the plain
+    Philox mask."""
+    dev = torch.device("cuda")
+    dt = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(93)
+    rows = []
+
+    def over_tol(got, want):
+        # the worst |got - want| / one bf16 ulp of max |want| of the
+        # outputs; a gradient that is exactly 0 (one key: dq) must be 0
+        return max(_err(a, w) / max(_train_tol(w, "bfloat16"), 1e-30)
+                   for a, w in zip(got, want))
+
+    def one(B, H, Lq, Lk, d, causal, rate, backward):
+        q, g = (torch.randn((B, H, Lq, d), generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        k, v = (torch.randn((B, H, Lk, d), generator=gen, device=dev).to(dt)
+                for _ in range(2))
+        lens = torch.randint(1, Lk + 1, (B, 1), generator=gen, device=dev)
+        mask = (torch.arange(Lk, device=dev)[None] < lens).float()
+        mask[-1] = 0.0
+        out = att.mha_attention_cuda(q, k, v, mask, rate, TRAIN_SEED, causal)
+        ref = att.mha_reference(q, k, v, mask, rate, TRAIN_SEED, causal)
+        rec = {"shape": [B, H, Lq, Lk, d], "causal": causal, "rate": rate,
+               "fwd_err_over_tol": over_tol([out[:-1]], [ref[:-1]]),
+               "finite": bool(torch.isfinite(out).all())}
+        ok = rec["fwd_err_over_tol"] <= 1.0 and rec["finite"]
+        if not rate:
+            free = att.mha_reference(q[-1:], k[-1:], v[-1:], causal=causal)
+            rec["masked_row_err"] = _err(out[-1:], free)
+            rec["masked_row_tol"] = (2.0 ** -9 * float(v[-1].float().abs().max())
+                                     + _train_tol(ref[:-1], "bfloat16"))
+            ok = ok and rec["masked_row_err"] <= rec["masked_row_tol"]
+        if backward:
+            args = (q, k, v, mask, g, rate, TRAIN_SEED, causal)
+            grads = att.mha_attention_bwd_cuda(*args)
+            want = att.mha_backward_reference(*args)
+            again = att.mha_attention_bwd_cuda(*args)
+            top = max(float(w.float().abs().max()) for w in want)
+            rec["bwd_err_over_tol"] = over_tol([a[:-1] for a in grads],
+                                               [w[:-1] for w in want])
+            rec["bwd_masked_row_err"] = max(_err(a[-1], w[-1])
+                                            for a, w in zip(grads, want))
+            rec["bwd_masked_row_tol"] = 2.0 ** -6 * max(1.0, top)
+            rec["deterministic"] = all(torch.equal(a, b)
+                                       for a, b in zip(grads, again))
+            ok = (ok and rec["bwd_err_over_tol"] <= 1.0
+                  and rec["bwd_masked_row_err"] <= rec["bwd_masked_row_tol"]
+                  and rec["deterministic"]
+                  and all(bool(torch.isfinite(x).all()) for x in grads))
+        rec["ok"] = ok
+        rows.append(rec)
+        if not ok:
+            raise AssertionError(f"head-major attention edge shape: {rec}")
+
+    for Lq in MHA_EDGE_QUERIES:
+        for Lk in MHA_EDGE_KEYS:
+            for causal in (False, True):
+                for rate in (0.0, TRAIN_RATE):
+                    one(3, 2, Lq, Lk, 64, causal, rate, True)
+    for B, H, Lq, Lk, d, causal, backward in MHA_EDGE_EXTRA:
+        for rate in (0.0, TRAIN_RATE):
+            one(B, H, Lq, Lk, d, causal, rate, backward)
+
+    B, H, L, d = 2, 12, 60, 64
+    q, k = (torch.randn((B, H, L, d), generator=gen, device=dev).to(dt)
+            for _ in range(2))
+    eye = torch.eye(L, d, device=dev, dtype=dt).expand(B, H, L, d)
+    ones = torch.ones((B, L), device=dev)
+    keep = drop.attention_keep_mask(TRAIN_SEED, B, H, L, L, TRAIN_RATE,
+                                    device=dev)
+    out = att.mha_attention_cuda(q, k, eye, ones, TRAIN_RATE, TRAIN_SEED)
+    dv = att.mha_attention_bwd_cuda(q, k, eye, ones, eye, TRAIN_RATE,
+                                    TRAIN_SEED)[2]
+    masks = {"shape": [B, H, L, L],
+             "forward_equals_plain": bool(torch.equal(out[..., :L] != 0,
+                                                      keep)),
+             "backward_equals_plain": bool(torch.equal(
+                 dv[..., :L] != 0, keep.transpose(-1, -2)))}
+    if not (masks["forward_equals_plain"]
+            and masks["backward_equals_plain"]):
+        raise AssertionError(f"head-major attention keep bits: {masks}")
+    return {"cases": rows, "n_cases": len(rows), "keep_bits": masks,
+            "worst_fwd_err_over_tol": max(r["fwd_err_over_tol"]
+                                          for r in rows),
+            "worst_bwd_err_over_tol": max(r.get("bwd_err_over_tol", 0.0)
+                                          for r in rows)}
 
 
 # ---------------------------------------------------------------------------
@@ -1578,6 +1711,100 @@ def tvc_fp32_checks(torch, cfg, flat, store, clips, dev_kernel, dev_plain):
     return rec
 
 
+# bf16 greedy ids through #4 are compared with those of the same batch
+# with #4's plain version up to the first step at which the plain run's
+# top-2 logit gap is below this.  The logits are bf16, 2^-6 apart near
+# the top ones (which lie in [2, 4)).  A probe call before this check
+# existed (the smoke's 8 greedy batches, 256 rows, 30 steps; NVIDIA H100
+# 80GB HBM3, 700 W) found the two runs' logits within 0.0195 of each other
+# up to the first step where their ids differ, and the plain gap there 0,
+# 2^-6 or 2^-5: one bf16 ulp of #4's output, carried through the decoder,
+# swaps two logits at most 2.5 ulps apart.  0.05 (above 3 ulps) covers
+# that; 32% of all steps have a gap below it.
+TVC_BF16_GAP_TOL = 0.05
+
+
+@contextlib.contextmanager
+def plain_mha_attention():
+    """Within the context the head-major forward wrapper computes with its
+    plain version, on the card as on the CPU, and counts no launches: the
+    reference path of :func:`tvc_bf16_decode_check`."""
+    from hero_tpu_torch.ops import attention as att
+    saved = att.mha_attention_cuda
+
+    def plain(q, k, v, kv_mask, dropout_rate=0.0, seed=None, causal=False):
+        return att.mha_reference(q, k, v, kv_mask, dropout_rate, seed,
+                                 causal)
+
+    att.mha_attention_cuda = plain
+    try:
+        yield
+    finally:
+        att.mha_attention_cuda = saved
+
+
+def greedy_with_logits(torch, tvc, params, cfg, batch, dtype):
+    """``tvc.greedy_decode``'s ids (N, T) and the logits (N, T, V) of its
+    steps, read by wrapping the module's step function for the call."""
+    steps, step = [], tvc._step
+
+    def recorded(*a, **kw):
+        out = step(*a, **kw)
+        steps.append(out.float())
+        return out
+
+    tvc._step = recorded
+    try:
+        with torch.inference_mode():
+            ids = tvc.greedy_decode(params, cfg, batch, max_step=TVC_MAX_STEP,
+                                    bos=TVC_BOS, eos=TVC_EOS, dtype=dtype)
+    finally:
+        tvc._step = step
+    return ids, torch.stack(steps, dim=1)
+
+
+def tvc_bf16_decode_check(torch, tvc, params, cfg, batch, rehearse):
+    """bf16, one greedy batch (the fp32 id checks reach only the
+    CUDA-core #4): the ids through the tensor-core #4 equal those of the
+    same batch with #4's plain version on the card, up to the first step
+    whose plain top-2 logit gap is below ``TVC_BF16_GAP_TOL``; the kernel
+    run launches #4 at every step of every decoder layer."""
+    before = read_counts()["mha_attention_cuda"]
+    ik, lk = greedy_with_logits(torch, tvc, params, cfg, batch,
+                                torch.bfloat16)
+    launched = read_counts()["mha_attention_cuda"] - before
+    with plain_mha_attention():
+        ip, lp = greedy_with_logits(torch, tvc, params, cfg, batch,
+                                    torch.bfloat16)
+    ok, stopped, compared = gap_rule(ik, lp, ip, TVC_BF16_GAP_TOL)
+    want = 0 if rehearse else TVC_MAX_STEP * cfg.d_config.num_hidden_layers
+    # where the two runs' ids first differ: the plain top-2 gap there and
+    # how far apart the logits were up to it (what the tolerance rests on)
+    top2 = lp.topk(2, dim=-1).values
+    gaps = top2[..., 0] - top2[..., 1]
+    first = []
+    for row in range(ik.shape[0]):
+        diff = (ik[row] != ip[row]).nonzero()
+        if len(diff):
+            t = int(diff[0, 0])
+            first.append({"row": row, "step": t,
+                          "plain_gap": float(gaps[row, t]),
+                          "logits_err_to_step": _err(lk[row, :t + 1],
+                                                     lp[row, :t + 1])})
+    rec = {"rows": int(ik.shape[0]), "steps": TVC_MAX_STEP,
+           "gap_tol": TVC_BF16_GAP_TOL, "ids_equal_under_gap_rule": ok,
+           "rows_stopped": stopped, "steps_compared": compared,
+           "rows_identical": int((ik == ip).all(dim=1).sum()),
+           "first_divergence": first,
+           "logits_max_abs_err_step0": _err(lk[:, 0], lp[:, 0]),
+           "mha_launches": launched, "mha_launches_expected": want}
+    # on the card the rule must have compared something
+    rec["ok"] = ok and launched == want and (rehearse or compared > 0)
+    if not rec["ok"]:
+        raise AssertionError(f"bf16 TVC greedy ids, #4 vs plain: {rec}")
+    return rec
+
+
 def check_records(records, clips, max_step, eos):
     """Every clip exactly once, in the reference schema, its ids cut at
     the first EOS."""
@@ -1670,8 +1897,14 @@ def tvc_phase(torch, cfg, flat, store, clips, dev, dtype, sync, rehearse,
                 tvc.greedy_decode(params, cfg, b, max_step=TVC_MAX_STEP,
                                   bos=TVC_BOS, eos=TVC_EOS, dtype=dtype)
 
-        rec["profile_greedy_batch"] = profile_breakdown(torch, greedy_batch,
-                                                        iters=2)
+        prof = profile_breakdown(torch, greedy_batch, iters=2)
+        if prof["device_events"] and "mha_attention_mma_kernel" not in \
+                prof["device_ms_by_class"]:
+            raise AssertionError(f"the greedy window ran no "
+                                 f"mha_attention_mma_kernel: {prof}")
+        rec["profile_greedy_batch"] = prof
+    rec["bf16_decode"] = tvc_bf16_decode_check(
+        torch, tvc, params, cfg, batch_to_device(b0, dev), rehearse)
     del params
     rec["fp32"] = tvc_fp32_checks(torch, cfg, flat, store, clips,
                                   "cpu" if rehearse else "cuda", "cpu")
@@ -2674,7 +2907,11 @@ def main(argv=None):
     if not rehearse:
         record["kernels"].append(check_tvc_kernels(torch, tcfg,
                                                    record["kernels"]))
-        log("TVC kernel checks passed")
+        from hero_tpu_torch.ops import attention as att
+        from hero_tpu_torch.ops import dropout as drop
+        record["mha_edge_checks"] = check_mha_edges(torch, att, drop)
+        log(f"TVC kernel checks and {record['mha_edge_checks']['n_cases']} "
+            f"tile-edge checks of the head-major kernels passed")
     tvc = tvc_phase(torch, tcfg, tvc_flat, store, clips, dev, dtype, sync,
                     rehearse, args.profile and not rehearse)
     tvc["subs_dropped_frac"] = tvc_dropped
@@ -2745,7 +2982,8 @@ def main(argv=None):
         "max_gen_step": TVC_MAX_STEP,
         "beam_captions_per_s": tvc["beam_captions_per_s"],
         "beam": TVC_BEAM, "beam_clips": tvc["beam_clips"],
-        "launches": tvc_launches, "fp32": tvc["fp32"]}))
+        "launches": tvc_launches, "fp32": tvc["fp32"],
+        "bf16_decode": tvc["bf16_decode"]}))
     print(json.dumps({
         "tvc_train_captions_per_s": tvc_train["tvc_train_captions_per_s"],
         "runs_captions_per_s": tvc_train["runs_captions_per_s"],

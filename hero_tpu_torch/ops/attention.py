@@ -33,10 +33,10 @@ layout) or recomputes them (the head-major one):
 :func:`packed_attention` always goes through :class:`PackedAttention`,
 :func:`multi_head_attention` through :class:`MultiHeadAttention`.  A CPU
 tensor takes the plain versions; a CUDA tensor launches
-``csrc/attention.cu`` or raises.  On the packed layout a bf16 call takes
-the tensor-core kernels and an fp32 call the CUDA-core ones, each dtype
-one kernel, chosen inside the C entry point; a shape whose tiles exceed
-a block's shared memory raises (``_check_smem``).  Probabilities are
+``csrc/attention.cu`` or raises.  On both layouts a bf16 call takes the
+tensor-core kernels and an fp32 call the CUDA-core ones, each dtype one
+kernel, chosen inside the C entry point; a shape whose tiles exceed a
+block's shared memory raises (``_check_smem``).  Probabilities are
 written, and dropout drawn, only when the call needs a gradient or a rate
 is set, so a serving call launches the forward kernel exactly as an
 inference-only kernel would.
@@ -222,9 +222,9 @@ def _lib() -> ctypes.CDLL:
             [i32] + [vp] * 8 + [i32] * 6 + [i64] * 13
             + [f32, f32, f32, u32, u32, vp])
         lib.hero_mha_attention_bwd.restype = ctypes.c_int
-        lib.hero_mha_smem_bytes.argtypes = [i32, i32]
+        lib.hero_mha_smem_bytes.argtypes = [i32] * 4
         lib.hero_mha_smem_bytes.restype = i64
-        lib.hero_mha_bwd_smem_bytes.argtypes = [i32, i32, i32]
+        lib.hero_mha_bwd_smem_bytes.argtypes = [i32] * 4
         lib.hero_mha_bwd_smem_bytes.restype = i64
         lib.hero_attention_smem_limit.argtypes = []
         lib.hero_attention_smem_limit.restype = i64
@@ -404,8 +404,9 @@ def mha_attention_cuda(q, k, v, kv_mask: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = _lib()
-    _check_smem(lib, lib.hero_mha_smem_bytes(Lk, d), "head-major attention",
-                Lq, Lk, d)
+    _check_smem(lib, lib.hero_mha_smem_bytes(
+        cuda_build.DTYPE_CODES[q.dtype], Lq, Lk, d), "head-major attention",
+        Lq, Lk, d)
     with torch.cuda.device(q.device):
         err = lib.hero_mha_attention_fwd(
             cuda_build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
@@ -434,14 +435,16 @@ def mha_attention_bwd_cuda(q, k, v, kv_mask: torch.Tensor, dout,
         raise ValueError("dout must have q's shape, dtype and device")
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
+    # the kernels write every row of dq, dk and dv
     dq = torch.empty((B, H, Lq, d), dtype=q.dtype, device=q.device)
-    dk = torch.zeros((B, H, Lk, d), dtype=k.dtype, device=q.device)
-    dv = torch.zeros((B, H, Lk, d), dtype=v.dtype, device=q.device)
+    dk = torch.empty((B, H, Lk, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((B, H, Lk, d), dtype=v.dtype, device=q.device)
     if dq.numel() == 0 or Lk == 0:
-        return dq.zero_(), dk, dv
+        return dq.zero_(), dk.zero_(), dv.zero_()
     lib = _lib()
-    _check_smem(lib, lib.hero_mha_bwd_smem_bytes(Lq, Lk, d),
-                "head-major attention backward", Lq, Lk, d)
+    _check_smem(lib, lib.hero_mha_bwd_smem_bytes(
+        cuda_build.DTYPE_CODES[q.dtype], Lq, Lk, d),
+        "head-major attention backward", Lq, Lk, d)
     with torch.cuda.device(q.device):
         err = lib.hero_mha_attention_bwd(
             cuda_build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),

@@ -1,8 +1,9 @@
 // Packed multi-head attention: forward (validity-mask and segment-mask
 // modes, optional causal bias, probability dropout and saved
 // probabilities) and the saved-probabilities backward; and the head-major
-// (B, H, L, d) forward of the decode step and its backward (at the end of
-// the file).
+// (B, H, L, d) forward of the decode step and its backward (after the
+// packed kernels, each section with its own note; the bf16 tensor-core
+// kernels of both layouts follow their CUDA-core ones).
 //
 // Forward.  Replaces the Pallas kernels hero_tpu/ops/attention.py
 // _fwd3_kernel (validity mask, :277) and _fwd3_seg_kernel (segment mask,
@@ -134,6 +135,8 @@
 // its terms in a fixed order.  Shared memory is (max(Lq, Lk) * (d + 1)
 // + 2 * Lq * Lk + 8 * d) floats: 201 KB at L = 144, d = 64.
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "philox.cuh"
@@ -592,20 +595,35 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Stage rows [0, n) of one head of a packed (., L, H*D) bf16 tensor into
-// dst[n_pad][D + 8] (8 elements of padding a row, so the fragment loads and
-// ldmatrix rows fall in distinct banks); rows n..n_pad are zero, so a
-// padded key or query multiplies as 0 and never as garbage.  ``vec``: the
-// source rows are 16-byte aligned and go by cp.async, every copy in flight
-// at once (the caller waits for its group); else by 2-byte loads.
-template <int D>
+// Element offset of (row, col) in a staged bf16 tile of rows of D
+// elements.  The packed kernels pad each row to D + 8 elements, so the 8
+// rows of every fragment load and ldmatrix fall in distinct banks.  The
+// head-major kernels (SWZ) keep rows unpadded and permute each row's
+// 16-byte chunks by an XOR with the row, which spreads the same 8 rows
+// over the banks without the 16 bytes of padding a row.
+template <int D, bool SWZ>
+__device__ __forceinline__ int tile_off(int row, int col) {
+  if (!SWZ) return row * (D + 8) + col;
+  constexpr int U = D / 8;                  // 16-byte chunks a row
+  constexpr int R = U >= 8 ? 1 : 8 / U;     // rows that share 128 bytes
+  constexpr int M = (U >= 8 ? 8 : U) - 1;
+  return row * D + (((col >> 3) ^ ((row / R) & M)) << 3) + (col & 7);
+}
+
+// Stage rows [0, n) of one head (src, row stride rs) into the tile dst
+// of n_pad rows; rows n..n_pad are zero, so a padded key or query
+// multiplies as 0 and never as garbage.  ``vec``: the source rows are
+// 16-byte aligned and go by cp.async, every copy in flight at once (the
+// caller waits for its group); else by 2-byte loads.
+template <int D, bool SWZ = false>
 __device__ void stage_rows(const bf16* src, long long rs, int n, int n_pad,
                            bool vec, bf16* dst) {
-  constexpr int S = D + 8, C = D / 8;
+  constexpr int C = D / 8;
   for (int e = threadIdx.x; e < n_pad * C; e += blockDim.x) {
     const int r = e / C, c = (e - r * C) * 8;
     if (vec) {
-      cp_async16(dst + r * S + c, r < n ? src + r * rs + c : src, r < n);
+      cp_async16(dst + tile_off<D, SWZ>(r, c), r < n ? src + r * rs + c : src,
+                 r < n);
       continue;
     }
     union {
@@ -617,7 +635,7 @@ __device__ void stage_rows(const bf16* src, long long rs, int n, int n_pad,
 #pragma unroll
       for (int x = 0; x < 8; ++x) v.h[x] = src[r * rs + c + x];
     }
-    *reinterpret_cast<uint4*>(dst + r * S + c) = v.u;
+    *reinterpret_cast<uint4*>(dst + tile_off<D, SWZ>(r, c)) = v.u;
   }
 }
 
@@ -640,28 +658,26 @@ __device__ int stage_flat(const bf16* src, int n, bf16* dst) {
 
 // A fragments of the 16 rows [r0, r0 + 16) of a staged tile, all D/16
 // k-steps.
-template <int D>
+template <int D, bool SWZ = false>
 __device__ __forceinline__ void load_a(const bf16* xs, int r0,
                                        uint32_t (&f)[D / 16][4]) {
-  constexpr int S = D + 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const bf16* p = xs + (r0 + g) * S + kk * 16 + 2 * t;
-    f[kk][0] = lds_pair(p);
-    f[kk][1] = lds_pair(p + 8 * S);
-    f[kk][2] = lds_pair(p + 8);
-    f[kk][3] = lds_pair(p + 8 * S + 8);
+    const int c = kk * 16 + 2 * t;
+    f[kk][0] = lds_pair(xs + tile_off<D, SWZ>(r0 + g, c));
+    f[kk][1] = lds_pair(xs + tile_off<D, SWZ>(r0 + g + 8, c));
+    f[kk][2] = lds_pair(xs + tile_off<D, SWZ>(r0 + g, c + 8));
+    f[kk][3] = lds_pair(xs + tile_off<D, SWZ>(r0 + g + 8, c + 8));
   }
 }
 
 // c[n] += A . Y^T for the 16 rows [y0, y0 + 16) of a staged tile Y (two
 // 8-column C tiles): the scores q . k, or do . v.
-template <int D>
+template <int D, bool SWZ = false>
 __device__ __forceinline__ void mma_abt(const uint32_t (&a)[D / 16][4],
                                         const bf16* ys, int y0,
                                         float (&c)[2][4]) {
-  constexpr int S = D + 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int n = 0; n < 2; ++n)
@@ -671,27 +687,26 @@ __device__ __forceinline__ void mma_abt(const uint32_t (&a)[D / 16][4],
   for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
     for (int n = 0; n < 2; ++n) {   // two independent chains, interleaved
-      const bf16* p = ys + (y0 + 8 * n + g) * S + kk * 16 + 2 * t;
-      mma_bf16(c[n], a[kk], lds_pair(p), lds_pair(p + 8));
+      const int r = y0 + 8 * n + g, col = kk * 16 + 2 * t;
+      mma_bf16(c[n], a[kk], lds_pair(ys + tile_off<D, SWZ>(r, col)),
+               lds_pair(ys + tile_off<D, SWZ>(r, col + 8)));
     }
 }
 
 // acc += A . Y[y0:y0+16, :] for a 16 x 16 A (hi and lo parts) and the
 // staged rows of Y, B fragments by ldmatrix.trans: P.V, dS.K, pd^T.dO,
 // dS^T.Q.
-template <int D>
+template <int D, bool SWZ = false>
 __device__ __forceinline__ void mma_ay(const uint32_t (&hi)[4],
                                        const uint32_t (&lo)[4], bool with_lo,
                                        const bf16* ys, int y0,
                                        float (&acc)[D / 8][4]) {
-  constexpr int S = D + 8;
   const int lane = threadIdx.x & 31;
-  const bf16* row = ys + (y0 + (lane & 7) + ((lane >> 3) & 1) * 8) * S +
-                    (lane >> 4) * 8;
+  const int r = y0 + (lane & 7) + ((lane >> 3) & 1) * 8, half = lane >> 4;
 #pragma unroll
   for (int c0 = 0; c0 < D; c0 += 16) {
     uint32_t b[4];
-    ldsm_x4_trans(b, row + c0);
+    ldsm_x4_trans(b, ys + tile_off<D, SWZ>(r, c0 + 8 * half));
     if (with_lo) {
       mma_bf16(acc[c0 / 8], lo, b[0], b[1]);
       mma_bf16(acc[c0 / 8 + 1], lo, b[2], b[3]);
@@ -1285,16 +1300,50 @@ cudaError_t bwd_mma_dim(const BwdArgs& a, int head_dim, cudaStream_t s) {
 // products are fp32 (the Pallas kernel rounds p to the input type before
 // P.V; mha_reference, the plain version, keeps it fp32, and so does this).
 //
+// Each dtype has one kernel, chosen in hero_mha_attention_fwd: bf16, the
+// dtype of every timed path, takes mha_attention_mma_kernel on the tensor
+// cores (at the end of the file); fp32, which only the checks and the fp32
+// card-versus-CPU parity runs use, takes mha_attention_kernel below.
+//
 // Bound on the H100: at the decode step's shape (Lq = 1, Lk = 30, d = 64,
 // B*H = 384 or 1152 rows) every row is 2*Lk*d reads for 4*Lk*d flops, so
 // the ideal is memory-bound; the whole call reads 3 MB (greedy, bf16) to
-// 9 MB (beam 3), one to three microseconds at the memory rate.  Design: a
-// warp per query row, kMhaWarps rows per block, nothing staged in shared
-// memory but the row's q and its scores (a key is read by one row only
-// when Lq = 1): lanes over keys for the scores (warp shuffles for the max
-// and the sum), lanes over d for P.V, which reads each value row
-// coalesced.  Shared memory is kMhaWarps * (d + Lk) floats, so Lk is
-// bounded only by the 227 KB a block may use.
+// 9 MB (beam 3), one to three microseconds at the memory rate, and what
+// it costs beyond that is latency: the launch and one round trip to
+// memory.  At the component shape (B*H = 3072 heads of 56 x 56) q, k, v
+// and out are 88 MB (26 us) for 2.5 GFLOP (2.5 us on the tensor cores):
+// memory-bound too, if every key is read once per head and not once per
+// query row.
+//
+// bf16 design (mha_attention_mma_kernel): the packed forward's tiles and
+// products, with K, V and the mask streamed: a block per (b, h, tile of
+// up to 64 query rows) of 4 warps, a warp per 16 rows, Q's fragments
+// loaded once; K, V and the mask pass through shared memory in 64-key
+// tiles by cp.async, the next tile in flight while this one is used, so
+// shared memory does not grow with Lk and Lk has no ceiling.  Two sweeps
+// as in the packed forward (S and the running max and sum; then S again,
+// p final before P.V, the keep bit, O += P V with p in bf16 hi + lo).
+// When the keys fit one tile (every path shape: 30, 31 and 56 keys) the
+// sweeps share it, and K and V are both requested at the start, so a
+// decode step costs one round trip to memory.  A short query tile (the
+// decode step's single query of each of its 384 or 1152 heads) is bound by
+// that latency, not by operations: a block per head, whose warps split
+// the 16-key chunks and combine their (max, sum) and partial outputs in a
+// fixed order (the packed forward's short tiles), puts a head's two
+// chunks on two warps and keeps all 384 heads resident at once on the 132
+// SMs.  Shared memory:
+// (rows + 2 * keys) * d bf16 (keys = Lk rounded to 16 up to 64, else two
+// 64-key buffers), the mask, and the parts' (max, sum): 20 KB at the
+// decode step, 25 KB at the component shape.  ptxas (CUDA 12.8, sm_90a):
+// 75, 96 and 202 registers at d = 32, 64 and 128, no spills (d <= 64
+// capped for five blocks an SM).
+//
+// fp32 design (mha_attention_kernel): a warp per query row, kMhaWarps rows
+// per block, nothing staged in shared memory but the row's q and its
+// scores: lanes over keys for the scores (warp shuffles for the max and
+// the sum), lanes over d for P.V, which reads each value row coalesced.
+// Shared memory is kMhaWarps * (d + Lk) floats, so Lk is bounded by the
+// 227 KB a block may use: 14,464 keys at d = 64.
 
 constexpr int kMhaWarps = 4;
 
@@ -1310,7 +1359,7 @@ struct MhaArgs {
   PhiloxKey key;
 };
 
-template <typename T, int DCH>
+template <int DCH>
 __global__ void __launch_bounds__(kMhaWarps * 32)
     mha_attention_kernel(MhaArgs a) {
   constexpr int D = DCH * 32;
@@ -1325,25 +1374,25 @@ __global__ void __launch_bounds__(kMhaWarps * 32)
   const int i = static_cast<int>(row % a.Lq);
   const int h = static_cast<int>((row / a.Lq) % a.H);
   const int b = static_cast<int>(row / (static_cast<long long>(a.Lq) * a.H));
-  const T* qr = static_cast<const T*>(a.q) + b * a.q_bs + h * a.q_hs +
-                i * a.q_rs;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_bs + h * a.k_hs;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_bs + h * a.v_hs;
+  const float* qr = static_cast<const float*>(a.q) + b * a.q_bs +
+                    h * a.q_hs + i * a.q_rs;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_bs + h * a.k_hs;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_bs + h * a.v_hs;
   const float* mr = a.mask + b * a.m_bs;
-  T* orow = static_cast<T*>(a.out) + row * D;
+  float* orow = static_cast<float*>(a.out) + row * D;
   const int last = a.causal ? i + (Lk - a.Lq) : Lk;  // last causal key
 
 #pragma unroll
   for (int c = 0; c < DCH; ++c)
-    qw[lane + 32 * c] = to_float(qr[lane + 32 * c]);
+    qw[lane + 32 * c] = qr[lane + 32 * c];
   __syncwarp();
 
   float mx = -INFINITY;
   for (int j = lane; j < Lk; j += 32) {
-    const T* kr = kb + j * a.k_rs;
+    const float* kr = kb + j * a.k_rs;
     float acc = 0.f;
 #pragma unroll 16
-    for (int c = 0; c < D; ++c) acc = fmaf(qw[c], to_float(kr[c]), acc);
+    for (int c = 0; c < D; ++c) acc = fmaf(qw[c], kr[c], acc);
     float s = acc * a.scale;
     s += (1.f - mr[j]) * kNegInf;
     if (j > last) s += kNegInf;
@@ -1372,44 +1421,43 @@ __global__ void __launch_bounds__(kMhaWarps * 32)
   for (int c = 0; c < DCH; ++c) acc[c] = 0.f;
   for (int j = 0; j < Lk; ++j) {
     const float p = pw[j];
-    const T* vr = vb + j * a.v_rs;
+    const float* vr = vb + j * a.v_rs;
 #pragma unroll
     for (int c = 0; c < DCH; ++c)
-      acc[c] = fmaf(p, to_float(vr[lane + 32 * c]), acc[c]);
+      acc[c] = fmaf(p, vr[lane + 32 * c], acc[c]);
   }
 #pragma unroll
-  for (int c = 0; c < DCH; ++c) orow[lane + 32 * c] = from_float<T>(acc[c]);
+  for (int c = 0; c < DCH; ++c) orow[lane + 32 * c] = acc[c];
 }
 
 size_t mha_smem(int Lk, int D) {
   return sizeof(float) * kMhaWarps * (static_cast<size_t>(D) + Lk);
 }
 
-template <typename T, int DCH>
+template <int DCH>
 cudaError_t launch_mha(const MhaArgs& a, cudaStream_t stream) {
   constexpr int D = DCH * 32;
   const size_t smem = mha_smem(a.Lk, D);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mha_attention_kernel<T, DCH>,
+        mha_attention_kernel<DCH>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const long long rows = static_cast<long long>(a.B) * a.H * a.Lq;
   const long long blocks = (rows + kMhaWarps - 1) / kMhaWarps;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  mha_attention_kernel<T, DCH><<<static_cast<unsigned>(blocks),
-                                 kMhaWarps * 32, smem, stream>>>(a);
+  mha_attention_kernel<DCH><<<static_cast<unsigned>(blocks),
+                              kMhaWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t mha_dim(const MhaArgs& a, int head_dim, cudaStream_t s) {
   switch (head_dim) {
-    case 32: return launch_mha<T, 1>(a, s);
-    case 64: return launch_mha<T, 2>(a, s);
-    case 128: return launch_mha<T, 4>(a, s);
+    case 32: return launch_mha<1>(a, s);
+    case 64: return launch_mha<2>(a, s);
+    case 128: return launch_mha<4>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1431,19 +1479,57 @@ cudaError_t mha_dim(const MhaArgs& a, int head_dim, cudaStream_t s) {
 // k, v and do are read through batch, head and row strides; dq, dk, dv
 // are contiguous (B, H, L, d).
 //
+// Each dtype has one kernel, chosen in hero_mha_attention_bwd: bf16 takes
+// mha_attention_bwd_mma_kernel on the tensor cores (at the end of the
+// file), fp32 (checks and parity runs only) mha_attention_bwd_kernel below.
+//
 // Bound on the H100: at the component shape (B*H = 3072 heads of
 // 56 x 56, d = 64) each head reads q, k, v, do and writes dq, dk, dv
-// (7 * 56 * 64 elements) for ~10 * 56^2 * 64 flops: memory-bound, as the
-// forward is.  Design: the saved-probabilities backward's, one block per
-// (b, h) and no atomics.  Pass 0 (a warp per query row, K staged in shared
-// memory padded against bank conflicts) writes the fp32 probabilities to
-// a shared (Lq, Lk) tile; pass A (V staged) turns them into drop(p) and dS
-// tiles; pass B stages dO, Q and K in turn and forms dv, dk and dq with
-// one thread per (output rows, channel), each summing its terms in a
-// fixed order, so the gradients are the same from run to run.  Shared
-// memory is (max(Lq, Lk) * (d + 1) + 2 * Lq * Lk + 8 * d + Lk) floats:
-// 42 KB at 56 x 56, d = 64; the wrapper refuses a shape over the 227 KB a
-// block may use.
+// (7 * 56 * 64 elements: 154 MB, 46 us) for ~10 * 56^2 * 64 flops (6.2
+// GFLOP, 6 us on the tensor cores): memory-bound, as the forward is, once
+// the products leave the CUDA cores.
+//
+// bf16 design (mha_attention_bwd_mma_kernel): the saved-probabilities
+// backward's two passes with the probabilities recomputed: a block per
+// (b, h) of up to 9 warps; Q, dO, K, V and the mask staged once by
+// cp.async into swizzled tiles.  Pass A, a warp per 16 query rows, forms
+// S and dP = dO V^T on the tensor cores, draws the Philox bits once (16
+// bits a (row, 16-key chunk) in shared memory), and keeps the online row
+// max, sum and u = sum_j exp(s_j - m) dp_j, so Delta = u / l is
+// sum_j dp_j p_j in fp32 without a third sweep; its second sweep forms dS
+// and dQ = dS K.  Pass B, a warp per 16 keys, recomputes P^T from K Q^T
+// and the rows' lse = m + log l, and forms dV = PD^T dO (B1) and dK =
+// dS^T Q with dP^T = V dO^T (B2).  pd and dS meet the tensor cores as
+// three bf16 parts, hi + mid + lo (~2^-26 relative): with hi + lo alone
+// (up to 2^-17) about one gradient element in 2^8 rounds to the other
+// bf16 neighbour of the plain version's, and at the component shape's
+// 11M elements of each gradient such a flip lands among the largest ones
+// (an 8-16 dK or dV element one bf16 ulp, 0.0625, off); with three parts
+// the flips are as rare as between two fp32 summation orders.  Every
+// gradient row is summed by one warp in a fixed order and written once,
+// the rows of keys that no query attends included: no atomics, the same
+// bits from run to run.  Shared memory is
+// 4 * (Lq + Lk) * d bf16 (each rounded up to 16 rows), Lk fp32 of mask,
+// Lq fp32 each of lse and Delta and Lq * Lk / 16 keep words: 33 KB at
+// 56 x 56, 120 KB at 224 x 224 (d = 64).  So a head takes 400 rows at
+// d = 64 and 208 at d = 128 (Lq = Lk).  Of the shapes the fp32 kernel
+// below takes, the bf16 one refuses only those with at most 3 keys and
+// 849-859 query rows at d = 64 (417-435 at d = 128, none at d = 32):
+// there the 16-row zero padding of K, V and Q outweighs the bytes the
+// bf16 tiles save.  ptxas (CUDA 12.8, sm_90a): 92 and 137 registers at
+// d = 32 and 64, no spills; 168 at d = 128 with 140 bytes of spill
+// stores (no path runs d = 128).
+//
+// fp32 design (mha_attention_bwd_kernel): one block per (b, h).  Pass 0 (a
+// warp per query row, K staged in shared memory padded against bank
+// conflicts) writes the fp32 probabilities to a shared (Lq, Lk) tile;
+// pass A (V staged) turns them into drop(p) and dS tiles; pass B stages
+// dO, Q and K in turn and forms dv, dk and dq with one thread per (output
+// rows, channel), each summing its terms in a fixed order, so the
+// gradients are the same from run to run.  Shared memory is
+// (max(Lq, Lk) * (d + 1) + 2 * Lq * Lk + 8 * d + Lk) floats: 42 KB at
+// 56 x 56, d = 64, and a square head of up to 154 rows at d = 64 (139 at
+// d = 128); the wrapper refuses a shape over the 227 KB a block may use.
 
 struct MhaBwdArgs {
   const void* q;
@@ -1461,17 +1547,17 @@ struct MhaBwdArgs {
   PhiloxKey key;
 };
 
-// Stage rows [0, n) of a (., L, D) head into xs[n][D + 1] as fp32.
-template <typename T, int D>
-__device__ void stage_padded(const T* src, long long row_stride, int n,
+// Stage rows [0, n) of a (., L, D) head into xs[n][D + 1].
+template <int D>
+__device__ void stage_padded(const float* src, long long row_stride, int n,
                              float* xs) {
   for (int i = threadIdx.x; i < n * D; i += blockDim.x) {
     const int r = i / D, c = i - r * D;
-    xs[r * (D + 1) + c] = to_float(src[r * row_stride + c]);
+    xs[r * (D + 1) + c] = src[r * row_stride + c];
   }
 }
 
-template <typename T, int DCH>
+template <int DCH>
 __global__ void __launch_bounds__(kWarps * 32)
     mha_attention_bwd_kernel(MhaBwdArgs a) {
   constexpr int D = DCH * 32;
@@ -1485,24 +1571,25 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   const int b = blockIdx.x / a.H;
   const int h = blockIdx.x - b * a.H;
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_bs + h * a.q_hs;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_bs + h * a.k_hs;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_bs + h * a.v_hs;
-  const T* gb = static_cast<const T*>(a.dout) + b * a.do_bs + h * a.do_hs;
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_bs + h * a.q_hs;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_bs + h * a.k_hs;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_bs + h * a.v_hs;
+  const float* gb =
+      static_cast<const float*>(a.dout) + b * a.do_bs + h * a.do_hs;
   const float* mr = a.mask + b * a.m_bs;
   const bool drop = a.rate > 0.f;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* w = rows + warp * D;
 
   // pass 0: the probabilities, a warp per query row
-  stage_padded<T, D>(kb, a.k_rs, Lk, region);
+  stage_padded<D>(kb, a.k_rs, Lk, region);
   for (int j = threadIdx.x; j < Lk; j += blockDim.x)
     kbias[j] = (1.f - mr[j]) * kNegInf;
   __syncthreads();
   for (int r = warp; r < Lq; r += kWarps) {
 #pragma unroll
     for (int c = 0; c < DCH; ++c)
-      w[lane + 32 * c] = to_float(qb[r * a.q_rs + lane + 32 * c]);
+      w[lane + 32 * c] = qb[r * a.q_rs + lane + 32 * c];
     __syncwarp();
     const int last = a.causal ? r + (Lk - Lq) : Lk;  // last causal key
     float* pr = pdm + r * Lk;
@@ -1532,12 +1619,12 @@ __global__ void __launch_bounds__(kWarps * 32)
   __syncthreads();
 
   // pass A: dS and drop(p), a warp per query row, V staged
-  stage_padded<T, D>(vb, a.v_rs, Lk, region);
+  stage_padded<D>(vb, a.v_rs, Lk, region);
   __syncthreads();
   for (int r = warp; r < Lq; r += kWarps) {
 #pragma unroll
     for (int c = 0; c < DCH; ++c)
-      w[lane + 32 * c] = to_float(gb[r * a.do_rs + lane + 32 * c]);
+      w[lane + 32 * c] = gb[r * a.do_rs + lane + 32 * c];
     __syncwarp();
     float* pr = pdm + r * Lk;
     float* dsr = dsm + r * Lk;
@@ -1568,20 +1655,20 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   // pass B: dv = PD^T dO, dk = dS^T Q * scale, dq = dS K * scale
   const long long head = static_cast<long long>(blockIdx.x);
-  stage<T, D>(gb, a.do_rs, Lq, region);
+  stage<float, D>(gb, a.do_rs, Lq, region);
   __syncthreads();
-  contract<T, D>(pdm, 1, Lk, region, Lk, Lq, 1.f,
-                 static_cast<T*>(a.dv) + head * Lk * D, D);
+  contract<float, D>(pdm, 1, Lk, region, Lk, Lq, 1.f,
+                     static_cast<float*>(a.dv) + head * Lk * D, D);
   __syncthreads();
-  stage<T, D>(qb, a.q_rs, Lq, region);
+  stage<float, D>(qb, a.q_rs, Lq, region);
   __syncthreads();
-  contract<T, D>(dsm, 1, Lk, region, Lk, Lq, a.scale,
-                 static_cast<T*>(a.dk) + head * Lk * D, D);
+  contract<float, D>(dsm, 1, Lk, region, Lk, Lq, a.scale,
+                     static_cast<float*>(a.dk) + head * Lk * D, D);
   __syncthreads();
-  stage<T, D>(kb, a.k_rs, Lk, region);
+  stage<float, D>(kb, a.k_rs, Lk, region);
   __syncthreads();
-  contract<T, D>(dsm, Lk, 1, region, Lq, Lk, a.scale,
-                 static_cast<T*>(a.dq) + head * Lq * D, D);
+  contract<float, D>(dsm, Lk, 1, region, Lq, Lk, a.scale,
+                     static_cast<float*>(a.dq) + head * Lq * D, D);
 }
 
 size_t mha_bwd_smem(int Lq, int Lk, int D) {
@@ -1590,28 +1677,672 @@ size_t mha_bwd_smem(int Lq, int Lk, int D) {
                           + Lk);
 }
 
-template <typename T, int DCH>
+template <int DCH>
 cudaError_t launch_mha_bwd(const MhaBwdArgs& a, cudaStream_t stream) {
   constexpr int D = DCH * 32;
   const size_t smem = mha_bwd_smem(a.Lq, a.Lk, D);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mha_attention_bwd_kernel<T, DCH>,
+        mha_attention_bwd_kernel<DCH>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  mha_attention_bwd_kernel<T, DCH>
+  mha_attention_bwd_kernel<DCH>
       <<<a.B * a.H, kWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t mha_bwd_dim(const MhaBwdArgs& a, int head_dim, cudaStream_t s) {
   switch (head_dim) {
-    case 32: return launch_mha_bwd<T, 1>(a, s);
-    case 64: return launch_mha_bwd<T, 2>(a, s);
-    case 128: return launch_mha_bwd<T, 4>(a, s);
+    case 32: return launch_mha_bwd<1>(a, s);
+    case 64: return launch_mha_bwd<2>(a, s);
+    case 128: return launch_mha_bwd<4>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 head-major attention on the tensor cores (forward and backward)
+// ---------------------------------------------------------------------------
+//
+// The products are the packed kernels' (mma.sync m16n8k16, fp32
+// accumulation; the forward's p split into bf16 hi + lo, the backward's
+// pd and dS into three bf16 parts) on swizzled tiles (tile_off), kept
+// unpadded in shared memory.  Tile padding (keys or
+// queries past Lk or Lq, up to a multiple of 16) is zero rows, and a
+// padded key scores -inf, so its probability is exactly 0.
+
+// One fp32 by cp.async (the mask); ``fill`` false writes 0.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool fill) {
+  const uint32_t addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(addr),
+               "l"(src), "r"(fill ? 4 : 0));
+}
+
+// (x0, x1) = hi + mid + lo, three bf16 pairs: the fp32 values to ~2^-26
+// relative (hi + lo leaves up to 2^-17).
+__device__ __forceinline__ void split3_bf16(float x0, float x1, uint32_t& hi,
+                                            uint32_t& mid, uint32_t& lo) {
+  hi = pack_bf16(x0, x1);
+  const float r0 = x0 - __uint_as_float(hi << 16);
+  const float r1 = x1 - __uint_as_float(hi & 0xffff0000u);
+  mid = pack_bf16(r0, r1);
+  lo = pack_bf16(r0 - __uint_as_float(mid << 16),
+                 r1 - __uint_as_float(mid & 0xffff0000u));
+}
+
+// acc += A . Y[y0:y0+16, :] for a 16 x 16 fp32 C tile pair ``c`` split
+// into three bf16 A fragments, smallest first: the backward's dS . K,
+// PD^T . dO and dS^T . Q.
+template <int D>
+__device__ __forceinline__ void mma_ay3(const float (&c)[2][4],
+                                        const bf16* ys, int y0,
+                                        float (&acc)[D / 8][4]) {
+  uint32_t hi[4], mid[4], lo[4];
+  split3_bf16(c[0][0], c[0][1], hi[0], mid[0], lo[0]);
+  split3_bf16(c[0][2], c[0][3], hi[1], mid[1], lo[1]);
+  split3_bf16(c[1][0], c[1][1], hi[2], mid[2], lo[2]);
+  split3_bf16(c[1][2], c[1][3], hi[3], mid[3], lo[3]);
+  const int lane = threadIdx.x & 31;
+  const int r = y0 + (lane & 7) + ((lane >> 3) & 1) * 8, half = lane >> 4;
+#pragma unroll
+  for (int c0 = 0; c0 < D; c0 += 16) {
+    uint32_t b[4];
+    ldsm_x4_trans(b, ys + tile_off<D, true>(r, c0 + 8 * half));
+    mma_bf16(acc[c0 / 8], lo, b[0], b[1]);
+    mma_bf16(acc[c0 / 8 + 1], lo, b[2], b[3]);
+    mma_bf16(acc[c0 / 8], mid, b[0], b[1]);
+    mma_bf16(acc[c0 / 8 + 1], mid, b[2], b[3]);
+    mma_bf16(acc[c0 / 8], hi, b[0], b[1]);
+    mma_bf16(acc[c0 / 8 + 1], hi, b[2], b[3]);
+  }
+}
+
+bool rows_aligned16(const void* p, long long bs, long long hs,
+                    long long rs) {
+  return rows_aligned16(p, bs, rs) && hs % 8 == 0;
+}
+
+constexpr int kMhaKeyTile = 64;  // keys of a streamed K/V tile
+
+// Keys a K/V buffer holds: all of them, rounded to 16, when they fit one
+// tile (both sweeps read that one), else a 64-key tile of the stream.
+__host__ __device__ inline int mha_key_tile(int Lk) {
+  return Lk <= kMhaKeyTile ? round16(Lk) : kMhaKeyTile;
+}
+
+// K/V buffers: one when the keys fit a tile, else two (double buffering).
+__host__ __device__ inline int mha_stages(int Lk) {
+  return Lk <= kMhaKeyTile ? 1 : 2;
+}
+
+// Bytes of the K/V region: the buffers, or, once the last tile is done,
+// a short query tile's key parts' partial outputs ([4][16][D + 4] fp32).
+__host__ __device__ inline size_t mha_kv_bytes(int Lq, int Lk, int D) {
+  const size_t tiles = static_cast<size_t>(mha_stages(Lk)) * 2 *
+                       mha_key_tile(Lk) * D * sizeof(bf16);
+  const size_t parts = tc_fwd_split(tc_fwd_rows(Lq)) > 1
+                           ? static_cast<size_t>(kTcFwdWarps) * 16 *
+                                 (D + 4) * sizeof(float)
+                           : 0;
+  return tiles > parts ? tiles : parts;
+}
+
+// Forward: a block per (b, h, tile of up to 64 query rows), a warp per 16
+// rows (a short tile's warps split the key chunks); K, V and the mask
+// stream through shared memory in 64-key tiles by cp.async, the next
+// tile in flight while this one is used.  Sweep 1 forms S = Q K^T and the
+// running row max and sum; sweep 2 forms S again, p = exp(s - m) / l,
+// applies the keep bit of (b, h, i, j) and accumulates O += P V.  At
+// d <= 64 five blocks share an SM (at most 96 registers a thread), so the
+// beam step's 1152 heads run in two waves.
+template <int D>
+__global__ void __launch_bounds__(kTcFwdWarps * 32, D <= 64 ? 5 : 1)
+    mha_attention_mma_kernel(MhaArgs a, int vec) {
+  constexpr int KS = D / 16;
+  const int Lq = a.Lq, Lk = a.Lk;
+  const int rows = tc_fwd_rows(Lq), q_tiles = (Lq + rows - 1) / rows;
+  const int head = blockIdx.x / q_tiles;
+  const int q0 = (blockIdx.x - head * q_tiles) * rows;
+  const int kt = mha_key_tile(Lk);
+  const int n_tiles = (Lk + kMhaKeyTile - 1) / kMhaKeyTile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);                // [rows][D]
+  unsigned char* kv = smem_raw + rows * D * sizeof(bf16);       // K/V tiles
+  float* mraw = reinterpret_cast<float*>(kv + mha_kv_bytes(Lq, Lk, D));
+  float* mlbuf = mraw + mha_stages(Lk) * kt;                   // [4][16][2]
+  float* obuf = reinterpret_cast<float*>(kv);            // [4][16][D + 4]
+
+  const int b = head / a.H, h = head - b * a.H;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_bs + h * a.k_hs;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_bs + h * a.v_hs;
+  const float* mb = a.mask + b * a.m_bs;
+  auto kbuf = [&](int buf) {   // [kt][D] K, then [kt][D] V
+    return reinterpret_cast<bf16*>(kv) + buf * 2 * kt * D;
+  };
+  // Step s of the stream: s < n_tiles is sweep 1's tile s (K and the
+  // mask), the rest sweep 2's tile s - n_tiles (K, the mask and V).  With
+  // one tile, step 0 brings K and step 1 only V, so both are in flight
+  // from the start and sweep 2 reads step 0's K.  Every step commits a
+  // group, empty past the end, so "all but the newest group" is always
+  // the step being consumed.
+  auto issue = [&](int s) {
+    if (s < 2 * n_tiles) {
+      const int j0 = (s < n_tiles ? s : s - n_tiles) * kMhaKeyTile;
+      const int buf = n_tiles == 1 ? 0 : s & 1;
+      const int n = min(kMhaKeyTile, Lk - j0), n_pad = round16(n);
+      if (s < n_tiles || n_tiles > 1) {
+        stage_rows<D, true>(kb + j0 * a.k_rs, a.k_rs, n, n_pad, vec & 2,
+                            kbuf(buf));
+        for (int j = threadIdx.x; j < n_pad; j += blockDim.x)
+          cp_async4(mraw + buf * kt + j, mb + j0 + min(j, n - 1), j < n);
+      }
+      if (s >= n_tiles)
+        stage_rows<D, true>(vb + j0 * a.v_rs, a.v_rs, n, n_pad, vec & 4,
+                            kbuf(buf) + kt * D);
+    }
+    cp_async_commit();
+  };
+  stage_rows<D, true>(static_cast<const bf16*>(a.q) + b * a.q_bs +
+                          h * a.q_hs + q0 * a.q_rs,
+                      a.q_rs, min(Lq - q0, rows), rows, vec & 1, qs);
+  issue(0);   // with Q
+  issue(1);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int split = tc_fwd_split(rows), part = warp % split;
+  const int r0 = (warp / split) * 16;
+  const bool active = r0 < rows && q0 + r0 < Lq;
+  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  int last[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    last[r] = a.causal ? row[r] + (Lk - Lq) : Lk;   // last causal key
+  uint32_t qf[KS][4];
+
+  // the masked, scaled scores of chunk c (16 keys) of step s's tile; -inf
+  // past Lk (the causal bias and the padding only where a chunk can hold
+  // them)
+  auto scores = [&](int s, int c, float (&x)[2][4]) {
+    const int buf = n_tiles == 1 ? 0 : s & 1;
+    const int j0 = (s < n_tiles ? s : s - n_tiles) * kMhaKeyTile + 16 * c;
+    mma_abt<D, true>(qf, kbuf(buf), 16 * c, x);
+    const float* mk = mraw + buf * kt + 16 * c;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const float2 mm = *reinterpret_cast<const float2*>(mk + 8 * n + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[n][e] = x[n][e] * a.scale + (1.f - (e & 1 ? mm.y : mm.x)) * kNegInf;
+    }
+    if (a.causal && j0 + 15 > q0 + r0 + (Lk - Lq))
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j0 + 8 * n + 2 * t + (e & 1) > last[e >> 1]) x[n][e] += kNegInf;
+    if (j0 + 16 > Lk)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j0 + 8 * n + 2 * t + (e & 1) >= Lk) x[n][e] = -INFINITY;
+  };
+  // 16-key chunks of step s's tile
+  auto chunks = [&](int s) {
+    const int j0 = (s < n_tiles ? s : s - n_tiles) * kMhaKeyTile;
+    return (min(kMhaKeyTile, Lk - j0) + 15) / 16;
+  };
+  auto combine = [](float& m, float& l, float mo, float lo) {
+    const float mn = fmaxf(m, mo);
+    l = (m == -INFINITY ? 0.f : l * exp_fast(m - mn)) +
+        (mo == -INFINITY ? 0.f : lo * exp_fast(mo - mn));
+    m = mn;
+  };
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int s = 0; s < n_tiles; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();
+    if (s == 0 && active) load_a<D, true>(qs, r0, qf);
+    for (int c = part; active && c < chunks(s); c += split) {
+      float x[2][4];
+      scores(s, c, x);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mc = fmaxf(fmaxf(x[0][2 * r], x[0][2 * r + 1]),
+                               fmaxf(x[1][2 * r], x[1][2 * r + 1]));
+        const float mn = fmaxf(m[r], mc);
+        if (mn == -INFINITY) continue;   // only padded keys so far
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+          sum += exp_fast(x[n][2 * r] - mn) + exp_fast(x[n][2 * r + 1] - mn);
+        l[r] = l[r] * exp_fast(m[r] - mn) + sum;
+        m[r] = mn;
+      }
+    }
+    __syncthreads();
+    issue(s + 2);
+  }
+  // the quad's four threads hold the row's columns; the butterfly is
+  // symmetric, so all four end with the same bits
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1)
+      combine(m[r], l[r], __shfl_xor_sync(0xffffffffu, m[r], o),
+              __shfl_xor_sync(0xffffffffu, l[r], o));
+  if (split > 1) {   // the tile's key parts, combined in part order
+    if (t == 0)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mlbuf[(warp * 16 + g + 8 * r) * 2] = m[r];
+        mlbuf[(warp * 16 + g + 8 * r) * 2 + 1] = l[r];
+      }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[r] = -INFINITY;
+      l[r] = 0.f;
+#pragma unroll
+      for (int k = 0; k < kTcFwdWarps; ++k)
+        if (k < split) {
+          const float* x = mlbuf + ((warp - part + k) * 16 + g + 8 * r) * 2;
+          combine(m[r], l[r], x[0], x[1]);
+        }
+    }
+  }
+
+  const bool drop = a.rate > 0.f;
+  const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
+  float o[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+  for (int s = n_tiles; s < 2 * n_tiles; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const int buf = n_tiles == 1 ? 0 : s & 1;
+    for (int c = part; active && c < chunks(s); c += split) {
+      const int j0 = (s - n_tiles) * kMhaKeyTile + 16 * c;
+      float x[2][4];
+      scores(s, c, x);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = row[r], j = j0 + 8 * n + 2 * t;
+          float p0 = exp_fast(x[n][2 * r] - m[r]) * inv_l[r];
+          float p1 = exp_fast(x[n][2 * r + 1] - m[r]) * inv_l[r];
+          if (drop && i < Lq) {
+            if (j < Lk)
+              p0 = dropout_keep(a.key, b, h, i, j, a.rate) ? p0 * a.keep_scale
+                                                           : 0.f;
+            if (j + 1 < Lk)
+              p1 = dropout_keep(a.key, b, h, i, j + 1, a.rate)
+                       ? p1 * a.keep_scale
+                       : 0.f;
+          }
+          x[n][2 * r] = p0;
+          x[n][2 * r + 1] = p1;
+        }
+      uint32_t hi[4], lo[4];
+      c_to_a(x, hi, lo);
+      mma_ay<D, true>(hi, lo, true, kbuf(buf) + kt * D, 16 * c, o);
+    }
+    __syncthreads();
+    issue(s + 2);
+  }
+  cp_async_wait<0>();
+
+  bf16* ob = static_cast<bf16*>(a.out) + static_cast<long long>(head) * Lq * D;
+  if (split == 1) {
+    if (active) store_rows<D>(o, 1.f, ob, D, row[0], Lq);
+    return;
+  }
+  // the key parts' partial outputs, summed in part order by the tile's
+  // first warp (the K/V buffers are free: every tile has been used)
+  __syncthreads();
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      obuf[(warp * 16 + g + 8 * (e >> 1)) * (D + 4) + nt * 8 + 2 * t +
+           (e & 1)] = o[nt][e];
+  __syncthreads();
+  if (!active || part != 0) return;
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* x = obuf + (warp * 16 + g + 8 * (e >> 1)) * (D + 4) +
+                       nt * 8 + 2 * t + (e & 1);
+      float sum = 0.f;
+#pragma unroll
+      for (int k = 0; k < kTcFwdWarps; ++k)
+        if (k < split) sum += x[k * 16 * (D + 4)];
+      o[nt][e] = sum;
+    }
+  store_rows<D>(o, 1.f, ob, D, row[0], Lq);
+}
+
+size_t mha_mma_smem(int Lq, int Lk, int D) {
+  return static_cast<size_t>(tc_fwd_rows(Lq)) * D * sizeof(bf16) +
+         mha_kv_bytes(Lq, Lk, D) +
+         static_cast<size_t>(mha_stages(Lk)) * mha_key_tile(Lk) *
+             sizeof(float) +
+         kTcFwdWarps * 16 * 2 * sizeof(float);
+}
+
+template <int D>
+cudaError_t launch_mha_mma(const MhaArgs& a, cudaStream_t stream) {
+  const size_t smem = mha_mma_smem(a.Lq, a.Lk, D);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mha_attention_mma_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int vec = (rows_aligned16(a.q, a.q_bs, a.q_hs, a.q_rs) ? 1 : 0) |
+                  (rows_aligned16(a.k, a.k_bs, a.k_hs, a.k_rs) ? 2 : 0) |
+                  (rows_aligned16(a.v, a.v_bs, a.v_hs, a.v_rs) ? 4 : 0);
+  const int rows = tc_fwd_rows(a.Lq);
+  const long long blocks =
+      static_cast<long long>(a.B) * a.H * ((a.Lq + rows - 1) / rows);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  mha_attention_mma_kernel<D><<<static_cast<unsigned>(blocks),
+                                kTcFwdWarps * 32, smem, stream>>>(a, vec);
+  return cudaGetLastError();
+}
+
+cudaError_t mha_mma_dim(const MhaArgs& a, int head_dim, cudaStream_t s) {
+  switch (head_dim) {
+    case 32: return launch_mha_mma<32>(a, s);
+    case 64: return launch_mha_mma<64>(a, s);
+    case 128: return launch_mha_mma<128>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Backward: a block per (b, h) of tc_bwd_warps(Lq, Lk) warps; Q, dO, K, V
+// and the mask staged once by cp.async.  Pass A, a warp per 16 query
+// rows: sweep 1 forms S = Q K^T and dP = dO V^T, draws the keep bits once
+// (16 bits a (row, 16-key chunk), kept in shared memory) and keeps the
+// running row max m, sum l and u = sum_j exp(s_j - m) dp_j, rescaled with
+// m, so Delta = u / l = sum_j dp_j p_j in fp32 (not dO . O); sweep 2
+// forms p = exp(s - lse) and dS = p o (dp - Delta) again and accumulates
+// dQ = dS K.  lse = m + log l and Delta go to shared memory.  Pass B, a
+// warp per 16 keys, recomputes P^T = exp(K Q^T - lse) over the query
+// tiles in order: B1 accumulates dV = PD^T dO, B2 dK = dS^T Q with
+// dP^T = V dO^T formed again (two sub-passes keep a warp's accumulators
+// to one D-wide tile).  Every gradient row, every key's included, is
+// summed by one warp in a fixed order and written once: no atomics.
+template <int D>
+__global__ void __launch_bounds__(kTcBwdWarps * 32)
+    mha_attention_bwd_mma_kernel(MhaBwdArgs a, int vec) {
+  constexpr int KS = D / 16;
+  const int Lq = a.Lq, Lk = a.Lk;
+  const int lq_pad = round16(Lq), lk_pad = round16(Lk), kw = lk_pad / 16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);    // [lq_pad][D]
+  bf16* gs = qs + lq_pad * D;                      // [lq_pad][D] dO
+  bf16* ks = gs + lq_pad * D;                      // [lk_pad][D]
+  bf16* vs = ks + lk_pad * D;                      // [lk_pad][D]
+  float* mraw = reinterpret_cast<float*>(vs + lk_pad * D);   // [lk_pad]
+  float* lse = mraw + lk_pad;                      // [lq_pad]
+  float* delta = lse + lq_pad;                     // [lq_pad]
+  uint16_t* keep = reinterpret_cast<uint16_t*>(delta + lq_pad);  // [lq_pad][kw]
+
+  const int b = blockIdx.x / a.H, h = blockIdx.x - b * a.H;
+  const long long head = blockIdx.x;
+  stage_rows<D, true>(
+      static_cast<const bf16*>(a.q) + b * a.q_bs + h * a.q_hs, a.q_rs, Lq,
+      lq_pad, vec & 1, qs);
+  stage_rows<D, true>(
+      static_cast<const bf16*>(a.dout) + b * a.do_bs + h * a.do_hs, a.do_rs,
+      Lq, lq_pad, vec & 8, gs);
+  stage_rows<D, true>(
+      static_cast<const bf16*>(a.k) + b * a.k_bs + h * a.k_hs, a.k_rs, Lk,
+      lk_pad, vec & 2, ks);
+  stage_rows<D, true>(
+      static_cast<const bf16*>(a.v) + b * a.v_bs + h * a.v_hs, a.v_rs, Lk,
+      lk_pad, vec & 4, vs);
+  const float* mb = a.mask + b * a.m_bs;
+  for (int j = threadIdx.x; j < lk_pad; j += blockDim.x)
+    cp_async4(mraw + j, mb + min(j, Lk - 1), j < Lk);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool drop = a.rate > 0.f;
+  const int shift = Lk - Lq;   // causal: row i sees no key j > i + shift
+
+  // pass A: Delta, lse and dQ, a warp per 16 query rows
+  for (int r0 = warp * 16; r0 < lq_pad; r0 += nw * 16) {
+    uint32_t qf[KS][4], gf[KS][4];
+    load_a<D, true>(qs, r0, qf);
+    load_a<D, true>(gs, r0, gf);
+    const int row[2] = {r0 + g, r0 + g + 8};
+    // the masked, scaled scores of keys [j0, j0 + 16); -inf past Lk
+    auto scores = [&](int j0, float (&x)[2][4]) {
+      mma_abt<D, true>(qf, ks, j0, x);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float2 mm =
+            *reinterpret_cast<const float2*>(mraw + j0 + 8 * n + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[n][e] = x[n][e] * a.scale + (1.f - (e & 1 ? mm.y : mm.x)) * kNegInf;
+      }
+      if (a.causal && j0 + 15 > r0 + shift)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (j0 + 8 * n + 2 * t + (e & 1) > row[e >> 1] + shift)
+              x[n][e] += kNegInf;
+      if (j0 + 16 > Lk)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (j0 + 8 * n + 2 * t + (e & 1) >= Lk) x[n][e] = -INFINITY;
+    };
+
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
+    for (int j0 = 0; j0 < lk_pad; j0 += 16) {
+      float x[2][4], dp[2][4];
+      scores(j0, x);
+      mma_abt<D, true>(gf, vs, j0, dp);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (drop) {
+          const int i = row[r];
+          uint32_t bits = 0;
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+#pragma unroll
+            for (int k = 0; k < 2; ++k) {
+              const int j = j0 + 8 * n + 2 * t + k;
+              const bool kp = i < Lq && j < Lk &&
+                              dropout_keep(a.key, b, h, i, j, a.rate);
+              dp[n][2 * r + k] = kp ? dp[n][2 * r + k] * a.keep_scale : 0.f;
+              bits |= (kp ? 1u : 0u) << (8 * n + 2 * t + k);
+            }
+          bits |= __shfl_xor_sync(0xffffffffu, bits, 1);
+          bits |= __shfl_xor_sync(0xffffffffu, bits, 2);
+          if (t == 0) keep[i * kw + j0 / 16] = static_cast<uint16_t>(bits);
+        }
+        const float mc = fmaxf(fmaxf(x[0][2 * r], x[0][2 * r + 1]),
+                               fmaxf(x[1][2 * r], x[1][2 * r + 1]));
+        const float mn = fmaxf(m[r], mc);
+        if (mn == -INFINITY) continue;   // only padded keys so far
+        const float f = exp_fast(m[r] - mn);
+        float sl = 0.f, su = 0.f;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const float e = exp_fast(x[n][2 * r + k] - mn);
+            sl += e;
+            su = fmaf(e, dp[n][2 * r + k], su);
+          }
+        l[r] = fmaf(l[r], f, sl);
+        u[r] = fmaf(u[r], f, su);
+        m[r] = mn;
+      }
+    }
+    // combine the quad's (m, l, u); symmetric, so the four agree
+    float lse_r[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[r], o);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[r], o);
+        const float uo = __shfl_xor_sync(0xffffffffu, u[r], o);
+        const float mn = fmaxf(m[r], mo);
+        const float fa = m[r] == -INFINITY ? 0.f : exp_fast(m[r] - mn);
+        const float fb = mo == -INFINITY ? 0.f : exp_fast(mo - mn);
+        l[r] = l[r] * fa + lo * fb;
+        u[r] = u[r] * fa + uo * fb;
+        m[r] = mn;
+      }
+      lse_r[r] = m[r] + logf(l[r]);
+      dl[r] = u[r] / l[r];
+      if (t == 0) {
+        lse[row[r]] = lse_r[r];
+        delta[row[r]] = dl[r];
+      }
+    }
+    __syncwarp();   // the keep words, written by each quad's first lane
+
+    float dq[D / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[nt][e] = 0.f;
+    for (int j0 = 0; j0 < lk_pad; j0 += 16) {
+      float x[2][4], dp[2][4];
+      scores(j0, x);
+      mma_abt<D, true>(gf, vs, j0, dp);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t bits = drop ? keep[row[r] * kw + j0 / 16] : 0u;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            float d = dp[n][2 * r + k];
+            if (drop)
+              d = (bits >> (8 * n + 2 * t + k)) & 1u ? d * a.keep_scale : 0.f;
+            const float p = exp_fast(x[n][2 * r + k] - lse_r[r]);
+            x[n][2 * r + k] = p * (d - dl[r]);
+          }
+      }
+      mma_ay3<D>(x, ks, j0, dq);
+    }
+    store_rows<D>(dq, a.scale, static_cast<bf16*>(a.dq) + head * Lq * D, D,
+                  row[0], Lq);
+  }
+  __syncthreads();
+
+  // pass B: a warp per 16 keys over the query tiles in order; B1 (DK
+  // false) dV = PD^T dO, B2 (DK true) dK = dS^T Q * scale
+  auto pass_b = [&](auto dk_pass) {
+    constexpr bool DK = decltype(dk_pass)::value;
+    for (int j0 = warp * 16; j0 < lk_pad; j0 += nw * 16) {
+      uint32_t kf[KS][4], vf[KS][4];
+      load_a<D, true>(ks, j0, kf);
+      if (DK) load_a<D, true>(vs, j0, vf);
+      const int key[2] = {j0 + g, j0 + g + 8};
+      const float kbias[2] = {(1.f - mraw[key[0]]) * kNegInf,
+                              (1.f - mraw[key[1]]) * kNegInf};
+      float acc[D / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+      for (int i0 = 0; i0 < lq_pad; i0 += 16) {
+        float x[2][4], dpt[2][4];
+        mma_abt<D, true>(kf, qs, i0, x);   // S^T: rows keys, columns queries
+        if (DK) mma_abt<D, true>(vf, gs, i0, dpt);
+        const bool causal = a.causal && j0 + 15 > i0 + shift;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const int i = i0 + 8 * n + 2 * t + k;
+            const float li = lse[i], di = DK ? delta[i] : 0.f;
+            const uint32_t bits = drop ? keep[i * kw + j0 / 16] : 0u;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int j = key[r], e = 2 * r + k;
+              float s = x[n][e] * a.scale + kbias[r];
+              if (causal && j > i + shift) s += kNegInf;
+              const float p = i < Lq && j < Lk ? exp_fast(s - li) : 0.f;
+              const bool kp = !drop || ((bits >> (j - j0)) & 1u);
+              if (DK) {
+                const float d = kp ? dpt[n][e] * (drop ? a.keep_scale : 1.f)
+                                   : 0.f;
+                x[n][e] = p * (d - di);
+              } else {
+                x[n][e] = kp ? p * (drop ? a.keep_scale : 1.f) : 0.f;
+              }
+            }
+          }
+        mma_ay3<D>(x, DK ? qs : gs, i0, acc);
+      }
+      store_rows<D>(acc, DK ? a.scale : 1.f,
+                    static_cast<bf16*>(DK ? a.dk : a.dv) + head * Lk * D, D,
+                    key[0], Lk);
+    }
+  };
+  pass_b(std::false_type{});
+  pass_b(std::true_type{});
+}
+
+size_t mha_bwd_mma_smem(int Lq, int Lk, int D) {
+  const size_t lq = round16(Lq), lk = round16(Lk);
+  return 2 * (lq + lk) * D * sizeof(bf16) + (lk + 2 * lq) * sizeof(float) +
+         lq * (lk / 16) * sizeof(uint16_t);
+}
+
+template <int D>
+cudaError_t launch_mha_bwd_mma(const MhaBwdArgs& a, cudaStream_t stream) {
+  const size_t smem = mha_bwd_mma_smem(a.Lq, a.Lk, D);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mha_attention_bwd_mma_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int vec =
+      (rows_aligned16(a.q, a.q_bs, a.q_hs, a.q_rs) ? 1 : 0) |
+      (rows_aligned16(a.k, a.k_bs, a.k_hs, a.k_rs) ? 2 : 0) |
+      (rows_aligned16(a.v, a.v_bs, a.v_hs, a.v_rs) ? 4 : 0) |
+      (rows_aligned16(a.dout, a.do_bs, a.do_hs, a.do_rs) ? 8 : 0);
+  mha_attention_bwd_mma_kernel<D>
+      <<<a.B * a.H, tc_bwd_warps(a.Lq, a.Lk) * 32, smem, stream>>>(a, vec);
+  return cudaGetLastError();
+}
+
+cudaError_t mha_bwd_mma_dim(const MhaBwdArgs& a, int head_dim,
+                            cudaStream_t s) {
+  switch (head_dim) {
+    case 32: return launch_mha_bwd_mma<32>(a, s);
+    case 64: return launch_mha_bwd_mma<64>(a, s);
+    case 128: return launch_mha_bwd_mma<128>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1631,12 +2362,18 @@ extern "C" long long hero_attention_smem_bytes(int dtype, int backward,
 
 extern "C" long long hero_attention_smem_limit() { return kMaxSmem; }
 
-extern "C" long long hero_mha_smem_bytes(int Lk, int head_dim) {
-  return static_cast<long long>(mha_smem(Lk, head_dim));
+extern "C" long long hero_mha_smem_bytes(int dtype, int Lq, int Lk,
+                                         int head_dim) {
+  return static_cast<long long>(dtype == kBFloat16
+                                    ? mha_mma_smem(Lq, Lk, head_dim)
+                                    : mha_smem(Lk, head_dim));
 }
 
-extern "C" long long hero_mha_bwd_smem_bytes(int Lq, int Lk, int head_dim) {
-  return static_cast<long long>(mha_bwd_smem(Lq, Lk, head_dim));
+extern "C" long long hero_mha_bwd_smem_bytes(int dtype, int Lq, int Lk,
+                                             int head_dim) {
+  return static_cast<long long>(dtype == kBFloat16
+                                    ? mha_bwd_mma_smem(Lq, Lk, head_dim)
+                                    : mha_bwd_smem(Lq, Lk, head_dim));
 }
 
 // Returns a cudaError_t code (0 = launched).  Strides are in elements.
@@ -1711,8 +2448,8 @@ extern "C" int hero_mha_attention_fwd(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (dtype) {
-    case kFloat32: e = mha_dim<float>(a, head_dim, s); break;
-    case kBFloat16: e = mha_dim<__nv_bfloat16>(a, head_dim, s); break;
+    case kFloat32: e = mha_dim(a, head_dim, s); break;
+    case kBFloat16: e = mha_mma_dim(a, head_dim, s); break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);
@@ -1739,8 +2476,8 @@ extern "C" int hero_mha_attention_bwd(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (dtype) {
-    case kFloat32: e = mha_bwd_dim<float>(a, head_dim, s); break;
-    case kBFloat16: e = mha_bwd_dim<__nv_bfloat16>(a, head_dim, s); break;
+    case kFloat32: e = mha_bwd_dim(a, head_dim, s); break;
+    case kBFloat16: e = mha_bwd_mma_dim(a, head_dim, s); break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

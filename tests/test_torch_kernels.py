@@ -17,7 +17,9 @@ fused dropout-add-LayerNorm forward and backward (#8, #9) with their
 Philox row mask.  The bf16 packed forward and backward (tensor-core
 kernels) are held at their tile edges (1 to 417 keys, backward rows to
 240, one query), for bit-identical gradients, and for keep bits equal
-to the plain Philox mask.
+to the plain Philox mask; so are the bf16 head-major forward and
+backward (1 to 1000 keys, 1 to 65 queries, backward heads to 400 rows),
+whose shared-memory limits are held against the fp32 kernels'.
 """
 
 import numpy as np
@@ -427,6 +429,17 @@ MHA_SHAPES = [  # (B, H, Lq, Lk, head_dim, causal, mask): the TVC decode path
     (32, 12, 31, 31, 64, True, "valid"),       # causal, Lq == Lk
     (4, 2, 7, 19, 32, True, "valid"),          # causal, Lq < Lk
     (3, 2, 5, 300, 128, False, "valid"),
+    # the tile edges of the bf16 tensor-core forward (16-key chunks,
+    # 64-key streamed tiles, 16-row warp tiles, 64-row blocks); every case
+    # has a fully masked batch row
+    (3, 2, 1, 1, 64, False, "valid"),
+    (3, 2, 16, 16, 64, True, "valid"),
+    (3, 2, 17, 17, 64, True, "valid"),
+    (3, 2, 65, 64, 64, False, "valid"),        # two query blocks, one tile
+    (3, 2, 17, 65, 64, True, "valid"),         # two key tiles, causal Lq < Lk
+    (3, 2, 65, 129, 32, True, "valid"),        # three key tiles
+    (2, 2, 16, 129, 128, False, "valid"),
+    (2, 2, 3, 1000, 64, False, "valid"),       # past the packed forward's 752
 ]
 
 
@@ -569,6 +582,17 @@ MHA_BWD_SHAPES = [  # (B, H, Lq, Lk, head_dim, causal): the component path
     (8, 12, 62, 100, 64, False),      # Lq != Lk
     (4, 2, 7, 19, 32, True),          # causal, Lq < Lk
     (3, 2, 9, 40, 128, False),
+    # the tile edges of the bf16 tensor-core backward (16-row and 16-key
+    # warp tiles), and the longest square head the fp32 kernel takes at
+    # head_dim 64 (154)
+    (3, 2, 1, 1, 64, False),
+    (3, 2, 16, 16, 64, True),
+    (3, 2, 17, 17, 64, True),
+    (3, 2, 65, 64, 64, False),
+    (3, 2, 17, 65, 64, True),         # causal, Lq < Lk
+    (3, 2, 65, 129, 32, True),
+    (2, 2, 16, 129, 128, False),
+    (2, 12, 154, 154, 64, False),
 ]
 
 
@@ -637,11 +661,101 @@ def test_mha_backward_kernel_reads_strided_views(cuda):
     b = tatt.mha_attention_bwd_cuda(q.contiguous(), k.contiguous(),
                                     v.contiguous(), mask, g, 0.1, 5)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
-    big = torch.zeros((1, 1, 300, 128), device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        tatt.mha_attention_bwd_cuda(big, big, big, torch.ones((1, 300),
-                                                               device=cuda),
-                                    big)
+    a = tatt.mha_attention_bwd_cuda(*(t.bfloat16() for t in (q, k, v)),
+                                    mask, g.bfloat16(), 0.1, 5)
+    b = tatt.mha_attention_bwd_cuda(*(t.bfloat16().contiguous()
+                                      for t in (q, k, v)),
+                                    mask, g.bfloat16(), 0.1, 5)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    # fp32: the (Lq, Lk) fp32 tiles of 300 rows at head_dim 128; bf16: Q,
+    # dO, K and V of 416 rows at head_dim 64 (the bf16 kernel takes 400)
+    for L, d, dtype in ((300, 128, torch.float32), (416, 64, torch.bfloat16)):
+        big = torch.zeros((1, 1, L, d), device=cuda, dtype=dtype)
+        with pytest.raises(ValueError, match="shared memory"):
+            tatt.mha_attention_bwd_cuda(big, big, big,
+                                        torch.ones((1, L), device=cuda), big)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("L, d", [(240, 64), (400, 64), (208, 128)])
+def test_bf16_mha_backward_past_the_fp32_limit(cuda, rate, L, d):
+    """The bf16 backward takes square heads the fp32 kernel refuses (154
+    rows at head_dim 64, 139 at 128): 400 and 208 are the longest.
+    Against the plain version, one bf16 ulp of the largest gradient, as
+    in the test above; a fully masked batch row stays finite."""
+    B, H = 2, 2
+    dtype = torch.bfloat16
+    q, k, v, mask = _mha_inputs(78, B, H, L, L, d, "valid", cuda, dtype)
+    r = np.random.RandomState(79)
+    g = torch.from_numpy(r.randn(B, H, L, d).astype(np.float32)).to(
+        cuda, dtype)
+    got = tatt.mha_attention_bwd_cuda(q, k, v, mask, g, rate, 13, True)
+    want = tatt.mha_backward_reference(q, k, v, mask, g, rate, 13, True)
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert float((a[:-1].float() - b[:-1].float()).abs().max()) <= \
+            _grad_tol(b[:-1], dtype)
+
+
+@pytest.mark.cuda
+def test_bf16_mha_backward_is_bit_identical_across_runs(cuda):
+    """The bf16 head-major backward sums every gradient in a fixed order
+    and uses no atomics: five launches on the same inputs, with dropout,
+    give the same bits."""
+    q, k, v, mask = _mha_inputs(80, 8, 12, 62, 100, 64, "valid", cuda,
+                                torch.bfloat16)
+    r = np.random.RandomState(81)
+    g = torch.from_numpy(r.randn(8, 12, 62, 64).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    first = tatt.mha_attention_bwd_cuda(q, k, v, mask, g, 0.1, 15)
+    for _ in range(4):
+        again = tatt.mha_attention_bwd_cuda(q, k, v, mask, g, 0.1, 15)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mha_backward_dropout_is_the_philox_mask(cuda, dtype):
+    """With output-gradient rows e_i the backward's dv holds drop(p)^T:
+    its zeros are the kernel's keep bits, equal to the plain Philox mask
+    bit for bit."""
+    B, H, L, d = 2, 3, 60, 64
+    q, k, v, _ = _mha_inputs(82, B, H, L, L, d, "valid", cuda, dtype)
+    eye = torch.eye(L, d, device=cuda, dtype=dtype).expand(B, H, L, d)
+    seed, rate = 2 ** 36 + 11, 0.1
+    dv = tatt.mha_attention_bwd_cuda(q, k, v, torch.ones((B, L),
+                                                         device=cuda),
+                                     eye, rate, seed)[2]
+    keep = tdrop.attention_keep_mask(seed, B, H, L, L, rate, device=cuda)
+    assert torch.equal(dv[..., :L] != 0, keep.transpose(-1, -2))
+
+
+@pytest.mark.cuda
+def test_bf16_mha_kernels_take_every_fp32_shape(cuda):
+    """The bf16 forward streams K and V, so its shared memory does not
+    grow with Lk; the bf16 backward takes every shape the fp32 backward
+    takes but those with at most 3 keys and 849-859 query rows at
+    head_dim 64 (417-435 at 128), where the 16-row zero padding costs
+    more than the bf16 tiles save."""
+    lib = tatt._lib()
+    limit = lib.hero_attention_smem_limit()
+    f32, b16 = (tatt.cuda_build.DTYPE_CODES[t]
+                for t in (torch.float32, torch.bfloat16))
+    for d in tatt.KERNEL_HEAD_DIMS:
+        assert lib.hero_mha_smem_bytes(b16, 64, 65, d) == \
+            lib.hero_mha_smem_bytes(b16, 64, 100000, d) <= limit
+        refused = set()
+        for Lq in range(1, 900):
+            for Lk in list(range(1, 20)) + list(range(20, 900, 7)):
+                if lib.hero_mha_bwd_smem_bytes(f32, Lq, Lk, d) <= limit < \
+                        lib.hero_mha_bwd_smem_bytes(b16, Lq, Lk, d):
+                    refused.add((Lq, Lk))
+        want = {32: set(),
+                64: {(q, 1) for q in range(849, 860)},
+                128: {(q, k) for q in range(417, 436) for k in (1, 2, 3)
+                      if lib.hero_mha_bwd_smem_bytes(f32, q, k, d) <= limit}}
+        assert refused == want[d]
 
 
 @pytest.mark.cuda
