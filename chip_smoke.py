@@ -83,6 +83,9 @@ What the card run does, in order (any failure exits non-zero):
    versions on the card, as in 7;
 10. the components phase (``tools/component_bench.py`` and the DALN
    checks of ``tools/kernel_smoke.py`` and ``tools/tpu_kernel_drive.py``):
+   holds #6 and #7 at their edges (``check_ln_edges``: widths 1 to
+   14528 about the 16-byte access and the warp's share, rows about the
+   backward's row groups, fp32 and bf16, backward repeats bit-identical);
    holds every kernel the components launch against its plain version in
    fp32 and bf16 at the components' shapes: #2 and #3 at the f-encoder's
    (256, 56, 768) with dropout and the c-encoder's (32, 100, 768), #4 and
@@ -102,7 +105,8 @@ It prints one ``phases`` JSON line, one train JSON line with
 ``train_examples_per_s``, one TVC JSON line with ``tvc_captions_per_s``,
 one TVC train JSON line with ``tvc_train_captions_per_s``, one
 ``components`` JSON line, one ``kernels`` JSON line (all nine kernels,
-launches by path), the card's name and power limit (nvidia-smi), and as
+launches by path; #6 and #7 with the device ms of their row pass and of
+#7's column pass), the card's name and power limit (nvidia-smi), and as
 the last line ``{"ok": true, "device": {...}}``.  ``--profile`` adds
 torch.profiler breakdowns of a phase-1 batch, a query batch, one
 fit-bucket train step, one greedy TVC batch and one TVC train step to the
@@ -212,9 +216,9 @@ def _kernel_class(name):
         return "attention_bwd_kernel"
     if "packed_attention" in name:
         return "attention_kernel"
-    if "layer_norm_bwd" in name:
+    if "layer_norm_bwd" in name:       # the row pass and the column pass
         return "layer_norm_bwd_kernels"
-    if "layer_norm_kernel" in name:
+    if "layer_norm_rows" in name:
         return "layer_norm_kernel"
     if any(t in name.lower() for t in ("gemm", "cutlass", "sm90_xmma",
                                        "nvjet", "cublas")):
@@ -266,6 +270,32 @@ def profile_breakdown(torch, fn, iters=3):
             "device_busy_ms": busy,
             "idle_share": max(0.0, 1.0 - busy / wall_ms),
             "device_ms_by_class": by_class, "top_kernels_ms": dict(top)}
+
+
+def kernel_ms_by_name(torch, fn, parts, iters=20):
+    """Mean device ms of one launch of each kernel whose name holds a
+    fragment of ``parts`` ({key: name fragment}; ``fn`` launches each
+    once), from a torch.profiler trace of ``iters`` calls after a
+    warm-up; None where the trace holds no such launch (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = {key: 0.0 for key in parts}
+    count = {key: 0 for key in parts}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for key, frag in parts.items():
+            if frag in ev.name:
+                total[key] += ev.time_range.elapsed_us() / 1e3
+                count[key] += 1
+    return {key: total[key] / count[key] if count[key] else None
+            for key in parts}
 
 
 # ---------------------------------------------------------------------------
@@ -376,6 +406,8 @@ def check_layer_norm(torch, F, lnm, n, d, x_bf16):
                                  f"{err:.3g} (tol {tol:.3g})")
     x = x_bf16
     ms = time_ms(torch, lambda: lnm.layer_norm_cuda(x, w, b))
+    split = kernel_ms_by_name(torch, lambda: lnm.layer_norm_cuda(x, w, b),
+                              {"rows": "layer_norm_rows"})
     plain_ms = time_ms(torch, lambda: lnm.layer_norm_reference(x, w, b))
     w16, b16 = w.to(x.dtype), b.to(x.dtype)
     lib_ms = time_ms(torch, lambda: F.layer_norm(x, (d,), w16, b16, 1e-5))
@@ -387,7 +419,14 @@ def check_layer_norm(torch, F, lnm, n, d, x_bf16):
             "max_abs_err": record["bfloat16"]["max_abs_err"],
             "tol": record["bfloat16"]["tol"], "checks": record,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "row_pass_ms": split["rows"],
+            "reduce_ms": None}
+
+
+# the LayerNorm rows' device ms of the row pass and of the column pass
+# (the reduction of the backward's partials; None for the forward, which
+# has none), from a profiler trace beside the event timing
+SPLIT_KEYS = ("row_pass_ms", "reduce_ms")
 
 
 def check_kernels(torch, first_batch, query_masks, cfg):
@@ -447,6 +486,7 @@ def check_kernels(torch, first_batch, query_masks, cfg):
                     **{k: main[k] for k in (
                         "shape", "dtype", "max_abs_err", "tol", "ms",
                         "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                    **{k: main[k] for k in SPLIT_KEYS if k in main},
                     "shapes": shapes})
     return out
 
@@ -633,6 +673,9 @@ def check_layer_norm_bwd(torch, F, lnm, n, d):
                                  f"{rec}")
     x, g = x32.to(torch.bfloat16), g32.to(torch.bfloat16)
     ms = time_ms(torch, lambda: lnm.layer_norm_bwd_cuda(x, w, g))
+    split = kernel_ms_by_name(torch, lambda: lnm.layer_norm_bwd_cuda(x, w, g),
+                              {"rows": "layer_norm_bwd_rows",
+                               "reduce": "layer_norm_bwd_cols"})
     plain_ms = time_ms(torch, lambda: lnm.layer_norm_bwd_reference(x, w, g))
     xl = x.detach().requires_grad_(True)
     wl = w.to(x.dtype).requires_grad_(True)
@@ -649,7 +692,8 @@ def check_layer_norm_bwd(torch, F, lnm, n, d):
             "max_abs_err": checks["bfloat16"]["dx_err"],
             "tol": checks["bfloat16"]["dx_tol"], "checks": checks, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "row_pass_ms": split["rows"],
+            "reduce_ms": split["reduce"]}
 
 
 def check_train_kernels(torch, b_fit, b_over, cfg, kernels):
@@ -716,7 +760,7 @@ def check_train_kernels(torch, b_fit, b_over, cfg, kernels):
                          "backward",
          **{k: ln[0][k] for k in (
              "shape", "dtype", "max_abs_err", "tol", "ms", "plain_ms",
-             "bound_ms", "bound_by", "library_ms")},
+             "bound_ms", "bound_by", "library_ms") + SPLIT_KEYS},
          "shapes": ln}]
 
 
@@ -957,6 +1001,71 @@ def check_mha_edges(torch, att, drop):
                                           for r in rows),
             "worst_bwd_err_over_tol": max(r.get("bwd_err_over_tol", 0.0)
                                           for r in rows)}
+
+
+# The LayerNorm kernels' edges (#6, #7): widths about the 16-byte access (8
+# bf16, 4 fp32), a warp's 96 accesses and the path's 768 and 4352, widths
+# that take single-element accesses, and the widest row the wrappers take
+# (16 fp32 bytes a column within 227 KB); row counts about the backward's
+# row groups P: one, P - 1, P, P + 1, and 2P + 1, whose last group is short.
+LN_EDGE_WIDTHS = (1, 7, 8, 9, 255, 256, 257, 767, 768, 769, 1536, 4351,
+                  4352, 4353, 227 * 1024 // 16)
+
+
+def check_ln_edges(torch, lnm):
+    """#6 and #7 at their edges (``LN_EDGE_WIDTHS`` x the row counts about
+    ``lnm.LN_BWD_GROUPS``), fp32 and bf16, against the plain versions on
+    the same inputs: the forward within 1e-4 (fp32) or one bf16 ulp of
+    its largest value, dx within ``_train_tol``, dw and db within 1e-6 per
+    row (fp32 sums in another order; 4 rows' worth below 4 rows, where one
+    term's rounding of xhat outweighs the order), and every backward
+    repeated bit for bit."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(71)
+    P = lnm.LN_BWD_GROUPS
+    rows = (1, P - 1, P, P + 1, 2 * P + 1)
+    cases = []
+    for d in LN_EDGE_WIDTHS:
+        w = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        b = 0.1 * torch.randn(d, generator=gen, device=dev)
+        for n in rows:
+            x32 = torch.randn((n, d), generator=gen, device=dev) * 2.0 + 0.5
+            g32 = torch.randn((n, d), generator=gen, device=dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype).split(".")[1]
+                x, g = x32.to(dtype), g32.to(dtype)
+                out = lnm.layer_norm_cuda(x, w, b)
+                ref = lnm.layer_norm_reference(x, w, b)
+                got = lnm.layer_norm_bwd_cuda(x, w, g)
+                want = lnm.layer_norm_bwd_reference(x, w, g)
+                again = lnm.layer_norm_bwd_cuda(x, w, g)
+                fwd_tol = 1e-4 if name == "float32" else _bf16_tol(ref)
+                rec = {"shape": [n, d], "dtype": name,
+                       "fwd_err": _err(out, ref), "fwd_tol": fwd_tol,
+                       "dx_err": _err(got[0], want[0]),
+                       "dx_tol": _train_tol(want[0], name),
+                       "dwdb_err": max(_err(got[1], want[1]),
+                                       _err(got[2], want[2])),
+                       "dwdb_tol": 1e-6 * max(n, 4),
+                       "deterministic": all(bool(torch.equal(a, c))
+                                            for a, c in zip(got, again)),
+                       "finite": bool(torch.isfinite(out).all()) and all(
+                           bool(torch.isfinite(a).all()) for a in got)}
+                rec["ok"] = (rec["fwd_err"] <= rec["fwd_tol"]
+                             and rec["dx_err"] <= rec["dx_tol"]
+                             and rec["dwdb_err"] <= rec["dwdb_tol"]
+                             and rec["deterministic"] and rec["finite"])
+                cases.append(rec)
+                if not rec["ok"]:
+                    raise AssertionError(f"LayerNorm edge shape: {rec}")
+
+    def worst(err, tol):
+        return max(c[err] / c[tol] if c[tol] else float(c[err] > 0)
+                   for c in cases)
+    return {"cases": cases, "n_cases": len(cases),
+            "worst_fwd_err_over_tol": worst("fwd_err", "fwd_tol"),
+            "worst_dx_err_over_tol": worst("dx_err", "dx_tol"),
+            "worst_dwdb_err_over_tol": worst("dwdb_err", "dwdb_tol")}
 
 
 # ---------------------------------------------------------------------------
@@ -2942,6 +3051,10 @@ def main(argv=None):
 
     # the components of tools/component_bench.py
     if not rehearse:
+        from hero_tpu_torch.ops import layernorm as lnm
+        record["ln_edge_checks"] = check_ln_edges(torch, lnm)
+        log(f"{record['ln_edge_checks']['n_cases']} edge checks of the "
+            f"LayerNorm kernels passed")
         record["kernels"] += check_component_kernels(torch, cfg, tvc_ds,
                                                      record["kernels"])
         log("component kernel checks passed")
@@ -3015,9 +3128,10 @@ def main(argv=None):
            "shapes": [{k: sh[k] for k in (
                "shape", "max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")} | {k: sh[k] for k in (
-                   "mode", "chain_ms") if k in sh}
+                   "mode", "chain_ms") + SPLIT_KEYS if k in sh}
                for sh in row["shapes"]]}
         | ({"chain_ms": row["chain_ms"]} if "chain_ms" in row else {})
+        | {k: row[k] for k in SPLIT_KEYS if k in row}
         for row in record["kernels"]]
     idle = [row["name"] for row in kernels if row["launches"] == 0]
     if idle or len(kernels) != 9:

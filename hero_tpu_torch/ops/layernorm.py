@@ -105,14 +105,22 @@ def _check(x, weight, bias=None):
     return d
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous) at a 16-byte aligned address: a view that starts
+    off the alignment is copied.  The kernels take 16-byte accesses only
+    where every pointer is aligned, so their access width, and with it the
+    order of their sums, depends on the width and dtype alone."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
                     bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Launch the LayerNorm kernel over the last axis of a CUDA tensor.
     ``layer_norm_cuda.launches`` counts the launches."""
     d = _check(x, weight, bias)
-    x2 = x.reshape(-1, d).contiguous()
-    w = weight.float().contiguous()
-    b = bias.float().contiguous()
+    x2 = _aligned(x.reshape(-1, d).contiguous())
+    w = _aligned(weight.float().contiguous())
+    b = _aligned(bias.float().contiguous())
     out = torch.empty_like(x2)
     if x2.shape[0]:
         lib = _lib()
@@ -126,30 +134,47 @@ def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
     return out.reshape(x.shape)
 
 
-# rows of one pass-1 block of the backward: enough blocks to fill the
-# card's 132 SMs a few times over, and a fixed function of n, so the
-# partial sums (and the grads) are the same from run to run
-BWD_MAX_BLOCKS = 528
+# row groups of the LayerNorm backward's row pass, a block each: two an SM
+# of the card's 132, so every group is resident at once and the
+# (groups, 2, d) fp32 partials stay a few MB
+LN_BWD_GROUPS = 264
+# blocks of the fused dropout-add-LayerNorm backward (#9): a few per SM,
+# for its shared-memory row loop
+DALN_BWD_BLOCKS = 528
+
+
+def row_groups(n: int, max_groups: int):
+    """The backward's partition of n rows: (groups, rows a group), group i
+    taking rows [i * rows, min(n, (i + 1) * rows)).  At most
+    ``max_groups`` groups, none empty, a function of n alone: the partial
+    sums, and so dw and db, are the same from run to run."""
+    if n <= 0:
+        return 0, 0
+    rows = -(-n // max_groups)
+    return -(-n // rows), rows
 
 
 def layer_norm_bwd_cuda(x: torch.Tensor, weight: torch.Tensor,
                         g: torch.Tensor, eps: float = 1e-5):
-    """Launch the backward kernels: (dx in x's dtype, dw, db fp32).
+    """Launch the backward kernels, the row pass over
+    :func:`row_groups` of ``LN_BWD_GROUPS`` and the column pass over its
+    partials: (dx in x's dtype, dw, db fp32).
     ``layer_norm_bwd_cuda.launches`` counts the launches (one per call:
     the row pass and the reduction run as one)."""
     d = _check(x, weight)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError("g must have x's shape, dtype and device")
-    x2 = x.reshape(-1, d).contiguous()
-    g2 = g.reshape(-1, d).contiguous()
-    w = weight.float().contiguous()
+    x2 = _aligned(x.reshape(-1, d).contiguous())
+    g2 = _aligned(g.reshape(-1, d).contiguous())
+    w = _aligned(weight.float().contiguous())
     n = x2.shape[0]
     dx = torch.empty_like(x2)
-    dw = torch.zeros(d, dtype=torch.float32, device=x.device)
-    db = torch.zeros(d, dtype=torch.float32, device=x.device)
+    # the column pass writes every entry of dw and db when there are rows
+    alloc = torch.empty if n else torch.zeros
+    dw = alloc(d, dtype=torch.float32, device=x.device)
+    db = alloc(d, dtype=torch.float32, device=x.device)
     if n:
-        rows = -(-n // BWD_MAX_BLOCKS)
-        n_blocks = -(-n // rows)
+        n_blocks, rows = row_groups(n, LN_BWD_GROUPS)
         partial = torch.empty((n_blocks, 2, d), dtype=torch.float32,
                               device=x.device)
         lib = _lib()
@@ -315,8 +340,7 @@ def dropout_add_layer_norm_bwd_cuda(y, x, weight, g, rate: float = 0.0,
     dw = torch.zeros(d, dtype=torch.float32, device=x.device)
     db = torch.zeros(d, dtype=torch.float32, device=x.device)
     if n:
-        rows = -(-n // BWD_MAX_BLOCKS)
-        n_blocks = -(-n // rows)
+        n_blocks, rows = row_groups(n, DALN_BWD_BLOCKS)
         partial = torch.empty((n_blocks, 2, d), dtype=torch.float32,
                               device=x.device)
         lib = _lib()

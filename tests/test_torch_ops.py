@@ -217,6 +217,30 @@ def test_plain_layer_norm_backward_matches_pallas_interpret():
                                    rtol=1e-5)
 
 
+@pytest.mark.parametrize("max_groups", [tln.LN_BWD_GROUPS,
+                                        tln.DALN_BWD_BLOCKS])
+def test_backward_row_partition_covers_every_row_once(max_groups):
+    """The backward kernels' partition of n rows (``row_groups``): every
+    row in exactly one group, no group empty, at most ``max_groups``
+    groups, and the same partition on every call for one n -- the
+    partial dw/db sums, and so the grads, depend on it alone."""
+    P = max_groups
+    for n in (0, 1, 2, 37, P - 1, P, P + 1, 2 * P + 1, 3200, 13312, 18432,
+              20800, 10 ** 6 + 7):
+        groups, rows = tln.row_groups(n, P)
+        assert tln.row_groups(n, P) == (groups, rows)
+        if n == 0:
+            assert groups == 0
+            continue
+        assert 1 <= groups <= P
+        seen = np.zeros(n, np.int64)
+        for i in range(groups):
+            lo, hi = i * rows, min(n, (i + 1) * rows)
+            assert lo < hi
+            seen[lo:hi] += 1
+        assert (seen == 1).all()
+
+
 # ---------------------------------------------------------------------------
 # Philox dropout
 # ---------------------------------------------------------------------------
