@@ -6,6 +6,7 @@ check them.
     python3 chip_smoke.py                  # on a machine with one CUDA card
     python3 chip_smoke.py --json-out F     # also write the full record to F
     python3 chip_smoke.py --rehearse       # CPU, tiny config, plain versions
+    python3 chip_smoke.py --daln-times [ROOT]  # time #8/#9 of a checkout
 
 What the card run does, in order (any failure exits non-zero):
 
@@ -85,7 +86,11 @@ What the card run does, in order (any failure exits non-zero):
    checks of ``tools/kernel_smoke.py`` and ``tools/tpu_kernel_drive.py``):
    holds #6 and #7 at their edges (``check_ln_edges``: widths 1 to
    14528 about the 16-byte access and the warp's share, rows about the
-   backward's row groups, fp32 and bf16, backward repeats bit-identical);
+   backward's row groups, fp32 and bf16, backward repeats bit-identical)
+   and #8 and #9 at theirs (``check_daln_edges``: the same widths and
+   widths of a part of a Philox quad, rows about #9's row groups, fp32
+   and bf16 at rates 0 and 0.1, keep bits read back, views off the
+   16-byte alignment, mixed y/x dtypes, repeats bit-identical);
    holds every kernel the components launch against its plain version in
    fp32 and bf16 at the components' shapes: #2 and #3 at the f-encoder's
    (256, 56, 768) with dropout and the c-encoder's (32, 100, 768), #4 and
@@ -105,14 +110,19 @@ It prints one ``phases`` JSON line, one train JSON line with
 ``train_examples_per_s``, one TVC JSON line with ``tvc_captions_per_s``,
 one TVC train JSON line with ``tvc_train_captions_per_s``, one
 ``components`` JSON line, one ``kernels`` JSON line (all nine kernels,
-launches by path; #6 and #7 with the device ms of their row pass and of
-#7's column pass), the card's name and power limit (nvidia-smi), and as
+launches by path; #6, #7 and #9 with the device ms of their row pass and
+of the column pass; #8 and #9 with the unfused chain's ms and their own
+at rate 0), the card's name and power limit (nvidia-smi), and as
 the last line ``{"ok": true, "device": {...}}``.  ``--profile`` adds
 torch.profiler breakdowns of a phase-1 batch, a query batch, one
 fit-bucket train step, one greedy TVC batch and one TVC train step to the
 JSON record, and fails if a CUDA-core attention kernel (packed or
 head-major) ran in any of these bf16 windows, or if the greedy window ran
-no ``mha_attention_mma_kernel``.  Imports nothing of JAX.
+no ``mha_attention_mma_kernel``.  ``--daln-times [ROOT]`` does nothing
+but time #8 and #9 of the ``hero_tpu_torch`` under ROOT (this checkout by
+default) at rates 0 and 0.1 and print one JSON line: run on two
+checkouts in turns, it compares them on one card.  Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -427,6 +437,8 @@ def check_layer_norm(torch, F, lnm, n, d, x_bf16):
 # (the reduction of the backward's partials; None for the forward, which
 # has none), from a profiler trace beside the event timing
 SPLIT_KEYS = ("row_pass_ms", "reduce_ms")
+# #8/#9's rows also carry the unfused chain's ms and their own at rate 0
+DALN_KEYS = ("chain_ms", "rate0_ms")
 
 
 def check_kernels(torch, first_batch, query_masks, cfg):
@@ -1066,6 +1078,166 @@ def check_ln_edges(torch, lnm):
             "worst_fwd_err_over_tol": worst("fwd_err", "fwd_tol"),
             "worst_dx_err_over_tol": worst("dx_err", "dx_tol"),
             "worst_dwdb_err_over_tol": worst("dwdb_err", "dwdb_tol")}
+
+
+# The fused kernels' edges (#8, #9): the LayerNorm edge widths, widths
+# that are a multiple of 4 but not of 8 (16-byte accesses in fp32, single
+# elements in bf16: 4, 12, 772) or below one Philox quad (1, 3), and one
+# single-element width for each count of accesses a thread (NV: 2047 ->
+# 4, 4095 -> 8, 4353 -> 16, 14527 -> 32, at 16 warps a row); row counts
+# about #9's row groups P.
+DALN_EDGE_WIDTHS = (1, 3, 4, 7, 8, 9, 12, 255, 256, 257, 767, 768, 769, 772,
+                    2047, 4095, 4351, 4352, 4353, 14527, 227 * 1024 // 16)
+
+
+def _over(err, tol):
+    return err / tol if tol else float(err > 0)
+
+
+def _daln_case(torch, lnm, y, x, w, b, g, rate):
+    """#8 and #9 on one input against their plain versions: the record
+    (errors and tolerances: out within ``_train_tol`` of its dtype; the
+    larger of the dy and dx errors within the smaller of their
+    tolerances, or with mixed y/x dtypes each within its own dtype's;
+    dw/db within 1e-6 a row, fp32 sums in another order, 4 rows' worth
+    below 4 rows, where one term's rounding of shat outweighs the order;
+    and whether repeats are bit-identical), #8's output and #9's (dy, dx,
+    dw, db)."""
+    n = x.numel() // x.shape[-1]
+    out = lnm.dropout_add_layer_norm_cuda(y, x, w, b, rate, TRAIN_SEED)
+    ref = lnm.dropout_add_layer_norm_reference(y, x, w, b, rate, TRAIN_SEED)
+    got = lnm.dropout_add_layer_norm_bwd_cuda(y, x, w, g, rate, TRAIN_SEED)
+    want = lnm.dropout_add_layer_norm_bwd_reference(y, x, w, g, rate,
+                                                    TRAIN_SEED)
+    again = lnm.dropout_add_layer_norm_bwd_cuda(y, x, w, g, rate, TRAIN_SEED)
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+    rec = {"fwd_err": _err(out, ref),
+           "fwd_tol": _train_tol(ref, name[ref.dtype]),
+           "dy_err": _err(got[0], want[0]),
+           "dy_tol": _train_tol(want[0], name[want[0].dtype]),
+           "dx_err": _err(got[1], want[1]),
+           "dx_tol": _train_tol(want[1], name[want[1].dtype]),
+           "dwdb_err": max(_err(a, c) for a, c in zip(got[2:], want[2:])),
+           "dwdb_tol": 1e-6 * max(n, 4),
+           "deterministic": bool(torch.equal(
+               out, lnm.dropout_add_layer_norm_cuda(y, x, w, b, rate,
+                                                    TRAIN_SEED))) and all(
+               bool(torch.equal(a, c)) for a, c in zip(got, again)),
+           "finite": bool(torch.isfinite(out).all()) and all(
+               bool(torch.isfinite(a).all()) for a in got)}
+    # (d = 1: s - mean, and so dy and dx, are 0, and their tolerances too)
+    if got[0].dtype == got[1].dtype:
+        rec["bwd_over_tol"] = _over(max(rec["dy_err"], rec["dx_err"]),
+                                    min(rec["dy_tol"], rec["dx_tol"]))
+    else:
+        rec["bwd_over_tol"] = max(_over(rec["dy_err"], rec["dy_tol"]),
+                                  _over(rec["dx_err"], rec["dx_tol"]))
+    rec["ok"] = (all(_over(rec[f"{k}_err"], rec[f"{k}_tol"]) <= 1.0
+                     for k in ("fwd", "dwdb"))
+                 and rec["bwd_over_tol"] <= 1.0
+                 and rec["deterministic"] and rec["finite"])
+    return rec, out, got
+
+
+def check_daln_edges(torch, lnm, drop):
+    """#8 and #9 at their edges (``DALN_EDGE_WIDTHS`` x the row counts
+    about ``lnm.DALN_BWD_GROUPS``), fp32 and bf16, rates 0 and 0.1,
+    against the plain versions on the same inputs (``_daln_case``).  In
+    fp32 at rate 0.1 the keep bits are read back: #9's dy is keep * dx /
+    (1 - rate) bit for bit with the plain row mask, and adding 100 to the
+    entries of y that it drops leaves #8's output and #9's dx
+    bit-identical.  Beside them, at three widths: a view of every input
+    off the 16-byte alignment gives the aligned call's results bit for
+    bit, and mixed y/x dtypes (bf16 and fp32 either way) match the plain
+    versions."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(73)
+    P = lnm.DALN_BWD_GROUPS
+    scale = drop.keep_scale(TRAIN_RATE)
+    cases = []
+
+    def inputs(n, d):
+        w = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        b = 0.1 * torch.randn(d, generator=gen, device=dev)
+        y, x, g = (torch.randn((n, d), generator=gen, device=dev)
+                   for _ in range(3))
+        return y, x * 2.0 + 0.5, w, b, g
+
+    def record(rec, **what):
+        rec = {**what, **rec}
+        cases.append(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"dropout_add_layer_norm edge case: {rec}")
+
+    for d in DALN_EDGE_WIDTHS:
+        for n in (1, P - 1, P, P + 1, 2 * P + 1):
+            y32, x32, w, b, g32 = inputs(n, d)
+            for dtype in (torch.float32, torch.bfloat16):
+                y, x, g = (t.to(dtype) for t in (y32, x32, g32))
+                for rate in (0.0, TRAIN_RATE):
+                    rec, out, got = _daln_case(torch, lnm, y, x, w, b, g,
+                                               rate)
+                    if dtype == torch.float32 and rate:
+                        keep = drop.row_keep_mask(TRAIN_SEED, n, d, rate,
+                                                  device=dev)
+                        y2 = torch.where(keep, y, y + 100.0)
+                        rec["dy_is_keep_dx"] = bool(torch.equal(
+                            got[0], torch.where(keep, got[1] * scale, 0.0)))
+                        rec["dropped_unread"] = bool(torch.equal(
+                            out, lnm.dropout_add_layer_norm_cuda(
+                                y2, x, w, b, rate, TRAIN_SEED))) and bool(
+                            torch.equal(got[1],
+                                        lnm.dropout_add_layer_norm_bwd_cuda(
+                                            y2, x, w, g, rate,
+                                            TRAIN_SEED)[1]))
+                        rec["ok"] = (rec["ok"] and rec["dy_is_keep_dx"]
+                                     and rec["dropped_unread"])
+                    record(rec, shape=[n, d], dtype=str(dtype).split(".")[1],
+                           rate=rate)
+
+    def off_alignment(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    for d in (768, 769, 4352):
+        n = P + 1
+        y32, x32, w, b, g32 = inputs(n, d)
+        for dtype in (torch.float32, torch.bfloat16):
+            y, x, g = (t.to(dtype) for t in (y32, x32, g32))
+            out = lnm.dropout_add_layer_norm_cuda(y, x, w, b, TRAIN_RATE,
+                                                  TRAIN_SEED)
+            got = lnm.dropout_add_layer_norm_bwd_cuda(y, x, w, g, TRAIN_RATE,
+                                                      TRAIN_SEED)
+            vy, vx, vw, vb, vg = (off_alignment(t) for t in (y, x, w, b, g))
+            rec, v_out, v_got = _daln_case(torch, lnm, vy, vx, vw, vb, vg,
+                                           TRAIN_RATE)
+            rec["same_as_aligned"] = bool(torch.equal(out, v_out)) and all(
+                bool(torch.equal(a, c)) for a, c in zip(got, v_got))
+            rec["ok"] = rec["ok"] and rec["same_as_aligned"]
+            record(rec, shape=[n, d], dtype=str(dtype).split(".")[1],
+                   rate=TRAIN_RATE, mode="misaligned views")
+        for ydt, xdt in ((torch.bfloat16, torch.float32),
+                         (torch.float32, torch.bfloat16)):
+            y, x, g = y32.to(ydt), x32.to(xdt), g32.to(xdt)
+            for rate in (0.0, TRAIN_RATE):
+                rec, out, got = _daln_case(torch, lnm, y, x, w, b, g, rate)
+                rec["dtypes_kept"] = (out.dtype == xdt and got[0].dtype == ydt
+                                      and got[1].dtype == xdt)
+                rec["ok"] = rec["ok"] and rec["dtypes_kept"]
+                record(rec, shape=[n, d], rate=rate,
+                       dtype=f"y {str(ydt).split('.')[1]}, x "
+                             f"{str(xdt).split('.')[1]}")
+
+    def worst(*keys):
+        return max(_over(c[f"{k}_err"], c[f"{k}_tol"]) for c in cases
+                   for k in keys)
+    return {"cases": cases, "n_cases": len(cases),
+            "worst_fwd_err_over_tol": worst("fwd"),
+            "worst_bwd_err_over_tol": max(c["bwd_over_tol"]
+                                          for c in cases),
+            "worst_dwdb_err_over_tol": worst("dwdb")}
 
 
 # ---------------------------------------------------------------------------
@@ -2487,7 +2659,9 @@ def check_daln(torch, lnm, drop, n, d):
     [0.87, 0.93] at (256, 4352), ``tools/kernel_smoke.py``'s band) or else
     within 4 sigma of 0.9; a repeat bit-identical.  bf16 timings at rate
     0.1 against the plain versions and the unfused chain (``nn.dropout``,
-    the add and ``layer_norm``, fwd and fwd+bwd through its kernels)."""
+    the add and ``layer_norm``, fwd and fwd+bwd through its kernels), and
+    at rate 0 (``rate0_ms``: no draw, so the difference is the draw's
+    cost); #9's row pass and column pass from a profiler trace."""
     from hero_tpu_torch.models import nn
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(n + 7 * d)
@@ -2522,45 +2696,21 @@ def check_daln(torch, lnm, drop, n, d):
         name = str(dtype).split(".")[1]
         y, x, g = (t.to(dtype) for t in (y32, x32, g32))
         for rate in (0.0, TRAIN_RATE):
-            out = lnm.dropout_add_layer_norm_cuda(y, x, w, b, rate,
-                                                  TRAIN_SEED)
-            ref = lnm.dropout_add_layer_norm_reference(y, x, w, b, rate,
-                                                       TRAIN_SEED)
-            got = lnm.dropout_add_layer_norm_bwd_cuda(y, x, w, g, rate,
-                                                      TRAIN_SEED)
-            want = lnm.dropout_add_layer_norm_bwd_reference(y, x, w, g, rate,
-                                                            TRAIN_SEED)
-            again = lnm.dropout_add_layer_norm_bwd_cuda(y, x, w, g, rate,
-                                                        TRAIN_SEED)
-            rec = {"fwd_err": _err(out, ref), "fwd_tol": _train_tol(ref,
-                                                                    name),
-                   "bwd_err": max(_err(a, c) for a, c in zip(got[:2],
-                                                             want[:2])),
-                   "bwd_tol": min(_train_tol(c, name) for c in want[:2]),
-                   "dwdb_err": max(_err(a, c) for a, c in zip(got[2:],
-                                                              want[2:])),
-                   # fp32 sums of n terms in another order
-                   "dwdb_tol": 1e-6 * n,
-                   "deterministic": bool(torch.equal(
-                       out, lnm.dropout_add_layer_norm_cuda(
-                           y, x, w, b, rate, TRAIN_SEED))) and all(
-                       torch.equal(a, c) for a, c in zip(got, again))}
-            rec["ok"] = (rec["fwd_err"] <= rec["fwd_tol"]
-                         and rec["bwd_err"] <= rec["bwd_tol"]
-                         and rec["dwdb_err"] <= rec["dwdb_tol"]
-                         and rec["deterministic"])
+            rec = _daln_case(torch, lnm, y, x, w, b, g, rate)[0]
             checks[f"{name}_rate{rate}"] = rec
             if not rec["ok"]:
                 raise AssertionError(f"dropout_add_layer_norm {[n, d]} "
                                      f"{name} rate {rate}: {rec}")
     y, x, g = (t.to(torch.bfloat16) for t in (y32, x32, g32))
     rate = TRAIN_RATE
-    fwd_ms = time_ms(torch, lambda: lnm.dropout_add_layer_norm_cuda(
-        y, x, w, b, rate, TRAIN_SEED))
+    (fwd0, bwd0), (fwd_ms, bwd_ms) = (daln_times(torch, lnm, y, x, w, b, g,
+                                                 r) for r in (0.0, rate))
+    split = kernel_ms_by_name(
+        torch, lambda: lnm.dropout_add_layer_norm_bwd_cuda(
+            y, x, w, g, rate, TRAIN_SEED),
+        {"rows": "layer_norm_bwd_rows", "reduce": "layer_norm_bwd_cols"})
     fwd_plain = time_ms(torch, lambda: lnm.dropout_add_layer_norm_reference(
         y, x, w, b, rate, TRAIN_SEED))
-    bwd_ms = time_ms(torch, lambda: lnm.dropout_add_layer_norm_bwd_cuda(
-        y, x, w, g, rate, TRAIN_SEED))
     bwd_plain = time_ms(torch, lambda:
                         lnm.dropout_add_layer_norm_bwd_reference(
                             y, x, w, g, rate, TRAIN_SEED))
@@ -2572,22 +2722,74 @@ def check_daln(torch, lnm, drop, n, d):
                                    bl)
     bwd_chain = time_ms(torch, lambda: torch.autograd.grad(
         chain_out, (yl, xl, wl, bl), g, retain_graph=True))
-    elt = y.element_size()
-    # ~10 fp32 operations an element for the sum and the LayerNorm and ~60
-    # 32-bit integer operations for the Philox draw (10 rounds), all on
-    # the CUDA cores, taken at their fp32 rate
-    fb, fby = bound_ms(3 * n * d * elt + 2 * d * 4, 70 * n * d, "float32")
-    bb, bby = bound_ms(5 * n * d * elt + 3 * d * 4, 80 * n * d, "float32")
+    (fb, fby), (bb, bby) = daln_bounds(n, d, y.element_size(), rate)
     bf = checks["bfloat16_rate0.1"]
     common = {"shape": [n, d], "dtype": "bfloat16", "library_ms": None,
               "checks": checks, "dropout_masks": masks}
     return ({**common, "mode": "dropout 0.1", "max_abs_err": bf["fwd_err"],
-             "tol": bf["fwd_tol"], "ms": fwd_ms, "plain_ms": fwd_plain,
-             "bound_ms": fb, "bound_by": fby, "chain_ms": fwd_chain},
-            {**common, "mode": "dropout 0.1", "max_abs_err": bf["bwd_err"],
-             "tol": bf["bwd_tol"], "ms": bwd_ms, "plain_ms": bwd_plain,
-             "bound_ms": bb, "bound_by": bby,
-             "chain_ms": bwd_chain})
+             "tol": bf["fwd_tol"], "ms": fwd_ms, "rate0_ms": fwd0,
+             "plain_ms": fwd_plain, "bound_ms": fb, "bound_by": fby,
+             "chain_ms": fwd_chain},
+            {**common, "mode": "dropout 0.1",
+             "max_abs_err": max(bf["dy_err"], bf["dx_err"]),
+             "tol": min(bf["dy_tol"], bf["dx_tol"]), "ms": bwd_ms,
+             "rate0_ms": bwd0,
+             "plain_ms": bwd_plain, "bound_ms": bb, "bound_by": bby,
+             "chain_ms": bwd_chain, "row_pass_ms": split["rows"],
+             "reduce_ms": split["reduce"]})
+
+
+# #8/#9's work an element on the CUDA cores: ~10 fp32 operations forward
+# (s, the two row sums, the affine) and ~26 backward (s in each of three
+# passes, the paired sums, ds, dy, the dw/db sums); at a rate above 0 the
+# keep bits: one Philox4x32-10 call (10 rounds of 4 multiplies, 2
+# three-way xors and 2 key adds: 80 integer operations) per four columns,
+# and about 4 for each column's keep bit (the compare, its place in the
+# mask, reading it back), 24 an element.  All are
+# taken at the fp32 peak (67e12 a second), which the integer work cannot
+# reach (the H100 runs 32-bit integer operations at half the fp32 lane
+# rate), so the bound stays a lower bound.
+DALN_FWD_OPS, DALN_BWD_OPS, DALN_DRAW_OPS = 10, 26, 80 // 4 + 4
+
+
+def daln_bounds(n, d, elt, rate):
+    """(bound ms, bound_by) of #8 and of #9 at (n, d) of ``elt``-byte
+    elements: y and x read and out written, w and b read (fp32) forward;
+    y, x, g read and dy, dx written, w read and dw, db written backward."""
+    draw = DALN_DRAW_OPS if rate else 0
+    return (bound_ms(3 * n * d * elt + 2 * d * 4,
+                     (DALN_FWD_OPS + draw) * n * d, "float32"),
+            bound_ms(5 * n * d * elt + 3 * d * 4,
+                     (DALN_BWD_OPS + draw) * n * d, "float32"))
+
+
+def daln_times(torch, lnm, y, x, w, b, g, rate):
+    """Device ms of one #8 and one #9 launch at ``rate`` (``time_ms``)."""
+    return (time_ms(torch, lambda: lnm.dropout_add_layer_norm_cuda(
+                y, x, w, b, rate, TRAIN_SEED)),
+            time_ms(torch, lambda: lnm.dropout_add_layer_norm_bwd_cuda(
+                y, x, w, g, rate, TRAIN_SEED)))
+
+
+def daln_ab(torch, lnm):
+    """#8 and #9 of the imported package, bf16, at ``DALN_SHAPES`` and
+    (1024, 768): device ms at rates 0 (no draw) and 0.1.  For an A/B of
+    two checkouts on one card (``--daln-times ROOT``, in turns); checks
+    nothing."""
+    dev = torch.device("cuda")
+    rows = []
+    for n, d in DALN_SHAPES + ((1024, 768),):
+        gen = torch.Generator(device=dev).manual_seed(n + 7 * d)
+        w = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        b = 0.1 * torch.randn(d, generator=gen, device=dev)
+        y, x, g = (torch.randn((n, d), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(3))
+        row = {"shape": [n, d]}
+        for rate in (0.0, TRAIN_RATE):
+            row[f"fwd_ms_rate{rate}"], row[f"bwd_ms_rate{rate}"] = (
+                daln_times(torch, lnm, y, x, w, b, g, rate))
+        rows.append(row)
+    return rows
 
 
 def _component_row(row, what):
@@ -2661,8 +2863,8 @@ def check_component_kernels(torch, cfg, ds, kernels):
          "tpu_kernel": "_daln_fwd_kernel",
          "counter": "dropout_add_layer_norm_cuda",
          "library_call": None, "chain": "nn.dropout, add, layer_norm",
-         **{k: daln[0][0][k] for k in keys},
-         "chain_ms": daln[0][0]["chain_ms"], "shapes": [f for f, _ in daln]},
+         **{k: daln[0][0][k] for k in keys + ("chain_ms", "rate0_ms")},
+         "shapes": [f for f, _ in daln]},
         {"name": "dropout_add_layer_norm_bwd", "route": "cuda",
          "source": "hero_tpu_torch/ops/csrc/layernorm.cu",
          "replaces": "hero_tpu/ops/layernorm.py:195",
@@ -2670,8 +2872,9 @@ def check_component_kernels(torch, cfg, ds, kernels):
          "counter": "dropout_add_layer_norm_bwd_cuda",
          "library_call": None,
          "chain": "autograd of nn.dropout, add, layer_norm: its backward",
-         **{k: daln[0][1][k] for k in keys},
-         "chain_ms": daln[0][1]["chain_ms"], "shapes": [b for _, b in daln]}]
+         **{k: daln[0][1][k] for k in keys + ("chain_ms", "rate0_ms")
+            + SPLIT_KEYS},
+         "shapes": [b for _, b in daln]}]
 
 
 def make_components(torch, cfg, enc_params, dev, dtype, small):
@@ -2815,6 +3018,12 @@ def main(argv=None):
                          "batch and one TVC train step with "
                          "torch.profiler and record device time by kernel "
                          "class (in the --json-out record)")
+    ap.add_argument("--daln-times", metavar="ROOT", nargs="?", const="",
+                    help="only time #8 and #9 (bf16, rates 0 and 0.1) "
+                         "of the hero_tpu_torch package under ROOT "
+                         "(default: this checkout) and print one JSON "
+                         "line: an A/B of two checkouts on one card, run "
+                         "in turns")
     args = ap.parse_args(argv)
 
     import torch
@@ -2823,7 +3032,16 @@ def main(argv=None):
         log("chip_smoke: torch.cuda.is_available() is False; this check "
             "needs one CUDA card")
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    here = os.path.dirname(os.path.abspath(__file__))
+    if args.daln_times is not None:
+        root = os.path.abspath(args.daln_times or here)
+        sys.path.insert(0, root)
+        from hero_tpu_torch.ops import layernorm as lnm
+        print(json.dumps({"root": root, "package": lnm.__file__,
+                          "daln": daln_ab(torch, lnm),
+                          "card": gpu_identity()}))
+        return 0
+    sys.path.insert(0, here)
     from hero_tpu_torch.config.model_config import (HeroConfig,
                                                     TransformerConfig,
                                                     flagship_config,
@@ -3055,6 +3273,10 @@ def main(argv=None):
         record["ln_edge_checks"] = check_ln_edges(torch, lnm)
         log(f"{record['ln_edge_checks']['n_cases']} edge checks of the "
             f"LayerNorm kernels passed")
+        from hero_tpu_torch.ops import dropout as drop
+        record["daln_edge_checks"] = check_daln_edges(torch, lnm, drop)
+        log(f"{record['daln_edge_checks']['n_cases']} edge checks of the "
+            f"fused dropout-add-LayerNorm kernels passed")
         record["kernels"] += check_component_kernels(torch, cfg, tvc_ds,
                                                      record["kernels"])
         log("component kernel checks passed")
@@ -3128,10 +3350,9 @@ def main(argv=None):
            "shapes": [{k: sh[k] for k in (
                "shape", "max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
                "bound_by", "library_ms")} | {k: sh[k] for k in (
-                   "mode", "chain_ms") + SPLIT_KEYS if k in sh}
+                   "mode",) + DALN_KEYS + SPLIT_KEYS if k in sh}
                for sh in row["shapes"]]}
-        | ({"chain_ms": row["chain_ms"]} if "chain_ms" in row else {})
-        | {k: row[k] for k in SPLIT_KEYS if k in row}
+        | {k: row[k] for k in DALN_KEYS + SPLIT_KEYS if k in row}
         for row in record["kernels"]]
     idle = [row["name"] for row in kernels if row["launches"] == 0]
     if idle or len(kernels) != 9:

@@ -43,28 +43,31 @@
 //     the partials are a few MB, and the column pass spreads them over a
 //     block per 32 columns.
 //
-// Fused dropout + residual add + LayerNorm, forward and backward (at the
-// end of the file).  Replaces the Pallas kernels _daln_fwd_kernel
-// (hero_tpu/ops/layernorm.py:175, pallas_call at :257) and
-// _daln_bwd_kernel (:195, pallas_call at :277), reached through
-// dropout_add_layer_norm.  Per row of y, x (n, d):
+// Fused dropout + residual add + LayerNorm, forward and backward.
+// Replaces the Pallas kernels _daln_fwd_kernel (hero_tpu/ops/layernorm.py
+// :175, pallas_call at :257) and _daln_bwd_kernel (:195, pallas_call at
+// :277), reached through dropout_add_layer_norm.  Per row of y, x (n, d):
 //   s = drop(y) + x   (fp32; drop(y) = keep ? y / (1 - r) : 0)
 //   out = LN(s) * w + b, rounded once to the input type,
-// and the backward, from the same keep bits (philox.cuh, counter (col,
-// row, 0xFFFFFFFF)) and the recomputed statistics of s:
+// and the backward, from the same keep bits and the recomputed statistics
+// of s:
 //   ds = rstd * (g w - mean(g w) - shat * mean(g w shat)),
 //   dx = ds,  dy = keep ? ds / (1 - r) : 0,
 //   dw = sum over rows of g shat,  db = sum over rows of g.
 // The TPU kernel draws its bits per row block from the TPU PRNG and adds
 // dw/db into one block across its sequential grid; here the bits are a
-// function of (seed, row, col), and dw/db go through per-block partials
-// and the LayerNorm backward's column pass, so the grads are the same from
-// run to run.  Bound: memory, as the LayerNorm kernels (two inputs read
-// and one output written forward; y, x, g read and dy, dx written
-// backward); the Philox draw (10 rounds of two 32-bit multiplies a
-// kept-or-dropped element) runs on the CUDA cores beside the loads.
-// Design: a row a block in the forward, a fixed run of rows a block in
-// the backward, the row in shared memory as fp32.
+// function of (seed, row, col): element (row, col) takes word col & 3 of
+// Philox4x32-10 at counter (col >> 2, row lo, row hi, 0xFFFFFFFF)
+// (philox.cuh row_keep4), one call per four columns.  Bound: memory (y,
+// x read and out written forward; y, x, g read and dy, dx written
+// backward); the draw, ~80 integer operations a call, is the largest
+// arithmetic cost.  They are the LayerNorm kernels above with a fused
+// mode (ADD): the ring carries y beside x (and g), each pass forms s from
+// the ring, and the keep bits of a thread's columns are drawn once a row,
+// before the row's loads are waited for, and kept in a register bitmask
+// through the passes and the dy store; the backward's dw/db partials go
+// through the same column pass.
+#include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -73,19 +76,6 @@
 #include "philox.cuh"
 
 namespace {
-
-// Sum over the block; every thread gets the total.  ``red`` holds one
-// partial per warp and is reused across calls.
-__device__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  v = warp_sum(v);
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = lane < n_warps ? red[lane] : 0.f;
-  return warp_sum(v);
-}
 
 // ---------------------------------------------------------------------------
 // row LayerNorm: rows in registers, fed through a shared-memory ring
@@ -246,18 +236,19 @@ __device__ __forceinline__ RowSum row_sum_for(float* red, int tpr) {
 }
 
 // The rows of one slot, rows first, first + step, ... (cnt of them), of M
-// (n, d) tensors, each thread's accesses j = t + k * tpr (k < NV, j <
-// nvec).  With S > 1 (16-byte accesses), row i + S - 1 is copied by
-// cp.async into stage (i + S - 1) % S of the slot's ring while row i is
-// reduced and stored, so S - 1 rows stay in flight, and each pass over
-// row i reads its stage again (registers hold only the sums); each thread
-// reads back only the vectors it copied, so the ring needs no barrier.
+// (n, d) tensors (src[0 .. M)), each thread's accesses j = t + k * tpr
+// (k < NV, j < nvec).  With S > 1 (16-byte accesses), row i + S - 1 is
+// copied by cp.async into stage (i + S - 1) % S of the slot's ring while
+// row i is reduced and stored, so S - 1 rows stay in flight, and each
+// pass over row i reads its stage again (registers hold only the sums);
+// each thread reads back only the vectors it copied, so the ring needs no
+// barrier.
 // With S == 1 a row is loaded into registers when it is needed.
 template <typename T, int VEC, int NV, int S, int M>
 struct RowPipe {
   static_assert(S == 1 || VEC * sizeof(T) == 16, "the ring moves 16 bytes");
   uint4* ring;  // [S][M][NV][tpr]
-  const T* src[M];
+  const T* src[3];
   long long first, step, cnt;
   int d, t, tpr, nvec;
   const uint4* cur;                                 // S > 1: row i's stage
@@ -351,14 +342,86 @@ __host__ __device__ constexpr int stages() {
   return VEC > 1 && NV <= 3 ? kStages : 1;
 }
 
-// Forward: a slot of wpr warps per row, rows in a grid-stride loop.
-template <typename T, int VEC, int NV>
+// The fused mode's dropout: drop(y) = keep ? y * scale : 0, keep from
+// row_keep4 with thr = ceil(rate * 2^24) << 8.
+struct Dropout {
+  float rate, scale;
+  PhiloxKey key;
+  uint32_t thr;
+};
+
+Dropout make_dropout(float rate, float scale, unsigned int seed_lo,
+                     unsigned int seed_hi) {
+  return Dropout{rate, scale, PhiloxKey{seed_lo, seed_hi},
+                 static_cast<uint32_t>(ceilf(rate * 16777216.0f)) << 8};
+}
+
+// Keep bits of access j (VEC elements from column j * VEC) of row r: bit
+// e for column j * VEC + e.  One Philox call per four columns; a
+// single-element access takes its own word of its quad's call.
+template <int VEC>
+__device__ __forceinline__ uint32_t keep_bits(const Dropout& dp, long long r,
+                                              int j) {
+  if constexpr (VEC == 1) {
+    return row_keep4(dp.key, r, j >> 2, dp.thr) >> (j & 3) & 1u;
+  } else {
+    static_assert(VEC % 4 == 0, "an access covers whole quads");
+    uint32_t m = 0;
+#pragma unroll
+    for (int q = 0; q < VEC / 4; ++q)
+      m |= row_keep4(dp.key, r, j * (VEC / 4) + q, dp.thr) << (4 * q);
+    return m;
+  }
+}
+
+// The keep bits of a thread's accesses to row r, drawn once a row: every
+// bit set at rate 0 (drop(y) = y * 1 = y) and outside the fused mode.
+template <bool ADD, int VEC, int NV>
+__device__ __forceinline__ void draw_row(const Dropout& dp, long long r,
+                                         int t, int tpr, int nvec,
+                                         uint32_t (&kb)[NV]) {
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    const int j = t + k * tpr;
+    kb[k] = 0xFFu;
+    if constexpr (ADD) {
+      if (dp.rate > 0.f && j < nvec) kb[k] = keep_bits<VEC>(dp, r, j);
+    }
+  }
+}
+
+// The values of access k of the current row: x, or in the fused mode
+// drop(y) + x in fp32, rounded as the plain version rounds it (y * scale,
+// then + x, no fused multiply-add), so s is bit for bit the plain s.  y is
+// the pipe's last tensor.
+template <bool ADD, typename T, int VEC, int NV, int S, int M>
+__device__ __forceinline__ void row_values(
+    const RowPipe<T, VEC, NV, S, M>& pipe, int k, uint32_t kb, float scale,
+    float (&v)[VEC]) {
+  const Vec<T, VEC> a = pipe.at(0, k);
+  if constexpr (ADD) {
+    const Vec<T, VEC> y = pipe.at(M - 1, k);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      v[e] = __fadd_rn((kb >> e) & 1u ? __fmul_rn(y.get(e), scale) : 0.f,
+                       a.get(e));
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) v[e] = a.get(e);
+  }
+}
+
+// Forward: a slot of wpr warps per row, rows in a grid-stride loop.  The
+// pipe carries x, and y after it in the fused mode (ADD).
+template <typename T, int VEC, int NV, bool ADD>
 __global__ void __launch_bounds__(kMaxThreads)
-layer_norm_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                       const float* __restrict__ bias, T* __restrict__ y,
-                       long long n, int d, int wpr, float eps) {
+layer_norm_rows_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                       const float* __restrict__ w,
+                       const float* __restrict__ bias, T* __restrict__ out,
+                       long long n, int d, int wpr, float eps, Dropout dp) {
   constexpr int S = stages<VEC, NV>();
-  extern __shared__ uint4 ring[];  // [slots][S][NV][tpr] when S > 1
+  constexpr int M = ADD ? 2 : 1;
+  extern __shared__ uint4 ring[];  // [slots][S][M][NV][tpr] when S > 1
   __shared__ float red[2 * 2 * kMaxWarps];
   const int tpr = wpr * 32;
   const int slots = blockDim.x / tpr;
@@ -368,47 +431,52 @@ layer_norm_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
   const float fd = static_cast<float>(d);
   const long long step = static_cast<long long>(gridDim.x) * slots;
   const long long first = static_cast<long long>(blockIdx.x) * slots + rs.slot;
-  RowPipe<T, VEC, NV, S, 1> pipe{ring + rs.slot * S * NV * tpr, {x}, first,
-                                 step, first < n ? (n - 1 - first) / step + 1
-                                                 : 0,
+  RowPipe<T, VEC, NV, S, M> pipe{ring + rs.slot * S * M * NV * tpr, {x, y},
+                                 first, step,
+                                 first < n ? (n - 1 - first) / step + 1 : 0,
                                  d, t, tpr, nvec};
   pipe.start();
   for (long long i = 0; i < pipe.cnt; ++i) {
+    const long long r = first + i * step;
+    uint32_t kb[NV];
+    draw_row<ADD, VEC, NV>(dp, r, t, tpr, nvec, kb);
     pipe.fetch(i);
     float s = 0.f;
 #pragma unroll
     for (int k = 0; k < NV; ++k)
       if (t + k * tpr < nvec) {
-        const Vec<T, VEC> a = pipe.at(0, k);
+        float v[VEC];
+        row_values<ADD>(pipe, k, kb[k], dp.scale, v);
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) s += a.get(e);
+        for (int e = 0; e < VEC; ++e) s += v[e];
       }
     const float mean = rs.one(s) / fd;
     float s2 = 0.f;
 #pragma unroll
     for (int k = 0; k < NV; ++k)
       if (t + k * tpr < nvec) {
-        const Vec<T, VEC> a = pipe.at(0, k);
+        float v[VEC];
+        row_values<ADD>(pipe, k, kb[k], dp.scale, v);
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
-          const float c = a.get(e) - mean;
+          const float c = v[e] - mean;
           s2 += c * c;
         }
       }
     const float rstd = rsqrtf(rs.one(s2) / fd + eps);
-    T* yr = y + (first + i * step) * d;
+    T* orow = out + r * d;
 #pragma unroll
     for (int k = 0; k < NV; ++k) {
       const int j = t + k * tpr;
       if (j < nvec) {
-        const Vec<T, VEC> a = pipe.at(0, k);
-        float wf[VEC], bf[VEC], o[VEC];
+        float v[VEC], wf[VEC], bf[VEC], o[VEC];
+        row_values<ADD>(pipe, k, kb[k], dp.scale, v);
         load_f32<VEC>(w + j * VEC, wf);
         load_f32<VEC>(bias + j * VEC, bf);
 #pragma unroll
         for (int e = 0; e < VEC; ++e)
-          o[e] = (a.get(e) - mean) * rstd * wf[e] + bf[e];
-        Vec<T, VEC>::store(yr + static_cast<long long>(j) * VEC, o);
+          o[e] = (v[e] - mean) * rstd * wf[e] + bf[e];
+        Vec<T, VEC>::store(orow + static_cast<long long>(j) * VEC, o);
       }
     }
   }
@@ -418,16 +486,19 @@ layer_norm_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
 // rows_per_group) of n; slot s of the block takes rows r0 + s, r0 + s +
 // slots, ...; each thread sums g xhat and g for its columns over its rows
 // in row order; the slots combine in slot order and the block writes its
-// (2, d) partial [dw; db].
-template <typename T, int VEC, int NV>
+// (2, d) partial [dw; db].  The pipe carries x and g, and y after them in
+// the fused mode (ADD), which also writes dy.
+template <typename T, int VEC, int NV, bool ADD>
 __global__ void __launch_bounds__(kMaxThreads)
-layer_norm_bwd_rows_kernel(const T* __restrict__ x,
+layer_norm_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ y,
                            const float* __restrict__ w,
                            const T* __restrict__ g, T* __restrict__ dx,
-                           float* __restrict__ partial, long long n, int d,
-                           int wpr, int rows_per_group, float eps) {
+                           T* __restrict__ dy, float* __restrict__ partial,
+                           long long n, int d, int wpr, int rows_per_group,
+                           float eps, Dropout dp) {
   constexpr int S = stages<VEC, NV>();
-  // [slots][S][2][NV][tpr] ring when S > 1, then [2 d] for the slots'
+  constexpr int M = ADD ? 3 : 2;
+  // [slots][S][M][NV][tpr] ring when S > 1, then [2 d] for the slots'
   // combine when the block has several slots
   extern __shared__ uint4 dyn[];
   __shared__ float red[2 * 2 * kMaxWarps];
@@ -440,8 +511,8 @@ layer_norm_bwd_rows_kernel(const T* __restrict__ x,
   const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_group;
   const long long r1 = min(r0 + rows_per_group, n);
   const long long first = r0 + rs.slot;
-  RowPipe<T, VEC, NV, S, 2> pipe{
-      dyn + rs.slot * S * 2 * NV * tpr, {x, g}, first, slots,
+  RowPipe<T, VEC, NV, S, M> pipe{
+      dyn + rs.slot * S * M * NV * tpr, {x, g, y}, first, slots,
       first < r1 ? (r1 - 1 - first) / slots + 1 : 0, d, t, tpr, nvec};
   float aw[NV][VEC], ab[NV][VEC];
 #pragma unroll
@@ -453,22 +524,27 @@ layer_norm_bwd_rows_kernel(const T* __restrict__ x,
     }
   pipe.start();
   for (long long i = 0; i < pipe.cnt; ++i) {
+    const long long r = first + i * slots;
+    uint32_t kb[NV];
+    draw_row<ADD, VEC, NV>(dp, r, t, tpr, nvec, kb);
     pipe.fetch(i);
     // pass 1: sum x and sum g w; pass 2: the centred sum of squares and
     // sum g w (x - mean), so mean(g w xhat) = rstd * that / d; pass 3: dx
-    // and the partial sums.  g w is rounded once (no fused multiply-add),
-    // as the plain version's, so g w - mean(g w) is exact where they agree.
+    // (and dy) and the partial sums.  g w is rounded once (no fused
+    // multiply-add), as the plain version's, so g w - mean(g w) is exact
+    // where they agree.  In the fused mode x stands for s = drop(y) + x.
     float s = 0.f, m1 = 0.f;
 #pragma unroll
     for (int k = 0; k < NV; ++k) {
       const int j = t + k * tpr;
       if (j < nvec) {
-        const Vec<T, VEC> a = pipe.at(0, k), b = pipe.at(1, k);
-        float wf[VEC];
+        const Vec<T, VEC> b = pipe.at(1, k);
+        float v[VEC], wf[VEC];
+        row_values<ADD>(pipe, k, kb[k], dp.scale, v);
         load_f32<VEC>(w + j * VEC, wf);
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
-          s += a.get(e);
+          s += v[e];
           m1 += __fmul_rn(b.get(e), wf[e]);
         }
       }
@@ -481,12 +557,13 @@ layer_norm_bwd_rows_kernel(const T* __restrict__ x,
     for (int k = 0; k < NV; ++k) {
       const int j = t + k * tpr;
       if (j < nvec) {
-        const Vec<T, VEC> a = pipe.at(0, k), b = pipe.at(1, k);
-        float wf[VEC];
+        const Vec<T, VEC> b = pipe.at(1, k);
+        float v[VEC], wf[VEC];
+        row_values<ADD>(pipe, k, kb[k], dp.scale, v);
         load_f32<VEC>(w + j * VEC, wf);
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
-          const float c = a.get(e) - mean;
+          const float c = v[e] - mean;
           s2 += c * c;
           m2 += __fmul_rn(b.get(e), wf[e]) * c;
         }
@@ -495,17 +572,18 @@ layer_norm_bwd_rows_kernel(const T* __restrict__ x,
     m = rs.pair(s2, m2);
     const float rstd = rsqrtf(m.x * inv_d + eps);
     m2 = m.y * rstd * inv_d;
-    T* dxr = dx + (first + i * slots) * d;
+    T* dxr = dx + r * d;
 #pragma unroll
     for (int k = 0; k < NV; ++k) {
       const int j = t + k * tpr;
       if (j < nvec) {
-        const Vec<T, VEC> a = pipe.at(0, k), b = pipe.at(1, k);
-        float wf[VEC], o[VEC];
+        const Vec<T, VEC> b = pipe.at(1, k);
+        float v[VEC], wf[VEC], o[VEC];
+        row_values<ADD>(pipe, k, kb[k], dp.scale, v);
         load_f32<VEC>(w + j * VEC, wf);
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
-          const float xh = (a.get(e) - mean) * rstd;
+          const float xh = (v[e] - mean) * rstd;
           const float gv = b.get(e);
           const float gw = __fmul_rn(gv, wf[e]);
           o[e] = rstd * (gw - m1 - xh * m2);
@@ -513,6 +591,13 @@ layer_norm_bwd_rows_kernel(const T* __restrict__ x,
           ab[k][e] += gv;
         }
         Vec<T, VEC>::store(dxr + static_cast<long long>(j) * VEC, o);
+        if constexpr (ADD) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            o[e] = (kb[k] >> e) & 1u ? __fmul_rn(o[e], dp.scale) : 0.f;
+          Vec<T, VEC>::store(dy + r * d + static_cast<long long>(j) * VEC,
+                             o);
+        }
       }
     }
   }
@@ -529,7 +614,7 @@ layer_norm_bwd_rows_kernel(const T* __restrict__ x,
     return;
   }
   float* comb =
-      reinterpret_cast<float*>(dyn + (S > 1 ? slots * S * 2 * NV * tpr : 0));
+      reinterpret_cast<float*>(dyn + (S > 1 ? slots * S * M * NV * tpr : 0));
   for (int s = 0; s < slots; ++s) {
     if (rs.slot == s) {
 #pragma unroll
@@ -607,19 +692,31 @@ cudaError_t allow_smem(K kernel, size_t smem, int* granted) {
   return e;
 }
 
-template <typename T, int VEC, int NV>
-cudaError_t launch_fwd(const RowPlan& p, const void* x, const void* w,
-                       const void* b, void* y, long long n, int d, float eps,
+// The tensors and scalars of one call: x, w, b, out (forward); x, w, g,
+// dx, partial, dw, db (backward); y and dy in the fused mode.
+struct RowArgs {
+  const void *x, *y, *w, *b, *g;
+  void *out, *dx, *dy;
+  float *partial, *dw, *db;
+  long long n;
+  int d, n_groups, rows_per_group;
+  float eps;
+  Dropout dp;
+};
+
+template <typename T, int VEC, int NV, bool ADD>
+cudaError_t launch_fwd(const RowPlan& p, const RowArgs& a,
                        cudaStream_t stream) {
   constexpr int S = stages<VEC, NV>();
-  auto kernel = layer_norm_rows_kernel<T, VEC, NV>;
+  constexpr int M = ADD ? 2 : 1;
+  auto kernel = layer_norm_rows_kernel<T, VEC, NV, ADD>;
   // blocks the card holds at once, by the plan's warps a row (the block
   // size and shared memory follow from it): the grid of the
   // grid-stride loop
   static int resident[kMaxWarps + 1];
   static int granted;
   const int threads = p.slots * p.wpr * 32;
-  const size_t smem = S > 1 ? sizeof(uint4) * S * NV * threads : 0;
+  const size_t smem = S > 1 ? sizeof(uint4) * S * M * NV * threads : 0;
   cudaError_t e = allow_smem(kernel, smem, &granted);
   if (e != cudaSuccess) return e;
   if (!resident[p.wpr]) {
@@ -634,36 +731,37 @@ cudaError_t launch_fwd(const RowPlan& p, const void* x, const void* w,
     if (sms * per_sm == 0) return cudaErrorInvalidConfiguration;
     resident[p.wpr] = sms * per_sm;
   }
-  const long long want = (n + p.slots - 1) / p.slots;
+  const long long want = (a.n + p.slots - 1) / p.slots;
   const unsigned blocks = static_cast<unsigned>(
       want < resident[p.wpr] ? want : resident[p.wpr]);
   kernel<<<blocks, threads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(b), static_cast<T*>(y), n, d, p.wpr, eps);
+      static_cast<const T*>(a.x), static_cast<const T*>(a.y),
+      static_cast<const float*>(a.w), static_cast<const float*>(a.b),
+      static_cast<T*>(a.out), a.n, a.d, p.wpr, a.eps, a.dp);
   return cudaGetLastError();
 }
 
-template <typename T, int VEC, int NV>
-cudaError_t launch_bwd(const RowPlan& p, const void* x, const void* w,
-                       const void* g, void* dx, float* partial, float* dw,
-                       float* db, long long n, int d, int n_groups,
-                       int rows_per_group, float eps, cudaStream_t stream) {
+template <typename T, int VEC, int NV, bool ADD>
+cudaError_t launch_bwd(const RowPlan& p, const RowArgs& a,
+                       cudaStream_t stream) {
   constexpr int S = stages<VEC, NV>();
-  auto kernel = layer_norm_bwd_rows_kernel<T, VEC, NV>;
+  constexpr int M = ADD ? 3 : 2;
+  auto kernel = layer_norm_bwd_rows_kernel<T, VEC, NV, ADD>;
   static int granted;
   const int threads = p.slots * p.wpr * 32;
   const size_t smem =
-      (S > 1 ? sizeof(uint4) * S * 2 * NV * threads : 0) +
-      (p.slots > 1 ? 2 * sizeof(float) * d : 0);
+      (S > 1 ? sizeof(uint4) * S * M * NV * threads : 0) +
+      (p.slots > 1 ? 2 * sizeof(float) * a.d : 0);
   cudaError_t e = allow_smem(kernel, smem, &granted);
   if (e != cudaSuccess) return e;
-  kernel<<<n_groups, threads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<const T*>(g), static_cast<T*>(dx), partial, n, d, p.wpr,
-      rows_per_group, eps);
+  kernel<<<a.n_groups, threads, smem, stream>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.y),
+      static_cast<const float*>(a.w), static_cast<const T*>(a.g),
+      static_cast<T*>(a.dx), static_cast<T*>(a.dy), a.partial, a.n, a.d,
+      p.wpr, a.rows_per_group, a.eps, a.dp);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return launch_cols(partial, n_groups, d, dw, db, stream);
+  return launch_cols(a.partial, a.n_groups, a.d, a.dw, a.db, stream);
 }
 
 // The plan's NV as a template argument: 1-4 and 8 for 16-byte accesses,
@@ -686,251 +784,109 @@ cudaError_t with_nv(int nv, F&& f) {
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
-cudaError_t layer_norm_fwd(const void* x, const void* w, const void* b,
-                           void* y, long long n, int d, float eps,
-                           cudaStream_t stream) {
+// 16-byte accesses need every pointer 16-byte aligned (null ones, which
+// the call does not use, pass) and d a multiple of 16 bytes' worth of
+// elements; otherwise one element an access.  The forward takes about 96
+// accesses a warp, the backward 64 (plan_rows).
+template <typename T, bool ADD>
+cudaError_t layer_norm_fwd(const RowArgs& a, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const RowPlan p = plan_rows<T>(
-      d, aligned16(x) && aligned16(w) && aligned16(b) && aligned16(y), 96);
+      a.d, aligned16(a.x) && aligned16(a.y) && aligned16(a.w) &&
+               aligned16(a.b) && aligned16(a.out),
+      96);
   if (p.vec == kVec)
     return with_nv<T, kVec>(p.nv, [&](auto nv) {
-      return launch_fwd<T, kVec, decltype(nv)::value>(p, x, w, b, y, n, d,
-                                                       eps, stream);
+      return launch_fwd<T, kVec, decltype(nv)::value, ADD>(p, a, stream);
     });
   return with_nv<T, 1>(p.nv, [&](auto nv) {
-    return launch_fwd<T, 1, decltype(nv)::value>(p, x, w, b, y, n, d, eps,
-                                                  stream);
+    return launch_fwd<T, 1, decltype(nv)::value, ADD>(p, a, stream);
   });
 }
 
-template <typename T>
-cudaError_t layer_norm_bwd(const void* x, const void* w, const void* g,
-                           void* dx, float* partial, float* dw, float* db,
-                           long long n, int d, int n_groups,
-                           int rows_per_group, float eps,
-                           cudaStream_t stream) {
+template <typename T, bool ADD>
+cudaError_t layer_norm_bwd(const RowArgs& a, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
   const RowPlan p = plan_rows<T>(
-      d, aligned16(x) && aligned16(w) && aligned16(g) && aligned16(dx) &&
-             aligned16(partial),
+      a.d, aligned16(a.x) && aligned16(a.y) && aligned16(a.w) &&
+               aligned16(a.g) && aligned16(a.dx) && aligned16(a.dy) &&
+               aligned16(a.partial),
       64);
   if (p.vec == kVec)
     return with_nv<T, kVec>(p.nv, [&](auto nv) {
-      return launch_bwd<T, kVec, decltype(nv)::value>(
-          p, x, w, g, dx, partial, dw, db, n, d, n_groups, rows_per_group,
-          eps, stream);
+      return launch_bwd<T, kVec, decltype(nv)::value, ADD>(p, a, stream);
     });
   return with_nv<T, 1>(p.nv, [&](auto nv) {
-    return launch_bwd<T, 1, decltype(nv)::value>(
-        p, x, w, g, dx, partial, dw, db, n, d, n_groups, rows_per_group, eps,
-        stream);
+    return launch_bwd<T, 1, decltype(nv)::value, ADD>(p, a, stream);
   });
 }
 
-// ---------------------------------------------------------------------------
-// fused dropout + add + LayerNorm
-// ---------------------------------------------------------------------------
-
-struct DalnArgs {
-  const void* y;
-  const void* x;
-  const float* w;
-  const float* b;   // forward only
-  const void* g;    // backward only
-  void* out;        // forward: LN(drop(y) + x)
-  void* dy;         // backward
-  void* dx;         // backward
-  float* partial;   // backward: (n_blocks, 2, d)
-  long long n;
-  int d, rows_per_block;
-  float eps, rate, keep_scale;
-  PhiloxKey key;
-};
-
-template <typename T>
-__device__ __forceinline__ float dropped(const DalnArgs& a, const T* yr,
-                                         long long r, int i) {
-  const float v = to_float(yr[i]);
-  if (a.rate <= 0.f) return v;
-  return row_dropout_keep(a.key, r, i, a.rate) ? v * a.keep_scale : 0.f;
+template <bool ADD>
+int run_fwd(int dtype, const RowArgs& a, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (dtype) {
+    case kFloat32: e = layer_norm_fwd<float, ADD>(a, s); break;
+    case kBFloat16: e = layer_norm_fwd<__nv_bfloat16, ADD>(a, s); break;
+    default: e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
 }
 
-template <typename T>
-__global__ void daln_fwd_kernel(DalnArgs a) {
-  extern __shared__ float row[];
-  __shared__ float red[32];
-  const int d = a.d;
-  const long long r = blockIdx.x;
-  const T* yr = static_cast<const T*>(a.y) + r * d;
-  const T* xr = static_cast<const T*>(a.x) + r * d;
-  T* orow = static_cast<T*>(a.out) + r * d;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    const float t = dropped(a, yr, r, i) + to_float(xr[i]);
-    row[i] = t;
-    s += t;
+template <bool ADD>
+int run_bwd(int dtype, const RowArgs& a, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (dtype) {
+    case kFloat32: e = layer_norm_bwd<float, ADD>(a, s); break;
+    case kBFloat16: e = layer_norm_bwd<__nv_bfloat16, ADD>(a, s); break;
+    default: e = cudaErrorInvalidValue;
   }
-  const float mean = block_sum(s, red) / static_cast<float>(d);
-  float s2 = 0.f;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    const float c = row[i] - mean;
-    row[i] = c;
-    s2 += c * c;
-  }
-  const float rstd = rsqrtf(block_sum(s2, red) / static_cast<float>(d)
-                            + a.eps);
-  for (int i = threadIdx.x; i < d; i += blockDim.x)
-    orow[i] = from_float<T>(row[i] * rstd * a.w[i] + a.b[i]);
-}
-
-template <typename T>
-__global__ void daln_bwd_kernel(DalnArgs a) {
-  extern __shared__ float sm[];
-  const int d = a.d;
-  float* sr = sm;             // [d] centred sum, then shat
-  float* gr = sr + d;         // [d] g * w
-  float* pdw = gr + d;        // [d] this block's partial dw
-  float* pdb = pdw + d;       // [d] this block's partial db
-  __shared__ float red[32];
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    pdw[i] = 0.f;
-    pdb[i] = 0.f;
-  }
-  const long long r0 = static_cast<long long>(blockIdx.x) * a.rows_per_block;
-  const long long r1 = min(r0 + a.rows_per_block, a.n);
-  const float inv_d = 1.f / static_cast<float>(d);
-  for (long long r = r0; r < r1; ++r) {
-    const T* yr = static_cast<const T*>(a.y) + r * d;
-    const T* xr = static_cast<const T*>(a.x) + r * d;
-    const T* grow = static_cast<const T*>(a.g) + r * d;
-    float s = 0.f;
-    for (int i = threadIdx.x; i < d; i += blockDim.x) {
-      const float t = dropped(a, yr, r, i) + to_float(xr[i]);
-      sr[i] = t;
-      s += t;
-    }
-    const float mean = block_sum(s, red) * inv_d;
-    float s2 = 0.f;
-    for (int i = threadIdx.x; i < d; i += blockDim.x) {
-      const float c = sr[i] - mean;
-      sr[i] = c;
-      s2 += c * c;
-    }
-    const float rstd = rsqrtf(block_sum(s2, red) * inv_d + a.eps);
-    float m1 = 0.f, m2 = 0.f;
-    for (int i = threadIdx.x; i < d; i += blockDim.x) {
-      const float sh = sr[i] * rstd;
-      const float gv = to_float(grow[i]);
-      const float gw = gv * a.w[i];
-      sr[i] = sh;
-      gr[i] = gw;
-      m1 += gw;
-      m2 += gw * sh;
-      pdw[i] += gv * sh;
-      pdb[i] += gv;
-    }
-    m1 = block_sum(m1, red) * inv_d;
-    m2 = block_sum(m2, red) * inv_d;
-    T* dxrow = static_cast<T*>(a.dx) + r * d;
-    T* dyrow = static_cast<T*>(a.dy) + r * d;
-    for (int i = threadIdx.x; i < d; i += blockDim.x) {
-      const float ds = rstd * (gr[i] - m1 - sr[i] * m2);
-      dxrow[i] = from_float<T>(ds);
-      float dyv = ds;
-      if (a.rate > 0.f)
-        dyv = row_dropout_keep(a.key, r, i, a.rate) ? ds * a.keep_scale : 0.f;
-      dyrow[i] = from_float<T>(dyv);
-    }
-    __syncthreads();
-  }
-  float* out = a.partial + static_cast<long long>(blockIdx.x) * 2 * d;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    out[i] = pdw[i];
-    out[d + i] = pdb[i];
-  }
-}
-
-template <typename T>
-cudaError_t launch_daln_fwd(const DalnArgs& a, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * static_cast<size_t>(a.d);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        daln_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const int threads = a.d <= 1024 ? 256 : 512;
-  daln_fwd_kernel<T><<<static_cast<unsigned>(a.n), threads, smem, stream>>>(
-      a);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_daln_bwd(const DalnArgs& a, int n_blocks, float* dw,
-                            float* db, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 4 * static_cast<size_t>(a.d);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        daln_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const int threads = a.d <= 1024 ? 256 : 512;
-  daln_bwd_kernel<T><<<n_blocks, threads, smem, stream>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return launch_cols(a.partial, n_blocks, a.d, dw, db, stream);
+  return static_cast<int>(e);
 }
 
 }  // namespace
 
 // Returns a cudaError_t code (0 = launched).  x, y: contiguous (n, d);
-// w, b: contiguous fp32 (d,).  16-byte accesses need every pointer 16-byte
-// aligned and d a multiple of 16 bytes' worth of elements; otherwise the
-// kernel reads one element an access.
+// w, b: contiguous fp32 (d,).
 extern "C" int hero_layer_norm_fwd(int dtype, const void* x, const void* w,
                                    const void* b, void* y, long long n, int d,
                                    float eps, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (dtype) {
-    case kFloat32: e = layer_norm_fwd<float>(x, w, b, y, n, d, eps, s); break;
-    case kBFloat16:
-      e = layer_norm_fwd<__nv_bfloat16>(x, w, b, y, n, d, eps, s);
-      break;
-    default: e = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(e);
+  RowArgs a{};
+  a.x = x;
+  a.w = w;
+  a.b = b;
+  a.out = y;
+  a.n = n;
+  a.d = d;
+  a.eps = eps;
+  return run_fwd<false>(dtype, a, stream);
 }
 
 // Returns a cudaError_t code (0 = launched).  x, g, dx: contiguous (n, d);
 // w: contiguous fp32 (d,); partial: fp32 scratch (n_blocks, 2, d); dw, db:
 // fp32 (d,).  Block i takes rows [i * rows_per_block, (i + 1) *
 // rows_per_block) of n and writes partial[i]; the column pass sums the
-// n_blocks partials in block order.  Access width as the forward's.
+// n_blocks partials in block order.
 extern "C" int hero_layer_norm_bwd(int dtype, const void* x, const void* w,
                                    const void* g, void* dx, void* partial,
                                    void* dw, void* db, long long n, int d,
                                    int n_blocks, int rows_per_block,
                                    float eps, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* pp = static_cast<float*>(partial);
-  float* pw = static_cast<float*>(dw);
-  float* pb = static_cast<float*>(db);
-  cudaError_t e;
-  switch (dtype) {
-    case kFloat32:
-      e = layer_norm_bwd<float>(x, w, g, dx, pp, pw, pb, n, d, n_blocks,
-                                rows_per_block, eps, s);
-      break;
-    case kBFloat16:
-      e = layer_norm_bwd<__nv_bfloat16>(x, w, g, dx, pp, pw, pb, n, d,
-                                        n_blocks, rows_per_block, eps, s);
-      break;
-    default: e = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(e);
+  RowArgs a{};
+  a.x = x;
+  a.w = w;
+  a.g = g;
+  a.dx = dx;
+  a.partial = static_cast<float*>(partial);
+  a.dw = static_cast<float*>(dw);
+  a.db = static_cast<float*>(db);
+  a.n = n;
+  a.d = d;
+  a.n_groups = n_blocks;
+  a.rows_per_group = rows_per_block;
+  a.eps = eps;
+  return run_bwd<false>(dtype, a, stream);
 }
 
 // Fused dropout + add + LayerNorm forward.  Returns a cudaError_t code
@@ -941,26 +897,17 @@ extern "C" int hero_daln_fwd(int dtype, const void* y, const void* x,
                              long long n, int d, float eps, float rate,
                              float keep_scale, unsigned int seed_lo,
                              unsigned int seed_hi, void* stream) {
-  DalnArgs a{};
-  a.y = y;
+  RowArgs a{};
   a.x = x;
-  a.w = static_cast<const float*>(w);
-  a.b = static_cast<const float*>(b);
+  a.y = y;
+  a.w = w;
+  a.b = b;
   a.out = out;
   a.n = n;
   a.d = d;
   a.eps = eps;
-  a.rate = rate;
-  a.keep_scale = keep_scale;
-  a.key = PhiloxKey{seed_lo, seed_hi};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (dtype) {
-    case kFloat32: e = launch_daln_fwd<float>(a, s); break;
-    case kBFloat16: e = launch_daln_fwd<__nv_bfloat16>(a, s); break;
-    default: e = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(e);
+  a.dp = make_dropout(rate, keep_scale, seed_lo, seed_hi);
+  return run_fwd<true>(dtype, a, stream);
 }
 
 // Its backward.  Returns a cudaError_t code (0 = launched).  y, x, g, dy,
@@ -974,31 +921,21 @@ extern "C" int hero_daln_bwd(int dtype, const void* y, const void* x,
                              float eps, float rate, float keep_scale,
                              unsigned int seed_lo, unsigned int seed_hi,
                              void* stream) {
-  DalnArgs a{};
-  a.y = y;
+  RowArgs a{};
   a.x = x;
-  a.w = static_cast<const float*>(w);
+  a.y = y;
+  a.w = w;
   a.g = g;
-  a.dy = dy;
   a.dx = dx;
+  a.dy = dy;
   a.partial = static_cast<float*>(partial);
+  a.dw = static_cast<float*>(dw);
+  a.db = static_cast<float*>(db);
   a.n = n;
   a.d = d;
-  a.rows_per_block = rows_per_block;
+  a.n_groups = n_blocks;
+  a.rows_per_group = rows_per_block;
   a.eps = eps;
-  a.rate = rate;
-  a.keep_scale = keep_scale;
-  a.key = PhiloxKey{seed_lo, seed_hi};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* pw = static_cast<float*>(dw);
-  float* pb = static_cast<float*>(db);
-  cudaError_t e;
-  switch (dtype) {
-    case kFloat32: e = launch_daln_bwd<float>(a, n_blocks, pw, pb, s); break;
-    case kBFloat16:
-      e = launch_daln_bwd<__nv_bfloat16>(a, n_blocks, pw, pb, s);
-      break;
-    default: e = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(e);
+  a.dp = make_dropout(rate, keep_scale, seed_lo, seed_hi);
+  return run_bwd<true>(dtype, a, stream);
 }

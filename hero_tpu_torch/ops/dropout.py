@@ -6,11 +6,12 @@ dropout-add-LayerNorm's (``hero_tpu/ops/layernorm.py:179-185``).  A keep
 bit is a pure function of the seed and the element's coordinates:
 
 - key = (seed mod 2^32, seed >> 32 mod 2^32);
-- counter = (j, i, h, b) for attention-probability element (b, h, i, j),
-  and (col, row mod 2^32, row >> 32, 2^32 - 1) for element (row, col) of a
-  row tensor (:func:`row_keep_mask`; the last word, which no attention
-  batch index reaches, keeps the two streams apart);
-- bits = word 0 of Philox4x32-10(key, counter);
+- attention-probability element (b, h, i, j): counter = (j, i, h, b), and
+  bits = word 0 of Philox4x32-10(key, counter);
+- element (row, col) of a row tensor (:func:`row_keep_mask`): counter =
+  (col >> 2, row mod 2^32, row >> 32, 2^32 - 1), and bits = word col & 3,
+  so one call draws four neighbouring columns (the last counter word,
+  which no attention batch index reaches, keeps the two streams apart);
 - keep = (bits >> 8) * 2^-24 >= rate, in fp32, as ``_dropout_keep_mask``.
 
 So the draw does not depend on the launch geometry, and the backward
@@ -70,10 +71,10 @@ def _mulhilo(m: int, a: torch.Tensor):
     return hi, lo
 
 
-def philox4x32(seed: int, c0, c1, c2, c3) -> torch.Tensor:
-    """Word 0 of Philox4x32-10 for key = (seed lo, seed hi) and the counter
-    words c0..c3 (int64 tensors of uint32 values, broadcastable).
-    Returns the uint32 bits as int64."""
+def philox4x32_words(seed: int, c0, c1, c2, c3):
+    """The four words of Philox4x32-10 for key = (seed lo, seed hi) and the
+    counter words c0..c3 (int64 tensors of uint32 values, broadcastable),
+    as a tuple of int64 tensors of uint32 values."""
     k0, k1 = seed & MASK32, (seed >> 32) & MASK32
     for r in range(PHILOX_ROUNDS):
         if r:
@@ -81,7 +82,12 @@ def philox4x32(seed: int, c0, c1, c2, c3) -> torch.Tensor:
         hi0, lo0 = _mulhilo(PHILOX_M0, c0)
         hi1, lo1 = _mulhilo(PHILOX_M1, c2)
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-    return c0
+    return c0, c1, c2, c3
+
+
+def philox4x32(seed: int, c0, c1, c2, c3) -> torch.Tensor:
+    """Word 0 of :func:`philox4x32_words`: the uint32 bits as int64."""
+    return philox4x32_words(seed, c0, c1, c2, c3)[0]
 
 
 def attention_keep_mask(seed: int, B: int, H: int, Lq: int, Lk: int,
@@ -105,6 +111,15 @@ def _keep(bits: torch.Tensor, rate: float) -> torch.Tensor:
     return u >= float32(rate)
 
 
+def row_words(seed: int, row: torch.Tensor, quad: torch.Tensor):
+    """The four Philox words that the row-tensor elements (row, 4 quad)
+    .. (row, 4 quad + 3) take, word k for column 4 quad + k (``row``,
+    ``quad``: broadcastable int64 tensors, row < 2^64)."""
+    return philox4x32_words(seed, quad, row & MASK32, row >> 32,
+                            torch.full((1,) * row.dim(), ROW_STREAM,
+                                       dtype=torch.int64, device=row.device))
+
+
 def row_keep_mask(seed: int, n: int, d: int, rate: float,
                   device="cpu") -> torch.Tensor:
     """(n, d) bool keep mask of a row tensor's dropout with this ``seed``
@@ -112,8 +127,8 @@ def row_keep_mask(seed: int, n: int, d: int, rate: float,
     if not 0 <= seed < 2 ** 64:
         raise ValueError(f"seed must be a 64-bit unsigned int, got {seed}")
     row = torch.arange(n, dtype=torch.int64, device=device)[:, None]
-    col = torch.arange(d, dtype=torch.int64, device=device)[None, :]
-    bits = philox4x32(seed, col, row & MASK32, row >> 32,
-                      torch.full((1, 1), ROW_STREAM, dtype=torch.int64,
-                                 device=device))
+    quads = -(-d // 4)
+    quad = torch.arange(quads, dtype=torch.int64, device=device)[None]
+    bits = torch.stack(row_words(seed, row, quad), -1).reshape(
+        n, 4 * quads)[:, :d]
     return _keep(bits, rate)

@@ -32,7 +32,8 @@ import ctypes
 import torch
 
 from hero_tpu_torch.ops import cuda_build
-from hero_tpu_torch.ops.dropout import keep_scale, row_keep_mask, seed_words
+from hero_tpu_torch.ops.dropout import (float32, keep_scale, row_keep_mask,
+                                        seed_words)
 
 
 def layer_norm_reference(x: torch.Tensor, weight: torch.Tensor,
@@ -138,9 +139,10 @@ def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
 # of the card's 132, so every group is resident at once and the
 # (groups, 2, d) fp32 partials stay a few MB
 LN_BWD_GROUPS = 264
-# blocks of the fused dropout-add-LayerNorm backward (#9): a few per SM,
-# for its shared-memory row loop
-DALN_BWD_BLOCKS = 528
+# row groups of the fused dropout-add-LayerNorm backward's row pass (#9):
+# two an SM too, which beat one, three and four an SM at (14336, 768) and
+# (1024, 768) on the H100 (chip_smoke.py --daln-times; PERF.md)
+DALN_BWD_GROUPS = 264
 
 
 def row_groups(n: int, max_groups: int):
@@ -233,9 +235,11 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 def _daln_rate(rate: float, seed) -> float:
     """The rate the op runs at: a rate with no seed is rate 0, as the JAX
-    package's ``rng=None`` is (``hero_tpu/ops/layernorm.py:310-311``)."""
-    if not 0.0 <= rate < 1.0:
-        raise ValueError(f"dropout rate must lie in [0, 1), got {rate}")
+    package's ``rng=None`` is (``hero_tpu/ops/layernorm.py:310-311``).
+    The kernels take the rate in fp32, so it must stay below 1 there."""
+    if not (0.0 <= rate < 1.0 and float32(rate) < 1.0):
+        raise ValueError(f"dropout rate must lie in [0, 1) in fp32, got "
+                         f"{rate}")
     if seed is not None and not 0 <= seed < 2 ** 64:
         raise ValueError(f"seed must be a 64-bit unsigned int, got {seed}")
     return float(rate) if seed is not None else 0.0
@@ -281,7 +285,7 @@ def dropout_add_layer_norm_bwd_reference(y, x, weight, g, rate: float = 0.0,
 def _daln_rows(y, x, weight, bias=None):
     """The (n, d) rows the kernels take: one dtype (two dtypes are both
     taken to fp32, exactly, and the results rounded once to their own
-    types), contiguous."""
+    types), contiguous and 16-byte aligned (``_aligned``)."""
     d = _check(x, weight, bias)
     if y.shape != x.shape or y.device != x.device:
         raise ValueError(f"y and x must share shape and device, got "
@@ -295,7 +299,8 @@ def _daln_rows(y, x, weight, bias=None):
     n = x.numel() // d
     if n >= 2 ** 31:
         raise ValueError(f"{n} rows exceed the kernels' grid")
-    return y.reshape(-1, d).contiguous(), x.reshape(-1, d).contiguous(), d
+    return (_aligned(y.reshape(-1, d).contiguous()),
+            _aligned(x.reshape(-1, d).contiguous()), d)
 
 
 def dropout_add_layer_norm_cuda(y, x, weight, bias, rate: float = 0.0,
@@ -306,8 +311,8 @@ def dropout_add_layer_norm_cuda(y, x, weight, bias, rate: float = 0.0,
     ``dropout_add_layer_norm_cuda.launches`` counts the launches."""
     rate = _daln_rate(rate, seed)
     y2, x2, d = _daln_rows(y, x, weight, bias)
-    w = weight.float().contiguous()
-    b = bias.float().contiguous()
+    w = _aligned(weight.float().contiguous())
+    b = _aligned(bias.float().contiguous())
     out = torch.empty_like(x2)
     if x2.shape[0]:
         lib = _lib()
@@ -325,22 +330,25 @@ def dropout_add_layer_norm_cuda(y, x, weight, bias, rate: float = 0.0,
 
 def dropout_add_layer_norm_bwd_cuda(y, x, weight, g, rate: float = 0.0,
                                     seed=None, eps: float = 1e-5):
-    """Launch the fused backward kernels (#9): (dy in y's dtype, dx in
-    x's, dw, db fp32).  ``dropout_add_layer_norm_bwd_cuda.launches``
-    counts the launches (one per call: the row pass and the reduction
-    run as one)."""
+    """Launch the fused backward kernels (#9), the row pass over
+    :func:`row_groups` of ``DALN_BWD_GROUPS`` and the column pass over its
+    partials: (dy in y's dtype, dx in x's, dw, db fp32).
+    ``dropout_add_layer_norm_bwd_cuda.launches`` counts the launches (one
+    per call: the row pass and the reduction run as one)."""
     rate = _daln_rate(rate, seed)
     if g.shape != x.shape or g.device != x.device:
         raise ValueError("g must have x's shape and device")
     y2, x2, d = _daln_rows(y, x, weight)
-    g2 = g.to(x2.dtype).reshape(-1, d).contiguous()
-    w = weight.float().contiguous()
+    g2 = _aligned(g.to(x2.dtype).reshape(-1, d).contiguous())
+    w = _aligned(weight.float().contiguous())
     n = x2.shape[0]
     dy, dx = torch.empty_like(y2), torch.empty_like(x2)
-    dw = torch.zeros(d, dtype=torch.float32, device=x.device)
-    db = torch.zeros(d, dtype=torch.float32, device=x.device)
+    # the column pass writes every entry of dw and db when there are rows
+    alloc = torch.empty if n else torch.zeros
+    dw = alloc(d, dtype=torch.float32, device=x.device)
+    db = alloc(d, dtype=torch.float32, device=x.device)
     if n:
-        n_blocks, rows = row_groups(n, DALN_BWD_BLOCKS)
+        n_blocks, rows = row_groups(n, DALN_BWD_GROUPS)
         partial = torch.empty((n_blocks, 2, d), dtype=torch.float32,
                               device=x.device)
         lib = _lib()

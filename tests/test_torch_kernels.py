@@ -22,7 +22,10 @@ backward (1 to 1000 keys, 1 to 65 queries, backward heads to 400 rows),
 whose shared-memory limits are held against the fp32 kernels'.  The
 LayerNorm forward and backward are held at their edges: widths about the
 16-byte access and a warp's share, single-element widths and the widest
-row the wrappers take, row counts about the backward's row groups.
+row the wrappers take, row counts about the backward's row groups; so
+are the fused dropout-add-LayerNorm kernels (#8, #9), at rates 0 and
+0.1, with their keep bits read back, views off the 16-byte alignment and
+mixed y/x dtypes.
 """
 
 import numpy as np
@@ -894,6 +897,109 @@ def test_daln_mask_keep_rate_and_consistency(cuda, n, d, lo, hi):
     assert (tln.dropout_add_layer_norm_cuda.launches,
             tln.dropout_add_layer_norm_bwd_cuda.launches) == (
         before[0] + 1, before[1] + 1)
+
+
+# #8/#9's edges: the LayerNorm edge widths, widths that are a multiple of
+# 4 but not of 8 (16-byte accesses in fp32, single elements in bf16) or
+# below one Philox quad, and one single-element width for each count of
+# accesses a thread (2047, 4095, 4353, 14527: 4, 8, 16 and 32 at 16 warps
+# a row); row counts about #9's row groups
+DALN_EDGE_WIDTHS = (1, 3, 4, 7, 8, 9, 12, 255, 256, 257, 767, 768, 769, 772,
+                    2047, 4095, 4351, 4352, 4353, 14527, 227 * 1024 // 16)
+DALN_EDGE_ROWS = (1, tln.DALN_BWD_GROUPS - 1, tln.DALN_BWD_GROUPS,
+                  tln.DALN_BWD_GROUPS + 1, 2 * tln.DALN_BWD_GROUPS + 1)
+
+
+def _daln_inputs(seed, n, d, device, y_dtype, x_dtype):
+    r = np.random.RandomState(seed)
+    y, x, g = (torch.from_numpy(r.randn(n, d).astype(np.float32))
+               for _ in range(3))
+    w = torch.from_numpy((1.0 + 0.1 * r.randn(d)).astype(np.float32))
+    b = torch.from_numpy((0.1 * r.randn(d)).astype(np.float32))
+    return (y.to(device, y_dtype), (x * 2.0 + 0.5).to(device, x_dtype),
+            w.to(device), b.to(device), g.to(device, x_dtype))
+
+
+def _check_daln(y, x, w, b, g, rate, seed):
+    """#8 and #9 against their plain versions: out, dy, dx within one bf16
+    ulp (or 1e-4 in fp32) of each output's largest value, dw/db within
+    1e-6 a row (4 rows' worth below 4 rows, where one term's rounding of
+    shat outweighs the order of the sums); repeats bit-identical.
+    Returns the kernels' results."""
+    n = x.shape[0]
+    out = tln.dropout_add_layer_norm_cuda(y, x, w, b, rate, seed)
+    want = tln.dropout_add_layer_norm_reference(y, x, w, b, rate, seed)
+    assert out.dtype == x.dtype
+    assert float((out.float() - want.float()).abs().max()) <= _grad_tol(
+        want, x.dtype)
+    got = tln.dropout_add_layer_norm_bwd_cuda(y, x, w, g, rate, seed)
+    ref = tln.dropout_add_layer_norm_bwd_reference(y, x, w, g, rate, seed)
+    assert (got[0].dtype, got[1].dtype) == (y.dtype, x.dtype)
+    for a, b_ in zip(got[:2], ref[:2]):
+        assert bool(torch.isfinite(a).all())
+        assert float((a.float() - b_.float()).abs().max()) <= _grad_tol(
+            b_, b_.dtype)
+    for a, b_ in zip(got[2:], ref[2:]):
+        assert float((a - b_).abs().max()) <= 1e-6 * max(n, 4)
+    assert torch.equal(out, tln.dropout_add_layer_norm_cuda(y, x, w, b, rate,
+                                                            seed))
+    again = tln.dropout_add_layer_norm_bwd_cuda(y, x, w, g, rate, seed)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    return out, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, d", [(n, d) for d in DALN_EDGE_WIDTHS
+                                  for n in DALN_EDGE_ROWS])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_daln_kernels_at_their_edges(cuda, n, d, dtype):
+    """#8 and #9 at every edge shape, rates 0 and 0.1 (``_check_daln``);
+    in fp32 the keep bits read back: dy is keep * dx / (1 - rate) bit for
+    bit with the plain row mask, and adding 100 to the dropped entries of
+    y leaves the output and dx bit-identical."""
+    seed = 2 ** 36 + 5
+    y, x, w, b, g = _daln_inputs(n + d, n, d, cuda, dtype, dtype)
+    for rate in (0.0, 0.1):
+        out, got = _check_daln(y, x, w, b, g, rate, seed)
+    if dtype == torch.float32:
+        keep = tdrop.row_keep_mask(seed, n, d, 0.1, device=cuda)
+        assert torch.equal(got[0], torch.where(
+            keep, got[1] * tdrop.keep_scale(0.1), 0.0))
+        y2 = torch.where(keep, y, y + 100.0)
+        assert torch.equal(out, tln.dropout_add_layer_norm_cuda(
+            y2, x, w, b, 0.1, seed))
+        assert torch.equal(got[1], tln.dropout_add_layer_norm_bwd_cuda(
+            y2, x, w, g, 0.1, seed)[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [768, 769, 4352])
+def test_daln_kernels_read_misaligned_views_and_mixed_dtypes(cuda, d):
+    """Views of every input off the 16-byte alignment give the aligned
+    call's results bit for bit (they are copied, so the access width rests
+    on width and dtype alone); mixed y/x dtypes are taken to fp32 and match
+    the plain versions, each output in its own input's dtype."""
+    n, seed = tln.DALN_BWD_GROUPS + 1, 2 ** 36 + 6
+
+    def off_alignment(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _daln_inputs(d, n, d, cuda, dtype, dtype)
+        views = [off_alignment(t) for t in args]
+        assert all(v.data_ptr() % 16 for v in views)
+        out, got = _check_daln(*args, 0.1, seed)
+        v_out, v_got = _check_daln(*views, 0.1, seed)
+        assert torch.equal(out, v_out)
+        assert all(torch.equal(a, c) for a, c in zip(got, v_got))
+    for y_dtype, x_dtype in ((torch.bfloat16, torch.float32),
+                             (torch.float32, torch.bfloat16)):
+        args = _daln_inputs(d + 1, n, d, cuda, y_dtype, x_dtype)
+        for rate in (0.0, 0.1):
+            _check_daln(*args, rate, seed)
 
 
 def test_cpu_backward_and_daln_take_the_plain_versions():

@@ -217,8 +217,7 @@ def test_plain_layer_norm_backward_matches_pallas_interpret():
                                    rtol=1e-5)
 
 
-@pytest.mark.parametrize("max_groups", [tln.LN_BWD_GROUPS,
-                                        tln.DALN_BWD_BLOCKS])
+@pytest.mark.parametrize("max_groups", [tln.LN_BWD_GROUPS, 7])
 def test_backward_row_partition_covers_every_row_once(max_groups):
     """The backward kernels' partition of n rows (``row_groups``): every
     row in exactly one group, no group empty, at most ``max_groups``
@@ -245,8 +244,9 @@ def test_backward_row_partition_covers_every_row_once(max_groups):
 # Philox dropout
 # ---------------------------------------------------------------------------
 
-def _philox_scalar(seed, ctr):
-    """Philox4x32-10, word 0, in Python ints (Random123's definition)."""
+def _philox_scalar(seed, ctr, all_words=False):
+    """Philox4x32-10 in Python ints (Random123's definition): word 0, or
+    the four words with ``all_words``."""
     m = 0xFFFFFFFF
     k0, k1 = seed & m, (seed >> 32) & m
     c0, c1, c2, c3 = ctr
@@ -256,7 +256,7 @@ def _philox_scalar(seed, ctr):
         p0, p1 = 0xD2511F53 * c0, 0xCD9E8D57 * c2
         c0, c1, c2, c3 = ((p1 >> 32) ^ c1 ^ k0, p1 & m,
                           (p0 >> 32) ^ c3 ^ k1, p0 & m)
-    return c0
+    return (c0, c1, c2, c3) if all_words else c0
 
 
 def test_philox_matches_the_scalar_definition():
@@ -267,9 +267,99 @@ def test_philox_matches_the_scalar_definition():
                    [2 ** 31, 0, 2 ** 31, 0]]
         cols = [torch.from_numpy(ctr[:, i].astype(np.int64))
                 for i in range(4)]
+        want = [_philox_scalar(seed, tuple(int(c) for c in row), True)
+                for row in ctr]
         got = tdrop.philox4x32(seed, *cols).tolist()
-        assert got == [_philox_scalar(seed, tuple(int(c) for c in row))
-                       for row in ctr]
+        assert got == [w[0] for w in want]
+        words = tdrop.philox4x32_words(seed, *cols)
+        assert [tuple(w) for w in zip(*(t.tolist() for t in words))] == want
+
+
+def _row_bits_scalar(seed, row, col):
+    """Bits of row-tensor element (row, col): word col & 3 of the scalar
+    Philox at counter (col >> 2, row lo, row hi, 2^32 - 1)."""
+    words = _philox_scalar(seed, (col >> 2, row & 0xFFFFFFFF, row >> 32,
+                                  0xFFFFFFFF), True)
+    return words[col & 3]
+
+
+@pytest.mark.parametrize("n, d", [(1, 1), (3, 3), (2, 4), (5, 13),
+                                  (4, 64), (3, 130)])
+def test_row_keep_mask_takes_word_col_mod_4_of_the_quad_call(n, d):
+    """The row stream's layout: element (row, col) keeps where word col & 3
+    of Philox4x32-10 at (col >> 2, row lo, row hi, 2^32 - 1) says so, one
+    call per four columns, at widths that are and are not a multiple of
+    4; the rate is compared in fp32."""
+    seed, rate = 2 ** 37 + 9, 0.3
+    keep = tdrop.row_keep_mask(seed, n, d, rate)
+    assert keep.shape == (n, d) and keep.dtype == torch.bool
+    want = [[(_row_bits_scalar(seed, i, j) >> 8) / 2 ** 24
+             >= np.float32(rate) for j in range(d)] for i in range(n)]
+    assert keep.tolist() == want
+
+
+def test_row_words_past_two_to_the_32_rows():
+    """Rows past 2^32 put their high word in counter word 2: the four
+    words of ``row_words`` equal the scalar call's for each quad."""
+    seed = 2 ** 40 + 3
+    rows = [0, 1, 2 ** 32 - 1, 2 ** 32, 2 ** 32 + 7, 2 ** 40 + 5,
+            2 ** 63 - 1]
+    quads = [0, 1, 3, 3631]
+    row = torch.tensor(rows, dtype=torch.int64)[:, None]
+    quad = torch.tensor(quads, dtype=torch.int64)[None]
+    words = tdrop.row_words(seed, row, quad)
+    for i, rw in enumerate(rows):
+        for j, q in enumerate(quads):
+            want = _philox_scalar(seed, (q, rw & 0xFFFFFFFF, rw >> 32,
+                                         0xFFFFFFFF), True)
+            assert tuple(int(w[i, j]) for w in words) == want
+            assert all(_row_bits_scalar(seed, rw, 4 * q + k) == want[k]
+                       for k in range(4))
+
+
+def test_row_keep_mask_rate_determinism_and_blocks():
+    """Bernoulli(1 - rate) within 4 sigma, the same for one seed and
+    another for another seed, and a smaller (n', d') mask is the
+    top-left block of a larger one (each bit depends on its coordinates
+    alone, whatever the width)."""
+    seed, rate = 99, 0.1
+    keep = tdrop.row_keep_mask(seed, 300, 771, rate)
+    n = keep.numel()
+    assert abs(float(keep.float().mean()) - 0.9) < 4 * (0.09 / n) ** 0.5
+    assert torch.equal(keep, tdrop.row_keep_mask(seed, 300, 771, rate))
+    assert not torch.equal(keep, tdrop.row_keep_mask(seed + 1, 300, 771,
+                                                     rate))
+    for n_, d_ in ((1, 1), (7, 3), (299, 770), (40, 768), (300, 5)):
+        assert torch.equal(tdrop.row_keep_mask(seed, n_, d_, rate),
+                           keep[:n_, :d_])
+    # the row stream is apart from the attention stream's counters
+    att = tdrop.attention_keep_mask(seed, 1, 1, 300, 771, rate)[0, 0]
+    assert not torch.equal(att, keep)
+
+
+@pytest.mark.parametrize("rate, refused", [(1.0 - 2.0 ** -26, True),
+                                           (1.0, True),
+                                           (1.0 - 2.0 ** -24, False)])
+def test_daln_takes_rates_below_one_in_fp32_only(rate, refused):
+    """The fused dropout-add-LayerNorm refuses a rate that rounds to 1 in
+    fp32, as its kernels take it (1 - 2^-26 is below 1 as a double; there
+    the kernels' integer keep threshold would wrap to 0 and keep every
+    element, while the plain mask keeps none), and takes the largest fp32
+    rate below 1."""
+    y, x, g = (torch.full((2, 9), v) for v in (1.0, 2.0, 0.5))
+    w, b = torch.ones(9), torch.zeros(9)
+    if refused:
+        with pytest.raises(ValueError, match="rate"):
+            tln.dropout_add_layer_norm(y, x, w, b, rate=rate, seed=3)
+        with pytest.raises(ValueError, match="rate"):
+            tln.dropout_add_layer_norm_bwd_reference(y, x, w, g, rate, 3)
+    else:
+        out = tln.dropout_add_layer_norm(y, x, w, b, rate=rate, seed=3)
+        assert bool(torch.isfinite(out).all())
+        dy = tln.dropout_add_layer_norm_bwd_reference(y, x, w, g, rate,
+                                                      3)[0]
+        keep = tdrop.row_keep_mask(3, 2, 9, rate)
+        assert torch.equal(dy != 0, keep & (dy != 0))
 
 
 def test_attention_keep_mask_rate_determinism_and_layout():
