@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's VCMR serving path, VSM train step, TVC
-caption serving, TVC train step and kernel components on one GPU and
-check them.
+caption serving, TVC train step, four-task pretraining and kernel
+components on one GPU and check them.
 
     python3 chip_smoke.py                  # on a machine with one CUDA card
     python3 chip_smoke.py --json-out F     # also write the full record to F
@@ -82,7 +82,32 @@ What the card run does, in order (any failure exits non-zero):
    plain path on the CPU (loss, every gradient, every new parameter) and
    one bf16 step through the kernels against the plain attention
    versions on the card, as in 7;
-10. the components phase (``tools/component_bench.py`` and the DALN
+10. the pretraining phase: ``config/pretrain-tv.json`` read through the
+   port's options minus its paths (packed 8 x (16 f + 122 t) rows, 100
+   frames, 5 queries of 32 tokens, 42 MLM slots a row, 32 videos a
+   micro-batch, accumulation 2, the 2:2:1:2 MLM/MFM-NCE/FOM/VSM mix,
+   ``drop_svmr_prob`` 0.8) over 256 TV videos with random token ids in
+   in-memory stores; holds #1 and #3 at the f-encoder's (256, 138, 768)
+   and the VSM queries' (160, 32, 768), #2 at the queries' and #6/#7 at
+   img_ln's (4096, 4352), the f-encoder's (35328, 768), the LM head's
+   (10752, 768) and the FOM head's (3200, 1536) against their plain
+   versions; drives ``drivers/pretrain.run_pretrain`` (the MetaLoader,
+   the task datasets, the prefetch to the card, the curriculum,
+   validation) at the flagship model, bf16, dropout 0.1: warm-up steps
+   until every task has run, then 3 runs of 14 optimizer steps timed on
+   the host clock, the launch counters read from 0 around them (prints
+   ``pretrain_examples_per_s``, the median, each task's step ms and
+   launches per step and the task sequence); holds one step of each of
+   MLM, MFM-NCE, MFFR, FOM, VSM, VSM with hard negatives and VSM with one
+   sampled negative with every encoder layer rematerialised equal to the
+   plain step bit for bit (bf16, dropout on, 8 videos) and times remat
+   on and off at 32 videos (step ms, peak memory); holds one bf16 step of
+   each, dropout on, through the kernels against the plain attention
+   versions (``bf16_step_check``, 8 videos); checks that each task's
+   loss falls over 20 steps on one batch (dropout off); and holds one
+   fp32 step of each on the card against the CPU (2 + 1 layers, 4
+   videos: loss, every gradient, every new parameter);
+11. the components phase (``tools/component_bench.py`` and the DALN
    checks of ``tools/kernel_smoke.py`` and ``tools/tpu_kernel_drive.py``):
    holds #6 and #7 at their edges (``check_ln_edges``: widths 1 to
    14528 about the 16-byte access and the warp's share, rows about the
@@ -109,14 +134,15 @@ What the card run does, in order (any failure exits non-zero):
 It prints one ``phases`` JSON line, one train JSON line with
 ``train_examples_per_s``, one TVC JSON line with ``tvc_captions_per_s``,
 one TVC train JSON line with ``tvc_train_captions_per_s``, one
+``pretrain`` JSON line with ``pretrain_examples_per_s``, one
 ``components`` JSON line, one ``kernels`` JSON line (all nine kernels,
 launches by path; #6, #7 and #9 with the device ms of their row pass and
 of the column pass; #8 and #9 with the unfused chain's ms and their own
 at rate 0), the card's name and power limit (nvidia-smi), and as
 the last line ``{"ok": true, "device": {...}}``.  ``--profile`` adds
 torch.profiler breakdowns of a phase-1 batch, a query batch, one
-fit-bucket train step, one greedy TVC batch and one TVC train step to the
-JSON record, and fails if a CUDA-core attention kernel (packed or
+fit-bucket train step, one greedy TVC batch, one TVC train step and one
+optimizer step of each pretraining task to the JSON record, and fails if a CUDA-core attention kernel (packed or
 head-major) ran in any of these bf16 windows, or if the greedy window ran
 no ``mha_attention_mma_kernel``.  ``--daln-times [ROOT]`` does nothing
 but time #8 and #9 of the ``hero_tpu_torch`` under ROOT (this checkout by
@@ -156,9 +182,15 @@ def log(*a):
 # timing helpers
 # ---------------------------------------------------------------------------
 
+SLOW_MS = 5.0      # a call slower than this is timed over fewer calls
+
+
 def time_ms(torch, fn, iters=20, warmup=3):
     """Mean device time of ``fn`` in ms, by CUDA events around ``iters``
-    back-to-back calls after ``warmup`` calls.
+    back-to-back calls after ``warmup`` calls.  A function whose second
+    call takes more than ``SLOW_MS`` on the host clock (the plain
+    versions with Philox dropout, 5-250 ms) is timed over enough calls
+    for ~100 ms, at least 3, after those two.
 
     A spin kernel holds the card while the host queues the calls, so a
     call whose launch costs the host more than the card's work (the
@@ -170,7 +202,15 @@ def time_ms(torch, fn, iters=20, warmup=3):
     call) blocks the host behind the spin; it is timed without the spin,
     and its card time, far above its launch cost, is then what the
     events measure."""
-    for _ in range(warmup):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = (time.perf_counter() - t0) * 1e3
+    if once > SLOW_MS:
+        iters, warmup = max(3, min(iters, int(100.0 / once))), 2
+    for _ in range(warmup - 2):
         fn()
     torch.cuda.synchronize()
     spin = 1 << 22                                   # clock cycles
@@ -1343,7 +1383,7 @@ def integration_check(torch, cfg, flat, vsm, opts, batches, queries,
                                                      make_query_scorer)
     outs = {}
     for dev in (device_kernel, device_plain):
-        params = load_jax_params(flat, device=dev)
+        params = load_jax_params(flat, device=dev, heads=False)
         embs, masks = embed_video_corpus(params, cfg, batches, torch.float32,
                                          dev)
         score, _ = make_query_scorer(params, cfg, vsm, opts, embs, masks,
@@ -1433,7 +1473,8 @@ def train_throughput(torch, cfg, flat, b_fit, b_over, p_over, dev, dtype,
                      num_train_steps=100000, grad_norm=2.0)
     step = make_train_step(vsm_loss_fn(cfg, vsm, dtype, True), spec)
     bf, bo = batch_to_device(b_fit, dev), batch_to_device(b_over, dev)
-    st = {"state": TrainState.create(load_jax_params(flat, device=dev)),
+    st = {"state": TrainState.create(load_jax_params(flat, device=dev,
+                                                     heads=False)),
           "seed": 1000}
 
     def run(batch, n):
@@ -1499,7 +1540,8 @@ def learning_signal(torch, cfg, flat, b_fit, dev, dtype, n_steps):
                      num_train_steps=1000, grad_norm=2.0)
     step = make_train_step(vsm_loss_fn(cfg, VsmConfig(**BENCH_VSM), dtype,
                                        False), spec)
-    state = TrainState.create(load_jax_params(flat, device=dev))
+    state = TrainState.create(load_jax_params(flat, device=dev,
+                                              heads=False))
     batch = batch_to_device(b_fit, dev)
     losses = []
     for _ in range(n_steps):
@@ -1516,16 +1558,10 @@ def train_parity(torch, cfg, videos, dev_kernel, dev_plain):
     """fp32, dropout off: one whole train step through the kernels on the
     card against the plain path on the CPU, at the flagship widths with
     the f-encoder cut to 2 layers and the c-encoder to 1, on a batch of 4
-    fit-bucket videos.  Compares the loss, every gradient and every
-    updated parameter."""
-    from hero_tpu_torch.convert.from_jax import load_jax_params
+    fit-bucket videos (:func:`step_parity`)."""
     from hero_tpu_torch.data.synthetic import TV_PACKED, tv_vsm_batch
-    from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
     from hero_tpu_torch.models.pretrain import VsmConfig, init_flat_params
-    from hero_tpu_torch.training import optim
-    from hero_tpu_torch.training.step import (TrainSpec, TrainState,
-                                              loss_and_grads,
-                                              make_train_step)
+    from hero_tpu_torch.training.step import TrainSpec
     small = cfg.replace(
         f_config=cfg.f_config.replace(num_hidden_layers=2),
         c_config=cfg.c_config.replace(num_hidden_layers=1))
@@ -1535,11 +1571,29 @@ def train_parity(torch, cfg, videos, dev_kernel, dev_plain):
     batch, _ = tv_vsm_batch(videos[:4], shape, seed=2)
     spec = TrainSpec(learning_rate=1e-4, warmup_steps=1,
                      num_train_steps=1000, grad_norm=2.0)
-    loss_fn = vsm_loss_fn(small, vsm, torch.float32, False)
+    return step_parity(torch, flat, batch,
+                       vsm_loss_fn(small, vsm, torch.float32, False), spec,
+                       dev_kernel, dev_plain, heads=False,
+                       what="fp32 train step")
+
+
+def step_parity(torch, flat, batch, loss_fn, spec, dev_kernel, dev_plain,
+                heads, what):
+    """One train step of ``loss_fn`` from the weights ``flat`` on the host
+    ``batch``, on ``dev_kernel`` (the kernels) and ``dev_plain`` (the
+    plain path): the loss, every gradient and every updated parameter
+    must agree (fp32 sums in other orders; AdamW's first step bounds a
+    parameter's move by its gradients' noise)."""
+    from hero_tpu_torch.convert.from_jax import load_jax_params
+    from hero_tpu_torch.data.loader import to_device
+    from hero_tpu_torch.drivers.common import CURRICULUM_KEYS
+    from hero_tpu_torch.training import optim
+    from hero_tpu_torch.training.step import (TrainState, loss_and_grads,
+                                              make_train_step)
     out = {}
     for dev in (dev_kernel, dev_plain):
-        params = load_jax_params(flat, device=dev)
-        b = batch_to_device(batch, dev)
+        params = load_jax_params(flat, device=dev, heads=heads)
+        b = to_device(batch, dev, host_keys=CURRICULUM_KEYS)
         loss, _, grads = loss_and_grads(loss_fn, params, b, None)
         state, m = make_train_step(loss_fn, spec)(TrainState.create(params),
                                                    b, None)
@@ -1551,13 +1605,13 @@ def train_parity(torch, cfg, videos, dev_kernel, dev_plain):
     adam = spec.adamw
     sf = math.sqrt(1 - adam.beta2) / (1 - adam.beta1)
     paths = ["/".join(p) for p in optim.tree_paths(
-        load_jax_params(flat, device="cpu"))]
+        load_jax_params(flat, device="cpu", heads=heads))]
     worst_g, worst_p = (0.0, ""), (0.0, "")
     for path, a, b, pa, pb in zip(paths, gk, gp, pk, pp):
         g_err = float((a - b).abs().max())
         # fp32 sums in other orders, and the atomics of the card's
-        # scatter-add (index_add_, the embedding and gather backward):
-        # within 1e-3 of the leaf's largest gradient
+        # scatter-adds (the embedding and gather backwards): within 1e-3
+        # of the leaf's largest gradient
         g_tol = 1e-3 * float(b.abs().max()) + 1e-7
         # AdamW's first step moves an element by lr*sf*g/(|g| + eps),
         # whose slope in g is at most lr*sf/eps: the gradients' noise
@@ -1568,7 +1622,8 @@ def train_parity(torch, cfg, videos, dev_kernel, dev_plain):
         p_err = float((pa - pb).abs().max())
         worst_g = max(worst_g, (g_err / g_tol, path))
         worst_p = max(worst_p, (p_err / p_tol, path))
-    rec = {"depth": [2, 1], "batch": 4, "loss": [lk, lp],
+    rec = {"depth": [2, 1], "batch": int(np.shape(batch["sub_mask"])[0]),
+           "loss": [lk, lp],
            "loss_rel_err": abs(lk - lp) / abs(lp), "loss_rtol": 1e-5,
            "step_loss": [mk, mp], "grad_norm": [nk, np_],
            "worst_grad_err_over_tol": worst_g,
@@ -1577,7 +1632,7 @@ def train_parity(torch, cfg, videos, dev_kernel, dev_plain):
                  and worst_p[0] <= 1.0
                  and abs(nk - np_) <= 1e-4 * abs(np_))
     if not rec["ok"]:
-        raise AssertionError(f"fp32 train step, kernels vs plain: {rec}")
+        raise AssertionError(f"{what}, kernels vs plain: {rec}")
     return rec
 
 
@@ -1668,7 +1723,7 @@ def vsm_bf16_step(torch, cfg, flat, b_fit, b_over, dev):
     from hero_tpu_torch.models.pretrain import VsmConfig
     from hero_tpu_torch.training import optim
     vsm = VsmConfig(drop_svmr_prob=0.8, **BENCH_VSM)
-    params = load_jax_params(flat, device=dev)
+    params = load_jax_params(flat, device=dev, heads=False)
     paths = ["/".join(p) for p in optim.tree_paths(params)]
     return bf16_step_check(
         torch, lambda dt: vsm_loss_fn(cfg, vsm, dt, True), params,
@@ -2565,6 +2620,471 @@ def tvc_train_phase(torch, cfg, flat, ds, dev, dtype, sync, rehearse,
 
 
 # ---------------------------------------------------------------------------
+# pretraining: config/pretrain-tv.json's four-task recipe through
+# drivers/pretrain.run_pretrain
+# ---------------------------------------------------------------------------
+
+PRETRAIN_VIDEOS = 256                  # TV videos in the in-memory stores
+PRETRAIN_STEPS, PRETRAIN_RUNS = 14, 3  # optimizer steps a timed run, runs
+PRETRAIN_TASKS = ("mlm", "mfm-nce", "fom", "vsm")   # the recipe's mix
+# the checks' tasks: the mix, MFFR, VSM with hard negatives and VSM with
+# one sampled negative (use_all_neg=False) under hard negatives
+CHECK_TASKS = ("mlm", "mfm-nce", "mffr", "fom", "vsm", "vsm-hard",
+               "vsm-sampled")
+CHECK_BS = 8              # videos a batch of the bf16 and remat checks
+PARITY_BS = 4             # videos a batch of the fp32 card-vs-CPU step
+HARD = {"use_hard_negative": np.asarray(True),
+        "hard_pool_size": np.asarray(20),
+        "hard_neg_weight": np.asarray(10.0, np.float32),
+        "lw_st_ed": np.asarray(0.01, np.float32)}
+
+
+class MemSubStore:
+    """In-memory sub store for ``VideoFeatSubTokDataset`` (the attributes
+    ``hero_tpu_torch/data/video.py`` lists): the subs of TV-shaped videos
+    (``occupancy.sample_tv_video``) with random token ids, each matched to
+    a run of frames after the previous sub's (a sub past the clip's end
+    keeps its text and no frame)."""
+
+    def __init__(self, videos, vocab, seed):
+        r = np.random.RandomState(seed)
+        self.cls_, self.pad, self.sep, self.mask = 0, 1, 2, vocab - 8
+        self.v_range = (3, vocab - 8)
+        self.id2len, self.vid2dur, self.vid2idx = {}, {}, {}
+        self.vid_sub2frame, self.vid2sub_lens, self._ex = {}, {}, {}
+        for i, v in enumerate(videos):
+            vid = f"tv{i:04d}"
+            self.id2len[vid] = v.n_frames
+            self.vid2dur[vid] = v.n_frames * 1.5
+            self.vid2idx[vid] = i
+            toks = [r.randint(*self.v_range, size=n - 1).tolist()
+                    for n in v.sub_txt_lens]          # lens count the SEP
+            f0, s2f = 0, []
+            for s, n in enumerate(v.sub_n_frames):
+                s2f.append((s, [f for f in range(f0, f0 + n)
+                                if f < v.n_frames]))
+                f0 += n
+            self.vid_sub2frame[vid] = s2f
+            self.vid2sub_lens[vid] = [len(t) for t in toks]
+            self._ex[vid] = {"input_ids": toks}
+
+    def __getitem__(self, vid):
+        return self._ex[vid]
+
+
+class MemFeatStore:
+    """In-memory feature store: (n_frames, vdim) float16 features."""
+
+    def __init__(self, sub_store, vdim, seed):
+        r = np.random.RandomState(seed)
+        self.name2nframe = dict(sub_store.id2len)
+        self._f = {vid: r.randn(n, vdim).astype(np.float16)
+                   for vid, n in self.name2nframe.items()}
+
+    def __getitem__(self, vid):
+        return self._f[vid]
+
+
+def pretrain_setup(here, vfeat_dim, vocab, n_videos):
+    """``config/pretrain-tv.json`` read through the port's options, minus
+    its paths (no checkpoint, no output directory, the single target);
+    and its packed ``VideoFeatSubTokDataset`` over ``n_videos`` TV videos
+    (``RandomState(41)``) in the in-memory stores."""
+    from hero_tpu_torch.config.opts import get_pretrain_args
+    from hero_tpu_torch.data.occupancy import sample_tv_video
+    from hero_tpu_torch.data.video import VideoFeatSubTokDataset
+    from hero_tpu_torch.drivers.common import shapes_from_opts
+    opts = get_pretrain_args(["--config", os.path.join(
+        here, "config", "pretrain-tv.json")])
+    for k in ("checkpoint", "output_dir", "targets", "sub_txt_db",
+              "vfeat_db"):
+        setattr(opts, k, None)
+    opts.vfeat_dim = vfeat_dim
+    r = np.random.RandomState(41)
+    subs = MemSubStore([sample_tv_video(r) for _ in range(n_videos)],
+                       vocab, 42)
+    db = VideoFeatSubTokDataset(subs, MemFeatStore(subs, vfeat_dim, 43),
+                                shapes_from_opts(opts),
+                                max_txt_len=opts.max_txt_len,
+                                sub_ctx_len=opts.sub_ctx_len,
+                                pack=opts.pack_subs)
+    return opts, db
+
+
+def pretrain_schedule(opts, n_steps):
+    """The task of each of the first ``n_steps`` optimizer steps, as
+    ``run_pretrain``'s MetaLoader draws them."""
+    from hero_tpu_torch.data.loader import MetaLoader
+    from hero_tpu_torch.drivers.pretrain import DEFAULT_TASKS
+    accum = max(opts.gradient_accumulation_steps, 1)
+    it = iter(MetaLoader({t: (iter(int, 1), r)
+                          for t, r in DEFAULT_TASKS.items()},
+                         accum_steps=accum, seed=opts.seed))
+    return [next(it)[0] for _ in range(n_steps * accum)][::accum]
+
+
+def pretrain_batches(opts, db, n_videos):
+    """One host micro-batch of each check task, ``n_videos`` videos: the
+    task datasets' first items, VSM with the curriculum's hard negatives
+    in the ``-hard`` and ``-sampled`` cases."""
+    from hero_tpu_torch.data import pretrain_tasks as pt
+    from hero_tpu_torch.drivers.pretrain import build_task_datasets
+    ds = {t: d for t, (d, _) in build_task_datasets(
+        opts, {"": db}, {"mlm@": 1, "mfm-nce@": 1, "fom@": 1,
+                         "vsm@": 1}).items()}
+    out = {}
+    for task in CHECK_TASKS:
+        base = task.split("-")[0] if task.startswith("vsm") else task
+        src = ds["mfm-nce" if base == "mffr" else base]
+        b = pt.build_batch(src, list(range(n_videos)))
+        if task in ("vsm-hard", "vsm-sampled"):
+            b.update(HARD)
+        out[task] = b
+    return out
+
+
+def check_loss_fn(cfg, opts, task, dtype, train):
+    """``drivers/pretrain.make_loss`` of a check task (``vsm-sampled``:
+    VSM with ``use_all_neg=False``)."""
+    from hero_tpu_torch.drivers.common import vsm_config_from_opts
+    from hero_tpu_torch.drivers.pretrain import make_loss
+    vsm = vsm_config_from_opts(opts)
+    if task == "vsm-sampled":
+        vsm = vsm.replace(use_all_neg=False)
+    return make_loss(task.split("-")[0] if task.startswith("vsm") else task,
+                     cfg, vsm, mask_prob=opts.mask_prob, dtype=dtype,
+                     train=train)
+
+
+def check_pretrain_kernels(torch, cfg, host, kernels):
+    """#1, #3, #6 and #7 at the pretraining step's new shapes (a packed
+    MLM batch of 32 videos: f-encoder rows (256, 16 + 122); the VSM
+    queries (160, 32); the LayerNorms of img_ln, the f-encoder, the LM
+    head and the FOM head), and #2 at the VSM query shape, added to the
+    rows of ``kernels``."""
+    import torch.nn.functional as F
+    from hero_tpu_torch.ops import attention as att
+    from hero_tpu_torch.ops import layernorm as lnm
+    dev = torch.device("cuda")
+    D, H = cfg.f_config.hidden_size, cfg.f_config.num_attention_heads
+    b = host["mlm"]
+    B, S, Lt = b["sub_input_ids"].shape
+    Fs, M = b["sub_frame_idx"].shape[2], b["mlm_mask_pos"].shape[2]
+    seg = torch.from_numpy(np.concatenate(
+        [b["sub_frame_seg"], b["sub_txt_seg"]], 2).reshape(B * S, Fs + Lt)
+    ).to(dev)
+    qm = host["vsm"]["query_attn_masks"]
+    qm = torch.from_numpy(qm.reshape(-1, qm.shape[-1])).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def pre(row, what):
+        return {**row, "mode": f"pretrain: {what}"
+                + (f", {row['mode']}" if "mode" in row else "")}
+
+    f_fwd, f_bwd = check_attention_train(torch, F, att, B * S, Fs + Lt, D, H,
+                                         seg, True)
+    q_fwd, q_bwd = check_attention_train(torch, F, att, qm.shape[0],
+                                         qm.shape[1], D, H, qm, False)
+    F_ = b["c_attn_masks"].shape[1]
+    ln_shapes = (("img_ln", B * S * Fs, cfg.vfeat_dim),
+                 ("f-encoder", B * S * (Fs + Lt), D),
+                 ("lm_head", B * S * M, D),
+                 ("fom_output", B * F_, 2 * cfg.c_config.hidden_size))
+    new = {
+        "attention_seg": [
+            pre(check_attention(torch, F, att, B * S, Fs + Lt, D, H, seg,
+                                True, torch.bfloat16), "f-encoder"),
+            pre(f_fwd, "f-encoder")],
+        "attention_valid": [pre(q_fwd, "VSM queries")],
+        "attention_bwd": [pre(f_bwd, "f-encoder"),
+                          pre(q_bwd, "VSM queries")],
+        "layer_norm": [pre(check_layer_norm(
+            torch, F, lnm, n, w, torch.randn((n, w), generator=gen,
+                                             device=dev).to(torch.bfloat16)),
+            what) for what, n, w in ln_shapes],
+        "layer_norm_bwd": [pre(check_layer_norm_bwd(torch, F, lnm, n, w),
+                               what) for what, n, w in ln_shapes]}
+    for row in kernels:
+        row["shapes"] += new.get(row["name"], [])
+
+
+def pretrain_throughput(torch, cfg, opts, db, dev, dtype, sync, rehearse):
+    """``run_pretrain`` on the four-task mix: warm-up steps until every task
+    has run once, then ``PRETRAIN_RUNS`` runs of ``PRETRAIN_STEPS``
+    optimizer steps timed on the host clock up to a synchronise, the
+    launch counters read from 0 around the runs and per step.  Returns
+    (record, final train state)."""
+    from hero_tpu_torch.drivers.pretrain import run_pretrain
+    n_steps, n_runs = (2, 1) if rehearse else (PRETRAIN_STEPS, PRETRAIN_RUNS)
+    sched = pretrain_schedule(opts, 200)
+    warm = next(i + 1 for i in range(len(sched))
+                if set(sched[:i + 1]) >= set(PRETRAIN_TASKS))
+    opts.num_train_steps = warm + n_runs * n_steps
+    accum = max(opts.gradient_accumulation_steps, 1)
+    log_ = {"task": [], "s": [], "launches": [], "loss": [], "marks": []}
+    prev = {}
+
+    def on_step(step, task, metrics):
+        nonlocal prev
+        if step == warm:
+            sync()
+            reset_counts()
+            prev = read_counts()
+            log_["marks"].append(time.perf_counter())
+            return
+        if step < warm:
+            return
+        now = read_counts()
+        log_["launches"].append({k: now[k] - prev[k] for k in now})
+        prev = now
+        log_["task"].append(task)
+        log_["loss"].append(metrics["loss"])
+        if (step - warm) % n_steps == 0:
+            sync()
+        log_["s"].append(time.perf_counter())
+        if (step - warm) % n_steps == 0:
+            log_["marks"].append(log_["s"][-1])
+
+    t0 = time.perf_counter()
+    state = run_pretrain(opts, {"": db}, cfg=cfg, device=dev, dtype=dtype,
+                         on_step=on_step)
+    sync()
+    total_s = time.perf_counter() - t0
+    launches = read_counts()
+    for k in launches:
+        launches[k] = sum(step[k] for step in log_["launches"])
+    marks, times = log_["marks"], [log_["marks"][0]] + log_["s"]
+    videos = n_steps * accum * opts.train_batch_size
+    runs = [videos / (b - a) for a, b in zip(marks, marks[1:])]
+    losses = [float(x) for x in log_["loss"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"pretraining losses not finite: {losses}")
+    step_ms, per_step = {}, {}
+    for i, task in enumerate(log_["task"]):
+        step_ms.setdefault(task, []).append(1e3 * (times[i + 1] - times[i]))
+        per_step.setdefault(task, log_["launches"][i])
+    rec = {"pretrain_examples_per_s": float(np.median(runs)),
+           "runs_examples_per_s": runs, "warmup_steps": warm,
+           "steps_per_run": n_steps, "videos_per_step": accum
+           * opts.train_batch_size,
+           "task_sequence": log_["task"],
+           "step_ms": {t: float(np.mean(v)) for t, v in step_ms.items()},
+           "step_ms_all": step_ms, "launches_per_step": per_step,
+           "losses": losses, "main_path_launches": launches,
+           "run_pretrain_s": total_s,
+           "subs_dropped": db.trunc_counts["subs_dropped"]}
+    return rec, state
+
+
+def pretrain_learning_signal(torch, cfg, opts, batches, dev, dtype, n_steps):
+    """Each task on one fixed batch, dropout off, lr 1e-4 from the first
+    step: the last step's loss must be below the first's."""
+    from hero_tpu_torch.data.loader import to_device
+    from hero_tpu_torch.drivers.common import (CURRICULUM_KEYS,
+                                               vsm_config_from_opts)
+    from hero_tpu_torch.drivers.pretrain import init_params
+    from hero_tpu_torch.training.step import (TrainSpec, TrainState,
+                                              make_train_step)
+    spec = TrainSpec(learning_rate=SIGNAL_LR, warmup_steps=1,
+                     num_train_steps=1000, grad_norm=opts.grad_norm)
+    params = init_params(opts, cfg, vsm_config_from_opts(opts), dev)
+    out = {}
+    for task in ("mlm", "mfm-nce", "mffr", "fom", "vsm"):
+        step = make_train_step(check_loss_fn(cfg, opts, task, dtype, False),
+                               spec)
+        state = TrainState.create(params)
+        batch = to_device(batches[task], dev, host_keys=CURRICULUM_KEYS)
+        losses = []
+        for _ in range(n_steps):
+            state, m = step(state, batch, None)
+            losses.append(float(m["loss"]))
+        out[task] = losses
+        del state
+    bad = {t: v for t, v in out.items() if not v[-1] < v[0]}
+    if bad:
+        raise AssertionError(f"the loss did not fall: {bad}")
+    return {"lr": SIGNAL_LR, "steps": n_steps, "losses": out}
+
+
+def pretrain_parity(torch, cfg, opts, batches, dev_kernel, dev_plain):
+    """fp32, dropout off: one train step of each check task through the
+    kernels on the card against the plain path on the CPU, the f-encoder
+    cut to 2 layers and the c-encoder to 1, on ``PARITY_BS`` videos
+    (:func:`step_parity`'s rule)."""
+    from hero_tpu_torch.drivers.common import vsm_config_from_opts
+    from hero_tpu_torch.models.pretrain import init_flat_params
+    from hero_tpu_torch.training.step import TrainSpec
+    small = cfg.replace(
+        f_config=cfg.f_config.replace(num_hidden_layers=2),
+        c_config=cfg.c_config.replace(num_hidden_layers=1))
+    flat = init_flat_params(small, vsm_config_from_opts(opts), seed=1)
+    spec = TrainSpec(learning_rate=1e-4, warmup_steps=1,
+                     num_train_steps=1000, grad_norm=opts.grad_norm)
+    out = {}
+    for task in CHECK_TASKS:
+        b = {k: v[:PARITY_BS] if np.ndim(v) else v
+             for k, v in batches[task].items()}
+        out[task] = step_parity(
+            torch, flat, b, check_loss_fn(small, opts, task, torch.float32,
+                                          False),
+            spec, dev_kernel, dev_plain, heads=True, what=f"{task} step")
+    return out
+
+
+def pretrain_bf16_steps(torch, cfg, opts, state, batches, dev):
+    """:func:`bf16_step_check` on one batch of ``CHECK_BS`` videos of each
+    check task, dropout on, at the trained state's parameters."""
+    from hero_tpu_torch.data.loader import to_device
+    from hero_tpu_torch.drivers.common import CURRICULUM_KEYS
+    from hero_tpu_torch.training import optim
+    paths = ["/".join(p) for p in optim.tree_paths(state.params)]
+    out = {}
+    for task in CHECK_TASKS:
+        b = to_device(batches[task], dev, host_keys=CURRICULUM_KEYS)
+        out[task] = bf16_step_check(
+            torch, lambda dt: check_loss_fn(cfg, opts, task, dt, True),
+            state.params, [b], 9, paths)[0]
+    return out
+
+
+def pretrain_remat(torch, cfg, opts, state, batches, full, dev, sync,
+                   rehearse):
+    """Each check task's step with every encoder layer rematerialised
+    equals the plain step bit for bit (bf16, dropout on, ``CHECK_BS``
+    videos): loss and every gradient.  Then, at a full micro-batch of each
+    recipe task, the step time and peak memory with remat off and on."""
+    from hero_tpu_torch.data.loader import to_device
+    from hero_tpu_torch.drivers.common import CURRICULUM_KEYS
+    from hero_tpu_torch.models import transformer
+    from hero_tpu_torch.training import optim
+    from hero_tpu_torch.training.step import loss_and_grads
+    paths = ["/".join(p) for p in optim.tree_paths(state.params)]
+    bits = {}
+    for task in CHECK_TASKS:
+        b = to_device(batches[task], dev, host_keys=CURRICULUM_KEYS)
+        fn = check_loss_fn(cfg, opts, task, torch.bfloat16 if dev == "cuda"
+                           else torch.float32, True)
+        runs = []
+        for remat in (False, True):
+            transformer.set_remat(remat)
+            try:
+                loss, _, grads = loss_and_grads(fn, state.params, b, 13)
+            finally:
+                transformer.set_remat(False)
+            runs.append((loss, optim.tree_leaves(grads)))
+        (l0, g0), (l1, g1) = runs
+        diff = [p for p, a, c in zip(paths, g0, g1) if not torch.equal(a, c)]
+        bits[task] = {"loss": [float(l0), float(l1)],
+                      "loss_equal": bool(torch.equal(l0, l1)),
+                      "grads_differing": diff}
+        if not bits[task]["loss_equal"] or diff:
+            raise AssertionError(f"remat step of {task} is not the plain "
+                                 f"step bit for bit: {bits[task]}")
+        del runs, g0, g1
+    cost = {}
+    if not rehearse:
+        for task in PRETRAIN_TASKS:
+            b = to_device(full[task], dev, host_keys=CURRICULUM_KEYS)
+            fn = check_loss_fn(cfg, opts, task, torch.bfloat16, True)
+            cost[task] = {}
+            for remat in (False, True):
+                transformer.set_remat(remat)
+                try:
+                    loss_and_grads(fn, state.params, b, 14)
+                    sync()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    t0 = time.perf_counter()
+                    for i in range(3):
+                        loss_and_grads(fn, state.params, b, 15 + i)
+                    sync()
+                    ms = (time.perf_counter() - t0) / 3 * 1e3
+                finally:
+                    transformer.set_remat(False)
+                cost[task]["remat" if remat else "plain"] = {
+                    "micro_step_ms": ms,
+                    "peak_gib": (torch.cuda.max_memory_allocated() - base)
+                    / 2 ** 30}
+    return {"bit_equal": bits, "cost_full_micro_batch": cost}
+
+
+def pretrain_profile(torch, cfg, opts, state, full, dev):
+    """torch.profiler windows of one optimizer step (two micro-batches of
+    ``opts.train_batch_size`` videos) of each recipe task."""
+    from hero_tpu_torch.data.loader import to_device
+    from hero_tpu_torch.drivers.common import CURRICULUM_KEYS, Curriculum
+    from hero_tpu_torch.drivers.pretrain import train_spec_from_opts
+    from hero_tpu_torch.training.step import make_train_step
+    accum = max(opts.gradient_accumulation_steps, 1)
+    cur = Curriculum(opts).at(0)
+    out = {}
+    for task in PRETRAIN_TASKS:
+        step = make_train_step(check_loss_fn(cfg, opts, task, torch.bfloat16,
+                                             True),
+                               train_spec_from_opts(opts), accum_steps=accum)
+        host = {k: np.stack([v] * accum) for k, v in full[task].items()}
+        host.update({k: np.broadcast_to(v, (accum,)) for k, v in cur.items()})
+        b = to_device(host, dev, host_keys=CURRICULUM_KEYS)
+        out[task] = profile_breakdown(torch, lambda: step(state, b, 21),
+                                      iters=2)
+    return out
+
+
+def pretrain_phase(torch, here, cfg, dev, dtype, sync, rehearse, profile,
+                   kernels):
+    """The pretraining path and its checks (see the module docstring);
+    the kernel checks at its shapes join the rows of ``kernels``.  Each
+    stage's seconds are in ``stage_s``."""
+    stage_s, t0 = {}, time.perf_counter()
+
+    def stage(name):
+        nonlocal t0
+        now = time.perf_counter()
+        stage_s[name] = now - t0
+        t0 = now
+
+    opts, db = pretrain_setup(here, cfg.vfeat_dim, cfg.f_config.vocab_size,
+                              8 if rehearse else PRETRAIN_VIDEOS)
+    if rehearse:
+        opts.train_batch_size = 2
+    full = pretrain_batches(opts, db, opts.train_batch_size)
+    small = pretrain_batches(opts, db, 2 if rehearse else CHECK_BS)
+    stage("data")
+    if not rehearse:
+        check_pretrain_kernels(torch, cfg, full, kernels)
+        log("pretraining kernel checks passed")
+    stage("kernel_checks")
+    rec = {"stage_s": stage_s,
+           "recipe": {k: getattr(opts, k) for k in (
+               "train_batch_size", "gradient_accumulation_steps",
+               "drop_svmr_prob", "mask_prob", "learning_rate",
+               "warmup_steps", "lw_neg_ctx", "lw_neg_q", "lw_st_ed",
+               "hard_negtiave_start_step", "use_all_neg", "pack_subs")},
+           "shapes": dataclasses.asdict(db.shapes)}
+    train, state = pretrain_throughput(torch, cfg, opts, db, dev, dtype,
+                                       sync, rehearse)
+    rec.update(train)
+    stage("run_pretrain")
+    if profile:
+        rec["profile"] = pretrain_profile(torch, cfg, opts, state, full, dev)
+        stage("profile")
+    rec["remat"] = pretrain_remat(torch, cfg, opts, state, small, full, dev,
+                                  sync, rehearse)
+    stage("remat")
+    rec["bf16_step"] = (None if rehearse else pretrain_bf16_steps(
+        torch, cfg, opts, state, small, dev))
+    del state
+    stage("bf16_step")
+    rec["learning_signal"] = pretrain_learning_signal(
+        torch, cfg, opts, full, dev, dtype, 4 if rehearse else SIGNAL_STEPS)
+    stage("learning_signal")
+    rec["fp32"] = pretrain_parity(torch, cfg, opts, small,
+                                  "cpu" if rehearse else "cuda", "cpu")
+    stage("fp32")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # components: tools/component_bench.py and the DALN checks of
 # tools/kernel_smoke.py and tools/tpu_kernel_drive.py
 # ---------------------------------------------------------------------------
@@ -3057,7 +3577,10 @@ def main(argv=None):
     from hero_tpu_torch.ops import cuda_build
 
     t_start = time.perf_counter()
-    record = {}
+    record = {"phase_end_s": {}}
+
+    def mark(phase):
+        record["phase_end_s"][phase] = time.perf_counter() - t_start
     if rehearse:
         dev, dtype = "cpu", torch.float32
         base = TransformerConfig(hidden_size=64, num_hidden_layers=1,
@@ -3096,7 +3619,7 @@ def main(argv=None):
         n_queries, query_bs, QUERY_SLOTS, 50265, video_ids,
         opts.vfeat_interval)
     flat = init_flat_params(cfg, vsm, seed=0)
-    params = load_jax_params(flat, device=dev)
+    params = load_jax_params(flat, device=dev, heads=False)
     record["setup_s"] = time.perf_counter() - t0
     record["subs_dropped_frac"] = dropped
     log(f"setup (corpus, queries, weights) {record['setup_s']:.1f} s")
@@ -3187,6 +3710,7 @@ def main(argv=None):
         torch, cfg, flat, vsm, opts, small_batches, small_q[0],
         "cpu" if rehearse else "cuda", "cpu")
     log(f"serving phases done at {time.perf_counter() - t_start:.1f} s")
+    mark("serving")
 
     # the VSM train step at bench.py's layout
     t0 = time.perf_counter()
@@ -3222,6 +3746,7 @@ def main(argv=None):
     record["train_bf16_step"] = vsm_bf16_step(torch, cfg, flat, b_fit,
                                               b_over, dev)
     log(f"train phases done at {time.perf_counter() - t_start:.1f} s")
+    mark("train")
 
     # TVC caption serving at config/hero_tvc.json's model
     t0 = time.perf_counter()
@@ -3249,6 +3774,7 @@ def main(argv=None):
         raise AssertionError(f"a kernel of TVC serving was never "
                              f"launched: {tvc_launches}")
     record["tvc"] = tvc
+    mark("tvc")
     log(f"TVC: {tvc['tvc_captions_per_s']:.1f} captions/s greedy, "
         f"{tvc['beam_captions_per_s']:.1f} beam {TVC_BEAM}")
 
@@ -3264,8 +3790,22 @@ def main(argv=None):
         raise AssertionError(f"a kernel of the TVC train step was never "
                              f"launched: {tt_launches}")
     record["tvc_train"] = tvc_train
+    mark("tvc_train")
     log(f"TVC train: {tvc_train['tvc_train_captions_per_s']:.1f} "
         f"captions/s")
+
+    # pretraining: config/pretrain-tv.json's recipe through run_pretrain
+    pre = pretrain_phase(torch, here, cfg, dev, dtype, sync, rehearse,
+                            args.profile and not rehearse,
+                            record["kernels"] if not rehearse else None)
+    pre_launches = pre["main_path_launches"]
+    if not rehearse and min(pre_launches[k] for k in TRAIN_KERNELS) == 0:
+        raise AssertionError(f"a kernel of the pretraining step was never "
+                             f"launched: {pre_launches}")
+    record["pretrain"] = pre
+    mark("pretrain")
+    log(f"pretrain: {pre['pretrain_examples_per_s']:.1f} videos/s, done at "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     # the components of tools/component_bench.py
     if not rehearse:
@@ -3286,6 +3826,7 @@ def main(argv=None):
         raise AssertionError(f"a kernel of the components was never "
                              f"launched: {comp_launches}")
     record["components"] = comps
+    mark("components")
     record["total_s"] = time.perf_counter() - t_start
 
     if args.json_out:
@@ -3331,6 +3872,29 @@ def main(argv=None):
             "loss_rel_err", "worst_grad_err_over_tol",
             "worst_param_err_over_tol", "ok")},
         "bf16_step": tvc_train["bf16_step"]}))
+    print(json.dumps({"pretrain": {
+        "pretrain_examples_per_s": pre["pretrain_examples_per_s"],
+        "runs_examples_per_s": pre["runs_examples_per_s"],
+        "videos_per_step": pre["videos_per_step"],
+        "step_ms": pre["step_ms"],
+        "launches_per_step": pre["launches_per_step"],
+        "task_sequence": pre["task_sequence"],
+        "warmup_steps": pre["warmup_steps"],
+        "learning_signal_losses": {
+            t: [v[0], v[-1]]
+            for t, v in pre["learning_signal"]["losses"].items()},
+        "fp32": {t: {k: r[k] for k in (
+            "loss_rel_err", "worst_grad_err_over_tol",
+            "worst_param_err_over_tol", "ok")}
+            for t, r in pre["fp32"].items()},
+        "bf16_step": pre["bf16_step"] and {
+            t: {"worst_grad_err_over_tol": r["worst_grad_err_over_tol"],
+                "loss_kernel_vs_plain": r["loss_kernel_vs_plain"],
+                "loss_tol": r["loss_tol"]}
+            for t, r in pre["bf16_step"].items()},
+        "remat_bit_equal": {t: r["loss_equal"] and not r["grads_differing"]
+                            for t, r in pre["remat"]["bit_equal"].items()},
+        "remat_cost": pre["remat"]["cost_full_micro_batch"]}}))
     print(json.dumps({"components": {
         "ms": comps.get("ms"), "ffn_tflops": comps.get("ffn_tflops"),
         "shapes": comps["shapes"], "launches": comp_launches}}))
@@ -3339,7 +3903,7 @@ def main(argv=None):
         return 0
     paths = {"serving": launches, "train": train_launches,
              "tvc": tvc_launches, "tvc_train": tt_launches,
-             "components": comp_launches}
+             "pretrain": pre_launches, "components": comp_launches}
     kernels = [{k: row[k] for k in (
         "name", "route", "source", "replaces", "tpu_kernel", "shape", "dtype",
         "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",

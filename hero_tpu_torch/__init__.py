@@ -1,5 +1,7 @@
 """hero_tpu_torch — HERO in PyTorch + CUDA: the two-phase VCMR serving path,
-the VSM pretraining step, TVC caption serving and the TVC train step.
+the four-task pretraining recipe (MLM, MFM-NCE / MFFR, FOM and VSM, from
+the task datasets through the MetaLoader, ``drivers/pretrain.run_pretrain``),
+TVC caption serving and the TVC train step.
 
 A port of ``hero_tpu`` (the JAX/Pallas package beside it, which stays the
 reference) to one NVIDIA H100.  Module names mirror ``hero_tpu`` so each

@@ -10,8 +10,10 @@ the encoder layers are stacked on a leading axis.  The port's tree
 
 The bridge fails on any missing or unexpected key: every JAX key is either
 read into the port's tree or named in :data:`UNUSED_JAX_KEYS` (the
-pretraining tree) or :data:`UNUSED_TVC_JAX_KEYS` (``init_hero_for_tvc``'s
-tree, :func:`load_jax_tvc_params`).
+pretraining tree: the two poolers; with ``heads=False`` also
+:data:`TASK_HEAD_JAX_KEYS`) or :data:`UNUSED_TVC_JAX_KEYS`
+(``init_hero_for_tvc``'s tree, :func:`load_jax_tvc_params`, which reads
+the LM head of the task heads).
 
 The map is linear (transpose, concatenation, per-layer split), so it
 carries any tree shaped like the parameters: AdamW's ``mu`` and ``nu``
@@ -28,20 +30,27 @@ import torch
 
 from hero_tpu_torch import resolve_device
 
-# JAX keys of modules outside the serving slice: the f-encoder pooler and
-# tied LM head (MLM), the MFM frame-mask embeddings and feature regression,
-# the FOM head, and the c-encoder pooler.
+# JAX keys that no path of the port reads: the f- and c-encoder poolers
+# (``hero_tpu/models/encoder.py:155,186``).
 UNUSED_JAX_KEYS = frozenset({
     "v_encoder/f_encoder/pooler/dense/kernel",
     "v_encoder/f_encoder/pooler/dense/bias",
+    "v_encoder/c_encoder/pooler/dense/kernel",
+    "v_encoder/c_encoder/pooler/dense/bias",
+})
+
+# The pretraining task heads: MLM's tied LM head, MFM's two mask
+# embeddings and feature regression, FOM's head.  ``heads=False`` leaves
+# them unread (the serving and VSM paths), and TVC reads the LM head only.
+LM_HEAD_JAX_KEYS = frozenset({
     "v_encoder/f_encoder/lm_head/dense/kernel",
     "v_encoder/f_encoder/lm_head/dense/bias",
     "v_encoder/f_encoder/lm_head/ln/scale",
     "v_encoder/f_encoder/lm_head/ln/bias",
     "v_encoder/f_encoder/lm_head/bias",
+})
+TASK_HEAD_JAX_KEYS = LM_HEAD_JAX_KEYS | frozenset({
     "v_encoder/f_encoder/img_embeddings/mask_emb",
-    "v_encoder/c_encoder/pooler/dense/kernel",
-    "v_encoder/c_encoder/pooler/dense/bias",
     "v_encoder/feat_regress/dense_1/kernel",
     "v_encoder/feat_regress/dense_1/bias",
     "v_encoder/feat_regress/ln/scale",
@@ -56,10 +65,8 @@ UNUSED_JAX_KEYS = frozenset({
     "v_encoder/fom_output/linear_2/kernel",
     "v_encoder/fom_output/linear_2/bias",
 })
-
-# The TVC tree reads the f-encoder's tied LM head and has no VSM head.
-UNUSED_TVC_JAX_KEYS = frozenset(
-    k for k in UNUSED_JAX_KEYS if "/lm_head/" not in k)
+UNUSED_TVC_JAX_KEYS = UNUSED_JAX_KEYS | (TASK_HEAD_JAX_KEYS
+                                         - LM_HEAD_JAX_KEYS)
 
 Getter = Callable[[str], torch.Tensor]
 
@@ -106,7 +113,8 @@ def _encoder(get: Getter, key: str) -> Dict[str, Any]:
                     "ffn": _ffn(get, f"{key}/layers/ffn")})
 
 
-def _v_encoder(get: Getter, lm_head: bool) -> Dict[str, Any]:
+def _v_encoder(get: Getter, lm_head: bool,
+               task_heads: bool = False) -> Dict[str, Any]:
     fe, ce = "v_encoder/f_encoder", "v_encoder/c_encoder"
     f_encoder = {
         "embeddings": {
@@ -120,11 +128,11 @@ def _v_encoder(get: Getter, lm_head: bool) -> Dict[str, Any]:
             "pos_emb": get(f"{fe}/img_embeddings/pos_emb"),
             "ln": _ln(get, f"{fe}/img_embeddings/ln")},
         "encoder": _encoder(get, f"{fe}/encoder")}
-    if lm_head:
+    if lm_head or task_heads:
         f_encoder["lm_head"] = {"dense": _linear(get, f"{fe}/lm_head/dense"),
                                 "ln": _ln(get, f"{fe}/lm_head/ln"),
                                 "bias": get(f"{fe}/lm_head/bias")}
-    return {
+    out = {
         "f_encoder": f_encoder,
         "frame_transform": {
             "dense": _linear(get, "v_encoder/frame_transform/dense"),
@@ -135,12 +143,25 @@ def _v_encoder(get: Getter, lm_head: bool) -> Dict[str, Any]:
                 "ln": _ln(get, f"{ce}/embeddings/ln")},
             "encoder": _encoder(get, f"{ce}/encoder")},
     }
+    if task_heads:
+        f_encoder["img_embeddings"]["mask_emb"] = get(
+            f"{fe}/img_embeddings/mask_emb")
+        fr, fo = "v_encoder/feat_regress", "v_encoder/fom_output"
+        out.update({
+            "feat_regress": {"dense_1": _linear(get, f"{fr}/dense_1"),
+                             "ln": _ln(get, f"{fr}/ln"),
+                             "dense_2": _linear(get, f"{fr}/dense_2")},
+            "mask_embedding": get("v_encoder/mask_embedding"),
+            "fom_output": {"linear_1": _linear(get, f"{fo}/linear_1"),
+                           "ln": _ln(get, f"{fo}/ln"),
+                           "linear_2": _linear(get, f"{fo}/linear_2")}})
+    return out
 
 
-def _port_tree(get: Getter) -> Dict[str, Any]:
+def _port_tree(get: Getter, heads: bool = True) -> Dict[str, Any]:
     qa = "head/q_feat_attn"
     return {
-        "v_encoder": _v_encoder(get, lm_head=False),
+        "v_encoder": _v_encoder(get, lm_head=False, task_heads=heads),
         "head": {
             "video_query_linear": _linear(get, "head/video_query_linear"),
             "video_st_predictor": {
@@ -202,11 +223,17 @@ def _load(flat, device, tree, unused_keys) -> Dict[str, Any]:
     return params
 
 
-def load_jax_params(flat: Mapping[str, np.ndarray], device="cuda"
-                    ) -> Dict[str, Any]:
-    """The port's fp32 parameter tree from flat JAX parameters.  Raises
-    KeyError if a key is missing or not accounted for."""
-    return _load(flat, device, _port_tree, UNUSED_JAX_KEYS)
+def load_jax_params(flat: Mapping[str, np.ndarray], device="cuda",
+                    heads: bool = True) -> Dict[str, Any]:
+    """The port's fp32 parameter tree from flat JAX parameters: the whole
+    pretraining tree, or with ``heads=False`` the tree without the task
+    heads (:data:`TASK_HEAD_JAX_KEYS`, left unread: what VCMR serving and
+    the VSM step read).  Raises KeyError if a key is missing or not
+    accounted for."""
+    if heads:
+        return _load(flat, device, _port_tree, UNUSED_JAX_KEYS)
+    return _load(flat, device, lambda get: _port_tree(get, heads=False),
+                 UNUSED_JAX_KEYS | TASK_HEAD_JAX_KEYS)
 
 
 def load_jax_tvc_params(flat: Mapping[str, np.ndarray], device="cuda"
@@ -221,26 +248,28 @@ def load_jax_tvc_params(flat: Mapping[str, np.ndarray], device="cuda"
 
 
 def _train_state(load, flat_params, flat_mu, flat_nu, opt_step,
-                 global_step, device):
+                 global_step, device, **kw):
     from hero_tpu_torch.training.optim import AdamWState
     from hero_tpu_torch.training.step import TrainState
     return TrainState(
-        params=load(flat_params, device),
-        opt=AdamWState(step=int(opt_step), mu=load(flat_mu, device),
-                       nu=load(flat_nu, device)),
+        params=load(flat_params, device, **kw),
+        opt=AdamWState(step=int(opt_step), mu=load(flat_mu, device, **kw),
+                       nu=load(flat_nu, device, **kw)),
         global_step=int(global_step))
 
 
 def load_jax_train_state(flat_params: Mapping[str, np.ndarray],
                          flat_mu: Mapping[str, np.ndarray],
                          flat_nu: Mapping[str, np.ndarray], opt_step: int,
-                         global_step: int, device="cuda"):
+                         global_step: int, device="cuda",
+                         heads: bool = True):
     """The port's ``TrainState`` from the flat parameters, AdamW moments
-    and step counters of a JAX ``TrainState``.  The moments of the JAX
-    keys outside the slice (:data:`UNUSED_JAX_KEYS`) are dropped with
-    their parameters."""
+    and step counters of a JAX pretraining ``TrainState``: every
+    parameter with its moments, the task heads included (``heads=False``
+    drops them as :func:`load_jax_params` does).  The poolers' moments
+    (:data:`UNUSED_JAX_KEYS`) are dropped with their parameters."""
     return _train_state(load_jax_params, flat_params, flat_mu, flat_nu,
-                        opt_step, global_step, device)
+                        opt_step, global_step, device, heads=heads)
 
 
 def load_jax_tvc_train_state(flat_params: Mapping[str, np.ndarray],

@@ -3,8 +3,11 @@ and ``bench.py``; the same seed gives the same arrays).
 
 - :func:`base_batch`: backbone ('repr') batch, one sub per row.
 - :func:`tv_vsm_batch`: TV-distribution videos (``occupancy.sample_tv_video``)
-  in the packed layout: the backbone keys, the four segment/position keys
-  and the VSM query keys.
+  in the packed (or unpacked) layout: the backbone keys, the four
+  segment/position keys and the VSM query keys.
+- :func:`vsm_batch`, :func:`mlm_batch`, :func:`mfm_batch`,
+  :func:`fom_batch`, :func:`task_batch` and :func:`tv_task_batch`: the
+  pretraining tasks' batches.
 - ``TV_PACKED`` / ``TV_PACKED_OVERFLOW`` and :func:`partition_videos`:
   ``bench.py``'s two buckets and its routing of each video between them.
 """
@@ -12,7 +15,7 @@ and ``bench.py``; the same seed gives the same arrays).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -103,13 +106,15 @@ def base_batch(shape: BatchShape, seed: int = 0) -> Dict[str, np.ndarray]:
     }
 
 
-def tv_vsm_batch(videos, shape: BatchShape, seed: int = 0
+def tv_vsm_batch(videos, shape: BatchShape, seed: int = 0,
+                 packed: bool = True
                  ) -> tuple[Dict[str, np.ndarray], float]:
     """VSM batch holding ``videos`` (occupancy.VideoShape list) in the
-    packed layout (first-fit, segment ids).  Returns (batch dict, fraction
-    of subs dropped).  Equal, key for key, to the JAX package's
-    ``tv_vsm_batch(videos, shape, packed=True, seed)``: the random draws
-    come in its order (features, query ids, span targets)."""
+    packed (first-fit, segment ids) or unpacked (one sub a row, each cut
+    to the row's budgets) layout.  Returns (batch dict, fraction of subs
+    dropped).  Equal, key for key, to the JAX package's
+    ``tv_vsm_batch(videos, shape, packed, seed)``: the random draws come
+    in its order (features, query ids, span targets)."""
     r = np.random.RandomState(seed)
     B, S, Lt, Fs = (len(videos), shape.n_subs, shape.txt_len,
                     shape.frames_per_sub)
@@ -129,17 +134,32 @@ def tv_vsm_batch(videos, shape: BatchShape, seed: int = 0
         "sub_frame_idx": np.zeros((B, S, Fs), np.int32),
         "sub_frame_mask": np.zeros((B, S, Fs), np.float32),
         "sub_mask": np.zeros((B, S), np.float32),
-        "sub_txt_seg": np.full((B, S, Lt), -1, np.int32),
-        "sub_frame_seg": np.full((B, S, Fs), -1, np.int32),
-        "sub_txt_pos": np.zeros((B, S, Lt), np.int32),
-        "sub_frame_pos": np.zeros((B, S, Fs), np.int32),
     }
+    if packed:
+        out.update({
+            "sub_txt_seg": np.full((B, S, Lt), -1, np.int32),
+            "sub_frame_seg": np.full((B, S, Fs), -1, np.int32),
+            "sub_txt_pos": np.zeros((B, S, Lt), np.int32),
+            "sub_frame_pos": np.zeros((B, S, Fs), np.int32),
+        })
     dropped = total = 0
     for b, v in enumerate(videos):
         out["c_attn_masks"][b, :v.n_frames] = 1.0
         lens = list(zip(v.sub_txt_lens, v.sub_n_frames))
         total += len(lens)
         f0 = 0
+        if not packed:
+            dropped += max(0, len(lens) - S)
+            for s, (tl, fl) in enumerate(lens[:S]):
+                tl, fl = min(tl, Lt), min(fl, Fs)
+                out["sub_input_ids"][b, s, :tl] = 5
+                out["sub_txt_mask"][b, s, :tl] = 1.0
+                idx = (f0 + np.arange(fl)) % v.n_frames
+                out["sub_frame_idx"][b, s, :fl] = idx
+                out["sub_frame_mask"][b, s, :fl] = 1.0
+                out["sub_mask"][b, s] = 1.0
+                f0 += fl
+            continue
         pls = pack_subs(lens, S, Lt, Fs)
         for (tl, fl), pl in zip(lens, pls):
             if pl is None:
@@ -160,3 +180,139 @@ def tv_vsm_batch(videos, shape: BatchShape, seed: int = 0
                 f0 += pl.flen
             out["sub_mask"][b, pl.row] = 1.0
     return out, dropped / max(total, 1)
+
+
+# ---------------------------------------------------------------------------
+# the pretraining tasks' batches (``hero_tpu/data/synthetic.py:111-197``
+# and ``:269-333``)
+# ---------------------------------------------------------------------------
+
+def vsm_batch(shape: BatchShape, seed: int = 0) -> Dict[str, np.ndarray]:
+    """:func:`base_batch` plus Q queries a video with span targets."""
+    r = np.random.RandomState(seed + 1)
+    b = base_batch(shape, seed)
+    B, Q, Lq, F = (shape.batch, shape.n_queries, shape.query_len,
+                   shape.n_frames)
+    q_ids = r.randint(3, shape.vocab_size, (B, Q, Lq)).astype(np.int32)
+    q_lens = r.randint(Lq // 2, Lq + 1, (B, Q))
+    q_mask_tok = (np.arange(Lq)[None, None, :]
+                  < q_lens[..., None]).astype(np.float32)
+    q_ids[q_mask_tok == 0] = 1
+    st = r.randint(0, F // 2, (B, Q))
+    ed = st + r.randint(0, F // 2, (B, Q))
+    b.update({
+        "query_input_ids": q_ids,
+        "query_attn_masks": q_mask_tok,
+        "q_mask": np.ones((B, Q), np.float32),
+        "targets": np.stack([st, np.minimum(ed, F - 1)],
+                            -1).astype(np.int32),
+    })
+    return b
+
+
+def mlm_batch(shape: BatchShape, seed: int = 0) -> Dict[str, np.ndarray]:
+    """:func:`base_batch` with M mask positions a row, ~80% of them
+    labelled and their input ids set to 3."""
+    r = np.random.RandomState(seed + 2)
+    b = base_batch(shape, seed)
+    B, S, Lt, M = (shape.batch, shape.n_subs, shape.txt_len,
+                   shape.max_masked)
+    mask_pos = r.randint(0, Lt, (B, S, M)).astype(np.int32)
+    labels = np.where(r.rand(B, S, M) < 0.8,
+                      r.randint(3, shape.vocab_size, (B, S, M)),
+                      -1).astype(np.int32)
+    bi, si, mi = np.nonzero(labels >= 0)
+    b["sub_input_ids"][bi, si, mask_pos[bi, si, mi]] = 3
+    b["mlm_mask_pos"] = mask_pos
+    b["mlm_labels"] = labels
+    return b
+
+
+def mfm_batch(shape: BatchShape, seed: int = 0) -> Dict[str, np.ndarray]:
+    """:func:`base_batch` with a 15% frame mask, frame 0 of each clip
+    always masked."""
+    r = np.random.RandomState(seed + 3)
+    b = base_batch(shape, seed)
+    B, F = shape.batch, shape.n_frames
+    m = (r.rand(B, F) < 0.15).astype(np.float32) * b["c_attn_masks"]
+    m[:, 0] = b["c_attn_masks"][:, 0]
+    b["c_v_masks"] = m
+    return b
+
+
+def _fom_orders(r, c_attn_masks):
+    """15% of each clip's valid frames (at least one) permuted among
+    themselves: (shuffled_orders, fom_targets)."""
+    B, F = c_attn_masks.shape
+    orders = np.tile(np.arange(F, dtype=np.int32), (B, 1))
+    targets = np.full((B, F), -1, np.int32)
+    for bi in range(B):
+        nf = int(c_attn_masks[bi].sum())
+        sel = r.choice(nf, max(1, int(nf * 0.15)), replace=False)
+        perm = r.permutation(sel)
+        orders[bi, sel] = perm
+        targets[bi, perm] = sel.astype(np.int32)
+    return orders, targets
+
+
+def fom_batch(shape: BatchShape, seed: int = 0) -> Dict[str, np.ndarray]:
+    r = np.random.RandomState(seed + 4)
+    b = base_batch(shape, seed)
+    b["shuffled_orders"], b["fom_targets"] = _fom_orders(r,
+                                                         b["c_attn_masks"])
+    return b
+
+
+def task_batch(task: str, shape: BatchShape,
+               seed: int = 0) -> Dict[str, np.ndarray]:
+    if task == "vsm":
+        return vsm_batch(shape, seed)
+    if task.startswith("mlm"):
+        return mlm_batch(shape, seed)
+    if task in ("mfm-nce", "mffr"):
+        return mfm_batch(shape, seed)
+    if task == "fom":
+        return fom_batch(shape, seed)
+    return base_batch(shape, seed)
+
+
+def tv_task_batch(task: str, videos, shape: BatchShape, packed: bool,
+                  seed: int = 0, max_masked: Optional[int] = None):
+    """TV-distribution batch of any pretraining task, packed or unpacked:
+    the sub layout of :func:`tv_vsm_batch` plus the task's extras.
+    ``max_masked``: MLM slots a row, by default
+    ``mlm_row_cap(0.15, txt_len)``.  Returns (batch, subs dropped)."""
+    b, dropped = tv_vsm_batch(videos, shape, seed, packed=packed)
+    r = np.random.RandomState(seed + 7)
+    B, S, Lt, F = len(videos), shape.n_subs, shape.txt_len, shape.n_frames
+    if task == "vsm":
+        return b, dropped
+    if task.startswith("mlm"):
+        if max_masked is None:
+            from hero_tpu_torch.data.pretrain_tasks import mlm_row_cap
+            max_masked = mlm_row_cap(0.15, Lt)
+        M = max_masked
+        mask_pos = np.zeros((B, S, M), np.int32)
+        labels = np.full((B, S, M), -1, np.int32)
+        for bi in range(B):
+            for si in range(S):
+                valid = np.where(b["sub_txt_mask"][bi, si] > 0)[0]
+                if not len(valid):
+                    continue
+                k = min(M, max(1, int(len(valid) * 0.15)))
+                picks = r.choice(valid, k, replace=False)
+                mask_pos[bi, si, :k] = picks
+                labels[bi, si, :k] = r.randint(3, shape.vocab_size, k)
+                b["sub_input_ids"][bi, si, picks] = 3  # [MASK]
+        b["mlm_mask_pos"] = mask_pos
+        b["mlm_labels"] = labels
+    elif task in ("mfm-nce", "mffr"):
+        m = (r.rand(B, F) < 0.15).astype(np.float32) * b["c_attn_masks"]
+        m[:, 0] = b["c_attn_masks"][:, 0]   # >= 1 masked frame a video
+        b["c_v_masks"] = m
+    elif task == "fom":
+        b["shuffled_orders"], b["fom_targets"] = _fom_orders(
+            r, b["c_attn_masks"])
+    else:
+        raise ValueError(task)
+    return b, dropped

@@ -1,2 +1,3 @@
-"""Entry points over whole datasets: TVC caption generation and the TVC
-train step."""
+"""Entry points over whole datasets: pretraining (``pretrain``, with the
+train loop in ``common``), TVC caption generation and the TVC train
+step."""

@@ -1,1 +1,2 @@
-"""Two-phase VCMR/VR corpus evaluation (the serving path) and its metrics."""
+"""Two-phase VCMR/VR corpus evaluation (the serving path) and its metrics,
+and the pretraining validators."""

@@ -30,6 +30,7 @@ from hero_tpu_torch.const import VCMR_IOU_THDS
 from hero_tpu_torch.evaluation import tvr_metrics
 from hero_tpu_torch.models import nn
 from hero_tpu_torch.models import pretrain as pretrain_lib
+from hero_tpu_torch.models.model import without_task_heads
 from hero_tpu_torch.models import vcmr as vcmr_lib
 from hero_tpu_torch.models.pretrain import VsmConfig
 
@@ -66,7 +67,7 @@ def embed_video_corpus(params, cfg: HeroConfig,
     """Phase 1: (Nv, max_clip_len, D) frame embeddings + (Nv, L) masks, on
     ``device``."""
     device = resolve_device(device)
-    params = nn.tree_to(params, device)
+    params = nn.tree_to(without_task_heads(params), device)
     embs, masks = [], []
     with torch.inference_mode():
         for batch in video_batches:
@@ -199,7 +200,7 @@ def validate_full_vcmr(params, cfg: HeroConfig, vsm: VsmConfig,
             "pack_queries (packed query encoding) is not ported yet; see "
             "ROADMAP A3 (packed queries)")
     device = resolve_device(device)
-    params = nn.tree_to(params, device)
+    params = nn.tree_to(without_task_heads(params), device)
     video2idx_local = {v: i for i, v in enumerate(video_ids)}
     frame_embs, frame_masks = embed_video_corpus(
         params, cfg, video_batches, dtype, device)

@@ -4,7 +4,8 @@
   subtitle and query text.  Default positions are ``arange`` clamped at 511
   (the reference collates); the default type id is 1.
 - :func:`project_image_features` / :func:`image_embeddings`: 4352-d frame
-  features -> LN -> linear -> + position + type -> LN.
+  features [+ MFM mask embedding] -> LN -> linear -> + position + type ->
+  LN.
 - :func:`frame_embeddings`: clip-level positions for the temporal encoder.
 - :func:`query_feat_embeddings`: positions over projected query features.
 
@@ -45,21 +46,30 @@ def sub_embeddings(p: Params, input_ids: torch.Tensor,
     return nn.dropout(x, dropout_rate, nn.rng_for(seed, "sub_emb"))
 
 
-def project_image_features(p: Params, img_feat: torch.Tensor, *,
+def project_image_features(p: Params, img_feat: torch.Tensor,
+                           img_masks: Optional[torch.Tensor] = None, *,
                            dtype: torch.dtype = torch.float32
                            ) -> torch.Tensor:
-    """img_ln + img_linear: (..., L, img_dim) -> (..., L, D)."""
+    """[MFM mask embedding +] img_ln + img_linear: (..., L, img_dim) ->
+    (..., L, D).  ``img_masks`` (..., L), 1 = masked frame, adds the row
+    ``mask_emb[img_masks]`` before the LayerNorm
+    (``hero_tpu/models/embed.py:101-114``)."""
+    if img_masks is not None:
+        img_feat = img_feat.to(dtype) + nn.embedding_lookup(
+            p["mask_emb"], img_masks.long(), dtype)
     h = nn.apply_layer_norm(p["img_ln"], img_feat.to(dtype))
     return nn.linear(p["img_linear"], h, dtype)
 
 
 def image_embeddings(p: Params, img_feat: torch.Tensor,
                      type_embedding: torch.Tensor,
-                     img_pos_ids: Optional[torch.Tensor] = None, *,
+                     img_pos_ids: Optional[torch.Tensor] = None,
+                     img_masks: Optional[torch.Tensor] = None, *,
                      dropout_rate: float = 0.0, seed: Optional[int] = None,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """img_feat (..., L, img_dim) -> (..., L, D)."""
-    h = project_image_features(p, img_feat, dtype=dtype)
+    """img_feat (..., L, img_dim) -> (..., L, D); ``img_masks`` as in
+    :func:`project_image_features`."""
+    h = project_image_features(p, img_feat, img_masks, dtype=dtype)
     if img_pos_ids is None:
         img_pos_ids = _arange_like(img_feat, img_feat.shape[-2])
     pos = nn.embedding_lookup(p["pos_emb"], img_pos_ids, dtype)

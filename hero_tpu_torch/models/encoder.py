@@ -36,14 +36,16 @@ def _emb_rate(cfg: TransformerConfig, train: bool) -> float:
 
 def _fused_embeddings(p: Params, cfg: TransformerConfig, sub_input_ids,
                       txt_mask, v_feats, v_mask,
-                      packed: Optional[Dict[str, torch.Tensor]] = None, *,
+                      packed: Optional[Dict[str, torch.Tensor]] = None,
+                      img_masks: Optional[torch.Tensor] = None, *,
                       train: bool = False, seed: Optional[int] = None,
                       dtype: torch.dtype = torch.float32
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Embed ``[frames ; text]`` rows.  Returns (hidden (N, Fs+Lt, D), the
     encoder's mask keyword: ``{"kv_mask": (N, Fs+Lt)}`` unpacked, or
     ``{"seg": (N, Fs+Lt) int32}`` when ``packed`` carries ``txt_seg`` /
-    ``frame_seg`` / ``txt_pos`` / ``frame_pos``)."""
+    ``frame_seg`` / ``txt_pos`` / ``frame_pos``).  ``img_masks`` (N, Fs),
+    1 = masked frame slot, adds the MFM mask embedding to the frames."""
     txt_emb = embed.sub_embeddings(
         p["embeddings"], sub_input_ids,
         position_ids=None if packed is None else packed["txt_pos"],
@@ -52,7 +54,8 @@ def _fused_embeddings(p: Params, cfg: TransformerConfig, sub_input_ids,
     img_emb = embed.image_embeddings(
         p["img_embeddings"], v_feats, _img_type_embedding(p),
         img_pos_ids=None if packed is None else packed["frame_pos"],
-        dropout_rate=_emb_rate(cfg, train), seed=nn.rng_for(seed, "img"),
+        img_masks=img_masks, dropout_rate=_emb_rate(cfg, train),
+        seed=nn.rng_for(seed, "img"),
         dtype=dtype)
     hidden = torch.cat([img_emb, txt_emb], dim=1)
     if packed is not None:
@@ -66,16 +69,35 @@ def _fused_embeddings(p: Params, cfg: TransformerConfig, sub_input_ids,
 
 
 def cross_modal_repr(p: Params, cfg: TransformerConfig, sub_input_ids,
-                     txt_mask, v_feats, v_mask, *, packed=None,
-                     train: bool = False, seed: Optional[int] = None,
+                     txt_mask, v_feats, v_mask, img_masks=None, *,
+                     packed=None, train: bool = False,
+                     seed: Optional[int] = None,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Fused encoding ('repr'): (N, Fs+Lt, D), frame outputs first."""
     hidden, mask = _fused_embeddings(p, cfg, sub_input_ids, txt_mask,
-                                     v_feats, v_mask, packed, train=train,
-                                     seed=seed, dtype=dtype)
+                                     v_feats, v_mask, packed, img_masks,
+                                     train=train, seed=seed, dtype=dtype)
     return transformer.encoder(p["encoder"], hidden, cfg, train=train,
                                seed=nn.rng_for(seed, "enc"), dtype=dtype,
                                **mask)
+
+
+def cross_modal_mlm(p: Params, cfg: TransformerConfig, sub_input_ids,
+                    txt_mask, v_feats, v_mask, mask_pos, *, packed=None,
+                    train: bool = False, seed: Optional[int] = None,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """MLM logits (N, M, vocab) at the masked text positions ``mask_pos``
+    (N, M), indices into the text slots after the Fs frame slots: the
+    tied LM head runs on the gathered rows only
+    (``hero_tpu/models/encoder.py:131-152``).  Padded entries of
+    ``mask_pos`` point anywhere; their labels are -1."""
+    seq = cross_modal_repr(p, cfg, sub_input_ids, txt_mask, v_feats, v_mask,
+                           packed=packed, train=train, seed=seed,
+                           dtype=dtype)
+    txt = seq[:, v_feats.shape[1]:]                          # (N, Lt, D)
+    idx = mask_pos.long()[..., None].expand(-1, -1, txt.shape[-1])
+    return transformer.lm_head(p["lm_head"], p["embeddings"]["word_emb"],
+                               txt.gather(1, idx), cfg, dtype=dtype)
 
 
 def cross_modal_txt(p: Params, cfg: TransformerConfig, input_ids, mask, *,

@@ -109,6 +109,15 @@ def linear_layer(p: Params, x: torch.Tensor, *, relu: bool = True,
     return torch.relu(x) if relu else x
 
 
+def mlp_layer(p: Params, x: torch.Tensor,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """MLPLayer: linear(d, 2d) -> GELU -> LayerNorm -> linear(2d, out)
+    (``hero_tpu/models/nn.py:144-157``), the FOM head."""
+    h = gelu(linear(p["linear_1"], x, dtype))
+    h = apply_layer_norm(p["ln"], h)
+    return linear(p["linear_2"], h, dtype)
+
+
 def mask_logits(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """logits + (1 - mask) * -1e4."""
     return logits + (1.0 - mask.to(logits.dtype)) * NEG_INF

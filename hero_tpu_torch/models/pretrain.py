@@ -2,9 +2,10 @@
 (counterpart of ``hero_tpu/models/pretrain.py``).
 
 :func:`forward_vsm` is the pretraining VSM task: clip and query encoding,
-the span loss and the in-batch ranking losses over all negatives.  The
-sampled-negative branch (``use_all_neg=False``) is not ported yet
-(ROADMAP A2) and raises.
+the span loss and the in-batch ranking losses over all negatives or one
+sampled negative (``use_all_neg=False``), with the curriculum's
+hard-negative weighting.  :func:`forward_pretrain` dispatches the four
+pretraining tasks (MLM, MFM-NCE / MFFR, FOM, VSM).
 
 :func:`init_flat_params` draws weights with the same tree and
 distributions as ``init_hero_for_pretraining`` but with numpy, in the flat
@@ -136,30 +137,33 @@ def ranking_loss(pos: torch.Tensor, neg: torch.Tensor, loss_type: str,
 def video_level_loss(scores: torch.Tensor, q_mask: torch.Tensor,
                      num_q_per_v: int, vsm: VsmConfig, *,
                      use_hard_negative: bool = False,
-                     hard_pool_size: int = 20, hard_neg_weight: float = 10.0
+                     hard_pool_size: int = 20, hard_neg_weight: float = 10.0,
+                     seed: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """In-batch ranking losses over (Nq, Nv) scores, all negatives
+    """In-batch ranking losses over (Nq, Nv) scores
     (``hero_tpu/models/pretrain.py:217-285``).  Query j's positive video
-    is j // num_q_per_v; hard-negative weights apply to the sorted
-    negative columns; ``q_mask`` (Nq,) drops padded queries out of the
-    means.  Returns (loss_neg_ctx, loss_neg_q)."""
+    is j // num_q_per_v; ``q_mask`` (Nq,) drops padded queries out of the
+    means.  All negatives (``vsm.use_all_neg``): hard-negative weights
+    apply to the sorted negative columns.  Otherwise one sampled negative
+    a query and a video (:func:`_sampled_neg_loss`, drawn from ``seed``).
+    Returns (loss_neg_ctx, loss_neg_q)."""
     nq, nv = scores.shape
     if nv == 1:
         # a one-video batch has no negative contexts (the reference
         # returns zero losses for bsz_v == 1)
         zero = scores.new_zeros(())
         return zero, zero
-    if not vsm.use_all_neg:
-        raise NotImplementedError(
-            "the sampled-negative branch (use_all_neg=False) is not ported "
-            "yet (ROADMAP A2)")
     dev = scores.device
     q_mask = q_mask.float()
     pos_vid = torch.arange(nq, device=dev) // num_q_per_v
     is_pos = torch.arange(nv, device=dev)[None, :] == pos_vid[:, None]
     pos_scores = scores.gather(1, pos_vid[:, None])[:, 0]
-    big = 999.0
-    scores_masked = torch.where(is_pos, big, scores)
+    scores_masked = torch.where(is_pos, _BIG, scores)
+    if not vsm.use_all_neg:
+        return _sampled_neg_loss(scores_masked, pos_scores, q_mask,
+                                 num_q_per_v, vsm,
+                                 use_hard_negative=use_hard_negative,
+                                 hard_pool_size=hard_pool_size, seed=seed)
 
     def weights(n_cols):
         if not use_hard_negative:
@@ -167,20 +171,14 @@ def video_level_loss(scores: torch.Tensor, q_mask: torch.Tensor,
         col = torch.arange(n_cols, device=dev)
         return torch.where(col < hard_pool_size, float(hard_neg_weight), 0.1)
 
-    def sort_desc(x):
-        return torch.sort(x, dim=1, descending=True, stable=True).values
-
     # negative contexts per query: the masked positive sorts first
-    neg_ctx = sort_desc(scores_masked)[:, 1:]                  # (Nq, Nv-1)
+    neg_ctx = _sort_desc(scores_masked)[:, 1:]                 # (Nq, Nv-1)
     l_ctx = ranking_loss(pos_scores[:, None], neg_ctx, vsm.ranking_loss_type,
                          vsm.margin) * weights(nv - 1)[None, :]
     l_ctx_per_q = l_ctx.mean(1) * q_mask
 
-    # negative queries per video: invalid queries sort last, the
-    # num_q_per_v positives first
-    vq = torch.where(q_mask[None, :] > 0, scores_masked.T, NEG_INF)
-    vq = torch.where(is_pos.T, big, vq)
-    neg_q = sort_desc(vq)[:, num_q_per_v:]                     # (Nv, Nq-Q)
+    neg_q = _sort_desc(_video_rows(scores_masked, q_mask, num_q_per_v))[
+        :, num_q_per_v:]                                       # (Nv, Nq-Q)
     pos_per_v = pos_scores.reshape(nv, num_q_per_v)
     l_q = ranking_loss(pos_per_v[:, :, None], neg_q[:, None, :],
                        vsm.ranking_loss_type, vsm.margin)
@@ -191,20 +189,95 @@ def video_level_loss(scores: torch.Tensor, q_mask: torch.Tensor,
     return l_ctx_per_q.sum() / n_valid, l_q_per_q.sum() / n_valid
 
 
+_BIG = 999.0                     # the masked positives' score: sorts first
+
+
+def _sort_desc(x: torch.Tensor) -> torch.Tensor:
+    return torch.sort(x, dim=1, descending=True, stable=True).values
+
+
+def _video_rows(scores_masked: torch.Tensor, q_mask: torch.Tensor,
+                num_q_per_v: int) -> torch.Tensor:
+    """(Nv, Nq) scores of every query against each video: invalid queries
+    at -1e4 (they sort last), each video's own num_q_per_v queries at
+    999 (they sort first)."""
+    nq, nv = scores_masked.shape
+    pos_vid = torch.arange(nq, device=scores_masked.device) // num_q_per_v
+    own = (torch.arange(nv, device=scores_masked.device)[:, None]
+           == pos_vid[None, :])
+    vq = torch.where(q_mask[None, :] > 0, scores_masked.T, NEG_INF)
+    return torch.where(own, _BIG, vq)
+
+
+def _sampled_neg_loss(scores_masked: torch.Tensor, pos_scores: torch.Tensor,
+                      q_mask: torch.Tensor, num_q_per_v: int,
+                      vsm: VsmConfig, *, use_hard_negative: bool,
+                      hard_pool_size: int, seed: Optional[int] = None,
+                      uniforms: Optional[Tuple[torch.Tensor,
+                                               torch.Tensor]] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``use_all_neg=False`` (``hero_tpu/models/pretrain.py:288-330``):
+    one sampled negative context a query and one negative query a video
+    instead of all of them.  A row's sorted negatives are drawn at
+    ``int(min_idx + u * (max_idx - min_idx))`` in fp32, clipped to the
+    row, with ``max_idx = min(min_idx + hard_pool_size, width)`` under
+    hard-negative mining and the row width otherwise.
+
+    ``uniforms`` = (u_ctx (Nq,), u_q (Nv,)) fp32 in [0, 1); by default
+    they are drawn on the host from two generators seeded with the
+    ``ctx`` and ``q`` sub-seeds of ``seed`` (0 when None), so the card and
+    the CPU draw the same."""
+    nq, nv = scores_masked.shape
+    dev = scores_masked.device
+    if uniforms is None:
+        base = 0 if seed is None else seed
+        uniforms = tuple(
+            torch.rand(n, generator=torch.Generator().manual_seed(
+                nn.rng_for(base, tag)))
+            for n, tag in ((nq, "ctx"), (nv, "q")))
+    u_ctx, u_q = (u.to(device=dev, dtype=torch.float32) for u in uniforms)
+
+    def sample_sorted(sorted_rows, u, width, min_idx):
+        max_idx = (float(min(min_idx + hard_pool_size, width))
+                   if use_hard_negative else float(width))
+        idx = (min_idx + u * (max_idx - min_idx)).to(torch.int64)
+        idx = idx.clamp(min_idx, width - 1)
+        return sorted_rows.gather(1, idx[:, None])[:, 0]
+
+    neg_ctx = sample_sorted(_sort_desc(scores_masked), u_ctx, nv, 1)
+    l_ctx = ranking_loss(pos_scores, neg_ctx, vsm.ranking_loss_type,
+                         vsm.margin) * q_mask
+    neg_q = sample_sorted(_sort_desc(_video_rows(scores_masked, q_mask,
+                                                 num_q_per_v)),
+                          u_q, nq, num_q_per_v)                # (Nv,)
+    pos_per_v = pos_scores.reshape(nv, num_q_per_v)
+    l_q = ranking_loss(pos_per_v, neg_q[:, None], vsm.ranking_loss_type,
+                       vsm.margin).reshape(nq) * q_mask
+    n_valid = torch.clamp(q_mask.sum(), min=1.0)
+    return l_ctx.sum() / n_valid, l_q.sum() / n_valid
+
+
 def forward_vsm(params: Params, cfg: HeroConfig, vsm: VsmConfig,
-                batch: Dict[str, torch.Tensor], *, train: bool = False,
+                batch: Dict[str, torch.Tensor], *,
+                use_hard_negative: bool = False, hard_pool_size: int = 20,
+                hard_neg_weight: float = 10.0,
+                lw_st_ed: Optional[float] = None, train: bool = False,
                 seed: Optional[int] = None,
                 dtype: torch.dtype = torch.float32
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """VSM losses (``hero_tpu/models/pretrain.py:333-416``): clip encoding
-    and query encoding, then (lw_st_ed * span loss, lw_neg_ctx *
-    loss_neg_ctx, lw_neg_q * loss_neg_q), fp32 scalars.
+    and query encoding, then (w_st_ed * span loss, lw_neg_ctx *
+    loss_neg_ctx, lw_neg_q * loss_neg_q), fp32 scalars.  The curriculum
+    arguments (``drivers/common.Curriculum``): hard-negative mining and
+    its pool and weight, and ``lw_st_ed``, the span loss's weight in
+    place of ``vsm.lw_st_ed`` (the span loss runs when ``vsm.lw_st_ed``
+    is not 0, as in the JAX package).
 
     ``train`` with an integer ``seed`` turns on dropout and the
     ``drop_svmr_prob`` skip of the span loss, drawn on the host from a
     generator seeded with the ``drop_svmr`` sub-seed (the JAX package
-    draws it on the device and branches with ``lax.cond``).  Hard-negative
-    weighting is :func:`video_level_loss`'s; no caller turns it on yet."""
+    draws it on the device and branches with ``lax.cond``); the sampled
+    negatives draw from the ``sampled_neg`` sub-seed."""
     frame_emb = backbone.forward_repr(params["v_encoder"], cfg, batch,
                                       train=train,
                                       seed=nn.rng_for(seed, "repr"),
@@ -239,9 +312,39 @@ def forward_vsm(params: Params, cfg: HeroConfig, vsm: VsmConfig,
     loss_neg_ctx = loss_neg_q = zero
     if vsm.lw_neg_ctx != 0 or vsm.lw_neg_q != 0:
         scores = get_video_level_scores(mod_query, frame_emb, frame_mask)
-        loss_neg_ctx, loss_neg_q = video_level_loss(scores, q_mask, Q, vsm)
-    return (vsm.lw_st_ed * loss_st_ed, vsm.lw_neg_ctx * loss_neg_ctx,
+        loss_neg_ctx, loss_neg_q = video_level_loss(
+            scores, q_mask, Q, vsm, use_hard_negative=use_hard_negative,
+            hard_pool_size=hard_pool_size, hard_neg_weight=hard_neg_weight,
+            seed=nn.rng_for(seed, "sampled_neg"))
+    w_st_ed = vsm.lw_st_ed if lw_st_ed is None else lw_st_ed
+    return (w_st_ed * loss_st_ed, vsm.lw_neg_ctx * loss_neg_ctx,
             vsm.lw_neg_q * loss_neg_q)
+
+
+def forward_pretrain(params: Params, cfg: HeroConfig, vsm: VsmConfig,
+                     batch: Dict[str, torch.Tensor], task: str, *,
+                     compute_loss: bool = True, train: bool = False,
+                     seed: Optional[int] = None,
+                     dtype: torch.dtype = torch.float32,
+                     mask_prob: float = 0.15, **vsm_kw):
+    """Task dispatch (``hero_tpu/models/pretrain.py:419-448``): ``vsm``,
+    ``mlm*``, ``mffr``, ``mfm-nce`` or ``fom``.  ``vsm_kw`` are
+    :func:`forward_vsm`'s curriculum arguments."""
+    kw = dict(train=train, seed=seed, dtype=dtype)
+    if task == "vsm":
+        return forward_vsm(params, cfg, vsm, batch, **kw, **vsm_kw)
+    v = params["v_encoder"]
+    if task.startswith("mlm"):
+        return backbone.forward_mlm(v, cfg, batch,
+                                    compute_loss=compute_loss, **kw)
+    if task in ("mffr", "mfm-nce"):
+        return backbone.forward_mfm(
+            v, cfg, batch, loss="regression" if task == "mffr" else "nce",
+            compute_loss=compute_loss, mask_prob=mask_prob, **kw)
+    if task == "fom":
+        return backbone.forward_fom(v, cfg, batch,
+                                    compute_loss=compute_loss, **kw)
+    raise ValueError(f"Unrecognized task {task}")
 
 
 # ---------------------------------------------------------------------------

@@ -21,8 +21,14 @@ encoder outputs every step, as the JAX package does.
 Training (``train=True`` with an integer ``seed``) adds the three dropout
 sites of the JAX package: attention probabilities (inside the attention
 kernel), the attention output and the FFN output -- in the encoder layers
-and in each of the decoder's self-attention, cross-attention and FFN.  Layer
-rematerialisation (``set_remat``) is not ported (ROADMAP A2).
+and in each of the decoder's self-attention, cross-attention and FFN.
+
+Layer rematerialisation (:func:`set_remat`) wraps each training encoder
+layer in ``torch.utils.checkpoint``: the layer keeps only its input, and
+the backward reruns it.  Every dropout site draws from an integer seed and
+the attention kernels regenerate their Philox bits, so the rerun redraws
+the same bits and rebuilds the kernels' saved probabilities; a remat step
+equals a plain step bit for bit.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from hero_tpu_torch.config.model_config import TransformerConfig
 from hero_tpu_torch.models import nn
@@ -37,6 +44,19 @@ from hero_tpu_torch.ops.attention import (merge_heads, multi_head_attention,
                                           packed_attention, split_heads)
 
 Params = Dict[str, Any]
+
+# Whole-run training policy, read by :func:`encoder` at each call (the JAX
+# package's ``set_remat``, ``hero_tpu/models/transformer.py:35-44``).
+_REMAT = False
+
+
+def set_remat(enabled: bool) -> None:
+    """Rematerialise every encoder layer of the training calls that follow:
+    each layer keeps only its input for the backward and reruns its
+    forward there (the JAX package saves the non-batched matmul outputs
+    too; here the whole layer is recomputed)."""
+    global _REMAT
+    _REMAT = bool(enabled)
 
 
 def _rate(rate: float, train: bool, seed: Optional[int]) -> float:
@@ -100,11 +120,19 @@ def encoder(p: Params, x: torch.Tensor, cfg: TransformerConfig, *,
             dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """BertEncoder: the layers of ``p["layers"]`` in order
     (``hero_tpu/models/transformer.py:158-205``); layer i draws from the
-    sub-seed ``layer{i}``."""
+    sub-seed ``layer{i}``.  Under :func:`set_remat` a training call with
+    gradients on checkpoints each layer (non-reentrant, so the autograd
+    graph, and with it every accumulation order, is the plain one; no
+    global RNG state is kept, since no site reads it)."""
+    remat = _REMAT and train and torch.is_grad_enabled()
     for i, layer in enumerate(p["layers"]):
-        x = encoder_layer(layer, x, cfg, kv_mask=kv_mask, seg=seg,
-                          train=train, seed=nn.rng_for(seed, f"layer{i}"),
-                          dtype=dtype)
+        kw = dict(kv_mask=kv_mask, seg=seg, train=train,
+                  seed=nn.rng_for(seed, f"layer{i}"), dtype=dtype)
+        if remat:
+            x = checkpoint(encoder_layer, layer, x, cfg, use_reentrant=False,
+                           preserve_rng_state=False, **kw)
+        else:
+            x = encoder_layer(layer, x, cfg, **kw)
     return x
 
 

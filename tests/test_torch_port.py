@@ -29,8 +29,10 @@ from hero_tpu_torch.data import occupancy as toccupancy
 from hero_tpu_torch.data import packing as tpacking
 from hero_tpu_torch.data import synthetic as tsyn
 from hero_tpu_torch.evaluation import tvr_metrics as tmetrics
+from hero_tpu_torch.models.model import without_task_heads
 from hero_tpu_torch.models.pretrain import VsmConfig, init_flat_params
 from hero_tpu_torch.prepro import sub_align as tsub_align
+from hero_tpu_torch.training import optim
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -46,19 +48,38 @@ def jax_flat():
 # weight bridge and numpy init
 # ---------------------------------------------------------------------------
 
-def test_bridge_maps_every_jax_key(jax_flat):
-    """The keys the bridge reads and the keys it names as outside the
-    serving slice are disjoint and together exactly the JAX keys."""
-    _, used = from_jax.convert(jax_flat, device="cpu")
-    assert not used & from_jax.UNUSED_JAX_KEYS
-    assert used | from_jax.UNUSED_JAX_KEYS == set(jax_flat)
-    # every unused key belongs to a module of the training tasks: the
-    # poolers, the MLM head, MFM's frame-mask embeddings and feature
-    # regression, and the FOM head
-    outside = {"pooler", "lm_head", "mask_emb", "mask_embedding",
-               "feat_regress", "fom_output"}
+@pytest.mark.parametrize("heads", [True, False])
+def test_bridge_maps_every_jax_key(jax_flat, heads):
+    """The keys the bridge reads and the keys it names as unused are
+    disjoint and together exactly the JAX keys: with the task heads, only
+    the two poolers go unread; without them (the serving and VSM paths)
+    also the LM head, MFM's mask embeddings and regression head, and
+    FOM's head."""
+    if heads:
+        _, used = from_jax.convert(jax_flat, device="cpu")
+        unused = from_jax.UNUSED_JAX_KEYS
+    else:
+        _, used = from_jax.convert(
+            jax_flat, device="cpu",
+            tree=lambda get: from_jax._port_tree(get, heads=False))
+        unused = from_jax.UNUSED_JAX_KEYS | from_jax.TASK_HEAD_JAX_KEYS
+    assert not used & unused
+    assert used | unused == set(jax_flat)
     for k in from_jax.UNUSED_JAX_KEYS:
-        assert outside & set(k.split("/")), k
+        assert "pooler" in k.split("/"), k
+    heads_of = {"lm_head", "mask_emb", "mask_embedding", "feat_regress",
+                "fom_output"}
+    for k in from_jax.TASK_HEAD_JAX_KEYS:
+        assert heads_of & set(k.split("/")), k
+    p = from_jax.load_jax_params(jax_flat, device="cpu", heads=heads)
+    v = p["v_encoder"]
+    assert ("fom_output" in v) == ("lm_head" in v["f_encoder"]) == heads
+    assert ("mask_emb" in v["f_encoder"]["img_embeddings"]) == heads
+    if not heads:
+        # what the serving paths move to the card
+        full = from_jax.load_jax_params(jax_flat, device="cpu")
+        assert optim.tree_paths(without_task_heads(full)) == \
+            optim.tree_paths(p)
 
 
 def test_bridge_fails_on_missing_or_unexpected_keys(jax_flat):
@@ -67,14 +88,69 @@ def test_bridge_fails_on_missing_or_unexpected_keys(jax_flat):
     missing.pop("v_encoder/f_encoder/embeddings/ln/scale")
     with pytest.raises(KeyError, match="missing"):
         from_jax.load_jax_params(missing, device="cpu")
-    unused_missing = dict(jax_flat)
-    unused_missing.pop("v_encoder/fom_output/ln/bias")
-    with pytest.raises(KeyError, match="fom_output"):
-        from_jax.load_jax_params(unused_missing, device="cpu")
+    for heads in (True, False):
+        # a task head's key, read or named unused, must be there
+        head_missing = dict(jax_flat)
+        head_missing.pop("v_encoder/fom_output/ln/bias")
+        with pytest.raises(KeyError, match="fom_output"):
+            from_jax.load_jax_params(head_missing, device="cpu",
+                                     heads=heads)
+    pooler_missing = dict(jax_flat)
+    pooler_missing.pop("v_encoder/c_encoder/pooler/dense/bias")
+    with pytest.raises(KeyError, match="pooler"):
+        from_jax.load_jax_params(pooler_missing, device="cpu")
     extra = dict(jax_flat)
     extra["v_encoder/extra/kernel"] = np.zeros((2, 2), np.float32)
     with pytest.raises(KeyError, match="unexpected"):
         from_jax.load_jax_params(extra, device="cpu")
+
+
+@pytest.mark.parametrize("heads", [True, False])
+def test_bridge_loads_a_jax_pretraining_train_state(jax_flat, heads):
+    """A JAX pretraining TrainState (parameters, AdamW moments, counters)
+    crosses with its task heads: each head's parameter and moments land
+    at their place in the port's layout ((out, in) weights, LayerNorm
+    weight/bias); without heads they are dropped with their moments."""
+    mu = {k: np.full(v.shape, i + 1, np.float32)
+          for i, (k, v) in enumerate(sorted(jax_flat.items()))}
+    nu = {k: 2 * v for k, v in mu.items()}
+    st = from_jax.load_jax_train_state(jax_flat, mu, nu, 9, 4,
+                                       device="cpu", heads=heads)
+    assert (st.opt.step, st.global_step) == (9, 4)
+    assert optim.tree_paths(st.opt.mu) == optim.tree_paths(st.params) == \
+        optim.tree_paths(st.opt.nu)
+    v, m = st.params["v_encoder"], st.opt.mu["v_encoder"]
+    if not heads:
+        assert "lm_head" not in v["f_encoder"] and "fom_output" not in m
+        return
+    fe = "v_encoder/f_encoder"
+    cases = [
+        (v["f_encoder"]["lm_head"]["dense"]["weight"],
+         m["f_encoder"]["lm_head"]["dense"]["weight"],
+         f"{fe}/lm_head/dense/kernel", True),
+        (v["f_encoder"]["lm_head"]["bias"], m["f_encoder"]["lm_head"]["bias"],
+         f"{fe}/lm_head/bias", False),
+        (v["f_encoder"]["img_embeddings"]["mask_emb"],
+         m["f_encoder"]["img_embeddings"]["mask_emb"],
+         f"{fe}/img_embeddings/mask_emb", False),
+        (v["feat_regress"]["dense_2"]["weight"],
+         m["feat_regress"]["dense_2"]["weight"],
+         "v_encoder/feat_regress/dense_2/kernel", True),
+        (v["feat_regress"]["ln"]["weight"], m["feat_regress"]["ln"]["weight"],
+         "v_encoder/feat_regress/ln/scale", False),
+        (v["mask_embedding"], m["mask_embedding"],
+         "v_encoder/mask_embedding", False),
+        (v["fom_output"]["linear_1"]["weight"],
+         m["fom_output"]["linear_1"]["weight"],
+         "v_encoder/fom_output/linear_1/kernel", True),
+        (v["fom_output"]["ln"]["bias"], m["fom_output"]["ln"]["bias"],
+         "v_encoder/fom_output/ln/bias", False)]
+    for param, moment, key, transposed in cases:
+        want = jax_flat[key].T if transposed else jax_flat[key]
+        np.testing.assert_array_equal(param.numpy(), want, err_msg=key)
+        assert (moment == mu[key].flat[0]).all(), key
+    assert (st.opt.nu["v_encoder"]["mask_embedding"]
+            == nu["v_encoder/mask_embedding"].flat[0]).all()
 
 
 def test_bridge_layout(jax_flat):
