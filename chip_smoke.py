@@ -107,7 +107,26 @@ What the card run does, in order (any failure exits non-zero):
    loss falls over 20 steps on one batch (dropout off); and holds one
    fp32 step of each on the card against the CPU (2 + 1 layers, 4
    videos: loss, every gradient, every new parameter);
-11. the components phase (``tools/component_bench.py`` and the DALN
+11. the pretrain_main phase, pretraining as a program: writes those 256
+   videos to a sub store and a feature store on disk (the port's
+   ``HeroStoreWriter``) and checks that every ``VideoFeatSubTokDataset``
+   item read back through the native reader equals the in-memory one
+   bit for bit; writes a JAX-layout init checkpoint (``save_params`` of
+   the flagship init at another seed); runs ``drivers/pretrain.main`` on
+   ``config/pretrain-tv.json`` with the stores, the checkpoint and a
+   flagship model config substituted, 6 steps (validation and a model
+   checkpoint at 3 and 6, ``restore.npz`` at 4), the launch counters
+   from 0 around it (run A); runs it again in another directory, stopped
+   by SIGTERM after step 3 (``restore.npz`` must hold step 3), and once
+   more to resume to step 6 (run B); checks that A's and B's
+   ``model_step_6.npz`` are equal bit for bit, that A's file bridged
+   back equals A's final state bit for bit, and that A started from the
+   checkpoint (its poolers, every parameter within 1e-5 of it); prints
+   a ``pretrain_main`` line (videos/s of A's steps 2, 3 and 6 from disk,
+   the card synchronised before and after them only, beside the
+   in-memory rate; each save's ms and bytes, the restore's ms, the
+   readers, free disk) and deletes its directory;
+12. the components phase (``tools/component_bench.py`` and the DALN
    checks of ``tools/kernel_smoke.py`` and ``tools/tpu_kernel_drive.py``):
    holds #6 and #7 at their edges (``check_ln_edges``: widths 1 to
    14528 about the 16-byte access and the warp's share, rows about the
@@ -135,7 +154,7 @@ It prints one ``phases`` JSON line, one train JSON line with
 ``train_examples_per_s``, one TVC JSON line with ``tvc_captions_per_s``,
 one TVC train JSON line with ``tvc_train_captions_per_s``, one
 ``pretrain`` JSON line with ``pretrain_examples_per_s``, one
-``components`` JSON line, one ``kernels`` JSON line (all nine kernels,
+``pretrain_main`` JSON line, one ``components`` JSON line, one ``kernels`` JSON line (all nine kernels,
 launches by path; #6, #7 and #9 with the device ms of their row pass and
 of the column pass; #8 and #9 with the unfused chain's ms and their own
 at rate 0), the card's name and power limit (nvidia-smi), and as
@@ -2882,12 +2901,15 @@ def pretrain_learning_signal(torch, cfg, opts, batches, dev, dtype, n_steps):
     from hero_tpu_torch.data.loader import to_device
     from hero_tpu_torch.drivers.common import (CURRICULUM_KEYS,
                                                vsm_config_from_opts)
+    from hero_tpu_torch.convert.from_jax import load_jax_params
     from hero_tpu_torch.drivers.pretrain import init_params
     from hero_tpu_torch.training.step import (TrainSpec, TrainState,
                                               make_train_step)
     spec = TrainSpec(learning_rate=SIGNAL_LR, warmup_steps=1,
                      num_train_steps=1000, grad_norm=opts.grad_norm)
-    params = init_params(opts, cfg, vsm_config_from_opts(opts), dev)
+    params = load_jax_params(init_params(opts, cfg,
+                                         vsm_config_from_opts(opts)),
+                             device=dev)
     out = {}
     for task in ("mlm", "mfm-nce", "mffr", "fom", "vsm"):
         step = make_train_step(check_loss_fn(cfg, opts, task, dtype, False),
@@ -3081,7 +3103,269 @@ def pretrain_phase(torch, here, cfg, dev, dtype, sync, rehearse, profile,
     rec["fp32"] = pretrain_parity(torch, cfg, opts, small,
                                   "cpu" if rehearse else "cuda", "cpu")
     stage("fp32")
-    return rec
+    return rec, db
+
+
+# ---------------------------------------------------------------------------
+# pretraining as a program: drivers/pretrain.main from stores on disk, a
+# JAX-layout init checkpoint, and a SIGTERM-interrupted run resumed
+# ---------------------------------------------------------------------------
+
+MAIN_STEPS, MAIN_SIGTERM_AT = 6, 3    # optimizer steps; SIGTERM after
+MAIN_VALID_STEPS, MAIN_SAVE_STEPS = 3, 4
+# restore.npz every 4 steps: the SIGTERM after step 3 writes its own
+# restore.npz (a save step would have written it already)
+# timed windows of run A, (first, last step]: steps 2-3 and 6 follow a
+# step with no validation or checkpoint; the card is synchronised at the
+# windows' edges only, as the in-memory runs are
+MAIN_WINDOWS = ((1, 3), (5, 6))
+MAIN_FREE_BYTES = 8 << 30      # disk the phase's files take, with room
+
+
+def write_pretrain_stores(db, root):
+    """The pretraining phase's in-memory sub and feature stores as
+    herostore databases under ``root`` (the port's writer, the JAX
+    package's layout); returns (sub dir, feature dir)."""
+    from hero_tpu_torch.data.store import HeroStoreWriter
+    subs, feats = db.txt_db, db.img_db
+    sub_dir, feat_dir = (os.path.join(root, "sub_db"),
+                         os.path.join(root, "video_db"))
+    with HeroStoreWriter(sub_dir) as w:
+        for vid in subs.id2len:
+            w.put(vid, {"input_ids": subs[vid]["input_ids"],
+                        "unique_sub2frames": subs.vid_sub2frame[vid],
+                        "unmatched_frames": []})
+    with HeroStoreWriter(feat_dir) as w:
+        for vid in feats.name2nframe:
+            w.put(vid, feats[vid])
+    sidecars = {
+        (sub_dir, "meta.json"): {"CLS": subs.cls_, "SEP": subs.sep,
+                                 "PAD": subs.pad, "MASK": subs.mask,
+                                 "v_range": list(subs.v_range)},
+        (sub_dir, "vid2len.json"): subs.id2len,
+        (sub_dir, "vid2sub_len.json"): subs.vid2sub_lens,
+        (sub_dir, "vid2dur_idx.json"): {"tv": {
+            vid: [subs.vid2dur[vid], subs.vid2idx[vid]]
+            for vid in subs.id2len}},
+        (feat_dir, "id2nframe.json"): feats.name2nframe}
+    for (d, name), obj in sidecars.items():
+        with open(os.path.join(d, name), "w") as f:
+            json.dump(obj, f)
+    return sub_dir, feat_dir
+
+
+def disk_items_equal(db, disk):
+    """Every video's ``VideoFeatSubTokDataset`` item from the stores on
+    disk equals the in-memory one, bit for bit; returns the count."""
+    for vid in db.vids:
+        got, want = disk.video_item(vid), db.video_item(vid)
+        if list(got) != list(want):
+            raise AssertionError(f"{vid}: keys {list(got)} != {list(want)}")
+        for k, w in want.items():
+            g = got[k]
+            same = (g.dtype == w.dtype and np.array_equal(g, w)
+                    if isinstance(w, np.ndarray) else g == w)
+            if not same:
+                raise AssertionError(f"{vid}/{k}: the item from disk differs")
+    return len(db.vids)
+
+
+def main_config(here, root, name, sub_dir, feat_dir, model_json, ckpt,
+                cfg, rehearse):
+    """``config/pretrain-tv.json`` with the stores, the init checkpoint, a
+    flagship model config and ``root/name`` substituted, cut to
+    ``MAIN_STEPS`` steps; returns its path."""
+    with open(os.path.join(here, "config", "pretrain-tv.json")) as f:
+        raw = json.load(f)
+    raw["targets"][0].update(sub_txt_db=sub_dir, vfeat_db=feat_dir)
+    raw.update(model_config=model_json, checkpoint=ckpt,
+               output_dir=os.path.join(root, name), vfeat_dim=cfg.vfeat_dim,
+               num_train_steps=MAIN_STEPS, valid_steps=MAIN_VALID_STEPS,
+               save_steps=MAIN_SAVE_STEPS, n_val_batches=1)
+    if rehearse:
+        raw.update(train_batch_size=2, val_batch_size=2)
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def _npz(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _records(out_dir):
+    with open(os.path.join(out_dir, "log", "checkpoints.json")) as f:
+        return json.load(f)
+
+
+def pretrain_main_phase(torch, here, cfg, db, dev, sync, rehearse):
+    """``drivers/pretrain.main`` at ``config/pretrain-tv.json``'s recipe
+    from herostore databases on disk (see the module docstring); returns
+    (record, the launch counts of run A)."""
+    import shutil
+    import signal
+    import tempfile
+    from hero_tpu_torch.config.opts import get_pretrain_args
+    from hero_tpu_torch.convert.from_jax import (UNUSED_JAX_KEYS,
+                                                 load_jax_params)
+    from hero_tpu_torch.data.store import SubTokStore, VideoFeatStore
+    from hero_tpu_torch.data.video import VideoFeatSubTokDataset
+    from hero_tpu_torch.drivers import pretrain as drv
+    from hero_tpu_torch.drivers.common import vsm_config_from_opts
+    from hero_tpu_torch.models.pretrain import init_flat_params
+    from hero_tpu_torch.training.optim import tree_leaves, tree_paths
+    from hero_tpu_torch.training.save import save_params
+    stage_s, t0 = {}, time.perf_counter()
+
+    def stage(name):
+        nonlocal t0
+        now = time.perf_counter()
+        stage_s[name] = now - t0
+        t0 = now
+
+    root = tempfile.mkdtemp(prefix="pretrain_main_")
+    disk = None
+    try:
+        free = shutil.disk_usage(root).free
+        if not rehearse and free < MAIN_FREE_BYTES:
+            raise AssertionError(f"{free} bytes free under {root}; the "
+                                 f"phase needs {MAIN_FREE_BYTES}")
+        rec = {"stage_s": stage_s, "free_bytes_before": free, "dir": root}
+        sub_dir, feat_dir = write_pretrain_stores(db, root)
+        rec["store_bytes"] = sum(
+            os.path.getsize(os.path.join(d, n))
+            for d in (sub_dir, feat_dir) for n in os.listdir(d))
+        stage("write_stores")
+        disk = VideoFeatSubTokDataset(
+            SubTokStore(sub_dir, max_clip_len=db.shapes.n_frames),
+            VideoFeatStore(feat_dir, max_clip_len=db.shapes.n_frames),
+            db.shapes, max_txt_len=db.max_txt_len,
+            sub_ctx_len=db.sub_ctx_len, pack=db.pack)
+        rec["readers"] = [disk.txt_db.store.reader, disk.img_db.store.reader]
+        if not rehearse and rec["readers"] != ["native", "native"]:
+            raise AssertionError(f"store readers {rec['readers']}: the "
+                                 "native reader did not build")
+        rec["items_equal"] = disk_items_equal(db, disk)
+        stage("items")
+
+        opts = get_pretrain_args(["--config", os.path.join(
+            here, "config", "pretrain-tv.json")])
+        init = init_flat_params(cfg, vsm_config_from_opts(opts),
+                                seed=opts.seed + 1)
+        init_path = os.path.join(root, "init.npz")
+        save_params(init_path, init)
+        model_json = os.path.join(root, "model.json")
+        with open(model_json, "w") as f:
+            json.dump(cfg.to_dict(), f)
+        cfg_a, cfg_b = (main_config(here, root, n, sub_dir, feat_dir,
+                                    model_json, init_path, cfg, rehearse)
+                        for n in ("a", "b"))
+        opts_a = get_pretrain_args(["--config", cfg_a])
+        stage("init_checkpoint")
+
+        # run A: uninterrupted, the launch counters from 0 around it
+        handler = signal.getsignal(signal.SIGTERM)
+        edges = {s for w in MAIN_WINDOWS for s in w}
+        marks = {}
+
+        def timed(step, task, metrics):
+            if step in edges:
+                sync()
+                marks[step] = time.perf_counter()
+
+        reset_counts()
+        sync()
+        t_a = time.perf_counter()
+        state_a = drv.main(opts_a, device=dev, on_step=timed)
+        sync()
+        rec["run_a_s"] = time.perf_counter() - t_a
+        launches = read_counts()
+        if signal.getsignal(signal.SIGTERM) is not handler:
+            raise AssertionError("main left its SIGTERM handler installed")
+        out_a, out_b = (os.path.join(root, n) for n in ("a", "b"))
+        rec["run_a_records"] = _records(out_a)
+        stage("run_a")
+
+        # run B: SIGTERM after step 3, then resumed to step 6
+        def interrupt(step, task, metrics):
+            if step == MAIN_SIGTERM_AT:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        t_b = time.perf_counter()
+        state_b = drv.main(get_pretrain_args(["--config", cfg_b]),
+                           device=dev, on_step=interrupt)
+        if state_b.global_step != MAIN_SIGTERM_AT:
+            raise AssertionError(f"SIGTERM after step {MAIN_SIGTERM_AT}: "
+                                 f"main returned at {state_b.global_step}")
+        del state_b
+        with np.load(os.path.join(out_b, "restore.npz")) as z:
+            rec["restore_step_after_sigterm"] = int(z["__step__"])
+        if rec["restore_step_after_sigterm"] != MAIN_SIGTERM_AT:
+            raise AssertionError(f"restore.npz after SIGTERM holds step "
+                                 f"{rec['restore_step_after_sigterm']}")
+        rec["run_b_interrupted_records"] = _records(out_b)
+        state_b = drv.main(get_pretrain_args(["--config", cfg_b]),
+                           device=dev)
+        sync()
+        rec["run_b_s"] = time.perf_counter() - t_b
+        rec["run_b_resumed_records"] = _records(out_b)
+        if state_b.global_step != MAIN_STEPS:
+            raise AssertionError(f"resumed run ended at "
+                                 f"{state_b.global_step}")
+        del state_b
+        stage("run_b")
+
+        # A's and B's last checkpoints bit for bit; A's file bridged back
+        # is A's final state bit for bit; the weights came from the init
+        # checkpoint (its poolers, the rest within the 6 steps' reach)
+        name = f"model_step_{MAIN_STEPS}.npz"
+        a = _npz(os.path.join(out_a, "ckpt", name))
+        b = _npz(os.path.join(out_b, "ckpt", name))
+        differ = sorted(k for k in a if k not in b or a[k].dtype
+                        != b[k].dtype or not np.array_equal(a[k], b[k]))
+        if differ or set(a) != set(b):
+            raise AssertionError(f"resumed checkpoint differs from the "
+                                 f"uninterrupted one at {differ[:5]}")
+        back = load_jax_params({k: v for k, v in a.items()
+                                if not k.startswith("__")}, device=dev)
+        differ = ["/".join(p) for p, x, y in zip(
+            tree_paths(back), tree_leaves(back),
+            tree_leaves(state_a.params)) if not torch.equal(x, y)]
+        if differ:
+            raise AssertionError(f"checkpoint bridged back differs from "
+                                 f"the final state at {differ[:5]}")
+        del back, state_a
+        rec["poolers_from_init"] = all(np.array_equal(a[k], init[k])
+                                       for k in UNUSED_JAX_KEYS)
+        rec["max_abs_from_init"] = max(float(np.abs(a[k] - init[k]).max())
+                                       for k in init)
+        if not rec["poolers_from_init"] or rec["max_abs_from_init"] > 1e-5:
+            raise AssertionError(
+                f"run A's weights are not the init checkpoint's: poolers "
+                f"equal {rec['poolers_from_init']}, max |diff| "
+                f"{rec['max_abs_from_init']}")
+        rec["resume_bit_equal"] = True
+        rec["checkpoint_bridged_equal"] = True
+        stage("compare")
+
+        videos = (opts_a.train_batch_size
+                  * opts_a.gradient_accumulation_steps)
+        rec["videos_per_step"] = videos
+        rec["windows"] = [list(w) for w in MAIN_WINDOWS]
+        rec["window_ms"] = [1e3 * (marks[b] - marks[a])
+                            for a, b in MAIN_WINDOWS]
+        rec["main_examples_per_s"] = (
+            sum(b - a for a, b in MAIN_WINDOWS) * videos
+            / (1e-3 * sum(rec["window_ms"])))
+        rec["free_bytes_after"] = shutil.disk_usage(root).free
+        return rec, launches
+    finally:
+        if disk is not None:
+            disk.txt_db.store.close()
+            disk.img_db.store.close()
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3795,9 +4079,9 @@ def main(argv=None):
         f"captions/s")
 
     # pretraining: config/pretrain-tv.json's recipe through run_pretrain
-    pre = pretrain_phase(torch, here, cfg, dev, dtype, sync, rehearse,
-                            args.profile and not rehearse,
-                            record["kernels"] if not rehearse else None)
+    pre, pre_db = pretrain_phase(torch, here, cfg, dev, dtype, sync,
+                                 rehearse, args.profile and not rehearse,
+                                 record["kernels"] if not rehearse else None)
     pre_launches = pre["main_path_launches"]
     if not rehearse and min(pre_launches[k] for k in TRAIN_KERNELS) == 0:
         raise AssertionError(f"a kernel of the pretraining step was never "
@@ -3805,6 +4089,19 @@ def main(argv=None):
     record["pretrain"] = pre
     mark("pretrain")
     log(f"pretrain: {pre['pretrain_examples_per_s']:.1f} videos/s, done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    # pretraining as a program: drivers/pretrain.main from stores on disk
+    pmain, pmain_launches = pretrain_main_phase(torch, here, cfg, pre_db,
+                                                dev, sync, rehearse)
+    del pre_db
+    if not rehearse and min(pmain_launches[k] for k in TRAIN_KERNELS) == 0:
+        raise AssertionError(f"a kernel of pretraining's main was never "
+                             f"launched: {pmain_launches}")
+    record["pretrain_main"] = pmain
+    mark("pretrain_main")
+    log(f"pretrain main: {pmain['main_examples_per_s']:.1f} videos/s from "
+        f"disk, resumed run bit-equal, done at "
         f"{time.perf_counter() - t_start:.1f} s")
 
     # the components of tools/component_bench.py
@@ -3895,6 +4192,25 @@ def main(argv=None):
         "remat_bit_equal": {t: r["loss_equal"] and not r["grads_differing"]
                             for t, r in pre["remat"]["bit_equal"].items()},
         "remat_cost": pre["remat"]["cost_full_micro_batch"]}}))
+    saves = [dict(r, run=run, kind=kind)
+             for run in ("run_a", "run_b_interrupted", "run_b_resumed")
+             for kind in ("model", "restore")
+             for r in pmain[f"{run}_records"][kind]]
+    print(json.dumps({"pretrain_main": {
+        "main_examples_per_s": pmain["main_examples_per_s"],
+        "pretrain_examples_per_s": pre["pretrain_examples_per_s"],
+        "videos_per_step": pmain["videos_per_step"],
+        "windows": pmain["windows"], "window_ms": pmain["window_ms"],
+        "saves": saves,
+        "restore_ms": pmain["run_b_resumed_records"]["restore_ms"],
+        "readers": pmain["readers"], "items_equal": pmain["items_equal"],
+        "resume_bit_equal": pmain["resume_bit_equal"],
+        "checkpoint_bridged_equal": pmain["checkpoint_bridged_equal"],
+        "max_abs_from_init": pmain["max_abs_from_init"],
+        "free_bytes_before": pmain["free_bytes_before"],
+        "free_bytes_after": pmain["free_bytes_after"],
+        "store_bytes": pmain["store_bytes"],
+        "launches": pmain_launches, "stage_s": pmain["stage_s"]}}))
     print(json.dumps({"components": {
         "ms": comps.get("ms"), "ffn_tflops": comps.get("ffn_tflops"),
         "shapes": comps["shapes"], "launches": comp_launches}}))
@@ -3903,7 +4219,8 @@ def main(argv=None):
         return 0
     paths = {"serving": launches, "train": train_launches,
              "tvc": tvc_launches, "tvc_train": tt_launches,
-             "pretrain": pre_launches, "components": comp_launches}
+             "pretrain": pre_launches, "pretrain_main": pmain_launches,
+             "components": comp_launches}
     kernels = [{k: row[k] for k in (
         "name", "route", "source", "replaces", "tpu_kernel", "shape", "dtype",
         "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -19,6 +19,20 @@ The map is linear (transpose, concatenation, per-layer split), so it
 carries any tree shaped like the parameters: AdamW's ``mu`` and ``nu``
 (:func:`load_jax_train_state`, which resumes a JAX run in the port) and
 gradients (the tests compare the port's with ``jax.grad``'s through it).
+
+The map is also a permutation of elements, which gives its inverse
+(:func:`to_jax_params`, :func:`to_jax_train_state`; what the port's
+checkpoints write): the forward map run over element numbers instead of
+values says where each element of the port's tree sits in the JAX
+layout, and one scatter on the tensors' device puts it back there.
+
+The inverse takes a ``template``, the flat JAX tree the run started from
+(its init or checkpoint): the keys the port does not hold, the two
+poolers, are written from it, with zero AdamW moments.  The JAX package's
+AdamW decays the pooler kernels every step although no pretraining loss
+reads them (``hero_tpu/training/optim.py:142-144``,
+``hero_tpu/models/encoder.py:155,187``); the port leaves them as they
+were, so its files differ from a JAX run's there and nowhere else.
 """
 
 from __future__ import annotations
@@ -282,3 +296,100 @@ def load_jax_tvc_train_state(flat_params: Mapping[str, np.ndarray],
     moments, so a step of each package starts from one state."""
     return _train_state(load_jax_tvc_params, flat_params, flat_mu, flat_nu,
                         opt_step, global_step, device)
+
+
+def _layout(template: Mapping[str, np.ndarray], device,
+            tree: Callable[[Getter], Dict[str, Any]]):
+    """(the tree of element numbers, the keys it reads, {key: (offset,
+    shape)}, total elements): the forward map applied to the position of
+    every element of ``template`` laid end to end."""
+    offsets, total = {}, 0
+    for key, value in template.items():
+        shape = tuple(np.shape(value))
+        offsets[key] = (total, shape)
+        total += int(np.prod(shape, dtype=np.int64))
+    used: Set[str] = set()
+
+    def get(key: str) -> torch.Tensor:
+        if key not in offsets:
+            raise KeyError(f"JAX parameter {key!r} is missing from the "
+                           "template")
+        used.add(key)
+        off, shape = offsets[key]
+        n = int(np.prod(shape, dtype=np.int64))
+        return torch.arange(off, off + n, device=device).reshape(shape)
+
+    index = tree(get)
+    unexpected = set(template) - used - UNUSED_JAX_KEYS
+    if unexpected:
+        raise KeyError(f"template keys the port does not hold: "
+                       f"{sorted(unexpected)}")
+    return index, used, offsets, total
+
+
+def _scatter_to_jax(tree, index, used, offsets, total, fill
+                    ) -> Dict[str, np.ndarray]:
+    """``tree`` (the port's layout) as a flat JAX-layout dict of fp32
+    numpy arrays: one scatter on the device, one copy to the host; keys
+    outside ``used`` come from ``fill(key)``."""
+    from hero_tpu_torch.training.optim import tree_leaves, tree_paths
+    idx_leaves, leaves = tree_leaves(index), tree_leaves(tree)
+    if len(idx_leaves) != len(leaves):
+        raise ValueError(f"the tree has {len(leaves)} leaves, the JAX "
+                         f"layout {len(idx_leaves)}")
+    device = idx_leaves[0].device
+    buf = torch.zeros(total, dtype=torch.float32, device=device)
+    for path, idx, leaf in zip(tree_paths(index), idx_leaves, leaves):
+        if tuple(idx.shape) != tuple(leaf.shape):
+            raise ValueError(f"{'/'.join(path)}: shape {tuple(leaf.shape)}"
+                             f", the JAX layout gives {tuple(idx.shape)}")
+        buf.index_copy_(0, idx.reshape(-1),
+                        leaf.detach().reshape(-1).to(device, torch.float32))
+    host = buf.cpu().numpy()
+    out = {}
+    for key, (off, shape) in offsets.items():
+        n = int(np.prod(shape, dtype=np.int64))
+        out[key] = (host[off:off + n].reshape(shape) if key in used
+                    else fill(key))
+    return out
+
+
+def _device_of(tree) -> torch.device:
+    from hero_tpu_torch.training.optim import tree_leaves
+    return tree_leaves(tree)[0].device
+
+
+def to_jax_params(params, template: Mapping[str, np.ndarray]
+                  ) -> Dict[str, np.ndarray]:
+    """The flat JAX-layout dict of the port's pretraining tree ``params``
+    (inverse of :func:`load_jax_params`; kernels transposed back, ``qkv``
+    split, layers stacked), fp32 numpy, keys in ``template``'s order; the
+    poolers are ``template``'s (see the module docstring).  Exact both
+    ways: ``load_jax_params(to_jax_params(p, t)) == p``."""
+    index, used, offsets, total = _layout(template, _device_of(params),
+                                          _port_tree)
+    return _scatter_to_jax(params, index, used, offsets, total,
+                           lambda k: np.asarray(template[k], np.float32))
+
+
+def to_jax_train_state(state, template: Mapping[str, np.ndarray]
+                       ) -> Tuple[Dict[str, np.ndarray],
+                                  Dict[str, np.ndarray],
+                                  Dict[str, np.ndarray], int]:
+    """(flat params, flat mu, flat nu, step) of the port's pretraining
+    ``TrainState`` in the JAX layout (inverse of
+    :func:`load_jax_train_state`): the poolers' parameters from
+    ``template`` and their moments zero; ``step`` the optimizer steps
+    taken."""
+    index, used, offsets, total = _layout(template,
+                                          _device_of(state.params),
+                                          _port_tree)
+
+    def zeros(k):
+        return np.zeros(np.shape(template[k]), np.float32)
+
+    flat = [_scatter_to_jax(t, index, used, offsets, total, fill)
+            for t, fill in ((state.params,
+                             lambda k: np.asarray(template[k], np.float32)),
+                            (state.opt.mu, zeros), (state.opt.nu, zeros))]
+    return flat[0], flat[1], flat[2], int(state.global_step)

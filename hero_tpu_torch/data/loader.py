@@ -143,7 +143,8 @@ def to_device(batch: Dict[str, Any], device,
 class PrefetchLoader:
     """Iterate (tag, numpy batch) pairs with each batch built and placed on
     ``device`` by a background thread (:func:`to_device`, ``host_keys``
-    left on the host), up to ``PREFETCH_DEPTH`` batches ahead."""
+    left on the host), up to ``PREFETCH_DEPTH`` batches ahead.  Closing
+    the iterator (or dropping it) ends the thread."""
 
     def __init__(self, it: Iterator, device="cuda", host_keys=()):
         self.it = it
@@ -191,9 +192,11 @@ class PrefetchLoader:
                     return
                 yield item
         finally:
-            # a consumer that stops early (a train loop at its last step)
-            # lets the thread finish its batch and end
+            # a consumer that stops early (a train loop at its last step,
+            # or preempted) lets the thread finish its batch, and waits
+            # for it to end
             done.set()
+            t.join()
 
 
 class DatasetIterator:

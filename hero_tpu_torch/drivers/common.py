@@ -1,30 +1,40 @@
 """Shared driver plumbing (counterpart of ``hero_tpu/drivers/common.py``):
-bucket shapes and configs from the options, the VSM curriculum, and the
-train loop on one device.
+bucket shapes and configs from the options, the video dataset over the
+stores on disk, checkpoint loading, the VSM curriculum, and the train loop
+on one device.
 
 :func:`run_training` keeps the JAX loop's contract: batches arrive as
 (task, numpy micro-batch) pairs; an accumulation window must hold one
-task; the curriculum's extras join each step's batch; validation runs
-every ``valid_steps``; the loss is logged every ``LOG_EVERY`` steps.
-Checkpoint saving, the restore file and the SIGTERM checkpoint arrive with
-``training/save.py``: their hooks (``saver``, ``restorer``) stay None.
+task; the curriculum's extras join each step's batch; validation (and a
+model checkpoint) every ``valid_steps``; ``restore.npz`` every
+``save_steps``; on SIGTERM the step finishes, both are written and the
+loop returns; the loss is logged every ``LOG_EVERY`` steps.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import signal
+import threading
 import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
+import torch
 
 from hero_tpu_torch import resolve_device
 from hero_tpu_torch.config.model_config import HeroConfig
 from hero_tpu_torch.data.loader import PrefetchLoader
 from hero_tpu_torch.data.pretrain_tasks import mlm_row_cap
-from hero_tpu_torch.data.video import FixedShapes
+from hero_tpu_torch.data.store import SubTokStore, VideoFeatStore
+from hero_tpu_torch.data.video import FixedShapes, VideoFeatSubTokDataset
 from hero_tpu_torch.models import nn
 from hero_tpu_torch.models import pretrain as pretrain_lib
+from hero_tpu_torch.training.save import (checkpoint_vocab_padded,
+                                          flatten_tree, load_params,
+                                          unflatten_tree)
+from hero_tpu_torch.utils.logger import NoOp, RunningMeter, ScalarWriter
 
 LOGGER = logging.getLogger(__name__)
 
@@ -58,6 +68,68 @@ def shapes_from_opts(opts) -> FixedShapes:
         max_masked=max_masked,
         vfeat_dim=getattr(opts, "vfeat_dim", 4352),
     )
+
+
+def load_video_sub_dataset(opts, shapes: FixedShapes
+                           ) -> VideoFeatSubTokDataset:
+    """The sub and feature stores of ``opts.sub_txt_db`` /
+    ``opts.vfeat_db`` as one video dataset."""
+    sub = SubTokStore(opts.sub_txt_db, max_clip_len=opts.max_clip_len)
+    vfeat = VideoFeatStore(opts.vfeat_db,
+                           frame_interval=opts.vfeat_interval,
+                           max_clip_len=opts.max_clip_len)
+    return VideoFeatSubTokDataset(sub, vfeat, shapes,
+                                  max_txt_len=opts.max_txt_len,
+                                  sub_ctx_len=opts.sub_ctx_len,
+                                  pack=getattr(opts, "pack_subs", False))
+
+
+def merge_params(init: Dict, loaded: Dict, prefix: str = "") -> Dict:
+    """Overlay ``loaded`` (a nested JAX-layout tree) on ``init``: a leaf of
+    the same shape is taken in ``init``'s dtype, anything else keeps
+    ``init``'s value; missing and unexpected keys are logged (reference
+    load_pretrained_weight, modeling_utils.py:68-121)."""
+    out = {}
+    for k, v in init.items():
+        path = f"{prefix}{k}"
+        if k in loaded:
+            if isinstance(v, dict):
+                out[k] = merge_params(v, loaded[k], path + "/")
+            else:
+                lv = np.asarray(loaded[k])
+                if lv.shape == v.shape:
+                    out[k] = np.asarray(lv, dtype=v.dtype)
+                else:
+                    LOGGER.warning("shape mismatch at %s: ckpt %s vs %s - "
+                                   "keeping init", path, lv.shape, v.shape)
+                    out[k] = v
+        else:
+            LOGGER.info("missing from checkpoint (kept init): %s", path)
+            out[k] = v
+    for k in loaded:
+        if k not in init and not k.startswith("__"):
+            LOGGER.info("unexpected checkpoint key ignored: %s%s", prefix,
+                        k)
+    return out
+
+
+def load_checkpoint_into(flat: Dict[str, np.ndarray], path: str,
+                         info: Optional[Dict] = None
+                         ) -> Dict[str, np.ndarray]:
+    """``flat`` (JAX-layout init parameters) overlaid with the ``.npz``
+    checkpoint at ``path`` (:func:`merge_params`).  With ``info``, the
+    checkpoint's ``__vocab_padded__`` marker goes to
+    ``info["vocab_padded"]`` when it has one.  The reference's ``.pt``
+    checkpoints need its converter, not ported yet (ROADMAP A4)."""
+    if path.endswith(".pt"):
+        raise NotImplementedError(
+            f"{path}: converting a reference .pt checkpoint waits for "
+            "convert/torch_checkpoint.py (ROADMAP A4); convert it with the "
+            "JAX package to an .npz first")
+    padded = checkpoint_vocab_padded(path)
+    if info is not None and padded is not None:
+        info["vocab_padded"] = padded
+    return flatten_tree(merge_params(unflatten_tree(flat), load_params(path)))
 
 
 def vsm_config_from_opts(opts) -> pretrain_lib.VsmConfig:
@@ -119,13 +191,20 @@ def model_config_from_opts(opts) -> HeroConfig:
 LOG_EVERY = 100           # optimizer steps between loss log lines
 
 
+def _scalars(metrics: Dict[str, Any]) -> Dict[str, float]:
+    return {k: float(v) for k, v in metrics.items()
+            if isinstance(v, (int, float))
+            or (isinstance(v, torch.Tensor) and v.ndim == 0)}
+
+
 def run_training(opts, step_fn, state, batch_iter, *,
                  extras_fn: Optional[Callable] = None,
                  validate_fn: Optional[Callable] = None, saver=None,
                  restorer=None, device="cuda",
                  on_step: Optional[Callable] = None):
     """The train loop (``hero_tpu/drivers/common.py:220-402``, one
-    device): up to ``opts.num_train_steps`` optimizer steps.
+    device): optimizer steps from ``state.global_step`` up to
+    ``opts.num_train_steps``.
 
     ``batch_iter`` yields (task, numpy micro-batch); every
     ``gradient_accumulation_steps`` of them, all of one task, are stacked
@@ -134,18 +213,25 @@ def run_training(opts, step_fn, state, batch_iter, *,
     the arrays to ``device`` through pinned memory while the previous
     step runs.  ``step_fn`` is a train step or {task: train step}
     (``training/step.make_train_step``); step i gets the integer seed
-    ``rng_for(opts.seed + 1, f"step{i}")``.  ``validate_fn(state,
-    step)`` runs every ``opts.valid_steps`` steps and after the last;
-    ``on_step(step, task, metrics)``, if given, after every step.
-    ``saver`` and ``restorer`` wait for ``training/save.py`` and must be
-    None.  Returns the final state."""
-    if saver is not None or restorer is not None:
-        raise NotImplementedError(
-            "checkpoint saving and restoring wait for training/save.py "
-            "(ROADMAP A)")
+    ``rng_for(opts.seed + 1, f"step{i}")``, so a resumed run draws what
+    the uninterrupted one drew.
+
+    After each step: ``on_step(step, task, metrics)`` if given; every
+    ``LOG_EVERY`` steps the loss to the log and the scalars to
+    ``output_dir/log/scalars.jsonl``; every ``opts.valid_steps``
+    ``validate_fn(state, step)`` and ``saver.save`` (a
+    ``training/save.ModelSaver``); ``restorer.step`` (a
+    ``TrainingRestorer``: ``restore.npz`` every ``opts.save_steps``).  At
+    the end the model is saved and validated unless the last step was.
+    On SIGTERM (handled while the loop runs, when it runs on the main
+    thread) the step in flight finishes, ``restore.npz`` and the model
+    are written, and the loop returns.  ``opts.profile_step`` = i traces
+    step i + 1 with ``torch.profiler`` into ``output_dir/trace``.
+    Returns the final state."""
     device = resolve_device(device)
     accum = max(getattr(opts, "gradient_accumulation_steps", 1), 1)
     global_step = int(state.global_step)
+    output_dir = getattr(opts, "output_dir", None)
 
     def assembled_steps():
         """One item per optimizer step: the micro-batch window stacked,
@@ -176,33 +262,103 @@ def run_training(opts, step_fn, state, batch_iter, *,
             yield task0, stacked
             step_ord += 1
 
-    loader = PrefetchLoader(assembled_steps(), device=device,
-                            host_keys=CURRICULUM_KEYS)
+    preempted = threading.Event()
+    installed, prev_handler = False, None
+    if threading.current_thread() is threading.main_thread():
+        def on_sigterm(signum, frame):
+            LOGGER.warning("SIGTERM received: checkpointing and exiting "
+                           "after the current step")
+            preempted.set()
+        prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
+        installed = True
+    writer = ScalarWriter(os.path.join(output_dir, "log")) if output_dir \
+        else NoOp()
+    steps = iter(PrefetchLoader(assembled_steps(), device=device,
+                                host_keys=CURRICULUM_KEYS))
+    try:
+        return _train_loop(opts, step_fn, state, steps, global_step,
+                           device, validate_fn, saver, restorer, on_step,
+                           preempted, writer)
+    finally:
+        steps.close()                 # ends the prefetch thread
+        writer.close()
+        if installed:
+            signal.signal(signal.SIGTERM, prev_handler
+                          if prev_handler is not None else signal.SIG_DFL)
+
+
+def _train_loop(opts, step_fn, state, steps, global_step, device,
+                validate_fn, saver, restorer, on_step, preempted, writer):
+    output_dir = getattr(opts, "output_dir", None)
+    profile_at = getattr(opts, "profile_step", -1) if output_dir else -1
+    meters: Dict[str, RunningMeter] = {}
     t0, n_ex = time.time(), 0
-    last_validated = -1
-    for task, batch in loader:
+    last_validated = last_saved = -1
+    if global_step >= opts.num_train_steps:
+        steps = ()                    # a finished run resumed: no step
+    for task, batch in steps:
         fn = step_fn[task] if isinstance(step_fn, dict) else step_fn
-        state, metrics = fn(state, batch,
-                            nn.rng_for(opts.seed + 1, f"step{global_step}"))
+        seed = nn.rng_for(opts.seed + 1, f"step{global_step}")
+        if profile_at == global_step:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            with torch.profiler.profile(activities=acts) as prof:
+                state, metrics = fn(state, batch, seed)
+                float(metrics["loss"])          # wait for the device
+            trace_dir = os.path.join(output_dir, "trace")
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(
+                os.path.join(trace_dir, f"step_{global_step + 1}.json"))
+        else:
+            state, metrics = fn(state, batch, seed)
         global_step += 1
         # videos this step: the micro-batch axis, then the batch axis
         n_ex += int(np.prod(batch["sub_mask"].shape[:-1]))
         if on_step is not None:
             on_step(global_step, task, metrics)
         if global_step % LOG_EVERY == 0:
-            loss = float(metrics["loss"])
+            scalars = _scalars(metrics)
+            meter = meters.setdefault(f"loss/{task}",
+                                      RunningMeter(f"loss/{task}"))
+            meter(scalars["loss"])
             dt = max(time.time() - t0, 1e-6)
             LOGGER.info("step %d [%s]: loss=%.4f  %.1f ex/s", global_step,
-                        task, loss, n_ex / dt)
+                        task, scalars["loss"], n_ex / dt)
+            writer.log_scalar_dict(scalars, step=global_step)
+            writer.add_scalar(f"smooth_loss/{task}", meter.val, global_step)
+            writer.add_scalar("perf/ex_per_s", n_ex / dt, global_step)
             t0, n_ex = time.time(), 0
         if (validate_fn is not None
                 and global_step % opts.valid_steps == 0):
             validate_fn(state, global_step)
             last_validated = global_step
+            if saver is not None:
+                saver.save(state.params, global_step)
+                last_saved = global_step
+        if restorer is not None:
+            restorer.step(state, opts.save_steps)
+        if preempted.is_set():
+            if restorer is not None:
+                if restorer.saved_step != global_step:
+                    restorer.save(state)
+                restorer.flush()
+            if saver is not None:
+                if last_saved != global_step:
+                    saver.save(state.params, global_step)
+                saver.flush()
+            LOGGER.warning("preempted at step %d: restore.npz written, "
+                           "resume will continue from here", global_step)
+            return state
         if global_step >= opts.num_train_steps:
             break
+    if saver is not None and last_saved != global_step:
+        saver.save(state.params, global_step)
+    if saver is not None:
+        saver.flush()
+    if restorer is not None:
+        restorer.flush()
     if validate_fn is not None and last_validated != global_step:
         validate_fn(state, global_step)
     LOGGER.info("training done at step %d", global_step)
     return state
-

@@ -2,35 +2,85 @@
 MLM, MFM-NCE / MFFR, FOM and VSM over one or more video targets, one
 task an optimizer step as the seeded :class:`MetaLoader` draws it.
 
-:func:`run_pretrain` is the driver's body after its stores are open:
-task datasets over the targets' ``VideoFeatSubTokDataset`` s, one train
-step a task, the curriculum, validation, and the train loop.  ``main``
-opens the stores first (``build_targets``); it waits for the store
-readers (ROADMAP A) and raises.
+    python -m hero_tpu_torch.drivers.pretrain --config config/pretrain-tv.json
+
+:func:`main` opens the targets' stores (:func:`build_targets`), loads
+``opts.checkpoint`` (a JAX-layout ``.npz``) over the seeded init, resumes
+from ``output_dir/restore.npz`` when there is one (the schedule replayed
+exactly), and trains with checkpoints in the JAX package's layout
+(``training/save.py``).  :func:`run_pretrain` is its body after the stores
+and the state exist: task datasets over the targets'
+``VideoFeatSubTokDataset`` s, one train step a task, the curriculum,
+validation, and the train loop.
 """
 
 from __future__ import annotations
 
-import logging
+import json
+import os
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
+from hero_tpu_torch import resolve_device
+from hero_tpu_torch.config import opts as opts_lib
 from hero_tpu_torch.config.model_config import HeroConfig
 from hero_tpu_torch.convert.from_jax import load_jax_params
 from hero_tpu_torch.data import pretrain_tasks as pt
 from hero_tpu_torch.data.loader import MetaLoader, dataset_iterator
+from hero_tpu_torch.data.store import (ShardedVideoFeatStore, SubTokStore,
+                                       VideoFeatStore)
 from hero_tpu_torch.data.video import (VideoFeatSubTokDataset,
                                        suggest_shapes, video_fits_bucket)
 from hero_tpu_torch.drivers import common
 from hero_tpu_torch.models import pretrain as pretrain_lib
 from hero_tpu_torch.training.optim import AdamWConfig
+from hero_tpu_torch.training.save import (AsyncCheckpointWriter, ModelSaver,
+                                          TrainingRestorer,
+                                          checkpoint_vocab_padded,
+                                          save_training_meta)
 from hero_tpu_torch.training.step import (TrainSpec, TrainState,
                                           make_train_step)
-
-LOGGER = logging.getLogger(__name__)
+from hero_tpu_torch.utils.logger import (LOGGER, add_log_to_file,
+                                         configure_stdout)
+from hero_tpu_torch.utils.misc import set_random_seed
 
 DEFAULT_TASKS = {"mlm": 2, "mfm-nce": 2, "fom": 1, "vsm": 2}
+
+
+def build_targets(opts):
+    """({target name: VideoFeatSubTokDataset}, {``task@target``: ratio})
+    from ``opts.targets`` (reference build_target_loaders,
+    pretrain.py:44-57): each target names its sub store and its feature
+    store (``vfeat_db``, or HowTo100M-style ``vfeat_shards``), optionally
+    its ``vfeat_interval`` and its ``tasks`` ratios (default
+    :data:`DEFAULT_TASKS`), each ratio times the target's entry of
+    ``opts.targets_ratio``.  Without targets: the single target ``""``
+    over ``opts.sub_txt_db`` / ``opts.vfeat_db``, ratios None."""
+    shapes = common.shapes_from_opts(opts)
+    targets = getattr(opts, "targets", None)
+    if not targets:
+        return {"": common.load_video_sub_dataset(opts, shapes)}, None
+    out, ratios = {}, {}
+    tgt_ratios = getattr(opts, "targets_ratio", None) or [1] * len(targets)
+    for tgt, tr in zip(targets, tgt_ratios):
+        sub = SubTokStore(tgt["sub_txt_db"], max_clip_len=opts.max_clip_len)
+        interval = tgt.get("vfeat_interval", opts.vfeat_interval)
+        if "vfeat_shards" in tgt:
+            vfeat = ShardedVideoFeatStore(
+                tgt["vfeat_shards"], frame_interval=interval,
+                max_clip_len=opts.max_clip_len)
+        else:
+            vfeat = VideoFeatStore(tgt["vfeat_db"], frame_interval=interval,
+                                   max_clip_len=opts.max_clip_len)
+        out[tgt["name"]] = VideoFeatSubTokDataset(
+            sub, vfeat, shapes, max_txt_len=opts.max_txt_len,
+            sub_ctx_len=opts.sub_ctx_len,
+            pack=getattr(opts, "pack_subs", False))
+        for task, r in tgt.get("tasks", DEFAULT_TASKS).items():
+            ratios[f"{task}@{tgt['name']}"] = r * tr
+    return out, ratios
 
 
 def _bucketize(opts, video_dbs):
@@ -148,24 +198,26 @@ def train_spec_from_opts(opts) -> TrainSpec:
                                        weight_decay=opts.weight_decay))
 
 
-def init_params(opts, cfg, vsm, device):
-    """Random weights from ``opts.seed`` (the numpy init in the JAX
-    layout), bridged to ``device``.  Loading ``opts.checkpoint`` waits
-    for ``training/save.py`` (ROADMAP A)."""
+def init_params(opts, cfg, vsm, info: Optional[Dict] = None
+                ) -> Dict[str, np.ndarray]:
+    """The flat JAX-layout parameters a run starts from: the numpy init
+    from ``opts.seed``, overlaid with ``opts.checkpoint`` (an ``.npz``;
+    its vocab-pad marker to ``info["vocab_padded"]``) when set.  The
+    bridge (``load_jax_params``) moves them to the device."""
+    flat = pretrain_lib.init_flat_params(cfg, vsm, seed=opts.seed)
     if getattr(opts, "checkpoint", None):
-        raise NotImplementedError(
-            f"checkpoint {opts.checkpoint!r}: loading checkpoints waits for "
-            "training/save.py (ROADMAP A)")
-    return load_jax_params(pretrain_lib.init_flat_params(cfg, vsm,
-                                                         seed=opts.seed),
-                           device=device)
+        flat = common.load_checkpoint_into(flat, opts.checkpoint,
+                                           info=info)
+    return flat
 
 
 def run_pretrain(opts, video_dbs: Dict[str, VideoFeatSubTokDataset],
                  name_ratios: Optional[Dict[str, int]] = None, *,
-                 cfg: Optional[HeroConfig] = None, device="cuda",
+                 cfg: Optional[HeroConfig] = None,
+                 state: Optional[TrainState] = None, device="cuda",
                  dtype: torch.dtype = torch.bfloat16,
-                 on_step: Optional[Callable] = None) -> TrainState:
+                 on_step: Optional[Callable] = None, saver=None,
+                 restorer=None) -> TrainState:
     """Pretrain on ``video_dbs`` ({target: dataset}) with ``name_ratios``
     ({``task@target``: ratio}, or ``opts.task_ratios`` /
     :data:`DEFAULT_TASKS` over the single target ``""``) for
@@ -173,8 +225,11 @@ def run_pretrain(opts, video_dbs: Dict[str, VideoFeatSubTokDataset],
     ``opts.train_batch_size`` videos x ``gradient_accumulation_steps``,
     bf16 on fp32 parameters by default, on ``device``
     (``hero_tpu/drivers/pretrain.py:173-282``).  ``cfg`` overrides the
-    model config of ``opts.model_config``; ``on_step`` is
-    :func:`common.run_training`'s.  Returns the final train state."""
+    model config of ``opts.model_config``.  ``state`` is where to start
+    (default :func:`init_params` on ``device``); a state past step 0
+    resumes the task schedule where it stood.  ``on_step``, ``saver`` and
+    ``restorer`` are :func:`common.run_training`'s.  Returns the final
+    train state."""
     task_datasets = build_task_datasets(opts, video_dbs, name_ratios)
     LOGGER.info("pretraining targets %s, tasks %s", list(video_dbs),
                 {t: r for t, (_, r) in task_datasets.items()})
@@ -188,12 +243,18 @@ def run_pretrain(opts, video_dbs: Dict[str, VideoFeatSubTokDataset],
                                              dtype=dtype),
                                    spec, accum_steps=accum)
                 for t in task_datasets}
-    state = TrainState.create(init_params(opts, cfg, vsm, device))
+    if state is None:
+        state = TrainState.create(load_jax_params(
+            init_params(opts, cfg, vsm), device=device))
     loaders = {
         t: (dataset_iterator(ds, pt.build_batch, opts.train_batch_size,
                              seed=opts.seed), ratio)
         for t, (ds, ratio) in task_datasets.items()}
     meta = MetaLoader(loaders, accum_steps=accum, seed=opts.seed)
+    if state.global_step:
+        # the same seeded draws, the task iterators skipping the batches
+        # the steps before took without building them
+        meta.fast_forward(state.global_step * accum)
     curriculum = common.Curriculum(opts)
 
     def validate(state, step):
@@ -215,7 +276,8 @@ def run_pretrain(opts, video_dbs: Dict[str, VideoFeatSubTokDataset],
 
     state = common.run_training(opts, step_fns, state, iter(meta),
                                 extras_fn=curriculum.at,
-                                validate_fn=validate, device=device,
+                                validate_fn=validate, saver=saver,
+                                restorer=restorer, device=device,
                                 on_step=on_step)
     for tgt, db in video_dbs.items():
         rep = db.truncation_report()
@@ -224,13 +286,70 @@ def run_pretrain(opts, video_dbs: Dict[str, VideoFeatSubTokDataset],
     return state
 
 
-def main(opts):
-    """``build_targets`` + :func:`run_pretrain`.  Opening the sub and
-    feature stores waits for the herostore readers (ROADMAP A); until
-    then, hand :func:`run_pretrain` datasets over duck-typed stores
-    (``data/video.py``)."""
-    raise NotImplementedError(
-        "hero_tpu_torch.drivers.pretrain.main needs the herostore readers "
-        "(data/store.py), which are not ported yet (ROADMAP A); call "
-        "run_pretrain(opts, video_dbs) with VideoFeatSubTokDataset(s) over "
-        "duck-typed stores")
+def main(opts, device="cuda", on_step: Optional[Callable] = None
+         ) -> TrainState:
+    """Pretrain as ``opts`` says (``hero_tpu/drivers/pretrain.py:163-282``)
+    on ``device``: the stores of :func:`build_targets`, the weights of
+    :func:`init_params`, ``output_dir`` with ``log/`` (``hps.json``,
+    ``log.txt``, ``scalars.jsonl``, ``checkpoints.json``: each
+    checkpoint's copy and write ms and bytes), ``ckpt/model_step_N.npz``
+    and ``restore.npz``, resumed from when present.  bf16 compute on fp32
+    parameters.  ``on_step`` as :func:`common.run_training`'s.  Returns
+    the final train state."""
+    device = resolve_device(device)
+    set_random_seed(opts.seed)
+    os.makedirs(opts.output_dir, exist_ok=True)
+    save_training_meta(opts.output_dir, vars(opts),
+                       {"model_config": opts.model_config})
+    log_file = add_log_to_file(os.path.join(opts.output_dir, "log",
+                                            "log.txt"))
+    ckpt_writer = AsyncCheckpointWriter()   # file I/O off the train loop
+    saver = restorer = None
+    try:
+        video_dbs, name_ratios = build_targets(opts)
+        cfg = common.model_config_from_opts(opts)
+        vsm = common.vsm_config_from_opts(opts)
+        restorer = TrainingRestorer(
+            opts.output_dir, {"num_train_steps": opts.num_train_steps,
+                              "learning_rate": opts.learning_rate},
+            writer=ckpt_writer)
+        ckpt_info: Dict = {}
+        if restorer.can_restore():
+            # the restored parameters are the template: no init needed
+            state = restorer.restore(device)
+            if getattr(opts, "checkpoint", None):
+                ckpt_info["vocab_padded"] = checkpoint_vocab_padded(
+                    opts.checkpoint)
+        else:
+            restorer.template = init_params(opts, cfg, vsm, info=ckpt_info)
+            state = TrainState.create(load_jax_params(restorer.template,
+                                                      device=device))
+        saver = ModelSaver(os.path.join(opts.output_dir, "ckpt"),
+                           restorer.template,
+                           vocab_padded=ckpt_info.get("vocab_padded"),
+                           writer=ckpt_writer)
+        return run_pretrain(opts, video_dbs, name_ratios, cfg=cfg,
+                            state=state, device=device, on_step=on_step,
+                            saver=saver, restorer=restorer)
+    finally:
+        try:
+            ckpt_writer.close()
+        finally:
+            if saver is not None:
+                with open(os.path.join(opts.output_dir, "log",
+                                       "checkpoints.json"), "w") as f:
+                    json.dump({"restore_ms": restorer.restore_ms,
+                               "model": saver.records,
+                               "restore": restorer.records}, f, indent=1)
+            LOGGER.removeHandler(log_file)
+            log_file.close()
+
+
+def cli():
+    """The console script's entry (``hero-tpu-torch-pretrain``)."""
+    configure_stdout()
+    main(opts_lib.get_pretrain_args())
+
+
+if __name__ == "__main__":
+    cli()

@@ -86,10 +86,49 @@ def linear(p: Params, x: torch.Tensor,
     return F.linear(x.to(dtype), p["weight"].to(dtype), bias)
 
 
+class _Embedding(torch.autograd.Function):
+    """``F.embedding`` whose backward sums each row's gradients in a fixed
+    order.  The default CUDA backward adds rows that share an index in no
+    fixed order: a table read at many repeated indices (the position
+    tables, the two-row MFM mask tables) got a gradient that differed in
+    its last bits from one run to the next on the card, and so did the
+    parameters of a resumed run.  PyTorch's deterministic implementation
+    (sorted indices, a fixed summation order) runs for this op alone."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return F.embedding(ids, table)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        # the ATen flags themselves: torch.use_deterministic_algorithms
+        # also imports torch._inductor (seconds, and hundreds of modules)
+        C = torch._C
+        was = (C._get_deterministic_algorithms(),
+               C._get_deterministic_algorithms_warn_only(),
+               C._get_deterministic_fill_uninitialized_memory())
+        C._set_deterministic_algorithms(True, warn_only=True)
+        C._set_deterministic_fill_uninitialized_memory(False)
+        try:
+            out = torch.ops.aten.embedding_dense_backward(
+                grad.contiguous(), ids, ctx.rows, -1, False)
+        finally:
+            C._set_deterministic_algorithms(was[0], warn_only=was[1])
+            C._set_deterministic_fill_uninitialized_memory(was[2])
+        return out, None
+
+
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     # gather first, cast the gathered rows (not the whole table)
-    return F.embedding(ids.long(), table).to(dtype or table.dtype)
+    if table.requires_grad:
+        rows = _Embedding.apply(table, ids.long())
+    else:
+        rows = F.embedding(ids.long(), table)
+    return rows.to(dtype or table.dtype)
 
 
 def apply_layer_norm(p: Params, x: torch.Tensor,

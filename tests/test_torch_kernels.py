@@ -25,7 +25,8 @@ LayerNorm forward and backward are held at their edges: widths about the
 row the wrappers take, row counts about the backward's row groups; so
 are the fused dropout-add-LayerNorm kernels (#8, #9), at rates 0 and
 0.1, with their keep bits read back, views off the 16-byte alignment and
-mixed y/x dtypes.
+mixed y/x dtypes.  The embedding lookup's backward (not a kernel of its
+own) is held for bit-identical repeats at the position table's shape.
 """
 
 import numpy as np
@@ -408,6 +409,43 @@ def test_autograd_runs_the_backward_kernels(cuda):
                                                   counts[1] + 1)
     assert gw.dtype == torch.float32 and float(gq.abs().max()) > 0
     assert bool(torch.isfinite(gq).all())
+
+
+def _embedding_grads(device, runs):
+    """The table gradient of ``nn.embedding_lookup`` at the text position
+    table's shape (514 rows, 35328 reads of 122 positions), ``runs`` times
+    with other allocations in between, and ``F.embedding``'s."""
+    from hero_tpu_torch.models import nn as tnn
+    r = np.random.RandomState(0)
+    table = torch.from_numpy(r.randn(514, 768).astype(np.float32)).to(
+        device).requires_grad_(True)
+    ids = torch.from_numpy(np.tile(np.arange(122), 290)[:35328]).to(device)
+    g = torch.from_numpy(r.randn(35328, 768).astype(np.float32)).to(
+        device, torch.bfloat16)
+    out = []
+    for i in range(runs):
+        pad = torch.empty((i + 1) << 20, device=device)
+        rows = tnn.embedding_lookup(table, ids, torch.bfloat16)
+        out.append(torch.autograd.grad(rows, table, g)[0])
+        del pad
+    rows = torch.nn.functional.embedding(ids, table).to(torch.bfloat16)
+    return out, torch.autograd.grad(rows, table, g)[0]
+
+
+def test_embedding_lookup_gradient_is_f_embedding_on_the_cpu():
+    got, want = _embedding_grads("cpu", 1)
+    assert torch.equal(got[0], want)
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+def test_embedding_lookup_gradient_repeats_bit_for_bit(cuda):
+    """Rows that share an index sum in a fixed order on the card, so the
+    gradient repeats bit for bit (the default CUDA backward did not); it
+    stays within fp32 rounding of ``F.embedding``'s."""
+    got, want = _embedding_grads(cuda, 3)
+    assert all(torch.equal(g, got[0]) for g in got[1:])
+    torch.testing.assert_close(got[0], want, rtol=1e-5, atol=1e-4)
+    assert not torch.are_deterministic_algorithms_enabled()
 
 
 def test_cpu_tensors_take_the_plain_version():

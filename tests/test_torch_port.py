@@ -1,7 +1,7 @@
 """hero_tpu_torch housekeeping: the weight bridge's key coverage, the numpy
 parameter init, the copied numpy modules (batch builders, packing, video
 shapes, TVR metrics) against their JAX-package originals bit for bit,
-and import hygiene (the port never imports ``jax`` or ``hero_tpu``).
+and import hygiene (the port never imports ``jax``, ``hero_tpu`` or ``msgpack``).
 """
 
 import ast
@@ -354,7 +354,8 @@ def test_port_imports_neither_jax_nor_hero_tpu(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "hero_tpu", "flax"), \
+            assert top not in ("jax", "jaxlib", "hero_tpu", "flax",
+                               "msgpack"), \
                 f"{path.name}:{node.lineno} imports {name}"
 
 
@@ -365,7 +366,7 @@ def test_importing_the_port_loads_no_jax():
             "    importlib.import_module(m.name)\n"
             "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'hero_tpu'))\n"
+            "('jax', 'jaxlib', 'hero_tpu', 'msgpack'))\n"
             "print(len([m for m in sys.modules "
             "if m.startswith('hero_tpu_torch.')]), bad)\n"
             "sys.exit(1 if bad else 0)\n")

@@ -30,6 +30,7 @@ from hero_tpu.data import pretrain_tasks as jpt
 from hero_tpu.data import synthetic as jsyn
 from hero_tpu.data import video as jvideo
 from hero_tpu.data.store import SubTokStore, VideoFeatStore
+from hero_tpu_torch.data import store as tstore
 from hero_tpu.data.testing import build_synthetic_corpus
 from hero_tpu.drivers import common as jcommon
 from hero_tpu.evaluation import pretrain_val as jval
@@ -284,9 +285,11 @@ def jax_steps(setup):
     batches = {t: _stacked(t) for t in TASKS}
     res = all_steps(jstep.TrainState.create(params),
                     {t: _jnp(b) for t, b in batches.items()})
+    flat = {t: tuple(flatten_tree(jax.device_get(tree)) for tree in (
+        st.params, st.opt.mu, st.opt.nu)) for t, (st, _) in res.items()}
     return batches, {t: (float(m["loss"]), float(m["grad_norm"]),
                          _to_port(st.params), _to_port(st.opt.mu))
-                     for t, (st, m) in res.items()}
+                     for t, (st, m) in res.items()}, flat
 
 
 def _stacked(task):
@@ -302,7 +305,7 @@ def test_train_step_matches_jax(setup, jax_steps, task):
     """One accumulated step of each package from the same state: loss,
     grad norm and every new parameter and first moment."""
     _, _, tparams = setup
-    batches, want = jax_steps
+    batches, want, _ = jax_steps
     loss, gnorm, want_params, want_mu = want[task]
     step = tstep.make_train_step(_port_loss(task), tstep.TrainSpec(**SPEC),
                                  accum_steps=2)
@@ -316,6 +319,46 @@ def test_train_step_matches_jax(setup, jax_steps, task):
     _assert_trees_close(state.opt.mu, want_mu, atol=1e-6)
 
 
+@pytest.mark.parametrize("task", TASKS)
+def test_port_restore_state_differs_from_jax_only_in_pooler_kernels(
+        setup, jax_steps, task):
+    """What the port's ``restore.npz`` holds after one step of each task
+    (``to_jax_train_state`` with the run's init as the template) against
+    the JAX step's state: every parameter and moment within the step
+    test's tolerances, except the pooler kernels, which the JAX AdamW
+    decays (no loss reads them) and the port writes from the template.
+    The pooler biases and every pooler moment are equal."""
+    from hero_tpu_torch.convert.from_jax import (UNUSED_JAX_KEYS,
+                                                 to_jax_train_state)
+    _, _, tparams = setup
+    batches, _, flat = jax_steps
+    template = tpre.init_flat_params(tiny_hero_config(), seed=0)
+    step = tstep.make_train_step(_port_loss(task), tstep.TrainSpec(**SPEC),
+                                 accum_steps=2)
+    state, _ = step(tstep.TrainState.create(tparams),
+                    batch_to_device(batches[task], "cpu"), None)
+    got = to_jax_train_state(state, template)
+    assert got[3] == 1
+    want_p, want_mu, want_nu = flat[task]
+    kernels = {k for k in UNUSED_JAX_KEYS if k.endswith("/kernel")}
+    decay = 1.0 - SPEC["learning_rate"] * toptim.AdamWConfig().weight_decay
+    for name, g, w, atol in (("params", got[0], want_p, 2e-6),
+                             ("mu", got[1], want_mu, 1e-6),
+                             ("nu", got[2], want_nu, 1e-6)):
+        assert sorted(g) == sorted(w), name
+        for k in w:
+            if name == "params" and k in kernels:
+                np.testing.assert_array_equal(g[k], template[k])
+                np.testing.assert_allclose(w[k], template[k] * decay,
+                                           rtol=1e-6, err_msg=k)
+                assert not np.array_equal(w[k], template[k])
+            elif k in UNUSED_JAX_KEYS:
+                np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+            else:
+                np.testing.assert_allclose(g[k], w[k], atol=atol,
+                                           err_msg=f"{name}/{k}")
+
+
 # ---------------------------------------------------------------------------
 # data: stores, task datasets, loader, synthetic batches
 # ---------------------------------------------------------------------------
@@ -327,15 +370,23 @@ def corpus(tmp_path_factory):
                                   vfeat_dim=64)
 
 
+def _stores(corpus):
+    """The sub and feature stores of the test corpus: the JAX package's
+    readers, and the port's."""
+    return ((SubTokStore(corpus["sub"], max_clip_len=MAX_FRAMES),
+             VideoFeatStore(corpus["vfeat"], max_clip_len=MAX_FRAMES)),
+            (tstore.SubTokStore(corpus["sub"], max_clip_len=MAX_FRAMES),
+             tstore.VideoFeatStore(corpus["vfeat"], max_clip_len=MAX_FRAMES)))
+
+
 def _video_dbs(corpus, pack):
-    """The JAX and the port's ``VideoFeatSubTokDataset`` over one pair of
-    the JAX package's stores."""
-    sub = SubTokStore(corpus["sub"], max_clip_len=MAX_FRAMES)
-    vfeat = VideoFeatStore(corpus["vfeat"], max_clip_len=MAX_FRAMES)
+    """The JAX and the port's ``VideoFeatSubTokDataset``, each over its
+    own package's readers of the test corpus."""
+    jstores, tstores = _stores(corpus)
     jshapes = jvideo.FixedShapes(**dataclasses.asdict(STORE_SHAPES))
     kw = dict(max_txt_len=20, sub_ctx_len=1, pack=pack)
-    return (jvideo.VideoFeatSubTokDataset(sub, vfeat, jshapes, **kw),
-            tvideo.VideoFeatSubTokDataset(sub, vfeat, STORE_SHAPES, **kw))
+    return (jvideo.VideoFeatSubTokDataset(*jstores, jshapes, **kw),
+            tvideo.VideoFeatSubTokDataset(*tstores, STORE_SHAPES, **kw))
 
 
 def _same_arrays(got, want):
@@ -386,13 +437,12 @@ def test_second_bucket_task_datasets_match_jax(corpus, pack):
     the same task names, ratios, video split and big-bucket shapes as
     the JAX driver's, and the same items."""
     from hero_tpu.drivers.pretrain import build_task_datasets as jbuild
-    sub = SubTokStore(corpus["sub"], max_clip_len=MAX_FRAMES)
-    vfeat = VideoFeatStore(corpus["vfeat"], max_clip_len=MAX_FRAMES)
+    jstores, tstores = _stores(corpus)
     tiny = STORE_SHAPES.replace(n_subs=1 if pack else 2, txt_len=8)
     jdb = jvideo.VideoFeatSubTokDataset(
-        sub, vfeat, jvideo.FixedShapes(**dataclasses.asdict(tiny)),
+        *jstores, jvideo.FixedShapes(**dataclasses.asdict(tiny)),
         max_txt_len=20, sub_ctx_len=1, pack=pack)
-    tdb = tvideo.VideoFeatSubTokDataset(sub, vfeat, tiny, max_txt_len=20,
+    tdb = tvideo.VideoFeatSubTokDataset(*tstores, tiny, max_txt_len=20,
                                         sub_ctx_len=1, pack=pack)
     opts = types.SimpleNamespace(second_bucket=True, seed=0,
                                  query_per_video=2,
@@ -412,11 +462,11 @@ def test_second_bucket_task_datasets_match_jax(corpus, pack):
 
 
 def test_bucket_helpers_match_jax(corpus):
-    sub = SubTokStore(corpus["sub"], max_clip_len=MAX_FRAMES)
+    (jsub, _), (tsub, _) = _stores(corpus)
     for coverage in (0.5, 1.0):
-        jshapes = jvideo.suggest_shapes(sub, coverage=coverage,
+        jshapes = jvideo.suggest_shapes(jsub, coverage=coverage,
                                         max_txt_len=20, sub_ctx_len=1)
-        tshapes = tvideo.suggest_shapes(sub, coverage=coverage,
+        tshapes = tvideo.suggest_shapes(tsub, coverage=coverage,
                                         max_txt_len=20, sub_ctx_len=1)
         assert dataclasses.asdict(tshapes) == dataclasses.asdict(jshapes)
     for n in (3, 200):
@@ -567,6 +617,18 @@ def test_validate_pretrain_matches_jax(setup):
         assert got[k] == pytest.approx(v, rel=1e-5, abs=1e-6), k
 
 
+@pytest.fixture
+def one_torch_thread():
+    """The tiny model's train loop on one intra-op thread: beside other
+    test workers, each with a full OpenMP pool, its threads starved (a
+    3 s run took minutes).  The results do not depend on it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
 def test_run_pretrain_four_task_mix_on_cpu(corpus, tmp_path):
     """``run_pretrain`` at ``config/pretrain-tv.json``'s recipe (packed
     subs, accumulation 2, the 2:2:1:2 mix, hard negatives from a step it
@@ -601,5 +663,8 @@ def test_run_pretrain_four_task_mix_on_cpu(corpus, tmp_path):
     assert [t for _, t, _ in seen] == want
     assert set(want) >= {"mlm", "vsm"}
     assert tdb.truncation_report()["videos_seen"] > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        tdrv.main(opts)
+    if not torch.cuda.is_available():
+        # the program's default device is the card: without one it
+        # raises instead of running on the CPU
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tdrv.main(opts)
