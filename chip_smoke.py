@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's VCMR serving path, VSM train step, TVC
-caption serving, TVC train step, four-task pretraining and kernel
-components on one GPU and check them.
+caption serving, TVC train step, four-task pretraining, VCMR serving as
+a program and kernel components on one GPU and check them.
 
     python3 chip_smoke.py                  # on a machine with one CUDA card
     python3 chip_smoke.py --json-out F     # also write the full record to F
@@ -13,7 +13,9 @@ What the card run does, in order (any failure exits non-zero):
 1. builds the port's CUDA kernels from ``hero_tpu_torch/ops/csrc`` (one
    nvcc per source, all at once);
 2. holds every kernel against its plain PyTorch version at the serving
-   path's shapes, in fp32 (tight) and bf16, including a fully masked row
+   path's shapes (#1 also at the first and the last call of packed query
+   rows, (64, 30, 768): the last holds the partial rows, the pad slots
+   and the all-pad rows), in fp32 (tight) and bf16, including a fully masked row
    that must come out finite, and times kernel, plain version and one
    PyTorch library call (the yardstick);
 3. initialises the flagship HERO weights (hidden 768, f-encoder 6 layers,
@@ -126,7 +128,28 @@ What the card run does, in order (any failure exits non-zero):
    the card synchronised before and after them only, beside the
    in-memory rate; each save's ms and bytes, the restore's ms, the
    readers, free disk) and deletes its directory;
-12. the components phase (``tools/component_bench.py`` and the DALN
+12. the serving_full phase, VCMR serving in full: runs
+   ``validate_full_vcmr`` on the 512 queries and the resident 2000-video
+   corpus with ``pack_queries`` (4 segments a row, 64 rows a call: the
+   whole set encoded packed, then ranked in batch slices) and one row a
+   query, 3 runs each in turns (wall s and queries/s of the whole call,
+   packed rows and slot fill, the packed call's launches, whose #1
+   launches must exceed the one-row call's and its #2 launches fall
+   short of them, and how many queries keep an identical bf16 top-10
+   videos); checks in fp32 on the small corpus that the packed call's
+   submission keeps the top-10 videos and the VCMR (video, st, ed)
+   predictions up to near-ties (``ranked_match``); runs ``validate_full_vcmr`` with
+   ``corpus_chunk_videos=500`` (wall s beside the resident main path's),
+   and in fp32 on the small corpus in chunks of 10 against the resident
+   corpus (every id equal, scores within 1e-4); writes the pretraining phase's 256 videos and 512 synthetic
+   queries (``query_data.jsonl`` with them) as herostore databases, a
+   ``log/hps.json`` and a flagship ``ckpt/model_step_5.npz`` in the JAX
+   layout, runs ``python -m hero_tpu_torch.drivers.eval_vcmr`` on them in
+   a subprocess (packed queries on), checks its results file (the
+   reference schema, every query once) and holds it and its printed
+   metrics equal to ``drivers/eval_vcmr.main`` run in this process with
+   the launch counters from 0; prints a ``serving_full`` line;
+13. the components phase (``tools/component_bench.py`` and the DALN
    checks of ``tools/kernel_smoke.py`` and ``tools/tpu_kernel_drive.py``):
    holds #6 and #7 at their edges (``check_ln_edges``: widths 1 to
    14528 about the 16-byte access and the warp's share, rows about the
@@ -154,14 +177,16 @@ It prints one ``phases`` JSON line, one train JSON line with
 ``train_examples_per_s``, one TVC JSON line with ``tvc_captions_per_s``,
 one TVC train JSON line with ``tvc_train_captions_per_s``, one
 ``pretrain`` JSON line with ``pretrain_examples_per_s``, one
-``pretrain_main`` JSON line, one ``components`` JSON line, one ``kernels`` JSON line (all nine kernels,
+``pretrain_main`` JSON line, one ``serving_full`` JSON line, one
+``components`` JSON line, one ``kernels`` JSON line (all nine kernels,
 launches by path; #6, #7 and #9 with the device ms of their row pass and
 of the column pass; #8 and #9 with the unfused chain's ms and their own
 at rate 0), the card's name and power limit (nvidia-smi), and as
 the last line ``{"ok": true, "device": {...}}``.  ``--profile`` adds
 torch.profiler breakdowns of a phase-1 batch, a query batch, one
-fit-bucket train step, one greedy TVC batch, one TVC train step and one
-optimizer step of each pretraining task to the JSON record, and fails if a CUDA-core attention kernel (packed or
+fit-bucket train step, one greedy TVC batch, one TVC train step, one
+optimizer step of each pretraining task and one packed and one unpacked
+pass over the 512 queries to the JSON record, and fails if a CUDA-core attention kernel (packed or
 head-major) ran in any of these bf16 windows, or if the greedy window ran
 no ``mha_attention_mma_kernel``.  ``--daln-times [ROOT]`` does nothing
 but time #8 and #9 of the ``hero_tpu_torch`` under ROOT (this checkout by
@@ -500,8 +525,11 @@ SPLIT_KEYS = ("row_pass_ms", "reduce_ms")
 DALN_KEYS = ("chain_ms", "rate0_ms")
 
 
-def check_kernels(torch, first_batch, query_masks, cfg):
-    """Every kernel of the path at the path's shapes (bf16 timings)."""
+def check_kernels(torch, first_batch, query_masks, packed_calls, cfg):
+    """Every kernel of the path at the path's shapes (bf16 timings);
+    ``packed_calls``: the segment ids of the first and the last call of
+    packed query rows (the last holds the partial rows and the all-pad
+    rows that pad the row count to a whole call)."""
     import torch.nn.functional as F
     from hero_tpu_torch.models.model import gather_sub_frames
     from hero_tpu_torch.ops import attention as att
@@ -528,7 +556,13 @@ def check_kernels(torch, first_batch, query_masks, cfg):
          "_fwd3_seg_kernel", "seg_attention_cuda",
          "F.scaled_dot_product_attention, additive mask",
          [check_attention(torch, F, att, B * S, Fs + Lt, D, H, seg, True,
-                          torch.bfloat16)]),
+                          torch.bfloat16),
+          *(check_attention(torch, F, att, seg_ids.shape[0],
+                            seg_ids.shape[1], D, H,
+                            torch.from_numpy(seg_ids).to(dev), True,
+                            torch.bfloat16) | {"mode": f"packed queries, "
+                                                       f"{which} call"}
+            for which, seg_ids in zip(("first", "last"), packed_calls))]),
         ("attention_valid", "attention.cu", "attention.py:277",
          "_fwd3_kernel", "valid_attention_cuda",
          "F.scaled_dot_product_attention, additive mask",
@@ -3369,6 +3403,427 @@ def pretrain_main_phase(torch, here, cfg, db, dev, sync, rehearse):
 
 
 # ---------------------------------------------------------------------------
+# serving_full: packed queries, the chunked corpus and drivers/eval_vcmr
+# ---------------------------------------------------------------------------
+
+PACK_SEGS, PACK_ROWS = 4, 64       # pack_queries' segments a row, rows a call
+CHUNK_VIDEOS = 500                 # corpus_chunk_videos of the chunked run
+SMALL_CHUNK = 10                   # the same on the small fp32 corpus
+PROGRAM_STEP, PROGRAM_SEED = 5, 5  # the program's checkpoint: step, init seed
+PROGRAM_QUERIES = 512
+
+
+def packed_layout(query_batches):
+    """(ids, lens, packed row count, share of slots filled) of the query
+    set under ``pack_queries`` (``PACK_SEGS`` a row of the batches'
+    slots)."""
+    from hero_tpu_torch.data.packing import pack_queries
+    ids = np.concatenate([b["query_input_ids"] for b in query_batches])
+    slots = ids.shape[1]
+    lens = np.concatenate([b["query_attn_masks"].sum(1)
+                           for b in query_batches]).astype(np.int64)
+    _, n_rows = pack_queries([int(x) for x in lens], slots, PACK_SEGS)
+    return ids, lens, n_rows, float(lens.sum()) / (n_rows * slots)
+
+
+def packed_opts(opts):
+    """``opts`` with ``pack_queries`` on at ``PACK_SEGS`` / ``PACK_ROWS``."""
+    return dataclasses.replace(opts, pack_queries=True,
+                               query_pack_segs=PACK_SEGS,
+                               query_pack_rows_per_call=PACK_ROWS)
+
+
+def vr_ids(sub):
+    """Each query's VR ranking: the video indices, best first."""
+    return [[p[0] for p in e["predictions"]] for e in sub["VR"]]
+
+
+def ranked_match(ka, sa, kb, sb, rtol):
+    """Two rankings (unique keys, their scores, best first) agree up to
+    near-ties: a key in both has scores within ``rtol``, and a key in one
+    only lies within ``rtol`` of the other's last kept score (it was cut
+    at the boundary).  Within ties the order is free."""
+    da, db = dict(zip(ka, sa)), dict(zip(kb, sb))
+    if not len(da) == len(db) == len(ka) == len(kb):
+        return False
+    for k in da.keys() & db.keys():
+        if abs(da[k] - db[k]) > rtol * abs(db[k]):
+            return False
+    for d, last in ((da, min(sb)), (db, min(sa))):
+        for k in d.keys() - (da.keys() & db.keys()):
+            if d[k] - last > rtol * abs(last):
+                return False
+    return True
+
+
+def packed_fp32_check(torch, cfg, flat, vsm, opts, batches, query_batches,
+                      query_data, dev):
+    """fp32 on ``dev``: ``validate_full_vcmr`` with ``pack_queries`` gives
+    the unpacked call's top-10 videos, and its VCMR (video, st, ed)
+    predictions up to near-ties (``ranked_match``; the exact equality is
+    reported), video scores within the fp32 rtol."""
+    from hero_tpu_torch.convert.from_jax import load_jax_params
+    from hero_tpu_torch.evaluation.vcmr_eval import validate_full_vcmr
+    params = load_jax_params(flat, device=dev, heads=False)
+    n_videos = sum(b["c_attn_masks"].shape[0] for b in batches)
+    video_ids = [f"s{i}" for i in range(n_videos)]
+    v2i = {v: i for i, v in enumerate(video_ids)}
+    u, p = (validate_full_vcmr(params, cfg, vsm, o, batches, query_batches,
+                               video_ids, v2i, query_data,
+                               dtype=torch.float32, device=dev)[1]
+            for o in (opts, packed_opts(opts)))
+    k = min(10, n_videos)
+    rtol = 1e-3      # exp(q2c_alpha * s): 20x the fp32 noise of s
+
+    def ranking(sub, task, q):
+        preds = sub[task][q]["predictions"]
+        return [tuple(x[:3]) for x in preds], [x[3] for x in preds]
+
+    n_q = len(u["VCMR"])
+    pairs = [(ranking(u, "VCMR", q), ranking(p, "VCMR", q))
+             for q in range(n_q)]
+    rec = {"queries": n_q, "top_k": k,
+           "top_idx_equal": [r[:k] for r in vr_ids(u)]
+           == [r[:k] for r in vr_ids(p)],
+           "flat_idx_equal_queries": sum(a[0] == b[0] for a, b in pairs),
+           "flat_idx_equal_up_to_ties": all(
+               ranked_match(*a, *b, rtol) for a, b in pairs),
+           "score_rtol": rtol}
+    for name, task in (("video_score_max_rel_err", "VR"),
+                       ("span_score_max_rel_err", "VCMR")):
+        err = 0.0
+        for q in range(n_q):
+            da, db = (dict(zip(*ranking(sub, task, q))) for sub in (u, p))
+            for key in da.keys() & db.keys():
+                err = max(err, abs(da[key] - db[key])
+                          / max(abs(da[key]), 1e-30))
+        rec[name] = err
+    if not (rec["top_idx_equal"] and rec["flat_idx_equal_up_to_ties"]
+            and rec["video_score_max_rel_err"] <= rtol):
+        raise AssertionError(f"fp32 packed vs unpacked queries: {rec}")
+    return rec
+
+
+def same_submission(a, b):
+    """Two submissions of the same queries: whether every prediction's
+    (video, st, ed) is equal, whether every score is too, and the largest
+    relative score error."""
+    out = {"ids_equal": True, "scores_bit_equal": True,
+           "score_max_rel_err": 0.0}
+    for task in ("VCMR", "SVMR", "VR"):
+        for ea, eb in zip(a[task], b[task], strict=True):
+            pa = np.asarray(ea["predictions"], np.float64)
+            pb = np.asarray(eb["predictions"], np.float64)
+            if ea["desc_id"] != eb["desc_id"] or pa.shape != pb.shape \
+                    or not np.array_equal(pa[:, :3], pb[:, :3]):
+                out["ids_equal"] = out["scores_bit_equal"] = False
+                continue
+            out["scores_bit_equal"] &= np.array_equal(pa[:, 3], pb[:, 3])
+            out["score_max_rel_err"] = max(out["score_max_rel_err"], float(
+                np.max(np.abs(pa[:, 3] - pb[:, 3])
+                       / np.maximum(np.abs(pb[:, 3]), 1e-30), initial=0.0)))
+    return out
+
+
+def chunked_fp32_check(torch, cfg, flat, vsm, opts, batches, query_batches,
+                       query_data, dev):
+    """fp32 on ``dev``, the small corpus in chunks of ``SMALL_CHUNK``
+    against the resident corpus: every (video, st, ed) of the submission
+    equal, the scores within rtol 1e-4 (cuBLAS picks its kernels by shape,
+    so a chunk's products may sum in another order); whether every score
+    is bit-equal is reported."""
+    from hero_tpu_torch.convert.from_jax import load_jax_params
+    from hero_tpu_torch.evaluation.vcmr_eval import validate_full_vcmr
+    params = load_jax_params(flat, device=dev, heads=False)
+    n_videos = sum(b["c_attn_masks"].shape[0] for b in batches)
+    video_ids = [f"s{i}" for i in range(n_videos)]
+    v2i = {v: i for i, v in enumerate(video_ids)}
+    subs = []
+    for chunk in (0, SMALL_CHUNK):
+        _, sub, met = validate_full_vcmr(
+            params, cfg, vsm,
+            dataclasses.replace(opts, corpus_chunk_videos=chunk), batches,
+            query_batches, video_ids, v2i, query_data, dtype=torch.float32,
+            device=dev)
+        subs.append((sub, met))
+    (rsub, rmet), (csub, cmet) = subs
+    rtol = 1e-4
+    rec = {"videos": n_videos, "chunk": SMALL_CHUNK, "score_rtol": rtol,
+           **same_submission(csub, rsub), "metrics_equal": cmet == rmet}
+    if not rec["ids_equal"] or rec["score_max_rel_err"] > rtol:
+        raise AssertionError(f"fp32 chunked vs resident corpus: {rec}")
+    return rec
+
+
+def write_query_store(query_batch, query_data, subs, root):
+    """One query batch and its ground truth as a herostore query database
+    (``QueryTokStore``'s layout: token ids without the CLS the dataset
+    puts first, ``id2len.json``, ``query2video.json``, ``meta.json``,
+    ``query_data.jsonl``); returns its directory."""
+    from hero_tpu_torch.data.store import HeroStoreWriter
+    q_dir = os.path.join(root, "query_db")
+    id2len, q2v = {}, {}
+    with HeroStoreWriter(q_dir) as w:
+        for qi, qid in enumerate(query_batch["qids"]):
+            n = int(query_batch["query_attn_masks"][qi].sum()) - 1
+            ids = query_batch["query_input_ids"][qi, :n].tolist()
+            rec = query_data[qid]
+            w.put(str(qid), {"input_ids": ids, "target": rec["ts"]})
+            id2len[str(qid)], q2v[str(qid)] = n, rec["vid_name"]
+    sidecars = {"id2len.json": id2len, "query2video.json": q2v,
+                "meta.json": {"CLS": subs.cls_, "SEP": subs.sep,
+                              "PAD": subs.pad, "MASK": subs.mask,
+                              "v_range": list(subs.v_range)}}
+    for name, obj in sidecars.items():
+        with open(os.path.join(q_dir, name), "w") as f:
+            json.dump(obj, f)
+    with open(os.path.join(q_dir, "query_data.jsonl"), "w") as f:
+        for qid in query_batch["qids"]:
+            f.write(json.dumps(query_data[qid]) + "\n")
+    return q_dir
+
+
+def serve_run_dir(here, root, cfg, sub_dir, feat_dir, q_dir, rehearse):
+    """A run directory as training leaves it: ``log/hps.json`` (the
+    options of ``config/pretrain-tv.json`` minus its paths, the stores
+    and the eval options: video batches of 50, query batches of 64,
+    packed queries), a model config and ``ckpt/model_step_N.npz`` of the
+    whole JAX tree (the numpy init at ``PROGRAM_SEED``); returns the
+    directory."""
+    from hero_tpu_torch.config.opts import get_vcmr_args
+    from hero_tpu_torch.drivers.common import vsm_config_from_opts
+    from hero_tpu_torch.models.pretrain import init_flat_params
+    from hero_tpu_torch.training.save import save_params
+    with open(os.path.join(here, "config", "pretrain-tv.json")) as f:
+        raw = json.load(f)
+    for k in ("targets", "targets_ratio", "checkpoint"):
+        raw.pop(k)
+    out = os.path.join(root, "run")
+    model_json = os.path.join(root, "model.json")
+    with open(model_json, "w") as f:
+        json.dump(cfg.to_dict(), f)
+    raw.update(sub_txt_db=sub_dir, vfeat_db=feat_dir, val_query_txt_db=q_dir,
+               model_config=model_json, output_dir=out,
+               vfeat_dim=cfg.vfeat_dim, bucket_query_len=QUERY_SLOTS,
+               vcmr_eval_video_batch_size=10 if rehearse else VIDEO_BS,
+               vcmr_eval_batch_size=16 if rehearse else QUERY_BS,
+               pack_queries=True, query_pack_segs=PACK_SEGS,
+               query_pack_rows_per_call=PACK_ROWS)
+    exp = os.path.join(root, "serve.json")
+    with open(exp, "w") as f:
+        json.dump(raw, f)
+    opts = get_vcmr_args(["--config", exp])
+    for d in ("log", "ckpt"):
+        os.makedirs(os.path.join(out, d))
+    with open(os.path.join(out, "log", "hps.json"), "w") as f:
+        json.dump(vars(opts), f)
+    save_params(os.path.join(out, "ckpt", f"model_step_{PROGRAM_STEP}.npz"),
+                init_flat_params(cfg, vsm_config_from_opts(opts),
+                                 seed=PROGRAM_SEED))
+    return out
+
+
+def _printed_metrics(stdout):
+    """The metrics JSON the program prints last (``indent=2``)."""
+    lines = stdout.splitlines()
+    start = max(i for i, ln in enumerate(lines) if ln == "{")
+    return json.loads("\n".join(lines[start:]))
+
+
+def serving_program(torch, here, cfg, db, dev, sync, rehearse):
+    """``python -m hero_tpu_torch.drivers.eval_vcmr`` in a subprocess over
+    the pretraining phase's videos written to disk and a query store,
+    from a JAX-layout checkpoint (see the module docstring); then
+    ``drivers/eval_vcmr.main`` in this process with the launch counters
+    from 0.  Returns (record, its launches)."""
+    import shutil
+    import tempfile
+    from hero_tpu_torch.drivers import eval_vcmr as drv
+    from hero_tpu_torch.drivers.common import eval_opts_from
+    stage_s, t0 = {}, time.perf_counter()
+
+    def stage(name):
+        nonlocal t0
+        now = time.perf_counter()
+        stage_s[name] = now - t0
+        t0 = now
+
+    root = tempfile.mkdtemp(prefix="eval_vcmr_")
+    try:
+        sub_dir, feat_dir = write_pretrain_stores(db, root)
+        n_q = 48 if rehearse else PROGRAM_QUERIES
+        qb, qdata = make_queries(n_q, n_q, QUERY_SLOTS,
+                                 cfg.f_config.vocab_size - 8, list(db.vids),
+                                 1.5, seed=51)
+        q_dir = write_query_store(qb[0], qdata, db.txt_db, root)
+        out = serve_run_dir(here, root, cfg, sub_dir, feat_dir, q_dir,
+                            rehearse)
+        stage("write")
+        argv = ["--output_dir", out, "--checkpoint", str(PROGRAM_STEP)]
+        cmd = [sys.executable, "-m", "hero_tpu_torch.drivers.eval_vcmr"]
+        if rehearse:     # the CLI serves on the card; the rehearsal asks
+            cmd = [sys.executable, "-c",            # for the CPU in fp32
+                   "import sys, torch\n"
+                   "from hero_tpu_torch.drivers import eval_vcmr as e\n"
+                   "e.configure_stdout()\n"
+                   "e.main(e.build_argparser().parse_args(sys.argv[1:]), "
+                   "device='cpu', dtype=torch.float32)"]
+        t_p = time.perf_counter()
+        proc = subprocess.run(cmd + argv, cwd=here, capture_output=True,
+                              text=True, timeout=600)
+        rec = {"stage_s": stage_s, "queries": n_q,
+               "videos": len(db.vids),
+               "program_wall_s": time.perf_counter() - t_p}
+        if proc.returncode != 0:
+            raise AssertionError(f"eval_vcmr exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        stage("program")
+        path = os.path.join(out, f"results_{PROGRAM_STEP}_val_all.json")
+        with open(path) as f:
+            written = json.load(f)
+        if set(written) != {"VCMR", "SVMR", "VR", "video2idx"}:
+            raise AssertionError(f"results keys {sorted(written)}")
+        for task in ("VCMR", "SVMR", "VR"):
+            ids = sorted(e["desc_id"] for e in written[task])
+            if ids != list(range(n_q)):
+                raise AssertionError(f"{task}: not every query once")
+        printed = _printed_metrics(proc.stdout)
+        reset_counts()
+        sync()
+        t_i = time.perf_counter()
+        metrics, sub = drv.main(drv.build_argparser().parse_args(argv),
+                                device=dev,
+                                dtype=torch.float32 if rehearse
+                                else torch.bfloat16)
+        sync()
+        rec["in_process_wall_s"] = time.perf_counter() - t_i
+        launches = read_counts()
+        stage("in_process")
+        check_submission(sub, metrics, n_q, len(db.vids),
+                         eval_opts_from(drv.load_serve_opts(out)))
+        rec["submission_equal"] = json.loads(json.dumps(sub)) == written
+        rec["metrics_equal"] = (json.loads(json.dumps(metrics, default=float))
+                                == printed)
+        if not (rec["submission_equal"] and rec["metrics_equal"]):
+            raise AssertionError(f"the program's results differ from the "
+                                 f"in-process run's: {rec}")
+        rec["metrics"] = {t: metrics[t] for t in ("VCMR", "SVMR", "VR")}
+        return rec, launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def serving_full_phase(torch, here, cfg, flat, params, vsm, opts, batches,
+                       query_batches, video_ids, video2idx, query_data,
+                       small, db, dev, dtype, sync, rehearse, profile,
+                       record):
+    """Packed queries and the chunked corpus at the serving phase's
+    flagship layout, their fp32 checks on the small corpus, and the
+    eval_vcmr program (see the module docstring); with ``profile``, a
+    trace of one packed and one unpacked ``validate_full_vcmr`` call.
+    Returns
+    (record, {path: launches})."""
+    from hero_tpu_torch.evaluation.vcmr_eval import validate_full_vcmr
+    small_batches, small_q, small_qd = small
+    rec, paths = {}, {}
+    t_phase = time.perf_counter()
+    _, _, n_rows, fill = packed_layout(query_batches)
+    n_q = sum(len(b["qids"]) for b in query_batches)
+    popts = packed_opts(opts)
+
+    def serve(o):
+        return validate_full_vcmr(
+            params, cfg, vsm, o, batches, query_batches, video_ids,
+            video2idx, query_data, dtype=dtype, device=dev)[1:]
+
+    serve(popts)                                                # warm-up
+    sync()
+    reset_counts()
+    sub, metrics = serve(popts)
+    sync()
+    paths["serving_packed"] = launches = read_counts()
+    check_submission(sub, metrics, n_q, len(video_ids), popts)
+    # the packed query encoders' attention is #1 in segment mode; the
+    # one-row-a-query encoders' is #2 (the main path's counts)
+    one_row = record["main_path_launches"]
+    query_seg = (launches["seg_attention_cuda"]
+                 - one_row["seg_attention_cuda"])
+    if not rehearse and not (
+            query_seg > 0 and launches["valid_attention_cuda"]
+            < one_row["valid_attention_cuda"]):
+        raise AssertionError(f"the packed queries did not run #1 in segment "
+                             f"mode: {launches} vs one row a query "
+                             f"{one_row}")
+    runs = {"unpacked": [], "packed": []}
+    subs = {}
+    for i in range(PHASE_RUNS):
+        order = (("unpacked", opts), ("packed", popts))
+        for name, o in order if i % 2 == 0 else order[::-1]:
+            t0 = time.perf_counter()
+            subs[name] = serve(o)[0]
+            sync()
+            runs[name].append(time.perf_counter() - t0)
+    if profile:
+        rec["profile"] = {
+            "packed_call": profile_breakdown(torch, lambda: serve(popts), 1),
+            "unpacked_call": profile_breakdown(torch, lambda: serve(opts),
+                                               1)}
+    k = min(10, len(video_ids))
+    same_top = sum(a[:k] == b[:k] for a, b in zip(
+        vr_ids(subs["unpacked"]), vr_ids(subs["packed"]), strict=True))
+    med = {n: float(np.median(r)) for n, r in runs.items()}
+    rec["packed"] = {
+        "timed": "validate_full_vcmr end to end: phase 1, phase 2, the "
+                 "host's decoding and metrics",
+        "queries": n_q, "videos": len(video_ids), "segs": PACK_SEGS,
+        "rows_per_call": PACK_ROWS, "packed_rows": n_rows,
+        "slot_fill": fill, "unpacked_rows": n_q,
+        "wall_s": med["packed"], "unpacked_wall_s": med["unpacked"],
+        "queries_per_s": n_q / med["packed"],
+        "unpacked_queries_per_s": n_q / med["unpacked"],
+        "wall_s_runs": runs["packed"],
+        "unpacked_wall_s_runs": runs["unpacked"],
+        "phase2_queries_per_s": record["phases"]["phase2"]["queries_per_s"],
+        "bf16_top10_identical": int(same_top),
+        "query_encoder_seg_launches": query_seg,
+        "launches": launches}
+    rec["packed_fp32"] = packed_fp32_check(
+        torch, cfg, flat, vsm, opts, small_batches, small_q, small_qd,
+        "cpu" if rehearse else "cuda")
+    log(f"packed queries: validate_full_vcmr {med['packed']:.3f} s vs "
+        f"{med['unpacked']:.3f} s one row a query")
+
+    chunk = 10 if rehearse else CHUNK_VIDEOS
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    _, sub, metrics = validate_full_vcmr(
+        params, cfg, vsm, dataclasses.replace(opts, corpus_chunk_videos=chunk),
+        batches, query_batches, video_ids, video2idx, query_data,
+        dtype=dtype, device=dev)
+    sync()
+    paths["serving_chunked"] = read_counts()
+    check_submission(sub, metrics, n_q, len(video_ids), opts)
+    rec["chunked"] = {"videos": len(video_ids), "chunk": chunk,
+                      "wall_s": time.perf_counter() - t0,
+                      "resident_wall_s": record["main_path_wall_s"],
+                      "launches": paths["serving_chunked"]}
+    rec["chunked_fp32"] = chunked_fp32_check(
+        torch, cfg, flat, vsm, opts, small_batches, small_q, small_qd,
+        "cpu" if rehearse else "cuda")
+    log(f"chunked corpus: {rec['chunked']['wall_s']:.2f} s vs "
+        f"{rec['chunked']['resident_wall_s']:.2f} s resident")
+
+    rec["program"], paths["eval_vcmr"] = serving_program(
+        torch, here, cfg, db, dev, sync, rehearse)
+    rec["program"]["launches"] = paths["eval_vcmr"]
+    log(f"eval_vcmr program: {rec['program']['program_wall_s']:.1f} s")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec, paths
+
+
+# ---------------------------------------------------------------------------
 # components: tools/component_bench.py and the DALN checks of
 # tools/kernel_smoke.py and tools/tpu_kernel_drive.py
 # ---------------------------------------------------------------------------
@@ -3819,7 +4274,9 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="also trace one phase-1 batch, one query batch, "
                          "one fit-bucket train step, one greedy TVC "
-                         "batch and one TVC train step with "
+                         "batch, one TVC train step, one optimizer step "
+                         "of each pretraining task and one packed and "
+                         "one unpacked pass over the queries with "
                          "torch.profiler and record device time by kernel "
                          "class (in the --json-out record)")
     ap.add_argument("--daln-times", metavar="ROOT", nargs="?", const="",
@@ -3909,8 +4366,12 @@ def main(argv=None):
     log(f"setup (corpus, queries, weights) {record['setup_s']:.1f} s")
 
     if not rehearse:
+        from hero_tpu_torch.evaluation.vcmr_eval import pack_query_arrays
+        ids, lens, _, _ = packed_layout(query_batches)
+        p_seg = pack_query_arrays(ids, lens, PACK_SEGS, PACK_ROWS)[1]
         record["kernels"] = check_kernels(
-            torch, batches[0], query_batches[0]["query_attn_masks"], cfg)
+            torch, batches[0], query_batches[0]["query_attn_masks"],
+            (p_seg[:PACK_ROWS], p_seg[-PACK_ROWS:]), cfg)
         log("kernel checks passed")
 
     def sync():
@@ -3988,8 +4449,9 @@ def main(argv=None):
 
     small = dataclasses.replace(shape, batch=10)
     small_batches, _ = make_corpus(20, 10, small, seed=11)
-    small_q, _ = make_queries(16, 16, QUERY_SLOTS, 50265,
-                              [f"s{i}" for i in range(20)], 1.5, seed=12)
+    small_q, small_qd = make_queries(16, 16, QUERY_SLOTS, 50265,
+                                     [f"s{i}" for i in range(20)], 1.5,
+                                     seed=12)
     record["integration_fp32"] = integration_check(
         torch, cfg, flat, vsm, opts, small_batches, small_q[0],
         "cpu" if rehearse else "cuda", "cpu")
@@ -4094,7 +4556,6 @@ def main(argv=None):
     # pretraining as a program: drivers/pretrain.main from stores on disk
     pmain, pmain_launches = pretrain_main_phase(torch, here, cfg, pre_db,
                                                 dev, sync, rehearse)
-    del pre_db
     if not rehearse and min(pmain_launches[k] for k in TRAIN_KERNELS) == 0:
         raise AssertionError(f"a kernel of pretraining's main was never "
                              f"launched: {pmain_launches}")
@@ -4103,6 +4564,20 @@ def main(argv=None):
     log(f"pretrain main: {pmain['main_examples_per_s']:.1f} videos/s from "
         f"disk, resumed run bit-equal, done at "
         f"{time.perf_counter() - t_start:.1f} s")
+
+    # serving in full: packed queries, the chunked corpus, the program
+    full, full_paths = serving_full_phase(
+        torch, here, cfg, flat, params, vsm, opts, batches, query_batches,
+        video_ids, video2idx, query_data, (small_batches, small_q, small_qd),
+        pre_db, dev, dtype, sync, rehearse, args.profile and not rehearse,
+        record)
+    del pre_db
+    for name, counts in full_paths.items():
+        if not rehearse and min(counts[k] for k in serving) == 0:
+            raise AssertionError(f"a kernel of {name} was never launched: "
+                                 f"{counts}")
+    record["serving_full"] = full
+    mark("serving_full")
 
     # the components of tools/component_bench.py
     if not rehearse:
@@ -4211,6 +4686,12 @@ def main(argv=None):
         "free_bytes_after": pmain["free_bytes_after"],
         "store_bytes": pmain["store_bytes"],
         "launches": pmain_launches, "stage_s": pmain["stage_s"]}}))
+    print(json.dumps({"serving_full": {
+        "packed": full["packed"], "packed_fp32": full["packed_fp32"],
+        "chunked": full["chunked"], "chunked_fp32": full["chunked_fp32"],
+        "program": {k: v for k, v in full["program"].items()
+                    if k != "metrics"},
+        "phase_s": full["phase_s"]}}))
     print(json.dumps({"components": {
         "ms": comps.get("ms"), "ffn_tflops": comps.get("ffn_tflops"),
         "shapes": comps["shapes"], "launches": comp_launches}}))
@@ -4220,7 +4701,7 @@ def main(argv=None):
     paths = {"serving": launches, "train": train_launches,
              "tvc": tvc_launches, "tvc_train": tt_launches,
              "pretrain": pre_launches, "pretrain_main": pmain_launches,
-             "components": comp_launches}
+             **full_paths, "components": comp_launches}
     kernels = [{k: row[k] for k in (
         "name", "route", "source", "replaces", "tpu_kernel", "shape", "dtype",
         "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",

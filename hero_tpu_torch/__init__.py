@@ -1,5 +1,7 @@
-"""hero_tpu_torch — HERO in PyTorch + CUDA: the two-phase VCMR serving path,
-the four-task pretraining recipe (MLM, MFM-NCE / MFFR, FOM and VSM, from
+"""hero_tpu_torch — HERO in PyTorch + CUDA: the two-phase VCMR serving path
+(packed queries, the chunked corpus, and as a program from stores and a
+checkpoint: ``python -m hero_tpu_torch.drivers.eval_vcmr``), the
+four-task pretraining recipe (MLM, MFM-NCE / MFFR, FOM and VSM, from
 herostore databases on disk through the MetaLoader, with checkpoints and
 resume in the JAX package's file layout: ``python -m
 hero_tpu_torch.drivers.pretrain --config <json>``), TVC caption serving

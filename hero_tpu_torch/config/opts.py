@@ -1,5 +1,5 @@
-"""Options: argparse plus a JSON config (a copy of the pretraining part of
-``hero_tpu/config/opts.py``).
+"""Options: argparse plus a JSON config (a copy of the pretraining and
+VCMR parts of ``hero_tpu/config/opts.py``).
 
 ``--config`` names a JSON file; each of its keys becomes an attribute
 unless the same flag was given on the command line (the command line
@@ -69,7 +69,8 @@ def base_parser(desc: str = "hero_tpu_torch") -> argparse.ArgumentParser:
     p.add_argument("--lr_sched", default="warmup_linear",
                    choices=["warmup_linear", "noam", "vqa"])
     # the JAX package's multi-device options, read into the namespace for
-    # config compatibility; the port trains on one card
+    # config compatibility; the port trains on one card: --zero1 there is
+    # the replicated step's math, --pp_stages > 1 raises (ROADMAP A8)
     p.add_argument("--zero1", action="store_true")
     p.add_argument("--pp_stages", default=1, type=int)
     p.add_argument("--pp_microbatches", default=2, type=int)
@@ -119,6 +120,35 @@ def add_vsm_args(p: argparse.ArgumentParser):
     p.add_argument("--use_all_neg", default=True, type=bool)
     p.add_argument("--drop_svmr_prob", default=0.0, type=float)
     return p
+
+
+def add_eval_args(p: argparse.ArgumentParser):
+    p.add_argument("--eval_with_query_type", default=True, type=bool)
+    p.add_argument("--max_before_nms", default=200, type=int)
+    p.add_argument("--max_after_nms", default=100, type=int)
+    # accepted for config compatibility; the port evaluates in one process
+    p.add_argument("--distributed_eval", action="store_true")
+    p.add_argument("--nms_thd", default=-1.0, type=float)
+    p.add_argument("--q2c_alpha", default=20.0, type=float)
+    p.add_argument("--max_vcmr_video", default=100, type=int)
+    p.add_argument("--full_eval_tasks", default=["VCMR", "SVMR", "VR"],
+                   nargs="+", type=str)
+    p.add_argument("--min_pred_l", default=2, type=int)
+    p.add_argument("--max_pred_l", default=16, type=int)
+    p.add_argument("--vcmr_eval_video_batch_size", default=50, type=int)
+    p.add_argument("--vcmr_eval_batch_size", default=80, type=int)
+    return p
+
+
+def get_vcmr_args(argv=None):
+    p = base_parser("HERO VCMR finetuning (TVR/How2R/DiDeMo)")
+    add_vsm_args(p)
+    add_eval_args(p)
+    p.add_argument("--task", default="tvr", type=str)
+    return parse_with_config(p, argv)
+
+
+get_vr_args = get_vcmr_args
 
 
 def get_pretrain_args(argv=None):

@@ -1,8 +1,10 @@
-"""TVC caption-generation data (copies from
-``hero_tpu/data/downstream_tasks.py``; the same inputs give the same
+"""VCMR corpus-evaluation queries and TVC caption-generation data (copies
+from ``hero_tpu/data/downstream_tasks.py``; the same inputs give the same
 arrays).
 
 - :func:`get_st_ed_label`: seconds -> frame-index span.
+- :class:`VcmrFullEvalDataset`: the queries of the two-phase corpus
+  evaluation, in fixed-size batches (``batches``).
 - :class:`TvcTrainDataset` and :func:`build_tvc_batch`: TVC training,
   ``caps_per_video`` caption rows per video with their clip gather
   indices, the batch flattened to caption rows with ``cap_vidx``.  The
@@ -29,6 +31,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from hero_tpu_torch.data.video import pad_query
+
 
 def get_st_ed_label(ts, max_idx: int, frame_interval: float,
                     round_ed: bool = False) -> Tuple[int, int]:
@@ -41,6 +45,60 @@ def get_st_ed_label(ts, max_idx: int, frame_interval: float,
         ed = min(max(math.ceil(ts[1] / frame_interval) - 1, st + 1),
                  max_idx)
     return st, ed
+
+
+class VcmrFullEvalDataset:
+    """Queries only, for the two-phase corpus evaluation (reference
+    VcmrFullEvalDataset, data/vcmr.py:181-242;
+    ``hero_tpu/data/downstream_tasks.py:125-175``).  The query store is
+    duck-typed as ``QueryTokStore``: ``store[qid]`` -> ``input_ids``,
+    ``cls_``, ``pad`` and ``query2video``; ``shapes.query_len`` is the
+    padded query length (with the leading CLS).  One process serves every
+    query: the reference's per-rank slicing comes with multi-process
+    serving (ROADMAP A8)."""
+
+    def __init__(self, qids, query_db, shapes):
+        self.query_db = query_db
+        self.shapes = shapes
+        self.qids = list(qids)
+
+    def __len__(self):
+        return len(self.qids)
+
+    def __getitem__(self, i: int):
+        qid = self.qids[i]
+        ex = self.query_db[qid]
+        ids, mask = pad_query([self.query_db.cls_] + list(ex["input_ids"]),
+                              self.shapes.query_len, self.query_db.pad)
+        vid = self.query_db.query2video.get(qid, "")
+        return {"query_input_ids": ids, "query_attn_masks": mask,
+                "__qid__": qid, "__vid__": vid}
+
+    def batches(self, batch_size: int, pad_to_full: bool = True):
+        """Batches of ``batch_size`` queries.  ``pad_to_full`` pads the
+        ragged last batch to ``batch_size`` rows of pad tokens with zero
+        masks, so every batch has one shape; its ``qids`` / ``vids``
+        lists keep the real length and the scorer's pad rows are sliced
+        off."""
+        for s in range(0, len(self), batch_size):
+            items = [self[i] for i in range(s, min(s + batch_size,
+                                                   len(self)))]
+            ids = np.stack([it["query_input_ids"] for it in items])
+            masks = np.stack([it["query_attn_masks"] for it in items])
+            if pad_to_full and len(items) < batch_size:
+                pad = batch_size - len(items)
+                ids = np.concatenate(
+                    [ids, np.full((pad,) + ids.shape[1:],
+                                  self.query_db.pad, ids.dtype)])
+                masks = np.concatenate(
+                    [masks, np.zeros((pad,) + masks.shape[1:],
+                                     masks.dtype)])
+            yield {
+                "qids": [it["__qid__"] for it in items],
+                "vids": [it["__vid__"] for it in items],
+                "query_input_ids": ids,
+                "query_attn_masks": masks,
+            }
 
 
 class TvcTrainDataset:

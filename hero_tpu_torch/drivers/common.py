@@ -1,7 +1,7 @@
 """Shared driver plumbing (counterpart of ``hero_tpu/drivers/common.py``):
-bucket shapes and configs from the options, the video dataset over the
-stores on disk, checkpoint loading, the VSM curriculum, and the train loop
-on one device.
+bucket shapes and configs from the options (the corpus evaluation's too),
+the video dataset over the stores on disk, checkpoint loading, the VSM
+curriculum, and the train loop on one device.
 
 :func:`run_training` keeps the JAX loop's contract: batches arrive as
 (task, numpy micro-batch) pairs; an accumulation window must hold one
@@ -42,6 +42,20 @@ LOGGER = logging.getLogger(__name__)
 # (a loss pops them as Python values) and never go to the device
 CURRICULUM_KEYS = ("use_hard_negative", "hard_pool_size", "hard_neg_weight",
                    "lw_st_ed")
+
+
+def check_one_device(opts) -> None:
+    """Raise on options that need several devices: the port trains on one
+    card.  ``--pp_stages`` > 1 (with its ``--pp_microbatches``) asks for
+    the JAX package's pipeline-parallel mesh, which waits for ROADMAP A8;
+    ``--zero1`` on one device is the replicated step's math and passes."""
+    stages = getattr(opts, "pp_stages", 1) or 1
+    if stages > 1:
+        raise NotImplementedError(
+            f"--pp_stages {stages} (with --pp_microbatches "
+            f"{getattr(opts, 'pp_microbatches', None)}): pipeline "
+            "parallelism needs several devices, which the port does not "
+            "drive yet (ROADMAP A8); run with --pp_stages 1")
 
 
 def shapes_from_opts(opts) -> FixedShapes:
@@ -186,6 +200,32 @@ def model_config_from_opts(opts) -> HeroConfig:
     cfg = HeroConfig.from_json(opts.model_config)
     return cfg.replace(max_clip_len=opts.max_clip_len,
                        vfeat_dim=getattr(opts, "vfeat_dim", cfg.vfeat_dim))
+
+
+def eval_opts_from(opts):
+    """The corpus evaluation's options from a run's options
+    (``hero_tpu/drivers/common.py:197-214``), with the two query-packing
+    options when the options carry them."""
+    from hero_tpu_torch.evaluation.vcmr_eval import VcmrEvalOpts
+    return VcmrEvalOpts(
+        q2c_alpha=getattr(opts, "q2c_alpha", 20.0),
+        max_vcmr_video=getattr(opts, "max_vcmr_video", 100),
+        min_pred_l=getattr(opts, "min_pred_l", 2),
+        max_pred_l=getattr(opts, "max_pred_l", 16),
+        max_before_nms=getattr(opts, "max_before_nms", 200),
+        max_after_nms=getattr(opts, "max_after_nms", 100),
+        nms_thd=getattr(opts, "nms_thd", -1.0),
+        vfeat_interval=opts.vfeat_interval,
+        max_clip_len=opts.max_clip_len,
+        full_eval_tasks=tuple(getattr(opts, "full_eval_tasks",
+                                      ("VCMR", "SVMR", "VR"))),
+        eval_with_query_type=getattr(opts, "eval_with_query_type", True),
+        corpus_chunk_videos=getattr(opts, "corpus_chunk_videos", 0),
+        pack_queries=getattr(opts, "pack_queries", False),
+        query_pack_segs=getattr(opts, "query_pack_segs", 4),
+        query_pack_rows_per_call=getattr(opts, "query_pack_rows_per_call",
+                                         64),
+    )
 
 
 LOG_EVERY = 100           # optimizer steps between loss log lines

@@ -229,7 +229,8 @@ def run_pretrain(opts, video_dbs: Dict[str, VideoFeatSubTokDataset],
     (default :func:`init_params` on ``device``); a state past step 0
     resumes the task schedule where it stood.  ``on_step``, ``saver`` and
     ``restorer`` are :func:`common.run_training`'s.  Returns the final
-    train state."""
+    train state.  ``--pp_stages`` > 1 raises (ROADMAP A8)."""
+    common.check_one_device(opts)
     task_datasets = build_task_datasets(opts, video_dbs, name_ratios)
     LOGGER.info("pretraining targets %s, tasks %s", list(video_dbs),
                 {t: r for t, (_, r) in task_datasets.items()})
@@ -295,7 +296,9 @@ def main(opts, device="cuda", on_step: Optional[Callable] = None
     checkpoint's copy and write ms and bytes), ``ckpt/model_step_N.npz``
     and ``restore.npz``, resumed from when present.  bf16 compute on fp32
     parameters.  ``on_step`` as :func:`common.run_training`'s.  Returns
-    the final train state."""
+    the final train state.  ``--pp_stages`` > 1 raises before any work
+    (ROADMAP A8)."""
+    common.check_one_device(opts)
     device = resolve_device(device)
     set_random_seed(opts.seed)
     os.makedirs(opts.output_dir, exist_ok=True)

@@ -1,5 +1,5 @@
 """Full-corpus VCMR / SVMR / VR evaluation -- the serving path
-(counterpart of ``hero_tpu/evaluation/vcmr_eval.py``).
+(counterpart of ``hero_tpu/evaluation/vcmr_eval.py``, one device).
 
 - **Phase 1** embeds every video through the backbone into a corpus
   tensor ``(Nv, max_clip_len, D)`` kept resident on the device.
@@ -9,11 +9,16 @@
   the selected videos only, the in-band (st, ed) span scores and an exact
   top-``max_before_nms`` over them.  Both top-k's order by value
   descending with ties to the lowest flat index, as ``lax.top_k`` does.
+- **Packed queries** (``pack_queries``): phase 2 first encodes the whole
+  query set with several queries a row behind the block-diagonal segment
+  mask (:func:`encode_queries_packed`), then scores per-batch slices of
+  the pooled (Nq, D) matrix.  Only the layout changes.
+- **Chunked corpus** (``corpus_chunk_videos``): phases 1 and 2 run
+  ``corpus_chunk_videos`` videos at a time and the per-chunk top-k's merge
+  exactly on the host (:func:`_chunked_score_all`); the corpus tensor is
+  never whole on the device.
 - The host decodes the flat indices into (video, st, ed) seconds, builds
   the reference-schema submission and computes the metrics.
-
-Only the resident-corpus, single-device, one-row-per-query branch is
-ported; the chunked corpus and packed queries raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 from hero_tpu_torch import resolve_device
 from hero_tpu_torch.config.model_config import HeroConfig
 from hero_tpu_torch.const import VCMR_IOU_THDS
+from hero_tpu_torch.data.packing import pack_queries
 from hero_tpu_torch.evaluation import tvr_metrics
 from hero_tpu_torch.models import nn
 from hero_tpu_torch.models import pretrain as pretrain_lib
@@ -49,9 +55,14 @@ class VcmrEvalOpts:
     max_clip_len: int = 100
     full_eval_tasks: Tuple[str, ...] = ("VCMR", "SVMR", "VR")
     eval_with_query_type: bool = True
-    # not ported yet (ROADMAP A3): nonzero / True raise NotImplementedError
+    # >0: embed and score the corpus this many videos at a time (a whole
+    # number of video batches); exact, see _chunked_score_all
     corpus_chunk_videos: int = 0
+    # encode several queries a row behind the segment mask; exact, see
+    # encode_queries_packed
     pack_queries: bool = False
+    query_pack_segs: int = 4
+    query_pack_rows_per_call: int = 64
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -142,6 +153,34 @@ def _make_ranker(opts: VcmrEvalOpts, n_videos: int, n_rows: int, L: int,
     return rank, max_v
 
 
+def _corpus_scorer(params, vsm: VsmConfig, opts: VcmrEvalOpts,
+                   frame_embs: torch.Tensor, frame_masks: torch.Tensor,
+                   n_real_videos: Optional[int]):
+    """(score_mod, max_v): ``score_mod(mod, gt_vidx)`` ranks the resident
+    corpus for pooled queries ``mod`` (Nq, D) (see :func:`_make_ranker`);
+    trailing corpus rows past ``n_real_videos`` are never ranked."""
+    _check_ranking_weights(vsm)
+    n_rows, L = int(frame_embs.shape[0]), int(frame_embs.shape[1])
+    rank, max_v = _make_ranker(
+        opts, n_real_videos if n_real_videos is not None else n_rows,
+        n_rows, L, frame_embs.device)
+    fmask32 = frame_masks.float()
+
+    def score_mod(mod, gt_vidx):
+        sim = pretrain_lib.get_st_ed_sim(params["head"], mod, frame_embs)
+        scores = pretrain_lib.get_video_level_scores(mod, frame_embs,
+                                                     fmask32)
+        return rank(sim, scores, gt_vidx, params["head"], fmask32)
+
+    return score_mod, max_v
+
+
+def _gt_tensor(gt_vidx, n: int, device) -> torch.Tensor:
+    if gt_vidx is None:
+        return torch.zeros(n, dtype=torch.int64, device=device)
+    return torch.as_tensor(gt_vidx, device=device).long()
+
+
 def make_query_scorer(params, cfg: HeroConfig, vsm: VsmConfig,
                       opts: VcmrEvalOpts, frame_embs: torch.Tensor,
                       frame_masks: torch.Tensor,
@@ -151,30 +190,263 @@ def make_query_scorer(params, cfg: HeroConfig, vsm: VsmConfig,
     corpus.  ``n_real_videos`` keeps trailing pad rows of the corpus out of
     the ranking.  Returns (score, max_v); ``score(q_ids, q_masks, gt_vidx)``
     gives the ranker's outputs (see :func:`_make_ranker`) on the device."""
-    _check_ranking_weights(vsm)
+    score_mod, max_v = _corpus_scorer(params, vsm, opts, frame_embs,
+                                      frame_masks, n_real_videos)
     device = frame_embs.device
-    n_rows, L = int(frame_embs.shape[0]), int(frame_embs.shape[1])
-    rank, max_v = _make_ranker(
-        opts, n_real_videos if n_real_videos is not None else n_rows,
-        n_rows, L, device)
-    fmask32 = frame_masks.float()
 
     @torch.inference_mode()
     def score(q_ids, q_masks, gt_vidx=None):
         q_ids = torch.as_tensor(q_ids, device=device)
-        q_masks = torch.as_tensor(q_masks, device=device)
-        gt_vidx = (torch.zeros(q_ids.shape[0], dtype=torch.int64,
-                               device=device)
-                   if gt_vidx is None
-                   else torch.as_tensor(gt_vidx, device=device).long())
-        mod = pretrain_lib.encode_query(params, cfg, q_ids, q_masks,
-                                        dtype=dtype)
-        sim = pretrain_lib.get_st_ed_sim(params["head"], mod, frame_embs)
-        scores = pretrain_lib.get_video_level_scores(mod, frame_embs,
-                                                     fmask32)
-        return rank(sim, scores, gt_vidx, params["head"], fmask32)
+        mod = pretrain_lib.encode_query(
+            params, cfg, q_ids, torch.as_tensor(q_masks, device=device),
+            dtype=dtype)
+        return score_mod(mod, _gt_tensor(gt_vidx, q_ids.shape[0], device))
 
     return score, max_v
+
+
+def pack_query_arrays(q_ids: np.ndarray, q_lens: np.ndarray,
+                      max_segs: int = 4, rows_per_call: int = 64
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                 np.ndarray]:
+    """Host half of packed query encoding: pack the whole query set
+    (:func:`data.packing.pack_queries`, never drops) into rows of
+    ``q_ids.shape[1]`` slots, the row count padded to a ``rows_per_call``
+    multiple with all-pad rows.  Returns (p_ids, p_seg, p_pos, gather)
+    int32, where ``gather[qi]`` is the flat (row * max_segs + seg) slot of
+    query ``qi``'s pooled vector (``hero_tpu/evaluation/vcmr_eval.py:
+    119-144``)."""
+    nq, row_len = q_ids.shape
+    # zero-mask pad queries (tail batches padded to the batch size) still
+    # need a slot: packed as length-1 garbage, sliced off later
+    lens = np.maximum(np.asarray(q_lens, np.int64), 1)
+    pls, n_rows = pack_queries([int(x) for x in lens], row_len, max_segs)
+    R = -(-n_rows // rows_per_call) * rows_per_call
+    p_ids = np.zeros((R, row_len), np.int32)
+    p_seg = np.full((R, row_len), -1, np.int32)
+    p_pos = np.zeros((R, row_len), np.int32)
+    gather = np.zeros((nq,), np.int32)
+    for qi, pl in enumerate(pls):
+        p_ids[pl.row, pl.toff:pl.toff + pl.tlen] = q_ids[qi, :pl.tlen]
+        p_seg[pl.row, pl.toff:pl.toff + pl.tlen] = pl.seg
+        p_pos[pl.row, pl.toff:pl.toff + pl.tlen] = np.arange(pl.tlen)
+        gather[qi] = pl.row * max_segs + pl.seg
+    return p_ids, p_seg, p_pos, gather
+
+
+def encode_packed_rows(params, cfg: HeroConfig, p_ids, p_seg, p_pos,
+                       gather, max_segs: int, rows_per_call: int,
+                       dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Device half of packed query encoding: the packed query encoder over
+    ``rows_per_call``-row slices of the (R, L) tensors, the per-segment
+    pooled vectors gathered back into query order -> (Nq, D)."""
+    outs = []
+    with torch.inference_mode():
+        for s in range(0, p_ids.shape[0], rows_per_call):
+            e = s + rows_per_call
+            out = pretrain_lib.encode_query_packed(
+                params, cfg, p_ids[s:e], p_seg[s:e], p_pos[s:e], max_segs,
+                dtype=dtype)
+            outs.append(out.reshape(-1, out.shape[-1]))
+        return torch.cat(outs, 0).index_select(0, gather.long())
+
+
+def encode_queries_packed(params, cfg: HeroConfig, q_ids: np.ndarray,
+                          q_lens: np.ndarray, max_segs: int = 4,
+                          rows_per_call: int = 64,
+                          dtype: torch.dtype = torch.bfloat16
+                          ) -> torch.Tensor:
+    """Encode ALL queries packed -> (Nq, D) on the parameters' device:
+    host packing (:func:`pack_query_arrays`) and device encoding
+    (:func:`encode_packed_rows`).  Equal to per-row ``encode_query`` up to
+    summation order (``hero_tpu/evaluation/vcmr_eval.py:164-179``)."""
+    device = params["head"]["video_query_linear"]["weight"].device
+    arrs = pack_query_arrays(q_ids, q_lens, max_segs, rows_per_call)
+    return encode_packed_rows(
+        params, cfg, *(torch.from_numpy(a).to(device) for a in arrs),
+        max_segs, rows_per_call, dtype)
+
+
+def make_fused_packed_scorer(params, cfg: HeroConfig, vsm: VsmConfig,
+                             opts: VcmrEvalOpts, frame_embs: torch.Tensor,
+                             frame_masks: torch.Tensor,
+                             dtype: torch.dtype = torch.bfloat16,
+                             n_real_videos: Optional[int] = None,
+                             max_segs: int = 4):
+    """A whole query set in one call: packed encoding, the pooled-vector
+    gather and the corpus ranking (``hero_tpu/evaluation/vcmr_eval.py:
+    362-401``).  Returns (run, max_v); ``run(p_ids, p_seg, p_pos, gather,
+    gt_vidx)`` takes :func:`pack_query_arrays`' arrays (every row in one
+    encoder call) and gives the ranker's outputs, one row a query.
+    ``validate_full_vcmr`` does not call it (it encodes the query set
+    ``rows_per_call`` rows at a time, then ranks per batch); it is kept
+    as the public counterpart of the JAX function and held against it by
+    ``tests/test_torch_vcmr_serve.py``."""
+    score_mod, max_v = _corpus_scorer(params, vsm, opts, frame_embs,
+                                      frame_masks, n_real_videos)
+    device = frame_embs.device
+
+    @torch.inference_mode()
+    def run(p_ids, p_seg, p_pos, gather, gt_vidx=None):
+        p_ids, p_seg, p_pos, gather = (torch.as_tensor(a, device=device)
+                                       for a in (p_ids, p_seg, p_pos,
+                                                 gather))
+        mod = encode_packed_rows(params, cfg, p_ids, p_seg, p_pos, gather,
+                                 max_segs, p_ids.shape[0], dtype)
+        return score_mod(mod, _gt_tensor(gt_vidx, gather.shape[0], device))
+
+    return run, max_v
+
+
+def _band_setup(opts: VcmrEvalOpts, L: int) -> np.ndarray:
+    """Flat (st * L + ed) positions of the min/max span-length band."""
+    band = tvr_metrics.generate_min_max_length_mask(
+        (1, 1, L, L), opts.min_pred_l, opts.max_pred_l)[0, 0]
+    return np.flatnonzero(band.reshape(-1)).astype(np.int32)
+
+
+def _chunked_score_all(params, cfg: HeroConfig, vsm: VsmConfig,
+                       opts: VcmrEvalOpts, video_batches,
+                       query_batches: List[Dict[str, Any]],
+                       video2idx_local: Dict[str, int], n_real_videos: int,
+                       dtype: torch.dtype, device) -> List[Tuple]:
+    """Phases 1 and 2 over a corpus too large to keep resident
+    (``hero_tpu/evaluation/vcmr_eval.py:411-565``): ``corpus_chunk_videos``
+    videos are embedded and every query batch scored against them at a
+    time.  Every per-(query, video) quantity is chunk-independent, so the
+    global top-``max_vcmr_video`` is a merge of per-chunk top-k's and the
+    flat top-``max_before_nms`` merges the per-video top-k1 band
+    candidates of the merged videos; the host merge orders ties by the
+    lowest index, as ``lax.top_k`` does.  Returns one (st_gt, ed_gt,
+    top_scores, top_idx, flat_scores, flat_idx) tuple of numpy arrays per
+    query batch, in the resident ranker's layout."""
+    _check_ranking_weights(vsm)
+    Nc = int(opts.corpus_chunk_videos)
+    L = opts.max_clip_len
+    band_pos = _band_setup(opts, L)
+    n_band = int(band_pos.shape[0])
+    band_t = torch.from_numpy(band_pos.astype(np.int64)).to(device)
+    band_st, band_ed = band_t // L, band_t % L
+    max_v = min(opts.max_vcmr_video, n_real_videos)
+    kc = min(max_v, Nc)                       # per-chunk video top-k
+    k1 = min(opts.max_before_nms, n_band)     # per-video band top-k
+    queries = [(torch.as_tensor(b["query_input_ids"], device=device),
+                torch.as_tensor(b["query_attn_masks"], device=device))
+               for b in query_batches]
+
+    def score_chunk(chunk_embs, chunk_masks, q_ids, q_masks, gt_local):
+        scores, st, ed = vcmr_lib.get_pred_from_raw_query(
+            params, cfg, vsm, chunk_embs, chunk_masks, q_ids, q_masks,
+            cross=True, dtype=dtype)
+        sharp = torch.exp(opts.q2c_alpha * scores.float())
+        top_sc, top_ix = topk_lowest_index(sharp, kc)          # (Nq, kc)
+        idx = top_ix[..., None].expand(-1, -1, L)
+        st_sel = torch.softmax(torch.gather(st, 1, idx).float(), -1)
+        ed_sel = torch.softmax(torch.gather(ed, 1, idx).float(), -1)
+        vals = (st_sel[..., band_st] * ed_sel[..., band_ed]
+                * top_sc[..., None])                       # (Nq, kc, n_band)
+        sc1, idx1 = topk_lowest_index(vals, k1)            # (Nq, kc, k1)
+        rows = torch.arange(st.shape[0], device=device)
+        st_gt = torch.softmax(st[rows, gt_local].float(), -1)
+        ed_gt = torch.softmax(ed[rows, gt_local].float(), -1)
+        return top_sc, top_ix, sc1, idx1, st_gt, ed_gt
+
+    per_chunk: List[List[Any]] = [[] for _ in query_batches]
+
+    def flush_chunk(embs, masks, offset):
+        e, m = torch.cat(embs, 0), torch.cat(masks, 0)
+        if e.shape[0] < Nc:
+            # the last chunk padded with zero-mask rows: their scores sit
+            # at exp(-q2c_alpha * 1e4) = 0 and the merge drops them
+            e = torch.cat([e, e.new_zeros((Nc - e.shape[0],) + e.shape[1:])])
+            m = torch.cat([m, m.new_zeros((Nc - m.shape[0],) + m.shape[1:])])
+        for bi, (batch, (q_ids, q_masks)) in enumerate(
+                zip(query_batches, queries)):
+            gt_local = np.zeros((q_ids.shape[0],), np.int64)
+            for qi, v in enumerate(batch["vids"]):
+                a = video2idx_local.get(v, 0)
+                if offset <= a < offset + Nc:
+                    gt_local[qi] = a - offset
+            out = score_chunk(e, m, q_ids, q_masks,
+                              torch.from_numpy(gt_local).to(device))
+            per_chunk[bi].append((offset,) + tuple(
+                x.cpu().numpy() for x in out))
+
+    embs, masks, offset, n_in_chunk = [], [], 0, 0
+    with torch.inference_mode():
+        for vb in video_batches:
+            tb = batch_to_device(vb, device)
+            embs.append(vcmr_lib.encode_video_corpus(params, cfg, tb, dtype))
+            masks.append(tb["c_attn_masks"])
+            n_in_chunk += embs[-1].shape[0]
+            if n_in_chunk >= Nc:
+                # a chunk is a whole number of video batches: a batch
+                # split across two chunks would change the chunk's shape
+                assert n_in_chunk == Nc, (
+                    "corpus_chunk_videos must be a multiple of the video "
+                    f"batch size (chunk {n_in_chunk} vs {Nc})")
+                flush_chunk(embs, masks, offset)
+                offset += Nc
+                embs, masks, n_in_chunk = [], [], 0
+        if embs:
+            flush_chunk(embs, masks, offset)
+
+    # host merge, per query batch (the JAX package's numpy, unchanged)
+    k = min(opts.max_before_nms, max_v * n_band)
+    results = []
+    for bi, batch in enumerate(query_batches):
+        n_rows = batch["query_input_ids"].shape[0]
+        vids = batch["vids"]
+        tsc = np.zeros((n_rows, max_v), np.float32)
+        tidx = np.zeros((n_rows, max_v), np.int64)
+        fsc = np.zeros((n_rows, k), np.float32)
+        fidx = np.zeros((n_rows, k), np.int64)
+        st_gt = np.zeros((n_rows, L), np.float32)
+        ed_gt = np.zeros((n_rows, L), np.float32)
+        chunks = per_chunk[bi]
+        for qi in range(n_rows):
+            # video-level merge: (-score, absolute index) is lax.top_k's
+            # lowest-index order over the whole corpus
+            cand_sc, cand_abs, cand_loc = [], [], []
+            for ci, (off, c_tsc, c_tix, _, _, _, _) in enumerate(chunks):
+                abs_ix = c_tix[qi].astype(np.int64) + off
+                keep = abs_ix < n_real_videos     # drop chunk pad rows
+                cand_sc.append(c_tsc[qi][keep])
+                cand_abs.append(abs_ix[keep])
+                cand_loc.append(np.stack(
+                    [np.full(int(keep.sum()), ci),
+                     np.flatnonzero(keep)], 1))
+            sc = np.concatenate(cand_sc)
+            ab = np.concatenate(cand_abs)
+            loc = np.concatenate(cand_loc, 0)
+            order = np.lexsort((ab, -sc))[:max_v]
+            tsc[qi] = sc[order]
+            tidx[qi] = ab[order]
+            # flat merge: the per-video top-k1 band rows of the selected
+            # videos, in merged-rank order (the resident layout)
+            rows_sc = np.empty((max_v, k1), np.float32)
+            rows_band = np.empty((max_v, k1), np.int64)
+            for rank, oi in enumerate(order):
+                ci, local_rank = loc[oi]
+                _, _, _, c_sc1, c_idx1, _, _ = chunks[ci]
+                rows_sc[rank] = c_sc1[qi, local_rank]
+                rows_band[rank] = c_idx1[qi, local_rank]
+            flat_sc = rows_sc.reshape(-1)
+            # ties by position in the (max_v * k1) layout: lax.top_k over
+            # the resident vector
+            top = np.lexsort((np.arange(flat_sc.size), -flat_sc))[:k]
+            fsc[qi] = flat_sc[top]
+            ranks = top // k1
+            fidx[qi] = ranks * (L * L) + band_pos[rows_band.reshape(-1)[top]]
+            # the SVMR ground-truth rows come from the chunk owning the
+            # ground-truth video
+            gt_abs = video2idx_local.get(vids[qi], 0) if qi < len(vids) \
+                else 0
+            ci = min(gt_abs // Nc, len(chunks) - 1)
+            st_gt[qi] = chunks[ci][5][qi]
+            ed_gt[qi] = chunks[ci][6][qi]
+        results.append((st_gt, ed_gt, tsc, tidx, fsc, fidx))
+    return results
 
 
 def validate_full_vcmr(params, cfg: HeroConfig, vsm: VsmConfig,
@@ -186,28 +458,66 @@ def validate_full_vcmr(params, cfg: HeroConfig, vsm: VsmConfig,
                        query_data: Dict[Any, dict],
                        dtype: torch.dtype = torch.bfloat16,
                        device="cuda"):
-    """Run the full two-phase evaluation.
+    """Run the full two-phase evaluation
+    (``hero_tpu/evaluation/vcmr_eval.py:568-798``, one process).
 
     ``query_batches`` yield dicts with numpy ``query_input_ids`` (N, Lq),
     ``query_attn_masks``, plus host lists ``qids`` and ``vids`` (GT video
-    per query, "" if unknown).  Returns (val_log, submission, metrics)."""
-    if opts.corpus_chunk_videos and opts.corpus_chunk_videos < len(video_ids):
-        raise NotImplementedError(
-            "corpus_chunk_videos (chunked corpus scoring) is not ported yet; "
-            "see ROADMAP A3 (chunked corpus)")
-    if opts.pack_queries:
-        raise NotImplementedError(
-            "pack_queries (packed query encoding) is not ported yet; see "
-            "ROADMAP A3 (packed queries)")
+    per query, "" if unknown).  ``opts.corpus_chunk_videos`` below the
+    corpus size takes the chunked path (not with ``opts.pack_queries``:
+    ValueError).  Returns (val_log, submission, metrics)."""
     device = resolve_device(device)
     params = nn.tree_to(without_task_heads(params), device)
     video2idx_local = {v: i for i, v in enumerate(video_ids)}
-    frame_embs, frame_masks = embed_video_corpus(
-        params, cfg, video_batches, dtype, device)
-    scorer, max_v = make_query_scorer(
-        params, cfg, vsm, opts, frame_embs, frame_masks, dtype,
-        n_real_videos=len(video_ids))
-    L = int(frame_embs.shape[1])
+    query_batches = list(query_batches)
+    chunk_outs = None
+    chunked = (opts.corpus_chunk_videos
+               and opts.corpus_chunk_videos < len(video_ids))
+    if chunked:
+        if opts.pack_queries:
+            raise ValueError(
+                "pack_queries is not supported together with "
+                "corpus_chunk_videos (the chunked scorer re-encodes "
+                "queries per chunk); drop one of the two flags")
+        chunk_outs = _chunked_score_all(
+            params, cfg, vsm, opts, video_batches, query_batches,
+            video2idx_local, len(video_ids), dtype, device)
+        max_v = min(opts.max_vcmr_video, len(video_ids))
+        L = opts.max_clip_len
+    else:
+        frame_embs, frame_masks = embed_video_corpus(
+            params, cfg, video_batches, dtype, device)
+        L = int(frame_embs.shape[1])
+        if opts.pack_queries:
+            # the whole query set encoded packed, then scored in per-batch
+            # slices of the pooled (Nq, D) matrix
+            score_mod, max_v = _corpus_scorer(
+                params, vsm, opts, frame_embs, frame_masks, len(video_ids))
+            mod_all = encode_queries_packed(
+                params, cfg,
+                np.concatenate([b["query_input_ids"]
+                                for b in query_batches], 0),
+                np.concatenate([np.asarray(b["query_attn_masks"]).sum(1)
+                                for b in query_batches],
+                               0).astype(np.int64),
+                max_segs=opts.query_pack_segs,
+                rows_per_call=opts.query_pack_rows_per_call, dtype=dtype)
+
+            @torch.inference_mode()
+            def score_batch(batch, q_off, gt_vidx):
+                n = batch["query_input_ids"].shape[0]
+                return score_mod(mod_all[q_off:q_off + n],
+                                 _gt_tensor(gt_vidx, n, device))
+        else:
+            scorer, max_v = make_query_scorer(
+                params, cfg, vsm, opts, frame_embs, frame_masks, dtype,
+                n_real_videos=len(video_ids))
+
+            def score_batch(batch, q_off, gt_vidx):
+                return scorer(
+                    torch.from_numpy(np.asarray(batch["query_input_ids"])),
+                    torch.from_numpy(np.asarray(batch["query_attn_masks"])),
+                    torch.from_numpy(gt_vidx))
 
     total_qids, total_vids = [], []
     svmr_st, svmr_ed = [], []
@@ -216,7 +526,8 @@ def validate_full_vcmr(params, cfg: HeroConfig, vsm: VsmConfig,
     has_gt_target = True
     n_ex = 0
     partial_query_data = []
-    for batch in query_batches:
+    q_off = 0
+    for bi, batch in enumerate(query_batches):
         qids, vids = batch["qids"], batch["vids"]
         total_qids.extend(qids)
         total_vids.extend(vids)
@@ -237,13 +548,15 @@ def validate_full_vcmr(params, cfg: HeroConfig, vsm: VsmConfig,
         # are zero-masked, scored as garbage and sliced off here
         n_real = len(qids)
         n_rows = batch["query_input_ids"].shape[0]
-        gt_vidx = np.zeros((n_rows,), dtype=np.int64)
-        gt_vidx[:n_real] = [video2idx_local.get(v, 0) for v in vids]
-        out = scorer(torch.from_numpy(np.asarray(batch["query_input_ids"])),
-                     torch.from_numpy(np.asarray(batch["query_attn_masks"])),
-                     torch.from_numpy(gt_vidx))
-        st_gt, ed_gt, tsc, tidx, fsc, fidx = (
-            x.cpu().numpy()[:n_real] for x in out)
+        if chunk_outs is not None:
+            out = chunk_outs[bi]
+        else:
+            gt_vidx = np.zeros((n_rows,), dtype=np.int64)
+            gt_vidx[:n_real] = [video2idx_local.get(v, 0) for v in vids]
+            out = [x.cpu().numpy()
+                   for x in score_batch(batch, q_off, gt_vidx)]
+        q_off += n_rows
+        st_gt, ed_gt, tsc, tidx, fsc, fidx = (x[:n_real] for x in out)
         if "SVMR" in opts.full_eval_tasks and has_gt_target:
             svmr_st.append(st_gt)
             svmr_ed.append(ed_gt)

@@ -7,7 +7,8 @@
   features [+ MFM mask embedding] -> LN -> linear -> + position + type ->
   LN.
 - :func:`frame_embeddings`: clip-level positions for the temporal encoder.
-- :func:`query_feat_embeddings`: positions over projected query features.
+- :func:`query_feat_embeddings`: positions over projected query features
+  (restarting per segment in packed query rows).
 
 Each embedding ends in dropout (``dropout_rate``, drawn from ``seed``; none
 when ``seed`` is None), as the JAX package's four embedders do.
@@ -87,12 +88,16 @@ def frame_embeddings(p: Params, frame_feat: torch.Tensor, *,
     return nn.dropout(x, dropout_rate, nn.rng_for(seed, "frame_emb"))
 
 
-def query_feat_embeddings(p: Params, input_feat: torch.Tensor, *,
+def query_feat_embeddings(p: Params, input_feat: torch.Tensor,
+                          position_ids: Optional[torch.Tensor] = None, *,
                           dropout_rate: float = 0.0,
                           seed: Optional[int] = None,
                           dtype: torch.dtype = torch.float32
                           ) -> torch.Tensor:
-    pos = nn.embedding_lookup(
-        p["pos_emb"], _arange_like(input_feat, input_feat.shape[1]), dtype)
+    """input_feat (N, L, D); ``position_ids`` (N, L) restart per segment in
+    packed query rows (default ``arange``)."""
+    if position_ids is None:
+        position_ids = _arange_like(input_feat, input_feat.shape[1])
+    pos = nn.embedding_lookup(p["pos_emb"], position_ids, dtype)
     x = nn.apply_layer_norm(p["ln"], input_feat.to(dtype) + pos)
     return nn.dropout(x, dropout_rate, nn.rng_for(seed, "query_emb"))

@@ -100,16 +100,24 @@ def cross_modal_mlm(p: Params, cfg: TransformerConfig, sub_input_ids,
                                txt.gather(1, idx), cfg, dtype=dtype)
 
 
-def cross_modal_txt(p: Params, cfg: TransformerConfig, input_ids, mask, *,
+def cross_modal_txt(p: Params, cfg: TransformerConfig, input_ids,
+                    mask=None, *, position_ids=None, seg=None,
                     train: bool = False, seed: Optional[int] = None,
                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Text-only encoding ('txt') for queries."""
+    """Text-only encoding ('txt') for queries
+    (``hero_tpu/models/encoder.py:117-128``): ``mask`` (N, L) validity, or
+    ``seg`` (N, L) int32 segment ids of packed query rows (-1 = pad slot)
+    with ``position_ids`` restarting per segment."""
+    if (mask is None) == (seg is None):
+        raise ValueError("pass exactly one of mask and seg")
     hidden = embed.sub_embeddings(
-        p["embeddings"], input_ids, dropout_rate=_emb_rate(cfg, train),
-        seed=nn.rng_for(seed, "txt"), dtype=dtype)
-    return transformer.encoder(p["encoder"], hidden, cfg,
-                               kv_mask=mask.float(), train=train,
-                               seed=nn.rng_for(seed, "enc"), dtype=dtype)
+        p["embeddings"], input_ids, position_ids=position_ids,
+        dropout_rate=_emb_rate(cfg, train), seed=nn.rng_for(seed, "txt"),
+        dtype=dtype)
+    kw = {"seg": seg} if seg is not None else {"kv_mask": mask.float()}
+    return transformer.encoder(p["encoder"], hidden, cfg, train=train,
+                               seed=nn.rng_for(seed, "enc"), dtype=dtype,
+                               **kw)
 
 
 def temporal_trm(p: Params, cfg: TransformerConfig, frame_feat, attn_mask,
@@ -151,3 +159,28 @@ def query_feat_encoder(p: Params, cfg: TransformerConfig, query_feat,
                               kv_mask=query_mask.float(), train=train,
                               seed=nn.rng_for(seed, "attn"), dtype=dtype)
     return get_modularized_queries(p, h, query_mask, dtype)
+
+
+def query_feat_encoder_packed(p: Params, cfg: TransformerConfig, query_feat,
+                              seg: torch.Tensor, position_ids: torch.Tensor,
+                              max_segs: int,
+                              dtype: torch.dtype = torch.float32
+                              ) -> torch.Tensor:
+    """Packed :func:`query_feat_encoder` (inference): several queries share
+    a row behind the block-diagonal segment mask
+    (``hero_tpu/models/encoder.py:222-249``).  query_feat (R, L, qdim),
+    ``seg`` (R, L) int32 ids in [0, max_segs) or -1 for a pad slot,
+    ``position_ids`` restarting per segment.  Returns (R, max_segs, D)
+    per-segment modular-pooled vectors; an empty segment pools its row
+    uniformly (finite, never gathered)."""
+    h = nn.linear_layer(p["query_input_proj"], query_feat, relu=True,
+                        dtype=dtype)
+    h = embed.query_feat_embeddings(p["pos_embed"], h, position_ids,
+                                    dtype=dtype)
+    h = transformer.attention(p["attention"], h, cfg, seg=seg, dtype=dtype)
+    scores = nn.linear(p["modular_vector"], h, dtype)[..., 0]     # (R, L)
+    onehot = (seg[:, None, :] == torch.arange(
+        max_segs, device=seg.device)[None, :, None])             # (R, S, L)
+    slog = nn.mask_logits(scores[:, None, :], onehot)
+    att = torch.softmax(slog.float(), dim=-1).to(dtype)
+    return torch.einsum("rsl,rld->rsd", att, h)

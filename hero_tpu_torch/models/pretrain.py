@@ -78,6 +78,23 @@ def encode_query(params: Params, cfg: HeroConfig, input_ids, attn_mask, *,
                                   dtype=dtype)
 
 
+def encode_query_packed(params: Params, cfg: HeroConfig, p_ids, p_seg,
+                        p_pos, max_segs: int, *,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Packed :func:`encode_query` (inference): several queries share one
+    f-encoder text row behind the block-diagonal segment mask
+    (``hero_tpu/models/pretrain.py:118-136``).  p_ids / p_seg / p_pos
+    (R, L) int32: token ids, segment ids (-1 = pad slot) and positions
+    restarting per segment.  Returns (R, max_segs, D) per-segment pooled
+    vectors."""
+    txt_out = enc.cross_modal_txt(params["v_encoder"]["f_encoder"],
+                                  cfg.f_config, p_ids, seg=p_seg,
+                                  position_ids=p_pos, dtype=dtype)
+    return enc.query_feat_encoder_packed(params["head"]["q_feat_attn"],
+                                         cfg.q_config, txt_out, p_seg,
+                                         p_pos, max_segs, dtype=dtype)
+
+
 def get_st_ed_sim(head: Params, mod_query: torch.Tensor,
                   frame_emb: torch.Tensor) -> torch.Tensor:
     """Pre-conv query.frame similarity (Nq, Nv, L), fp32.  The inputs are

@@ -1,13 +1,18 @@
-"""Moment-retrieval head (counterpart of ``hero_tpu/models/vcmr.py``)."""
+"""Moment-retrieval head (counterpart of ``hero_tpu/models/vcmr.py``):
+the phase-1 corpus embedding and the inference scorers of a query batch
+against a (sub-)corpus of frame embeddings.  The finetune forwards
+(``forward_vcmr`` / ``forward_vr``) wait for ROADMAP A5."""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from hero_tpu_torch.config.model_config import HeroConfig
 from hero_tpu_torch.models import model as backbone
+from hero_tpu_torch.models import pretrain
+from hero_tpu_torch.models.pretrain import VsmConfig
 
 Params = Dict[str, Any]
 
@@ -19,3 +24,54 @@ def encode_video_corpus(params: Params, cfg: HeroConfig,
     batch.  Returns (Nv, F, D)."""
     return backbone.forward_repr(params["v_encoder"], cfg, batch,
                                  dtype=dtype)
+
+
+def get_pred_from_raw_query(params: Params, cfg: HeroConfig, vsm: VsmConfig,
+                            frame_embeddings: torch.Tensor,
+                            c_attn_masks: torch.Tensor,
+                            query_input_ids: torch.Tensor,
+                            query_attn_masks: torch.Tensor, *,
+                            cross: bool = True,
+                            dtype: torch.dtype = torch.float32
+                            ) -> Tuple[Optional[torch.Tensor], torch.Tensor,
+                                       torch.Tensor]:
+    """Phase-2 query scoring against frame_embeddings (Nv, F, D); queries
+    (Nq, Lq) (``hero_tpu/models/vcmr.py:66-90``).  Returns
+    (q2video scores (Nq, Nv), or None when both ranking weights are 0,
+    st_logits, ed_logits): the span logits are (Nq, Nv, F) in cross mode,
+    (N, F) paired (query n against video n)."""
+    mod_query = pretrain.encode_query(params, cfg, query_input_ids,
+                                      query_attn_masks, dtype=dtype)
+    fmask = c_attn_masks.float()
+    head = params["head"]
+    if cross:
+        st, ed = pretrain.conv_st_ed_masked(
+            head, pretrain.get_st_ed_sim(head, mod_query, frame_embeddings),
+            fmask[None])
+    else:
+        st, ed = (x[:, 0] for x in pretrain.get_st_ed_logits(
+            head, mod_query[:, None], frame_embeddings, fmask))
+    scores = None
+    if vsm.lw_neg_ctx != 0 or vsm.lw_neg_q != 0:
+        scores = pretrain.get_video_level_scores(mod_query,
+                                                 frame_embeddings, fmask)
+    return scores, st, ed
+
+
+def get_vr_scores_from_raw_query(params: Params, cfg: HeroConfig,
+                                 frame_embeddings: torch.Tensor,
+                                 c_attn_masks: torch.Tensor,
+                                 query_input_ids: torch.Tensor,
+                                 query_attn_masks: torch.Tensor,
+                                 dtype: torch.dtype = torch.float32
+                                 ) -> torch.Tensor:
+    """VR inference: the (Nq, Nv) video-level scores only
+    (``hero_tpu/models/vcmr.py:93-103``).  No serving path of the port
+    calls it (the serving paths rank through
+    :func:`get_pred_from_raw_query` or ``evaluation/vcmr_eval``'s resident
+    scorer); it is kept as the public counterpart of the JAX function and
+    held against it by ``tests/test_torch_vcmr_serve.py``."""
+    mod_query = pretrain.encode_query(params, cfg, query_input_ids,
+                                      query_attn_masks, dtype=dtype)
+    return pretrain.get_video_level_scores(mod_query, frame_embeddings,
+                                           c_attn_masks.float())

@@ -14,7 +14,9 @@ attention of the TVC decode step (#4) and the causal and cross-attention
 shapes of the packed forward (#2), the head-major backward (#5), the
 saved-probabilities backward (#3) at the TVC decoder's shapes, and the
 fused dropout-add-LayerNorm forward and backward (#8, #9) with their
-Philox row mask.  The bf16 packed forward and backward (tensor-core
+Philox row mask.  The packed forward in segment mode is held at the
+packed query rows of serving (1 to 4 queries of 1 to 30 tokens a row, pad
+slots, all-pad rows).  The bf16 packed forward and backward (tensor-core
 kernels) are held at their tile edges (1 to 417 keys, backward rows to
 240, one query), for bit-identical gradients, and for keep bits equal
 to the plain Philox mask; so are the bf16 head-major forward and
@@ -133,6 +135,43 @@ def test_attention_kernel_matches_plain(cuda, mode, dtype, shape):
     row_tol = 2.0 ** -9 * float(v[0].float().abs().max()) + _tol(want,
                                                                   dtype)
     assert float((got[:1].float() - free.float()).abs().max()) <= row_tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("max_segs", [1, 2, 3, 4])
+def test_seg_kernel_at_packed_query_layouts(cuda, dtype, max_segs):
+    """#1 in segment mode at the serving path's packed query rows
+    (``evaluation/vcmr_eval.pack_query_arrays``): 30 slots, 1 to
+    ``max_segs`` queries of 1-30 tokens a row, -1 pad slots behind them,
+    and the rows past the packer's padded to a 64-row call, all pads.
+    Every slot against the plain version; all-pad rows finite and equal
+    to unmasked attention up to the rounding of s - 1e4."""
+    from hero_tpu_torch.evaluation.vcmr_eval import pack_query_arrays
+    r = np.random.RandomState(max_segs)
+    lens = np.concatenate([r.randint(1, 31, (40,)), r.randint(1, 8, (30,))])
+    lens[:4] = (1, 30, 29, 2)
+    ids = r.randint(3, 100, (70, 30)).astype(np.int32)
+    _, p_seg, _, _ = pack_query_arrays(ids, lens, max_segs, 64)
+    seg = torch.from_numpy(p_seg).to(cuda)
+    pad_rows = (p_seg == -1).all(1)
+    assert pad_rows.any() and (p_seg == -1).any(1).sum() > pad_rows.sum()
+    assert p_seg.max() == max_segs - 1
+    B, L, H, d = p_seg.shape[0], 30, 12, 64
+    q, k, v = _qkv(13, B, L, H * d, cuda, dtype)
+    before = tatt.seg_attention_cuda.launches
+    got = tatt.packed_attention(q, k, v, H, seg=seg)
+    torch.cuda.synchronize()
+    assert tatt.seg_attention_cuda.launches == before + 1
+    want = tatt.packed_reference(q, k, v, H, seg=seg)
+    assert bool(torch.isfinite(got).all())
+    assert float((got.float() - want.float()).abs().max()) <= _tol(want,
+                                                                   dtype)
+    rows = torch.from_numpy(np.flatnonzero(pad_rows)).to(cuda)
+    free = tatt.packed_reference(q[rows], k[rows], v[rows], H)
+    row_tol = 2.0 ** -9 * float(v[rows].float().abs().max()) + _tol(want,
+                                                                     dtype)
+    assert float((got[rows].float() - free.float()).abs().max()) <= row_tol
 
 
 @pytest.mark.cuda

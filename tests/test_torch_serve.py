@@ -202,12 +202,22 @@ def test_topk_lowest_index_breaks_ties_by_index():
     assert vals.tolist() == [[3.0, 3.0, 3.0, 2.0]]
 
 
-@pytest.mark.parametrize("opt", [{"corpus_chunk_videos": 2},
-                                 {"pack_queries": True}])
+@pytest.mark.parametrize("opt", [{"corpus_chunk_videos": 2,
+                                  "pack_queries": True},
+                                 {"corpus_chunk_videos": 2}])
 def test_unported_serving_options_raise(setup, opt):
+    """The serving options' invalid uses raise as the JAX package's do:
+    packed queries with the chunked corpus (ValueError), and a chunk that
+    is not a whole number of video batches (3-video batches, chunks of 2)."""
     _, tcfg, _, tparams = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    video_ids = [f"vid{i}" for i in range(6)]
+    qbatches, qd = _queries(video_ids)
+    err, match = ((ValueError, "pack_queries") if opt.get("pack_queries")
+                  else (AssertionError, "multiple of the video batch"))
+    with pytest.raises(err, match=match):
         teval.validate_full_vcmr(
             tparams, tcfg, tpre.VsmConfig(**VSM),
-            teval.VcmrEvalOpts(**opt), [], [], ["a", "b", "c"], {}, {},
+            teval.VcmrEvalOpts(max_clip_len=jsyn.TINY.n_frames, **opt),
+            _video_batches("unpacked"), qbatches, video_ids,
+            {v: i for i, v in enumerate(video_ids)}, qd,
             dtype=torch.float32, device="cpu")
