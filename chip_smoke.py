@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's VCMR serving path, VSM train step, TVC
-caption serving, TVC train step, four-task pretraining, VCMR serving as
-a program and kernel components on one GPU and check them.
+caption serving, TVC train step, four-task pretraining, TVC finetuning
+and captioning as programs, VCMR serving as a program and kernel
+components on one GPU and check them.
 
     python3 chip_smoke.py                  # on a machine with one CUDA card
     python3 chip_smoke.py --json-out F     # also write the full record to F
@@ -127,8 +128,41 @@ What the card run does, in order (any failure exits non-zero):
    a ``pretrain_main`` line (videos/s of A's steps 2, 3 and 6 from disk,
    the card synchronised before and after them only, beside the
    in-memory rate; each save's ms and bytes, the restore's ms, the
-   readers, free disk) and deletes its directory;
-12. the serving_full phase, VCMR serving in full: runs
+   readers, free disk);
+12. the tvc_program phase, TVC finetuning and captioning as programs at
+   ``config/hero_tvc.json``'s model: keeps pretrain_main's stores and
+   run A's last checkpoint (the rest of its files go); writes a caption
+   store over 64 of its videos (``cap.db`` with 2-6 captions a video of
+   ids from a 10-id band,
+   ``clip.db`` with 4 clips a video, ``meta.json``), a reference jsonl
+   and a 3-clip ``--target_clip`` jsonl; holds #2 at the program's
+   unpacked f-encoder rows (32 of 16 f + 120 t a video:
+   ``config/train-tvc.json``'s ``max_txt_len`` 60, ``sub_ctx_len`` 1),
+   the train step's (128, 136, 768) with dropout and saved probabilities
+   and a validation batch's (256, 136, 768), and #3 at (128, 136, 768)
+   against their plain versions; runs ``drivers/train_tvc.main`` on
+   ``config/train-tvc.json`` with the paths substituted and pretrain_main's
+   checkpoint, 8 steps (validation, which captions every clip in fp32,
+   and checkpoints at 4 and 8), in a subprocess with the launch counters
+   from 0 (run A); checks every step's loss finite, both
+   ``tvc_gen_N.jsonl`` (every clip once, finite scores) and A's last
+   model file bridged back equal to its final state; runs it again in
+   a subprocess stopped by SIGTERM after step 4 and resumes it with
+   ``python -m hero_tpu_torch.drivers.train_tvc`` (run B); checks that
+   A's and B's ``model_step_8.npz``, ``restore.npz`` and step-8 captions
+   are equal bit for bit; runs ``python -m hero_tpu_torch.drivers.inf_tvc
+   --reference`` on A's directory (every clip once, ``METEOR`` and
+   ``METEOR_variant`` in the scores file, the captions those of A's
+   step-8 validation) and holds its submission equal to
+   ``drivers/inf_tvc.main`` in this process (fp32, the launch counters
+   from 0); runs ``main`` in bf16, on the ``--target_clip`` jsonl (exactly
+   its 3 clips) and with ``--beam 3`` on it; prints a ``tvc_program``
+   line (caption rows/s of A's steps 2-3 and 6-7 from disk beside the
+   TVC train phase's in-memory rate, each save's ms and bytes, the
+   restore's ms, the inf_tvc subprocess's wall s, the fp32 and bf16
+   decodes' captions/s, the scores, the launches) and deletes the
+   directory;
+13. the serving_full phase, VCMR serving in full: runs
    ``validate_full_vcmr`` on the 512 queries and the resident 2000-video
    corpus with ``pack_queries`` (4 segments a row, 64 rows a call: the
    whole set encoded packed, then ranked in batch slices) and one row a
@@ -149,7 +183,7 @@ What the card run does, in order (any failure exits non-zero):
    reference schema, every query once) and holds it and its printed
    metrics equal to ``drivers/eval_vcmr.main`` run in this process with
    the launch counters from 0; prints a ``serving_full`` line;
-13. the components phase (``tools/component_bench.py`` and the DALN
+14. the components phase (``tools/component_bench.py`` and the DALN
    checks of ``tools/kernel_smoke.py`` and ``tools/tpu_kernel_drive.py``):
    holds #6 and #7 at their edges (``check_ln_edges``: widths 1 to
    14528 about the 16-byte access and the warp's share, rows about the
@@ -177,7 +211,8 @@ It prints one ``phases`` JSON line, one train JSON line with
 ``train_examples_per_s``, one TVC JSON line with ``tvc_captions_per_s``,
 one TVC train JSON line with ``tvc_train_captions_per_s``, one
 ``pretrain`` JSON line with ``pretrain_examples_per_s``, one
-``pretrain_main`` JSON line, one ``serving_full`` JSON line, one
+``pretrain_main`` JSON line, one ``tvc_program`` JSON line, one
+``serving_full`` JSON line, one
 ``components`` JSON line, one ``kernels`` JSON line (all nine kernels,
 launches by path; #6, #7 and #9 with the device ms of their row pass and
 of the column pass; #8 and #9 with the unfused chain's ms and their own
@@ -203,8 +238,10 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -3234,13 +3271,13 @@ def _records(out_dir):
         return json.load(f)
 
 
-def pretrain_main_phase(torch, here, cfg, db, dev, sync, rehearse):
+def pretrain_main_phase(torch, here, cfg, db, dev, sync, rehearse, root):
     """``drivers/pretrain.main`` at ``config/pretrain-tv.json``'s recipe
-    from herostore databases on disk (see the module docstring); returns
-    (record, the launch counts of run A)."""
-    import shutil
+    from herostore databases on disk under ``root`` (see the module
+    docstring; the caller removes ``root``, whose stores and run A's last
+    checkpoint the tvc_program phase reads); returns (record, the launch
+    counts of run A)."""
     import signal
-    import tempfile
     from hero_tpu_torch.config.opts import get_pretrain_args
     from hero_tpu_torch.convert.from_jax import (UNUSED_JAX_KEYS,
                                                  load_jax_params)
@@ -3259,7 +3296,6 @@ def pretrain_main_phase(torch, here, cfg, db, dev, sync, rehearse):
         stage_s[name] = now - t0
         t0 = now
 
-    root = tempfile.mkdtemp(prefix="pretrain_main_")
     disk = None
     try:
         free = shutil.disk_usage(root).free
@@ -3399,7 +3435,471 @@ def pretrain_main_phase(torch, here, cfg, db, dev, sync, rehearse):
         if disk is not None:
             disk.txt_db.store.close()
             disk.img_db.store.close()
-        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# tvc_program: drivers/train_tvc and drivers/inf_tvc from stores on disk
+# ---------------------------------------------------------------------------
+
+PROGRAM_TVC_VIDEOS = 64             # of pretrain_main's videos on disk
+PROGRAM_TVC_STEPS, PROGRAM_TVC_SIGTERM_AT = 8, 4
+PROGRAM_TVC_VALID_STEPS = PROGRAM_TVC_SAVE_STEPS = 4
+PROGRAM_TVC_WARMUP = 2
+PROGRAM_TVC_TARGETS = 3             # clips of the --target_clip jsonl
+# caption ids from 3 up to this (10 ids): 8 steps then learn to emit more
+# than EOS; over the whole vocabulary every caption came out empty
+PROGRAM_TVC_VOCAB = 13
+# steps timed from disk: 2-3 and 6-7, away from the validations and the
+# saves after steps 4 and 8
+PROGRAM_TVC_WINDOWS = ((1, 3), (5, 7))
+PROGRAM_TVC_FREE_BYTES = 8 << 30    # the two runs' checkpoints, with room
+# the kernels of the unpacked program: the train step (run A, its fp32
+# validations included) and the fp32 inf_tvc run; unpacked f-encoder rows
+# take the validity-mask forward, so #1 runs on neither
+PROGRAM_TVC_TRAIN_KERNELS = ("valid_attention_cuda", "attention_bwd_cuda",
+                             "mha_attention_cuda", "layer_norm_cuda",
+                             "layer_norm_bwd_cuda")
+PROGRAM_TVC_INF_KERNELS = ("valid_attention_cuda", "mha_attention_cuda",
+                           "layer_norm_cuda")
+
+# one run of drivers/train_tvc.main in a fresh interpreter (its SIGTERM
+# hook needs a main thread): the launch counters from 0 around it, the
+# card synchronised at the windows' edges only, SIGTERM after step
+# argv[4] (0: never); the losses, the edges' clocks and the counts go to
+# the JSON file argv[2]
+TVC_TRAIN_RUN = """
+import json, os, signal, sys, time
+import torch
+from chip_smoke import PROGRAM_TVC_WINDOWS, read_counts, reset_counts
+from hero_tpu_torch.config.opts import get_tvc_args
+from hero_tpu_torch.drivers import train_tvc
+from hero_tpu_torch.utils.logger import configure_stdout
+
+cfg, out_json, device, stop_at = sys.argv[1:5]
+configure_stdout()
+edges = {s for w in PROGRAM_TVC_WINDOWS for s in w}
+losses, marks = [], {}
+
+def on_step(step, task, metrics):
+    losses.append(metrics["loss"].detach())
+    if step in edges:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        marks[step] = time.perf_counter()
+    if step == int(stop_at):
+        os.kill(os.getpid(), signal.SIGTERM)
+
+reset_counts()
+opts = get_tvc_args(["--config", cfg])
+state = train_tvc.main(opts, device=device, on_step=on_step,
+                       dtype=torch.bfloat16 if device == "cuda"
+                       else torch.float32)
+if device == "cuda":
+    torch.cuda.synchronize()
+launches = read_counts()
+# the last model file bridged back: the final state, bit for bit
+import numpy as np
+from hero_tpu_torch.convert.from_jax import load_jax_tvc_params
+from hero_tpu_torch.training.optim import tree_leaves
+with np.load(os.path.join(opts.output_dir, "ckpt",
+                          f"model_step_{state.global_step}.npz")) as z:
+    back = load_jax_tvc_params({k: z[k] for k in z.files
+                                if not k.startswith("__")}, device=device)
+with open(out_json, "w") as f:
+    json.dump({"global_step": state.global_step,
+               "losses": [float(x) for x in losses], "marks": marks,
+               "launches": launches,
+               "bridged_equal": all(torch.equal(a, b) for a, b in zip(
+                   tree_leaves(back), tree_leaves(state.params)))}, f)
+"""
+
+# drivers/inf_tvc.main on the CPU in fp32 (the rehearsal's stand-in for
+# the command line, which serves on the card)
+TVC_INF_CPU = """
+import sys
+from hero_tpu_torch.drivers import inf_tvc
+inf_tvc.configure_stdout()
+inf_tvc.main(inf_tvc.build_argparser().parse_args(sys.argv[1:]),
+             device="cpu")
+"""
+
+
+def write_caption_store(db, vids, root):
+    """A TVC caption store under ``root/cap_db`` over ``vids`` of ``db``:
+    ``cap.db`` with 2-6 captions a video as ``make_tvc_captions`` draws
+    them (``config/train-tvc.json``'s ``max_txt_len``; ids below
+    ``PROGRAM_TVC_VOCAB``), ``clip.db`` with
+    ``TVC_CLIPS`` clips a video (2-40 frames each) whose ground truth is
+    one of the video's captions as text, ``meta.json``; the ground truth
+    as a reference jsonl and a ``--target_clip`` jsonl of the first
+    ``PROGRAM_TVC_TARGETS`` clips.  Returns (store dir, reference path,
+    target path, clip count, caption count)."""
+    from hero_tpu_torch.data.store import HeroStoreWriter
+    store = types.SimpleNamespace(vids=vids, nframes=db.nframes)
+    caps = make_tvc_captions(store, PROGRAM_TVC_VOCAB, 60).caps
+    r = np.random.RandomState(61)
+    cap_root = os.path.join(root, "cap_db")
+    os.makedirs(cap_root)
+    vid2caps, cap2vid, vid2clips, clip2vid, clips = {}, {}, {}, {}, []
+    with HeroStoreWriter(os.path.join(cap_root, "cap.db")) as w:
+        for k, (key, c) in enumerate(caps.items()):
+            cid = str(100000 + k)
+            w.put(cid, {"input_ids": c["input_ids"], "ts": c["ts"],
+                        "clip_id": cid})
+            vid2caps.setdefault(c["vid"], []).append(cid)
+            cap2vid[cid] = c["vid"]
+    with HeroStoreWriter(os.path.join(cap_root, "clip.db")) as w:
+        for vid in vids:
+            texts = [" ".join(map(str, caps[k]["input_ids"]))
+                     for k in caps if caps[k]["vid"] == vid]
+            for c in range(TVC_CLIPS):
+                n = min(int(r.randint(TVC_CLIP_FRAMES[0],
+                                      TVC_CLIP_FRAMES[1] + 1)),
+                        db.nframes(vid))
+                st = int(r.randint(0, db.nframes(vid) - n + 1))
+                cid = str(len(clips))
+                rec = {"vid_name": vid, "ts": [st * 1.5, (st + n) * 1.5],
+                       "captions": [{"id": cid,
+                                     "text": texts[c % len(texts)]}]}
+                w.put(cid, rec)
+                vid2clips.setdefault(vid, []).append(cid)
+                clip2vid[cid] = vid
+                clips.append((cid, rec))
+    sidecars = {("", "meta.json"): {"PAD": TVC_PAD, "BOS": TVC_BOS,
+                                    "EOS": TVC_EOS},
+                ("cap.db", "vid2caps.json"): vid2caps,
+                ("cap.db", "cap2vid.json"): cap2vid,
+                ("clip.db", "vid2clips.json"): vid2clips,
+                ("clip.db", "clip2vid.json"): clip2vid}
+    for (d, name), obj in sidecars.items():
+        with open(os.path.join(cap_root, d, name), "w") as f:
+            json.dump(obj, f)
+    ref, target = (os.path.join(root, n) for n in ("tvc_reference.jsonl",
+                                                   "tvc_target.jsonl"))
+    with open(ref, "w") as f:
+        for cid, rec in clips:
+            f.write(json.dumps({"clip_id": int(cid), "descs": [
+                {"desc": c["text"]} for c in rec["captions"]]}) + "\n")
+    with open(target, "w") as f:
+        for cid, rec in clips[:PROGRAM_TVC_TARGETS]:
+            f.write(json.dumps({"vid_name": rec["vid_name"],
+                                "clip_id": int(cid), "ts": rec["ts"]})
+                    + "\n")
+    return cap_root, ref, target, len(clips), len(cap2vid)
+
+
+def tvc_run_config(here, root, name, paths, tcfg, rehearse):
+    """``config/train-tvc.json`` with the stores, the caption store, the
+    checkpoint, a model config and ``root/name`` substituted, cut to
+    ``PROGRAM_TVC_STEPS`` steps; returns its path."""
+    sub_dir, feat_dir, cap_dir, ckpt = paths
+    with open(os.path.join(here, "config", "train-tvc.json")) as f:
+        raw = json.load(f)
+    model_json = os.path.join(root, "tvc_model.json")
+    with open(model_json, "w") as f:
+        json.dump(tcfg.to_dict(), f)
+    raw.update(sub_txt_db=sub_dir, vfeat_db=feat_dir, cap_db=cap_dir,
+               checkpoint=ckpt, model_config=model_json,
+               output_dir=os.path.join(root, name), vfeat_dim=tcfg.vfeat_dim,
+               num_train_steps=PROGRAM_TVC_STEPS,
+               valid_steps=PROGRAM_TVC_VALID_STEPS,
+               save_steps=PROGRAM_TVC_SAVE_STEPS,
+               warmup_steps=PROGRAM_TVC_WARMUP)
+    if rehearse:
+        raw.update(train_batch_size=2, val_batch_size=2, max_gen_step=5)
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def check_tvc_program_kernels(torch, tcfg, train_batch, val_batch, kernels):
+    """#2 and #3 at the program's unpacked f-encoder rows (16 frames + 120
+    tokens: ``config/train-tvc.json``'s ``max_txt_len`` 60 with
+    ``sub_ctx_len`` 1 gives 32 rows of 136 slots a video, and unpacked
+    rows take the validity mask, not segment ids): the train step's
+    (128, 136, 768) forward with dropout and saved probabilities and its
+    backward, and a validation batch's (256, 136, 768) forward, with the
+    batches' own masks; added to the rows of ``kernels``."""
+    import torch.nn.functional as F
+    from hero_tpu_torch.ops import attention as att
+    dev = torch.device("cuda")
+    D, H = tcfg.f_config.hidden_size, tcfg.f_config.num_attention_heads
+
+    def mask_of(b):
+        m = np.concatenate([b["sub_frame_mask"], b["sub_txt_mask"]], 2)
+        return torch.from_numpy(
+            m.reshape(-1, m.shape[-1]).astype(np.float32)).to(dev)
+
+    def prog(row, what):
+        return {**row, "mode": f"tvc_program: {what}"
+                + (f", {row['mode']}" if "mode" in row else "")}
+
+    tm, vm = mask_of(train_batch), mask_of(val_batch)
+    fwd, bwd = check_attention_train(torch, F, att, tm.shape[0], tm.shape[1],
+                                     D, H, tm, False)
+    new = {"attention_valid": [
+        prog(fwd, "f-encoder"),
+        prog(check_attention(torch, F, att, vm.shape[0], vm.shape[1], D, H,
+                             vm, False, torch.bfloat16),
+             "f-encoder, a validation batch")],
+        "attention_bwd": [prog(bwd, "f-encoder")]}
+    for row in kernels:
+        row["shapes"] += new.get(row["name"], [])
+
+
+def _program_saves(run, records):
+    return [dict(r, run=run, kind=kind) for kind in ("model", "restore")
+            for r in records[kind]]
+
+
+def tvc_program_phase(torch, here, tcfg, main_root, db, dev, sync,
+                      rehearse, kernels, train_rate):
+    """TVC finetuning and captioning as programs (see the module
+    docstring) over ``PROGRAM_TVC_VIDEOS`` of the videos pretrain_main
+    wrote under ``main_root``, from its run A's last checkpoint.  Returns
+    (record, the launch counts of run A, those of the in-process fp32
+    ``inf_tvc`` run)."""
+    from hero_tpu_torch.data.downstream_tasks import (TvcCaptionStore,
+                                                      TvcClipDataset,
+                                                      build_tvc_batch,
+                                                      build_tvc_clip_batch)
+    from hero_tpu_torch.drivers import common
+    from hero_tpu_torch.drivers import inf_tvc, train_tvc
+    from hero_tpu_torch.config.opts import get_tvc_args
+    stage_s, t0 = {}, time.perf_counter()
+
+    def stage(name):
+        nonlocal t0
+        now = time.perf_counter()
+        stage_s[name] = now - t0
+        t0 = now
+
+    # pretrain_main's files but its stores and run A's last checkpoint
+    shutil.rmtree(os.path.join(main_root, "b"), ignore_errors=True)
+    ckpt = os.path.join(main_root, "a", "ckpt",
+                        f"model_step_{MAIN_STEPS}.npz")
+    for d, _, files in os.walk(os.path.join(main_root, "a")):
+        for n in files:
+            if os.path.join(d, n) != ckpt and n.endswith(".npz"):
+                os.remove(os.path.join(d, n))
+    root = os.path.join(main_root, "tvc")
+    os.makedirs(root)
+    free = shutil.disk_usage(root).free
+    if not rehearse and free < PROGRAM_TVC_FREE_BYTES:
+        raise AssertionError(f"{free} bytes free under {root}; the phase "
+                             f"needs {PROGRAM_TVC_FREE_BYTES}")
+    vids = list(db.vids)[:PROGRAM_TVC_VIDEOS]
+    cap_dir, ref, target, n_clips, n_caps = write_caption_store(db, vids,
+                                                                root)
+    paths = (os.path.join(main_root, "sub_db"),
+             os.path.join(main_root, "video_db"), cap_dir, ckpt)
+    cfg_a, cfg_b = (tvc_run_config(here, root, n, paths, tcfg, rehearse)
+                    for n in ("a", "b"))
+    opts = get_tvc_args(["--config", cfg_a])
+    video_db = common.load_video_sub_dataset(opts,
+                                             common.shapes_from_opts(opts))
+    cap_db = TvcCaptionStore(cap_dir, max_txt_len=opts.max_txt_len)
+    train_ds = train_tvc.tvc_train_dataset(video_db, cap_db, vars(opts))
+    val_ds = TvcClipDataset.from_caption_db(video_db, cap_db,
+                                            seg_len=opts.max_clip_len)
+    rec = {"stage_s": stage_s, "free_bytes_before": free,
+           "videos": len(vids), "clips": n_clips, "captions": n_caps,
+           "steps": PROGRAM_TVC_STEPS, "model": "config/hero_tvc.json"
+           if not rehearse else "rehearsal",
+           "f_encoder_rows": [opts.train_batch_size
+                              * video_db.shapes.n_subs,
+                              video_db.shapes.frames_per_sub
+                              + video_db.shapes.txt_len]}
+    stage("write_stores")
+    if not rehearse:
+        check_tvc_program_kernels(
+            torch, tcfg, build_tvc_batch(
+                train_ds, list(range(opts.train_batch_size))),
+            build_tvc_clip_batch(val_ds, list(range(opts.val_batch_size))),
+            kernels)
+        log("tvc_program kernel checks passed")
+    stage("kernel_checks")
+    env = dict(os.environ, HF_HUB_OFFLINE="1")
+
+    def run(cmd, what):
+        proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                              text=True, timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        return proc
+
+    def train_run(cfg, name, stop_at):
+        out = os.path.join(root, f"{name}.out.json")
+        run([sys.executable, "-c", TVC_TRAIN_RUN, cfg, out, dev,
+             str(stop_at)], f"train_tvc run {name}")
+        with open(out) as f:
+            return json.load(f)
+
+    # run A: uninterrupted
+    out_a, out_b = (os.path.join(root, n) for n in ("a", "b"))
+    t_a = time.perf_counter()
+    res_a = train_run(cfg_a, "a", 0)
+    rec["run_a_s"] = time.perf_counter() - t_a
+    rec["losses"] = res_a["losses"]
+    if (len(res_a["losses"]) != PROGRAM_TVC_STEPS
+            or not all(math.isfinite(x) for x in res_a["losses"])):
+        raise AssertionError(f"run A's losses: {res_a['losses']}")
+    if not res_a["bridged_equal"]:
+        raise AssertionError("run A's last model file bridged back differs "
+                             "from its final state")
+    rec["checkpoint_bridged_equal"] = True
+    marks = {int(k): v for k, v in res_a["marks"].items()}
+    rows = opts.train_batch_size * train_ds.caps_per_video
+    rec["window_ms"] = [1e3 * (marks[b] - marks[a])
+                        for a, b in PROGRAM_TVC_WINDOWS]
+    rec["caption_rows_per_step"] = rows
+    rec["caption_rows_per_s"] = (
+        sum(b - a for a, b in PROGRAM_TVC_WINDOWS) * rows
+        / (1e-3 * sum(rec["window_ms"])))
+    rec["tvc_train_captions_per_s"] = train_rate
+    records_a = _records(out_a)
+    stage("run_a")
+
+    # every clip once in both validations, with finite scores
+    rec["scores"] = {}
+    for step in (PROGRAM_TVC_VALID_STEPS, PROGRAM_TVC_STEPS):
+        with open(os.path.join(out_a, f"tvc_gen_{step}.jsonl")) as f:
+            gen = [json.loads(line) for line in f]
+        ids = sorted(int(r["clip_id"]) for r in gen)
+        if ids != list(range(n_clips)):
+            raise AssertionError(f"tvc_gen_{step}: {len(gen)} records, "
+                                 "not every clip once")
+        scores = train_tvc.score_clip_captions(gen, val_ds)
+        if set(scores) != {"Bleu@4", "ROUGE-L", "CIDEr"} or not all(
+                math.isfinite(v) for v in scores.values()):
+            raise AssertionError(f"tvc_gen_{step} scores {scores}")
+        rec["scores"][f"tvc_gen_{step}"] = scores
+        rec["scores"][f"tvc_gen_{step}_tokens_mean"] = float(np.mean(
+            [len(r["descs"][0]["desc"].split()) for r in gen]))
+    for n in ("restore_backup.npz",
+              f"ckpt/model_step_{PROGRAM_TVC_VALID_STEPS}.npz"):
+        os.remove(os.path.join(out_a, n))          # disk for run B
+    stage("check_a")
+
+    # run B: SIGTERM after step 4, then the command line resumes it
+    t_b = time.perf_counter()
+    res_b = train_run(cfg_b, "b", PROGRAM_TVC_SIGTERM_AT)
+    if res_b["global_step"] != PROGRAM_TVC_SIGTERM_AT:
+        raise AssertionError(f"SIGTERM after step {PROGRAM_TVC_SIGTERM_AT}: "
+                             f"main returned at {res_b['global_step']}")
+    records_b1 = _records(out_b)
+    if rehearse:
+        run([sys.executable, "-c", TVC_TRAIN_RUN, cfg_b,
+             os.path.join(root, "b2.out.json"), dev, "0"], "resume")
+    else:
+        run([sys.executable, "-m", "hero_tpu_torch.drivers.train_tvc",
+             "--config", cfg_b], "python -m hero_tpu_torch.drivers.train_tvc")
+    rec["run_b_s"] = time.perf_counter() - t_b
+    records_b2 = _records(out_b)
+    rec["restore_ms"] = records_b2["restore_ms"]
+    rec["saves"] = (_program_saves("run_a", records_a)
+                    + _program_saves("run_b_interrupted", records_b1)
+                    + _program_saves("run_b_resumed", records_b2))
+    stage("run_b")
+    for name in (f"ckpt/model_step_{PROGRAM_TVC_STEPS}.npz", "restore.npz"):
+        a = _npz(os.path.join(out_a, name))
+        b = _npz(os.path.join(out_b, name))
+        differ = sorted(k for k in a if k not in b or a[k].dtype
+                        != b[k].dtype or not np.array_equal(a[k], b[k]))
+        if differ or set(a) != set(b):
+            raise AssertionError(f"resumed {name} differs from the "
+                                 f"uninterrupted one at {differ[:5]}")
+    gen = [os.path.join(d, f"tvc_gen_{PROGRAM_TVC_STEPS}.jsonl")
+           for d in (out_a, out_b)]
+    with open(gen[0]) as fa, open(gen[1]) as fb:
+        if fa.read() != fb.read():
+            raise AssertionError("the resumed run's captions differ")
+    rec["resume_bit_equal"] = True
+    shutil.rmtree(out_b)
+    stage("compare")
+
+    # inf_tvc in a subprocess, then in this process
+    sub = os.path.join(out_a, "tvc_submission.jsonl")
+    argv = ["--output_dir", out_a, "--checkpoint", str(PROGRAM_TVC_STEPS)]
+    cmd = ([sys.executable, "-c", TVC_INF_CPU] if rehearse else
+           [sys.executable, "-m", "hero_tpu_torch.drivers.inf_tvc"])
+    t_p = time.perf_counter()
+    proc = run(cmd + argv + ["--reference", ref, "--submission", sub],
+               "inf_tvc")
+    rec["inf_tvc_wall_s"] = time.perf_counter() - t_p
+    with open(sub) as f:
+        written = [json.loads(line) for line in f]
+    if sorted(r["clip_id"] for r in written) != list(range(n_clips)):
+        raise AssertionError("inf_tvc: not every clip once")
+    with open(sub + ".scores.json") as f:
+        scores = json.load(f)
+    if not {"METEOR", "METEOR_variant"} <= set(scores) or json.loads(
+            proc.stdout.strip().splitlines()[-1]) != scores:
+        raise AssertionError(f"inf_tvc scores {scores}")
+    rec["inf_scores"] = scores
+    rec["inf_tokens_mean"] = float(np.mean(
+        [len(r["descs"][0]["desc"].split()) for r in written]))
+    # the program's captions from A's last model file are A's last
+    # validation's, from the same weights in the same dtype
+    with open(os.path.join(out_a, f"tvc_gen_{PROGRAM_TVC_STEPS}.jsonl")) as f:
+        if [json.loads(line) for line in f] != written:
+            raise AssertionError("inf_tvc's captions differ from the last "
+                                 "validation's")
+    rec["inf_equals_validation"] = True
+    stage("inf_program")
+
+    generate = inf_tvc.generate_clip_captions
+    decode_s = []
+
+    def timed_generate(*a, **k):         # main's decode alone, timed
+        sync()
+        t = time.perf_counter()
+        out = generate(*a, **k)
+        sync()
+        decode_s.append(time.perf_counter() - t)
+        return out
+
+    def in_process(extra, dtype):
+        args = inf_tvc.build_argparser().parse_args(
+            argv + ["--submission", os.path.join(root, "sub.jsonl")]
+            + extra)
+        sync()
+        t = time.perf_counter()
+        inf_tvc.generate_clip_captions = timed_generate
+        try:
+            out = inf_tvc.main(args, device=dev, dtype=dtype)
+        finally:
+            inf_tvc.generate_clip_captions = generate
+        sync()
+        return out, time.perf_counter() - t, decode_s[-1]
+
+    reset_counts()
+    got, wall, dec = in_process([], torch.float32)
+    inf_launches = read_counts()
+    if json.loads(json.dumps(got)) != written:
+        raise AssertionError("the program's submission differs from the "
+                             "in-process run's")
+    rec["submission_equal"] = True
+    rec["fp32_main_s"], rec["fp32_decode_s"] = wall, dec
+    rec["fp32_captions_per_s"] = n_clips / dec
+    got, wall, dec = in_process([], torch.bfloat16)
+    if sorted(r["clip_id"] for r in got) != list(range(n_clips)):
+        raise AssertionError("bf16 inf_tvc: not every clip once")
+    rec["bf16_main_s"], rec["bf16_decode_s"] = wall, dec
+    rec["bf16_captions_per_s"] = n_clips / dec
+    want = list(range(PROGRAM_TVC_TARGETS))
+    for what, extra in (("target_clip", ["--target_clip", target]),
+                        ("target_clip_beam3", ["--target_clip", target,
+                                               "--beam", str(TVC_BEAM)])):
+        got = in_process(extra, torch.float32)[0]
+        if sorted(r["clip_id"] for r in got) != want:
+            raise AssertionError(f"{what}: {[r['clip_id'] for r in got]}")
+        rec[f"{what}_records"] = len(got)
+    stage("inf_in_process")
+    return rec, res_a["launches"], inf_launches
 
 
 # ---------------------------------------------------------------------------
@@ -3636,8 +4136,6 @@ def serving_program(torch, here, cfg, db, dev, sync, rehearse):
     from a JAX-layout checkpoint (see the module docstring); then
     ``drivers/eval_vcmr.main`` in this process with the launch counters
     from 0.  Returns (record, its launches)."""
-    import shutil
-    import tempfile
     from hero_tpu_torch.drivers import eval_vcmr as drv
     from hero_tpu_torch.drivers.common import eval_opts_from
     stage_s, t0 = {}, time.perf_counter()
@@ -4553,16 +5051,37 @@ def main(argv=None):
     log(f"pretrain: {pre['pretrain_examples_per_s']:.1f} videos/s, done at "
         f"{time.perf_counter() - t_start:.1f} s")
 
-    # pretraining as a program: drivers/pretrain.main from stores on disk
-    pmain, pmain_launches = pretrain_main_phase(torch, here, cfg, pre_db,
-                                                dev, sync, rehearse)
-    if not rehearse and min(pmain_launches[k] for k in TRAIN_KERNELS) == 0:
-        raise AssertionError(f"a kernel of pretraining's main was never "
-                             f"launched: {pmain_launches}")
-    record["pretrain_main"] = pmain
-    mark("pretrain_main")
-    log(f"pretrain main: {pmain['main_examples_per_s']:.1f} videos/s from "
-        f"disk, resumed run bit-equal, done at "
+    # pretraining as a program: drivers/pretrain.main from stores on disk;
+    # then TVC finetuning and captioning as programs from those stores and
+    # pretrain_main's checkpoint
+    main_root = tempfile.mkdtemp(prefix="pretrain_main_")
+    try:
+        pmain, pmain_launches = pretrain_main_phase(
+            torch, here, cfg, pre_db, dev, sync, rehearse, main_root)
+        if not rehearse and min(pmain_launches[k]
+                                for k in TRAIN_KERNELS) == 0:
+            raise AssertionError(f"a kernel of pretraining's main was never "
+                                 f"launched: {pmain_launches}")
+        record["pretrain_main"] = pmain
+        mark("pretrain_main")
+        log(f"pretrain main: {pmain['main_examples_per_s']:.1f} videos/s "
+            f"from disk, resumed run bit-equal, done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        tprog, tprog_train, tprog_inf = tvc_program_phase(
+            torch, here, tcfg, main_root, pre_db, dev, sync, rehearse,
+            record["kernels"] if not rehearse else None,
+            tvc_train["tvc_train_captions_per_s"])
+    finally:
+        shutil.rmtree(main_root, ignore_errors=True)
+    for counts, needed in ((tprog_train, PROGRAM_TVC_TRAIN_KERNELS),
+                           (tprog_inf, PROGRAM_TVC_INF_KERNELS)):
+        if not rehearse and min(counts[k] for k in needed) == 0:
+            raise AssertionError(f"a kernel of the TVC programs was never "
+                                 f"launched: {counts}")
+    record["tvc_program"] = tprog
+    mark("tvc_program")
+    log(f"tvc_program: {tprog['caption_rows_per_s']:.1f} caption rows/s "
+        f"from disk, resumed run bit-equal, done at "
         f"{time.perf_counter() - t_start:.1f} s")
 
     # serving in full: packed queries, the chunked corpus, the program
@@ -4686,6 +5205,20 @@ def main(argv=None):
         "free_bytes_after": pmain["free_bytes_after"],
         "store_bytes": pmain["store_bytes"],
         "launches": pmain_launches, "stage_s": pmain["stage_s"]}}))
+    print(json.dumps({"tvc_program": {
+        k: tprog[k] for k in (
+            "caption_rows_per_s", "tvc_train_captions_per_s",
+            "caption_rows_per_step", "window_ms", "f_encoder_rows",
+            "videos", "clips", "captions", "steps", "losses", "saves",
+            "restore_ms", "inf_tvc_wall_s", "fp32_captions_per_s",
+            "bf16_captions_per_s", "fp32_main_s", "bf16_main_s",
+            "inf_tokens_mean", "inf_equals_validation",
+            "checkpoint_bridged_equal",
+            "fp32_decode_s", "bf16_decode_s", "scores", "inf_scores",
+            "resume_bit_equal", "submission_equal", "target_clip_records",
+            "target_clip_beam3_records", "run_a_s", "run_b_s", "stage_s",
+            "free_bytes_before")}
+        | {"launches_train": tprog_train, "launches_inf": tprog_inf}}))
     print(json.dumps({"serving_full": {
         "packed": full["packed"], "packed_fp32": full["packed_fp32"],
         "chunked": full["chunked"], "chunked_fp32": full["chunked_fp32"],
@@ -4701,6 +5234,7 @@ def main(argv=None):
     paths = {"serving": launches, "train": train_launches,
              "tvc": tvc_launches, "tvc_train": tt_launches,
              "pretrain": pre_launches, "pretrain_main": pmain_launches,
+             "tvc_program": tprog_train, "tvc_program_inf": tprog_inf,
              **full_paths, "components": comp_launches}
     kernels = [{k: row[k] for k in (
         "name", "route", "source", "replaces", "tpu_kernel", "shape", "dtype",

@@ -4,8 +4,11 @@ checkpoint: ``python -m hero_tpu_torch.drivers.eval_vcmr``), the
 four-task pretraining recipe (MLM, MFM-NCE / MFFR, FOM and VSM, from
 herostore databases on disk through the MetaLoader, with checkpoints and
 resume in the JAX package's file layout: ``python -m
-hero_tpu_torch.drivers.pretrain --config <json>``), TVC caption serving
-and the TVC train step.
+hero_tpu_torch.drivers.pretrain --config <json>``), and TVC finetuning
+and captioning as programs from stores and a checkpoint (``python -m
+hero_tpu_torch.drivers.train_tvc --config <json>``, ``python -m
+hero_tpu_torch.drivers.inf_tvc --output_dir D --checkpoint N``, scored
+by ``evaluation.caption_metrics``).
 
 A port of ``hero_tpu`` (the JAX/Pallas package beside it, which stays the
 reference) to one NVIDIA H100.  Module names mirror ``hero_tpu`` so each

@@ -1,5 +1,5 @@
-"""Options: argparse plus a JSON config (a copy of the pretraining and
-VCMR parts of ``hero_tpu/config/opts.py``).
+"""Options: argparse plus a JSON config (a copy of the pretraining, VCMR
+and TVC parts of ``hero_tpu/config/opts.py``).
 
 ``--config`` names a JSON file; each of its keys becomes an attribute
 unless the same flag was given on the command line (the command line
@@ -149,6 +149,16 @@ def get_vcmr_args(argv=None):
 
 
 get_vr_args = get_vcmr_args
+
+
+def get_tvc_args(argv=None):
+    p = base_parser("HERO TVC captioning")
+    p.add_argument("--task", default="tvc", type=str)
+    p.add_argument("--cap_db", default=None, type=str)
+    p.add_argument("--lsr", default=0.1, type=float)
+    p.add_argument("--max_gen_step", default=30, type=int)
+    p.add_argument("--max_cap_per_vid", default=-1, type=int)
+    return parse_with_config(p, argv)
 
 
 def get_pretrain_args(argv=None):

@@ -21,14 +21,17 @@ carries any tree shaped like the parameters: AdamW's ``mu`` and ``nu``
 gradients (the tests compare the port's with ``jax.grad``'s through it).
 
 The map is also a permutation of elements, which gives its inverse
-(:func:`to_jax_params`, :func:`to_jax_train_state`; what the port's
-checkpoints write): the forward map run over element numbers instead of
-values says where each element of the port's tree sits in the JAX
-layout, and one scatter on the tensors' device puts it back there.
+(:func:`to_jax_params`, :func:`to_jax_train_state`, and for the TVC tree
+:func:`to_jax_tvc_params`, :func:`to_jax_tvc_train_state`; what the
+port's checkpoints write): the forward map run over element numbers
+instead of values says where each element of the port's tree sits in
+the JAX layout, and one scatter on the tensors' device puts it back
+there.
 
 The inverse takes a ``template``, the flat JAX tree the run started from
-(its init or checkpoint): the keys the port does not hold, the two
-poolers, are written from it, with zero AdamW moments.  The JAX package's
+(its init or checkpoint): the keys the port does not hold (the two
+poolers; for TVC also the task heads other than the LM head) are
+written from it, with zero AdamW moments.  The JAX package's
 AdamW decays the pooler kernels every step although no pretraining loss
 reads them (``hero_tpu/training/optim.py:142-144``,
 ``hero_tpu/models/encoder.py:155,187``); the port leaves them as they
@@ -299,10 +302,13 @@ def load_jax_tvc_train_state(flat_params: Mapping[str, np.ndarray],
 
 
 def _layout(template: Mapping[str, np.ndarray], device,
-            tree: Callable[[Getter], Dict[str, Any]]):
+            tree: Callable[[Getter], Dict[str, Any]],
+            unused_keys: frozenset):
     """(the tree of element numbers, the keys it reads, {key: (offset,
-    shape)}, total elements): the forward map applied to the position of
-    every element of ``template`` laid end to end."""
+    shape)}, total elements): the forward map ``tree`` applied to the
+    position of every element of ``template`` laid end to end.  A
+    template key that ``tree`` does not read and ``unused_keys`` does not
+    name raises."""
     offsets, total = {}, 0
     for key, value in template.items():
         shape = tuple(np.shape(value))
@@ -320,7 +326,7 @@ def _layout(template: Mapping[str, np.ndarray], device,
         return torch.arange(off, off + n, device=device).reshape(shape)
 
     index = tree(get)
-    unexpected = set(template) - used - UNUSED_JAX_KEYS
+    unexpected = set(template) - used - unused_keys
     if unexpected:
         raise KeyError(f"template keys the port does not hold: "
                        f"{sorted(unexpected)}")
@@ -359,6 +365,28 @@ def _device_of(tree) -> torch.device:
     return tree_leaves(tree)[0].device
 
 
+def _to_jax_params(params, template, tree, unused_keys):
+    index, used, offsets, total = _layout(template, _device_of(params),
+                                          tree, unused_keys)
+    return _scatter_to_jax(params, index, used, offsets, total,
+                           lambda k: np.asarray(template[k], np.float32))
+
+
+def _to_jax_train_state(state, template, tree, unused_keys):
+    index, used, offsets, total = _layout(template,
+                                          _device_of(state.params), tree,
+                                          unused_keys)
+
+    def zeros(k):
+        return np.zeros(np.shape(template[k]), np.float32)
+
+    flat = [_scatter_to_jax(t, index, used, offsets, total, fill)
+            for t, fill in ((state.params,
+                             lambda k: np.asarray(template[k], np.float32)),
+                            (state.opt.mu, zeros), (state.opt.nu, zeros))]
+    return flat[0], flat[1], flat[2], int(state.global_step)
+
+
 def to_jax_params(params, template: Mapping[str, np.ndarray]
                   ) -> Dict[str, np.ndarray]:
     """The flat JAX-layout dict of the port's pretraining tree ``params``
@@ -366,10 +394,7 @@ def to_jax_params(params, template: Mapping[str, np.ndarray]
     split, layers stacked), fp32 numpy, keys in ``template``'s order; the
     poolers are ``template``'s (see the module docstring).  Exact both
     ways: ``load_jax_params(to_jax_params(p, t)) == p``."""
-    index, used, offsets, total = _layout(template, _device_of(params),
-                                          _port_tree)
-    return _scatter_to_jax(params, index, used, offsets, total,
-                           lambda k: np.asarray(template[k], np.float32))
+    return _to_jax_params(params, template, _port_tree, UNUSED_JAX_KEYS)
 
 
 def to_jax_train_state(state, template: Mapping[str, np.ndarray]
@@ -381,15 +406,25 @@ def to_jax_train_state(state, template: Mapping[str, np.ndarray]
     :func:`load_jax_train_state`): the poolers' parameters from
     ``template`` and their moments zero; ``step`` the optimizer steps
     taken."""
-    index, used, offsets, total = _layout(template,
-                                          _device_of(state.params),
-                                          _port_tree)
+    return _to_jax_train_state(state, template, _port_tree, UNUSED_JAX_KEYS)
 
-    def zeros(k):
-        return np.zeros(np.shape(template[k]), np.float32)
 
-    flat = [_scatter_to_jax(t, index, used, offsets, total, fill)
-            for t, fill in ((state.params,
-                             lambda k: np.asarray(template[k], np.float32)),
-                            (state.opt.mu, zeros), (state.opt.nu, zeros))]
-    return flat[0], flat[1], flat[2], int(state.global_step)
+def to_jax_tvc_params(params, template: Mapping[str, np.ndarray]
+                      ) -> Dict[str, np.ndarray]:
+    """:func:`to_jax_params` for the TVC tree (inverse of
+    :func:`load_jax_tvc_params`): the keys the TVC tree does not hold
+    (:data:`UNUSED_TVC_JAX_KEYS`: the poolers and the task heads other
+    than the LM head) are ``template``'s.  Exact both ways:
+    ``load_jax_tvc_params(to_jax_tvc_params(p, t)) == p``."""
+    return _to_jax_params(params, template, _tvc_tree, UNUSED_TVC_JAX_KEYS)
+
+
+def to_jax_tvc_train_state(state, template: Mapping[str, np.ndarray]
+                           ) -> Tuple[Dict[str, np.ndarray],
+                                      Dict[str, np.ndarray],
+                                      Dict[str, np.ndarray], int]:
+    """:func:`to_jax_train_state` for the TVC tree (inverse of
+    :func:`load_jax_tvc_train_state`): the keys of
+    :data:`UNUSED_TVC_JAX_KEYS` from ``template``, with zero moments."""
+    return _to_jax_train_state(state, template, _tvc_tree,
+                               UNUSED_TVC_JAX_KEYS)

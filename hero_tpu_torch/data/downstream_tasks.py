@@ -1,36 +1,42 @@
-"""VCMR corpus-evaluation queries and TVC caption-generation data (copies
-from ``hero_tpu/data/downstream_tasks.py``; the same inputs give the same
+"""VCMR corpus-evaluation queries and TVC caption data (copies from
+``hero_tpu/data/downstream_tasks.py``; the same inputs give the same
 arrays).
 
 - :func:`get_st_ed_label`: seconds -> frame-index span.
 - :class:`VcmrFullEvalDataset`: the queries of the two-phase corpus
   evaluation, in fixed-size batches (``batches``).
+- :class:`TvcCaptionStore`: a TVC caption store on disk, ``cap.db`` (one
+  record a caption) and optionally ``clip.db`` (one record a clip, with
+  its ground-truth texts) as herostore databases, with ``meta.json``'s
+  PAD/BOS/EOS and the id maps beside them; ``store[cid]`` gives
+  ``input_ids`` (BOS first) and ``tgt_ids`` (EOS last) cut to
+  ``max_txt_len``.
 - :class:`TvcTrainDataset` and :func:`build_tvc_batch`: TVC training,
   ``caps_per_video`` caption rows per video with their clip gather
-  indices, the batch flattened to caption rows with ``cap_vidx``.  The
-  caption store is duck-typed as ``TvcCaptionStore``: ``vid2caps``,
-  ``pad``/``bos``/``eos`` and ``store[cid]`` -> ``input_ids`` (BOS
-  first), ``tgt_ids`` (EOS last), ``ts``; the herostore reader waits for
-  the herostore readers.
+  indices, the batch flattened to caption rows with ``cap_vidx``.
 - :class:`TvcClipDataset`: every clip exactly once, ``clips_per_item``
-  clip rows per item.  The caption-store and jsonl readers
-  (``from_caption_db``, ``from_jsonl``) wait for the herostore readers.
+  clip rows per item, from a caption store's ``clip.db``
+  (``from_caption_db``) or a clip jsonl (``from_jsonl``).
 - :func:`build_tvc_clip_batch`: the backbone keys (with the four packed
   segment/position keys) plus the per-clip gather indices.
 
-The video store is duck-typed: ``img_db.frame_interval``,
-``video_item(vid)`` (a fresh dict of the backbone arrays of one video) and
-``nframes(vid)``.
+The caption store (``vid2caps``, ``pad``/``bos``/``eos``, ``store[cid]``)
+and the video store (``img_db.frame_interval``, ``video_item(vid)``, a
+fresh dict of the backbone arrays of one video, and ``nframes(vid)``) are
+duck-typed, so in-memory stores serve too.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
 import random
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from hero_tpu_torch.data.store import HeroStore, _load_json
 from hero_tpu_torch.data.video import pad_query
 
 
@@ -99,6 +105,49 @@ class VcmrFullEvalDataset:
                 "query_input_ids": ids,
                 "query_attn_masks": masks,
             }
+
+
+class TvcCaptionStore:
+    """cap.db/clip.db over herostore dirs (reference CaptionTokLmdb,
+    data/tvc.py:25-69; ``hero_tpu/data/downstream_tasks.py:310-353``)."""
+
+    def __init__(self, db_dir: str, max_txt_len: int = -1):
+        self.cap_db = HeroStore(os.path.join(db_dir, "cap.db"))
+        self.clip_db = (HeroStore(os.path.join(db_dir, "clip.db"))
+                        if os.path.exists(
+                            os.path.join(db_dir, "clip.db", "index.bin"))
+                        else None)
+        meta = _load_json(db_dir, "meta.json", {})
+        self.pad = meta.get("PAD", 1)
+        self.bos = meta.get("BOS", 0)
+        self.eos = meta.get("EOS", 2)
+        self.max_txt_len = max_txt_len
+        self.cap2vid = _load_json(os.path.join(db_dir, "cap.db"),
+                                  "cap2vid.json", {})
+        self.vid2caps = _load_json(os.path.join(db_dir, "cap.db"),
+                                   "vid2caps.json", {})
+        self.vid2clips = _load_json(os.path.join(db_dir, "clip.db"),
+                                    "vid2clips.json", {})
+        self.clip2vid = _load_json(os.path.join(db_dir, "clip.db"),
+                                   "clip2vid.json", {})
+
+    def get_clip(self, clip_id: str):
+        """Clip record: {vid_name, ts, captions: [{id, text}]}
+        (reference CaptionTokLmdb.get_clip, data/tvc.py:51-53)."""
+        assert self.clip_db is not None, "no clip.db in this caption store"
+        return dict(self.clip_db[clip_id])
+
+    def __getitem__(self, cid: str):
+        d = dict(self.cap_db[cid])
+        cap = list(d["input_ids"])
+        input_ids = [self.bos] + cap
+        tgt_ids = cap + [self.eos]
+        if self.max_txt_len != -1:
+            input_ids = input_ids[:self.max_txt_len]
+            tgt_ids = tgt_ids[:self.max_txt_len]
+        d["input_ids"] = input_ids
+        d["tgt_ids"] = tgt_ids
+        return d
 
 
 class TvcTrainDataset:
@@ -188,6 +237,35 @@ class TvcClipDataset:
             rows = by_vid[vid]
             for s in range(0, len(rows), clips_per_item):
                 self.items.append((vid, rows[s:s + clips_per_item]))
+
+    @classmethod
+    def from_caption_db(cls, video_db, caption_db: TvcCaptionStore,
+                        **kw) -> "TvcClipDataset":
+        """Validation source: clip.db GT captions (reference TvcValDataset,
+        data/tvc.py:164-219)."""
+        clips = []
+        for vid, cids in caption_db.vid2clips.items():
+            for cid in cids:
+                ex = caption_db.get_clip(cid)
+                gts = [c["text"] for c in ex.get("captions", [])] or None
+                clips.append((vid, cid, ex["ts"], gts))
+        return cls(video_db, clips, **kw)
+
+    @classmethod
+    def from_jsonl(cls, video_db, path: str, **kw) -> "TvcClipDataset":
+        """Submission source: raw clip jsonl {vid_name, clip_id, ts[,descs]}
+        (reference TvcEvalDataset, data/tvc.py:221-291)."""
+        clips = []
+        with open(path) as f:
+            for line in f:
+                if not line.strip():
+                    continue
+                ex = json.loads(line)
+                gts = ([d.get("desc") for d in ex["descs"]]
+                       if ex.get("descs") else None)
+                clips.append((ex["vid_name"], str(ex["clip_id"]),
+                              ex["ts"], gts))
+        return cls(video_db, clips, **kw)
 
     def __len__(self):
         return len(self.items)

@@ -13,6 +13,7 @@ loop returns; the loss is logged every ``LOG_EVERY`` steps.
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import signal
@@ -226,6 +227,15 @@ def eval_opts_from(opts):
         query_pack_rows_per_call=getattr(opts, "query_pack_rows_per_call",
                                          64),
     )
+
+
+def write_checkpoint_records(output_dir: str, saver, restorer) -> None:
+    """``output_dir/log/checkpoints.json``: the restore's ms and each
+    model and restore save's record (``training/save.py``)."""
+    with open(os.path.join(output_dir, "log", "checkpoints.json"), "w") as f:
+        json.dump({"restore_ms": restorer.restore_ms,
+                   "model": saver.records,
+                   "restore": restorer.records}, f, indent=1)
 
 
 LOG_EVERY = 100           # optimizer steps between loss log lines

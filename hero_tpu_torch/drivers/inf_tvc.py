@@ -1,27 +1,71 @@
-"""TVC caption generation -> submission records (counterpart of
-``hero_tpu/drivers/inf_tvc.py``'s ``generate_clip_captions``).
+"""TVC caption generation as a program -> submission jsonl (counterpart
+of ``hero_tpu/drivers/inf_tvc.py``, one card):
 
-Every clip of a :class:`~hero_tpu_torch.data.downstream_tasks.TvcClipDataset`
-is decoded exactly once, greedy or by beam search with the decoder's KV
-cache, and becomes a record in the reference submission schema
-``{"vid_name", "clip_id", "ts", "descs": [{"desc"}]}``.  With no
-detokenizer the ids are joined by spaces.  The command-line driver
-(checkpoint loading, the caption-store readers, CIDEr/BLEU scoring) is not
-ported yet (ROADMAP A3, A9).
+    python -m hero_tpu_torch.drivers.inf_tvc --output_dir <train dir> \
+        --checkpoint <step or path> [--target_clip J] [--beam K] \
+        [--reference GT] [--submission OUT]
+
+:func:`main` reloads the run's ``log/hps.json``, overlays the JAX-layout
+``.npz`` checkpoint on the seeded TVC init, reads the sub and feature
+stores and the clips to caption: a raw clip jsonl (``--target_clip``,
+reference TvcEvalDataset), or the ``clip.db`` of ``--target_clip_db`` or
+of the run's caption store (TvcValDataset).  :func:`generate_clip_captions`
+decodes every clip exactly once, greedy or by beam search with the
+decoder's KV cache, into the reference submission schema ``{"vid_name",
+"clip_id", "ts", "descs": [{"desc"}]}``; the program decodes in fp32, as
+the JAX program does.  With a tokenizer in the local Hugging Face cache
+the ids become text (:func:`detokenizer`), else they are joined by
+spaces.  ``--reference`` scores the submission with ``TVCEval``
+(BLEU-4, ROUGE-L, CIDEr-D, METEOR and its variant) to stdout and
+``<submission>.scores.json``.
 """
 
 from __future__ import annotations
 
+import argparse
+import functools
+import json
 from typing import Callable, List, Optional
 
 import torch
 
 from hero_tpu_torch import resolve_device
-from hero_tpu_torch.data.downstream_tasks import (TvcClipDataset,
+from hero_tpu_torch.convert.from_jax import load_jax_tvc_params
+from hero_tpu_torch.data.downstream_tasks import (TvcCaptionStore,
+                                                  TvcClipDataset,
                                                   build_tvc_clip_batch)
+from hero_tpu_torch.drivers import common
+from hero_tpu_torch.drivers.eval_vcmr import (INIT_SEED, load_serve_opts,
+                                              resolve_checkpoint)
+from hero_tpu_torch.evaluation.caption_metrics import TVCEval
 from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
 from hero_tpu_torch.models import nn
 from hero_tpu_torch.models import tvc as tvc_lib
+from hero_tpu_torch.utils.logger import LOGGER, configure_stdout
+
+
+ROBERTA_VOCAB = 50265    # roberta-base's tokens (the model pads to 50272)
+
+
+@functools.lru_cache(maxsize=None)
+def detokenizer() -> Optional[Callable]:
+    """RoBERTa's ``decode`` (special tokens skipped) when ``transformers``
+    and the ``roberta-base`` tokenizer files are in the local cache; else
+    None, with one warning (``hero_tpu/drivers/inf_tvc.py:33-40``).  The
+    files are never downloaded.  A tokenizer without roberta-base's
+    vocabulary counts as unavailable: offline, ``transformers`` 5 builds
+    one of its 5 special tokens alone, which decodes every caption to
+    ''."""
+    try:
+        from transformers import RobertaTokenizer
+        tok = RobertaTokenizer.from_pretrained("roberta-base",
+                                               local_files_only=True)
+        if len(tok) < ROBERTA_VOCAB:
+            raise OSError(f"roberta-base tokenizer of {len(tok)} tokens")
+        return lambda ids: tok.decode(ids, skip_special_tokens=True)
+    except Exception:
+        LOGGER.warning("RobertaTokenizer unavailable; emitting token ids")
+        return None
 
 
 def cut_at_eos(ids, eos: int) -> List[int]:
@@ -76,3 +120,75 @@ def generate_clip_captions(params, cfg, ds: TvcClipDataset, *, bos: int,
                             "ts": batch["__ts__"][ri],
                             "descs": [{"desc": desc}]})
     return records
+
+
+def main(args, device="cuda", dtype: torch.dtype = torch.float32):
+    """Caption ``args``' clips with ``args.output_dir``'s run at
+    ``args.checkpoint`` on ``device`` in ``dtype``
+    (``hero_tpu/drivers/inf_tvc.py:93-138``; fp32 as the JAX program, bf16
+    for in-process callers that ask) and write the submission jsonl.
+    The parameters the checkpoint lacks keep the port's seeded init, so
+    a partial checkpoint serves other weights than the JAX driver's.  A
+    ``.pt`` checkpoint raises (ROADMAP A4).  Returns the ``TVCEval``
+    scores with ``args.reference``, else the records."""
+    device = resolve_device(device)
+    opts = load_serve_opts(args.output_dir)
+    cfg = common.model_config_from_opts(opts)
+    ckpt = resolve_checkpoint(args.output_dir, args.checkpoint)
+    flat = common.load_checkpoint_into(
+        tvc_lib.init_flat_tvc_params(cfg, seed=INIT_SEED), ckpt)
+    params = load_jax_tvc_params(flat, device=device)
+
+    video_db = common.load_video_sub_dataset(opts,
+                                             common.shapes_from_opts(opts))
+    cap_db = TvcCaptionStore(args.target_clip_db or opts.cap_db,
+                             max_txt_len=opts.max_txt_len)
+    ds_kw = dict(clips_per_item=getattr(opts, "clips_per_item", 4),
+                 seg_len=opts.max_clip_len)
+    if args.target_clip:
+        ds = TvcClipDataset.from_jsonl(video_db, args.target_clip, **ds_kw)
+    else:
+        ds = TvcClipDataset.from_caption_db(video_db, cap_db, **ds_kw)
+    records = generate_clip_captions(
+        params, cfg, ds, bos=cap_db.bos, eos=cap_db.eos,
+        batch_size=getattr(opts, "val_batch_size", 8),
+        max_gen_step=getattr(opts, "max_gen_step", 30), beam=args.beam,
+        detok=detokenizer(), dtype=dtype, device=device)
+    with open(args.submission, "w") as f:
+        for rec in records:
+            f.write(json.dumps(rec) + "\n")
+    LOGGER.info("wrote %d captions to %s", len(records), args.submission)
+    if args.reference:
+        scores = TVCEval(args.reference)(records)
+        print(json.dumps(scores))
+        # the scores beside the submission, with METEOR_variant
+        with open(args.submission + ".scores.json", "w") as f:
+            json.dump(scores, f, indent=2)
+        return scores
+    return records
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("hero_tpu_torch inf_tvc")
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--target_clip", default=None,
+                   help="clip jsonl to generate for (reference "
+                        "--target_clip); default: clip.db of the train "
+                        "caption store")
+    p.add_argument("--target_clip_db", default=None)
+    p.add_argument("--submission", default="tvc_submission.jsonl")
+    p.add_argument("--beam", default=1, type=int)
+    p.add_argument("--reference", default=None,
+                   help="GT jsonl for CIDEr/BLEU/ROUGE scoring")
+    return p
+
+
+def cli():
+    """The console script's entry (``hero-tpu-torch-inf-tvc``)."""
+    configure_stdout()
+    main(build_argparser().parse_args())
+
+
+if __name__ == "__main__":
+    cli()

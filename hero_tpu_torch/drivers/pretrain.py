@@ -16,7 +16,6 @@ validation, and the train loop.
 
 from __future__ import annotations
 
-import json
 import os
 from typing import Callable, Dict, Optional
 
@@ -339,11 +338,8 @@ def main(opts, device="cuda", on_step: Optional[Callable] = None
             ckpt_writer.close()
         finally:
             if saver is not None:
-                with open(os.path.join(opts.output_dir, "log",
-                                       "checkpoints.json"), "w") as f:
-                    json.dump({"restore_ms": restorer.restore_ms,
-                               "model": saver.records,
-                               "restore": restorer.records}, f, indent=1)
+                common.write_checkpoint_records(opts.output_dir, saver,
+                                                restorer)
             LOGGER.removeHandler(log_file)
             log_file.close()
 

@@ -13,9 +13,11 @@
   ``log/model_config.json`` and the git sha (or a zip of the package).
 
 The port's trees go through the inverse bridge
-(``convert/from_jax.to_jax_params``) with the run's ``template``, the flat
-JAX tree it started from, so ``hero_tpu.training.save.load_params`` and
-``TrainingRestorer.restore`` read these files and the port reads theirs.
+(``convert/from_jax.to_jax_params``, or ``to_jax_tvc_params`` for a TVC
+run: the ``tree`` argument, a key of :data:`TREES`) with the run's
+``template``, the flat JAX tree it started from, so
+``hero_tpu.training.save.load_params`` and ``TrainingRestorer.restore``
+read these files and the port reads theirs.
 
 The device-to-host copy runs on the calling thread; only the file write
 goes to :class:`AsyncCheckpointWriter`'s thread.  Every write is tmp file
@@ -40,10 +42,21 @@ import numpy as np
 import torch
 
 from hero_tpu_torch.convert.from_jax import (load_jax_train_state,
+                                             load_jax_tvc_train_state,
                                              to_jax_params,
-                                             to_jax_train_state)
+                                             to_jax_train_state,
+                                             to_jax_tvc_params,
+                                             to_jax_tvc_train_state)
 from hero_tpu_torch.training.optim import tree_leaves
 from hero_tpu_torch.utils.logger import LOGGER
+
+# {tree: (params -> flat JAX dict, train state -> flat JAX trees, flat JAX
+# trees -> train state)}: the pretraining tree and TVC's
+TREES = {
+    "pretrain": (to_jax_params, to_jax_train_state, load_jax_train_state),
+    "tvc": (to_jax_tvc_params, to_jax_tvc_train_state,
+            load_jax_tvc_train_state),
+}
 
 
 def _atomic_savez(path: str, flat: Dict[str, np.ndarray]) -> None:
@@ -181,14 +194,17 @@ class ModelSaver:
     layout.  ``template`` is the flat JAX tree the run started from (the
     inverse bridge takes the keys the port does not hold from it);
     ``vocab_padded`` the pad decision of the checkpoint conversion, None
-    when unknown (no marker is written)."""
+    when unknown (no marker is written); ``tree`` the parameter tree the
+    run trains (:data:`TREES`)."""
 
     def __init__(self, output_dir: str, template: Mapping[str, np.ndarray],
                  prefix: str = "model_step", suffix: str = "npz",
                  vocab_padded: Optional[bool] = None,
-                 writer: Optional[AsyncCheckpointWriter] = None):
+                 writer: Optional[AsyncCheckpointWriter] = None,
+                 tree: str = "pretrain"):
         self.output_dir = output_dir
         self.template = template
+        self._to_jax = TREES[tree][0]
         self.prefix = prefix
         self.suffix = suffix
         self.vocab_padded = vocab_padded
@@ -200,7 +216,7 @@ class ModelSaver:
         path = os.path.join(self.output_dir,
                             f"{self.prefix}_{step}.{self.suffix}")
         t0 = _wait_for(params)
-        flat = to_jax_params(params, self.template)
+        flat = self._to_jax(params, self.template)
         if self.vocab_padded is not None:
             flat["__vocab_padded__"] = np.asarray(self.vocab_padded)
         record = {"step": step, "copy_ms": 1e3 * (time.perf_counter() - t0)}
@@ -250,11 +266,13 @@ class TrainingRestorer:
     (:meth:`save`), read back by :meth:`restore`.  ``template`` as
     :class:`ModelSaver`'s, needed before the first save; :meth:`restore`
     sets it to the restored parameters, which then carry the keys the
-    port does not hold."""
+    port does not hold.  ``tree`` as :class:`ModelSaver`'s."""
 
     def __init__(self, output_dir: str, hps: Dict[str, Any],
                  template: Optional[Mapping[str, np.ndarray]] = None,
-                 writer: Optional[AsyncCheckpointWriter] = None):
+                 writer: Optional[AsyncCheckpointWriter] = None,
+                 tree: str = "pretrain"):
+        _, self._to_jax, self._load = TREES[tree]
         self.save_path = os.path.join(output_dir, "restore.npz")
         self.backup_path = os.path.join(output_dir, "restore_backup.npz")
         self.hps_path = os.path.join(output_dir, "restore_hps.json")
@@ -290,8 +308,7 @@ class TrainingRestorer:
 
     def save(self, train_state) -> None:
         t0 = _wait_for(train_state.params)
-        params, mu, nu, step = to_jax_train_state(train_state,
-                                                  self.template)
+        params, mu, nu, step = self._to_jax(train_state, self.template)
         flat = {**{f"params/{k}": v for k, v in params.items()},
                 **{f"mu/{k}": v for k, v in mu.items()},
                 **{f"nu/{k}": v for k, v in nu.items()},
@@ -347,7 +364,7 @@ class TrainingRestorer:
         and ``restore_ms``."""
         t0 = time.perf_counter()
         params, mu, nu, step = self.read()
-        state = load_jax_train_state(params, mu, nu, step, step, device)
+        state = self._load(params, mu, nu, step, step, device)
         self.template = params
         self.global_step = step
         self.restore_ms = 1e3 * (time.perf_counter() - t0)
