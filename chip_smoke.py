@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's VCMR serving path, VSM train step, TVC
 caption serving, TVC train step, four-task pretraining, TVC finetuning
-and captioning as programs, VCMR serving as a program and kernel
-components on one GPU and check them.
+and captioning as programs, VCMR and VR finetuning from a reference
+``.pt`` as programs, VCMR serving as a program and kernel components on
+one GPU and check them.
 
     python3 chip_smoke.py                  # on a machine with one CUDA card
     python3 chip_smoke.py --json-out F     # also write the full record to F
@@ -162,7 +163,42 @@ What the card run does, in order (any failure exits non-zero):
    restore's ms, the inf_tvc subprocess's wall s, the fp32 and bf16
    decodes' captions/s, the scores, the launches) and deletes the
    directory;
-13. the serving_full phase, VCMR serving in full: runs
+13. the vcmr_program phase, VCMR and VR finetuning and VR serving as
+   programs from the reference checkpoint at ``config/hero_finetune.json``'s
+   model: writes pretrain_main's last checkpoint as a reference-layout
+   ``.pt`` (``data/testing.reference_state_dict``, the word rows cut to
+   RoBERTa's 50265 as in the released ``hero-tv-ht100.pt``, saved as
+   ``{"model": sd}``) and holds ``load_checkpoint_into`` of it equal to
+   that of the ``.npz`` bit for bit on every key but the 7 padded word
+   and LM-bias rows, which are 0, with ``vocab_padded`` True (the load's
+   ms and the file's bytes); writes TVR-layout query stores with span
+   targets (512 train queries over 192 of the 256 videos, 256 val
+   queries over the other 64) and MSR-VTT ones keyed by ``sen_id`` (768
+   and 256); holds #2 and #3 at the programs' f-encoder rows against
+   their plain versions: TVR's (1024, 77, 768) and MSR-VTT video-only's
+   (96, 161, 768) (bf16; its fp32 check at DiDeMo video-only's 81 slots,
+   since the fp32 backward takes at most 154 rows); runs
+   ``drivers/train_vcmr.main`` on ``config/train-tvr.json`` with the
+   paths substituted, the ``.pt``, 8 steps, validation and checkpoints
+   at 4 and 8, warm-up 2 and hard negatives from step 4, in a subprocess
+   with the launch counters from 0 (run A: every loss finite,
+   ``results_{4,8}_all.json`` with VCMR, SVMR and VR, the model file
+   marked ``vocab_padded``); again in a subprocess stopped by SIGTERM
+   after step 4 and resumed by ``python -m
+   hero_tpu_torch.drivers.train_vcmr`` (run B: A's and B's
+   ``model_step_8.npz`` and ``restore.npz`` equal bit for bit); ``python
+   -m hero_tpu_torch.drivers.eval_vcmr --checkpoint 8`` on A's directory
+   (its results equal A's step-8 validation: the same ids, scores within
+   1e-4); ``drivers/train_vr.main`` on
+   ``config/train-msrvtt_video_only.json`` with the paths substituted,
+   the ``.pt``, 4 steps, in a subprocess with the counters from 0; and
+   ``drivers/eval_vr.main`` in this process on its directory (VR and no
+   VCMR, equal to its step-4 validation; counters from 0); prints a
+   ``vcmr_program`` line (queries/s of TVR's steps 2-3 and 6-7 and VR's
+   2-3 from disk, each save's ms and bytes, the restore's ms, the
+   ``.pt``'s load ms and bytes, the eval_vcmr subprocess's wall s, the
+   launches of #1-#7 on each path);
+14. the serving_full phase, VCMR serving in full: runs
    ``validate_full_vcmr`` on the 512 queries and the resident 2000-video
    corpus with ``pack_queries`` (4 segments a row, 64 rows a call: the
    whole set encoded packed, then ranked in batch slices) and one row a
@@ -183,7 +219,7 @@ What the card run does, in order (any failure exits non-zero):
    reference schema, every query once) and holds it and its printed
    metrics equal to ``drivers/eval_vcmr.main`` run in this process with
    the launch counters from 0; prints a ``serving_full`` line;
-14. the components phase (``tools/component_bench.py`` and the DALN
+15. the components phase (``tools/component_bench.py`` and the DALN
    checks of ``tools/kernel_smoke.py`` and ``tools/tpu_kernel_drive.py``):
    holds #6 and #7 at their edges (``check_ln_edges``: widths 1 to
    14528 about the 16-byte access and the warp's share, rows about the
@@ -212,7 +248,7 @@ It prints one ``phases`` JSON line, one train JSON line with
 one TVC train JSON line with ``tvc_train_captions_per_s``, one
 ``pretrain`` JSON line with ``pretrain_examples_per_s``, one
 ``pretrain_main`` JSON line, one ``tvc_program`` JSON line, one
-``serving_full`` JSON line, one
+``vcmr_program`` JSON line, one ``serving_full`` JSON line, one
 ``components`` JSON line, one ``kernels`` JSON line (all nine kernels,
 launches by path; #6, #7 and #9 with the device ms of their row pass and
 of the column pass; #8 and #9 with the unfused chain's ms and their own
@@ -665,9 +701,11 @@ def _train_tol(ref, dtype):
     return top * 2.0 ** -7
 
 
-def check_attention_train(torch, F, att, B, L, D, H, mask, seg_mode):
+def check_attention_train(torch, F, att, B, L, D, H, mask, seg_mode,
+                          fp32=True):
     """The forward with dropout and saved probabilities and the backward
-    kernel, in fp32 and bf16, at rate 0 and 0.1, against the plain
+    kernel, in fp32 (unless ``fp32`` is False: the fp32 backward takes at
+    most 154 rows) and bf16, at rate 0 and 0.1, against the plain
     versions on the same inputs; determinism; bf16 timings at rate 0.1."""
     dev = mask.device
     gen = torch.Generator(device=dev).manual_seed(7 * B + L)
@@ -675,7 +713,7 @@ def check_attention_train(torch, F, att, B, L, D, H, mask, seg_mode):
     launch = att.seg_attention_cuda if seg_mode else att.valid_attention_cuda
     d = D // H
     checks, rows = {}, {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in ((torch.float32,) if fp32 else ()) + (torch.bfloat16,):
         name = str(dtype).split(".")[1]
         qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(dtype)
         q, k, v = qkv.split(D, dim=-1)
@@ -3903,6 +3941,485 @@ def tvc_program_phase(torch, here, tcfg, main_root, db, dev, sync,
 
 
 # ---------------------------------------------------------------------------
+# vcmr_program: drivers/train_vcmr, train_vr, eval_vcmr and eval_vr from a
+# reference-layout .pt checkpoint and stores on disk
+# ---------------------------------------------------------------------------
+
+PT_ROWS = 50265                     # word rows of the released .pt (RoBERTa)
+PADDED_KEYS = ("v_encoder/f_encoder/embeddings/word_emb",
+               "v_encoder/f_encoder/lm_head/bias")
+PROGRAM_VCMR_STEPS, PROGRAM_VCMR_SIGTERM_AT = 8, 4
+PROGRAM_VCMR_VALID_STEPS = PROGRAM_VCMR_SAVE_STEPS = 4
+PROGRAM_VCMR_WARMUP = 2
+PROGRAM_VCMR_HARD_AT = 4            # hard negatives from this step on
+PROGRAM_VR_STEPS = 4
+# steps timed from disk, away from the validations and saves after steps
+# 4 and 8: 2-3 and 6-7 of TVR, 2-3 of VR
+PROGRAM_VCMR_WINDOWS = ((1, 3), (5, 7))
+PROGRAM_VR_WINDOWS = ((1, 3),)
+# train and val queries: TVR's over the first 192 and the last 64 of
+# pretrain_main's videos, MSR-VTT's likewise; an epoch covers the steps
+PROGRAM_VCMR_QUERIES = (512, 256)
+PROGRAM_VR_QUERIES = (768, 256)
+PROGRAM_VCMR_TRAIN_VIDEOS = 192
+PROGRAM_VCMR_FREE_BYTES = 12 << 30  # the .pt and the runs' files, with room
+# the kernels of the unpacked programs: the train steps (their bf16
+# validations included) and the in-process eval_vr; #1 takes only
+# --pack_subs rows
+PROGRAM_VCMR_TRAIN_KERNELS = ("valid_attention_cuda", "attention_bwd_cuda",
+                              "layer_norm_cuda", "layer_norm_bwd_cuda")
+PROGRAM_VCMR_EVAL_KERNELS = ("valid_attention_cuda", "layer_norm_cuda")
+
+# one run of drivers/train_vcmr.main or drivers/train_vr.main in a fresh
+# interpreter (its SIGTERM hook needs a main thread): the launch counters
+# from 0 around it, the card synchronised at the windows' edges (argv[6],
+# JSON) only, SIGTERM after step argv[5] (0: never); the losses, the
+# edges' clocks and the counts go to the JSON file argv[3]
+VCMR_TRAIN_RUN = """
+import json, os, signal, sys, time
+import torch
+from chip_smoke import read_counts, reset_counts
+from hero_tpu_torch.config.opts import get_vcmr_args
+from hero_tpu_torch.drivers import train_vcmr, train_vr
+from hero_tpu_torch.utils.logger import configure_stdout
+
+program, cfg, out_json, device, stop_at, windows = sys.argv[1:7]
+configure_stdout()
+edges = {s for w in json.loads(windows) for s in w}
+losses, marks = [], {}
+
+def on_step(step, task, metrics):
+    losses.append(metrics["loss"].detach())
+    if step in edges:
+        if device == "cuda":
+            torch.cuda.synchronize()
+        marks[step] = time.perf_counter()
+    if step == int(stop_at):
+        os.kill(os.getpid(), signal.SIGTERM)
+
+reset_counts()
+drv = train_vcmr if program == "train_vcmr" else train_vr
+state = drv.main(get_vcmr_args(["--config", cfg]), device=device,
+                 on_step=on_step, dtype=torch.bfloat16 if device == "cuda"
+                 else torch.float32)
+if device == "cuda":
+    torch.cuda.synchronize()
+with open(out_json, "w") as f:
+    json.dump({"global_step": state.global_step,
+               "losses": [float(x) for x in losses], "marks": marks,
+               "launches": read_counts()}, f)
+"""
+
+# drivers/eval_vcmr.main on the CPU in fp32 (the rehearsal's stand-in for
+# the command line, which serves on the card)
+VCMR_EVAL_CPU = """
+import sys, torch
+from hero_tpu_torch.drivers import eval_vcmr
+eval_vcmr.configure_stdout()
+eval_vcmr.main(eval_vcmr.build_argparser().parse_args(sys.argv[1:]),
+               device="cpu", dtype=torch.float32)
+"""
+
+
+def write_program_queries(db, vids, vocab, root, name, n_train, n_val,
+                          seed, msrvtt=False):
+    """A train and a val query store (``write_query_store``) under
+    ``root``: ``n_train`` queries over the first
+    ``PROGRAM_VCMR_TRAIN_VIDEOS`` of ``vids`` (three quarters of fewer)
+    and ``n_val`` over the rest, TVR-like lengths and span targets
+    (``make_queries``); ``msrvtt`` keys the rows by ``sen_id`` as
+    MSR-VTT's store does.  Returns (train dir, val dir)."""
+    cut = min(PROGRAM_VCMR_TRAIN_VIDEOS, len(vids) * 3 // 4)
+    dirs = []
+    for split, n, part, sd in (("train", n_train, vids[:cut], seed),
+                               ("val", n_val, vids[cut:], seed + 1)):
+        qb, qdata = make_queries(n, n, QUERY_SLOTS, vocab, part, 1.5,
+                                 seed=sd)
+        if msrvtt:
+            qdata = {q: dict(r, sen_id=q) for q, r in qdata.items()}
+        dirs.append(write_query_store(qb[0], qdata, db.txt_db, root,
+                                      f"{name}_{split}"))
+    return tuple(dirs)
+
+
+def vcmr_run_config(here, root, name, base, over, rehearse):
+    """``config/<base>`` with ``over`` (the paths, the cut) and
+    ``root/name`` substituted; returns its path."""
+    with open(os.path.join(here, "config", base)) as f:
+        raw = json.load(f)
+    raw.update(over, output_dir=os.path.join(root, name))
+    if rehearse:
+        raw.update(train_batch_size=4, vcmr_eval_video_batch_size=4,
+                   vcmr_eval_batch_size=16)
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(raw, f)
+    return path
+
+
+def check_vcmr_program_kernels(torch, cfg, tvr_batch, vr_batch, kernels):
+    """#2 and #3 at the programs' f-encoder rows with the batches' own
+    masks: TVR's (1024, 77, 768) (32 queries a micro-batch, each on its
+    video's 32 rows of 16 frames + 61 tokens) and MSR-VTT video-only's
+    (96, 161, 768) (one row of 100 frames + 61 tokens a video), forward
+    with dropout and saved probabilities and backward, against their
+    plain versions; added to the rows of ``kernels``.  At 161 rows the
+    fp32 CUDA-core backward (at most 154 rows) does not run, so the
+    video-only rows are checked in bf16, the programs' dtype, and in fp32
+    at DiDeMo video-only's 81 slots (20 frames + 61 tokens) of the same
+    videos."""
+    import torch.nn.functional as F
+    from hero_tpu_torch.ops import attention as att
+    dev = torch.device("cuda")
+    D, H = cfg.f_config.hidden_size, cfg.f_config.num_attention_heads
+
+    def mask_of(b, frames=None):
+        fm = b["sub_frame_mask"][..., :frames]
+        m = np.concatenate([fm, b["sub_txt_mask"]], -1)
+        return torch.from_numpy(
+            m.reshape(-1, m.shape[-1]).astype(np.float32)).to(dev)
+
+    def prog(row, what):
+        return {**row, "mode": f"vcmr_program: {what}"
+                + (f", {row['mode']}" if "mode" in row else "")}
+
+    tm, vm = mask_of(tvr_batch), mask_of(vr_batch)
+    t_fwd, t_bwd = check_attention_train(torch, F, att, tm.shape[0],
+                                         tm.shape[1], D, H, tm, False)
+    v_fwd, v_bwd = check_attention_train(torch, F, att, vm.shape[0],
+                                         vm.shape[1], D, H, vm, False,
+                                         fp32=False)
+    dm = mask_of(vr_batch, 20)
+    fp32_81 = check_attention_train(torch, F, att, dm.shape[0],
+                                    dm.shape[1], D, H, dm, False)[0]
+    v_fwd["checks_fp32_at"] = v_bwd["checks_fp32_at"] = {
+        "shape": list(dm.shape) + [D],
+        **{k: v for k, v in fp32_81["checks"].items()
+           if k.startswith("float32")}}
+    new = {"attention_valid": [prog(t_fwd, "TVR f-encoder"),
+                               prog(v_fwd, "MSR-VTT video-only f-encoder")],
+           "attention_bwd": [prog(t_bwd, "TVR f-encoder"),
+                             prog(v_bwd, "MSR-VTT video-only f-encoder")]}
+    for row in kernels:
+        row["shapes"] += new.get(row["name"], [])
+    return {"tvr_rows": list(tm.shape), "vr_rows": list(vm.shape)}
+
+
+def same_ranking(a, b, tasks, rtol):
+    """Two submissions: the same query ids in every list, (video, st, ed)
+    equal and scores within ``rtol``; returns the largest relative score
+    difference."""
+    worst = 0.0
+    if set(a) != set(b) or set(a) != {"video2idx", *tasks}:
+        raise AssertionError(f"submission keys {sorted(a)} vs {sorted(b)}")
+    for task in tasks:
+        if [e["desc_id"] for e in a[task]] != [e["desc_id"]
+                                                for e in b[task]]:
+            raise AssertionError(f"{task}: the query ids differ")
+        for ea, eb in zip(a[task], b[task]):
+            pa, pb = (np.asarray(e["predictions"], np.float64)
+                      for e in (ea, eb))
+            if pa.shape != pb.shape or not np.array_equal(pa[:, :3],
+                                                          pb[:, :3]):
+                raise AssertionError(f"{task} {ea['desc_id']}: the "
+                                     "predictions differ")
+            rel = np.abs(pa[:, 3] - pb[:, 3]) / np.maximum(
+                np.abs(pb[:, 3]), 1e-12)
+            worst = max(worst, float(rel.max(initial=0.0)))
+    if worst > rtol:
+        raise AssertionError(f"scores differ by {worst} (rtol {rtol})")
+    return worst
+
+
+def vcmr_program_phase(torch, here, cfg, main_root, db, dev, sync,
+                       rehearse, kernels):
+    """VCMR and VR finetuning and VR serving as programs (see the module
+    docstring) from a reference-layout ``.pt`` of pretrain_main's run A
+    checkpoint, over the videos it wrote under ``main_root``.  Returns
+    (record, {path: launch counts})."""
+    from hero_tpu_torch.config.opts import get_vcmr_args
+    from hero_tpu_torch.data.downstream_tasks import (VcmrDataset,
+                                                      VrDataset,
+                                                      build_batch)
+    from hero_tpu_torch.data.store import MsrvttQueryTokStore, QueryTokStore
+    from hero_tpu_torch.data.testing import reference_state_dict
+    from hero_tpu_torch.drivers import common, eval_vr
+    from hero_tpu_torch.drivers.eval_vcmr import build_argparser
+    from hero_tpu_torch.models.pretrain import VsmConfig, init_flat_params
+    stage_s, t0 = {}, time.perf_counter()
+
+    def stage(name):
+        nonlocal t0
+        now = time.perf_counter()
+        stage_s[name] = now - t0
+        t0 = now
+
+    # tvc_program's files go; pretrain_main's stores and checkpoint stay
+    shutil.rmtree(os.path.join(main_root, "tvc"), ignore_errors=True)
+    npz = os.path.join(main_root, "a", "ckpt",
+                       f"model_step_{MAIN_STEPS}.npz")
+    root = os.path.join(main_root, "vcmr")
+    os.makedirs(root)
+    free = shutil.disk_usage(root).free
+    if not rehearse and free < PROGRAM_VCMR_FREE_BYTES:
+        raise AssertionError(f"{free} bytes free under {root}; the phase "
+                             f"needs {PROGRAM_VCMR_FREE_BYTES}")
+    vocab = cfg.f_config.vocab_size
+    rec = {"stage_s": stage_s, "free_bytes_before": free,
+           "model": "config/hero_finetune.json" if not rehearse
+           else "rehearsal"}
+
+    # the .pt: pretrain_main's checkpoint in the reference layout, the
+    # word rows cut to RoBERTa's 50265 as in the released file
+    pt = os.path.join(root, "hero-tv-ht100.pt")
+    tree = {k: v for k, v in _npz(npz).items() if not k.startswith("__")}
+    t = time.perf_counter()
+    torch.save({"model": reference_state_dict(tree, PT_ROWS)}, pt)
+    rec["pt_write_s"] = time.perf_counter() - t
+    rec["pt_bytes"] = os.path.getsize(pt)
+    del tree
+    stage("write_pt")
+    init = init_flat_params(cfg, VsmConfig(), seed=1)
+    info = {}
+    t = time.perf_counter()
+    from_pt = common.load_checkpoint_into(init, pt, vocab, info=info)
+    rec["pt_load_ms"] = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    from_npz = common.load_checkpoint_into(init, npz)
+    rec["npz_load_ms"] = 1e3 * (time.perf_counter() - t)
+    if info != {"vocab_padded": True} or sorted(from_pt) != sorted(from_npz):
+        raise AssertionError(f"the .pt load: info {info}, keys differ "
+                             f"{sorted(set(from_pt) ^ set(from_npz))[:5]}")
+    for k, want in from_npz.items():
+        got = from_pt[k]
+        if k in PADDED_KEYS:
+            same = (np.array_equal(got[:PT_ROWS], want[:PT_ROWS])
+                    and not got[PT_ROWS:].any())
+        else:
+            same = got.dtype == want.dtype and np.array_equal(got, want)
+        if not same:
+            raise AssertionError(f"the .pt load differs from the .npz's "
+                                 f"at {k}")
+    rec["pt_load_equal"] = True
+    rec["pt_padded_rows"] = vocab - PT_ROWS
+    del from_pt, from_npz, init
+    stage("hold_pt_load")
+
+    # the stores: TVR and MSR-VTT query stores over pretrain_main's videos
+    vids = list(db.vids)
+    sub_dir = os.path.join(main_root, "sub_db")
+    feat_dir = os.path.join(main_root, "video_db")
+    nq_t, nq_v = (48, 16) if rehearse else PROGRAM_VCMR_QUERIES
+    tvr_train, tvr_val = write_program_queries(db, vids, vocab - 8, root,
+                                               "tvr", nq_t, nq_v, 71)
+    nr_t, nr_v = (48, 16) if rehearse else PROGRAM_VR_QUERIES
+    msr_train, msr_val = write_program_queries(db, vids, vocab - 8, root,
+                                               "msrvtt", nr_t, nr_v, 73,
+                                               msrvtt=True)
+    model_json = os.path.join(main_root, "model.json")
+    tvr_over = dict(sub_txt_db=sub_dir, vfeat_db=feat_dir,
+                    train_query_txt_db=tvr_train, val_query_txt_db=tvr_val,
+                    model_config=model_json, checkpoint=pt,
+                    vfeat_dim=cfg.vfeat_dim,
+                    num_train_steps=PROGRAM_VCMR_STEPS,
+                    valid_steps=PROGRAM_VCMR_VALID_STEPS,
+                    save_steps=PROGRAM_VCMR_SAVE_STEPS,
+                    warmup_steps=PROGRAM_VCMR_WARMUP,
+                    hard_negtiave_start_step=[PROGRAM_VCMR_HARD_AT])
+    cfg_a, cfg_b = (vcmr_run_config(here, root, n, "train-tvr.json",
+                                    tvr_over, rehearse) for n in ("a", "b"))
+    cfg_vr = vcmr_run_config(
+        here, root, "vr", "train-msrvtt_video_only.json",
+        dict(vfeat_db=feat_dir, train_query_txt_db=msr_train,
+             val_query_txt_db=msr_val, model_config=model_json,
+             checkpoint=pt, vfeat_dim=cfg.vfeat_dim,
+             num_train_steps=PROGRAM_VR_STEPS,
+             valid_steps=PROGRAM_VR_STEPS, save_steps=PROGRAM_VR_STEPS,
+             warmup_steps=PROGRAM_VCMR_WARMUP), rehearse)
+    opts_a, opts_vr = (get_vcmr_args(["--config", c])
+                       for c in (cfg_a, cfg_vr))
+    rec["tvr"] = {k: getattr(opts_a, k) for k in (
+        "train_batch_size", "gradient_accumulation_steps", "learning_rate",
+        "drop_svmr_prob", "lw_st_ed", "lw_neg_ctx", "lw_neg_q",
+        "hard_negtiave_start_step", "max_txt_len", "max_clip_len")}
+    rec["vr"] = {k: getattr(opts_vr, k) for k in (
+        "task", "train_batch_size", "gradient_accumulation_steps",
+        "learning_rate", "lw_neg_ctx", "lw_neg_q", "max_clip_len",
+        "full_eval_tasks")}
+    stage("write_stores")
+    if not rehearse:
+        def first_batch(opts, ds_cls, store_cls):
+            shapes = common.shapes_from_opts(opts).replace(n_queries=1)
+            video_db = common.load_task_video_dataset(opts, shapes)
+            ds = ds_cls(list(video_db.vids), video_db,
+                        store_cls(opts.train_query_txt_db,
+                                  max_txt_len=opts.max_txt_len),
+                        sampled_by_q=True, seed=opts.seed)
+            return build_batch(ds, list(range(opts.train_batch_size)))
+        rec.update(check_vcmr_program_kernels(
+            torch, cfg, first_batch(opts_a, VcmrDataset, QueryTokStore),
+            first_batch(opts_vr, VrDataset, MsrvttQueryTokStore), kernels))
+        log("vcmr_program kernel checks passed")
+    stage("kernel_checks")
+    env = dict(os.environ, HF_HUB_OFFLINE="1")
+
+    def run(cmd, what):
+        proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                              text=True, timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        return proc
+
+    def train_run(program, cfg_path, name, stop_at, windows):
+        out = os.path.join(root, f"{name}.out.json")
+        run([sys.executable, "-c", VCMR_TRAIN_RUN, program, cfg_path, out,
+             dev, str(stop_at), json.dumps(windows)],
+            f"{program} run {name}")
+        with open(out) as f:
+            res = json.load(f)
+        if not all(math.isfinite(x) for x in res["losses"]):
+            raise AssertionError(f"{program} run {name}: losses "
+                                 f"{res['losses']}")
+        return res
+
+    def rate(res, windows, per_step):
+        marks = {int(k): v for k, v in res["marks"].items()}
+        ms = [1e3 * (marks[b] - marks[a]) for a, b in windows]
+        return ms, (sum(b - a for a, b in windows) * per_step
+                    / (1e-3 * sum(ms)))
+
+    def results(out_dir, step, tasks):
+        with open(os.path.join(out_dir, f"results_{step}_all.json")) as f:
+            sub = json.load(f)
+        if set(sub) != {"video2idx", *tasks} or not all(sub[t]
+                                                         for t in tasks):
+            raise AssertionError(f"results_{step}_all.json: "
+                                 f"{sorted(sub)}")
+        return sub
+
+    # TVR run A: uninterrupted
+    out_a, out_b = (os.path.join(root, n) for n in ("a", "b"))
+    t_a = time.perf_counter()
+    res_a = train_run("train_vcmr", cfg_a, "a", 0, PROGRAM_VCMR_WINDOWS)
+    rec["run_a_s"] = time.perf_counter() - t_a
+    if res_a["global_step"] != PROGRAM_VCMR_STEPS or len(
+            res_a["losses"]) != PROGRAM_VCMR_STEPS:
+        raise AssertionError(f"TVR run A: {res_a['global_step']} steps")
+    rec["tvr_losses"] = res_a["losses"]
+    per_step = opts_a.train_batch_size * opts_a.gradient_accumulation_steps
+    rec["tvr_window_ms"], rec["tvr_queries_per_s"] = rate(
+        res_a, PROGRAM_VCMR_WINDOWS, per_step)
+    tasks = ("VCMR", "SVMR", "VR")
+    for step in (PROGRAM_VCMR_VALID_STEPS, PROGRAM_VCMR_STEPS):
+        results(out_a, step, tasks)
+    with open(os.path.join(out_a, "log", "log.txt")) as f:
+        rec["tvr_validation_log"] = [ln.strip() for ln in f
+                                     if "] VR:" in ln or "] VCMR:" in ln]
+    model_a = os.path.join(out_a, "ckpt",
+                           f"model_step_{PROGRAM_VCMR_STEPS}.npz")
+    with np.load(model_a) as z:
+        rec["model_vocab_padded"] = bool(z["__vocab_padded__"])
+    if not rec["model_vocab_padded"]:
+        raise AssertionError("the model file lost the .pt's pad marker")
+    records_a = _records(out_a)
+    stage("tvr_run_a")
+
+    # TVR run B: SIGTERM after step 4, then the command line resumes it
+    t_b = time.perf_counter()
+    res_b = train_run("train_vcmr", cfg_b, "b", PROGRAM_VCMR_SIGTERM_AT,
+                      ())
+    if res_b["global_step"] != PROGRAM_VCMR_SIGTERM_AT:
+        raise AssertionError(f"SIGTERM after step {PROGRAM_VCMR_SIGTERM_AT}:"
+                             f" main returned at {res_b['global_step']}")
+    records_b1 = _records(out_b)
+    if rehearse:
+        run([sys.executable, "-c", VCMR_TRAIN_RUN, "train_vcmr", cfg_b,
+             os.path.join(root, "b2.out.json"), dev, "0", "[]"], "resume")
+    else:
+        run([sys.executable, "-m", "hero_tpu_torch.drivers.train_vcmr",
+             "--config", cfg_b],
+            "python -m hero_tpu_torch.drivers.train_vcmr")
+    rec["run_b_s"] = time.perf_counter() - t_b
+    records_b2 = _records(out_b)
+    rec["restore_ms"] = records_b2["restore_ms"]
+    rec["saves"] = (_program_saves("run_a", records_a)
+                    + _program_saves("run_b_interrupted", records_b1)
+                    + _program_saves("run_b_resumed", records_b2))
+    stage("tvr_run_b")
+    for name in (f"ckpt/model_step_{PROGRAM_VCMR_STEPS}.npz",
+                 "restore.npz"):
+        a = _npz(os.path.join(out_a, name))
+        b = _npz(os.path.join(out_b, name))
+        differ = sorted(k for k in a if k not in b or a[k].dtype
+                        != b[k].dtype or not np.array_equal(a[k], b[k]))
+        if differ or set(a) != set(b):
+            raise AssertionError(f"resumed {name} differs from the "
+                                 f"uninterrupted one at {differ[:5]}")
+    rec["resume_bit_equal"] = True
+    rec["resume_results_equal"] = (
+        results(out_b, PROGRAM_VCMR_STEPS, tasks)
+        == results(out_a, PROGRAM_VCMR_STEPS, tasks))
+    shutil.rmtree(out_b)
+    for n in ("restore.npz", "restore_backup.npz"):
+        if os.path.exists(os.path.join(out_a, n)):
+            os.remove(os.path.join(out_a, n))      # disk for the VR run
+    stage("tvr_compare")
+
+    # eval_vcmr in a subprocess on A's directory: A's last validation
+    cmd = ([sys.executable, "-c", VCMR_EVAL_CPU] if rehearse else
+           [sys.executable, "-m", "hero_tpu_torch.drivers.eval_vcmr"])
+    t_e = time.perf_counter()
+    run(cmd + ["--output_dir", out_a, "--checkpoint",
+               str(PROGRAM_VCMR_STEPS)], "eval_vcmr")
+    rec["eval_vcmr_wall_s"] = time.perf_counter() - t_e
+    with open(os.path.join(out_a, f"results_{PROGRAM_VCMR_STEPS}"
+                                  "_val_all.json")) as f:
+        served = json.load(f)
+    rec["eval_vcmr_max_rel_score_diff"] = same_ranking(
+        served, results(out_a, PROGRAM_VCMR_STEPS, tasks), tasks, 1e-4)
+    rec["eval_vcmr_equal"] = True
+    stage("eval_vcmr")
+
+    # train_vr: MSR-VTT video-only, one 161-slot row a video
+    t_v = time.perf_counter()
+    res_vr = train_run("train_vr", cfg_vr, "vr", 0, PROGRAM_VR_WINDOWS)
+    rec["vr_run_s"] = time.perf_counter() - t_v
+    if res_vr["global_step"] != PROGRAM_VR_STEPS:
+        raise AssertionError(f"train_vr: {res_vr['global_step']} steps")
+    rec["vr_losses"] = res_vr["losses"]
+    out_vr = os.path.join(root, "vr")
+    per_step = (opts_vr.train_batch_size
+                * opts_vr.gradient_accumulation_steps)
+    rec["vr_window_ms"], rec["vr_queries_per_s"] = rate(
+        res_vr, PROGRAM_VR_WINDOWS, per_step)
+    vr_sub = results(out_vr, PROGRAM_VR_STEPS, ("VR",))
+    rec["vr_saves"] = _program_saves("vr", _records(out_vr))
+    stage("train_vr")
+
+    # eval_vr in this process, the launch counters from 0
+    reset_counts()
+    sync()
+    t_i = time.perf_counter()
+    metrics, sub = eval_vr.main(build_argparser().parse_args(
+        ["--output_dir", out_vr, "--checkpoint", str(PROGRAM_VR_STEPS)]),
+        device=dev, dtype=torch.float32 if rehearse else torch.bfloat16)
+    sync()
+    rec["eval_vr_s"] = time.perf_counter() - t_i
+    eval_launches = read_counts()
+    if "VCMR" in sub or "VR" not in metrics:
+        raise AssertionError(f"eval_vr: {sorted(sub)}, {sorted(metrics)}")
+    rec["eval_vr_max_rel_score_diff"] = same_ranking(
+        json.loads(json.dumps(sub)), vr_sub, ("VR",), 1e-4)
+    rec["vr_metrics"] = metrics["VR"]
+    stage("eval_vr")
+    return rec, {"vcmr_program": res_a["launches"],
+                 "vr_program": res_vr["launches"],
+                 "vr_eval": eval_launches}
+
+
+# ---------------------------------------------------------------------------
 # serving_full: packed queries, the chunked corpus and drivers/eval_vcmr
 # ---------------------------------------------------------------------------
 
@@ -4055,13 +4572,14 @@ def chunked_fp32_check(torch, cfg, flat, vsm, opts, batches, query_batches,
     return rec
 
 
-def write_query_store(query_batch, query_data, subs, root):
+def write_query_store(query_batch, query_data, subs, root,
+                      name="query_db"):
     """One query batch and its ground truth as a herostore query database
-    (``QueryTokStore``'s layout: token ids without the CLS the dataset
-    puts first, ``id2len.json``, ``query2video.json``, ``meta.json``,
-    ``query_data.jsonl``); returns its directory."""
+    ``root/name`` (``QueryTokStore``'s layout: token ids without the CLS
+    the dataset puts first, ``id2len.json``, ``query2video.json``,
+    ``meta.json``, ``query_data.jsonl``); returns its directory."""
     from hero_tpu_torch.data.store import HeroStoreWriter
-    q_dir = os.path.join(root, "query_db")
+    q_dir = os.path.join(root, name)
     id2len, q2v = {}, {}
     with HeroStoreWriter(q_dir) as w:
         for qi, qid in enumerate(query_batch["qids"]):
@@ -5071,18 +5589,33 @@ def main(argv=None):
             torch, here, tcfg, main_root, pre_db, dev, sync, rehearse,
             record["kernels"] if not rehearse else None,
             tvc_train["tvc_train_captions_per_s"])
+        for counts, needed in ((tprog_train, PROGRAM_TVC_TRAIN_KERNELS),
+                               (tprog_inf, PROGRAM_TVC_INF_KERNELS)):
+            if not rehearse and min(counts[k] for k in needed) == 0:
+                raise AssertionError(f"a kernel of the TVC programs was "
+                                     f"never launched: {counts}")
+        record["tvc_program"] = tprog
+        mark("tvc_program")
+        log(f"tvc_program: {tprog['caption_rows_per_s']:.1f} caption "
+            f"rows/s from disk, resumed run bit-equal, done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        vprog, vprog_paths = vcmr_program_phase(
+            torch, here, cfg, main_root, pre_db, dev, sync, rehearse,
+            record["kernels"] if not rehearse else None)
     finally:
         shutil.rmtree(main_root, ignore_errors=True)
-    for counts, needed in ((tprog_train, PROGRAM_TVC_TRAIN_KERNELS),
-                           (tprog_inf, PROGRAM_TVC_INF_KERNELS)):
+    for name, counts in vprog_paths.items():
+        needed = (PROGRAM_VCMR_EVAL_KERNELS if name == "vr_eval"
+                  else PROGRAM_VCMR_TRAIN_KERNELS)
         if not rehearse and min(counts[k] for k in needed) == 0:
-            raise AssertionError(f"a kernel of the TVC programs was never "
-                                 f"launched: {counts}")
-    record["tvc_program"] = tprog
-    mark("tvc_program")
-    log(f"tvc_program: {tprog['caption_rows_per_s']:.1f} caption rows/s "
-        f"from disk, resumed run bit-equal, done at "
-        f"{time.perf_counter() - t_start:.1f} s")
+            raise AssertionError(f"a kernel of {name} was never launched: "
+                                 f"{counts}")
+    record["vcmr_program"] = vprog
+    mark("vcmr_program")
+    log(f"vcmr_program: {vprog['tvr_queries_per_s']:.1f} TVR and "
+        f"{vprog['vr_queries_per_s']:.1f} VR queries/s from disk, .pt "
+        f"loaded in {vprog['pt_load_ms']:.0f} ms, resumed run bit-equal, "
+        f"done at {time.perf_counter() - t_start:.1f} s")
 
     # serving in full: packed queries, the chunked corpus, the program
     full, full_paths = serving_full_phase(
@@ -5219,6 +5752,21 @@ def main(argv=None):
             "target_clip_beam3_records", "run_a_s", "run_b_s", "stage_s",
             "free_bytes_before")}
         | {"launches_train": tprog_train, "launches_inf": tprog_inf}}))
+    print(json.dumps({"vcmr_program": {
+        k: vprog[k] for k in (
+            "tvr_queries_per_s", "vr_queries_per_s", "tvr_window_ms",
+            "vr_window_ms", "tvr", "vr", "tvr_losses", "vr_losses",
+            "pt_bytes", "pt_write_s", "pt_load_ms", "npz_load_ms",
+            "pt_load_equal", "pt_padded_rows", "model_vocab_padded",
+            "tvr_rows", "vr_rows",
+            "saves", "vr_saves", "restore_ms", "resume_bit_equal",
+            "resume_results_equal", "eval_vcmr_wall_s", "eval_vcmr_equal",
+            "eval_vcmr_max_rel_score_diff", "eval_vr_s",
+            "eval_vr_max_rel_score_diff", "vr_metrics", "run_a_s",
+            "run_b_s", "vr_run_s", "stage_s", "free_bytes_before")
+        if k in vprog} | {"launches": {
+            name: {k: c[k] for k in list(c)[:7]}
+            for name, c in vprog_paths.items()}}}))
     print(json.dumps({"serving_full": {
         "packed": full["packed"], "packed_fp32": full["packed_fp32"],
         "chunked": full["chunked"], "chunked_fp32": full["chunked_fp32"],
@@ -5235,7 +5783,7 @@ def main(argv=None):
              "tvc": tvc_launches, "tvc_train": tt_launches,
              "pretrain": pre_launches, "pretrain_main": pmain_launches,
              "tvc_program": tprog_train, "tvc_program_inf": tprog_inf,
-             **full_paths, "components": comp_launches}
+             **vprog_paths, **full_paths, "components": comp_launches}
     kernels = [{k: row[k] for k in (
         "name", "route", "source", "replaces", "tpu_kernel", "shape", "dtype",
         "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",

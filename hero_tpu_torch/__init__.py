@@ -1,14 +1,19 @@
 """hero_tpu_torch — HERO in PyTorch + CUDA: the two-phase VCMR serving path
-(packed queries, the chunked corpus, and as a program from stores and a
-checkpoint: ``python -m hero_tpu_torch.drivers.eval_vcmr``), the
-four-task pretraining recipe (MLM, MFM-NCE / MFFR, FOM and VSM, from
-herostore databases on disk through the MetaLoader, with checkpoints and
-resume in the JAX package's file layout: ``python -m
-hero_tpu_torch.drivers.pretrain --config <json>``), and TVC finetuning
-and captioning as programs from stores and a checkpoint (``python -m
+(packed queries, the chunked corpus, and as programs from stores and a
+checkpoint: ``python -m hero_tpu_torch.drivers.eval_vcmr``, and
+``drivers.eval_vr`` for video retrieval alone), the four-task
+pretraining recipe (MLM, MFM-NCE / MFFR, FOM and VSM, from herostore
+databases on disk through the MetaLoader, with checkpoints and resume in
+the JAX package's file layout: ``python -m hero_tpu_torch.drivers.pretrain
+--config <json>``), VCMR and VR finetuning as programs (``python -m
+hero_tpu_torch.drivers.train_vcmr --config <json>`` for TVR, How2R and
+DiDeMo, ``drivers.train_vr`` for MSR-VTT, with subtitles or video-only),
+and TVC finetuning and captioning as programs (``python -m
 hero_tpu_torch.drivers.train_tvc --config <json>``, ``python -m
-hero_tpu_torch.drivers.inf_tvc --output_dir D --checkpoint N``, scored
-by ``evaluation.caption_metrics``).
+hero_tpu_torch.drivers.inf_tvc --output_dir D --checkpoint N``, scored by
+``evaluation.caption_metrics``).  Every program starts from a JAX-layout
+``.npz`` or the reference's ``.pt`` (``convert.torch_checkpoint``; e.g.
+the released ``hero-tv-ht100.pt``).
 
 A port of ``hero_tpu`` (the JAX/Pallas package beside it, which stays the
 reference) to one NVIDIA H100.  Module names mirror ``hero_tpu`` so each

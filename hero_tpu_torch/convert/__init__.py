@@ -1,1 +1,2 @@
-"""Parameter bridges into the port's layout."""
+"""Parameter bridges into the port's layout, and the converters of the
+reference's ``.pt`` and RoBERTa checkpoints to the JAX layout."""

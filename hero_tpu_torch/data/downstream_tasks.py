@@ -1,8 +1,11 @@
-"""VCMR corpus-evaluation queries and TVC caption data (copies from
-``hero_tpu/data/downstream_tasks.py``; the same inputs give the same
-arrays).
+"""VCMR and VR training data, VCMR corpus-evaluation queries and TVC
+caption data (copies from ``hero_tpu/data/downstream_tasks.py``; the same
+inputs give the same arrays).
 
 - :func:`get_st_ed_label`: seconds -> frame-index span.
+- :class:`VcmrDataset` / :class:`VrDataset` and :func:`build_batch`: VCMR
+  and VR finetuning, one query (or one video's queries) an item, with
+  span targets for VCMR.
 - :class:`VcmrFullEvalDataset`: the queries of the two-phase corpus
   evaluation, in fixed-size batches (``batches``).
 - :class:`TvcCaptionStore`: a TVC caption store on disk, ``cap.db`` (one
@@ -51,6 +54,120 @@ def get_st_ed_label(ts, max_idx: int, frame_interval: float,
         ed = min(max(math.ceil(ts[1] / frame_interval) - 1, st + 1),
                  max_idx)
     return st, ed
+
+
+class VcmrDataset:
+    """TVR/How2R/DiDeMo moment retrieval for training (reference
+    data/vcmr.py:21-124; ``hero_tpu/data/downstream_tasks.py:45-122``).
+    ``sampled_by_q``: one item a query, its video and span target;
+    otherwise one item a video with exactly ``max_num_query`` of its
+    queries (repeat-filled by a draw seeded from ``seed`` and the
+    index).  Span targets are the frame span of the query's seconds
+    (:func:`get_st_ed_label`), (-1, -1) without one."""
+
+    span_targets = True
+
+    def __init__(self, video_ids, video_db, query_db,
+                 max_num_query: int = 5, sampled_by_q: bool = True,
+                 seed: int = 0):
+        self.video_db = video_db
+        self.query_db = query_db
+        self.max_num_query = max_num_query
+        self.sampled_by_q = sampled_by_q
+        self.vids = list(video_ids)
+        self.seed = seed
+        self.frame_interval = video_db.img_db.frame_interval
+        self.max_txt_len = getattr(video_db, "max_txt_len", -1)
+        if video_db.vid2dur:
+            self.vid2idx = video_db.vid2idx
+            self.global_vid2idx = self.vid2idx
+        else:
+            names = sorted(video_db.img_db.name2nframe.keys())
+            self.global_vid2idx = {v: i for i, v in enumerate(names)}
+            self.vid2idx = {v: self.global_vid2idx[v] for v in video_ids}
+        self.query_data = query_db.query_data
+        if sampled_by_q:
+            self.qids = list(query_db.id2len.keys())
+        else:
+            self.qids = []
+
+    def __len__(self):
+        return len(self.qids) if self.sampled_by_q else len(self.vids)
+
+    def getids(self, i: int):
+        if not self.sampled_by_q:
+            vid = self.vids[i]
+            qids = self.query_db.video2query[vid][:self.max_num_query]
+            rng = random.Random(self.seed * 1_000_003 + i)
+            if len(qids) < self.max_num_query:
+                qids = qids + rng.sample(qids,
+                                         self.max_num_query - len(qids))
+            return vid, qids
+        qid = self.qids[i]
+        return self.query_db.query2video[qid], [qid]
+
+    def _query_target(self, example, nframes: int):
+        if not self.span_targets or example.get("target") is None:
+            return (-1, -1)
+        return get_st_ed_label(example["target"], nframes - 1,
+                               self.frame_interval)
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        vid, qids = self.getids(i)
+        sp = self.video_db.shapes
+        item = self.video_db.video_item(vid)
+        nframes = self.video_db.nframes(vid)
+        Q = len(qids)
+        q_ids = np.full((Q, sp.query_len), self.query_db.pad, np.int32)
+        q_mask = np.zeros((Q, sp.query_len), np.float32)
+        targets = np.full((Q, 2), -1, np.int32)
+        for qi, qid in enumerate(qids):
+            ex = self.query_db[qid]
+            ids, m = pad_query([self.query_db.cls_] + list(ex["input_ids"]),
+                               sp.query_len, self.query_db.pad)
+            q_ids[qi] = ids
+            q_mask[qi] = m
+            targets[qi] = self._query_target(ex, nframes)
+        item["query_input_ids"] = q_ids
+        item["query_attn_masks"] = q_mask
+        item["q_mask"] = np.ones((Q,), np.float32)
+        item["targets"] = targets
+        item["__qids__"] = qids
+        item["__vid__"] = vid
+        return item
+
+
+class VrDataset(VcmrDataset):
+    """Video retrieval (reference data/vr.py:64-200): no span targets."""
+    span_targets = False
+
+
+def build_batch(dataset, indices: Sequence[int],
+                flatten_rows: bool = False) -> Dict[str, np.ndarray]:
+    """The items at ``indices`` stacked (``hero_tpu/data/downstream_tasks.py:
+    478-504``); host-side ``__*__`` fields become lists.  ``flatten_rows``
+    merges a leading per-example row axis (answers, statement pairs) into
+    the batch axis, (N, A, ...) -> (N*A, ...), except ``targets`` and
+    ``ts_targets``."""
+    items = [dataset[i] for i in indices]
+    batch: Dict[str, np.ndarray] = {}
+    for k in items[0]:
+        if k.startswith("__"):
+            batch[k] = [it[k] for it in items]
+            continue
+        batch[k] = np.stack([it[k] for it in items])
+    if flatten_rows:
+        flat = {}
+        for k, v in batch.items():
+            if k.startswith("__") or k in ("targets", "ts_targets"):
+                flat[k] = v
+            elif k in ("qa_input_ids", "qa_attn_masks", "q_input_ids",
+                       "q_attn_masks") or isinstance(v, np.ndarray):
+                flat[k] = v.reshape((-1,) + v.shape[2:])
+            else:
+                flat[k] = v
+        batch = flat
+    return batch
 
 
 class VcmrFullEvalDataset:

@@ -1,5 +1,8 @@
-"""Synthetic corpus builder (a copy of ``hero_tpu/data/testing.py``): writes
-a full herostore DB suite for tests, the JAX builder's files byte for byte.
+"""Test fixtures: a synthetic corpus builder (a copy of
+``hero_tpu/data/testing.py``), which writes a full herostore DB suite, the
+JAX builder's files byte for byte; and :func:`reference_state_dict`, a
+reference-layout HERO state dict from JAX-layout parameters, which stands
+in for the released ``.pt`` checkpoints where none can be had.
 
 Produces the same artifact layout the real prepro emits (SURVEY.md §2.2):
 sub db (+ vid2len.json, vid2max_frame_sub_len.json, vid2dur_idx.json),
@@ -12,9 +15,10 @@ from __future__ import annotations
 import json
 import os
 import random
-from typing import Dict, List, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
+import torch
 
 from hero_tpu_torch.data.store import HeroStoreWriter
 
@@ -220,3 +224,196 @@ def build_synthetic_corpus(root: str, n_videos: int = 6,
     return {"sub": sub_dir, "vfeat": vfeat_dir, "query": q_dir,
             "qa_query": qa_dir, "violin_query": vl_dir, "cap": cap_root,
             "vids": vids}
+
+
+# JAX-layout encoder-layer leaves -> the reference's per-layer module names
+# (BertLayer; the TVC decoder's BertDecoderLayer keeps its 'intermidiate'
+# spelling, reference model/tvc.py:107-122)
+_ENCODER_LAYER = (("attention/query", "attention.self.query"),
+                  ("attention/key", "attention.self.key"),
+                  ("attention/value", "attention.self.value"),
+                  ("attention/out", "attention.output.dense"),
+                  ("attention/out_ln", "attention.output.LayerNorm"),
+                  ("ffn/intermediate", "intermediate.dense"),
+                  ("ffn/output", "output.dense"),
+                  ("ffn/ln", "output.LayerNorm"))
+_DECODER_LAYER = (("self_attention/query", "self_attention.query"),
+                  ("self_attention/key", "self_attention.key"),
+                  ("self_attention/value", "self_attention.value"),
+                  ("self_attention/out", "add_norm_1.dense"),
+                  ("self_attention/out_ln", "add_norm_1.LayerNorm"),
+                  ("cross_attention/query", "dec_enc_attention.query"),
+                  ("cross_attention/key", "dec_enc_attention.key"),
+                  ("cross_attention/value", "dec_enc_attention.value"),
+                  ("cross_attention/out", "add_norm_2.dense"),
+                  ("cross_attention/out_ln", "add_norm_2.LayerNorm"),
+                  ("ffn/intermediate", "intermidiate.dense"),
+                  ("ffn/output", "add_norm_3.dense"),
+                  ("ffn/ln", "add_norm_3.LayerNorm"))
+
+# (JAX subtree, reference module, kind) of every module outside the
+# encoder stacks; 'linear' and 'ln' name a kernel/bias or scale/bias pair,
+# 'emb' one array, 'conv' a (k,) tap vector, 'vector' a bias-free (D, 1)
+# kernel.  A row whose JAX subtree is absent is skipped.
+_MODULES = (
+    ("v_encoder/f_encoder/embeddings/word_emb",
+     "v_encoder.f_encoder.embeddings.word_embeddings", "vocab"),
+    ("v_encoder/f_encoder/embeddings/pos_emb",
+     "v_encoder.f_encoder.embeddings.position_embeddings", "emb"),
+    ("v_encoder/f_encoder/embeddings/type_emb",
+     "v_encoder.f_encoder.embeddings.token_type_embeddings", "emb"),
+    ("v_encoder/f_encoder/embeddings/ln",
+     "v_encoder.f_encoder.embeddings.LayerNorm", "ln"),
+    ("v_encoder/f_encoder/img_embeddings/img_linear",
+     "v_encoder.f_encoder.img_embeddings.img_linear", "linear"),
+    ("v_encoder/f_encoder/img_embeddings/img_ln",
+     "v_encoder.f_encoder.img_embeddings.img_LayerNorm", "ln"),
+    ("v_encoder/f_encoder/img_embeddings/pos_emb",
+     "v_encoder.f_encoder.img_embeddings.position_embeddings", "emb"),
+    ("v_encoder/f_encoder/img_embeddings/mask_emb",
+     "v_encoder.f_encoder.img_embeddings.mask_embedding", "emb"),
+    ("v_encoder/f_encoder/img_embeddings/ln",
+     "v_encoder.f_encoder.img_embeddings.LayerNorm", "ln"),
+    ("v_encoder/f_encoder/pooler/dense",
+     "v_encoder.f_encoder.pooler.dense", "linear"),
+    ("v_encoder/f_encoder/lm_head/dense",
+     "v_encoder.f_encoder.lm_head.dense", "linear"),
+    ("v_encoder/f_encoder/lm_head/ln",
+     "v_encoder.f_encoder.lm_head.LayerNorm", "ln"),
+    ("v_encoder/c_encoder/embeddings/pos_emb",
+     "v_encoder.c_encoder.embeddings.position_embeddings", "emb"),
+    ("v_encoder/c_encoder/embeddings/ln",
+     "v_encoder.c_encoder.embeddings.LayerNorm", "ln"),
+    ("v_encoder/c_encoder/pooler/dense",
+     "v_encoder.c_encoder.pooler.dense", "linear"),
+    ("v_encoder/frame_transform/ln", "v_encoder.frame_transform.LayerNorm",
+     "ln"),
+    ("v_encoder/frame_transform/dense", "v_encoder.frame_transform.net.1",
+     "linear"),
+    ("v_encoder/feat_regress/dense_1", "v_encoder.feat_regress.net.0",
+     "linear"),
+    ("v_encoder/feat_regress/ln", "v_encoder.feat_regress.net.2", "ln"),
+    ("v_encoder/feat_regress/dense_2", "v_encoder.feat_regress.net.3",
+     "linear"),
+    ("v_encoder/mask_embedding", "v_encoder.mask_embedding", "emb"),
+    ("v_encoder/fom_output/linear_1", "v_encoder.fom_output.linear_1",
+     "linear"),
+    ("v_encoder/fom_output/ln", "v_encoder.fom_output.LayerNorm", "ln"),
+    ("v_encoder/fom_output/linear_2", "v_encoder.fom_output.linear_2",
+     "linear"),
+    ("head/video_query_linear", "video_query_linear", "linear"),
+    ("head/video_st_predictor/kernel", "video_st_predictor", "conv"),
+    ("head/video_ed_predictor/kernel", "video_ed_predictor", "conv"),
+    ("head/q_feat_attn/query_input_proj/ln",
+     "q_feat_attn.query_input_proj.LayerNorm", "ln"),
+    ("head/q_feat_attn/query_input_proj/dense",
+     "q_feat_attn.query_input_proj.net.1", "linear"),
+    ("head/q_feat_attn/pos_embed/pos_emb",
+     "q_feat_attn.query_pos_embed.position_embeddings", "emb"),
+    ("head/q_feat_attn/pos_embed/ln", "q_feat_attn.query_pos_embed.LayerNorm",
+     "ln"),
+    ("head/q_feat_attn/attention/query",
+     "q_feat_attn.query_self_attention.self.query", "linear"),
+    ("head/q_feat_attn/attention/key",
+     "q_feat_attn.query_self_attention.self.key", "linear"),
+    ("head/q_feat_attn/attention/value",
+     "q_feat_attn.query_self_attention.self.value", "linear"),
+    ("head/q_feat_attn/attention/out",
+     "q_feat_attn.query_self_attention.output.dense", "linear"),
+    ("head/q_feat_attn/attention/out_ln",
+     "q_feat_attn.query_self_attention.output.LayerNorm", "ln"),
+    ("head/q_feat_attn/modular_vector/kernel",
+     "q_feat_attn.modular_vector_mapping", "vector"),
+    ("head/qa_pool/kernel", "qa_pool", "vector"),
+    ("head/qa_pred_head/linear_1", "qa_pred_head.linear_1", "linear"),
+    ("head/qa_pred_head/ln", "qa_pred_head.LayerNorm", "ln"),
+    ("head/qa_pred_head/linear_2", "qa_pred_head.linear_2", "linear"),
+    ("head/st_ed_pool/kernel", "st_ed_pool", "vector"),
+    ("head/st_ed_pred_head/linear_1", "st_ed_pred_head.linear_1", "linear"),
+    ("head/st_ed_pred_head/ln", "st_ed_pred_head.LayerNorm", "ln"),
+    ("head/st_ed_pred_head/linear_2", "st_ed_pred_head.linear_2", "linear"),
+    ("head/violin_pool/kernel", "violin_pool", "vector"),
+    ("head/violin_pred_head/linear_1", "violin_pred_head.linear_1",
+     "linear"),
+    ("head/violin_pred_head/ln", "violin_pred_head.LayerNorm", "ln"),
+    ("head/violin_pred_head/linear_2", "violin_pred_head.linear_2",
+     "linear"),
+    ("position_embeddings", "position_embeddings", "emb"),
+    ("emb_ln", "emb_LayerNorm", "ln"),
+)
+_STACKS = (("v_encoder/f_encoder/encoder/layers",
+            "v_encoder.f_encoder.encoder.layer", _ENCODER_LAYER),
+           ("v_encoder/c_encoder/encoder/layers",
+            "v_encoder.c_encoder.encoder.layer", _ENCODER_LAYER),
+           ("decoder/layers", "decoder.layer", _DECODER_LAYER))
+
+
+def _flat(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def reference_state_dict(tree: Mapping[str, Any],
+                         vocab: Optional[int] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """The reference-layout state dict (``hero-tv-ht100.pt``'s key names and
+    shapes) of a JAX-layout parameter tree, nested or flat ``{"a/b/c":
+    array}``: the inverse of ``convert/torch_checkpoint.convert_state_dict``.
+    Linear weights are written ``(out, in)``, the st/ed conv taps
+    ``(1, 1, k)``, the encoder and decoder stacks as per-layer keys, and
+    the tied ``lm_head.decoder.weight`` beside the word embedding.
+    ``vocab`` cuts the word rows and the LM bias to that many (the
+    released file has RoBERTa's 50265).  Keys the tree lacks are left
+    out; fp32 CPU tensors."""
+    flat = {k: np.asarray(v, np.float32) for k, v in _flat(tree).items()
+            if not k.startswith("__")}
+    sd: Dict[str, np.ndarray] = {}
+
+    def rows(x):
+        return x if vocab is None else x[:vocab]
+
+    def put(ref: str, jax_key: str, kind: str):
+        if kind in ("linear", "ln"):
+            w, b = ("kernel", "bias") if kind == "linear" else ("scale",
+                                                                "bias")
+            if f"{jax_key}/{w}" not in flat:
+                return
+            x = flat[f"{jax_key}/{w}"]
+            sd[f"{ref}.weight"] = x.T if kind == "linear" else x
+            if f"{jax_key}/{b}" in flat:
+                sd[f"{ref}.bias"] = flat[f"{jax_key}/{b}"]
+            return
+        if jax_key not in flat:
+            return
+        x = flat[jax_key]
+        sd[f"{ref}.weight"] = {"vocab": rows, "emb": lambda a: a,
+                               "conv": lambda a: a.reshape(1, 1, -1),
+                               "vector": lambda a: a.T}[kind](x)
+
+    for jax_key, ref, kind in _MODULES:
+        put(ref, jax_key, kind)
+    lm_bias = "v_encoder/f_encoder/lm_head/bias"
+    if lm_bias in flat:
+        sd["v_encoder.f_encoder.lm_head.bias"] = rows(flat[lm_bias])
+        sd["v_encoder.f_encoder.lm_head.decoder.weight"] = rows(
+            flat["v_encoder/f_encoder/embeddings/word_emb"])
+    for jax_stack, ref_stack, layer in _STACKS:
+        first = f"{jax_stack}/{layer[0][0]}/kernel"
+        if first not in flat:
+            continue
+        for i in range(flat[first].shape[0]):
+            for jax_sub, ref_sub in layer:
+                ref = f"{ref_stack}.{i}.{ref_sub}"
+                leaf = f"{jax_stack}/{jax_sub}"
+                if f"{leaf}/kernel" in flat:
+                    sd[f"{ref}.weight"] = flat[f"{leaf}/kernel"][i].T
+                else:
+                    sd[f"{ref}.weight"] = flat[f"{leaf}/scale"][i]
+                sd[f"{ref}.bias"] = flat[f"{leaf}/bias"][i]
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in sd.items()}

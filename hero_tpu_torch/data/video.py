@@ -1,5 +1,6 @@
-"""The video + subtitle dataset as fixed-shape numpy structs (a copy of
-``hero_tpu/data/video.py``: the same stores give the same arrays).
+"""The video + subtitle dataset, and the video-only one, as fixed-shape
+numpy structs (a copy of ``hero_tpu/data/video.py``: the same stores give
+the same arrays).
 
 Every video becomes one struct of the backbone batch arrays
 (``models/model.py``); per-sub frame features are not duplicated, only
@@ -323,6 +324,55 @@ class VideoFeatSubTokDataset:
 
     def sub2frames(self, vid: str):
         return self.txt_db.vid_sub2frame[vid]
+
+    def nframes(self, vid: str) -> int:
+        return min(self.img_db.name2nframe[vid], self.shapes.n_frames)
+
+
+class VideoOnlyDataset:
+    """Video-only corpora (MSR-VTT/DiDeMo without ASR): one pseudo-subtitle,
+    [CLS], spanning every frame (reference data/vr_video_only.py:15-54;
+    ``hero_tpu/data/video.py:433-480``).  ``txt_store`` gives the token ids
+    ``cls_`` and ``pad``.  Needs ``shapes.frames_per_sub >=
+    shapes.n_frames``."""
+
+    def __init__(self, vfeat_store, txt_store, shapes: FixedShapes):
+        assert shapes.frames_per_sub >= shapes.n_frames, (
+            "video-only pseudo-sub spans the whole clip")
+        self.img_db = vfeat_store
+        self.txt_db = txt_store
+        self.shapes = shapes
+        self.vids = sorted(vfeat_store.name2nframe.keys())
+        self.vid2idx = {v: i for i, v in enumerate(self.vids)}
+        self.vid2dur = {}
+
+    def __len__(self) -> int:
+        return len(self.vids)
+
+    def video_item(self, vid: str) -> Dict[str, np.ndarray]:
+        sp = self.shapes
+        v_feat = self.img_db[vid][:sp.n_frames]
+        nframes = v_feat.shape[0]
+        out = {
+            "sub_input_ids": np.full((sp.n_subs, sp.txt_len),
+                                     self.txt_db.pad, np.int32),
+            "sub_txt_mask": np.zeros((sp.n_subs, sp.txt_len), np.float32),
+            "sub_frame_idx": np.zeros((sp.n_subs, sp.frames_per_sub),
+                                      np.int32),
+            "sub_frame_mask": np.zeros((sp.n_subs, sp.frames_per_sub),
+                                       np.float32),
+            "sub_mask": np.zeros((sp.n_subs,), np.float32),
+            "c_v_feats": np.zeros((sp.n_frames, sp.vfeat_dim), np.float16),
+            "c_attn_masks": np.zeros((sp.n_frames,), np.float32),
+        }
+        out["c_v_feats"][:nframes] = v_feat
+        out["c_attn_masks"][:nframes] = 1.0
+        out["sub_input_ids"][0, 0] = self.txt_db.cls_
+        out["sub_txt_mask"][0, 0] = 1.0
+        out["sub_frame_idx"][0, :nframes] = np.arange(nframes)
+        out["sub_frame_mask"][0, :nframes] = 1.0
+        out["sub_mask"][0] = 1.0
+        return out
 
     def nframes(self, vid: str) -> int:
         return min(self.img_db.name2nframe[vid], self.shapes.n_frames)

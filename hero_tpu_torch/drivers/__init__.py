@@ -1,3 +1,4 @@
-"""Entry points over whole datasets: pretraining (``pretrain``, with the
-train loop in ``common``), TVC caption generation and the TVC train
-step."""
+"""The programs: pretraining (``pretrain``, with the train loop in
+``common``), VCMR and VR finetuning (``train_vcmr``, ``train_vr``), VCMR
+and VR serving (``eval_vcmr``, ``eval_vr``), and TVC finetuning and
+captioning (``train_tvc``, ``inf_tvc``)."""

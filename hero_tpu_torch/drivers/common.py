@@ -26,15 +26,20 @@ import torch
 
 from hero_tpu_torch import resolve_device
 from hero_tpu_torch.config.model_config import HeroConfig
+from hero_tpu_torch.convert.torch_checkpoint import load_and_convert
 from hero_tpu_torch.data.loader import PrefetchLoader
 from hero_tpu_torch.data.pretrain_tasks import mlm_row_cap
-from hero_tpu_torch.data.store import SubTokStore, VideoFeatStore
-from hero_tpu_torch.data.video import FixedShapes, VideoFeatSubTokDataset
+from hero_tpu_torch.data.store import (SubTokStore, VideoFeatStore,
+                                      _load_json)
+from hero_tpu_torch.data.video import (FixedShapes, VideoFeatSubTokDataset,
+                                      VideoOnlyDataset)
 from hero_tpu_torch.models import nn
 from hero_tpu_torch.models import pretrain as pretrain_lib
-from hero_tpu_torch.training.save import (checkpoint_vocab_padded,
-                                          flatten_tree, load_params,
+from hero_tpu_torch.training import save as save_lib
+from hero_tpu_torch.training.optim import AdamWConfig
+from hero_tpu_torch.training.save import (flatten_tree, load_params,
                                           unflatten_tree)
+from hero_tpu_torch.training.step import TrainSpec
 from hero_tpu_torch.utils.logger import NoOp, RunningMeter, ScalarWriter
 
 LOGGER = logging.getLogger(__name__)
@@ -99,6 +104,47 @@ def load_video_sub_dataset(opts, shapes: FixedShapes
                                   pack=getattr(opts, "pack_subs", False))
 
 
+def load_video_only_dataset(opts, shapes: FixedShapes) -> VideoOnlyDataset:
+    """A video-only corpus (``hero_tpu/drivers/common.py:64-95``; reference
+    load_video_only_dataset, load_data.py:47-54): no sub store, one [CLS]
+    pseudo-sub spanning the clip, so the bucket becomes one row of
+    max(frames_per_sub, n_frames) frames and at least 8 text slots.  The
+    special ids come from the query store's ``meta.json``
+    (``train_query_txt_db``, else ``val_query_txt_db``), RoBERTa's when it
+    has none."""
+    meta_db = (getattr(opts, "train_query_txt_db", None)
+               or getattr(opts, "val_query_txt_db", None))
+    meta = _load_json(meta_db, "meta.json", {}) if meta_db else {}
+
+    class _MetaTxt:
+        cls_ = meta.get("CLS", 0)
+        sep = meta.get("SEP", 2)
+        pad = meta.get("PAD", 1)
+        mask = meta.get("MASK", 50264)
+        id2len = {}
+
+    vfeat = VideoFeatStore(opts.vfeat_db,
+                           frame_interval=opts.vfeat_interval,
+                           max_clip_len=opts.max_clip_len)
+    shapes = shapes.replace(n_subs=1,
+                            frames_per_sub=max(shapes.frames_per_sub,
+                                               shapes.n_frames),
+                            txt_len=max(shapes.txt_len, 8))
+    return VideoOnlyDataset(vfeat, _MetaTxt(), shapes)
+
+
+def is_video_only_task(task: str) -> bool:
+    return task.endswith("video_only")
+
+
+def load_task_video_dataset(opts, shapes: FixedShapes):
+    """The video dataset of ``opts.task``: :func:`load_video_only_dataset`
+    for a ``*_video_only`` task, else :func:`load_video_sub_dataset`."""
+    if is_video_only_task(getattr(opts, "task", "tvr")):
+        return load_video_only_dataset(opts, shapes)
+    return load_video_sub_dataset(opts, shapes)
+
+
 def merge_params(init: Dict, loaded: Dict, prefix: str = "") -> Dict:
     """Overlay ``loaded`` (a nested JAX-layout tree) on ``init``: a leaf of
     the same shape is taken in ``init``'s dtype, anything else keeps
@@ -129,22 +175,36 @@ def merge_params(init: Dict, loaded: Dict, prefix: str = "") -> Dict:
 
 
 def load_checkpoint_into(flat: Dict[str, np.ndarray], path: str,
+                         vocab_size: int = 50272,
                          info: Optional[Dict] = None
                          ) -> Dict[str, np.ndarray]:
-    """``flat`` (JAX-layout init parameters) overlaid with the ``.npz``
-    checkpoint at ``path`` (:func:`merge_params`).  With ``info``, the
-    checkpoint's ``__vocab_padded__`` marker goes to
-    ``info["vocab_padded"]`` when it has one.  The reference's ``.pt``
-    checkpoints need its converter, not ported yet (ROADMAP A4)."""
+    """``flat`` (JAX-layout init parameters) overlaid with the checkpoint
+    at ``path`` (:func:`merge_params`; ``hero_tpu/drivers/common.py:
+    130-149``): a reference ``.pt`` through the converter
+    (``convert/torch_checkpoint.load_and_convert``, its word rows padded
+    with zeros to ``vocab_size``), else a JAX-layout ``.npz``.  With
+    ``info``, the checkpoint's vocab-pad decision goes to
+    ``info["vocab_padded"]`` when it has one."""
     if path.endswith(".pt"):
-        raise NotImplementedError(
-            f"{path}: converting a reference .pt checkpoint waits for "
-            "convert/torch_checkpoint.py (ROADMAP A4); convert it with the "
-            "JAX package to an .npz first")
-    padded = checkpoint_vocab_padded(path)
+        loaded = load_and_convert(path, vocab_size=vocab_size)
+        padded = loaded.pop("__vocab_padded__", None)
+    else:
+        loaded = load_params(path)
+        padded = save_lib.checkpoint_vocab_padded(path)
     if info is not None and padded is not None:
-        info["vocab_padded"] = padded
-    return flatten_tree(merge_params(unflatten_tree(flat), load_params(path)))
+        info["vocab_padded"] = bool(padded)
+    return flatten_tree(merge_params(unflatten_tree(flat), loaded))
+
+
+def checkpoint_vocab_padded(path: str, vocab_size: int = 50272
+                            ) -> Optional[bool]:
+    """The vocab-pad decision :func:`load_checkpoint_into` records for
+    ``path``, for a resumed run, which overlays no checkpoint: whether a
+    ``.pt``'s word rows were fewer than ``vocab_size``, an ``.npz``'s
+    ``__vocab_padded__`` marker (None without one)."""
+    if path.endswith(".pt"):
+        return load_and_convert(path, vocab_size).get("__vocab_padded__")
+    return save_lib.checkpoint_vocab_padded(path)
 
 
 def vsm_config_from_opts(opts) -> pretrain_lib.VsmConfig:
@@ -195,6 +255,21 @@ def curriculum_kwargs(batch: Dict[str, Any]) -> Dict[str, Any]:
     conv = {"use_hard_negative": bool, "hard_pool_size": int,
             "hard_neg_weight": float, "lw_st_ed": float}
     return {k: conv[k](np.asarray(v)) for k, v in cur.items()}
+
+
+def train_spec(opts: Dict[str, Any]) -> TrainSpec:
+    """A finetune step's hyper-parameters from the run's options (a dict:
+    ``vars(opts)``), ``lr_mul`` on every parameter outside ``v_encoder``
+    (``hero_tpu/drivers/train_tvc.py:78-88``, ``train_vcmr.py:139-149``)."""
+    return TrainSpec(
+        learning_rate=opts["learning_rate"],
+        warmup_steps=opts["warmup_steps"],
+        num_train_steps=opts["num_train_steps"],
+        grad_norm=opts["grad_norm"],
+        lr_schedule=opts.get("lr_sched", "warmup_linear"),
+        adamw=AdamWConfig(beta1=opts["betas"][0], beta2=opts["betas"][1],
+                          weight_decay=opts["weight_decay"],
+                          lr_mul=opts.get("lr_mul", 1.0)))
 
 
 def model_config_from_opts(opts) -> HeroConfig:

@@ -6,8 +6,9 @@
 
 reloads the run's ``log/hps.json`` as the serving options (reference
 eval_vcmr.py:56-58), initialises the model from a seed and overlays the
-JAX-layout ``.npz`` checkpoint, reads the sub, feature and query stores
-the options name, runs ``validate_full_vcmr`` (with ``pack_queries`` and
+checkpoint (a JAX-layout ``.npz`` or a reference ``.pt``), reads the sub
+(none for a ``*_video_only`` task), feature and query stores the options
+name, runs ``validate_full_vcmr`` (with ``pack_queries`` and
 ``corpus_chunk_videos`` as the options set them) and writes the
 reference-schema submission to ``results_{ckpt}_{split}_all.json``
 beside the run, printing the metrics.
@@ -57,9 +58,13 @@ def main(args, *, query_store_cls=QueryTokStore, full_eval_tasks=None,
     """Serve ``args.output_dir``'s run at ``args.checkpoint`` on
     ``device`` in ``dtype`` (``hero_tpu/drivers/eval_vcmr.py:41-83``).
     ``query_store_cls`` / ``full_eval_tasks`` select the VR variant (the
-    MSR-VTT query store, VR only).  The parameters the checkpoint lacks
+    MSR-VTT query store, VR only).  A ``*_video_only`` task's run serves
+    from its feature store alone (``common.load_task_video_dataset``, as
+    its training validated; the JAX driver opens a sub store for every
+    task).  The parameters the checkpoint lacks
     keep their seeded init, so a partial checkpoint serves other weights
-    than the JAX driver's.  A ``.pt`` checkpoint raises (ROADMAP A4).
+    than the JAX driver's.  The checkpoint is a JAX-layout ``.npz`` or a
+    reference ``.pt`` (``common.load_checkpoint_into``).
     Returns (metrics, submission)."""
     device = resolve_device(device)
     opts = load_serve_opts(args.output_dir)
@@ -71,11 +76,12 @@ def main(args, *, query_store_cls=QueryTokStore, full_eval_tasks=None,
     vsm = common.vsm_config_from_opts(opts)
     ckpt = resolve_checkpoint(args.output_dir, args.checkpoint)
     flat = common.load_checkpoint_into(
-        pretrain_lib.init_flat_params(cfg, vsm, seed=INIT_SEED), ckpt)
+        pretrain_lib.init_flat_params(cfg, vsm, seed=INIT_SEED), ckpt,
+        cfg.f_config.vocab_size)
     params = load_jax_params(flat, device=device, heads=False)
 
     shapes = common.shapes_from_opts(opts).replace(n_queries=1)
-    video_db = common.load_video_sub_dataset(opts, shapes)
+    video_db = common.load_task_video_dataset(opts, shapes)
     qdb_path = args.query_txt_db or getattr(opts, "val_query_txt_db")
     query_db = query_store_cls(qdb_path, max_txt_len=opts.max_txt_len)
     try:
@@ -86,7 +92,8 @@ def main(args, *, query_store_cls=QueryTokStore, full_eval_tasks=None,
             video_ids, v2i, qdata, dtype=dtype, device=device)
     finally:
         for store in (video_db.txt_db, video_db.img_db, query_db):
-            store.store.close()
+            if hasattr(store, "store"):   # a video-only txt_db has none
+                store.store.close()
     tag = os.path.basename(ckpt).replace("model_step_", "").replace(
         ".npz", "").replace(".pt", "")
     out_path = os.path.join(args.output_dir,

@@ -128,15 +128,17 @@ def main(args, device="cuda", dtype: torch.dtype = torch.float32):
     (``hero_tpu/drivers/inf_tvc.py:93-138``; fp32 as the JAX program, bf16
     for in-process callers that ask) and write the submission jsonl.
     The parameters the checkpoint lacks keep the port's seeded init, so
-    a partial checkpoint serves other weights than the JAX driver's.  A
-    ``.pt`` checkpoint raises (ROADMAP A4).  Returns the ``TVCEval``
+    a partial checkpoint serves other weights than the JAX driver's.  The
+    checkpoint is a JAX-layout ``.npz`` or a reference ``.pt``.  Returns
+    the ``TVCEval``
     scores with ``args.reference``, else the records."""
     device = resolve_device(device)
     opts = load_serve_opts(args.output_dir)
     cfg = common.model_config_from_opts(opts)
     ckpt = resolve_checkpoint(args.output_dir, args.checkpoint)
     flat = common.load_checkpoint_into(
-        tvc_lib.init_flat_tvc_params(cfg, seed=INIT_SEED), ckpt)
+        tvc_lib.init_flat_tvc_params(cfg, seed=INIT_SEED), ckpt,
+        cfg.f_config.vocab_size)
     params = load_jax_tvc_params(flat, device=device)
 
     video_db = common.load_video_sub_dataset(opts,

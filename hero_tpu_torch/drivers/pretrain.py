@@ -37,7 +37,6 @@ from hero_tpu_torch.models import pretrain as pretrain_lib
 from hero_tpu_torch.training.optim import AdamWConfig
 from hero_tpu_torch.training.save import (AsyncCheckpointWriter, ModelSaver,
                                           TrainingRestorer,
-                                          checkpoint_vocab_padded,
                                           save_training_meta)
 from hero_tpu_torch.training.step import (TrainSpec, TrainState,
                                           make_train_step)
@@ -200,12 +199,14 @@ def train_spec_from_opts(opts) -> TrainSpec:
 def init_params(opts, cfg, vsm, info: Optional[Dict] = None
                 ) -> Dict[str, np.ndarray]:
     """The flat JAX-layout parameters a run starts from: the numpy init
-    from ``opts.seed``, overlaid with ``opts.checkpoint`` (an ``.npz``;
-    its vocab-pad marker to ``info["vocab_padded"]``) when set.  The
+    from ``opts.seed``, overlaid with ``opts.checkpoint`` (a JAX-layout
+    ``.npz`` or a reference ``.pt``; its vocab-pad decision to
+    ``info["vocab_padded"]``) when set.  The
     bridge (``load_jax_params``) moves them to the device."""
     flat = pretrain_lib.init_flat_params(cfg, vsm, seed=opts.seed)
     if getattr(opts, "checkpoint", None):
         flat = common.load_checkpoint_into(flat, opts.checkpoint,
+                                           cfg.f_config.vocab_size,
                                            info=info)
     return flat
 
@@ -320,8 +321,8 @@ def main(opts, device="cuda", on_step: Optional[Callable] = None
             # the restored parameters are the template: no init needed
             state = restorer.restore(device)
             if getattr(opts, "checkpoint", None):
-                ckpt_info["vocab_padded"] = checkpoint_vocab_padded(
-                    opts.checkpoint)
+                ckpt_info["vocab_padded"] = common.checkpoint_vocab_padded(
+                    opts.checkpoint, cfg.f_config.vocab_size)
         else:
             restorer.template = init_params(opts, cfg, vsm, info=ckpt_info)
             state = TrainState.create(load_jax_params(restorer.template,

@@ -6,7 +6,8 @@
 :func:`main` reads the sub and feature stores and the caption store
 (``cap.db``, optionally ``clip.db``) from disk, loads ``opts.checkpoint``
 (a JAX-layout ``.npz``, e.g. a pretraining checkpoint, which fills
-``v_encoder``) over the seeded TVC init, resumes from
+``v_encoder``, or a reference ``.pt`` such as ``hero-tv-ht100.pt``,
+through ``convert/torch_checkpoint``) over the seeded TVC init, resumes from
 ``output_dir/restore.npz`` when there is one, and trains the
 label-smoothed decoder loss of ``forward_tvc`` with dropout, bf16
 compute on fp32 parameters (:func:`make_tvc_train_step`: ``lr_mul`` on
@@ -22,8 +23,7 @@ records go to ``output_dir/tvc_gen_{step}.jsonl``.
 ``config/train-tvc.json``'s options: ``warmup_linear``, lr 1e-4 with
 ``lr_mul`` 10, warm-up 700 of 7000 steps, betas (0.9, 0.98), weight decay
 0.01, grad norm 1.0, label smoothing 0.1; the dropout rates, 0.1, come
-from the model config.  ``--pp_stages`` > 1 raises (ROADMAP A8), and a
-reference ``.pt`` checkpoint raises (A4).
+from the model config.  ``--pp_stages`` > 1 raises (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -46,19 +46,17 @@ from hero_tpu_torch.data.downstream_tasks import (TvcCaptionStore,
                                                   build_tvc_batch)
 from hero_tpu_torch.data.loader import dataset_iterator
 from hero_tpu_torch.drivers import common
+from hero_tpu_torch.drivers.common import train_spec
 from hero_tpu_torch.drivers.inf_tvc import (cut_at_eos,
                                             generate_clip_captions)
 from hero_tpu_torch.evaluation import caption_metrics as cm
 from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
 from hero_tpu_torch.models import nn
 from hero_tpu_torch.models import tvc as tvc_lib
-from hero_tpu_torch.training.optim import AdamWConfig
 from hero_tpu_torch.training.save import (AsyncCheckpointWriter, ModelSaver,
                                           TrainingRestorer,
-                                          checkpoint_vocab_padded,
                                           save_training_meta)
-from hero_tpu_torch.training.step import (TrainSpec, TrainState,
-                                          make_train_step)
+from hero_tpu_torch.training.step import TrainState, make_train_step
 from hero_tpu_torch.utils.logger import (LOGGER, add_log_to_file,
                                          configure_stdout)
 from hero_tpu_torch.utils.misc import set_random_seed
@@ -84,19 +82,6 @@ def make_loss_fn(cfg: HeroConfig, lsr: float = 0.1,
                                    seed=seed, dtype=dtype)
         return s / torch.clamp(n, min=1.0), {}
     return loss_fn
-
-
-def train_spec(opts: Dict[str, Any]) -> TrainSpec:
-    """The step's hyper-parameters from the run's options."""
-    return TrainSpec(
-        learning_rate=opts["learning_rate"],
-        warmup_steps=opts["warmup_steps"],
-        num_train_steps=opts["num_train_steps"],
-        grad_norm=opts["grad_norm"],
-        lr_schedule=opts.get("lr_sched", "warmup_linear"),
-        adamw=AdamWConfig(beta1=opts["betas"][0], beta2=opts["betas"][1],
-                          weight_decay=opts["weight_decay"],
-                          lr_mul=opts.get("lr_mul", 1.0)))
 
 
 def make_tvc_train_step(cfg: HeroConfig, opts: Dict[str, Any],
@@ -201,7 +186,9 @@ def init_params(opts, cfg: HeroConfig, info: Optional[Dict] = None
     ``v_encoder``; the decoder keeps its init."""
     flat = tvc_lib.init_flat_tvc_params(cfg, seed=opts.seed)
     if getattr(opts, "checkpoint", None):
-        flat = common.load_checkpoint_into(flat, opts.checkpoint, info=info)
+        flat = common.load_checkpoint_into(flat, opts.checkpoint,
+                                           cfg.f_config.vocab_size,
+                                           info=info)
     return flat
 
 
@@ -252,8 +239,8 @@ def main(opts, device="cuda", on_step: Optional[Callable] = None,
             # the restored parameters are the template: no init needed
             state = restorer.restore(device)
             if getattr(opts, "checkpoint", None):
-                ckpt_info["vocab_padded"] = checkpoint_vocab_padded(
-                    opts.checkpoint)
+                ckpt_info["vocab_padded"] = common.checkpoint_vocab_padded(
+                    opts.checkpoint, cfg.f_config.vocab_size)
         else:
             restorer.template = init_params(opts, cfg, info=ckpt_info)
             state = TrainState.create(load_jax_tvc_params(

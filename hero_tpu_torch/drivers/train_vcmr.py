@@ -1,18 +1,53 @@
-"""TVR/How2R/DiDeMo VCMR finetuning (counterpart of
-``hero_tpu/drivers/train_vcmr.py``).
+"""TVR/How2R/DiDeMo VCMR finetuning as a program (counterpart of
+``hero_tpu/drivers/train_vcmr.py``, one card):
 
-Only :func:`build_eval_inputs` is ported: the corpus evaluation's inputs,
-which ``drivers/eval_vcmr.main`` serves from.  ``main`` (the finetune
-loop) and ``run_validation`` wait for ROADMAP A5 (``forward_vcmr``,
-``VcmrDataset``).
+    python -m hero_tpu_torch.drivers.train_vcmr --config <json>
+
+:func:`main` reads the video stores (the sub and feature stores, or the
+feature store alone for a ``*_video_only`` task) and the train query
+store from disk, overlays ``opts.checkpoint`` (the reference's ``.pt``,
+e.g. ``hero-tv-ht100.pt``, or a JAX-layout ``.npz``) on the seeded
+pretraining init, resumes from ``output_dir/restore.npz`` when there is
+one, and trains the VSM losses of ``models/vcmr.forward_vcmr`` with the
+curriculum's hard negatives and span weight (``common.Curriculum``),
+bf16 compute on fp32 parameters, with checkpoints in the JAX package's
+layout.  Every ``valid_steps`` it evaluates the whole corpus against
+``val_query_txt_db`` (:func:`run_validation`: ``validate_full_vcmr``)
+and writes the reference-schema submission to
+``output_dir/results_{step}_all.json``.  ``drivers/train_vr`` runs it
+for MSR-VTT video retrieval.  ``--pp_stages`` > 1 raises (ROADMAP A8).
 """
 
 from __future__ import annotations
 
-import numpy as np
+import json
+import os
+from typing import Callable, Dict, Optional
 
-from hero_tpu_torch.data.downstream_tasks import VcmrFullEvalDataset
+import numpy as np
+import torch
+
+from hero_tpu_torch import resolve_device
+from hero_tpu_torch.config import opts as opts_lib
+from hero_tpu_torch.config.model_config import HeroConfig
+from hero_tpu_torch.convert.from_jax import load_jax_params
+from hero_tpu_torch.data.downstream_tasks import (VcmrDataset,
+                                                  VcmrFullEvalDataset,
+                                                  build_batch)
+from hero_tpu_torch.data.loader import dataset_iterator
+from hero_tpu_torch.data.store import QueryTokStore
 from hero_tpu_torch.data.video import stack_items
+from hero_tpu_torch.drivers import common, pretrain
+from hero_tpu_torch.evaluation.vcmr_eval import validate_full_vcmr
+from hero_tpu_torch.models import vcmr as vcmr_lib
+from hero_tpu_torch.models.pretrain import VsmConfig
+from hero_tpu_torch.training.save import (AsyncCheckpointWriter, ModelSaver,
+                                          TrainingRestorer,
+                                          save_training_meta)
+from hero_tpu_torch.training.step import TrainState, make_train_step
+from hero_tpu_torch.utils.logger import (LOGGER, add_log_to_file,
+                                         configure_stdout)
+from hero_tpu_torch.utils.misc import set_random_seed
 
 
 def build_eval_inputs(video_db, query_db, opts):
@@ -58,3 +93,157 @@ def build_eval_inputs(video_db, query_db, opts):
         getattr(opts, "vcmr_eval_batch_size", 80))
     return (video_batches(), query_batches, video_ids, video2idx_global,
             query_db.query_data)
+
+
+def make_loss_fn(cfg: HeroConfig, vsm: VsmConfig,
+                 dtype: torch.dtype = torch.bfloat16, train: bool = True):
+    """``train_vcmr``'s ``loss_fn(params, batch, seed)``: the sum of the
+    three weighted VSM losses, with the curriculum's extras popped from
+    the batch, and each loss as aux (``hero_tpu/drivers/train_vcmr.py:
+    129-137``)."""
+
+    def loss_fn(params, batch, seed):
+        batch = dict(batch)
+        cur = common.curriculum_kwargs(batch)
+        a, b, c = vcmr_lib.forward_vcmr(params, cfg, vsm, batch, train=train,
+                                        seed=seed, dtype=dtype, **cur)
+        return a + b + c, {"loss_st_ed": a, "loss_neg_ctx": b,
+                           "loss_neg_q": c}
+    return loss_fn
+
+
+def main(opts, *, dataset_cls=VcmrDataset, query_store_cls=QueryTokStore,
+         device="cuda", on_step: Optional[Callable] = None,
+         dtype: torch.dtype = torch.bfloat16) -> TrainState:
+    """Finetune VCMR as ``opts`` says (``hero_tpu/drivers/train_vcmr.py:
+    85-183``) on ``device``: ``output_dir`` with ``log/`` (``hps.json``,
+    ``log.txt``, ``scalars.jsonl``, ``checkpoints.json``: each
+    checkpoint's copy and write ms and bytes), ``ckpt/model_step_N.npz``,
+    ``restore.npz`` (resumed from when present: the batches the steps
+    before took are skipped) and ``results_{step}_all.json`` at every
+    validation.  One query a training item (``dataset_cls(...,
+    sampled_by_q=True)``).  The step and the validation compute in
+    ``dtype`` (bf16, as the JAX program) on fp32 parameters.
+    ``dataset_cls`` / ``query_store_cls`` select the VR variant
+    (``drivers/train_vr``).  The parameters are the pretraining tree
+    (``drivers/pretrain.init_params``: the checkpoint over the port's
+    numpy-seeded init, not ``jax.random.PRNGKey(seed)``'s); the step
+    takes ``common.train_spec``'s hyper-parameters (``lr_mul`` on every
+    parameter outside ``v_encoder``).
+    ``on_step`` as :func:`common.run_training`'s.  Returns the final
+    train state.  ``--pp_stages`` > 1 raises before any work (ROADMAP
+    A8)."""
+    common.check_one_device(opts)
+    device = resolve_device(device)
+    set_random_seed(opts.seed)
+    os.makedirs(opts.output_dir, exist_ok=True)
+    save_training_meta(opts.output_dir, vars(opts),
+                       {"model_config": opts.model_config})
+    log_file = add_log_to_file(os.path.join(opts.output_dir, "log",
+                                            "log.txt"))
+    ckpt_writer = AsyncCheckpointWriter()   # file I/O off the train loop
+    saver = restorer = None
+    try:
+        shapes = common.shapes_from_opts(opts).replace(n_queries=1)
+        video_db = common.load_task_video_dataset(opts, shapes)
+        if common.is_video_only_task(getattr(opts, "task", "tvr")):
+            train_vids = list(video_db.vids)
+        else:
+            train_vids = list(video_db.txt_db.id2len.keys())
+        query_db = query_store_cls(opts.train_query_txt_db,
+                                   max_txt_len=opts.max_txt_len)
+        train_ds = dataset_cls(train_vids, video_db, query_db,
+                               sampled_by_q=True, seed=opts.seed)
+        LOGGER.info("train: %d queries over %d videos", len(train_ds),
+                    len(video_db))
+        cfg = common.model_config_from_opts(opts)
+        vsm = common.vsm_config_from_opts(opts)
+        restorer = TrainingRestorer(
+            opts.output_dir, {"num_train_steps": opts.num_train_steps,
+                              "learning_rate": opts.learning_rate},
+            writer=ckpt_writer)
+        ckpt_info: Dict = {}
+        if restorer.can_restore():
+            # the restored parameters are the template: no init needed
+            state = restorer.restore(device)
+            if getattr(opts, "checkpoint", None):
+                ckpt_info["vocab_padded"] = common.checkpoint_vocab_padded(
+                    opts.checkpoint, cfg.f_config.vocab_size)
+        else:
+            restorer.template = pretrain.init_params(opts, cfg, vsm,
+                                                     info=ckpt_info)
+            state = TrainState.create(load_jax_params(restorer.template,
+                                                      device=device))
+        saver = ModelSaver(os.path.join(opts.output_dir, "ckpt"),
+                           restorer.template,
+                           vocab_padded=ckpt_info.get("vocab_padded"),
+                           writer=ckpt_writer)
+        accum = max(opts.gradient_accumulation_steps, 1)
+        step_fn = make_train_step(make_loss_fn(cfg, vsm, dtype),
+                                  common.train_spec(vars(opts)),
+                                  accum_steps=accum)
+        # a resumed run skips the batches the steps before took
+        taken = state.global_step * accum
+
+        def batches():
+            it = dataset_iterator(train_ds, build_batch,
+                                  opts.train_batch_size)
+            it.skip(taken)
+            for batch in it:
+                yield "tvr", {k: v for k, v in batch.items()
+                              if not k.startswith("__")}
+
+        def validate(state, step):
+            run_validation(state, cfg, vsm, video_db, opts, step,
+                           query_store_cls=query_store_cls, dtype=dtype,
+                           device=device)
+
+        return common.run_training(opts, step_fn, state, batches(),
+                                   extras_fn=common.Curriculum(opts).at,
+                                   validate_fn=validate, saver=saver,
+                                   restorer=restorer, device=device,
+                                   on_step=on_step)
+    finally:
+        try:
+            ckpt_writer.close()
+        finally:
+            if saver is not None:
+                common.write_checkpoint_records(opts.output_dir, saver,
+                                                restorer)
+            LOGGER.removeHandler(log_file)
+            log_file.close()
+
+
+def run_validation(state, cfg: HeroConfig, vsm: VsmConfig, video_db, opts,
+                   step: int, *, query_store_cls=QueryTokStore,
+                   dtype: torch.dtype = torch.bfloat16, device="cuda"):
+    """The whole corpus against ``opts.val_query_txt_db`` (none: no
+    validation) with ``validate_full_vcmr``; the metrics to the log and
+    the submission to ``output_dir/results_{step}_all.json``
+    (``hero_tpu/drivers/train_vcmr.py:186-214``)."""
+    if not getattr(opts, "val_query_txt_db", None):
+        return
+    val_qdb = query_store_cls(opts.val_query_txt_db,
+                              max_txt_len=opts.max_txt_len)
+    vb, qb, video_ids, v2i_global, qdata = build_eval_inputs(video_db,
+                                                             val_qdb, opts)
+    _, submission, metrics = validate_full_vcmr(
+        state.params, cfg, vsm, common.eval_opts_from(opts), vb, qb,
+        video_ids, v2i_global, qdata, dtype=dtype, device=device)
+    for task, m in (metrics or {}).items():
+        LOGGER.info("[step %d] %s: %s", step, task,
+                    {k: round(v, 2) for k, v in m.items()
+                     if isinstance(v, float)})
+    with open(os.path.join(opts.output_dir,
+                           f"results_{step}_all.json"), "w") as f:
+        json.dump(submission, f)
+
+
+def cli():
+    """The console script's entry (``hero-tpu-torch-train-vcmr``)."""
+    configure_stdout()
+    main(opts_lib.get_vcmr_args())
+
+
+if __name__ == "__main__":
+    cli()

@@ -1,2 +1,3 @@
-"""Two-phase VCMR/VR corpus evaluation (the serving path) and its metrics,
-and the pretraining validators."""
+"""Two-phase VCMR/VR corpus evaluation (the serving path, and VR alone in
+``downstream``) and its metrics, the caption metrics, and the
+pretraining validators."""

@@ -275,20 +275,25 @@ def _sampled_neg_loss(scores_masked: torch.Tensor, pos_scores: torch.Tensor,
 
 
 def forward_vsm(params: Params, cfg: HeroConfig, vsm: VsmConfig,
-                batch: Dict[str, torch.Tensor], *,
+                batch: Dict[str, torch.Tensor], *, compute_loss: bool = True,
                 use_hard_negative: bool = False, hard_pool_size: int = 20,
                 hard_neg_weight: float = 10.0,
-                lw_st_ed: Optional[float] = None, train: bool = False,
+                lw_st_ed: Optional[float] = None,
+                compute_st_ed: bool = True, train: bool = False,
                 seed: Optional[int] = None,
-                dtype: torch.dtype = torch.float32
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """VSM losses (``hero_tpu/models/pretrain.py:333-416``): clip encoding
+                dtype: torch.dtype = torch.float32):
+    """VSM forward (``hero_tpu/models/pretrain.py:333-416``): clip encoding
     and query encoding, then (w_st_ed * span loss, lw_neg_ctx *
     loss_neg_ctx, lw_neg_q * loss_neg_q), fp32 scalars.  The curriculum
     arguments (``drivers/common.Curriculum``): hard-negative mining and
     its pool and weight, and ``lw_st_ed``, the span loss's weight in
-    place of ``vsm.lw_st_ed`` (the span loss runs when ``vsm.lw_st_ed``
-    is not 0, as in the JAX package).
+    place of ``vsm.lw_st_ed``.  The span path runs when ``compute_st_ed``
+    and either ``lw_st_ed`` is None or ``vsm.lw_st_ed`` is not 0, as in
+    the JAX package.
+
+    ``compute_loss=False`` returns (q2v scores (B*Q, B), or None when both
+    ranking weights are 0; st and ed logits (B*Q, F), or None when the
+    span path is off): query n scores its own video.
 
     ``train`` with an integer ``seed`` turns on dropout and the
     ``drop_svmr_prob`` skip of the span loss, drawn on the host from a
@@ -306,29 +311,44 @@ def forward_vsm(params: Params, cfg: HeroConfig, vsm: VsmConfig,
         seed=nn.rng_for(seed, "query"), dtype=dtype)              # (B*Q, D)
     frame_mask = batch["c_attn_masks"].float()
     q_mask = batch["q_mask"].reshape(B * Q)
-    zero = frame_emb.new_zeros((), dtype=torch.float32)
+    st_ed_active = compute_st_ed and (lw_st_ed is None
+                                      or vsm.lw_st_ed != 0)
 
+    def span_logits():
+        st, ed = get_st_ed_logits(params["head"],
+                                  mod_query.reshape(B, Q, -1), frame_emb,
+                                  frame_mask)
+        L = st.shape[-1]
+        return st.reshape(B * Q, L), ed.reshape(B * Q, L)
+
+    def video_scores():
+        if vsm.lw_neg_ctx != 0 or vsm.lw_neg_q != 0:
+            return get_video_level_scores(mod_query, frame_emb, frame_mask)
+        return None
+
+    if not compute_loss:
+        st = ed = None
+        if st_ed_active:
+            st, ed = span_logits()
+        return video_scores(), st, ed
+
+    zero = frame_emb.new_zeros((), dtype=torch.float32)
     loss_st_ed = zero
-    keep_span = vsm.lw_st_ed != 0
+    keep_span = st_ed_active
     if keep_span and train and vsm.drop_svmr_prob > 0 and seed is not None:
         gen = torch.Generator().manual_seed(nn.rng_for(seed, "drop_svmr"))
         keep_span = float(torch.rand((), generator=gen)) > vsm.drop_svmr_prob
     if keep_span:
         targets = batch["targets"].reshape(B * Q, 2)
-        st, ed = get_st_ed_logits(params["head"],
-                                  mod_query.reshape(B, Q, -1), frame_emb,
-                                  frame_mask)
-        L = st.shape[-1]
-        s_sum, s_cnt = backbone.masked_cross_entropy(st.reshape(B * Q, L),
-                                                     targets[:, 0])
-        e_sum, e_cnt = backbone.masked_cross_entropy(ed.reshape(B * Q, L),
-                                                     targets[:, 1])
+        st, ed = span_logits()
+        s_sum, s_cnt = backbone.masked_cross_entropy(st, targets[:, 0])
+        e_sum, e_cnt = backbone.masked_cross_entropy(ed, targets[:, 1])
         loss_st_ed = (s_sum / torch.clamp(s_cnt, min=1.0)
                       + e_sum / torch.clamp(e_cnt, min=1.0))
 
     loss_neg_ctx = loss_neg_q = zero
-    if vsm.lw_neg_ctx != 0 or vsm.lw_neg_q != 0:
-        scores = get_video_level_scores(mod_query, frame_emb, frame_mask)
+    scores = video_scores()
+    if scores is not None:
         loss_neg_ctx, loss_neg_q = video_level_loss(
             scores, q_mask, Q, vsm, use_hard_negative=use_hard_negative,
             hard_pool_size=hard_pool_size, hard_neg_weight=hard_neg_weight,

@@ -1,7 +1,8 @@
-"""Moment-retrieval head (counterpart of ``hero_tpu/models/vcmr.py``):
-the phase-1 corpus embedding and the inference scorers of a query batch
-against a (sub-)corpus of frame embeddings.  The finetune forwards
-(``forward_vcmr`` / ``forward_vr``) wait for ROADMAP A5."""
+"""Moment-retrieval and video-retrieval heads (counterpart of
+``hero_tpu/models/vcmr.py``): the finetune forwards, which are the VSM
+forward (:func:`forward_vcmr`, and :func:`forward_vr` without the span
+path), the phase-1 corpus embedding, and the inference scorers of a query
+batch against a (sub-)corpus of frame embeddings."""
 
 from __future__ import annotations
 
@@ -15,6 +16,46 @@ from hero_tpu_torch.models import pretrain
 from hero_tpu_torch.models.pretrain import VsmConfig
 
 Params = Dict[str, Any]
+
+VCMR_TASKS = ("tvr", "how2r", "didemo_video_sub", "didemo_video_only")
+VR_TASKS = ("msrvtt_video_sub", "msrvtt_video_only")
+
+# the flat JAX-layout init of the pretraining tree, which VCMR and VR
+# finetune (``hero_tpu/models/vcmr.py:26``)
+init_hero_for_vcmr = pretrain.init_flat_params
+
+
+def forward_vcmr(params: Params, cfg: HeroConfig, vsm: VsmConfig,
+                 batch: Dict[str, torch.Tensor], *, compute_loss: bool = True,
+                 train: bool = False, seed: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32, **vsm_kw):
+    """VCMR finetune forward = the VSM forward (reference
+    model/vcmr.py:29-35; ``hero_tpu/models/vcmr.py:29-35``): its three
+    losses, or with ``compute_loss=False`` (scores, st, ed)."""
+    return pretrain.forward_vsm(params, cfg, vsm, batch,
+                                compute_loss=compute_loss, train=train,
+                                seed=seed, dtype=dtype, **vsm_kw)
+
+
+def forward_vr(params: Params, cfg: HeroConfig, vsm: VsmConfig,
+               batch: Dict[str, torch.Tensor], *, compute_loss: bool = True,
+               train: bool = False, seed: Optional[int] = None,
+               dtype: torch.dtype = torch.float32, **vsm_kw):
+    """VR = VCMR without the span path (reference model/vr.py:12-45;
+    ``hero_tpu/models/vcmr.py:38-53``): ``vsm.lw_st_ed`` must be 0 and a
+    ranking weight not 0.  Returns (loss_neg_ctx, loss_neg_q), or the
+    (B*Q, B) scores with ``compute_loss=False``."""
+    assert vsm.lw_st_ed == 0, "For VR, lw_st_ed should be 0"
+    assert vsm.lw_neg_ctx != 0 or vsm.lw_neg_q != 0
+    out = pretrain.forward_vsm(params, cfg, vsm, batch,
+                               compute_loss=compute_loss,
+                               compute_st_ed=False, train=train, seed=seed,
+                               dtype=dtype, **vsm_kw)
+    if compute_loss:
+        _, loss_neg_ctx, loss_neg_q = out
+        return loss_neg_ctx, loss_neg_q
+    scores, _, _ = out
+    return scores
 
 
 def encode_video_corpus(params: Params, cfg: HeroConfig,

@@ -497,10 +497,17 @@ def test_async_writer_raises_a_failed_write():
     writer.close()
 
 
-def test_checkpoint_overlay_and_pt_checkpoints(tmp_path, template):
+def test_checkpoint_overlay_and_pt_checkpoints(tmp_path, template,
+                                               main_runs):
     """``load_checkpoint_into``: an ``.npz`` overlays the init key by key
     (a wrong shape keeps the init), its marker reaches ``info``; a
-    reference ``.pt`` raises, naming ROADMAP A4."""
+    reference ``.pt`` (``reference_state_dict`` of another tree, 120 word
+    rows) overlays what the ``.npz`` of its converted tree overlays, the
+    word and LM-bias rows zero-padded to 128 and ``vocab_padded`` True,
+    as ``hero_tpu.drivers.common.load_checkpoint_into`` does; and
+    ``pretrain.main`` from a ``.pt`` of run A's init checkpoint (all 128
+    rows: not padded, as that file's marker says) ends with run A's
+    ``model_step_6.npz``, bit for bit."""
     ckpt = dict(_random_like(template, 10))
     bad = "v_encoder/mask_embedding"
     ckpt[bad] = np.ones((1, 1), np.float32)
@@ -519,8 +526,46 @@ def test_checkpoint_overlay_and_pt_checkpoints(tmp_path, template):
     assert jinfo == info
     _assert_flat_equal(got, {k: np.asarray(v) for k, v in
                              jsave.flatten_tree(jgot).items()})
-    with pytest.raises(NotImplementedError, match="A4"):
-        tcommon.load_checkpoint_into(template, str(tmp_path / "x.pt"))
+
+    tree = _random_like(template, 11)
+    pt = str(tmp_path / "hero.pt")
+    torch.save({"model": ttesting.reference_state_dict(tree, vocab=120)}, pt)
+    padded = dict(tree)
+    for k in ("v_encoder/f_encoder/embeddings/word_emb",
+              "v_encoder/f_encoder/lm_head/bias"):
+        padded[k] = tree[k].copy()
+        padded[k][120:] = 0.0
+    info, jinfo = {}, {}
+    got = tcommon.load_checkpoint_into(template, pt, 128, info=info)
+    assert info == {"vocab_padded": True}
+    assert tcommon.checkpoint_vocab_padded(pt, 128) is True
+    _assert_flat_equal(got, padded)
+    jgot = jcommon.load_checkpoint_into(jsave.unflatten_tree(template), pt,
+                                        128, info=jinfo)
+    assert jinfo == info
+    _assert_flat_equal(got, {k: np.asarray(v) for k, v in
+                             jsave.flatten_tree(jgot).items()})
+    npz = str(tmp_path / "hero.npz")
+    np.savez(npz, **padded)
+    _assert_flat_equal(tcommon.load_checkpoint_into(template, npz), got)
+
+    r = main_runs
+    init_pt = os.path.join(r.root, "init.pt")
+    torch.save(ttesting.reference_state_dict(r.init), init_pt)
+    with open(r.cfg_a) as f:
+        cfg = dict(json.load(f), checkpoint=init_pt,
+                   output_dir=os.path.join(r.root, "from_pt"))
+    cfg_pt = os.path.join(r.root, "from_pt.json")
+    with open(cfg_pt, "w") as f:
+        json.dump(cfg, f)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "torch.utils.tensorboard", None)
+        state = tdrv.main(topts.get_pretrain_args(["--config", cfg_pt]),
+                          device="cpu")
+    assert state.global_step == 6
+    name = os.path.join("ckpt", "model_step_6.npz")
+    _assert_flat_equal(_load_npz(os.path.join(r.root, "from_pt", name)),
+                       _load_npz(os.path.join(r.root, "a", name)))
 
 
 # ---------------------------------------------------------------------------

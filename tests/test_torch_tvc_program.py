@@ -52,6 +52,7 @@ from hero_tpu_torch.config.model_config import tiny_hero_config
 from hero_tpu_torch.convert import from_jax
 from hero_tpu_torch.data import downstream_tasks as tdt
 from hero_tpu_torch.data import testing as ttesting
+from hero_tpu_torch.drivers import common as ttcommon
 from hero_tpu_torch.drivers import inf_tvc as tinf
 from hero_tpu_torch.drivers import train_tvc as ttrain
 from hero_tpu_torch.evaluation import caption_metrics as tcm
@@ -731,27 +732,68 @@ def test_inf_tvc_main_matches_jax(run, port_run, case, tmp_path,
 # guards
 # ---------------------------------------------------------------------------
 
+def _assert_pt_load_equals_jax(pt, run):
+    """The port's ``load_checkpoint_into`` of ``pt`` over the TVC init
+    equals ``hero_tpu.drivers.common.load_checkpoint_into``'s, and both
+    record the pad decision: none (all 128 word rows)."""
+    init = init_flat_tvc_params(_tvc_cfg(run), seed=0)
+    info, jinfo = {}, {}
+    got = ttcommon.load_checkpoint_into(init, pt, 128, info=info)
+    want = jcommon.load_checkpoint_into(jsave.unflatten_tree(init), pt, 128,
+                                        info=jinfo)
+    assert info == jinfo == {"vocab_padded": False}
+    _assert_flat_equal(got, {k: np.asarray(v) for k, v in
+                             jsave.flatten_tree(want).items()})
+
+
+def _tvc_cfg(run):
+    return ttcommon.model_config_from_opts(types.SimpleNamespace(
+        model_config=os.path.join(run.root, "model.json"),
+        max_clip_len=MAX_FRAMES, vfeat_dim=64))
+
+
 @pytest.mark.parametrize("case", ["train_pt", "inf_pt", "pp_stages",
                                   "train_no_card", "inf_no_card"])
 def test_tvc_programs_refuse_what_they_cannot_run(run, port_run, case,
                                                   tmp_path):
-    """A reference ``.pt`` checkpoint raises naming ROADMAP A4 (both
-    programs); ``--pp_stages 2`` raises naming A8 before any work; the
+    """A reference ``.pt`` checkpoint now loads in both programs (the
+    ``.pt`` cases keep the names they had when it raised): ``train_tvc``
+    from a ``.pt`` of the init checkpoint's tree (``reference_state_dict``)
+    trains to run A's parameters and step-4 captions, bit for bit;
+    ``inf_tvc`` from a ``.pt`` of run A's step-4 tree gives the records of
+    ``--checkpoint 4``; the port's load of either equals the JAX
+    package's.  ``--pp_stages 2`` raises naming A8 before any work; the
     default device without a card raises instead of running on the
     CPU."""
-    pt = str(tmp_path / "model.pt")
-    open(pt, "wb").close()
     inf_args = tinf.build_argparser().parse_args(
-        ["--output_dir", port_run.out, "--checkpoint", pt,
+        ["--output_dir", port_run.out, "--checkpoint", "4",
          "--submission", str(tmp_path / "s.jsonl")])
     if case == "train_pt":
-        opts = topts.get_tvc_args(["--config", run.cfg("pt",
-                                                       checkpoint=pt)])
-        with pytest.raises(NotImplementedError, match="A4"):
-            ttrain.main(opts, device="cpu")
+        pt = str(tmp_path / "init_tvc.pt")
+        torch.save({"model": ttesting.reference_state_dict(run.flat)}, pt)
+        _assert_pt_load_equals_jax(pt, run)
+        opts, state = _main("pt", run, checkpoint=pt)
+        _assert_trees_equal(state.params, port_run.state.params)
+        assert _jsonl(os.path.join(opts.output_dir, "tvc_gen_4.jsonl")) == \
+            _jsonl(os.path.join(port_run.out, "tvc_gen_4.jsonl"))
+        assert tsave.checkpoint_vocab_padded(os.path.join(
+            opts.output_dir, "ckpt", "model_step_4.npz")) is False
     elif case == "inf_pt":
-        with pytest.raises(NotImplementedError, match="A4"):
-            tinf.main(inf_args, device="cpu")
+        pt = str(tmp_path / "model_4.pt")
+        torch.save(ttesting.reference_state_dict(_npz(os.path.join(
+            port_run.out, "ckpt", "model_step_4.npz"))), pt)
+        _assert_pt_load_equals_jax(pt, run)
+        recs = {}
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(tinf, "detokenizer", lambda: None)
+            for ckpt in ("4", pt):
+                sub = str(tmp_path / f"{os.path.basename(ckpt)}.jsonl")
+                args = tinf.build_argparser().parse_args(
+                    ["--output_dir", port_run.out, "--checkpoint", ckpt,
+                     "--submission", sub])
+                recs[ckpt] = tinf.main(args, device="cpu")
+                assert _jsonl(sub) == json.loads(json.dumps(recs[ckpt]))
+        assert recs[pt] == recs["4"] and recs[pt]
     elif case == "pp_stages":
         out = str(tmp_path / "pp")
         opts = topts.get_tvc_args(["--config", run.cfg("pp"),

@@ -462,12 +462,44 @@ def test_eval_vcmr_main_matches_jax(run_dir, monkeypatch):
 
 
 def test_eval_vcmr_main_refuses_a_pt_checkpoint(run_dir):
+    """A reference ``.pt`` checkpoint now loads: ``.pt`` of the run's
+    step-5 tree with 120 of its 128 word rows (``reference_state_dict``)
+    serves the submission of the equal ``.npz`` (that tree with the rows
+    past 120 zeroed), written as ``results_model_test_all.json``; the
+    port's load of it equals ``hero_tpu.drivers.common.load_checkpoint_into``
+    (the name is the one this test had when a ``.pt`` raised)."""
+    step5 = os.path.join(run_dir.out, "ckpt", "model_step_5.npz")
+    with np.load(step5) as z:
+        tree = {k: z[k] for k in z.files}
     pt = os.path.join(run_dir.root, "model.pt")
-    open(pt, "wb").close()
-    args = tdrv.build_argparser().parse_args(
-        ["--output_dir", run_dir.out, "--checkpoint", pt])
-    with pytest.raises(NotImplementedError, match="A4"):
-        tdrv.main(args, device="cpu")
+    torch.save({"model": ttesting.reference_state_dict(tree, vocab=120)}, pt)
+    for k in ("v_encoder/f_encoder/embeddings/word_emb",
+              "v_encoder/f_encoder/lm_head/bias"):
+        tree[k] = tree[k].copy()
+        tree[k][120:] = 0.0
+    np.savez(os.path.join(run_dir.out, "ckpt", "model_step_6.npz"), **tree)
+    got = {}
+    for ckpt in (pt, "6"):
+        args = tdrv.build_argparser().parse_args(
+            ["--output_dir", run_dir.out, "--checkpoint", ckpt, "--split",
+             "test"])
+        got[ckpt] = tdrv.main(args, device="cpu", dtype=torch.float32)
+    assert got[pt] == got["6"]
+    with open(os.path.join(run_dir.out, "results_model_test_all.json")) as f:
+        assert json.load(f) == json.loads(json.dumps(got[pt][1]))
+    opts = tdrv.load_serve_opts(run_dir.out)
+    cfg = tcommon.model_config_from_opts(opts)
+    init = tpre.init_flat_params(cfg, tcommon.vsm_config_from_opts(opts))
+    info, jinfo = {}, {}
+    flat = tcommon.load_checkpoint_into(init, pt, 128, info=info)
+    want = jcommon.load_checkpoint_into(unflatten_tree(init), pt, 128,
+                                        info=jinfo)
+    assert info == jinfo == {"vocab_padded": True}
+    assert sorted(flat) == sorted(tree)
+    for k, v in jax.tree_util.tree_flatten_with_path(want)[0]:
+        key = "/".join(p.key for p in k)
+        np.testing.assert_array_equal(flat[key], np.asarray(v), err_msg=key)
+        np.testing.assert_array_equal(flat[key], tree[key], err_msg=key)
 
 
 # ---------------------------------------------------------------------------
