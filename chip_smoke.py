@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's VCMR serving path, VSM train step, TVC
 caption serving, TVC train step, four-task pretraining, TVC finetuning
 and captioning as programs, VCMR and VR finetuning from a reference
-``.pt`` as programs, VCMR serving as a program and kernel components on
-one GPU and check them.
+``.pt`` as programs, VideoQA and VIOLIN finetuning and inference as
+programs, VCMR serving as a program and kernel components on one GPU and
+check them.
 
     python3 chip_smoke.py                  # on a machine with one CUDA card
     python3 chip_smoke.py --json-out F     # also write the full record to F
@@ -179,26 +180,67 @@ What the card run does, in order (any failure exits non-zero):
    (96, 161, 768) (bf16; its fp32 check at DiDeMo video-only's 81 slots,
    since the fp32 backward takes at most 154 rows); runs
    ``drivers/train_vcmr.main`` on ``config/train-tvr.json`` with the
-   paths substituted, the ``.pt``, 8 steps, validation and checkpoints
-   at 4 and 8, warm-up 2 and hard negatives from step 4, in a subprocess
+   paths substituted, the ``.pt``, 4 steps, validation and checkpoints
+   at 4, warm-up 2 and hard negatives from step 2, in a subprocess
    with the launch counters from 0 (run A: every loss finite,
    ``results_{4,8}_all.json`` with VCMR, SVMR and VR, the model file
    marked ``vocab_padded``); again in a subprocess stopped by SIGTERM
-   after step 4 and resumed by ``python -m
+   after step 2 and resumed by ``python -m
    hero_tpu_torch.drivers.train_vcmr`` (run B: A's and B's
-   ``model_step_8.npz`` and ``restore.npz`` equal bit for bit); ``python
-   -m hero_tpu_torch.drivers.eval_vcmr --checkpoint 8`` on A's directory
-   (its results equal A's step-8 validation: the same ids, scores within
+   ``model_step_4.npz`` and ``restore.npz`` equal bit for bit); ``python
+   -m hero_tpu_torch.drivers.eval_vcmr --checkpoint 4`` on A's directory
+   (its results equal A's step-4 validation: the same ids, scores within
    1e-4); ``drivers/train_vr.main`` on
    ``config/train-msrvtt_video_only.json`` with the paths substituted,
    the ``.pt``, 4 steps, in a subprocess with the counters from 0; and
    ``drivers/eval_vr.main`` in this process on its directory (VR and no
    VCMR, equal to its step-4 validation; counters from 0); prints a
-   ``vcmr_program`` line (queries/s of TVR's steps 2-3 and 6-7 and VR's
+   ``vcmr_program`` line (queries/s of TVR's steps 2-3 and VR's
    2-3 from disk, each save's ms and bytes, the restore's ms, the
    ``.pt``'s load ms and bytes, the eval_vcmr subprocess's wall s, the
    launches of #1-#7 on each path);
-14. the serving_full phase, VCMR serving in full: runs
+14. the qa_program phase, VideoQA (TVQA) and VIOLIN finetuning and
+   inference as programs from vcmr_program's ``.pt`` (which has no QA
+   head: the heads start from the seeded init) at
+   ``config/hero_finetune.json``'s model: writes TVQA-layout question
+   stores over the 256 videos (256 train questions over 192 of them and
+   64 val over the other 64, ``[q] + 5 answers`` ids, an answer index
+   and a ``ts`` span) and VIOLIN statement stores (192 and 64 ``_0`` /
+   ``_1`` pairs, one true); holds #2 and #3 at the program's unpacked
+   f-encoder rows (a micro-batch of 4 questions x 5 answers x 32 subs of
+   16 frames + 120 tokens: (640, 136, 768)) and at its fused c-encoder
+   rows ((20, 132, 768): 100 frames + 32 QA tokens behind the mask
+   ``[frames | pad frames | tokens | pad tokens]``, a video of fewer
+   than 100 frames in the batch), and #1 and #3 at the ``--pack_subs``
+   rows ((160, 200, 768); fp32 at their first 154 slots, the fp32
+   backward's limit), and #6 and #7 at the step's LayerNorm widths,
+   against their plain versions; holds one fp32 step of the VideoQA loss
+   and one of the VIOLIN loss on the card against the CPU (2 + 1
+   layers, one question or pair on its first 8 sub rows: the loss,
+   every gradient, every new parameter) and one bf16 step of each,
+   dropout on, through the kernels against the plain attention versions
+   (``bf16_step_check``, 2 questions or pairs), the output biases of the
+   heads held to analytic bounds (``zero_sum_bound``,
+   ``violin_bias_bound``); runs ``drivers/train_videoqa.main`` on
+   ``config/train-tvqa.json`` with the paths substituted and the ``.pt``,
+   4 steps, validation and checkpoints at 4, in a subprocess with
+   the launch counters from 0 (run A: every loss finite, the model file
+   marked ``vocab_padded``); again in a subprocess stopped by SIGTERM
+   after step 2 and resumed by ``python -m
+   hero_tpu_torch.drivers.train_videoqa`` (run B: A's and B's
+   ``model_step_4.npz``, ``restore.npz`` and step-4 validation equal bit
+   for bit); ``python -m hero_tpu_torch.drivers.eval_videoqa
+   --checkpoint 4`` on A's directory (its answers and accuracy equal A's
+   step-4 validation); ``drivers/train_violin.main`` on
+   ``config/train-violin.json`` with the paths substituted, 4 steps, and
+   ``drivers/eval_violin.main`` on its directory, in this process with
+   the counters from 0 around each (its predictions and accuracy equal
+   the step-4 validation); prints a ``qa_program`` line (questions/s of
+   TVQA's steps 2-3 and statement pairs/s of VIOLIN's 2-3 from
+   disk, each save's ms and bytes, the restore's ms, the eval_videoqa
+   subprocess's wall s, the step checks, the launches of #1-#7 on each
+   path);
+15. the serving_full phase, VCMR serving in full: runs
    ``validate_full_vcmr`` on the 512 queries and the resident 2000-video
    corpus with ``pack_queries`` (4 segments a row, 64 rows a call: the
    whole set encoded packed, then ranked in batch slices) and one row a
@@ -219,7 +261,7 @@ What the card run does, in order (any failure exits non-zero):
    reference schema, every query once) and holds it and its printed
    metrics equal to ``drivers/eval_vcmr.main`` run in this process with
    the launch counters from 0; prints a ``serving_full`` line;
-15. the components phase (``tools/component_bench.py`` and the DALN
+16. the components phase (``tools/component_bench.py`` and the DALN
    checks of ``tools/kernel_smoke.py`` and ``tools/tpu_kernel_drive.py``):
    holds #6 and #7 at their edges (``check_ln_edges``: widths 1 to
    14528 about the 16-byte access and the warp's share, rows about the
@@ -248,10 +290,12 @@ It prints one ``phases`` JSON line, one train JSON line with
 one TVC train JSON line with ``tvc_train_captions_per_s``, one
 ``pretrain`` JSON line with ``pretrain_examples_per_s``, one
 ``pretrain_main`` JSON line, one ``tvc_program`` JSON line, one
-``vcmr_program`` JSON line, one ``serving_full`` JSON line, one
+``vcmr_program`` JSON line, one ``qa_program`` JSON line, one
+``serving_full`` JSON line, one
 ``components`` JSON line, one ``kernels`` JSON line (all nine kernels,
 launches by path; #6, #7 and #9 with the device ms of their row pass and
-of the column pass; #8 and #9 with the unfused chain's ms and their own
+of the column pass, from profiler traces, those the run's own traces
+missed traced again in a fresh process at the end; #8 and #9 with the unfused chain's ms and their own
 at rate 0), the card's name and power limit (nvidia-smi), and as
 the last line ``{"ok": true, "device": {...}}``.  ``--profile`` adds
 torch.profiler breakdowns of a phase-1 batch, a query batch, one
@@ -439,30 +483,148 @@ def profile_breakdown(torch, fn, iters=3):
             "device_ms_by_class": by_class, "top_kernels_ms": dict(top)}
 
 
-def kernel_ms_by_name(torch, fn, parts, iters=20):
+TRACE_PADS_S = (0.02, 0.1, 0.3)   # host wait inside each trace of a call,
+                                  # before and after; one trace a pad
+# the kernels of the LayerNorm calls whose device time kernel_ms_by_name
+# splits, by row key: the row pass, and the column pass (the reduction of
+# the backward's partials; the forward has none)
+SPLIT_PARTS = {
+    "layer_norm": {"row_pass_ms": "layer_norm_rows"},
+    "layer_norm_bwd": {"row_pass_ms": "layer_norm_bwd_rows",
+                       "reduce_ms": "layer_norm_bwd_cols"},
+    "daln_bwd": {"row_pass_ms": "layer_norm_bwd_rows",
+                 "reduce_ms": "layer_norm_bwd_cols"}}
+
+
+def kernel_ms_by_name(torch, fn, parts, spec=None, iters=20):
     """Mean device ms of one launch of each kernel whose name holds a
-    fragment of ``parts`` ({key: name fragment}; ``fn`` launches each
+    fragment of ``parts`` ({row key: name fragment}; ``fn`` launches each
     once), from a torch.profiler trace of ``iters`` calls after a
-    warm-up; None where the trace holds no such launch (not measured)."""
+    warm-up, with ``"trace_attempts"``: the traces it took.
+
+    The profiler keeps a device event only inside its capture window, on
+    the host's clock.  In a process that has run for minutes, traces have
+    been seen to drop every launch of one kernel or of all, one trace in
+    two or every trace of a call.  So the window opens a pad of
+    ``TRACE_PADS_S`` before the first call and closes as long after the
+    card has finished, and a trace that misses a kernel of ``parts`` is
+    taken again with the next, longer pad.  If every pad misses, the
+    times are None and the result holds ``"split_pending": spec``
+    (``[kind of SPLIT_PARTS, n, d, ...]``), which
+    :func:`resolve_pending_splits` traces again in a fresh process;
+    without ``spec`` it holds ``"trace_events"``, the device events of
+    the last trace."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = {key: 0.0 for key in parts}
-    count = {key: 0 for key in parts}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        for key, frag in parts.items():
-            if frag in ev.name:
-                total[key] += ev.time_range.elapsed_us() / 1e3
-                count[key] += 1
-    return {key: total[key] / count[key] if count[key] else None
-            for key in parts}
+    seen = {}
+    for attempt, pad in enumerate(TRACE_PADS_S, 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        total = {key: 0.0 for key in parts}
+        count = {key: 0 for key in parts}
+        seen = {}
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            seen[ev.name[:60]] = seen.get(ev.name[:60], 0) + 1
+            for key, frag in parts.items():
+                if frag in ev.name:
+                    total[key] += ev.time_range.elapsed_us() / 1e3
+                    count[key] += 1
+        if all(count.values()):
+            return {**{key: total[key] / count[key] for key in parts},
+                    "trace_attempts": attempt}
+    missed = {key: None for key in parts}
+    if spec is not None:
+        return {**missed, "trace_attempts": len(TRACE_PADS_S),
+                "split_pending": list(spec)}
+    return {**missed, "trace_attempts": len(TRACE_PADS_S),
+            "trace_events": seen}
+
+
+SPLIT_PROBE = """
+import json, sys
+from chip_smoke import split_probe
+print(json.dumps(split_probe(json.loads(sys.argv[1]))))
+"""
+
+
+def split_probe(specs):
+    """:func:`kernel_ms_by_name` of each spec's call, in this process, on
+    seeded bf16 inputs of the spec's shape (the kernels' time does not
+    depend on the values)."""
+    import torch
+    from hero_tpu_torch.ops import layernorm as lnm
+    dev = torch.device("cuda")
+    out = []
+    for kind, n, d, *rest in specs:
+        gen = torch.Generator(device=dev).manual_seed(n + d)
+        w = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        b = 0.1 * torch.randn(d, generator=gen, device=dev)
+        y, x, g = (torch.randn((n, d), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        fn = {"layer_norm": lambda: lnm.layer_norm_cuda(x, w, b),
+              "layer_norm_bwd": lambda: lnm.layer_norm_bwd_cuda(x, w, g),
+              "daln_bwd": lambda: lnm.dropout_add_layer_norm_bwd_cuda(
+                  y, x, w, g, *rest)}[kind]
+        out.append(kernel_ms_by_name(torch, fn, SPLIT_PARTS[kind]))
+        del y, x, g
+    return out
+
+
+def resolve_pending_splits(record, here):
+    """Trace again, in one fresh process, the calls of every row of
+    ``record`` that :func:`kernel_ms_by_name` left ``"split_pending"``,
+    and fill their times in (``"split_traced_in"``: ``"a fresh
+    process"``).  The run fails if the fresh process's trace of a call
+    holds device events but none of a kernel it names; a trace that
+    holds no device event at all leaves the times None, with the reason
+    in ``"split_not_measured"``.  Returns the number of pending rows."""
+    rows = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            if "split_pending" in node:
+                rows.append(node)
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v)
+
+    walk(record)
+    if not rows:
+        return 0
+    specs = sorted({json.dumps(r["split_pending"]) for r in rows})
+    proc = subprocess.run([sys.executable, "-c", SPLIT_PROBE,
+                           json.dumps([json.loads(s) for s in specs])],
+                          cwd=here, capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"the fresh process tracing the splits exited "
+                             f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    found = dict(zip(specs, json.loads(proc.stdout.strip().splitlines()[-1])))
+    for row in rows:
+        spec = row.pop("split_pending")
+        got = dict(found[json.dumps(spec)])
+        events = got.pop("trace_events", None)
+        if events:
+            raise AssertionError(f"{spec}: traces in a fresh process held "
+                                 f"device events but not every kernel of "
+                                 f"{SPLIT_PARTS[spec[0]]}: {events}")
+        if events is not None:
+            row["split_not_measured"] = (
+                f"{got['trace_attempts']} traces in the run's process and "
+                f"as many in a fresh one held no device event")
+        row["trace_attempts"] += got.pop("trace_attempts")
+        row.update(got, split_traced_in="a fresh process")
+    return len(rows)
 
 
 # ---------------------------------------------------------------------------
@@ -574,7 +736,7 @@ def check_layer_norm(torch, F, lnm, n, d, x_bf16):
     x = x_bf16
     ms = time_ms(torch, lambda: lnm.layer_norm_cuda(x, w, b))
     split = kernel_ms_by_name(torch, lambda: lnm.layer_norm_cuda(x, w, b),
-                              {"rows": "layer_norm_rows"})
+                              SPLIT_PARTS["layer_norm"], ["layer_norm", n, d])
     plain_ms = time_ms(torch, lambda: lnm.layer_norm_reference(x, w, b))
     w16, b16 = w.to(x.dtype), b.to(x.dtype)
     lib_ms = time_ms(torch, lambda: F.layer_norm(x, (d,), w16, b16, 1e-5))
@@ -586,14 +748,16 @@ def check_layer_norm(torch, F, lnm, n, d, x_bf16):
             "max_abs_err": record["bfloat16"]["max_abs_err"],
             "tol": record["bfloat16"]["tol"], "checks": record,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": lib_ms, "row_pass_ms": split["rows"],
-            "reduce_ms": None}
+            "library_ms": lib_ms, "reduce_ms": None, **split}
 
 
 # the LayerNorm rows' device ms of the row pass and of the column pass
 # (the reduction of the backward's partials; None for the forward, which
-# has none), from a profiler trace beside the event timing
-SPLIT_KEYS = ("row_pass_ms", "reduce_ms")
+# has none), from a profiler trace beside the event timing, the traces
+# that took, and, where the run's own traces missed a kernel, the mark
+# that resolve_pending_splits reads and what it found (kernel_ms_by_name)
+SPLIT_KEYS = ("row_pass_ms", "reduce_ms", "trace_attempts", "split_pending",
+              "split_traced_in", "split_not_measured")
 # #8/#9's rows also carry the unfused chain's ms and their own at rate 0
 DALN_KEYS = ("chain_ms", "rate0_ms")
 
@@ -854,8 +1018,8 @@ def check_layer_norm_bwd(torch, F, lnm, n, d):
     x, g = x32.to(torch.bfloat16), g32.to(torch.bfloat16)
     ms = time_ms(torch, lambda: lnm.layer_norm_bwd_cuda(x, w, g))
     split = kernel_ms_by_name(torch, lambda: lnm.layer_norm_bwd_cuda(x, w, g),
-                              {"rows": "layer_norm_bwd_rows",
-                               "reduce": "layer_norm_bwd_cols"})
+                              SPLIT_PARTS["layer_norm_bwd"],
+                              ["layer_norm_bwd", n, d])
     plain_ms = time_ms(torch, lambda: lnm.layer_norm_bwd_reference(x, w, g))
     xl = x.detach().requires_grad_(True)
     wl = w.to(x.dtype).requires_grad_(True)
@@ -872,8 +1036,7 @@ def check_layer_norm_bwd(torch, F, lnm, n, d):
             "max_abs_err": checks["bfloat16"]["dx_err"],
             "tol": checks["bfloat16"]["dx_tol"], "checks": checks, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": lib_ms, "row_pass_ms": split["rows"],
-            "reduce_ms": split["reduce"]}
+            "library_ms": lib_ms, **split}
 
 
 def check_train_kernels(torch, b_fit, b_over, cfg, kernels):
@@ -940,7 +1103,8 @@ def check_train_kernels(torch, b_fit, b_over, cfg, kernels):
                          "backward",
          **{k: ln[0][k] for k in (
              "shape", "dtype", "max_abs_err", "tol", "ms", "plain_ms",
-             "bound_ms", "bound_by", "library_ms") + SPLIT_KEYS},
+             "bound_ms", "bound_by", "library_ms") + SPLIT_KEYS
+            if k in ln[0]},
          "shapes": ln}]
 
 
@@ -1706,21 +1870,29 @@ def train_parity(torch, cfg, videos, dev_kernel, dev_plain):
 
 
 def step_parity(torch, flat, batch, loss_fn, spec, dev_kernel, dev_plain,
-                heads, what):
+                heads, what, load=None, zero_grads=None):
     """One train step of ``loss_fn`` from the weights ``flat`` on the host
     ``batch``, on ``dev_kernel`` (the kernels) and ``dev_plain`` (the
     plain path): the loss, every gradient and every updated parameter
     must agree (fp32 sums in other orders; AdamW's first step bounds a
-    parameter's move by its gradients' noise)."""
+    parameter's move by its gradients' noise).  ``load(flat, device)``
+    bridges the weights (default the pretraining tree, with or without
+    its task ``heads``).  ``zero_grads`` ({leaf: bound}) names the leaves
+    whose exact gradient is 0 (:func:`zero_sum_bound`): on each path
+    their gradient must lie within the bound, in place of the relative
+    rule, which a gradient of pure rounding has no scale for."""
     from hero_tpu_torch.convert.from_jax import load_jax_params
     from hero_tpu_torch.data.loader import to_device
     from hero_tpu_torch.drivers.common import CURRICULUM_KEYS
     from hero_tpu_torch.training import optim
     from hero_tpu_torch.training.step import (TrainState, loss_and_grads,
                                               make_train_step)
+    if load is None:
+        def load(f, device):
+            return load_jax_params(f, device=device, heads=heads)
     out = {}
     for dev in (dev_kernel, dev_plain):
-        params = load_jax_params(flat, device=dev, heads=heads)
+        params = load(flat, dev)
         b = to_device(batch, dev, host_keys=CURRICULUM_KEYS)
         loss, _, grads = loss_and_grads(loss_fn, params, b, None)
         state, m = make_train_step(loss_fn, spec)(TrainState.create(params),
@@ -1732,8 +1904,8 @@ def step_parity(torch, flat, batch, loss_fn, spec, dev_kernel, dev_plain,
         dev_plain]
     adam = spec.adamw
     sf = math.sqrt(1 - adam.beta2) / (1 - adam.beta1)
-    paths = ["/".join(p) for p in optim.tree_paths(
-        load_jax_params(flat, device="cpu", heads=heads))]
+    paths = optim.tree_paths(load(flat, "cpu"))
+    zero_grads = dict(zero_grads or {})
     worst_g, worst_p = (0.0, ""), (0.0, "")
     for path, a, b, pa, pb in zip(paths, gk, gp, pk, pp):
         g_err = float((a - b).abs().max())
@@ -1741,15 +1913,25 @@ def step_parity(torch, flat, batch, loss_fn, spec, dev_kernel, dev_plain,
         # scatter-adds (the embedding and gather backwards): within 1e-3
         # of the leaf's largest gradient
         g_tol = 1e-3 * float(b.abs().max()) + 1e-7
-        # AdamW's first step moves an element by lr*sf*g/(|g| + eps),
-        # whose slope in g is at most lr*sf/eps: the gradients' noise
-        # (4x the measured difference) moves it by at most that much,
-        # and never by more than 2*lr*sf
-        p_tol = (spec.learning_rate * sf * min(2.0, 4 * g_err / adam.eps)
-                 + 1e-6)
+        # AdamW's first step moves an element by lr'*sf*g/(|g| + eps)
+        # (lr' = lr * lr_mul outside v_encoder), whose slope in g is at
+        # most lr'*sf/eps: the gradients' noise (4x the measured
+        # difference) moves it by at most that much, and never by more
+        # than 2*lr'*sf
+        lr = spec.learning_rate * (adam.lr_mul if optim.is_top(path)
+                                   else 1.0)
+        p_tol = lr * sf * min(2.0, 4 * g_err / adam.eps) + 1e-6
         p_err = float((pa - pb).abs().max())
-        worst_g = max(worst_g, (g_err / g_tol, path))
-        worst_p = max(worst_p, (p_err / p_tol, path))
+        name = "/".join(path)
+        if name in zero_grads:
+            g_ratio = (max(float(a.abs().max()), float(b.abs().max()))
+                       / zero_grads.pop(name))
+        else:
+            g_ratio = g_err / g_tol
+        worst_g = max(worst_g, (g_ratio, name))
+        worst_p = max(worst_p, (p_err / p_tol, name))
+    if zero_grads:
+        raise ValueError(f"{what}: no leaf {sorted(zero_grads)}")
     rec = {"depth": [2, 1], "batch": int(np.shape(batch["sub_mask"])[0]),
            "loss": [lk, lp],
            "loss_rel_err": abs(lk - lp) / abs(lp), "loss_rtol": 1e-5,
@@ -1795,7 +1977,8 @@ def plain_packed_attention():
             setattr(att, n, f)
 
 
-def bf16_step_check(torch, make_loss_fn, params, batches, seed, paths):
+def bf16_step_check(torch, make_loss_fn, params, batches, seed, paths,
+                    zero_grads=None, bounds=None):
     """bf16 with dropout, at the main path's model and batches: the loss
     and every gradient of one step through the tensor-core packed
     attention kernels against the same step with the plain attention
@@ -1808,7 +1991,16 @@ def bf16_step_check(torch, make_loss_fn, params, batches, seed, paths):
     spreads through the later bf16 roundings, so the two bf16 steps
     differ by about as much as either differs from fp32 (up to 2.05x it,
     leaf by leaf, on an NVIDIA H100 80GB HBM3); a wrong row or key in a
-    kernel moves its terms by their own size, far above that."""
+    kernel moves its terms by their own size, far above that.
+
+    A leaf of a few elements has a single draw of that noise, whose ratio
+    to the other path's single draw has no useful bound; such leaves get
+    an analytic bound instead, and every other leaf keeps the rule above.
+    ``zero_grads`` ({leaf: bound}) names the leaves whose exact gradient
+    is 0 (:func:`zero_sum_bound`): on each path their gradient must lie
+    within the bound.  ``bounds(batch)`` ({leaf: tol}) gives the leaves
+    whose |kernels - plain| is bounded from the two paths' own outputs
+    (:func:`violin_bias_bound`)."""
     from hero_tpu_torch.training import optim
     from hero_tpu_torch.training.step import loss_and_grads
 
@@ -1823,12 +2015,23 @@ def bf16_step_check(torch, make_loss_fn, params, batches, seed, paths):
         with plain_packed_attention():
             lp, gp = step(torch.bfloat16, batch)
         lr, gr = step(torch.float32, batch)
+        zero = dict(zero_grads or {})
+        fixed = dict(bounds(batch) if bounds else {})
         worst = (0.0, "")
         for path, a, b, r in zip(paths, gk, gp, gr):
-            tol = (4 * float((b - r).abs().max())
-                   + 2.0 ** -9 * float(r.abs().max()))
-            worst = max(worst, (float((a - b).abs().max()) / max(tol, 1e-30),
-                                path))
+            if path in zero:
+                ratio = (max(float(a.abs().max()), float(b.abs().max()))
+                         / zero.pop(path))
+            else:
+                tol = fixed.pop(path, None)
+                if tol is None:
+                    tol = (4 * float((b - r).abs().max())
+                           + 2.0 ** -9 * float(r.abs().max()))
+                ratio = float((a - b).abs().max()) / max(tol, 1e-30)
+            worst = max(worst, (ratio, path))
+        if zero or fixed:
+            raise ValueError(f"bf16 step: no leaf "
+                             f"{sorted({**zero, **fixed})}")
         rec = {"loss": [lk, lp, lr], "loss_kernel_vs_plain": abs(lk - lp),
                "loss_tol": 4 * abs(lp - lr) + 2.0 ** -9 * abs(lr),
                "worst_grad_err_over_tol": worst}
@@ -2599,74 +2802,28 @@ def tvc_train_parity(torch, cfg, batch, caps_per_video, dev_kernel,
     """fp32, dropout off: one TVC train step through the kernels on the
     card against the plain path on the CPU, at the flagship widths with
     the f-encoder cut to 2 layers, the c-encoder to 1 and the decoder to
-    1, on 2 videos' caption rows.  Compares the loss, every gradient and
-    every updated parameter."""
+    1, on 2 videos' caption rows (:func:`step_parity`: the loss, every
+    gradient and every updated parameter)."""
     from hero_tpu_torch.convert.from_jax import load_jax_tvc_params
     from hero_tpu_torch.drivers import train_tvc
-    from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
     from hero_tpu_torch.models.tvc import init_flat_tvc_params
-    from hero_tpu_torch.training import optim
-    from hero_tpu_torch.training.step import (TrainState, loss_and_grads,
-                                              make_train_step)
     small = cfg.replace(
         f_config=cfg.f_config.replace(num_hidden_layers=2),
         c_config=cfg.c_config.replace(num_hidden_layers=1),
         d_config=cfg.d_config.replace(num_hidden_layers=1))
-    flat = init_flat_tvc_params(small, seed=1)
     opts = dict(train_tvc.load_train_opts(), learning_rate=SIGNAL_LR,
                 warmup_steps=1)
-    spec = train_tvc.train_spec(opts)
-    loss_fn = train_tvc.make_loss_fn(small, opts["lsr"], torch.float32,
-                                     train=False)
     rows = caps_per_video * 2
     half = {k: (v[:2] if k.startswith(("sub_", "c_")) else v[:rows])
             for k, v in batch.items()}
-    out = {}
-    for dev in (dev_kernel, dev_plain):
-        params = load_jax_tvc_params(flat, device=dev)
-        b = batch_to_device(half, dev)
-        loss, _, grads = loss_and_grads(loss_fn, params, b, None)
-        state, m = make_train_step(loss_fn, spec)(TrainState.create(params),
-                                                   b, None)
-        out[dev] = (float(loss), [g.cpu() for g in optim.tree_leaves(grads)],
-                    [p.cpu() for p in optim.tree_leaves(state.params)],
-                    float(m["loss"]), float(m["grad_norm"]))
-        del params, state, grads
-    (lk, gk, pk, mk, nk), (lp, gp, pp, mp, np_) = out[dev_kernel], out[
-        dev_plain]
-    adam = spec.adamw
-    sf = math.sqrt(1 - adam.beta2) / (1 - adam.beta1)
-    paths = optim.tree_paths(load_jax_tvc_params(flat, device="cpu"))
-    worst_g, worst_p = (0.0, ""), (0.0, "")
-    for path, a, b, pa, pb in zip(paths, gk, gp, pk, pp):
-        g_err = float((a - b).abs().max())
-        # fp32 sums in other orders, and the atomics of the card's
-        # scatter-adds (the embedding and gather backwards): within 1e-3
-        # of the leaf's largest gradient
-        g_tol = 1e-3 * float(b.abs().max()) + 1e-7
-        # AdamW's first step moves an element by lr'*sf*g/(|g| + eps)
-        # (lr' = lr * lr_mul outside v_encoder), whose slope in g is at
-        # most lr'*sf/eps: the gradients' noise (4x the measured
-        # difference) moves it by at most that much, and never by more
-        # than 2*lr'*sf
-        lr = spec.learning_rate * (adam.lr_mul if optim.is_top(path)
-                                   else 1.0)
-        p_tol = lr * sf * min(2.0, 4 * g_err / adam.eps) + 1e-6
-        p_err = float((pa - pb).abs().max())
-        name = "/".join(path)
-        worst_g = max(worst_g, (g_err / g_tol, name))
-        worst_p = max(worst_p, (p_err / p_tol, name))
-    rec = {"depth": [2, 1, 1], "caption_rows": rows, "loss": [lk, lp],
-           "loss_rel_err": abs(lk - lp) / abs(lp), "loss_rtol": 1e-5,
-           "step_loss": [mk, mp], "grad_norm": [nk, np_],
-           "worst_grad_err_over_tol": worst_g,
-           "worst_param_err_over_tol": worst_p}
-    rec["ok"] = (rec["loss_rel_err"] <= 1e-5 and worst_g[0] <= 1.0
-                 and worst_p[0] <= 1.0
-                 and abs(nk - np_) <= 1e-4 * abs(np_))
-    if not rec["ok"]:
-        raise AssertionError(f"fp32 TVC train step, kernels vs plain: {rec}")
-    return rec
+    rec = step_parity(
+        torch, init_flat_tvc_params(small, seed=1), half,
+        train_tvc.make_loss_fn(small, opts["lsr"], torch.float32,
+                               train=False),
+        train_tvc.train_spec(opts), dev_kernel, dev_plain, heads=None,
+        what="fp32 TVC train step",
+        load=lambda f, d: load_jax_tvc_params(f, device=d))
+    return dict(rec, depth=[2, 1, 1], caption_rows=rows)
 
 
 def tvc_train_phase(torch, cfg, flat, ds, dev, dtype, sync, rehearse,
@@ -3948,15 +4105,14 @@ def tvc_program_phase(torch, here, tcfg, main_root, db, dev, sync,
 PT_ROWS = 50265                     # word rows of the released .pt (RoBERTa)
 PADDED_KEYS = ("v_encoder/f_encoder/embeddings/word_emb",
                "v_encoder/f_encoder/lm_head/bias")
-PROGRAM_VCMR_STEPS, PROGRAM_VCMR_SIGTERM_AT = 8, 4
+PROGRAM_VCMR_STEPS, PROGRAM_VCMR_SIGTERM_AT = 4, 2
 PROGRAM_VCMR_VALID_STEPS = PROGRAM_VCMR_SAVE_STEPS = 4
 PROGRAM_VCMR_WARMUP = 2
-PROGRAM_VCMR_HARD_AT = 4            # hard negatives from this step on
+PROGRAM_VCMR_HARD_AT = 2            # hard negatives from this step on
 PROGRAM_VR_STEPS = 4
-# steps timed from disk, away from the validations and saves after steps
-# 4 and 8: 2-3 and 6-7 of TVR, 2-3 of VR
-PROGRAM_VCMR_WINDOWS = ((1, 3), (5, 7))
-PROGRAM_VR_WINDOWS = ((1, 3),)
+# steps timed from disk, away from the validation and saves after step 4:
+# 2-3 of TVR and of VR
+PROGRAM_VCMR_WINDOWS = PROGRAM_VR_WINDOWS = ((1, 3),)
 # train and val queries: TVR's over the first 192 and the last 64 of
 # pretrain_main's videos, MSR-VTT's likewise; an epoch covers the steps
 PROGRAM_VCMR_QUERIES = (512, 256)
@@ -3970,20 +4126,24 @@ PROGRAM_VCMR_TRAIN_KERNELS = ("valid_attention_cuda", "attention_bwd_cuda",
                               "layer_norm_cuda", "layer_norm_bwd_cuda")
 PROGRAM_VCMR_EVAL_KERNELS = ("valid_attention_cuda", "layer_norm_cuda")
 
-# one run of drivers/train_vcmr.main or drivers/train_vr.main in a fresh
-# interpreter (its SIGTERM hook needs a main thread): the launch counters
-# from 0 around it, the card synchronised at the windows' edges (argv[6],
-# JSON) only, SIGTERM after step argv[5] (0: never); the losses, the
-# edges' clocks and the counts go to the JSON file argv[3]
-VCMR_TRAIN_RUN = """
-import json, os, signal, sys, time
+# one run of a finetune program's main (drivers/train_vcmr, train_vr,
+# train_videoqa) in a fresh interpreter (its SIGTERM hook needs a main
+# thread): the launch counters from 0 around it, the card synchronised at
+# the windows' edges (argv[6], JSON) only, SIGTERM after step argv[5] (0:
+# never); the losses, the edges' clocks and the counts go to the JSON
+# file argv[3]
+PROGRAM_TRAIN_RUN = """
+import importlib, json, os, signal, sys, time
 import torch
 from chip_smoke import read_counts, reset_counts
-from hero_tpu_torch.config.opts import get_vcmr_args
-from hero_tpu_torch.drivers import train_vcmr, train_vr
+from hero_tpu_torch.config import opts as opts_lib
 from hero_tpu_torch.utils.logger import configure_stdout
 
 program, cfg, out_json, device, stop_at, windows = sys.argv[1:7]
+parse = {"train_vcmr": opts_lib.get_vcmr_args,
+         "train_vr": opts_lib.get_vr_args,
+         "train_videoqa": opts_lib.get_videoqa_args}[program]
+drv = importlib.import_module("hero_tpu_torch.drivers." + program)
 configure_stdout()
 edges = {s for w in json.loads(windows) for s in w}
 losses, marks = [], {}
@@ -3998,10 +4158,8 @@ def on_step(step, task, metrics):
         os.kill(os.getpid(), signal.SIGTERM)
 
 reset_counts()
-drv = train_vcmr if program == "train_vcmr" else train_vr
-state = drv.main(get_vcmr_args(["--config", cfg]), device=device,
-                 on_step=on_step, dtype=torch.bfloat16 if device == "cuda"
-                 else torch.float32)
+state = drv.main(parse(["--config", cfg]), device=device, on_step=on_step,
+                 dtype=torch.bfloat16 if device == "cuda" else torch.float32)
 if device == "cuda":
     torch.cuda.synchronize()
 with open(out_json, "w") as f:
@@ -4010,14 +4168,15 @@ with open(out_json, "w") as f:
                "launches": read_counts()}, f)
 """
 
-# drivers/eval_vcmr.main on the CPU in fp32 (the rehearsal's stand-in for
-# the command line, which serves on the card)
-VCMR_EVAL_CPU = """
-import sys, torch
-from hero_tpu_torch.drivers import eval_vcmr
-eval_vcmr.configure_stdout()
-eval_vcmr.main(eval_vcmr.build_argparser().parse_args(sys.argv[1:]),
-               device="cpu", dtype=torch.float32)
+# an eval program's main (drivers/eval_vcmr, eval_videoqa) on the CPU in
+# fp32: the rehearsal's stand-in for the command line, which serves on
+# the card
+PROGRAM_EVAL_CPU = """
+import importlib, sys, torch
+drv = importlib.import_module("hero_tpu_torch.drivers." + sys.argv[1])
+drv.configure_stdout()
+drv.main(drv.build_argparser().parse_args(sys.argv[2:]), device="cpu",
+         dtype=torch.float32)
 """
 
 
@@ -4274,7 +4433,7 @@ def vcmr_program_phase(torch, here, cfg, main_root, db, dev, sync,
 
     def train_run(program, cfg_path, name, stop_at, windows):
         out = os.path.join(root, f"{name}.out.json")
-        run([sys.executable, "-c", VCMR_TRAIN_RUN, program, cfg_path, out,
+        run([sys.executable, "-c", PROGRAM_TRAIN_RUN, program, cfg_path, out,
              dev, str(stop_at), json.dumps(windows)],
             f"{program} run {name}")
         with open(out) as f:
@@ -4312,7 +4471,7 @@ def vcmr_program_phase(torch, here, cfg, main_root, db, dev, sync,
     rec["tvr_window_ms"], rec["tvr_queries_per_s"] = rate(
         res_a, PROGRAM_VCMR_WINDOWS, per_step)
     tasks = ("VCMR", "SVMR", "VR")
-    for step in (PROGRAM_VCMR_VALID_STEPS, PROGRAM_VCMR_STEPS):
+    for step in sorted({PROGRAM_VCMR_VALID_STEPS, PROGRAM_VCMR_STEPS}):
         results(out_a, step, tasks)
     with open(os.path.join(out_a, "log", "log.txt")) as f:
         rec["tvr_validation_log"] = [ln.strip() for ln in f
@@ -4326,7 +4485,7 @@ def vcmr_program_phase(torch, here, cfg, main_root, db, dev, sync,
     records_a = _records(out_a)
     stage("tvr_run_a")
 
-    # TVR run B: SIGTERM after step 4, then the command line resumes it
+    # TVR run B: SIGTERM after step 2, then the command line resumes it
     t_b = time.perf_counter()
     res_b = train_run("train_vcmr", cfg_b, "b", PROGRAM_VCMR_SIGTERM_AT,
                       ())
@@ -4335,7 +4494,7 @@ def vcmr_program_phase(torch, here, cfg, main_root, db, dev, sync,
                              f" main returned at {res_b['global_step']}")
     records_b1 = _records(out_b)
     if rehearse:
-        run([sys.executable, "-c", VCMR_TRAIN_RUN, "train_vcmr", cfg_b,
+        run([sys.executable, "-c", PROGRAM_TRAIN_RUN, "train_vcmr", cfg_b,
              os.path.join(root, "b2.out.json"), dev, "0", "[]"], "resume")
     else:
         run([sys.executable, "-m", "hero_tpu_torch.drivers.train_vcmr",
@@ -4368,8 +4527,8 @@ def vcmr_program_phase(torch, here, cfg, main_root, db, dev, sync,
     stage("tvr_compare")
 
     # eval_vcmr in a subprocess on A's directory: A's last validation
-    cmd = ([sys.executable, "-c", VCMR_EVAL_CPU] if rehearse else
-           [sys.executable, "-m", "hero_tpu_torch.drivers.eval_vcmr"])
+    cmd = ([sys.executable, "-c", PROGRAM_EVAL_CPU, "eval_vcmr"] if rehearse
+           else [sys.executable, "-m", "hero_tpu_torch.drivers.eval_vcmr"])
     t_e = time.perf_counter()
     run(cmd + ["--output_dir", out_a, "--checkpoint",
                str(PROGRAM_VCMR_STEPS)], "eval_vcmr")
@@ -4417,6 +4576,606 @@ def vcmr_program_phase(torch, here, cfg, main_root, db, dev, sync,
     return rec, {"vcmr_program": res_a["launches"],
                  "vr_program": res_vr["launches"],
                  "vr_eval": eval_launches}
+
+
+# ---------------------------------------------------------------------------
+# qa_program: drivers/train_videoqa, eval_videoqa, train_violin and
+# eval_violin from the reference-layout .pt and stores on disk
+# ---------------------------------------------------------------------------
+
+PROGRAM_QA_STEPS, PROGRAM_QA_SIGTERM_AT = 4, 2
+PROGRAM_QA_VALID_STEPS = PROGRAM_QA_SAVE_STEPS = 4
+PROGRAM_QA_WARMUP = 2
+PROGRAM_VIOLIN_STEPS = 4
+# steps timed from disk, away from the validation and saves after step 4:
+# 2-3 of TVQA and of VIOLIN
+PROGRAM_QA_WINDOWS = PROGRAM_VIOLIN_WINDOWS = ((1, 3),)
+# TVQA questions and VIOLIN statement pairs, train over the first 192 of
+# pretrain_main's videos and val over the other 64
+PROGRAM_QA_QUESTIONS = (256, 64)
+PROGRAM_VIOLIN_PAIRS = (192, 64)
+PROGRAM_QA_ANSWERS = 5              # config/train-tvqa.json's num_answers
+PROGRAM_QA_FREE_BYTES = 12 << 30    # the runs' checkpoints, with room
+PROGRAM_QA_CHECK_ITEMS = 2          # questions (pairs) of the bf16 checks
+FP32_BWD_ROWS = 154                 # the fp32 CUDA-core backward's rows
+
+
+def write_qa_stores(db, vids, vocab, root, sizes):
+    """TVQA-layout question stores and VIOLIN statement stores under
+    ``root`` (``QueryTokStore``'s layout, the special ids of ``db``'s sub
+    store in ``meta.json``): ``sizes`` = ((train, val) questions, (train,
+    val) statement pairs), train over the first
+    ``PROGRAM_VCMR_TRAIN_VIDEOS`` of ``vids`` (three quarters of fewer)
+    and val over the rest.  A question holds ``[q] + 5 answers`` of ids
+    below ``vocab`` (TVQA-like lengths: questions N(15, 4) tokens,
+    answers N(7, 3)), an answer index and a ``ts`` span inside the video;
+    a statement pair ``{i}_0`` / ``{i}_1`` (N(20, 5) tokens each) has one
+    true statement.  Returns {store name: directory}."""
+    from hero_tpu_torch.data.store import HeroStoreWriter
+    r = np.random.RandomState(83)
+    cut = min(PROGRAM_VCMR_TRAIN_VIDEOS, len(vids) * 3 // 4)
+    subs = db.txt_db
+    meta = {"CLS": subs.cls_, "SEP": subs.sep, "PAD": subs.pad,
+            "MASK": subs.mask, "v_range": list(subs.v_range)}
+
+    def ids(mean, sd, lo, hi):
+        n = int(np.clip(round(r.normal(mean, sd)), lo, hi))
+        return r.randint(3, vocab, n).tolist()
+
+    def write(name, recs):
+        d = os.path.join(root, name)
+        id2len, q2v = {}, {}
+        with HeroStoreWriter(d) as w:
+            for qid, vid, rec, n in recs:
+                w.put(qid, rec)
+                id2len[qid], q2v[qid] = n, vid
+        for fname, obj in (("id2len.json", id2len),
+                           ("query2video.json", q2v), ("meta.json", meta)):
+            with open(os.path.join(d, fname), "w") as f:
+                json.dump(obj, f)
+        return d
+
+    dirs = {}
+    (nq_t, nq_v), (np_t, np_v) = sizes
+    for split, nq, npair, part in (("train", nq_t, np_t, vids[:cut]),
+                                   ("val", nq_v, np_v, vids[cut:])):
+        recs = []
+        for i in range(nq):
+            vid = part[i % len(part)]
+            dur = db.nframes(vid) * 1.5
+            st = float(r.uniform(0, 0.8 * dur))
+            q = ids(15, 4, 5, 30)
+            answers = [ids(7, 3, 1, 20) for _ in range(PROGRAM_QA_ANSWERS)]
+            recs.append((f"q{split}{i}", vid, {
+                "input_ids": [q] + answers,
+                "target": int(r.randint(PROGRAM_QA_ANSWERS)),
+                "ts": [st, min(dur, st + float(r.uniform(3, 20)))]}, len(q)))
+        dirs[f"tvqa_{split}"] = write(f"tvqa_{split}", recs)
+        recs = []
+        for i in range(npair):
+            vid = part[i % len(part)]
+            first = int(r.randint(2))
+            for suffix, tgt in (("_0", first), ("_1", 1 - first)):
+                s_ids = ids(20, 5, 6, 40)
+                recs.append((f"s{split}{i}{suffix}", vid,
+                             {"input_ids": s_ids, "target": tgt},
+                             len(s_ids)))
+        dirs[f"violin_{split}"] = write(f"violin_{split}", recs)
+    return dirs
+
+
+def check_qa_program_kernels(torch, cfg, qa_batch, packed_batch, kernels):
+    """The kernels at TVQA's shapes, with the batches' own masks, against
+    their plain versions; added to the rows of ``kernels``: #2 and #3 at
+    the unpacked f-encoder rows (a micro-batch of 4 questions x 5 answers
+    x 32 subs of 16 frames + 120 tokens: (640, 136, 768)) and at the fused
+    c-encoder rows (20 rows of 100 frames + 32 QA tokens: (20, 132, 768),
+    the mask ``[frames | pad frames | tokens | pad tokens]``, not a
+    prefix), in fp32 and bf16; #1 and #3 at the ``--pack_subs`` rows (8
+    rows of 16 frames + 184 tokens a copy: (160, 200, 768)) in bf16, and
+    in fp32 at their first 154 slots (the fp32 backward's limit); #6 and
+    #7 at the step's LayerNorm widths (img_ln, the f- and c-encoders, the
+    heads' MLP LayerNorms over the span rows and the answer rows).
+    Returns the shapes."""
+    import torch.nn.functional as F
+    from hero_tpu_torch.ops import attention as att
+    from hero_tpu_torch.ops import layernorm as lnm
+    dev = torch.device("cuda")
+    D, H = cfg.f_config.hidden_size, cfg.f_config.num_attention_heads
+
+    def on_dev(m, dtype=np.float32):
+        return torch.from_numpy(
+            np.ascontiguousarray(m.reshape(-1, m.shape[-1]).astype(dtype))
+        ).to(dev)
+
+    def prog(row, what):
+        return {**row, "mode": f"qa_program: {what}"
+                + (f", {row['mode']}" if "mode" in row else "")}
+
+    fm = on_dev(np.concatenate([qa_batch["sub_frame_mask"],
+                                qa_batch["sub_txt_mask"]], -1))
+    frames = qa_batch["c_attn_masks"]
+    if not (frames.sum(-1) < frames.shape[-1]).any():
+        raise AssertionError("no video of the micro-batch has fewer frames "
+                             "than max_clip_len: the c-encoder mask would "
+                             "be a prefix")
+    cm = on_dev(np.concatenate([frames, qa_batch["qa_attn_masks"]], -1))
+    seg = on_dev(np.concatenate([packed_batch["sub_frame_seg"],
+                                 packed_batch["sub_txt_seg"]], -1), np.int32)
+    f_fwd, f_bwd = check_attention_train(torch, F, att, fm.shape[0],
+                                         fm.shape[1], D, H, fm, False)
+    c_fwd, c_bwd = check_attention_train(torch, F, att, cm.shape[0],
+                                         cm.shape[1], D, H, cm, False)
+    p_fwd, p_bwd = check_attention_train(torch, F, att, seg.shape[0],
+                                         seg.shape[1], D, H, seg, True,
+                                         fp32=False)
+    cut = seg[:, :FP32_BWD_ROWS].contiguous()
+    p32 = check_attention_train(torch, F, att, cut.shape[0], cut.shape[1],
+                                D, H, cut, True)[0]
+    p_fwd["checks_fp32_at"] = p_bwd["checks_fp32_at"] = {
+        "shape": list(cut.shape) + [D],
+        **{k: v for k, v in p32["checks"].items()
+           if k.startswith("float32")}}
+    B, S, Fs = qa_batch["sub_frame_idx"].shape
+    Nv = qa_batch["targets"].shape[0]
+    F_ = frames.shape[1]
+    D2 = 2 * cfg.c_config.hidden_size
+    gen = torch.Generator(device=dev).manual_seed(29)
+    ln_shapes = (("img_ln", B * S * Fs, cfg.vfeat_dim),
+                 ("f-encoder", fm.numel(), D),
+                 ("c-encoder", cm.numel(), D),
+                 ("st_ed_pred_head", Nv * F_, D2),
+                 ("qa_pred_head", B, D2))
+    new = {
+        "attention_valid": [prog(f_fwd, "TVQA f-encoder"),
+                            prog(c_fwd, "TVQA fused c-encoder")],
+        "attention_seg": [prog(p_fwd, "TVQA --pack_subs f-encoder")],
+        "attention_bwd": [prog(f_bwd, "TVQA f-encoder"),
+                          prog(c_bwd, "TVQA fused c-encoder"),
+                          prog(p_bwd, "TVQA --pack_subs f-encoder, bf16 "
+                                      "only (fp32 at 154 slots)")],
+        "layer_norm": [prog(check_layer_norm(
+            torch, F, lnm, n, w, torch.randn((n, w), generator=gen,
+                                             device=dev).to(torch.bfloat16)),
+            what) for what, n, w in ln_shapes],
+        "layer_norm_bwd": [prog(check_layer_norm_bwd(torch, F, lnm, n, w),
+                                what) for what, n, w in ln_shapes]}
+    for row in kernels:
+        row["shapes"] += new.get(row["name"], [])
+    return {"f_encoder_rows": list(fm.shape), "c_encoder_rows":
+            list(cm.shape), "packed_rows": list(seg.shape),
+            "ln_rows": {what: [n, w] for what, n, w in ln_shapes}}
+
+
+def qa_batch_of(ds, n, violin=False):
+    """The first ``n`` items of ``ds`` as a flattened host batch (VIOLIN's
+    targets one per row), ``__`` entries dropped."""
+    from hero_tpu_torch.data.downstream_tasks import build_batch
+    b = {k: v for k, v in build_batch(ds, list(range(n)),
+                                      flatten_rows=True).items()
+         if not k.startswith("__")}
+    if violin:
+        b["targets"] = b["targets"].reshape(-1)
+    return b
+
+
+def zero_sum_bound(rows, row_len, weight, bf16):
+    """The bound on a gradient whose exact value is 0: that of a bias
+    which adds one constant to every logit of a softmax row (the answer
+    head's over the answers, the span head's over the frames).  It is
+    the sum over ``rows`` rows of ``row_len`` terms weight * (softmax -
+    one-hot) / rows, at most 2 * weight in magnitude together, whose
+    exact sum is 0.  Each row's softmax sums to 1 within 4 * row_len
+    fp32 ulps (u = 2^-24), and the fp32 sum of the terms errs by at most
+    their count times u times their magnitude.  On a bf16 path each term
+    is also rounded to bf16 where it enters the bf16 logits (2^-9 of
+    itself: 2^-8 * weight together), and the sum once more where it
+    leaves the bf16 bias (no more than that again)."""
+    u = 2.0 ** -24
+    bound = weight * (4 * row_len + 2 * rows * row_len) * u
+    return bound + (weight * 2.0 ** -7 if bf16 else 0.0)
+
+
+def violin_bias_bound(torch, cfg, params, seed):
+    """``bounds`` of :func:`bf16_step_check` for the VIOLIN loss: the
+    output bias of ``violin_pred_head`` is one element, whose gradient is
+    the sum over the N rows of d_i = (sigmoid(x_i) - t_i) / N, x_i the
+    row's bf16 logit.  Between the kernels' step and the plain one it
+    moves by at most sum |d_i(kernels) - d_i(plain)|, from the two
+    steps' own logits (the same forward, dropout seed and grad mode),
+    plus the roundings of either path: each d_i to bf16 (2^-9 of
+    itself), the sum to bf16 (2^-9 of it), and the fp32 loss's
+    derivative and sum (8 + N ulps of sum |d_i|)."""
+    from hero_tpu_torch.models.violin import forward_violin
+    from hero_tpu_torch.training.step import loss_and_grads
+    leaf = "head/violin_pred_head/linear_2/bias"
+
+    def logits(p, b, sd):
+        x = forward_violin(p, cfg, b, compute_loss=False, train=True,
+                           seed=sd, dtype=torch.bfloat16)[..., 0].float()
+        return x.sum(), {"x": x}
+
+    def bounds(batch):
+        xk = loss_and_grads(logits, params, batch, seed)[1]["x"]
+        with plain_packed_attention():
+            xp = loss_and_grads(logits, params, batch, seed)[1]["x"]
+        t = batch["targets"].reshape(-1).float()
+        n = t.numel()
+        dk, dp = (torch.sigmoid(xk) - t) / n, (torch.sigmoid(xp) - t) / n
+        mag = float(dk.abs().sum() + dp.abs().sum())
+        return {leaf: float((dk - dp).abs().sum())
+                + 2.0 ** -9 * (mag + float(dk.sum().abs() + dp.sum().abs()))
+                + (8 + n) * 2.0 ** -24 * mag}
+    return bounds
+
+
+def qa_step_checks(torch, cfg, qa, vl, dev, dev_kernel, dev_plain):
+    """For the VideoQA loss (``qa_loss + lw_st_ed * st_ed_loss``) and the
+    VIOLIN loss: one fp32 step through the kernels on ``dev_kernel``
+    against the plain path on ``dev_plain`` at the flagship widths cut to
+    2 + 1 layers on one question (pair) cut to its first 8 sub rows,
+    dropout off, with ``config/train-*.json``'s ``lr_mul``
+    (:func:`step_parity`); and one
+    bf16 step with dropout at full depth through the kernels against the
+    plain attention versions on ``dev`` on ``PROGRAM_QA_CHECK_ITEMS``
+    questions (pairs) (:func:`bf16_step_check`).  ``qa`` / ``vl``: (the
+    run's options, its dataset).  The VideoQA heads' output biases shift
+    every logit of a softmax row alike, so their exact gradients are 0
+    and are held to :func:`zero_sum_bound`; VIOLIN's one-element output
+    bias is held to :func:`violin_bias_bound` in bf16."""
+    from hero_tpu_torch.convert import from_jax
+    from hero_tpu_torch.data.loader import to_device
+    from hero_tpu_torch.drivers import common, train_videoqa, train_violin
+    from hero_tpu_torch.models.videoqa import init_hero_for_videoqa
+    from hero_tpu_torch.models.violin import init_hero_for_violin
+    from hero_tpu_torch.training import optim
+    small = cfg.replace(
+        f_config=cfg.f_config.replace(num_hidden_layers=2),
+        c_config=cfg.c_config.replace(num_hidden_layers=1))
+    (qopts, qds), (vopts, vds) = qa, vl
+    A = qopts.num_answers
+
+    def qa_loss(c, dt, train):
+        return train_videoqa.make_loss_fn(c, A, qopts.lw_st_ed, dt,
+                                          train=train)
+
+    def vl_loss(c, dt, train):
+        return train_violin.make_loss_fn(c, dt, train=train)
+
+    def fp32_batch(ds, violin):
+        # one question (pair) on its first 8 sub rows: the CPU side of
+        # the check runs in fp32 at flagship width
+        b = qa_batch_of(ds, 1, violin)
+        return {k: v[:, :8] if k.startswith("sub_") else v
+                for k, v in b.items()}
+
+    def qa_zero_grads(batch, bf16):
+        # the answer bias over the A answers and the span bias (start,
+        # end) over the frames, of each question; lw_st_ed / 2 weighs
+        # each of start and end
+        nv = batch["targets"].shape[0]
+        frames = batch["c_attn_masks"].shape[-1]
+        return {"head/qa_pred_head/linear_2/bias":
+                zero_sum_bound(nv, A, 1.0, bf16),
+                "head/st_ed_pred_head/linear_2/bias":
+                zero_sum_bound(nv, frames, qopts.lw_st_ed / 2, bf16)}
+
+    rec = {"fp32": {}, "bf16_step": {}}
+    for name, init, load, loss, opts, ds, violin in (
+            ("videoqa", init_hero_for_videoqa,
+             from_jax.load_jax_videoqa_params, qa_loss, qopts, qds, False),
+            ("violin", init_hero_for_violin,
+             from_jax.load_jax_violin_params, vl_loss, vopts, vds, True)):
+        spec = common.train_spec(dict(vars(opts), learning_rate=1e-4,
+                                      warmup_steps=1))
+        batch = fp32_batch(ds, violin)
+        rec["fp32"][name] = step_parity(
+            torch, init(small, seed=1), batch,
+            loss(small, torch.float32, False), spec, dev_kernel, dev_plain,
+            heads=None, what=f"fp32 {name} step",
+            load=lambda f, d, load=load: load(f, device=d),
+            zero_grads=None if violin else qa_zero_grads(batch, False))
+        params = load(init(cfg, seed=1), device=dev)
+        batch = qa_batch_of(ds, PROGRAM_QA_CHECK_ITEMS, violin)
+        rec["bf16_step"][name] = bf16_step_check(
+            torch, lambda dt, loss=loss: loss(cfg, dt, True), params,
+            [to_device(batch, dev)], 11,
+            ["/".join(p) for p in optim.tree_paths(params)],
+            zero_grads=None if violin else qa_zero_grads(batch, True),
+            bounds=(violin_bias_bound(torch, cfg, params, 11) if violin
+                    else None))[0]
+        del params
+    return rec
+
+
+def qa_program_phase(torch, here, cfg, main_root, db, dev, sync, rehearse,
+                     kernels):
+    """VideoQA and VIOLIN finetuning and inference as programs (see the
+    module docstring) from the reference-layout ``.pt`` the vcmr_program
+    phase wrote under ``main_root``, over pretrain_main's videos.
+    Returns (record, {path: launch counts})."""
+    from hero_tpu_torch.config.opts import get_videoqa_args, get_violin_args
+    from hero_tpu_torch.data.downstream_tasks import build_batch
+    from hero_tpu_torch.drivers import common, eval_violin
+    from hero_tpu_torch.drivers import train_videoqa, train_violin
+    stage_s, t0 = {}, time.perf_counter()
+
+    def stage(name):
+        nonlocal t0
+        now = time.perf_counter()
+        stage_s[name] = now - t0
+        t0 = now
+
+    # vcmr_program's runs go; its .pt and pretrain_main's stores stay
+    vroot = os.path.join(main_root, "vcmr")
+    pt = os.path.join(vroot, "hero-tv-ht100.pt")
+    for n in os.listdir(vroot):
+        if os.path.join(vroot, n) != pt:
+            path = os.path.join(vroot, n)
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+            else:
+                os.remove(path)
+    root = os.path.join(main_root, "qa")
+    os.makedirs(root)
+    free = shutil.disk_usage(root).free
+    if not rehearse and free < PROGRAM_QA_FREE_BYTES:
+        raise AssertionError(f"{free} bytes free under {root}; the phase "
+                             f"needs {PROGRAM_QA_FREE_BYTES}")
+    sizes = (((16, 8), (12, 6)) if rehearse
+             else (PROGRAM_QA_QUESTIONS, PROGRAM_VIOLIN_PAIRS))
+    stores = write_qa_stores(db, list(db.vids), cfg.f_config.vocab_size - 8,
+                             root, sizes)
+    model_json = os.path.join(main_root, "model.json")
+    common_over = dict(sub_txt_db=os.path.join(main_root, "sub_db"),
+                       vfeat_db=os.path.join(main_root, "video_db"),
+                       model_config=model_json, checkpoint=pt,
+                       vfeat_dim=cfg.vfeat_dim,
+                       warmup_steps=PROGRAM_QA_WARMUP)
+    if rehearse:
+        # the plain Philox dropout is slow on the CPU: 2 items of 4 rows
+        common_over.update(train_batch_size=2, val_batch_size=4,
+                           bucket_n_subs=4)
+    qa_over = dict(common_over, train_query_txt_db=stores["tvqa_train"],
+                   val_query_txt_db=stores["tvqa_val"],
+                   num_train_steps=PROGRAM_QA_STEPS,
+                   valid_steps=PROGRAM_QA_VALID_STEPS,
+                   save_steps=PROGRAM_QA_SAVE_STEPS)
+    cfg_a, cfg_b = (vcmr_run_config(here, root, n, "train-tvqa.json",
+                                    qa_over, False) for n in ("a", "b"))
+    cfg_vl = vcmr_run_config(
+        here, root, "violin", "train-violin.json",
+        dict(common_over, train_query_txt_db=stores["violin_train"],
+             val_query_txt_db=stores["violin_val"],
+             num_train_steps=PROGRAM_VIOLIN_STEPS,
+             valid_steps=PROGRAM_VIOLIN_STEPS,
+             save_steps=PROGRAM_VIOLIN_STEPS), False)
+    qopts = get_videoqa_args(["--config", cfg_a])
+    vopts = get_violin_args(["--config", cfg_vl])
+    rec = {"stage_s": stage_s, "free_bytes_before": free,
+           "model": "config/hero_finetune.json" if not rehearse
+           else "rehearsal",
+           "questions": list(sizes[0]), "statement_pairs": list(sizes[1])}
+    rec["tvqa"] = {k: getattr(qopts, k) for k in (
+        "train_batch_size", "gradient_accumulation_steps", "learning_rate",
+        "lr_mul", "lw_st_ed", "num_answers", "max_txt_len", "sub_ctx_len",
+        "bucket_query_len", "val_batch_size")}
+    rec["violin"] = {k: getattr(vopts, k) for k in (
+        "train_batch_size", "gradient_accumulation_steps", "learning_rate",
+        "lr_mul", "max_txt_len", "sub_ctx_len", "val_batch_size")}
+    stage("write_stores")
+
+    def dataset(opts, task, pack=False):
+        if pack:
+            opts = types.SimpleNamespace(**dict(vars(opts), pack_subs=True))
+        video_db = common.load_video_sub_dataset(
+            opts, common.shapes_from_opts(opts))
+        mod = train_videoqa if task == "videoqa" else train_violin
+        make = (mod.videoqa_dataset if task == "videoqa"
+                else mod.violin_dataset)
+        return make(video_db, opts.train_query_txt_db, opts)
+
+    qds, vds = dataset(qopts, "videoqa"), dataset(vopts, "violin")
+    if not rehearse:
+        n = qopts.train_batch_size
+        rec.update(check_qa_program_kernels(
+            torch, cfg, qa_batch_of(qds, n),
+            build_batch(dataset(qopts, "videoqa", pack=True),
+                        list(range(n)), flatten_rows=True), kernels))
+        log("qa_program kernel checks passed")
+    stage("kernel_checks")
+    rec.update(qa_step_checks(torch, cfg, (qopts, qds), (vopts, vds), dev,
+                              "cpu" if rehearse else "cuda", "cpu"))
+    del qds, vds
+    if dev == "cuda":
+        # the fp32 steps' blocks stay cached in this process: hand them
+        # back before the programs' processes take the card
+        torch.cuda.empty_cache()
+    stage("step_checks")
+    env = dict(os.environ, HF_HUB_OFFLINE="1")
+
+    def run(cmd, what):
+        proc = subprocess.run(cmd, cwd=here, env=env, capture_output=True,
+                              text=True, timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        return proc
+
+    def train_run(cfg_path, name, stop_at, windows):
+        out = os.path.join(root, f"{name}.out.json")
+        run([sys.executable, "-c", PROGRAM_TRAIN_RUN, "train_videoqa",
+             cfg_path, out, dev, str(stop_at), json.dumps(windows)],
+            f"train_videoqa run {name}")
+        with open(out) as f:
+            res = json.load(f)
+        if not all(math.isfinite(x) for x in res["losses"]):
+            raise AssertionError(f"train_videoqa run {name}: losses "
+                                 f"{res['losses']}")
+        return res
+
+    def rate(marks, windows, per_step):
+        marks = {int(k): v for k, v in marks.items()}
+        ms = [1e3 * (marks[b] - marks[a]) for a, b in windows]
+        return ms, (sum(b - a for a, b in windows) * per_step
+                    / (1e-3 * sum(ms)))
+
+    def validation(out_dir, step, n):
+        with open(os.path.join(out_dir, f"val_results_{step}.json")) as f:
+            val = json.load(f)
+        if val["log"]["n_ex"] != n or len(val["results"]) != n:
+            raise AssertionError(f"val_results_{step}.json: {val['log']}")
+        return val
+
+    def vocab_padded(out_dir, step):
+        with np.load(os.path.join(out_dir, "ckpt",
+                                  f"model_step_{step}.npz")) as z:
+            if not bool(z["__vocab_padded__"]):
+                raise AssertionError("the model file lost the .pt's pad "
+                                     "marker")
+        return True
+
+    # TVQA run A: uninterrupted
+    out_a, out_b = (os.path.join(root, n) for n in ("a", "b"))
+    t_a = time.perf_counter()
+    res_a = train_run(cfg_a, "a", 0, PROGRAM_QA_WINDOWS)
+    rec["run_a_s"] = time.perf_counter() - t_a
+    if res_a["global_step"] != PROGRAM_QA_STEPS or len(
+            res_a["losses"]) != PROGRAM_QA_STEPS:
+        raise AssertionError(f"TVQA run A: {res_a['global_step']} steps")
+    rec["tvqa_losses"] = res_a["losses"]
+    per_step = qopts.train_batch_size * qopts.gradient_accumulation_steps
+    rec["tvqa_window_ms"], rec["tvqa_questions_per_s"] = rate(
+        res_a["marks"], PROGRAM_QA_WINDOWS, per_step)
+    n_val = sizes[0][1]
+    rec["tvqa_validation"] = [validation(out_a, s, n_val)["log"] for s in
+                              sorted({PROGRAM_QA_VALID_STEPS,
+                                      PROGRAM_QA_STEPS})]
+    rec["model_vocab_padded"] = vocab_padded(out_a, PROGRAM_QA_STEPS)
+    records_a = _records(out_a)
+    stage("tvqa_run_a")
+
+    # TVQA run B: SIGTERM after step 2, then the command line resumes it
+    t_b = time.perf_counter()
+    res_b = train_run(cfg_b, "b", PROGRAM_QA_SIGTERM_AT, ())
+    if res_b["global_step"] != PROGRAM_QA_SIGTERM_AT:
+        raise AssertionError(f"SIGTERM after step {PROGRAM_QA_SIGTERM_AT}: "
+                             f"main returned at {res_b['global_step']}")
+    records_b1 = _records(out_b)
+    if rehearse:
+        run([sys.executable, "-c", PROGRAM_TRAIN_RUN, "train_videoqa", cfg_b,
+             os.path.join(root, "b2.out.json"), dev, "0", "[]"], "resume")
+    else:
+        run([sys.executable, "-m", "hero_tpu_torch.drivers.train_videoqa",
+             "--config", cfg_b],
+            "python -m hero_tpu_torch.drivers.train_videoqa")
+    rec["run_b_s"] = time.perf_counter() - t_b
+    records_b2 = _records(out_b)
+    rec["restore_ms"] = records_b2["restore_ms"]
+    rec["saves"] = (_program_saves("run_a", records_a)
+                    + _program_saves("run_b_interrupted", records_b1)
+                    + _program_saves("run_b_resumed", records_b2))
+    stage("tvqa_run_b")
+    for name in (f"ckpt/model_step_{PROGRAM_QA_STEPS}.npz", "restore.npz"):
+        a = _npz(os.path.join(out_a, name))
+        b = _npz(os.path.join(out_b, name))
+        differ = sorted(k for k in a if k not in b or a[k].dtype
+                        != b[k].dtype or not np.array_equal(a[k], b[k]))
+        if differ or set(a) != set(b):
+            raise AssertionError(f"resumed {name} differs from the "
+                                 f"uninterrupted one at {differ[:5]}")
+    rec["resume_bit_equal"] = True
+    rec["resume_validation_equal"] = (
+        validation(out_b, PROGRAM_QA_STEPS, n_val)
+        == validation(out_a, PROGRAM_QA_STEPS, n_val))
+    if not rec["resume_validation_equal"]:
+        raise AssertionError("the resumed run's last validation differs")
+    shutil.rmtree(out_b)
+    for n in ("restore.npz", "restore_backup.npz"):
+        if os.path.exists(os.path.join(out_a, n)):
+            os.remove(os.path.join(out_a, n))      # disk for VIOLIN
+    stage("tvqa_compare")
+
+    # eval_videoqa in a subprocess on A's directory: A's last validation
+    cmd = ([sys.executable, "-c", PROGRAM_EVAL_CPU, "eval_videoqa"]
+           if rehearse
+           else [sys.executable, "-m", "hero_tpu_torch.drivers.eval_videoqa"])
+    t_e = time.perf_counter()
+    proc = run(cmd + ["--output_dir", out_a, "--checkpoint",
+                      str(PROGRAM_QA_STEPS)], "eval_videoqa")
+    rec["eval_videoqa_wall_s"] = time.perf_counter() - t_e
+    with open(os.path.join(out_a, f"qa_results_{PROGRAM_QA_STEPS}"
+                                  "_all.json")) as f:
+        answers = json.load(f)
+    printed = json.loads(proc.stdout.strip().splitlines()[-1])
+    val = validation(out_a, PROGRAM_QA_STEPS, n_val)
+    if answers != val["results"] or printed != val["log"]:
+        raise AssertionError(f"eval_videoqa {printed} differs from A's "
+                             f"step-{PROGRAM_QA_STEPS} validation "
+                             f"{val['log']}")
+    rec["eval_videoqa_equal"] = True
+    rec["eval_videoqa_log"] = printed
+    shutil.rmtree(out_a)
+    stage("eval_videoqa")
+
+    # VIOLIN: train_violin.main, then eval_violin.main, in this process
+    edges = {s for w in PROGRAM_VIOLIN_WINDOWS for s in w}
+    losses, marks = [], {}
+
+    def on_step(step, task, metrics):
+        losses.append(metrics["loss"].detach())
+        if step in edges:
+            sync()
+            marks[step] = time.perf_counter()
+
+    reset_counts()
+    t_v = time.perf_counter()
+    state = train_violin.main(vopts, device=dev, on_step=on_step,
+                              dtype=torch.float32 if rehearse
+                              else torch.bfloat16)
+    sync()
+    rec["violin_run_s"] = time.perf_counter() - t_v
+    violin_launches = read_counts()
+    losses = [float(x) for x in losses]
+    if state.global_step != PROGRAM_VIOLIN_STEPS or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_violin: {state.global_step} steps, "
+                             f"losses {losses}")
+    del state
+    rec["violin_losses"] = losses
+    per_step = vopts.train_batch_size * vopts.gradient_accumulation_steps
+    rec["violin_window_ms"], rec["violin_pairs_per_s"] = rate(
+        marks, PROGRAM_VIOLIN_WINDOWS, per_step)
+    out_vl = os.path.join(root, "violin")
+    rec["violin_saves"] = _program_saves("violin", _records(out_vl))
+    rec["violin_model_vocab_padded"] = vocab_padded(out_vl,
+                                                    PROGRAM_VIOLIN_STEPS)
+    stage("train_violin")
+    reset_counts()
+    sync()
+    t_i = time.perf_counter()
+    log_vl, results = eval_violin.main(
+        eval_violin.build_argparser().parse_args(
+            ["--output_dir", out_vl, "--checkpoint",
+             str(PROGRAM_VIOLIN_STEPS)]),
+        device=dev, dtype=torch.float32 if rehearse else torch.bfloat16)
+    sync()
+    rec["eval_violin_s"] = time.perf_counter() - t_i
+    eval_launches = read_counts()
+    val = validation(out_vl, PROGRAM_VIOLIN_STEPS, 2 * sizes[1][1])
+    if ({str(k): v for k, v in results.items()} != val["results"]
+            or log_vl != val["log"]):
+        raise AssertionError(f"eval_violin {log_vl} differs from its "
+                             f"step-{PROGRAM_VIOLIN_STEPS} validation "
+                             f"{val['log']}")
+    rec["eval_violin_equal"] = True
+    rec["eval_violin_log"] = log_vl
+    shutil.rmtree(out_vl)
+    stage("eval_violin")
+    return rec, {"qa_program": res_a["launches"],
+                 "violin_program": violin_launches,
+                 "violin_eval": eval_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4983,7 +5742,7 @@ def check_daln(torch, lnm, drop, n, d):
     split = kernel_ms_by_name(
         torch, lambda: lnm.dropout_add_layer_norm_bwd_cuda(
             y, x, w, g, rate, TRAIN_SEED),
-        {"rows": "layer_norm_bwd_rows", "reduce": "layer_norm_bwd_cols"})
+        SPLIT_PARTS["daln_bwd"], ["daln_bwd", n, d, rate, TRAIN_SEED])
     fwd_plain = time_ms(torch, lambda: lnm.dropout_add_layer_norm_reference(
         y, x, w, b, rate, TRAIN_SEED))
     bwd_plain = time_ms(torch, lambda:
@@ -5010,8 +5769,7 @@ def check_daln(torch, lnm, drop, n, d):
              "tol": min(bf["dy_tol"], bf["dx_tol"]), "ms": bwd_ms,
              "rate0_ms": bwd0,
              "plain_ms": bwd_plain, "bound_ms": bb, "bound_by": bby,
-             "chain_ms": bwd_chain, "row_pass_ms": split["rows"],
-             "reduce_ms": split["reduce"]})
+             "chain_ms": bwd_chain, **split})
 
 
 # #8/#9's work an element on the CUDA cores: ~10 fp32 operations forward
@@ -5148,7 +5906,7 @@ def check_component_kernels(torch, cfg, ds, kernels):
          "library_call": None,
          "chain": "autograd of nn.dropout, add, layer_norm: its backward",
          **{k: daln[0][1][k] for k in keys + ("chain_ms", "rate0_ms")
-            + SPLIT_KEYS},
+            + SPLIT_KEYS if k in daln[0][1]},
          "shapes": [b for _, b in daln]}]
 
 
@@ -5602,20 +6360,30 @@ def main(argv=None):
         vprog, vprog_paths = vcmr_program_phase(
             torch, here, cfg, main_root, pre_db, dev, sync, rehearse,
             record["kernels"] if not rehearse else None)
+        record["vcmr_program"] = vprog
+        mark("vcmr_program")
+        log(f"vcmr_program: {vprog['tvr_queries_per_s']:.1f} TVR and "
+            f"{vprog['vr_queries_per_s']:.1f} VR queries/s from disk, .pt "
+            f"loaded in {vprog['pt_load_ms']:.0f} ms, resumed run "
+            f"bit-equal, done at {time.perf_counter() - t_start:.1f} s")
+        # VideoQA and VIOLIN from the .pt vcmr_program wrote
+        qprog, qprog_paths = qa_program_phase(
+            torch, here, cfg, main_root, pre_db, dev, sync, rehearse,
+            record["kernels"] if not rehearse else None)
     finally:
         shutil.rmtree(main_root, ignore_errors=True)
-    for name, counts in vprog_paths.items():
-        needed = (PROGRAM_VCMR_EVAL_KERNELS if name == "vr_eval"
+    for name, counts in {**vprog_paths, **qprog_paths}.items():
+        needed = (PROGRAM_VCMR_EVAL_KERNELS if name.endswith("_eval")
                   else PROGRAM_VCMR_TRAIN_KERNELS)
         if not rehearse and min(counts[k] for k in needed) == 0:
             raise AssertionError(f"a kernel of {name} was never launched: "
                                  f"{counts}")
-    record["vcmr_program"] = vprog
-    mark("vcmr_program")
-    log(f"vcmr_program: {vprog['tvr_queries_per_s']:.1f} TVR and "
-        f"{vprog['vr_queries_per_s']:.1f} VR queries/s from disk, .pt "
-        f"loaded in {vprog['pt_load_ms']:.0f} ms, resumed run bit-equal, "
-        f"done at {time.perf_counter() - t_start:.1f} s")
+    record["qa_program"] = qprog
+    mark("qa_program")
+    log(f"qa_program: {qprog['tvqa_questions_per_s']:.1f} TVQA questions/s "
+        f"and {qprog['violin_pairs_per_s']:.1f} VIOLIN pairs/s from disk, "
+        f"resumed run bit-equal, done at "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     # serving in full: packed queries, the chunked corpus, the program
     full, full_paths = serving_full_phase(
@@ -5651,6 +6419,10 @@ def main(argv=None):
                              f"launched: {comp_launches}")
     record["components"] = comps
     mark("components")
+    if not rehearse:
+        record["splits_traced_again"] = resolve_pending_splits(record, here)
+        log(f"{record['splits_traced_again']} LayerNorm rows traced again "
+            f"in a fresh process")
     record["total_s"] = time.perf_counter() - t_start
 
     if args.json_out:
@@ -5767,6 +6539,30 @@ def main(argv=None):
         if k in vprog} | {"launches": {
             name: {k: c[k] for k in list(c)[:7]}
             for name, c in vprog_paths.items()}}}))
+    print(json.dumps({"qa_program": {
+        k: qprog[k] for k in (
+            "tvqa_questions_per_s", "violin_pairs_per_s", "tvqa_window_ms",
+            "violin_window_ms", "tvqa", "violin", "questions",
+            "statement_pairs", "tvqa_losses", "violin_losses",
+            "f_encoder_rows", "c_encoder_rows", "packed_rows", "ln_rows",
+            "model_vocab_padded", "violin_model_vocab_padded", "saves",
+            "violin_saves", "restore_ms", "resume_bit_equal",
+            "resume_validation_equal", "tvqa_validation",
+            "eval_videoqa_wall_s", "eval_videoqa_equal", "eval_videoqa_log",
+            "eval_violin_s", "eval_violin_equal", "eval_violin_log",
+            "run_a_s", "run_b_s", "violin_run_s", "stage_s",
+            "free_bytes_before")
+        if k in qprog}
+        | {"fp32": {t: {k: r[k] for k in (
+            "loss_rel_err", "worst_grad_err_over_tol",
+            "worst_param_err_over_tol", "ok")}
+            for t, r in qprog["fp32"].items()},
+           "bf16_step": {t: {k: r[k] for k in (
+               "loss", "loss_kernel_vs_plain", "loss_tol",
+               "worst_grad_err_over_tol")}
+               for t, r in qprog["bf16_step"].items()},
+           "launches": {name: {k: c[k] for k in list(c)[:7]}
+                        for name, c in qprog_paths.items()}}}))
     print(json.dumps({"serving_full": {
         "packed": full["packed"], "packed_fp32": full["packed_fp32"],
         "chunked": full["chunked"], "chunked_fp32": full["chunked_fp32"],
@@ -5783,7 +6579,8 @@ def main(argv=None):
              "tvc": tvc_launches, "tvc_train": tt_launches,
              "pretrain": pre_launches, "pretrain_main": pmain_launches,
              "tvc_program": tprog_train, "tvc_program_inf": tprog_inf,
-             **vprog_paths, **full_paths, "components": comp_launches}
+             **vprog_paths, **qprog_paths, **full_paths,
+             "components": comp_launches}
     kernels = [{k: row[k] for k in (
         "name", "route", "source", "replaces", "tpu_kernel", "shape", "dtype",
         "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",

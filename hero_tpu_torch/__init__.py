@@ -8,7 +8,10 @@ the JAX package's file layout: ``python -m hero_tpu_torch.drivers.pretrain
 --config <json>``), VCMR and VR finetuning as programs (``python -m
 hero_tpu_torch.drivers.train_vcmr --config <json>`` for TVR, How2R and
 DiDeMo, ``drivers.train_vr`` for MSR-VTT, with subtitles or video-only),
-and TVC finetuning and captioning as programs (``python -m
+VideoQA and VIOLIN finetuning and inference as programs (``python -m
+hero_tpu_torch.drivers.train_videoqa --config <json>`` for TVQA and
+How2QA, ``drivers.train_violin``, ``drivers.eval_videoqa`` and
+``drivers.eval_violin``), and TVC finetuning and captioning as programs (``python -m
 hero_tpu_torch.drivers.train_tvc --config <json>``, ``python -m
 hero_tpu_torch.drivers.inf_tvc --output_dir D --checkpoint N``, scored by
 ``evaluation.caption_metrics``).  Every program starts from a JAX-layout

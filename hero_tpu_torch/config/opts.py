@@ -1,5 +1,5 @@
-"""Options: argparse plus a JSON config (a copy of the pretraining, VCMR
-and TVC parts of ``hero_tpu/config/opts.py``).
+"""Options: argparse plus a JSON config (a copy of the pretraining, VCMR,
+VideoQA, VIOLIN and TVC parts of ``hero_tpu/config/opts.py``).
 
 ``--config`` names a JSON file; each of its keys becomes an attribute
 unless the same flag was given on the command line (the command line
@@ -149,6 +149,21 @@ def get_vcmr_args(argv=None):
 
 
 get_vr_args = get_vcmr_args
+
+
+def get_videoqa_args(argv=None):
+    p = base_parser("HERO VideoQA finetuning (TVQA/How2QA)")
+    add_eval_args(p)
+    p.add_argument("--task", default="tvqa", type=str)
+    p.add_argument("--lw_st_ed", default=0.4, type=float)
+    p.add_argument("--num_answers", default=5, type=int)
+    return parse_with_config(p, argv)
+
+
+def get_violin_args(argv=None):
+    p = base_parser("HERO VIOLIN finetuning")
+    p.add_argument("--task", default="violin", type=str)
+    return parse_with_config(p, argv)
 
 
 def get_tvc_args(argv=None):

@@ -13,7 +13,11 @@ read into the port's tree or named in :data:`UNUSED_JAX_KEYS` (the
 pretraining tree: the two poolers; with ``heads=False`` also
 :data:`TASK_HEAD_JAX_KEYS`) or :data:`UNUSED_TVC_JAX_KEYS`
 (``init_hero_for_tvc``'s tree, :func:`load_jax_tvc_params`, which reads
-the LM head of the task heads).
+the LM head of the task heads).  The VideoQA and VIOLIN trees
+(:func:`load_jax_videoqa_params`, :func:`load_jax_violin_params`) hold
+the whole backbone, the pretraining task heads included, which no loss
+of theirs reads but the AdamW step decays, and their own heads; only
+the poolers stay unread.
 
 The map is linear (transpose, concatenation, per-layer split), so it
 carries any tree shaped like the parameters: AdamW's ``mu`` and ``nu``
@@ -21,12 +25,12 @@ carries any tree shaped like the parameters: AdamW's ``mu`` and ``nu``
 gradients (the tests compare the port's with ``jax.grad``'s through it).
 
 The map is also a permutation of elements, which gives its inverse
-(:func:`to_jax_params`, :func:`to_jax_train_state`, and for the TVC tree
-:func:`to_jax_tvc_params`, :func:`to_jax_tvc_train_state`; what the
-port's checkpoints write): the forward map run over element numbers
-instead of values says where each element of the port's tree sits in
-the JAX layout, and one scatter on the tensors' device puts it back
-there.
+(:func:`to_jax_params`, :func:`to_jax_train_state`, and for the TVC,
+VideoQA and VIOLIN trees ``to_jax_{tvc,videoqa,violin}_params`` and
+``..._train_state``; what the port's checkpoints write): the forward
+map run over element numbers instead of values says where each element
+of the port's tree sits in the JAX layout, and one scatter on the
+tensors' device puts it back there.
 
 The inverse takes a ``template``, the flat JAX tree the run started from
 (its init or checkpoint): the keys the port does not hold (the two
@@ -212,6 +216,31 @@ def _tvc_tree(get: Getter) -> Dict[str, Any]:
     }
 
 
+def _mlp(get: Getter, key: str) -> Dict[str, Any]:
+    return {"linear_1": _linear(get, f"{key}/linear_1"),
+            "ln": _ln(get, f"{key}/ln"),
+            "linear_2": _linear(get, f"{key}/linear_2")}
+
+
+def _head_tree(pools: Tuple[str, ...], mlps: Tuple[str, ...]):
+    """The tree builder of a task whose ``head`` holds the bias-free
+    linears ``pools`` and the MLP layers ``mlps`` beside the whole
+    backbone (the pretraining task heads included)."""
+    def tree(get: Getter) -> Dict[str, Any]:
+        head = {p: _linear(get, f"head/{p}", bias=False) for p in pools}
+        head.update({m: _mlp(get, f"head/{m}") for m in mlps})
+        return {"v_encoder": _v_encoder(get, lm_head=True, task_heads=True),
+                "head": head}
+    return tree
+
+
+# ``init_hero_for_videoqa`` / ``init_hero_for_violin``
+# (``hero_tpu/models/videoqa.py:32-43``, ``violin.py:26-35``)
+_videoqa_tree = _head_tree(("qa_pool", "st_ed_pool"),
+                           ("qa_pred_head", "st_ed_pred_head"))
+_violin_tree = _head_tree(("violin_pool",), ("violin_pred_head",))
+
+
 def convert(flat: Mapping[str, np.ndarray], device="cuda",
             tree: Callable[[Getter], Dict[str, Any]] = _port_tree
             ) -> Tuple[Dict[str, Any], Set[str]]:
@@ -264,6 +293,23 @@ def load_jax_tvc_params(flat: Mapping[str, np.ndarray], device="cuda"
     return _load(flat, device, _tvc_tree, UNUSED_TVC_JAX_KEYS)
 
 
+def load_jax_videoqa_params(flat: Mapping[str, np.ndarray], device="cuda"
+                            ) -> Dict[str, Any]:
+    """The port's fp32 VideoQA tree from the flat parameters of
+    ``init_hero_for_videoqa``: the backbone with every pretraining task
+    head, and ``head`` with ``qa_pool``, ``qa_pred_head``,
+    ``st_ed_pool`` and ``st_ed_pred_head``.  Raises KeyError if a key
+    is missing or not accounted for (:data:`UNUSED_JAX_KEYS`)."""
+    return _load(flat, device, _videoqa_tree, UNUSED_JAX_KEYS)
+
+
+def load_jax_violin_params(flat: Mapping[str, np.ndarray], device="cuda"
+                           ) -> Dict[str, Any]:
+    """:func:`load_jax_videoqa_params` for ``init_hero_for_violin``'s
+    tree: ``head`` with ``violin_pool`` and ``violin_pred_head``."""
+    return _load(flat, device, _violin_tree, UNUSED_JAX_KEYS)
+
+
 def _train_state(load, flat_params, flat_mu, flat_nu, opt_step,
                  global_step, device, **kw):
     from hero_tpu_torch.training.optim import AdamWState
@@ -299,6 +345,22 @@ def load_jax_tvc_train_state(flat_params: Mapping[str, np.ndarray],
     moments, so a step of each package starts from one state."""
     return _train_state(load_jax_tvc_params, flat_params, flat_mu, flat_nu,
                         opt_step, global_step, device)
+
+
+def load_jax_videoqa_train_state(flat_params, flat_mu, flat_nu,
+                                 opt_step: int, global_step: int,
+                                 device="cuda"):
+    """:func:`load_jax_train_state` for the VideoQA tree."""
+    return _train_state(load_jax_videoqa_params, flat_params, flat_mu,
+                        flat_nu, opt_step, global_step, device)
+
+
+def load_jax_violin_train_state(flat_params, flat_mu, flat_nu,
+                                opt_step: int, global_step: int,
+                                device="cuda"):
+    """:func:`load_jax_train_state` for the VIOLIN tree."""
+    return _train_state(load_jax_violin_params, flat_params, flat_mu,
+                        flat_nu, opt_step, global_step, device)
 
 
 def _layout(template: Mapping[str, np.ndarray], device,
@@ -428,3 +490,29 @@ def to_jax_tvc_train_state(state, template: Mapping[str, np.ndarray]
     :data:`UNUSED_TVC_JAX_KEYS` from ``template``, with zero moments."""
     return _to_jax_train_state(state, template, _tvc_tree,
                                UNUSED_TVC_JAX_KEYS)
+
+
+def to_jax_videoqa_params(params, template: Mapping[str, np.ndarray]
+                          ) -> Dict[str, np.ndarray]:
+    """:func:`to_jax_params` for the VideoQA tree (inverse of
+    :func:`load_jax_videoqa_params`): the poolers are ``template``'s."""
+    return _to_jax_params(params, template, _videoqa_tree, UNUSED_JAX_KEYS)
+
+
+def to_jax_videoqa_train_state(state, template: Mapping[str, np.ndarray]):
+    """:func:`to_jax_train_state` for the VideoQA tree."""
+    return _to_jax_train_state(state, template, _videoqa_tree,
+                               UNUSED_JAX_KEYS)
+
+
+def to_jax_violin_params(params, template: Mapping[str, np.ndarray]
+                         ) -> Dict[str, np.ndarray]:
+    """:func:`to_jax_params` for the VIOLIN tree (inverse of
+    :func:`load_jax_violin_params`)."""
+    return _to_jax_params(params, template, _violin_tree, UNUSED_JAX_KEYS)
+
+
+def to_jax_violin_train_state(state, template: Mapping[str, np.ndarray]):
+    """:func:`to_jax_train_state` for the VIOLIN tree."""
+    return _to_jax_train_state(state, template, _violin_tree,
+                               UNUSED_JAX_KEYS)

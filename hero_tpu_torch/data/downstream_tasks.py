@@ -8,6 +8,14 @@ inputs give the same arrays).
   span targets for VCMR.
 - :class:`VcmrFullEvalDataset`: the queries of the two-phase corpus
   evaluation, in fixed-size batches (``batches``).
+- :class:`VideoQaDataset`: TVQA/How2QA, one question an item with a row
+  a candidate answer, the ``[SEP] q [SEP] a`` tokens appended to every
+  sub's text (:func:`_append_txt_to_subs`, or each packed segment's copy
+  through ``video_item(vid, append_ids=...)``) and fed to the temporal
+  stage, with the answer and span targets.
+- :class:`ViolinDataset`: VIOLIN, one statement pair (``_0`` / ``_1``,
+  :func:`get_paired_statement_id`) an item, each statement appended to
+  the subs the same way, with 0/1 targets.
 - :class:`TvcCaptionStore`: a TVC caption store on disk, ``cap.db`` (one
   record a caption) and optionally ``clip.db`` (one record a clip, with
   its ground-truth texts) as herostore databases, with ``meta.json``'s
@@ -40,7 +48,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from hero_tpu_torch.data.store import HeroStore, _load_json
-from hero_tpu_torch.data.video import pad_query
+from hero_tpu_torch.data.video import FixedShapes, pad_query
 
 
 def get_st_ed_label(ts, max_idx: int, frame_interval: float,
@@ -222,6 +230,142 @@ class VcmrFullEvalDataset:
                 "query_input_ids": ids,
                 "query_attn_masks": masks,
             }
+
+
+class VideoQaDataset:
+    """TVQA/How2QA (reference data/videoQA.py:21-199;
+    ``hero_tpu/data/downstream_tasks.py:178-237``).  An item is one
+    question with a leading answer axis (A rows: the video once per
+    candidate answer, each with ``[SEP] q [SEP] a`` appended to its subs
+    and in ``qa_input_ids``), which ``build_batch(flatten_rows=True)``
+    merges into the batch axis; ``targets`` the answer index (-1 without
+    one) and ``ts_targets`` the frame span of ``ts`` ((-1, -1) without
+    one)."""
+
+    def __init__(self, qids, video_db, query_db, qa_len: int = 40):
+        self.video_db = video_db
+        self.query_db = query_db
+        self.qids = list(qids)
+        self.qa_len = qa_len
+        self.frame_interval = video_db.img_db.frame_interval
+
+    def __len__(self):
+        return len(self.qids)
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        qid = self.qids[i]
+        vid = self.query_db.query2video[qid]
+        ex = self.query_db[qid]
+        nframes = self.video_db.nframes(vid)
+        packed = getattr(self.video_db, "pack", False)
+        # pack mode re-packs per answer (unit length = sub + qa text, so
+        # placements depend on the qa length); unpacked copies one base
+        base = None if packed else self.video_db.video_item(vid)
+        input_ids = ex["input_ids"]
+        q_ids, answers = input_ids[0], input_ids[1:]
+        A = len(answers)
+        sp = self.video_db.shapes
+        rows = []
+        qa_input_ids = np.full((A, self.qa_len), self.query_db.pad,
+                               np.int32)
+        qa_attn_masks = np.zeros((A, self.qa_len), np.float32)
+        for a_i, a_ids in enumerate(answers):
+            qa = ([self.query_db.sep] + list(q_ids)
+                  + [self.query_db.sep] + list(a_ids))
+            ids, m = pad_query(qa, self.qa_len, self.query_db.pad)
+            qa_input_ids[a_i] = ids
+            qa_attn_masks[a_i] = m
+            if packed:
+                rows.append(self.video_db.video_item(vid, append_ids=qa))
+            else:
+                rows.append(_append_txt_to_subs(base, qa, sp,
+                                                self.query_db.pad))
+        item = {k: np.stack([r[k] for r in rows]) for k in rows[0]
+                if not k.startswith("__")}  # __pack_map is host metadata
+        item["qa_input_ids"] = qa_input_ids
+        item["qa_attn_masks"] = qa_attn_masks
+        item["targets"] = np.asarray(
+            ex["target"] if ex.get("target") is not None else -1, np.int32)
+        if ex.get("ts") is not None:
+            st, ed = get_st_ed_label(ex["ts"], nframes - 1,
+                                     self.frame_interval)
+            item["ts_targets"] = np.asarray([st, ed], np.int32)
+        else:
+            item["ts_targets"] = np.asarray([-1, -1], np.int32)
+        item["__qid__"] = qid
+        item["__vid__"] = vid
+        return item
+
+
+def _append_txt_to_subs(base: Dict[str, np.ndarray], extra_ids: List[int],
+                        sp: FixedShapes, pad: int) -> Dict[str, np.ndarray]:
+    """Append query/statement tokens to every valid sub row's text
+    (reference videoQA.py:93-115 / violin.py:69-85), truncating at Lt."""
+    out = {k: v.copy() for k, v in base.items()}
+    for row in range(sp.n_subs):
+        if base["sub_mask"][row] == 0:
+            continue
+        used = int(base["sub_txt_mask"][row].sum())
+        room = sp.txt_len - used
+        take = extra_ids[:room]
+        out["sub_input_ids"][row, used:used + len(take)] = take
+        out["sub_txt_mask"][row, used:used + len(take)] = 1.0
+    return out
+
+
+def get_paired_statement_id(qid: str) -> str:
+    """VIOLIN pos/neg pairing by suffix flip (reference violin.py:20-24)."""
+    if qid.endswith("_0"):
+        return qid[:-2] + "_1"
+    return qid[:-2] + "_0"
+
+
+class ViolinDataset:
+    """VIOLIN entailment (reference data/violin.py:27-170;
+    ``hero_tpu/data/downstream_tasks.py:263-304``).  An item is the
+    statement and its pair (leading axis 2): the video once per
+    statement with ``[SEP] s`` appended to its subs and in
+    ``q_input_ids``, ``targets`` 1 for a true statement, else 0, and the
+    host list ``__qids__``."""
+
+    def __init__(self, qids, video_db, query_db, stmt_len: int = 40):
+        self.video_db = video_db
+        self.query_db = query_db
+        self.stmt_len = stmt_len
+        self.qids = list(qids)
+
+    def __len__(self):
+        return len(self.qids)
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        qid = self.qids[i]
+        qids = [qid, get_paired_statement_id(qid)]
+        vid = self.query_db.query2video[qids[0]]
+        packed = getattr(self.video_db, "pack", False)
+        base = None if packed else self.video_db.video_item(vid)
+        sp = self.video_db.shapes
+        rows, stmts, masks, targets = [], [], [], []
+        for q in qids:
+            ex = self.query_db[q]
+            stmt = [self.query_db.sep] + list(ex["input_ids"])
+            ids, m = pad_query(stmt, self.stmt_len, self.query_db.pad)
+            stmts.append(ids)
+            masks.append(m)
+            targets.append(1 if ex.get("target") else 0)
+            if packed:
+                rows.append(self.video_db.video_item(vid,
+                                                     append_ids=stmt))
+            else:
+                rows.append(_append_txt_to_subs(base, stmt, sp,
+                                                self.query_db.pad))
+        item = {k: np.stack([r[k] for r in rows]) for k in rows[0]
+                if not k.startswith("__")}  # __pack_map is host metadata
+        item["q_input_ids"] = np.stack(stmts)
+        item["q_attn_masks"] = np.stack(masks)
+        item["targets"] = np.asarray(targets, np.int32)
+        item["__qids__"] = qids
+        item["__vid__"] = vid
+        return item
 
 
 class TvcCaptionStore:

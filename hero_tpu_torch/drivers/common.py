@@ -13,6 +13,7 @@ loop returns; the loss is logged every ``LOG_EVERY`` steps.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
@@ -39,8 +40,11 @@ from hero_tpu_torch.training import save as save_lib
 from hero_tpu_torch.training.optim import AdamWConfig
 from hero_tpu_torch.training.save import (flatten_tree, load_params,
                                           unflatten_tree)
-from hero_tpu_torch.training.step import TrainSpec
-from hero_tpu_torch.utils.logger import NoOp, RunningMeter, ScalarWriter
+from hero_tpu_torch.training.step import TrainSpec, TrainState
+from hero_tpu_torch.utils.logger import LOGGER as PACKAGE_LOGGER
+from hero_tpu_torch.utils.logger import (NoOp, RunningMeter, ScalarWriter,
+                                         add_log_to_file)
+from hero_tpu_torch.utils.misc import set_random_seed
 
 LOGGER = logging.getLogger(__name__)
 
@@ -311,6 +315,85 @@ def write_checkpoint_records(output_dir: str, saver, restorer) -> None:
         json.dump({"restore_ms": restorer.restore_ms,
                    "model": saver.records,
                    "restore": restorer.records}, f, indent=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Finetune:
+    """What sets one finetuning program apart, made by its ``prepare(cfg,
+    device)`` once the stores are open: ``init(info)``, the flat JAX-layout
+    parameters a fresh run starts from (the checkpoint's vocab-pad
+    decision to ``info["vocab_padded"]``); ``load(flat, device=)``, their
+    bridge to the device; ``step_fn`` as :func:`run_training`'s;
+    ``batches(taken)``, the (task, numpy micro-batch) iterator past the
+    ``taken`` micro-batches that a resumed run's steps took;
+    ``validate(state, step)``; and ``extras_fn`` as
+    :func:`run_training`'s."""
+    init: Callable
+    load: Callable
+    step_fn: Callable
+    batches: Callable
+    validate: Callable
+    extras_fn: Optional[Callable] = None
+
+
+def run_finetune(opts, prepare: Callable, *, tree: str = "pretrain",
+                 device="cuda", on_step: Optional[Callable] = None):
+    """A finetuning program's run on one ``device``: ``output_dir`` with
+    ``log/`` (``hps.json``, ``log.txt``, ``scalars.jsonl``,
+    ``checkpoints.json``: each checkpoint's copy and write ms and bytes),
+    ``ckpt/model_step_N.npz`` (marked ``__vocab_padded__`` when the
+    checkpoint's pad decision is known) and ``restore.npz``, resumed from
+    when present.  ``prepare(cfg, device)`` opens the stores and returns
+    the program's :class:`Finetune`; ``tree`` is the parameter tree
+    (``training/save.TREES``) the checkpoints hold.  ``on_step`` as
+    :func:`run_training`'s.  Returns the final train state.
+    ``--pp_stages`` > 1 raises before any work (ROADMAP A8)."""
+    check_one_device(opts)
+    device = resolve_device(device)
+    set_random_seed(opts.seed)
+    os.makedirs(opts.output_dir, exist_ok=True)
+    save_lib.save_training_meta(opts.output_dir, vars(opts),
+                                {"model_config": opts.model_config})
+    log_file = add_log_to_file(os.path.join(opts.output_dir, "log",
+                                            "log.txt"))
+    ckpt_writer = save_lib.AsyncCheckpointWriter()   # I/O off the loop
+    saver = restorer = None
+    try:
+        cfg = model_config_from_opts(opts)
+        job = prepare(cfg, device)
+        restorer = save_lib.TrainingRestorer(
+            opts.output_dir, {"num_train_steps": opts.num_train_steps,
+                              "learning_rate": opts.learning_rate},
+            writer=ckpt_writer, tree=tree)
+        ckpt_info: Dict = {}
+        if restorer.can_restore():
+            # the restored parameters are the template: no init needed
+            state = restorer.restore(device)
+            if getattr(opts, "checkpoint", None):
+                ckpt_info["vocab_padded"] = checkpoint_vocab_padded(
+                    opts.checkpoint, cfg.f_config.vocab_size)
+        else:
+            restorer.template = job.init(ckpt_info)
+            state = TrainState.create(job.load(restorer.template,
+                                               device=device))
+        saver = save_lib.ModelSaver(
+            os.path.join(opts.output_dir, "ckpt"), restorer.template,
+            vocab_padded=ckpt_info.get("vocab_padded"), writer=ckpt_writer,
+            tree=tree)
+        taken = state.global_step * max(opts.gradient_accumulation_steps, 1)
+        return run_training(opts, job.step_fn, state, job.batches(taken),
+                            extras_fn=job.extras_fn,
+                            validate_fn=job.validate, saver=saver,
+                            restorer=restorer, device=device,
+                            on_step=on_step)
+    finally:
+        try:
+            ckpt_writer.close()
+        finally:
+            if saver is not None:
+                write_checkpoint_records(opts.output_dir, saver, restorer)
+            PACKAGE_LOGGER.removeHandler(log_file)
+            log_file.close()
 
 
 LOG_EVERY = 100           # optimizer steps between loss log lines

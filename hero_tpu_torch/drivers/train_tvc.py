@@ -53,13 +53,8 @@ from hero_tpu_torch.evaluation import caption_metrics as cm
 from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
 from hero_tpu_torch.models import nn
 from hero_tpu_torch.models import tvc as tvc_lib
-from hero_tpu_torch.training.save import (AsyncCheckpointWriter, ModelSaver,
-                                          TrainingRestorer,
-                                          save_training_meta)
 from hero_tpu_torch.training.step import TrainState, make_train_step
-from hero_tpu_torch.utils.logger import (LOGGER, add_log_to_file,
-                                         configure_stdout)
-from hero_tpu_torch.utils.misc import set_random_seed
+from hero_tpu_torch.utils.logger import LOGGER, configure_stdout
 
 TRAIN_TVC_JSON = (Path(__file__).resolve().parents[2] / "config"
                   / "train-tvc.json")
@@ -195,13 +190,11 @@ def init_params(opts, cfg: HeroConfig, info: Optional[Dict] = None
 def main(opts, device="cuda", on_step: Optional[Callable] = None,
          dtype: torch.dtype = torch.bfloat16) -> TrainState:
     """Finetune TVC as ``opts`` says (``hero_tpu/drivers/train_tvc.py:
-    33-143``) on ``device``: ``output_dir`` with ``log/`` (``hps.json``,
-    ``log.txt``, ``scalars.jsonl``, ``checkpoints.json``: each
-    checkpoint's copy and write ms and bytes), ``ckpt/model_step_N.npz``,
-    ``restore.npz`` (resumed from when present: the batches the steps
-    before took are skipped) and ``tvc_gen_{step}.jsonl`` at every
-    validation.  The step computes in ``dtype`` (bf16, as the JAX
-    program; the caption-only validation decodes in it too) on fp32
+    33-143``) on ``device`` (:func:`common.run_finetune`: ``output_dir``
+    with ``log/``, ``ckpt/`` and ``restore.npz``), with
+    ``tvc_gen_{step}.jsonl`` at every validation.  The step computes in
+    ``dtype`` (bf16, as the JAX program; the caption-only validation
+    decodes in it too) on fp32
     parameters; clip validation decodes in fp32.  Parameters the
     checkpoint lacks take the port's numpy-seeded init
     (:func:`init_params`), not ``jax.random.PRNGKey(seed)``'s, so a
@@ -209,51 +202,19 @@ def main(opts, device="cuda", on_step: Optional[Callable] = None,
     ``on_step`` as :func:`common.run_training`'s.  Returns the final
     train state.  ``--pp_stages`` > 1 raises before any work (ROADMAP
     A8)."""
-    common.check_one_device(opts)
-    device = resolve_device(device)
-    set_random_seed(opts.seed)
-    os.makedirs(opts.output_dir, exist_ok=True)
-    save_training_meta(opts.output_dir, vars(opts),
-                       {"model_config": opts.model_config})
-    log_file = add_log_to_file(os.path.join(opts.output_dir, "log",
-                                            "log.txt"))
-    ckpt_writer = AsyncCheckpointWriter()   # file I/O off the train loop
-    saver = restorer = None
-    try:
-        hps = vars(opts)
+    hps = vars(opts)
+
+    def prepare(cfg, device):
+        if cfg.d_config is None:
+            raise ValueError("TVC model_config must carry d_config")
         video_db = common.load_video_sub_dataset(
             opts, common.shapes_from_opts(opts))
         cap_db = TvcCaptionStore(opts.cap_db, max_txt_len=opts.max_txt_len)
         train_ds = tvc_train_dataset(video_db, cap_db, hps)
         LOGGER.info("tvc train: %d videos, %d caps each", len(train_ds),
                     train_ds.caps_per_video)
-        cfg = common.model_config_from_opts(opts)
-        if cfg.d_config is None:
-            raise ValueError("TVC model_config must carry d_config")
-        restorer = TrainingRestorer(
-            opts.output_dir, {"num_train_steps": opts.num_train_steps,
-                              "learning_rate": opts.learning_rate},
-            writer=ckpt_writer, tree="tvc")
-        ckpt_info: Dict = {}
-        if restorer.can_restore():
-            # the restored parameters are the template: no init needed
-            state = restorer.restore(device)
-            if getattr(opts, "checkpoint", None):
-                ckpt_info["vocab_padded"] = common.checkpoint_vocab_padded(
-                    opts.checkpoint, cfg.f_config.vocab_size)
-        else:
-            restorer.template = init_params(opts, cfg, info=ckpt_info)
-            state = TrainState.create(load_jax_tvc_params(
-                restorer.template, device=device))
-        saver = ModelSaver(os.path.join(opts.output_dir, "ckpt"),
-                           restorer.template,
-                           vocab_padded=ckpt_info.get("vocab_padded"),
-                           writer=ckpt_writer, tree="tvc")
-        step_fn = make_tvc_train_step(cfg, hps, dtype)
-        # a resumed run skips the batches the steps before took
-        taken = state.global_step * max(opts.gradient_accumulation_steps, 1)
 
-        def batches():
+        def batches(taken):
             it = dataset_iterator(train_ds, build_tvc_batch,
                                   opts.train_batch_size, seed=opts.seed)
             it.skip(taken)
@@ -286,19 +247,14 @@ def main(opts, device="cuda", on_step: Optional[Callable] = None,
             LOGGER.info("[step %d] wrote %d captions to %s - %s", step,
                         len(gen), path, scores)
 
-        return common.run_training(opts, step_fn, state, batches(),
-                                   validate_fn=validate, saver=saver,
-                                   restorer=restorer, device=device,
-                                   on_step=on_step)
-    finally:
-        try:
-            ckpt_writer.close()
-        finally:
-            if saver is not None:
-                common.write_checkpoint_records(opts.output_dir, saver,
-                                                restorer)
-            LOGGER.removeHandler(log_file)
-            log_file.close()
+        return common.Finetune(
+            init=lambda info: init_params(opts, cfg, info=info),
+            load=load_jax_tvc_params,
+            step_fn=make_tvc_train_step(cfg, hps, dtype),
+            batches=batches, validate=validate)
+
+    return common.run_finetune(opts, prepare, tree="tvc", device=device,
+                               on_step=on_step)
 
 
 def cli():

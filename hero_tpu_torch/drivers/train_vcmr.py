@@ -22,12 +22,11 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Callable, Dict, Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from hero_tpu_torch import resolve_device
 from hero_tpu_torch.config import opts as opts_lib
 from hero_tpu_torch.config.model_config import HeroConfig
 from hero_tpu_torch.convert.from_jax import load_jax_params
@@ -41,13 +40,8 @@ from hero_tpu_torch.drivers import common, pretrain
 from hero_tpu_torch.evaluation.vcmr_eval import validate_full_vcmr
 from hero_tpu_torch.models import vcmr as vcmr_lib
 from hero_tpu_torch.models.pretrain import VsmConfig
-from hero_tpu_torch.training.save import (AsyncCheckpointWriter, ModelSaver,
-                                          TrainingRestorer,
-                                          save_training_meta)
 from hero_tpu_torch.training.step import TrainState, make_train_step
-from hero_tpu_torch.utils.logger import (LOGGER, add_log_to_file,
-                                         configure_stdout)
-from hero_tpu_torch.utils.misc import set_random_seed
+from hero_tpu_torch.utils.logger import LOGGER, configure_stdout
 
 
 def build_eval_inputs(video_db, query_db, opts):
@@ -116,14 +110,12 @@ def main(opts, *, dataset_cls=VcmrDataset, query_store_cls=QueryTokStore,
          device="cuda", on_step: Optional[Callable] = None,
          dtype: torch.dtype = torch.bfloat16) -> TrainState:
     """Finetune VCMR as ``opts`` says (``hero_tpu/drivers/train_vcmr.py:
-    85-183``) on ``device``: ``output_dir`` with ``log/`` (``hps.json``,
-    ``log.txt``, ``scalars.jsonl``, ``checkpoints.json``: each
-    checkpoint's copy and write ms and bytes), ``ckpt/model_step_N.npz``,
-    ``restore.npz`` (resumed from when present: the batches the steps
-    before took are skipped) and ``results_{step}_all.json`` at every
-    validation.  One query a training item (``dataset_cls(...,
-    sampled_by_q=True)``).  The step and the validation compute in
-    ``dtype`` (bf16, as the JAX program) on fp32 parameters.
+    85-183``) on ``device`` (:func:`common.run_finetune`: ``output_dir``
+    with ``log/``, ``ckpt/`` and ``restore.npz``), with
+    ``results_{step}_all.json`` at every validation.  One query a
+    training item (``dataset_cls(..., sampled_by_q=True)``).  The step
+    and the validation compute in ``dtype`` (bf16, as the JAX program) on
+    fp32 parameters.
     ``dataset_cls`` / ``query_store_cls`` select the VR variant
     (``drivers/train_vr``).  The parameters are the pretraining tree
     (``drivers/pretrain.init_params``: the checkpoint over the port's
@@ -133,17 +125,7 @@ def main(opts, *, dataset_cls=VcmrDataset, query_store_cls=QueryTokStore,
     ``on_step`` as :func:`common.run_training`'s.  Returns the final
     train state.  ``--pp_stages`` > 1 raises before any work (ROADMAP
     A8)."""
-    common.check_one_device(opts)
-    device = resolve_device(device)
-    set_random_seed(opts.seed)
-    os.makedirs(opts.output_dir, exist_ok=True)
-    save_training_meta(opts.output_dir, vars(opts),
-                       {"model_config": opts.model_config})
-    log_file = add_log_to_file(os.path.join(opts.output_dir, "log",
-                                            "log.txt"))
-    ckpt_writer = AsyncCheckpointWriter()   # file I/O off the train loop
-    saver = restorer = None
-    try:
+    def prepare(cfg, device):
         shapes = common.shapes_from_opts(opts).replace(n_queries=1)
         video_db = common.load_task_video_dataset(opts, shapes)
         if common.is_video_only_task(getattr(opts, "task", "tvr")):
@@ -156,36 +138,9 @@ def main(opts, *, dataset_cls=VcmrDataset, query_store_cls=QueryTokStore,
                                sampled_by_q=True, seed=opts.seed)
         LOGGER.info("train: %d queries over %d videos", len(train_ds),
                     len(video_db))
-        cfg = common.model_config_from_opts(opts)
         vsm = common.vsm_config_from_opts(opts)
-        restorer = TrainingRestorer(
-            opts.output_dir, {"num_train_steps": opts.num_train_steps,
-                              "learning_rate": opts.learning_rate},
-            writer=ckpt_writer)
-        ckpt_info: Dict = {}
-        if restorer.can_restore():
-            # the restored parameters are the template: no init needed
-            state = restorer.restore(device)
-            if getattr(opts, "checkpoint", None):
-                ckpt_info["vocab_padded"] = common.checkpoint_vocab_padded(
-                    opts.checkpoint, cfg.f_config.vocab_size)
-        else:
-            restorer.template = pretrain.init_params(opts, cfg, vsm,
-                                                     info=ckpt_info)
-            state = TrainState.create(load_jax_params(restorer.template,
-                                                      device=device))
-        saver = ModelSaver(os.path.join(opts.output_dir, "ckpt"),
-                           restorer.template,
-                           vocab_padded=ckpt_info.get("vocab_padded"),
-                           writer=ckpt_writer)
-        accum = max(opts.gradient_accumulation_steps, 1)
-        step_fn = make_train_step(make_loss_fn(cfg, vsm, dtype),
-                                  common.train_spec(vars(opts)),
-                                  accum_steps=accum)
-        # a resumed run skips the batches the steps before took
-        taken = state.global_step * accum
 
-        def batches():
+        def batches(taken):
             it = dataset_iterator(train_ds, build_batch,
                                   opts.train_batch_size)
             it.skip(taken)
@@ -198,20 +153,18 @@ def main(opts, *, dataset_cls=VcmrDataset, query_store_cls=QueryTokStore,
                            query_store_cls=query_store_cls, dtype=dtype,
                            device=device)
 
-        return common.run_training(opts, step_fn, state, batches(),
-                                   extras_fn=common.Curriculum(opts).at,
-                                   validate_fn=validate, saver=saver,
-                                   restorer=restorer, device=device,
-                                   on_step=on_step)
-    finally:
-        try:
-            ckpt_writer.close()
-        finally:
-            if saver is not None:
-                common.write_checkpoint_records(opts.output_dir, saver,
-                                                restorer)
-            LOGGER.removeHandler(log_file)
-            log_file.close()
+        return common.Finetune(
+            init=lambda info: pretrain.init_params(opts, cfg, vsm,
+                                                   info=info),
+            load=load_jax_params,
+            step_fn=make_train_step(
+                make_loss_fn(cfg, vsm, dtype), common.train_spec(vars(opts)),
+                accum_steps=max(opts.gradient_accumulation_steps, 1)),
+            batches=batches, validate=validate,
+            extras_fn=common.Curriculum(opts).at)
+
+    return common.run_finetune(opts, prepare, device=device,
+                               on_step=on_step)
 
 
 def run_validation(state, cfg: HeroConfig, vsm: VsmConfig, video_db, opts,

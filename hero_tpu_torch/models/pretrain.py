@@ -414,6 +414,13 @@ class FlatInit:
         self.const(f"{key}/scale", lead + (d,), 1.0)
         self.const(f"{key}/bias", lead + (d,), 0.0)
 
+    def mlp_layer(self, key, d_in, d_out):
+        """``nn.init_mlp_layer``'s leaves (``hero_tpu/models/nn.py:
+        135-141``): linear(d, 2d), LayerNorm(2d), linear(2d, out)."""
+        self.linear(f"{key}/linear_1", d_in, 2 * d_in)
+        self.layer_norm(f"{key}/ln", 2 * d_in)
+        self.linear(f"{key}/linear_2", 2 * d_in, d_out)
+
     def attention(self, key, cfg: TransformerConfig, lead=()):
         D, std = cfg.hidden_size, cfg.initializer_range
         for name in ("query", "key", "value", "out"):
@@ -473,9 +480,7 @@ def init_flat_v_encoder(it: FlatInit, cfg: HeroConfig) -> None:
     it.layer_norm("v_encoder/feat_regress/ln", D)
     it.linear("v_encoder/feat_regress/dense_2", D, V)
     it.normal("v_encoder/mask_embedding", (2, V), zero_row=0)
-    it.linear("v_encoder/fom_output/linear_1", Dc, 2 * Dc)
-    it.layer_norm("v_encoder/fom_output/ln", 2 * Dc)
-    it.linear("v_encoder/fom_output/linear_2", 2 * Dc, cfg.max_clip_len)
+    it.mlp_layer("v_encoder/fom_output", Dc, cfg.max_clip_len)
 
 
 def init_flat_params(cfg: HeroConfig, vsm: VsmConfig = VsmConfig(),

@@ -14,7 +14,8 @@
 
 The port's trees go through the inverse bridge
 (``convert/from_jax.to_jax_params``, or ``to_jax_tvc_params`` for a TVC
-run: the ``tree`` argument, a key of :data:`TREES`) with the run's
+run, ``to_jax_videoqa_params`` / ``to_jax_violin_params`` for VideoQA /
+VIOLIN: the ``tree`` argument, a key of :data:`TREES`) with the run's
 ``template``, the flat JAX tree it started from, so
 ``hero_tpu.training.save.load_params`` and ``TrainingRestorer.restore``
 read these files and the port reads theirs.
@@ -41,21 +42,22 @@ from typing import Any, Callable, Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
-from hero_tpu_torch.convert.from_jax import (load_jax_train_state,
-                                             load_jax_tvc_train_state,
-                                             to_jax_params,
-                                             to_jax_train_state,
-                                             to_jax_tvc_params,
-                                             to_jax_tvc_train_state)
+from hero_tpu_torch.convert import from_jax as fj
 from hero_tpu_torch.training.optim import tree_leaves
 from hero_tpu_torch.utils.logger import LOGGER
 
 # {tree: (params -> flat JAX dict, train state -> flat JAX trees, flat JAX
-# trees -> train state)}: the pretraining tree and TVC's
+# trees -> train state)}: the pretraining tree, TVC's, VideoQA's and
+# VIOLIN's
 TREES = {
-    "pretrain": (to_jax_params, to_jax_train_state, load_jax_train_state),
-    "tvc": (to_jax_tvc_params, to_jax_tvc_train_state,
-            load_jax_tvc_train_state),
+    "pretrain": (fj.to_jax_params, fj.to_jax_train_state,
+                 fj.load_jax_train_state),
+    "tvc": (fj.to_jax_tvc_params, fj.to_jax_tvc_train_state,
+            fj.load_jax_tvc_train_state),
+    "videoqa": (fj.to_jax_videoqa_params, fj.to_jax_videoqa_train_state,
+                fj.load_jax_videoqa_train_state),
+    "violin": (fj.to_jax_violin_params, fj.to_jax_violin_train_state,
+               fj.load_jax_violin_train_state),
 }
 
 
