@@ -3,8 +3,9 @@
 caption serving, TVC train step, four-task pretraining, TVC finetuning
 and captioning as programs, VCMR and VR finetuning from a reference
 ``.pt`` as programs, VideoQA and VIOLIN finetuning and inference as
-programs, VCMR serving as a program and kernel components on one GPU and
-check them.
+programs, data-parallel training and multi-process serving on ranks
+that share the card, VCMR serving as a program and kernel components on
+one GPU and check them.
 
     python3 chip_smoke.py                  # on a machine with one CUDA card
     python3 chip_smoke.py --json-out F     # also write the full record to F
@@ -145,9 +146,9 @@ What the card run does, in order (any failure exits non-zero):
    against their plain versions; runs ``drivers/train_tvc.main`` on
    ``config/train-tvc.json`` with the paths substituted and pretrain_main's
    checkpoint, 8 steps (validation, which captions every clip in fp32,
-   and checkpoints at 4 and 8), in a subprocess with the launch counters
-   from 0 (run A); checks every step's loss finite, both
-   ``tvc_gen_N.jsonl`` (every clip once, finite scores) and A's last
+   at 8, ``restore.npz`` at 4 and 8), in this process with the launch
+   counters from 0 (run A); checks every step's loss finite,
+   ``tvc_gen_8.jsonl`` (every clip once, finite scores) and A's last
    model file bridged back equal to its final state; runs it again in
    a subprocess stopped by SIGTERM after step 4 and resumes it with
    ``python -m hero_tpu_torch.drivers.train_tvc`` (run B); checks that
@@ -181,7 +182,7 @@ What the card run does, in order (any failure exits non-zero):
    since the fp32 backward takes at most 154 rows); runs
    ``drivers/train_vcmr.main`` on ``config/train-tvr.json`` with the
    paths substituted, the ``.pt``, 4 steps, validation and checkpoints
-   at 4, warm-up 2 and hard negatives from step 2, in a subprocess
+   at 4, warm-up 2 and hard negatives from step 2, in this process
    with the launch counters from 0 (run A: every loss finite,
    ``results_{4,8}_all.json`` with VCMR, SVMR and VR, the model file
    marked ``vocab_padded``); again in a subprocess stopped by SIGTERM
@@ -192,7 +193,7 @@ What the card run does, in order (any failure exits non-zero):
    (its results equal A's step-4 validation: the same ids, scores within
    1e-4); ``drivers/train_vr.main`` on
    ``config/train-msrvtt_video_only.json`` with the paths substituted,
-   the ``.pt``, 4 steps, in a subprocess with the counters from 0; and
+   the ``.pt``, 4 steps, in this process with the counters from 0; and
    ``drivers/eval_vr.main`` in this process on its directory (VR and no
    VCMR, equal to its step-4 validation; counters from 0); prints a
    ``vcmr_program`` line (queries/s of TVR's steps 2-3 and VR's
@@ -223,7 +224,7 @@ What the card run does, in order (any failure exits non-zero):
    heads held to analytic bounds (``zero_sum_bound``,
    ``violin_bias_bound``); runs ``drivers/train_videoqa.main`` on
    ``config/train-tvqa.json`` with the paths substituted and the ``.pt``,
-   4 steps, validation and checkpoints at 4, in a subprocess with
+   4 steps, validation and checkpoints at 4, in this process with
    the launch counters from 0 (run A: every loss finite, the model file
    marked ``vocab_padded``); again in a subprocess stopped by SIGTERM
    after step 2 and resumed by ``python -m
@@ -240,7 +241,32 @@ What the card run does, in order (any failure exits non-zero):
    disk, each save's ms and bytes, the restore's ms, the eval_videoqa
    subprocess's wall s, the step checks, the launches of #1-#7 on each
    path);
-15. the serving_full phase, VCMR serving in full: runs
+15. the dp phase, data-parallel training and multi-process serving
+   (``hero_tpu_torch/parallel/dist.py``), its ranks subprocesses with
+   RANK, WORLD_SIZE and a ``file://`` store in the environment: 2 ranks
+   on the one card over gloo (each told ``cuda:0``) hold the VSM train
+   step at ``bench.py``'s layout as 2 x 16 videos, each bucket, dropout
+   off, against the primary's one-process 32-video step from the same
+   weights (fp32 by ``step_parity``'s rule, bf16 by
+   ``bf16_step_check``'s, the one-process fp32 step the yardstick), take
+   3 bf16 steps with dropout 0.1 (every loss finite, the replicas'
+   parameters bit-identical, the ranks' first dropout masks different),
+   time a step on 2 ranks and on one process and the gradients'
+   all-reduce (ms and bytes), then run ``drivers/train_vcmr.main`` on
+   ``config/train-tvr.json`` from vcmr_program's ``.pt`` with
+   ``distributed_eval``, 4 steps (run A: only the primary writes),
+   ``drivers/eval_vcmr.main`` on A's directory, and run B: the same run
+   with SIGTERM to rank 1 alone after step 2 (both ranks stop after
+   step 2), resumed on both ranks in the same processes, A's and B's
+   ``model_step_4.npz`` and ``restore.npz`` equal bit for bit; this
+   process runs ``eval_vcmr.main`` on A's directory in one process (the
+   metrics within the 0.05 of the per-rank rounding, the merged
+   submission the one-process one query by query, scores within 1e-4);
+   then one rank a card over nccl (a world of 1 on one card) times the
+   all-reduce of the gradients' size; prints a ``dp`` line (the card,
+   the gloo and nccl times, the checks, each rank's launches of #1-#7,
+   also in the ``kernels`` line);
+16. the serving_full phase, VCMR serving in full: runs
    ``validate_full_vcmr`` on the 512 queries and the resident 2000-video
    corpus with ``pack_queries`` (4 segments a row, 64 rows a call: the
    whole set encoded packed, then ranked in batch slices) and one row a
@@ -261,7 +287,7 @@ What the card run does, in order (any failure exits non-zero):
    reference schema, every query once) and holds it and its printed
    metrics equal to ``drivers/eval_vcmr.main`` run in this process with
    the launch counters from 0; prints a ``serving_full`` line;
-16. the components phase (``tools/component_bench.py`` and the DALN
+17. the components phase (``tools/component_bench.py`` and the DALN
    checks of ``tools/kernel_smoke.py`` and ``tools/tpu_kernel_drive.py``):
    holds #6 and #7 at their edges (``check_ln_edges``: widths 1 to
    14528 about the 16-byte access and the warp's share, rows about the
@@ -290,8 +316,8 @@ It prints one ``phases`` JSON line, one train JSON line with
 one TVC train JSON line with ``tvc_train_captions_per_s``, one
 ``pretrain`` JSON line with ``pretrain_examples_per_s``, one
 ``pretrain_main`` JSON line, one ``tvc_program`` JSON line, one
-``vcmr_program`` JSON line, one ``qa_program`` JSON line, one
-``serving_full`` JSON line, one
+``vcmr_program`` JSON line, one ``qa_program`` JSON line, one ``dp``
+JSON line, one ``serving_full`` JSON line, one
 ``components`` JSON line, one ``kernels`` JSON line (all nine kernels,
 launches by path; #6, #7 and #9 with the device ms of their row pass and
 of the column pass, from profiler traces, those the run's own traces
@@ -1902,9 +1928,29 @@ def step_parity(torch, flat, batch, loss_fn, spec, dev_kernel, dev_plain,
                     float(m["loss"]), float(m["grad_norm"]))
     (lk, gk, pk, mk, nk), (lp, gp, pp, mp, np_) = out[dev_kernel], out[
         dev_plain]
+    worst_g, worst_p = parity_worst(optim.tree_paths(load(flat, "cpu")),
+                                    gk, gp, pk, pp, spec, zero_grads, what)
+    rec = {"depth": [2, 1], "batch": int(np.shape(batch["sub_mask"])[0]),
+           "loss": [lk, lp],
+           "loss_rel_err": abs(lk - lp) / abs(lp), "loss_rtol": 1e-5,
+           "step_loss": [mk, mp], "grad_norm": [nk, np_],
+           "worst_grad_err_over_tol": worst_g,
+           "worst_param_err_over_tol": worst_p}
+    rec["ok"] = (rec["loss_rel_err"] <= 1e-5 and worst_g[0] <= 1.0
+                 and worst_p[0] <= 1.0
+                 and abs(nk - np_) <= 1e-4 * abs(np_))
+    if not rec["ok"]:
+        raise AssertionError(f"{what}, kernels vs plain: {rec}")
+    return rec
+
+
+def parity_worst(paths, gk, gp, pk, pp, spec, zero_grads, what):
+    """:func:`step_parity`'s rule over the leaves: the gradients ``gk``
+    against ``gp`` and the updated parameters ``pk`` against ``pp``;
+    returns the worst (error / tolerance, leaf) of each."""
+    from hero_tpu_torch.training import optim
     adam = spec.adamw
     sf = math.sqrt(1 - adam.beta2) / (1 - adam.beta1)
-    paths = optim.tree_paths(load(flat, "cpu"))
     zero_grads = dict(zero_grads or {})
     worst_g, worst_p = (0.0, ""), (0.0, "")
     for path, a, b, pa, pb in zip(paths, gk, gp, pk, pp):
@@ -1932,18 +1978,7 @@ def step_parity(torch, flat, batch, loss_fn, spec, dev_kernel, dev_plain,
         worst_p = max(worst_p, (p_err / p_tol, name))
     if zero_grads:
         raise ValueError(f"{what}: no leaf {sorted(zero_grads)}")
-    rec = {"depth": [2, 1], "batch": int(np.shape(batch["sub_mask"])[0]),
-           "loss": [lk, lp],
-           "loss_rel_err": abs(lk - lp) / abs(lp), "loss_rtol": 1e-5,
-           "step_loss": [mk, mp], "grad_norm": [nk, np_],
-           "worst_grad_err_over_tol": worst_g,
-           "worst_param_err_over_tol": worst_p}
-    rec["ok"] = (rec["loss_rel_err"] <= 1e-5 and worst_g[0] <= 1.0
-                 and worst_p[0] <= 1.0
-                 and abs(nk - np_) <= 1e-4 * abs(np_))
-    if not rec["ok"]:
-        raise AssertionError(f"{what}, kernels vs plain: {rec}")
-    return rec
+    return worst_g, worst_p
 
 
 @contextlib.contextmanager
@@ -2015,23 +2050,8 @@ def bf16_step_check(torch, make_loss_fn, params, batches, seed, paths,
         with plain_packed_attention():
             lp, gp = step(torch.bfloat16, batch)
         lr, gr = step(torch.float32, batch)
-        zero = dict(zero_grads or {})
-        fixed = dict(bounds(batch) if bounds else {})
-        worst = (0.0, "")
-        for path, a, b, r in zip(paths, gk, gp, gr):
-            if path in zero:
-                ratio = (max(float(a.abs().max()), float(b.abs().max()))
-                         / zero.pop(path))
-            else:
-                tol = fixed.pop(path, None)
-                if tol is None:
-                    tol = (4 * float((b - r).abs().max())
-                           + 2.0 ** -9 * float(r.abs().max()))
-                ratio = float((a - b).abs().max()) / max(tol, 1e-30)
-            worst = max(worst, (ratio, path))
-        if zero or fixed:
-            raise ValueError(f"bf16 step: no leaf "
-                             f"{sorted({**zero, **fixed})}")
+        worst = bf16_worst(paths, gk, gp, gr, zero_grads,
+                           bounds(batch) if bounds else None)
         rec = {"loss": [lk, lp, lr], "loss_kernel_vs_plain": abs(lk - lp),
                "loss_tol": 4 * abs(lp - lr) + 2.0 ** -9 * abs(lr),
                "worst_grad_err_over_tol": worst}
@@ -2043,6 +2063,28 @@ def bf16_step_check(torch, make_loss_fn, params, batches, seed, paths,
     if not all(r["ok"] for r in recs):
         raise AssertionError(f"bf16 step, kernels vs plain: {recs}")
     return recs
+
+
+def bf16_worst(paths, gk, gp, gr, zero_grads=None, fixed=None):
+    """:func:`bf16_step_check`'s rule over the leaves: the bf16 gradients
+    ``gk`` against the bf16 ``gp``, whose distance from the fp32 ``gr``
+    sets the tolerance; returns the worst (error / tolerance, leaf)."""
+    zero, fixed = dict(zero_grads or {}), dict(fixed or {})
+    worst = (0.0, "")
+    for path, a, b, r in zip(paths, gk, gp, gr):
+        if path in zero:
+            ratio = (max(float(a.abs().max()), float(b.abs().max()))
+                     / zero.pop(path))
+        else:
+            tol = fixed.pop(path, None)
+            if tol is None:
+                tol = (4 * float((b - r).abs().max())
+                       + 2.0 ** -9 * float(r.abs().max()))
+            ratio = float((a - b).abs().max()) / max(tol, 1e-30)
+        worst = max(worst, (ratio, path))
+    if zero or fixed:
+        raise ValueError(f"bf16 step: no leaf {sorted({**zero, **fixed})}")
+    return worst
 
 
 def vsm_bf16_step(torch, cfg, flat, b_fit, b_over, dev):
@@ -3638,7 +3680,9 @@ def pretrain_main_phase(torch, here, cfg, db, dev, sync, rehearse, root):
 
 PROGRAM_TVC_VIDEOS = 64             # of pretrain_main's videos on disk
 PROGRAM_TVC_STEPS, PROGRAM_TVC_SIGTERM_AT = 8, 4
-PROGRAM_TVC_VALID_STEPS = PROGRAM_TVC_SAVE_STEPS = 4
+# one validation, at the last step (it was at 4 and 8 too); restore.npz
+# at 4 and 8
+PROGRAM_TVC_VALID_STEPS, PROGRAM_TVC_SAVE_STEPS = 8, 4
 PROGRAM_TVC_WARMUP = 2
 PROGRAM_TVC_TARGETS = 3             # clips of the --target_clip jsonl
 # caption ids from 3 up to this (10 ids): 8 steps then learn to emit more
@@ -3657,56 +3701,64 @@ PROGRAM_TVC_TRAIN_KERNELS = ("valid_attention_cuda", "attention_bwd_cuda",
 PROGRAM_TVC_INF_KERNELS = ("valid_attention_cuda", "mha_attention_cuda",
                            "layer_norm_cuda")
 
-# one run of drivers/train_tvc.main in a fresh interpreter (its SIGTERM
-# hook needs a main thread): the launch counters from 0 around it, the
-# card synchronised at the windows' edges only, SIGTERM after step
-# argv[4] (0: never); the losses, the edges' clocks and the counts go to
-# the JSON file argv[2]
+# one run of drivers/train_tvc.main that SIGTERM stops, in a fresh
+# interpreter (tvc_train_program); its record goes to the JSON file
+# argv[2]
 TVC_TRAIN_RUN = """
-import json, os, signal, sys, time
-import torch
-from chip_smoke import PROGRAM_TVC_WINDOWS, read_counts, reset_counts
-from hero_tpu_torch.config.opts import get_tvc_args
-from hero_tpu_torch.drivers import train_tvc
+import json, sys
+from chip_smoke import tvc_train_program
 from hero_tpu_torch.utils.logger import configure_stdout
-
 cfg, out_json, device, stop_at = sys.argv[1:5]
 configure_stdout()
-edges = {s for w in PROGRAM_TVC_WINDOWS for s in w}
-losses, marks = [], {}
-
-def on_step(step, task, metrics):
-    losses.append(metrics["loss"].detach())
-    if step in edges:
-        if device == "cuda":
-            torch.cuda.synchronize()
-        marks[step] = time.perf_counter()
-    if step == int(stop_at):
-        os.kill(os.getpid(), signal.SIGTERM)
-
-reset_counts()
-opts = get_tvc_args(["--config", cfg])
-state = train_tvc.main(opts, device=device, on_step=on_step,
-                       dtype=torch.bfloat16 if device == "cuda"
-                       else torch.float32)
-if device == "cuda":
-    torch.cuda.synchronize()
-launches = read_counts()
-# the last model file bridged back: the final state, bit for bit
-import numpy as np
-from hero_tpu_torch.convert.from_jax import load_jax_tvc_params
-from hero_tpu_torch.training.optim import tree_leaves
-with np.load(os.path.join(opts.output_dir, "ckpt",
-                          f"model_step_{state.global_step}.npz")) as z:
-    back = load_jax_tvc_params({k: z[k] for k in z.files
-                                if not k.startswith("__")}, device=device)
+res = tvc_train_program(cfg, device, int(stop_at))
 with open(out_json, "w") as f:
-    json.dump({"global_step": state.global_step,
-               "losses": [float(x) for x in losses], "marks": marks,
-               "launches": launches,
-               "bridged_equal": all(torch.equal(a, b) for a, b in zip(
-                   tree_leaves(back), tree_leaves(state.params)))}, f)
+    json.dump(res, f)
 """
+
+
+def tvc_train_program(cfg, device, stop_at):
+    """One run of ``drivers/train_tvc.main`` on the config at ``cfg``: the
+    launch counters from 0 around it, the card synchronised at the
+    windows' edges only, SIGTERM after step ``stop_at`` (0: never).
+    Returns the final step, the losses, the edges' clocks, the counts and
+    whether the last model file bridged back is the final state, bit for
+    bit."""
+    import signal
+    import torch
+    from hero_tpu_torch.config.opts import get_tvc_args
+    from hero_tpu_torch.convert.from_jax import load_jax_tvc_params
+    from hero_tpu_torch.drivers import train_tvc
+    from hero_tpu_torch.training.optim import tree_leaves
+    edges = {s for w in PROGRAM_TVC_WINDOWS for s in w}
+    losses, marks = [], {}
+
+    def on_step(step, task, metrics):
+        losses.append(metrics["loss"].detach())
+        if step in edges:
+            if device == "cuda":
+                torch.cuda.synchronize()
+            marks[step] = time.perf_counter()
+        if step == stop_at:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    reset_counts()
+    opts = get_tvc_args(["--config", cfg])
+    state = train_tvc.main(opts, device=device, on_step=on_step,
+                           dtype=torch.bfloat16 if device == "cuda"
+                           else torch.float32)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = read_counts()
+    with np.load(os.path.join(opts.output_dir, "ckpt",
+                              f"model_step_{state.global_step}.npz")) as z:
+        back = load_jax_tvc_params({k: z[k] for k in z.files
+                                    if not k.startswith("__")},
+                                   device=device)
+    return {"global_step": state.global_step,
+            "losses": [float(x) for x in losses], "marks": marks,
+            "launches": launches,
+            "bridged_equal": all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(back), tree_leaves(state.params)))}
 
 # drivers/inf_tvc.main on the CPU in fp32 (the rehearsal's stand-in for
 # the command line, which serves on the card)
@@ -3927,6 +3979,9 @@ def tvc_program_phase(torch, here, tcfg, main_root, db, dev, sync,
         return proc
 
     def train_run(cfg, name, stop_at):
+        # a run SIGTERM stops runs in a subprocess; the others here
+        if not stop_at:
+            return tvc_train_program(cfg, dev, 0)
         out = os.path.join(root, f"{name}.out.json")
         run([sys.executable, "-c", TVC_TRAIN_RUN, cfg, out, dev,
              str(stop_at)], f"train_tvc run {name}")
@@ -3960,7 +4015,7 @@ def tvc_program_phase(torch, here, tcfg, main_root, db, dev, sync,
 
     # every clip once in both validations, with finite scores
     rec["scores"] = {}
-    for step in (PROGRAM_TVC_VALID_STEPS, PROGRAM_TVC_STEPS):
+    for step in sorted({PROGRAM_TVC_VALID_STEPS, PROGRAM_TVC_STEPS}):
         with open(os.path.join(out_a, f"tvc_gen_{step}.jsonl")) as f:
             gen = [json.loads(line) for line in f]
         ids = sorted(int(r["clip_id"]) for r in gen)
@@ -3975,8 +4030,9 @@ def tvc_program_phase(torch, here, tcfg, main_root, db, dev, sync,
         rec["scores"][f"tvc_gen_{step}_tokens_mean"] = float(np.mean(
             [len(r["descs"][0]["desc"].split()) for r in gen]))
     for n in ("restore_backup.npz",
-              f"ckpt/model_step_{PROGRAM_TVC_VALID_STEPS}.npz"):
-        os.remove(os.path.join(out_a, n))          # disk for run B
+              f"ckpt/model_step_{PROGRAM_TVC_SAVE_STEPS}.npz"):
+        if os.path.exists(os.path.join(out_a, n)):
+            os.remove(os.path.join(out_a, n))      # disk for run B
     stage("check_a")
 
     # run B: SIGTERM after step 4, then the command line resumes it
@@ -4133,40 +4189,54 @@ PROGRAM_VCMR_EVAL_KERNELS = ("valid_attention_cuda", "layer_norm_cuda")
 # never); the losses, the edges' clocks and the counts go to the JSON
 # file argv[3]
 PROGRAM_TRAIN_RUN = """
-import importlib, json, os, signal, sys, time
-import torch
-from chip_smoke import read_counts, reset_counts
-from hero_tpu_torch.config import opts as opts_lib
+import json, sys
+from chip_smoke import train_program
 from hero_tpu_torch.utils.logger import configure_stdout
-
 program, cfg, out_json, device, stop_at, windows = sys.argv[1:7]
-parse = {"train_vcmr": opts_lib.get_vcmr_args,
-         "train_vr": opts_lib.get_vr_args,
-         "train_videoqa": opts_lib.get_videoqa_args}[program]
-drv = importlib.import_module("hero_tpu_torch.drivers." + program)
 configure_stdout()
-edges = {s for w in json.loads(windows) for s in w}
-losses, marks = [], {}
-
-def on_step(step, task, metrics):
-    losses.append(metrics["loss"].detach())
-    if step in edges:
-        if device == "cuda":
-            torch.cuda.synchronize()
-        marks[step] = time.perf_counter()
-    if step == int(stop_at):
-        os.kill(os.getpid(), signal.SIGTERM)
-
-reset_counts()
-state = drv.main(parse(["--config", cfg]), device=device, on_step=on_step,
-                 dtype=torch.bfloat16 if device == "cuda" else torch.float32)
-if device == "cuda":
-    torch.cuda.synchronize()
+res = train_program(program, cfg, device, int(stop_at), json.loads(windows))
 with open(out_json, "w") as f:
-    json.dump({"global_step": state.global_step,
-               "losses": [float(x) for x in losses], "marks": marks,
-               "launches": read_counts()}, f)
+    json.dump(res, f)
 """
+
+
+def train_program(program, cfg, device, stop_at, windows):
+    """One run of a finetune program's main (the body of
+    :data:`PROGRAM_TRAIN_RUN`; in this process for a run that is not
+    stopped, and for a rank of the dp phase): ``program``'s main on the
+    config at ``cfg``, the counters from 0 around it, SIGTERM after step
+    ``stop_at`` (0: never).  Returns the final step, the losses, the
+    windows' clocks and the counts."""
+    import importlib
+    import signal
+    import torch
+    from hero_tpu_torch.config import opts as opts_lib
+    parse = {"train_vcmr": opts_lib.get_vcmr_args,
+             "train_vr": opts_lib.get_vr_args,
+             "train_videoqa": opts_lib.get_videoqa_args}[program]
+    drv = importlib.import_module("hero_tpu_torch.drivers." + program)
+    edges = {s for w in windows for s in w}
+    losses, marks = [], {}
+
+    def on_step(step, task, metrics):
+        losses.append(metrics["loss"].detach())
+        if step in edges:
+            if device == "cuda":
+                torch.cuda.synchronize()
+            marks[step] = time.perf_counter()
+        if step == stop_at:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    reset_counts()
+    state = drv.main(parse(["--config", cfg]), device=device,
+                     on_step=on_step,
+                     dtype=torch.bfloat16 if device == "cuda"
+                     else torch.float32)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return {"global_step": state.global_step,
+            "losses": [float(x) for x in losses], "marks": marks,
+            "launches": read_counts()}
 
 # an eval program's main (drivers/eval_vcmr, eval_videoqa) on the CPU in
 # fp32: the rehearsal's stand-in for the command line, which serves on
@@ -4432,12 +4502,16 @@ def vcmr_program_phase(torch, here, cfg, main_root, db, dev, sync,
         return proc
 
     def train_run(program, cfg_path, name, stop_at, windows):
-        out = os.path.join(root, f"{name}.out.json")
-        run([sys.executable, "-c", PROGRAM_TRAIN_RUN, program, cfg_path, out,
-             dev, str(stop_at), json.dumps(windows)],
-            f"{program} run {name}")
-        with open(out) as f:
-            res = json.load(f)
+        # a run SIGTERM stops runs in a subprocess; the others here
+        if stop_at:
+            out = os.path.join(root, f"{name}.out.json")
+            run([sys.executable, "-c", PROGRAM_TRAIN_RUN, program, cfg_path,
+                 out, dev, str(stop_at), json.dumps(windows)],
+                f"{program} run {name}")
+            with open(out) as f:
+                res = json.load(f)
+        else:
+            res = train_program(program, cfg_path, dev, 0, windows)
         if not all(math.isfinite(x) for x in res["losses"]):
             raise AssertionError(f"{program} run {name}: losses "
                                  f"{res['losses']}")
@@ -5004,12 +5078,16 @@ def qa_program_phase(torch, here, cfg, main_root, db, dev, sync, rehearse,
         return proc
 
     def train_run(cfg_path, name, stop_at, windows):
-        out = os.path.join(root, f"{name}.out.json")
-        run([sys.executable, "-c", PROGRAM_TRAIN_RUN, "train_videoqa",
-             cfg_path, out, dev, str(stop_at), json.dumps(windows)],
-            f"train_videoqa run {name}")
-        with open(out) as f:
-            res = json.load(f)
+        # a run SIGTERM stops runs in a subprocess; the others here
+        if stop_at:
+            out = os.path.join(root, f"{name}.out.json")
+            run([sys.executable, "-c", PROGRAM_TRAIN_RUN, "train_videoqa",
+                 cfg_path, out, dev, str(stop_at), json.dumps(windows)],
+                f"train_videoqa run {name}")
+            with open(out) as f:
+                res = json.load(f)
+        else:
+            res = train_program("train_videoqa", cfg_path, dev, 0, windows)
         if not all(math.isfinite(x) for x in res["losses"]):
             raise AssertionError(f"train_videoqa run {name}: losses "
                                  f"{res['losses']}")
@@ -5176,6 +5254,527 @@ def qa_program_phase(torch, here, cfg, main_root, db, dev, sync, rehearse,
     return rec, {"qa_program": res_a["launches"],
                  "violin_program": violin_launches,
                  "violin_eval": eval_launches}
+
+
+# ---------------------------------------------------------------------------
+# dp: data-parallel training and multi-process serving (parallel/dist)
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2                        # ranks that share the one card (gloo)
+DP_SPEC = dict(learning_rate=1e-4, warmup_steps=1, num_train_steps=1000,
+               grad_norm=2.0)
+DP_DROPOUT_STEPS = 3
+DP_TIMED_STEPS = 3                  # timed steps after one warm-up
+DP_SEED = 100
+DP_SIGTERM_RANK = 1                 # the one rank run B's SIGTERM goes to
+DP_TIMEOUT_S = 900                  # a world's time limit
+DP_FREE_BYTES = 12 << 30            # run A's and B's files, with room
+
+# one rank of a dp world (dp_rank); the rank, the world, the store and the
+# backend come from the environment the phase sets
+DP_RANK_RUN = """
+import sys
+from chip_smoke import dp_rank
+dp_rank(*sys.argv[1:])
+"""
+
+
+def rehearsal_config():
+    """The rehearsal's tiny model (hidden 64, one layer each)."""
+    from hero_tpu_torch.config.model_config import (HeroConfig,
+                                                    TransformerConfig)
+    base = TransformerConfig(hidden_size=64, num_hidden_layers=1,
+                             num_attention_heads=2, intermediate_size=128)
+    return HeroConfig(f_config=base, c_config=base,
+                      q_config=base.replace(num_hidden_layers=0,
+                                            type_vocab_size=1),
+                      vfeat_dim=64)
+
+
+def dp_rank(role, out_json, rehearse, *args):
+    """One rank of the dp phase (:data:`DP_RANK_RUN`), its record to
+    ``out_json``.  ``role`` "steps" (gloo, the ranks sharing the card;
+    ``args`` the configs of runs A and B and A's directory): the
+    data-parallel VSM step against this process's one-process step
+    (:func:`dp_parity`), three dropout steps (:func:`dp_dropout`), the
+    step and all-reduce times (:func:`dp_times`), then ``train_vcmr`` run
+    A, ``eval_vcmr`` on its directory, and run B, stopped by SIGTERM to
+    rank :data:`DP_SIGTERM_RANK` alone after step 2 and then resumed;
+    "nccl" (one rank a card; ``args`` the gradients' element count): the
+    all-reduce's time alone."""
+    import torch
+    from hero_tpu_torch.config.model_config import flagship_config
+    from hero_tpu_torch.parallel import dist
+    rehearse = rehearse == "1"
+    dev = dist.init_distributed("cpu" if rehearse else "cuda")
+    rec = {"rank": dist.rank(), "world": dist.world_size(),
+           "backend": dist.backend(), "device": str(dev)}
+    if role == "nccl":
+        rec["times"] = timed_all_reduce(
+            torch, [torch.ones(int(args[0]), device=dev)], dev)
+    else:
+        cfg_a, cfg_b, out_a = args
+        cfg = rehearsal_config() if rehearse else flagship_config()
+        setup = dp_setup(cfg, dev, rehearse)
+        rec["parity"] = dp_parity(torch, cfg, *setup, dev)
+        rec["dropout"] = dp_dropout(torch, cfg, *setup, dev)
+        rec["times"] = dp_times(torch, cfg, *setup, dev)
+        del setup
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        rec["run_a"] = train_program("train_vcmr", cfg_a, dev.type, 0,
+                                     PROGRAM_VCMR_WINDOWS)
+        rec["eval"] = dp_eval(torch, out_a, "val", dev)
+        t0 = time.perf_counter()
+        rec["run_b_stopped"] = train_program(
+            "train_vcmr", cfg_b, dev.type,
+            PROGRAM_VCMR_SIGTERM_AT if dist.rank() == DP_SIGTERM_RANK else 0,
+            ())
+        rec["run_b_resumed"] = train_program("train_vcmr", cfg_b, dev.type,
+                                             0, ())
+        rec["run_b_s"] = time.perf_counter() - t0
+    dist.shutdown_distributed()
+    with open(out_json, "w") as f:
+        json.dump(rec, f)
+
+
+def dp_setup(cfg, dev, rehearse):
+    """(VSM options, the seeded flagship weights on ``dev``, bench.py's
+    fit and overflow batches of the whole world): the same on every
+    rank."""
+    from hero_tpu_torch.convert.from_jax import load_jax_params
+    from hero_tpu_torch.models.pretrain import VsmConfig, init_flat_params
+    vsm = VsmConfig(**BENCH_VSM)
+    params = load_jax_params(init_flat_params(cfg, vsm, seed=0), device=dev,
+                             heads=False)
+    b_fit, b_over, _, _, _ = make_train_buckets(
+        cfg.vfeat_dim, 4 if rehearse else TRAIN_BS,
+        64 if rehearse else TRAIN_SAMPLED)
+    return vsm, params, {"fit": b_fit, "over": b_over}
+
+
+def dp_parity(torch, cfg, vsm, params, buckets, dev):
+    """Each bucket's VSM step, dropout off, fp32 then bf16: the ranks'
+    step on their rows (the gradients summed over the ranks) against the
+    primary's one-process step on the whole batch from the same weights,
+    by the primary while the other ranks wait.  fp32 by
+    :func:`step_parity`'s rule (loss, every gradient and new parameter,
+    grad norm); bf16 by :func:`bf16_step_check`'s, the one-process fp32
+    step as the yardstick of the bf16 rounding."""
+    from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
+    from hero_tpu_torch.parallel import dist
+    from hero_tpu_torch.training import optim
+    from hero_tpu_torch.training.step import (TrainSpec, TrainState,
+                                              loss_and_grads,
+                                              make_train_step)
+    spec = TrainSpec(**DP_SPEC)
+    paths = optim.tree_paths(params)
+    names = ["/".join(p) for p in paths]
+    out, fp32 = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        for name, b in buckets.items():
+            fn = vsm_loss_fn(cfg, vsm, dtype, False)
+            mine = batch_to_device(dist.shard_rows(b), dev)
+            with dist.data_parallel(dist.data_group()):
+                _, _, g = loss_and_grads(fn, params, mine, None)
+            gk = [x.float() for x in
+                  optim.tree_leaves(dist.all_reduce_grads(g))]
+            st, m = make_train_step(fn, spec)(TrainState.create(params),
+                                              mine, None)
+            lk, nk, pk = (float(m["loss"]), float(m["grad_norm"]),
+                          optim.tree_leaves(st.params))
+            del g, st, mine
+            if dist.is_primary():
+                whole = batch_to_device(b, dev)
+                _, _, g1 = loss_and_grads(fn, params, whole, None)
+                gp = [x.float() for x in optim.tree_leaves(g1)]
+                st1, m1 = make_train_step(fn, spec, group=dist.ALONE)(
+                    TrainState.create(params), whole, None)
+                lp, np_ = float(m1["loss"]), float(m1["grad_norm"])
+                pp = optim.tree_leaves(st1.params)
+                rec = {"videos": int(b["sub_mask"].shape[0]),
+                       "loss": [lk, lp], "grad_norm": [nk, np_]}
+                if tag == "fp32":
+                    wg, wp = parity_worst(paths, gk, gp, pk, pp, spec, None,
+                                          f"dp {tag} {name}")
+                    rec.update(loss_rel_err=abs(lk - lp) / abs(lp),
+                               worst_grad_err_over_tol=wg,
+                               worst_param_err_over_tol=wp)
+                    rec["ok"] = (rec["loss_rel_err"] <= 1e-5
+                                 and wg[0] <= 1.0 and wp[0] <= 1.0
+                                 and abs(nk - np_) <= 1e-4 * abs(np_))
+                    fp32[name] = (lp, gp)
+                else:
+                    lr, gr = fp32.pop(name)
+                    worst = bf16_worst(names, gk, gp, gr)
+                    rec.update(loss=[lk, lp, lr],
+                               loss_ranks_vs_one=abs(lk - lp),
+                               loss_tol=4 * abs(lp - lr)
+                               + 2.0 ** -9 * abs(lr),
+                               worst_grad_err_over_tol=worst)
+                    rec["ok"] = (rec["loss_ranks_vs_one"] <= rec["loss_tol"]
+                                 and worst[0] <= 1.0
+                                 and all(math.isfinite(x)
+                                         for x in rec["loss"]))
+                out[f"{tag}_{name}"] = rec
+                del whole, g1, gp, st1, pp
+            del gk, pk
+            dist.barrier()
+    return out
+
+
+def dp_dropout(torch, cfg, vsm, params, buckets, dev):
+    """Three bf16 steps of the fit bucket with dropout 0.1 (and the span
+    skip at 0.8) on the ranks' rows: every loss finite, the replicas'
+    parameters identical bit for bit (``dist.check_replicas``), and the
+    first dropout mask of the first step (its crc) differs between the
+    ranks."""
+    import zlib
+    from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
+    from hero_tpu_torch.models import nn
+    from hero_tpu_torch.parallel import dist
+    from hero_tpu_torch.training.step import (TrainSpec, TrainState,
+                                              make_train_step)
+    fn = vsm_loss_fn(cfg, dataclasses.replace(vsm, drop_svmr_prob=0.8),
+                     torch.bfloat16, True)
+    step = make_train_step(fn, TrainSpec(**DP_SPEC))
+    mine = batch_to_device(dist.shard_rows(buckets["fit"]), dev)
+    first, orig = [], nn.dropout
+
+    def spy(x, rate, seed):
+        y = orig(x, rate, seed)
+        if not first and rate > 0 and seed is not None:
+            first.append(zlib.crc32((y == 0).to(torch.uint8).cpu().numpy()
+                                    .tobytes()))
+        return y
+
+    nn.dropout = spy
+    try:
+        state, losses = TrainState.create(params), []
+        for i in range(DP_DROPOUT_STEPS):
+            state, m = step(state, mine, DP_SEED + i)
+            losses.append(float(m["loss"]))
+    finally:
+        nn.dropout = orig
+    dist.check_replicas(state.params)
+    crcs = dist.host_allgather(first[0])
+    return {"losses": losses,
+            "finite": all(math.isfinite(x) for x in losses),
+            "replicas_equal": True, "first_mask_crc": crcs,
+            "masks_differ": len(set(crcs)) == len(crcs)}
+
+
+def dp_times(torch, cfg, vsm, params, buckets, dev):
+    """The bf16 VSM train step of the fit bucket with dropout: ms a step
+    (median of :data:`DP_TIMED_STEPS` after a warm-up, every rank
+    synchronised and the card idle at each start) on the ranks' rows,
+    with each rank's launches and all-reduce bytes a step; the primary's
+    one-process step on the whole batch while the others wait; and one
+    all-reduce of the gradients' size (``dist.timed_all_reduce``)."""
+    from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
+    from hero_tpu_torch.parallel import dist
+    from hero_tpu_torch.training import optim
+    from hero_tpu_torch.training.step import (TrainSpec, TrainState,
+                                              make_train_step)
+    fn = vsm_loss_fn(cfg, vsm, torch.bfloat16, True)
+    spec = TrainSpec(**DP_SPEC)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def timed(step, batch, together):
+        state, ms = TrainState.create(params), []
+        for i in range(DP_TIMED_STEPS + 1):
+            if together:
+                dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            state, m = step(state, batch, DP_SEED + i)
+            float(m["loss"])
+            sync()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        return state, float(np.median(ms[1:])), ms
+
+    n_steps = DP_TIMED_STEPS + 1
+    mine = batch_to_device(dist.shard_rows(buckets["fit"]), dev)
+    reset_counts()
+    bytes0 = dist.STATS["all_reduce_bytes"]
+    state, ranks_ms, runs = timed(make_train_step(fn, spec), mine, True)
+    rec = {"videos": int(buckets["fit"]["sub_mask"].shape[0]),
+           "step_ms": ranks_ms, "step_ms_runs": runs,
+           "launches": read_counts(), "steps_counted": n_steps,
+           "all_reduce_bytes_per_step":
+               (dist.STATS["all_reduce_bytes"] - bytes0) / n_steps}
+    del mine
+    rec.update(timed_all_reduce(torch, optim.tree_leaves(state.params),
+                                dev))
+    del state
+    if dist.is_primary():
+        whole = batch_to_device(buckets["fit"], dev)
+        _, rec["one_process_step_ms"], rec["one_process_runs"] = timed(
+            make_train_step(fn, spec, group=dist.ALONE), whole, False)
+        del whole
+    dist.barrier()
+    return rec
+
+
+def timed_all_reduce(torch, leaves, dev, repeats=5):
+    """ms (median of ``repeats`` after a warm-up) and bytes of
+    ``dist.all_reduce_flat`` over ``leaves`` (the gradients' sizes), every
+    rank synchronised and the card idle at each start."""
+    from hero_tpu_torch.parallel import dist
+    leaves = [t.detach() for t in leaves]
+    ms = []
+    for _ in range(repeats + 1):
+        dist.barrier()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        dist.all_reduce_flat(leaves)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return {"all_reduce_ms": float(np.median(ms[1:])),
+            "all_reduce_bytes": 4 * sum(t.numel() for t in leaves)}
+
+
+def dp_eval(torch, out_dir, split, dev):
+    """``drivers/eval_vcmr.main`` on the run at ``out_dir``, checkpoint
+    ``PROGRAM_VCMR_STEPS``, on this process's world (bf16 on the card,
+    fp32 on the CPU), the counters from 0 around it: its metrics, wall s
+    and launches."""
+    from hero_tpu_torch.drivers import eval_vcmr
+    args = eval_vcmr.build_argparser().parse_args(
+        ["--output_dir", out_dir, "--checkpoint", str(PROGRAM_VCMR_STEPS),
+         "--split", split])
+    reset_counts()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    metrics, _ = eval_vcmr.main(args, device=dev, dtype=(
+        torch.bfloat16 if dev.type == "cuda" else torch.float32))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return {"wall_s": time.perf_counter() - t0, "metrics": metrics,
+            "launches": read_counts()}
+
+
+def launch_world(here, root, name, world, backend, argvs, rehearse):
+    """``world`` ranks, rank r running ``argvs[r]`` from ``here`` with
+    RANK, WORLD_SIZE, LOCAL_RANK (0 for ranks that share the card), a
+    ``file://`` store under ``root`` and the backend in the environment;
+    every rank's output to ``root/name_r.log``.  Raises with the logs
+    when a rank fails or the world outlasts :data:`DP_TIMEOUT_S`."""
+    from hero_tpu_torch.parallel import dist
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, HF_HUB_OFFLINE="1", RANK=str(r),
+                   WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r if backend == "nccl" else 0))
+        env[dist.INIT_METHOD_ENV] = "file://" + os.path.join(
+            root, f"store_{name}")
+        env[dist.BACKEND_ENV] = backend
+        if rehearse:
+            env["OMP_NUM_THREADS"] = "1"
+        log_f = open(os.path.join(root, f"{name}_{r}.log"), "w")
+        procs.append((subprocess.Popen(argvs[r], cwd=here, env=env,
+                                       stdout=log_f,
+                                       stderr=subprocess.STDOUT), log_f))
+    deadline, codes = time.time() + DP_TIMEOUT_S, []
+    for p, log_f in procs:
+        try:
+            codes.append(p.wait(timeout=max(1.0, deadline - time.time())))
+        except subprocess.TimeoutExpired:
+            codes.append("timeout")
+        log_f.close()
+    for p, _ in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    if codes != [0] * world:
+        logs = "\n".join(f"--- rank {r}: {c} ---\n" + open(os.path.join(
+            root, f"{name}_{r}.log")).read()[-3000:]
+            for r, c in enumerate(codes))
+        raise AssertionError(f"dp world {name} ({backend}): {codes}\n{logs}")
+
+
+def by_query(sub, tasks):
+    """A submission with each task's rows in query order."""
+    return {"video2idx": sub["video2idx"],
+            **{t: sorted(sub[t], key=lambda e: e["desc_id"]) for t in tasks}}
+
+
+def dp_phase(torch, here, cfg, main_root, db, dev, sync, rehearse):
+    """Data-parallel training and multi-process serving
+    (``parallel/dist``; see the module docstring) on ranks that share the
+    card over gloo, and one rank a card over nccl; ``train_vcmr`` from
+    vcmr_program's ``.pt`` over pretrain_main's videos.  Returns (record,
+    {path: launch counts})."""
+    from hero_tpu_torch.config.opts import get_vcmr_args
+    stage_s, t0 = {}, time.perf_counter()
+
+    def stage(name):
+        nonlocal t0
+        now = time.perf_counter()
+        stage_s[name] = now - t0
+        t0 = now
+
+    # qa_program's files go; the .pt and pretrain_main's stores stay
+    shutil.rmtree(os.path.join(main_root, "qa"), ignore_errors=True)
+    root = os.path.join(main_root, "dp")
+    os.makedirs(root)
+    free = shutil.disk_usage(root).free
+    if not rehearse and free < DP_FREE_BYTES:
+        raise AssertionError(f"{free} bytes free under {root}; the phase "
+                             f"needs {DP_FREE_BYTES}")
+    rec = {"stage_s": stage_s, "free_bytes_before": free,
+           "card": None if rehearse else gpu_identity(),
+           "note": "the gloo ranks share one card: their times are no "
+                   "scaling claim"}
+    vocab = cfg.f_config.vocab_size
+    nq_t, nq_v = (48, 16) if rehearse else PROGRAM_VCMR_QUERIES
+    tvr_train, tvr_val = write_program_queries(db, list(db.vids), vocab - 8,
+                                               root, "tvr", nq_t, nq_v, 71)
+    over = dict(sub_txt_db=os.path.join(main_root, "sub_db"),
+                vfeat_db=os.path.join(main_root, "video_db"),
+                train_query_txt_db=tvr_train, val_query_txt_db=tvr_val,
+                model_config=os.path.join(main_root, "model.json"),
+                checkpoint=os.path.join(main_root, "vcmr",
+                                        "hero-tv-ht100.pt"),
+                vfeat_dim=cfg.vfeat_dim, num_train_steps=PROGRAM_VCMR_STEPS,
+                valid_steps=PROGRAM_VCMR_VALID_STEPS,
+                save_steps=PROGRAM_VCMR_SAVE_STEPS,
+                warmup_steps=PROGRAM_VCMR_WARMUP,
+                hard_negtiave_start_step=[PROGRAM_VCMR_HARD_AT],
+                distributed_eval=True)
+    cfg_a, cfg_b = (vcmr_run_config(here, root, n, "train-tvr.json", over,
+                                    rehearse) for n in ("a", "b"))
+    opts_a = get_vcmr_args(["--config", cfg_a])
+    out_a, out_b = (os.path.join(root, n) for n in ("a", "b"))
+    flag = "1" if rehearse else "0"
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    stage("write_stores")
+
+    # the step world: parity, dropout, times, then train_vcmr run A,
+    # eval_vcmr on its directory and run B
+    t = time.perf_counter()
+    launch_world(here, root, "steps", DP_WORLD, "gloo", [
+        [sys.executable, "-c", DP_RANK_RUN, "steps",
+         os.path.join(root, f"steps_{r}.json"), flag, cfg_a, cfg_b, out_a]
+        for r in range(DP_WORLD)], rehearse)
+    rec["steps_world_s"] = time.perf_counter() - t
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(root, f"steps_{r}.json")) as f:
+            ranks.append(json.load(f))
+    stage("steps_world")
+    parity = ranks[0]["parity"]
+    if not parity or not all(v["ok"] for v in parity.values()):
+        raise AssertionError(f"dp step against one process: {parity}")
+    drop = [r["dropout"] for r in ranks]
+    if not (all(d["finite"] and d["replicas_equal"] for d in drop)
+            and drop[0]["masks_differ"]):
+        raise AssertionError(f"dp dropout steps: {drop}")
+    for r in ranks:
+        run = r["run_a"]
+        if run["global_step"] != PROGRAM_VCMR_STEPS or not all(
+                math.isfinite(x) for x in run["losses"]):
+            raise AssertionError(f"dp train_vcmr run A: {run}")
+    with open(os.path.join(out_a, "log", "log.txt")) as f:
+        done = sum("training done at step" in ln for ln in f)
+    if done != 1:
+        raise AssertionError(f"run A's log.txt has {done} end lines: one "
+                             "writer (the primary) was expected")
+    rec.update(parity=parity, dropout=drop,
+               gloo={k: ranks[0]["times"][k] for k in (
+                   "videos", "step_ms", "step_ms_runs",
+                   "one_process_step_ms", "one_process_runs",
+                   "all_reduce_ms", "all_reduce_bytes",
+                   "all_reduce_bytes_per_step")}
+               | {"world": DP_WORLD,
+                  "step_ms_by_rank": [r["times"]["step_ms"] for r in ranks]},
+               tvr_losses=ranks[0]["run_a"]["losses"],
+               tvr=dict(train_batch_size=opts_a.train_batch_size,
+                        gradient_accumulation_steps=(
+                            opts_a.gradient_accumulation_steps)))
+
+    # eval_vcmr in this process on A's directory against the two ranks'
+    tasks = ("VCMR", "SVMR", "VR")
+    one = dp_eval(torch, out_a, "one", torch.device(dev))
+    with open(os.path.join(out_a, f"results_{PROGRAM_VCMR_STEPS}_one_all"
+                                  ".json")) as f:
+        sub_one = by_query(json.load(f), tasks)
+    with open(os.path.join(out_a, f"results_{PROGRAM_VCMR_STEPS}_val_all"
+                                  ".json")) as f:
+        sub_ranks = by_query(json.load(f), tasks)
+    two = [r["eval"] for r in ranks]
+    if two[0]["metrics"] != two[1]["metrics"]:
+        raise AssertionError("the ranks' merged metrics differ")
+    diffs = {f"{t}/{k}": abs(two[0]["metrics"][t][k] - v)
+             for t in tasks for k, v in one["metrics"][t].items()}
+    worst = max(diffs.items(), key=lambda kv: kv[1])
+    if worst[1] > 0.05:
+        raise AssertionError(f"2-rank eval_vcmr metrics off the 1-process "
+                             f"ones by {worst}")
+    rec["eval"] = {"wall_s_1": one["wall_s"],
+                   "wall_s_by_rank": [e["wall_s"] for e in two],
+                   "max_metric_diff": worst,
+                   "max_rel_score_diff": same_ranking(sub_ranks, sub_one,
+                                                      tasks, 1e-4),
+                   "submission_bit_equal": sub_ranks == sub_one,
+                   "queries": len(sub_one["VR"])}
+    stage("eval")
+
+    # run B: SIGTERM to one rank after step 2 stopped both; resumed, its
+    # files equal A's bit for bit
+    stopped = [r["run_b_stopped"]["global_step"] for r in ranks]
+    if stopped != [PROGRAM_VCMR_SIGTERM_AT] * DP_WORLD:
+        raise AssertionError(f"SIGTERM to rank {DP_SIGTERM_RANK} after step "
+                             f"{PROGRAM_VCMR_SIGTERM_AT}: the ranks stopped "
+                             f"at {stopped}")
+    resumed = [r["run_b_resumed"]["global_step"] for r in ranks]
+    if resumed != [PROGRAM_VCMR_STEPS] * DP_WORLD:
+        raise AssertionError(f"run B resumed to {resumed}")
+    rec["run_b_s"] = ranks[0]["run_b_s"]
+    for name in (f"ckpt/model_step_{PROGRAM_VCMR_STEPS}.npz",
+                 "restore.npz"):
+        a = _npz(os.path.join(out_a, name))
+        b = _npz(os.path.join(out_b, name))
+        differ = sorted(k for k in a if k not in b or a[k].dtype
+                        != b[k].dtype or not np.array_equal(a[k], b[k]))
+        if differ or set(a) != set(b):
+            raise AssertionError(f"dp: resumed {name} differs from the "
+                                 f"uninterrupted one at {differ[:5]}")
+    rec["stopped_at"] = stopped
+    rec["resume_bit_equal"] = True
+    shutil.rmtree(out_b)
+    stage("run_b")
+
+    # one rank a card over nccl: the all-reduce of the gradients' size
+    paths = {}
+    if not rehearse:
+        n_cards = torch.cuda.device_count()
+        launch_world(here, root, "nccl", n_cards, "nccl", [
+            [sys.executable, "-c", DP_RANK_RUN, "nccl",
+             os.path.join(root, f"nccl_{r}.json"), flag,
+             str(rec["gloo"]["all_reduce_bytes"] // 4)]
+            for r in range(n_cards)], rehearse)
+        with open(os.path.join(root, "nccl_0.json")) as f:
+            nccl = json.load(f)
+        rec["nccl"] = {**nccl["times"], "world": nccl["world"],
+                       "backend": nccl["backend"]}
+        stage("nccl_world")
+    for r, res in enumerate(ranks):
+        paths[f"dp_step_rank{r}"] = res["times"]["launches"]
+        paths[f"dp_train_vcmr_rank{r}"] = res["run_a"]["launches"]
+        paths[f"dp_eval_vcmr_rank{r}"] = res["eval"]["launches"]
+        paths[f"dp_train_vcmr_resumed_rank{r}"] = (
+            res["run_b_resumed"]["launches"])
+    rec["launches_by_rank"] = paths
+    return rec, paths
 
 
 # ---------------------------------------------------------------------------
@@ -6077,9 +6676,7 @@ def main(argv=None):
                           "card": gpu_identity()}))
         return 0
     sys.path.insert(0, here)
-    from hero_tpu_torch.config.model_config import (HeroConfig,
-                                                    TransformerConfig,
-                                                    flagship_config,
+    from hero_tpu_torch.config.model_config import (flagship_config,
                                                     flagship_tvc_config)
     from hero_tpu_torch.convert.from_jax import load_jax_params
     from hero_tpu_torch.data.synthetic import TV_PACKED
@@ -6098,12 +6695,7 @@ def main(argv=None):
         record["phase_end_s"][phase] = time.perf_counter() - t_start
     if rehearse:
         dev, dtype = "cpu", torch.float32
-        base = TransformerConfig(hidden_size=64, num_hidden_layers=1,
-                                 num_attention_heads=2, intermediate_size=128)
-        cfg = HeroConfig(f_config=base, c_config=base,
-                         q_config=base.replace(num_hidden_layers=0,
-                                               type_vocab_size=1),
-                         vfeat_dim=64)
+        cfg = rehearsal_config()
         n_videos, video_bs, n_queries, query_bs = 20, 10, 32, 16
     else:
         dev, dtype = "cuda", torch.bfloat16
@@ -6370,6 +6962,15 @@ def main(argv=None):
         qprog, qprog_paths = qa_program_phase(
             torch, here, cfg, main_root, pre_db, dev, sync, rehearse,
             record["kernels"] if not rehearse else None)
+        record["qa_program"] = qprog
+        mark("qa_program")
+        log(f"qa_program: {qprog['tvqa_questions_per_s']:.1f} TVQA "
+            f"questions/s and {qprog['violin_pairs_per_s']:.1f} VIOLIN "
+            f"pairs/s from disk, resumed run bit-equal, done at "
+            f"{time.perf_counter() - t_start:.1f} s")
+        # the VSM step, train_vcmr and eval_vcmr on several ranks
+        dp, dp_paths = dp_phase(torch, here, cfg, main_root, pre_db, dev,
+                                sync, rehearse)
     finally:
         shutil.rmtree(main_root, ignore_errors=True)
     for name, counts in {**vprog_paths, **qprog_paths}.items():
@@ -6378,11 +6979,18 @@ def main(argv=None):
         if not rehearse and min(counts[k] for k in needed) == 0:
             raise AssertionError(f"a kernel of {name} was never launched: "
                                  f"{counts}")
-    record["qa_program"] = qprog
-    mark("qa_program")
-    log(f"qa_program: {qprog['tvqa_questions_per_s']:.1f} TVQA questions/s "
-        f"and {qprog['violin_pairs_per_s']:.1f} VIOLIN pairs/s from disk, "
-        f"resumed run bit-equal, done at "
+    for name, counts in dp_paths.items():
+        needed = (PROGRAM_VCMR_EVAL_KERNELS if "eval" in name
+                  else TRAIN_KERNELS if name.startswith("dp_step")
+                  else PROGRAM_VCMR_TRAIN_KERNELS)
+        if not rehearse and min(counts[k] for k in needed) == 0:
+            raise AssertionError(f"a kernel of {name} was never launched: "
+                                 f"{counts}")
+    record["dp"] = dp
+    mark("dp")
+    log(f"dp: {DP_WORLD} gloo ranks on one card {dp['gloo']['step_ms']:.1f} "
+        f"ms a step, one process {dp['gloo']['one_process_step_ms']:.1f} "
+        f"ms, resumed run bit-equal, done at "
         f"{time.perf_counter() - t_start:.1f} s")
 
     # serving in full: packed queries, the chunked corpus, the program
@@ -6563,6 +7171,12 @@ def main(argv=None):
                for t, r in qprog["bf16_step"].items()},
            "launches": {name: {k: c[k] for k in list(c)[:7]}
                         for name, c in qprog_paths.items()}}}))
+    print(json.dumps({"dp": {k: dp[k] for k in (
+        "card", "note", "gloo", "nccl", "parity", "dropout", "eval",
+        "stopped_at", "resume_bit_equal", "tvr", "tvr_losses",
+        "steps_world_s", "run_b_s", "stage_s") if k in dp}
+        | {"launches_by_rank": {name: {k: c[k] for k in list(c)[:7]}
+                                for name, c in dp_paths.items()}}}))
     print(json.dumps({"serving_full": {
         "packed": full["packed"], "packed_fp32": full["packed_fp32"],
         "chunked": full["chunked"], "chunked_fp32": full["chunked_fp32"],
@@ -6579,7 +7193,7 @@ def main(argv=None):
              "tvc": tvc_launches, "tvc_train": tt_launches,
              "pretrain": pre_launches, "pretrain_main": pmain_launches,
              "tvc_program": tprog_train, "tvc_program_inf": tprog_inf,
-             **vprog_paths, **qprog_paths, **full_paths,
+             **vprog_paths, **qprog_paths, **dp_paths, **full_paths,
              "components": comp_launches}
     kernels = [{k: row[k] for k in (
         "name", "route", "source", "replaces", "tpu_kernel", "shape", "dtype",

@@ -68,9 +68,10 @@ def base_parser(desc: str = "hero_tpu_torch") -> argparse.ArgumentParser:
     p.add_argument("--warmup_steps", default=4000, type=int)
     p.add_argument("--lr_sched", default="warmup_linear",
                    choices=["warmup_linear", "noam", "vqa"])
-    # the JAX package's multi-device options, read into the namespace for
-    # config compatibility; the port trains on one card: --zero1 there is
-    # the replicated step's math, --pp_stages > 1 raises (ROADMAP A8)
+    # the JAX package's multi-device options: the port's ranks are
+    # data-parallel replicas (parallel/dist), so --zero1 on several ranks
+    # and --pp_stages > 1 raise (ROADMAP A8); --zero1 in a world of 1 is
+    # the replicated step's math
     p.add_argument("--zero1", action="store_true")
     p.add_argument("--pp_stages", default=1, type=int)
     p.add_argument("--pp_microbatches", default=2, type=int)
@@ -126,7 +127,8 @@ def add_eval_args(p: argparse.ArgumentParser):
     p.add_argument("--eval_with_query_type", default=True, type=bool)
     p.add_argument("--max_before_nms", default=200, type=int)
     p.add_argument("--max_after_nms", default=100, type=int)
-    # accepted for config compatibility; the port evaluates in one process
+    # on several ranks each scores its share of the queries
+    # (evaluation/vcmr_eval.validate_full_vcmr's ``distributed``)
     p.add_argument("--distributed_eval", action="store_true")
     p.add_argument("--nms_thd", default=-1.0, type=float)
     p.add_argument("--q2c_alpha", default=20.0, type=float)

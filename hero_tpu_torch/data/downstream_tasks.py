@@ -184,14 +184,18 @@ class VcmrFullEvalDataset:
     ``hero_tpu/data/downstream_tasks.py:125-175``).  The query store is
     duck-typed as ``QueryTokStore``: ``store[qid]`` -> ``input_ids``,
     ``cls_``, ``pad`` and ``query2video``; ``shapes.query_len`` is the
-    padded query length (with the leading CLS).  One process serves every
-    query: the reference's per-rank slicing comes with multi-process
-    serving (ROADMAP A8)."""
+    padded query length (with the leading CLS).  ``distributed`` serving
+    on ``world_size`` ranks keeps rank ``rank``'s queries,
+    ``qids[rank::world_size]`` (``hero_tpu/data/downstream_tasks.py:
+    129-136``); otherwise one process serves every query."""
 
-    def __init__(self, qids, query_db, shapes):
+    def __init__(self, qids, query_db, shapes, distributed: bool = False,
+                 rank: int = 0, world_size: int = 1):
         self.query_db = query_db
         self.shapes = shapes
         self.qids = list(qids)
+        if distributed and world_size > 1:
+            self.qids = self.qids[rank::world_size]
 
     def __len__(self):
         return len(self.qids)

@@ -1,14 +1,17 @@
 """Shared driver plumbing (counterpart of ``hero_tpu/drivers/common.py``):
 bucket shapes and configs from the options (the corpus evaluation's too),
 the video dataset over the stores on disk, checkpoint loading, the VSM
-curriculum, and the train loop on one device.
+curriculum, and the train loop, on one device or as one rank of a
+data-parallel world (``parallel/dist``).
 
 :func:`run_training` keeps the JAX loop's contract: batches arrive as
 (task, numpy micro-batch) pairs; an accumulation window must hold one
 task; the curriculum's extras join each step's batch; validation (and a
 model checkpoint) every ``valid_steps``; ``restore.npz`` every
 ``save_steps``; on SIGTERM the step finishes, both are written and the
-loop returns; the loss is logged every ``LOG_EVERY`` steps.
+loop returns; the loss is logged every ``LOG_EVERY`` steps.  On W ranks
+every rank builds the same global batches and trains on its rows; only
+the primary writes files.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from hero_tpu_torch.data.video import (FixedShapes, VideoFeatSubTokDataset,
                                       VideoOnlyDataset)
 from hero_tpu_torch.models import nn
 from hero_tpu_torch.models import pretrain as pretrain_lib
+from hero_tpu_torch.parallel import dist
 from hero_tpu_torch.training import save as save_lib
 from hero_tpu_torch.training.optim import AdamWConfig
 from hero_tpu_torch.training.save import (flatten_tree, load_params,
@@ -52,20 +56,31 @@ LOGGER = logging.getLogger(__name__)
 # (a loss pops them as Python values) and never go to the device
 CURRICULUM_KEYS = ("use_hard_negative", "hard_pool_size", "hard_neg_weight",
                    "lw_st_ed")
+# batch entries that index another entry's rows ({key: the indexed key}):
+# TVC's caption rows name their video; a rank's rows are rebased to its
+# own videos (dist.shard_rows)
+ROW_INDEX_KEYS = {"cap_vidx": "c_attn_masks"}
 
 
 def check_one_device(opts) -> None:
-    """Raise on options that need several devices: the port trains on one
-    card.  ``--pp_stages`` > 1 (with its ``--pp_microbatches``) asks for
-    the JAX package's pipeline-parallel mesh, which waits for ROADMAP A8;
-    ``--zero1`` on one device is the replicated step's math and passes."""
+    """Raise on the parallelism the port does not drive yet: its ranks
+    are data-parallel replicas (``parallel/dist``).  ``--pp_stages`` > 1
+    (with its ``--pp_microbatches``) asks for the JAX package's
+    pipeline-parallel mesh, and ``--zero1`` on several ranks for the AdamW
+    moments sharded over them; both wait for ROADMAP A8.  ``--zero1`` in a
+    world of 1 is the replicated step's math and passes."""
     stages = getattr(opts, "pp_stages", 1) or 1
     if stages > 1:
         raise NotImplementedError(
             f"--pp_stages {stages} (with --pp_microbatches "
             f"{getattr(opts, 'pp_microbatches', None)}): pipeline "
-            "parallelism needs several devices, which the port does not "
-            "drive yet (ROADMAP A8); run with --pp_stages 1")
+            "parallelism is not ported yet (ROADMAP A8); run with "
+            "--pp_stages 1")
+    if getattr(opts, "zero1", False) and dist.world_size() > 1:
+        raise NotImplementedError(
+            f"--zero1 on {dist.world_size()} ranks: ZeRO-1's sharded AdamW "
+            "moments are not ported yet (ROADMAP A8, ZeRO-1); drop "
+            "--zero1 to keep the moments replicated on every rank")
 
 
 def shapes_from_opts(opts) -> FixedShapes:
@@ -336,37 +351,82 @@ class Finetune:
     extras_fn: Optional[Callable] = None
 
 
+def start_run(opts, device):
+    """The start of a training program: join the launch's process group
+    (``parallel/dist.init_distributed``: this rank's device), check the
+    options (:func:`check_one_device`), seed, and on the primary create
+    ``output_dir`` with ``log/hps.json`` and the ``log/log.txt`` handler.
+    Returns (device, the handler or None)."""
+    device = dist.init_distributed(device)
+    check_one_device(opts)
+    set_random_seed(opts.seed)
+    if not dist.is_primary():
+        return device, None
+    os.makedirs(opts.output_dir, exist_ok=True)
+    save_lib.save_training_meta(opts.output_dir, vars(opts),
+                                {"model_config": opts.model_config})
+    return device, add_log_to_file(os.path.join(opts.output_dir, "log",
+                                                "log.txt"))
+
+
+def end_run(opts, ckpt_writer, saver, restorer, log_file) -> None:
+    """The end of a training program, also after an error: the checkpoint
+    writer joined, and on the primary ``log/checkpoints.json`` written
+    and the log handler removed."""
+    try:
+        ckpt_writer.close()
+    finally:
+        if saver is not None and dist.is_primary():
+            write_checkpoint_records(opts.output_dir, saver, restorer)
+        if log_file is not None:
+            PACKAGE_LOGGER.removeHandler(log_file)
+            log_file.close()
+
+
+def make_restorer(opts, writer, tree: str = "pretrain"):
+    """The run's ``TrainingRestorer``, made on the primary first (it
+    writes ``restore_hps.json``, which the other ranks then check), and
+    whether to resume from ``output_dir``'s restore file."""
+    with dist.primary_first():
+        restorer = save_lib.TrainingRestorer(
+            opts.output_dir, {"num_train_steps": opts.num_train_steps,
+                              "learning_rate": opts.learning_rate},
+            writer=writer, tree=tree)
+        resume = restorer.can_restore()
+    return restorer, resume
+
+
+def primary_only(*writers):
+    """The checkpoint writers (``ModelSaver``, ``TrainingRestorer``) a
+    rank passes to :func:`run_training`: all of them on the primary, None
+    on the other ranks."""
+    return writers if dist.is_primary() else (None,) * len(writers)
+
+
 def run_finetune(opts, prepare: Callable, *, tree: str = "pretrain",
                  device="cuda", on_step: Optional[Callable] = None):
-    """A finetuning program's run on one ``device``: ``output_dir`` with
+    """A finetuning program's run on ``device``, or as this rank of the
+    launch's data-parallel world (:func:`start_run`): ``output_dir`` with
     ``log/`` (``hps.json``, ``log.txt``, ``scalars.jsonl``,
     ``checkpoints.json``: each checkpoint's copy and write ms and bytes),
     ``ckpt/model_step_N.npz`` (marked ``__vocab_padded__`` when the
     checkpoint's pad decision is known) and ``restore.npz``, resumed from
-    when present.  ``prepare(cfg, device)`` opens the stores and returns
+    when present (every rank restores the primary's file).  Only the
+    primary writes.  ``prepare(cfg, device)`` opens the stores and returns
     the program's :class:`Finetune`; ``tree`` is the parameter tree
     (``training/save.TREES``) the checkpoints hold.  ``on_step`` as
     :func:`run_training`'s.  Returns the final train state.
-    ``--pp_stages`` > 1 raises before any work (ROADMAP A8)."""
-    check_one_device(opts)
-    device = resolve_device(device)
-    set_random_seed(opts.seed)
-    os.makedirs(opts.output_dir, exist_ok=True)
-    save_lib.save_training_meta(opts.output_dir, vars(opts),
-                                {"model_config": opts.model_config})
-    log_file = add_log_to_file(os.path.join(opts.output_dir, "log",
-                                            "log.txt"))
+    ``--pp_stages`` > 1, and ``--zero1`` on several ranks, raise before
+    any work (ROADMAP A8)."""
+    device, log_file = start_run(opts, device)
     ckpt_writer = save_lib.AsyncCheckpointWriter()   # I/O off the loop
     saver = restorer = None
     try:
         cfg = model_config_from_opts(opts)
         job = prepare(cfg, device)
-        restorer = save_lib.TrainingRestorer(
-            opts.output_dir, {"num_train_steps": opts.num_train_steps,
-                              "learning_rate": opts.learning_rate},
-            writer=ckpt_writer, tree=tree)
+        restorer, resume = make_restorer(opts, ckpt_writer, tree)
         ckpt_info: Dict = {}
-        if restorer.can_restore():
+        if resume:
             # the restored parameters are the template: no init needed
             state = restorer.restore(device)
             if getattr(opts, "checkpoint", None):
@@ -381,19 +441,14 @@ def run_finetune(opts, prepare: Callable, *, tree: str = "pretrain",
             vocab_padded=ckpt_info.get("vocab_padded"), writer=ckpt_writer,
             tree=tree)
         taken = state.global_step * max(opts.gradient_accumulation_steps, 1)
+        writing_saver, writing_restorer = primary_only(saver, restorer)
         return run_training(opts, job.step_fn, state, job.batches(taken),
                             extras_fn=job.extras_fn,
-                            validate_fn=job.validate, saver=saver,
-                            restorer=restorer, device=device,
+                            validate_fn=job.validate, saver=writing_saver,
+                            restorer=writing_restorer, device=device,
                             on_step=on_step)
     finally:
-        try:
-            ckpt_writer.close()
-        finally:
-            if saver is not None:
-                write_checkpoint_records(opts.output_dir, saver, restorer)
-            PACKAGE_LOGGER.removeHandler(log_file)
-            log_file.close()
+        end_run(opts, ckpt_writer, saver, restorer, log_file)
 
 
 LOG_EVERY = 100           # optimizer steps between loss log lines
@@ -410,30 +465,36 @@ def run_training(opts, step_fn, state, batch_iter, *,
                  validate_fn: Optional[Callable] = None, saver=None,
                  restorer=None, device="cuda",
                  on_step: Optional[Callable] = None):
-    """The train loop (``hero_tpu/drivers/common.py:220-402``, one
-    device): optimizer steps from ``state.global_step`` up to
-    ``opts.num_train_steps``.
+    """The train loop (``hero_tpu/drivers/common.py:220-402``): optimizer
+    steps from ``state.global_step`` up to ``opts.num_train_steps``, on
+    ``device`` or as one rank of a data-parallel world.
 
-    ``batch_iter`` yields (task, numpy micro-batch); every
-    ``gradient_accumulation_steps`` of them, all of one task, are stacked
-    on a leading micro-batch axis with ``extras_fn(step)`` broadcast
-    beside them, and a background thread (:class:`PrefetchLoader`) moves
-    the arrays to ``device`` through pinned memory while the previous
-    step runs.  ``step_fn`` is a train step or {task: train step}
+    ``batch_iter`` yields (task, numpy micro-batch) of the global batch,
+    the same on every rank; every ``gradient_accumulation_steps`` of
+    them, all of one task, are stacked on a leading micro-batch axis with
+    ``extras_fn(step)`` broadcast beside them, cut to the rank's rows
+    (``dist.shard_rows``; ``opts.train_batch_size`` items must divide by
+    the world size), and a background thread (:class:`PrefetchLoader`)
+    moves the rank's arrays to ``device`` through pinned memory while the
+    previous step runs.  ``step_fn`` is a train step or {task: train step}
     (``training/step.make_train_step``); step i gets the integer seed
     ``rng_for(opts.seed + 1, f"step{i}")``, so a resumed run draws what
     the uninterrupted one drew.
 
     After each step: ``on_step(step, task, metrics)`` if given; every
-    ``LOG_EVERY`` steps the loss to the log and the scalars to
-    ``output_dir/log/scalars.jsonl``; every ``opts.valid_steps``
-    ``validate_fn(state, step)`` and ``saver.save`` (a
-    ``training/save.ModelSaver``); ``restorer.step`` (a
-    ``TrainingRestorer``: ``restore.npz`` every ``opts.save_steps``).  At
-    the end the model is saved and validated unless the last step was.
-    On SIGTERM (handled while the loop runs, when it runs on the main
-    thread) the step in flight finishes, ``restore.npz`` and the model
-    are written, and the loop returns.  ``opts.profile_step`` = i traces
+    ``LOG_EVERY`` steps the loss to the log and, on the primary, the
+    scalars to ``output_dir/log/scalars.jsonl``; every
+    ``opts.valid_steps`` the ranks' parameters checked identical
+    (``dist.check_replicas``), ``validate_fn(state, step)`` on every rank
+    and ``saver.save`` (a ``training/save.ModelSaver``);
+    ``restorer.step`` (a ``TrainingRestorer``: ``restore.npz`` every
+    ``opts.save_steps``).  A rank that writes no files passes no saver
+    and no restorer.  At the end the model is saved and validated unless
+    the last step was.  On SIGTERM (handled while the loop runs, when it
+    runs on the main thread) the step in flight finishes, ``restore.npz``
+    and the model are written, and the loop returns; the ranks agree on
+    it after every step (``dist.any_rank``), so a signal to one rank stops
+    them all after the same step.  ``opts.profile_step`` = i traces
     step i + 1 with ``torch.profiler`` into ``output_dir/trace``.
     Returns the final state."""
     device = resolve_device(device)
@@ -467,7 +528,10 @@ def run_training(opts, step_fn, state, batch_iter, *,
             else:
                 stacked = dict(mbs[0])
                 stacked.update(extras)
-            yield task0, stacked
+            yield task0, dist.shard_rows(
+                stacked, accum, items=getattr(opts, "train_batch_size", None),
+                replicated_keys=CURRICULUM_KEYS,
+                row_index_keys=ROW_INDEX_KEYS)
             step_ord += 1
 
     preempted = threading.Event()
@@ -479,8 +543,8 @@ def run_training(opts, step_fn, state, batch_iter, *,
             preempted.set()
         prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
         installed = True
-    writer = ScalarWriter(os.path.join(output_dir, "log")) if output_dir \
-        else NoOp()
+    writer = (ScalarWriter(os.path.join(output_dir, "log"))
+              if output_dir and dist.is_primary() else NoOp())
     steps = iter(PrefetchLoader(assembled_steps(), device=device,
                                 host_keys=CURRICULUM_KEYS))
     try:
@@ -498,8 +562,10 @@ def run_training(opts, step_fn, state, batch_iter, *,
 def _train_loop(opts, step_fn, state, steps, global_step, device,
                 validate_fn, saver, restorer, on_step, preempted, writer):
     output_dir = getattr(opts, "output_dir", None)
-    profile_at = getattr(opts, "profile_step", -1) if output_dir else -1
+    profile_at = (getattr(opts, "profile_step", -1)
+                  if output_dir and dist.is_primary() else -1)
     meters: Dict[str, RunningMeter] = {}
+    world = dist.world_size()
     t0, n_ex = time.time(), 0
     last_validated = last_saved = -1
     if global_step >= opts.num_train_steps:
@@ -521,8 +587,9 @@ def _train_loop(opts, step_fn, state, steps, global_step, device,
         else:
             state, metrics = fn(state, batch, seed)
         global_step += 1
-        # videos this step: the micro-batch axis, then the batch axis
-        n_ex += int(np.prod(batch["sub_mask"].shape[:-1]))
+        # videos this step: the micro-batch axis, then the batch axis, of
+        # every rank's rows
+        n_ex += int(np.prod(batch["sub_mask"].shape[:-1])) * world
         if on_step is not None:
             on_step(global_step, task, metrics)
         if global_step % LOG_EVERY == 0:
@@ -539,6 +606,9 @@ def _train_loop(opts, step_fn, state, steps, global_step, device,
             t0, n_ex = time.time(), 0
         if (validate_fn is not None
                 and global_step % opts.valid_steps == 0):
+            dist.check_replicas(state.params)
+            # every rank validates: distributed serving needs every rank
+            # in its collectives (hero_tpu/drivers/common.py:365-369)
             validate_fn(state, global_step)
             last_validated = global_step
             if saver is not None:
@@ -546,7 +616,7 @@ def _train_loop(opts, step_fn, state, steps, global_step, device,
                 last_saved = global_step
         if restorer is not None:
             restorer.step(state, opts.save_steps)
-        if preempted.is_set():
+        if dist.any_rank(preempted.is_set()):
             if restorer is not None:
                 if restorer.saved_step != global_step:
                     restorer.save(state)
@@ -555,6 +625,7 @@ def _train_loop(opts, step_fn, state, steps, global_step, device,
                 if last_saved != global_step:
                     saver.save(state.params, global_step)
                 saver.flush()
+            dist.barrier()            # the files exist before any rank goes on
             LOGGER.warning("preempted at step %d: restore.npz written, "
                            "resume will continue from here", global_step)
             return state
@@ -566,6 +637,7 @@ def _train_loop(opts, step_fn, state, steps, global_step, device,
         saver.flush()
     if restorer is not None:
         restorer.flush()
+    dist.barrier()
     if validate_fn is not None and last_validated != global_step:
         validate_fn(state, global_step)
     LOGGER.info("training done at step %d", global_step)

@@ -1,5 +1,5 @@
 """Full-corpus VCMR inference as a program (counterpart of
-``hero_tpu/drivers/eval_vcmr.py``, one card):
+``hero_tpu/drivers/eval_vcmr.py``, on one card or several ranks):
 
     python -m hero_tpu_torch.drivers.eval_vcmr --output_dir <train dir> \
         --checkpoint <step or path> [--query_txt_db <db>] [--split val]
@@ -11,7 +11,11 @@ checkpoint (a JAX-layout ``.npz`` or a reference ``.pt``), reads the sub
 name, runs ``validate_full_vcmr`` (with ``pack_queries`` and
 ``corpus_chunk_videos`` as the options set them) and writes the
 reference-schema submission to ``results_{ckpt}_{split}_all.json``
-beside the run, printing the metrics.
+beside the run, printing the metrics.  Launched on several ranks
+(``torchrun --nproc_per_node N -m hero_tpu_torch.drivers.eval_vcmr ...``)
+every rank embeds its share of the corpus and, with the run's
+``distributed_eval``, scores its share of the queries; the primary
+writes the merged submission and prints.
 """
 
 from __future__ import annotations
@@ -22,13 +26,13 @@ import os
 
 import torch
 
-from hero_tpu_torch import resolve_device
 from hero_tpu_torch.convert.from_jax import load_jax_params
 from hero_tpu_torch.data.store import QueryTokStore
 from hero_tpu_torch.drivers import common
 from hero_tpu_torch.drivers.train_vcmr import build_eval_inputs
 from hero_tpu_torch.evaluation.vcmr_eval import validate_full_vcmr
 from hero_tpu_torch.models import pretrain as pretrain_lib
+from hero_tpu_torch.parallel import dist
 from hero_tpu_torch.utils.logger import LOGGER, configure_stdout
 from hero_tpu_torch.utils.misc import Struct
 
@@ -65,8 +69,10 @@ def main(args, *, query_store_cls=QueryTokStore, full_eval_tasks=None,
     keep their seeded init, so a partial checkpoint serves other weights
     than the JAX driver's.  The checkpoint is a JAX-layout ``.npz`` or a
     reference ``.pt`` (``common.load_checkpoint_into``).
+    On the ranks of a launch (``parallel/dist.init_distributed``) every
+    rank returns the merged metrics and submission; the primary writes.
     Returns (metrics, submission)."""
-    device = resolve_device(device)
+    device = dist.init_distributed(device)
     opts = load_serve_opts(args.output_dir)
     if args.nms_thd is not None:
         opts.nms_thd = args.nms_thd
@@ -89,7 +95,8 @@ def main(args, *, query_store_cls=QueryTokStore, full_eval_tasks=None,
                                                           query_db, opts)
         val_log, submission, metrics = validate_full_vcmr(
             params, cfg, vsm, common.eval_opts_from(opts), vb, qb,
-            video_ids, v2i, qdata, dtype=dtype, device=device)
+            video_ids, v2i, qdata, dtype=dtype, device=device,
+            distributed=bool(getattr(opts, "distributed_eval", False)))
     finally:
         for store in (video_db.txt_db, video_db.img_db, query_db):
             if hasattr(store, "store"):   # a video-only txt_db has none
@@ -98,6 +105,8 @@ def main(args, *, query_store_cls=QueryTokStore, full_eval_tasks=None,
         ".npz", "").replace(".pt", "")
     out_path = os.path.join(args.output_dir,
                             f"results_{tag}_{args.split}_all.json")
+    if not dist.is_primary():
+        return metrics, submission
     with open(out_path, "w") as f:
         json.dump(submission, f)
     LOGGER.info("wrote %s", out_path)

@@ -1,5 +1,5 @@
 """VideoQA inference as a program (counterpart of
-``hero_tpu/drivers/eval_videoqa.py``, one card):
+``hero_tpu/drivers/eval_videoqa.py``, on one card or several ranks):
 
     python -m hero_tpu_torch.drivers.eval_videoqa --output_dir <train dir> \
         --checkpoint <step or path> [--query_txt_db <db>] [--save_logits]
@@ -23,13 +23,13 @@ import pickle
 
 import torch
 
-from hero_tpu_torch import resolve_device
 from hero_tpu_torch.drivers import common
 from hero_tpu_torch.drivers.eval_vcmr import (load_serve_opts,
                                               resolve_checkpoint)
 from hero_tpu_torch.drivers.train_videoqa import (VIDEOQA, QaTask,
                                                   videoqa_eval_batches)
 from hero_tpu_torch.evaluation.downstream import validate_videoqa
+from hero_tpu_torch.parallel import dist
 from hero_tpu_torch.utils.logger import LOGGER, configure_stdout
 
 INIT_SEED = 0        # the JAX driver initialises from PRNGKey(0)
@@ -68,14 +68,18 @@ def main(args, *, device="cuda", dtype: torch.dtype = torch.bfloat16):
     """Answer the questions with ``args.output_dir``'s run at
     ``args.checkpoint`` on ``device`` in ``dtype``
     (``hero_tpu/drivers/eval_videoqa.py:20-59``), ``val_batch_size``
-    questions a batch.  Returns (log, qid -> answer)."""
-    device = resolve_device(device)
+    questions a batch.  On the ranks of a launch every rank answers every
+    question, as the JAX program does, and the primary writes.  Returns
+    (log, qid -> answer)."""
+    device = dist.init_distributed(device)
     opts, cfg, params, ds = load_run(args, VIDEOQA, device)
     log, results, logits = validate_videoqa(
         params, cfg, videoqa_eval_batches(ds, getattr(opts,
                                                       "val_batch_size", 8)),
         num_answers=getattr(opts, "num_answers", 5), dtype=dtype,
         device=device)
+    if not dist.is_primary():
+        return log, results
     LOGGER.info("videoQA eval: %s", log)
     out = write_results(args.output_dir,
                         f"qa_results_{args.checkpoint}_all.json", results)

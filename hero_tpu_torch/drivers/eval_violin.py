@@ -1,5 +1,5 @@
 """VIOLIN inference as a program (counterpart of
-``hero_tpu/drivers/eval_violin.py``, one card):
+``hero_tpu/drivers/eval_violin.py``, on one card or several ranks):
 
     python -m hero_tpu_torch.drivers.eval_violin --output_dir <train dir> \
         --checkpoint <step or path> [--query_txt_db <db>]
@@ -16,11 +16,11 @@ import json
 
 import torch
 
-from hero_tpu_torch import resolve_device
 from hero_tpu_torch.drivers.eval_videoqa import (base_argparser, load_run,
                                                  write_results)
 from hero_tpu_torch.drivers.train_violin import VIOLIN, violin_eval_batches
 from hero_tpu_torch.evaluation.downstream import validate_violin
+from hero_tpu_torch.parallel import dist
 from hero_tpu_torch.utils.logger import LOGGER, configure_stdout
 
 
@@ -28,13 +28,17 @@ def main(args, *, device="cuda", dtype: torch.dtype = torch.bfloat16):
     """Judge the statements with ``args.output_dir``'s run at
     ``args.checkpoint`` on ``device`` in ``dtype``
     (``hero_tpu/drivers/eval_violin.py:20-58``), ``val_batch_size`` pairs
-    a batch.  Returns (log, qid -> 0/1)."""
-    device = resolve_device(device)
+    a batch.  On the ranks of a launch every rank judges every pair, as
+    the JAX program does, and the primary writes.  Returns (log, qid ->
+    0/1)."""
+    device = dist.init_distributed(device)
     opts, cfg, params, ds = load_run(args, VIOLIN, device)
     log, results = validate_violin(
         params, cfg, violin_eval_batches(ds, getattr(opts,
                                                      "val_batch_size", 8)),
         dtype=dtype, device=device)
+    if not dist.is_primary():
+        return log, results
     LOGGER.info("violin eval: %s", log)
     write_results(args.output_dir,
                   f"violin_results_{args.checkpoint}_all.json", results)

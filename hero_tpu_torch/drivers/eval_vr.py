@@ -1,5 +1,5 @@
 """VR-only inference as a program (counterpart of
-``hero_tpu/drivers/eval_vr.py``, one card):
+``hero_tpu/drivers/eval_vr.py``, on one card or several ranks):
 
     python -m hero_tpu_torch.drivers.eval_vr --output_dir <train dir> \
         --checkpoint <step or path> [--query_txt_db <db>] [--split val]

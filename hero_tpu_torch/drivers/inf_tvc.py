@@ -1,5 +1,5 @@
 """TVC caption generation as a program -> submission jsonl (counterpart
-of ``hero_tpu/drivers/inf_tvc.py``, one card):
+of ``hero_tpu/drivers/inf_tvc.py``, on one card or several ranks):
 
     python -m hero_tpu_torch.drivers.inf_tvc --output_dir <train dir> \
         --checkpoint <step or path> [--target_clip J] [--beam K] \
@@ -41,6 +41,7 @@ from hero_tpu_torch.evaluation.caption_metrics import TVCEval
 from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
 from hero_tpu_torch.models import nn
 from hero_tpu_torch.models import tvc as tvc_lib
+from hero_tpu_torch.parallel import dist
 from hero_tpu_torch.utils.logger import LOGGER, configure_stdout
 
 
@@ -129,10 +130,13 @@ def main(args, device="cuda", dtype: torch.dtype = torch.float32):
     for in-process callers that ask) and write the submission jsonl.
     The parameters the checkpoint lacks keep the port's seeded init, so
     a partial checkpoint serves other weights than the JAX driver's.  The
-    checkpoint is a JAX-layout ``.npz`` or a reference ``.pt``.  Returns
-    the ``TVCEval``
-    scores with ``args.reference``, else the records."""
-    device = resolve_device(device)
+    checkpoint is a JAX-layout ``.npz`` or a reference ``.pt``.  On the
+    ranks of a launch (``parallel/dist.init_distributed``) each captions
+    its share of the videos and the records are gathered, rank after rank
+    (``hero_tpu/drivers/inf_tvc.py:94-123``); the primary writes and
+    scores, the other ranks return the gathered records.  Returns the
+    ``TVCEval`` scores with ``args.reference``, else the records."""
+    device = dist.init_distributed(device)
     opts = load_serve_opts(args.output_dir)
     cfg = common.model_config_from_opts(opts)
     ckpt = resolve_checkpoint(args.output_dir, args.checkpoint)
@@ -146,7 +150,9 @@ def main(args, device="cuda", dtype: torch.dtype = torch.float32):
     cap_db = TvcCaptionStore(args.target_clip_db or opts.cap_db,
                              max_txt_len=opts.max_txt_len)
     ds_kw = dict(clips_per_item=getattr(opts, "clips_per_item", 4),
-                 seg_len=opts.max_clip_len)
+                 seg_len=opts.max_clip_len,
+                 distributed=dist.world_size() > 1, rank=dist.rank(),
+                 world_size=dist.world_size())
     if args.target_clip:
         ds = TvcClipDataset.from_jsonl(video_db, args.target_clip, **ds_kw)
     else:
@@ -156,6 +162,9 @@ def main(args, device="cuda", dtype: torch.dtype = torch.float32):
         batch_size=getattr(opts, "val_batch_size", 8),
         max_gen_step=getattr(opts, "max_gen_step", 30), beam=args.beam,
         detok=detokenizer(), dtype=dtype, device=device)
+    records = [r for rs in dist.host_allgather(records) for r in rs]
+    if not dist.is_primary():
+        return records
     with open(args.submission, "w") as f:
         for rec in records:
             f.write(json.dumps(rec) + "\n")

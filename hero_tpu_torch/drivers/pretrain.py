@@ -22,7 +22,6 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from hero_tpu_torch import resolve_device
 from hero_tpu_torch.config import opts as opts_lib
 from hero_tpu_torch.config.model_config import HeroConfig
 from hero_tpu_torch.convert.from_jax import load_jax_params
@@ -34,15 +33,12 @@ from hero_tpu_torch.data.video import (VideoFeatSubTokDataset,
                                        suggest_shapes, video_fits_bucket)
 from hero_tpu_torch.drivers import common
 from hero_tpu_torch.models import pretrain as pretrain_lib
+from hero_tpu_torch.parallel import dist
 from hero_tpu_torch.training.optim import AdamWConfig
-from hero_tpu_torch.training.save import (AsyncCheckpointWriter, ModelSaver,
-                                          TrainingRestorer,
-                                          save_training_meta)
+from hero_tpu_torch.training.save import AsyncCheckpointWriter, ModelSaver
 from hero_tpu_torch.training.step import (TrainSpec, TrainState,
                                           make_train_step)
-from hero_tpu_torch.utils.logger import (LOGGER, add_log_to_file,
-                                         configure_stdout)
-from hero_tpu_torch.utils.misc import set_random_seed
+from hero_tpu_torch.utils.logger import LOGGER, configure_stdout
 
 DEFAULT_TASKS = {"mlm": 2, "mfm-nce": 2, "fom": 1, "vsm": 2}
 
@@ -166,7 +162,9 @@ def make_loss(task: str, cfg, vsm, *, mask_prob: float = 0.15,
     """The train loss of one task, ``loss_fn(params, batch, seed) ->
     (loss, {})`` (``hero_tpu/drivers/pretrain.py:191-210``): VSM pops the
     curriculum's extras and sums its three weighted losses; the other
-    tasks return sum / max(count, 1)."""
+    tasks return sum / max(count, 1) of the global batch
+    (``parallel/dist``: MLM, MFFR and FOM by rule (a), MFM-NCE, whose sum
+    and count are already the global batch's, by rule (b))."""
     task = task.partition("@")[0].partition("#")[0]
 
     def loss_fn(params, batch, seed):
@@ -181,7 +179,9 @@ def make_loss(task: str, cfg, vsm, *, mask_prob: float = 0.15,
                                              train=train, seed=seed,
                                              dtype=dtype,
                                              mask_prob=mask_prob)
-        return s / torch.clamp(n, min=1.0), {}
+        if task == "mfm-nce":
+            return dist.replicated(s / torch.clamp(n, min=1.0)), {}
+        return dist.global_mean(s, n), {}
     return loss_fn
 
 
@@ -229,7 +229,10 @@ def run_pretrain(opts, video_dbs: Dict[str, VideoFeatSubTokDataset],
     (default :func:`init_params` on ``device``); a state past step 0
     resumes the task schedule where it stood.  ``on_step``, ``saver`` and
     ``restorer`` are :func:`common.run_training`'s.  Returns the final
-    train state.  ``--pp_stages`` > 1 raises (ROADMAP A8)."""
+    train state.  On several ranks (``parallel/dist``) every rank builds
+    the same task draws and batches and trains on its rows.
+    ``--pp_stages`` > 1, and ``--zero1`` on several ranks, raise (ROADMAP
+    A8)."""
     common.check_one_device(opts)
     task_datasets = build_task_datasets(opts, video_dbs, name_ratios)
     LOGGER.info("pretraining targets %s, tasks %s", list(video_dbs),
@@ -290,34 +293,28 @@ def run_pretrain(opts, video_dbs: Dict[str, VideoFeatSubTokDataset],
 def main(opts, device="cuda", on_step: Optional[Callable] = None
          ) -> TrainState:
     """Pretrain as ``opts`` says (``hero_tpu/drivers/pretrain.py:163-282``)
-    on ``device``: the stores of :func:`build_targets`, the weights of
-    :func:`init_params`, ``output_dir`` with ``log/`` (``hps.json``,
-    ``log.txt``, ``scalars.jsonl``, ``checkpoints.json``: each
-    checkpoint's copy and write ms and bytes), ``ckpt/model_step_N.npz``
-    and ``restore.npz``, resumed from when present.  bf16 compute on fp32
-    parameters.  ``on_step`` as :func:`common.run_training`'s.  Returns
-    the final train state.  ``--pp_stages`` > 1 raises before any work
-    (ROADMAP A8)."""
-    common.check_one_device(opts)
-    device = resolve_device(device)
-    set_random_seed(opts.seed)
-    os.makedirs(opts.output_dir, exist_ok=True)
-    save_training_meta(opts.output_dir, vars(opts),
-                       {"model_config": opts.model_config})
-    log_file = add_log_to_file(os.path.join(opts.output_dir, "log",
-                                            "log.txt"))
+    on ``device``, or as this rank of the launch's data-parallel world
+    (``common.start_run``; ``torchrun --nproc_per_node N -m
+    hero_tpu_torch.drivers.pretrain --config ...``): the stores of
+    :func:`build_targets`, the weights of :func:`init_params`,
+    ``output_dir`` with ``log/`` (``hps.json``, ``log.txt``,
+    ``scalars.jsonl``, ``checkpoints.json``: each checkpoint's copy and
+    write ms and bytes), ``ckpt/model_step_N.npz`` and ``restore.npz``,
+    resumed from when present (every rank restores the primary's file),
+    written by the primary alone.  bf16 compute on fp32 parameters.
+    ``on_step`` as :func:`common.run_training`'s.  Returns the final train
+    state.  ``--pp_stages`` > 1, and ``--zero1`` on several ranks, raise
+    before any work (ROADMAP A8)."""
+    device, log_file = common.start_run(opts, device)
     ckpt_writer = AsyncCheckpointWriter()   # file I/O off the train loop
     saver = restorer = None
     try:
         video_dbs, name_ratios = build_targets(opts)
         cfg = common.model_config_from_opts(opts)
         vsm = common.vsm_config_from_opts(opts)
-        restorer = TrainingRestorer(
-            opts.output_dir, {"num_train_steps": opts.num_train_steps,
-                              "learning_rate": opts.learning_rate},
-            writer=ckpt_writer)
+        restorer, resume = common.make_restorer(opts, ckpt_writer)
         ckpt_info: Dict = {}
-        if restorer.can_restore():
+        if resume:
             # the restored parameters are the template: no init needed
             state = restorer.restore(device)
             if getattr(opts, "checkpoint", None):
@@ -331,18 +328,13 @@ def main(opts, device="cuda", on_step: Optional[Callable] = None
                            restorer.template,
                            vocab_padded=ckpt_info.get("vocab_padded"),
                            writer=ckpt_writer)
+        writing_saver, writing_restorer = common.primary_only(saver,
+                                                               restorer)
         return run_pretrain(opts, video_dbs, name_ratios, cfg=cfg,
                             state=state, device=device, on_step=on_step,
-                            saver=saver, restorer=restorer)
+                            saver=writing_saver, restorer=writing_restorer)
     finally:
-        try:
-            ckpt_writer.close()
-        finally:
-            if saver is not None:
-                common.write_checkpoint_records(opts.output_dir, saver,
-                                                restorer)
-            LOGGER.removeHandler(log_file)
-            log_file.close()
+        common.end_run(opts, ckpt_writer, saver, restorer, log_file)
 
 
 def cli():

@@ -1,5 +1,5 @@
 """TVC captioning finetune as a program (counterpart of
-``hero_tpu/drivers/train_tvc.py``, one card):
+``hero_tpu/drivers/train_tvc.py``, on one card or several ranks):
 
     python -m hero_tpu_torch.drivers.train_tvc --config <json>
 
@@ -53,6 +53,7 @@ from hero_tpu_torch.evaluation import caption_metrics as cm
 from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
 from hero_tpu_torch.models import nn
 from hero_tpu_torch.models import tvc as tvc_lib
+from hero_tpu_torch.parallel import dist
 from hero_tpu_torch.training.step import TrainState, make_train_step
 from hero_tpu_torch.utils.logger import LOGGER, configure_stdout
 
@@ -70,12 +71,13 @@ def make_loss_fn(cfg: HeroConfig, lsr: float = 0.1,
                  dtype: torch.dtype = torch.bfloat16, train: bool = True):
     """``train_tvc``'s ``loss_fn(params, batch, seed)``: the summed loss over
     the caption tokens divided by their count (at least 1), dropout on
-    (``train``)."""
+    (``train``); on several ranks the global batch's tokens (rule (a) of
+    ``parallel/dist``)."""
 
     def loss_fn(params, batch, seed):
         s, n = tvc_lib.forward_tvc(params, cfg, batch, lsr=lsr, train=train,
                                    seed=seed, dtype=dtype)
-        return s / torch.clamp(n, min=1.0), {}
+        return dist.global_mean(s, n), {}
     return loss_fn
 
 
@@ -199,9 +201,10 @@ def main(opts, device="cuda", on_step: Optional[Callable] = None,
     checkpoint lacks take the port's numpy-seeded init
     (:func:`init_params`), not ``jax.random.PRNGKey(seed)``'s, so a
     partial checkpoint trains from other weights than the JAX driver's.
-    ``on_step`` as :func:`common.run_training`'s.  Returns the final
-    train state.  ``--pp_stages`` > 1 raises before any work (ROADMAP
-    A8)."""
+    ``on_step`` as :func:`common.run_training`'s.  On several ranks the
+    validation runs on each and the primary writes.  Returns the final
+    train state.  ``--pp_stages`` > 1, and ``--zero1`` on several ranks,
+    raise before any work (ROADMAP A8)."""
     hps = vars(opts)
 
     def prepare(cfg, device):
@@ -241,6 +244,8 @@ def main(opts, device="cuda", on_step: Optional[Callable] = None,
                                         dtype=dtype, device=device)
                 scores = score_token_captions(gen, cap_db)
             path = os.path.join(opts.output_dir, f"tvc_gen_{step}.jsonl")
+            if not dist.is_primary():
+                return            # every rank decoded the same captions
             with open(path, "w") as f:
                 for rec in gen:
                     f.write(json.dumps(rec) + "\n")

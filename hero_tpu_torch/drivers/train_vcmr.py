@@ -1,5 +1,5 @@
 """TVR/How2R/DiDeMo VCMR finetuning as a program (counterpart of
-``hero_tpu/drivers/train_vcmr.py``, one card):
+``hero_tpu/drivers/train_vcmr.py``, on one card or data-parallel ranks):
 
     python -m hero_tpu_torch.drivers.train_vcmr --config <json>
 
@@ -40,6 +40,7 @@ from hero_tpu_torch.drivers import common, pretrain
 from hero_tpu_torch.evaluation.vcmr_eval import validate_full_vcmr
 from hero_tpu_torch.models import vcmr as vcmr_lib
 from hero_tpu_torch.models.pretrain import VsmConfig
+from hero_tpu_torch.parallel import dist
 from hero_tpu_torch.training.step import TrainState, make_train_step
 from hero_tpu_torch.utils.logger import LOGGER, configure_stdout
 
@@ -47,15 +48,19 @@ from hero_tpu_torch.utils.logger import LOGGER, configure_stdout
 def build_eval_inputs(video_db, query_db, opts):
     """(video batches, query batches, sorted video ids, the global
     {video: index}, query data) for ``validate_full_vcmr``
-    (``hero_tpu/drivers/train_vcmr.py:40-82``, one process).
+    (``hero_tpu/drivers/train_vcmr.py:40-82``).
 
     The global index is the sub store's for the first of the ``val``,
     ``train`` and ``test`` splits it has, else the sorted ids' order.
     Video batches hold ``opts.vcmr_eval_video_batch_size`` videos; a
     ragged last batch (after the first) is padded with zero-mask videos,
-    which the scorer never ranks.  Query batches hold
-    ``opts.vcmr_eval_batch_size`` queries, the last padded to that size
-    (:meth:`VcmrFullEvalDataset.batches`)."""
+    which the scorer never ranks; on W ranks the batches another rank
+    embeds (``validate_full_vcmr``'s ``i % W``) are None, never read from
+    the stores.  Query batches hold ``opts.vcmr_eval_batch_size``
+    queries, the last padded to that size
+    (:meth:`VcmrFullEvalDataset.batches`); with
+    ``opts.distributed_eval`` on W ranks, of this rank's share of the
+    queries."""
     if hasattr(video_db.txt_db, "id2len") and video_db.txt_db.id2len:
         video_ids = sorted(video_db.txt_db.id2len.keys())
     else:
@@ -72,17 +77,24 @@ def build_eval_inputs(video_db, query_db, opts):
         video2idx_global = {v: i for i, v in enumerate(video_ids)}
     video_ids = sorted(video2idx_global.keys())
 
+    world, rank = dist.world_size(), dist.rank()
+
     def video_batches():
         bs = getattr(opts, "vcmr_eval_video_batch_size", 50)
-        for s in range(0, len(video_ids), bs):
+        for i, s in enumerate(range(0, len(video_ids), bs)):
+            if i % world != rank:
+                yield None
+                continue
             items = [video_db.video_item(v) for v in video_ids[s:s + bs]]
             if len(items) < bs and s > 0:
                 pad_item = {k: np.zeros_like(v) for k, v in items[0].items()}
                 items.extend([pad_item] * (bs - len(items)))
             yield stack_items(items)
 
-    full_eval = VcmrFullEvalDataset(list(query_db.id2len.keys()), query_db,
-                                    video_db.shapes)
+    full_eval = VcmrFullEvalDataset(
+        list(query_db.id2len.keys()), query_db, video_db.shapes,
+        distributed=bool(getattr(opts, "distributed_eval", False)),
+        rank=rank, world_size=world)
     query_batches = full_eval.batches(
         getattr(opts, "vcmr_eval_batch_size", 80))
     return (video_batches(), query_batches, video_ids, video2idx_global,
@@ -172,8 +184,9 @@ def run_validation(state, cfg: HeroConfig, vsm: VsmConfig, video_db, opts,
                    dtype: torch.dtype = torch.bfloat16, device="cuda"):
     """The whole corpus against ``opts.val_query_txt_db`` (none: no
     validation) with ``validate_full_vcmr``; the metrics to the log and
-    the submission to ``output_dir/results_{step}_all.json``
-    (``hero_tpu/drivers/train_vcmr.py:186-214``)."""
+    the submission (every rank's queries) to
+    ``output_dir/results_{step}_all.json`` from the primary
+    (``hero_tpu/drivers/train_vcmr.py:186-214``).  Every rank calls it."""
     if not getattr(opts, "val_query_txt_db", None):
         return
     val_qdb = query_store_cls(opts.val_query_txt_db,
@@ -182,7 +195,10 @@ def run_validation(state, cfg: HeroConfig, vsm: VsmConfig, video_db, opts,
                                                              val_qdb, opts)
     _, submission, metrics = validate_full_vcmr(
         state.params, cfg, vsm, common.eval_opts_from(opts), vb, qb,
-        video_ids, v2i_global, qdata, dtype=dtype, device=device)
+        video_ids, v2i_global, qdata, dtype=dtype, device=device,
+        distributed=bool(getattr(opts, "distributed_eval", False)))
+    if not dist.is_primary():
+        return
     for task, m in (metrics or {}).items():
         LOGGER.info("[step %d] %s: %s", step, task,
                     {k: round(v, 2) for k, v in m.items()

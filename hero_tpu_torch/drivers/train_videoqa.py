@@ -1,5 +1,5 @@
 """TVQA/How2QA finetuning as a program (counterpart of
-``hero_tpu/drivers/train_videoqa.py``, one card):
+``hero_tpu/drivers/train_videoqa.py``, on one card or several ranks):
 
     python -m hero_tpu_torch.drivers.train_videoqa --config <json>
 
@@ -39,6 +39,7 @@ from hero_tpu_torch.data.store import QueryTokStore
 from hero_tpu_torch.drivers import common
 from hero_tpu_torch.evaluation.downstream import validate_videoqa
 from hero_tpu_torch.models import videoqa as videoqa_lib
+from hero_tpu_torch.parallel import dist
 from hero_tpu_torch.training.step import TrainState, make_train_step
 from hero_tpu_torch.utils.logger import LOGGER, configure_stdout
 
@@ -176,6 +177,8 @@ def run_qa_training(task: QaTask, opts, *, device="cuda",
             val_ds = task.dataset(video_db, opts.val_query_txt_db, opts)
             log, results = task.validate(state.params, cfg, val_ds, opts,
                                          dtype, device)
+            if not dist.is_primary():
+                return            # every rank validated the same items
             LOGGER.info("[step %d] %s val: %s", step, task.tree, log)
             with open(os.path.join(opts.output_dir,
                                    f"val_results_{step}.json"), "w") as f:

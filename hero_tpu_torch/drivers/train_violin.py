@@ -1,5 +1,5 @@
 """VIOLIN entailment finetuning as a program (counterpart of
-``hero_tpu/drivers/train_violin.py``, one card):
+``hero_tpu/drivers/train_violin.py``, on one card or several ranks):
 
     python -m hero_tpu_torch.drivers.train_violin --config <json>
 

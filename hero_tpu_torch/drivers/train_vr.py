@@ -1,5 +1,5 @@
 """MSR-VTT video-retrieval finetuning as a program (counterpart of
-``hero_tpu/drivers/train_vr.py``, one card):
+``hero_tpu/drivers/train_vr.py``, on one card or several ranks):
 
     python -m hero_tpu_torch.drivers.train_vr --config <json>
 

@@ -27,15 +27,17 @@ from hero_tpu_torch.models.pretrain import VsmConfig
 def validate_full_vr(params, cfg: HeroConfig, vsm: VsmConfig,
                      opts: VcmrEvalOpts, video_batches, query_batches,
                      video_ids, video2idx_global, query_data,
-                     dtype: torch.dtype = torch.bfloat16, device="cuda"):
+                     dtype: torch.dtype = torch.bfloat16, device="cuda",
+                     distributed: bool = False):
     """VR-only two-phase evaluation (reference eval_vr.py:137-305;
     ``hero_tpu/evaluation/downstream.py:24-32``): :func:`validate_full_vcmr`
-    with ``full_eval_tasks=("VR",)``.  Returns (val_log, submission,
-    metrics)."""
+    with ``full_eval_tasks=("VR",)``, on several ranks as it runs there.
+    Returns (val_log, submission, metrics)."""
     opts = dataclasses.replace(opts, full_eval_tasks=("VR",))
     return validate_full_vcmr(params, cfg, vsm, opts, video_batches,
                               query_batches, video_ids, video2idx_global,
-                              query_data, dtype=dtype, device=device)
+                              query_data, dtype=dtype, device=device,
+                              distributed=distributed)
 
 
 def _forward_batches(forward, params, batches, device):

@@ -5,7 +5,10 @@ loss, with examples (tokens, features, frames) per second.
 
 Each runs its forward under ``torch.no_grad()`` on ``device`` and reduces
 on the device, reading back scalars only (the JAX validators copy the
-logits to the host); log-softmaxes are fp32.
+logits to the host); log-softmaxes are fp32.  On several ranks every rank
+validates the identical batch stream, as the JAX package does, and a
+cross-rank checksum of each batch fails loudly when a rank's stream
+drifted.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from hero_tpu_torch.models import model as backbone
 from hero_tpu_torch.models import nn
 from hero_tpu_torch.models import pretrain as pretrain_lib
 from hero_tpu_torch.models.pretrain import VsmConfig
+from hero_tpu_torch.parallel import dist
 
 LOGGER = logging.getLogger(__name__)
 
@@ -40,6 +44,8 @@ def validate_pretrain(params, cfg: HeroConfig, vsm: VsmConfig,
     out: Dict[str, float] = {}
     for task, loader in val_loaders.items():
         LOGGER.info("validate on %s task", task)
+        if dist.world_size() > 1:
+            loader = _checked(loader, task)
         kw = dict(dtype=dtype, device=device)
         if task.startswith("mlm"):
             log = validate_mlm(params, cfg, loader, **kw)
@@ -57,6 +63,14 @@ def validate_pretrain(params, cfg: HeroConfig, vsm: VsmConfig,
             raise ValueError(task)
         out.update({f"valid_{task}/{k}": v for k, v in log.items()})
     return out
+
+
+def _checked(loader: Iterable, task: str):
+    """``loader``'s batches, each first checked equal on every rank
+    (``hero_tpu/evaluation/pretrain_val.py:41-54``)."""
+    for batch in loader:
+        dist.assert_same_batch(batch, f"{task} validation batch")
+        yield batch
 
 
 @torch.no_grad()

@@ -1,5 +1,6 @@
 """Full-corpus VCMR / SVMR / VR evaluation -- the serving path
-(counterpart of ``hero_tpu/evaluation/vcmr_eval.py``, one device).
+(counterpart of ``hero_tpu/evaluation/vcmr_eval.py``), on one device or
+on the ranks of a process group (``parallel/dist``).
 
 - **Phase 1** embeds every video through the backbone into a corpus
   tensor ``(Nv, max_clip_len, D)`` kept resident on the device.
@@ -19,6 +20,12 @@
   never whole on the device.
 - The host decodes the flat indices into (video, st, ed) seconds, builds
   the reference-schema submission and computes the metrics.
+- **Several ranks**: phase 1 embeds video batch i on rank i % W and
+  all-gathers the corpus in the single process's video order; with
+  ``distributed`` query batches (each rank's share of the queries) the
+  metrics merge by example count (:func:`aggregate_distributed_metrics`)
+  and the submissions by query (:func:`_merge_process_submissions`).
+  The chunked corpus stays single-process.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from hero_tpu_torch.models import pretrain as pretrain_lib
 from hero_tpu_torch.models.model import without_task_heads
 from hero_tpu_torch.models import vcmr as vcmr_lib
 from hero_tpu_torch.models.pretrain import VsmConfig
+from hero_tpu_torch.parallel import dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,16 +84,49 @@ def embed_video_corpus(params, cfg: HeroConfig,
                        dtype: torch.dtype = torch.bfloat16,
                        device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """Phase 1: (Nv, max_clip_len, D) frame embeddings + (Nv, L) masks, on
-    ``device``."""
+    ``device``.  On W ranks, rank r embeds batches r, r + W, ... (another
+    rank's batch may be None) and the whole corpus is all-gathered back
+    into the batches' order, the same on every rank."""
     device = resolve_device(device)
     params = nn.tree_to(without_task_heads(params), device)
+    world, rank = dist.world_size(), dist.rank()
     embs, masks = [], []
+    n_batches = 0
     with torch.inference_mode():
-        for batch in video_batches:
+        for i, batch in enumerate(video_batches):
+            n_batches += 1
+            if i % world != rank:
+                continue
             tb = batch_to_device(batch, device)
             embs.append(vcmr_lib.encode_video_corpus(params, cfg, tb, dtype))
             masks.append(tb["c_attn_masks"])
-    return torch.cat(embs, 0), torch.cat(masks, 0)
+    if world == 1:
+        return torch.cat(embs, 0), torch.cat(masks, 0)
+    return (_gather_batches(embs, n_batches, device),
+            _gather_batches(masks, n_batches, device))
+
+
+def _gather_batches(mine: List[torch.Tensor], n_batches: int, device
+                    ) -> torch.Tensor:
+    """Every rank's batches (rank r held batches r, r + W, ...), all
+    rows of batch 0, then of batch 1, and so on: the single process's
+    order.  Ranks may hold different counts and row counts."""
+    world = dist.world_size()
+    rows = dist.host_allgather([int(t.shape[0]) for t in mine])
+    like = dist.host_allgather(
+        (tuple(mine[0].shape[1:]), mine[0].dtype) if mine else None)
+    tail, dtype = next(x for x in like if x is not None)
+    most = max(sum(r) for r in rows)
+    local = torch.zeros((most,) + tail, dtype=dtype, device=device)
+    if mine:
+        local[:sum(rows[dist.rank()])] = torch.cat(mine, 0)
+    every = dist.all_gather_tensor(local).reshape((world, most) + tail)
+    parts = []
+    for i in range(n_batches):
+        r, k = i % world, i // world
+        at = sum(rows[r][:k])
+        parts.append(every[r, at:at + rows[r][k]])
+    return torch.cat(parts, 0)
 
 
 def _check_ranking_weights(vsm: VsmConfig):
@@ -457,15 +498,20 @@ def validate_full_vcmr(params, cfg: HeroConfig, vsm: VsmConfig,
                        video2idx_global: Dict[str, int],
                        query_data: Dict[Any, dict],
                        dtype: torch.dtype = torch.bfloat16,
-                       device="cuda"):
+                       device="cuda", distributed: bool = False):
     """Run the full two-phase evaluation
-    (``hero_tpu/evaluation/vcmr_eval.py:568-798``, one process).
+    (``hero_tpu/evaluation/vcmr_eval.py:568-798``).
 
     ``query_batches`` yield dicts with numpy ``query_input_ids`` (N, Lq),
     ``query_attn_masks``, plus host lists ``qids`` and ``vids`` (GT video
     per query, "" if unknown).  ``opts.corpus_chunk_videos`` below the
     corpus size takes the chunked path (not with ``opts.pack_queries``:
-    ValueError).  Returns (val_log, submission, metrics)."""
+    ValueError).  Every rank of a process group calls it: phase 1 is
+    shared out by video batch (:func:`embed_video_corpus`), and with
+    ``distributed`` the query batches are this rank's share of the
+    queries (``VcmrFullEvalDataset(distributed=True)``), the metrics and
+    the submission those of every rank's queries.  Returns (val_log,
+    submission, metrics)."""
     device = resolve_device(device)
     params = nn.tree_to(without_task_heads(params), device)
     video2idx_local = {v: i for i, v in enumerate(video_ids)}
@@ -474,6 +520,12 @@ def validate_full_vcmr(params, cfg: HeroConfig, vsm: VsmConfig,
     chunked = (opts.corpus_chunk_videos
                and opts.corpus_chunk_videos < len(video_ids))
     if chunked:
+        if dist.world_size() > 1:
+            raise NotImplementedError(
+                f"corpus_chunk_videos={opts.corpus_chunk_videos} on "
+                f"{dist.world_size()} ranks: the chunked corpus is served "
+                "by one process (its sharding over ranks is ROADMAP A8); "
+                "run one process, or drop corpus_chunk_videos")
         if opts.pack_queries:
             raise ValueError(
                 "pack_queries is not supported together with "
@@ -627,7 +679,7 @@ def validate_full_vcmr(params, cfg: HeroConfig, vsm: VsmConfig,
             submission, partial_query_data, iou_thds=VCMR_IOU_THDS,
             match_number=True, verbose=False,
             use_desc_type=opts.eval_with_query_type)
-        metrics = _example_weighted(metrics, n_ex)
+        metrics = _merged_metrics(metrics, n_ex, distributed)
         for task_type, task_metric in metrics.items():
             for k, v in task_metric.items():
                 val_log[f"valid_{task_type}/{task_type}_{k}"] = v
@@ -650,19 +702,56 @@ def validate_full_vcmr(params, cfg: HeroConfig, vsm: VsmConfig,
                 after, partial_query_data, iou_thds=VCMR_IOU_THDS,
                 match_number=True, verbose=False,
                 use_desc_type=opts.eval_with_query_type)
-            metrics_nms = _example_weighted(metrics_nms, n_ex)
+            metrics_nms = _merged_metrics(metrics_nms, n_ex, distributed)
             for task_type, task_metric in metrics_nms.items():
                 for k, v in task_metric.items():
                     val_log[f"valid_{task_type}_nms_{opts.nms_thd}/"
                             f"{task_type}_{k}"] = v
+    if distributed:
+        # each rank scored its own queries: the returned submission
+        # carries every rank's, merged after the per-rank metrics above
+        submission = _merge_process_submissions(submission)
     return val_log, submission, metrics
 
 
-def _example_weighted(metrics, n_ex: int):
-    """The single-process case of the JAX package's example-weighted
-    metric merge: drops ``desc_type_ratio`` and evaluates n*m/n exactly as
-    that merge does, so the floats agree bit for bit."""
-    return {task_type: {k: sum([n_ex * v]) / max(n_ex, 1)
-                        for k, v in task_metric.items()
-                        if k != "desc_type_ratio"}
+def _merged_metrics(metrics, n_ex: int, distributed: bool):
+    """The metrics of every rank's queries (``distributed``), else of this
+    rank's, through the example-weighted merge either way: it drops
+    ``desc_type_ratio`` and evaluates n*m/n exactly as the JAX package's
+    does, so the floats agree bit for bit."""
+    if distributed:
+        return aggregate_distributed_metrics(metrics, n_ex)
+    return _weighted([n_ex], [metrics], metrics)
+
+
+def _weighted(n_per_rank, m_per_rank, metrics):
+    total = sum(n_per_rank)
+    return {task_type: {k: sum(n * m_per_rank[i][task_type][k]
+                               for i, n in enumerate(n_per_rank))
+                        / max(total, 1)
+                        for k in task_metric if k != "desc_type_ratio"}
             for task_type, task_metric in metrics.items()}
+
+
+def aggregate_distributed_metrics(metrics, n_ex: int):
+    """Example-count-weighted metric averaging across the ranks
+    (``hero_tpu/evaluation/vcmr_eval.py:817-833``; reference
+    eval_vcmr.py:430-448); the same value on every rank."""
+    return _weighted(dist.host_allgather(n_ex), dist.host_allgather(metrics),
+                     metrics)
+
+
+def _merge_process_submissions(submission):
+    """Every rank's submission rows, rank after rank, so every rank holds
+    the whole query set (``hero_tpu/evaluation/vcmr_eval.py:801-814``;
+    reference ``all_gather_list(results)``, eval_vcmr.py:125-140);
+    identity for a single process."""
+    if dist.world_size() == 1:
+        return submission
+    subs = dist.host_allgather(submission)
+    merged = {"video2idx": submission["video2idx"]}
+    for task in ("SVMR", "VCMR", "VR"):
+        rows = [r for s in subs for r in s.get(task, [])]
+        if rows:
+            merged[task] = rows
+    return merged

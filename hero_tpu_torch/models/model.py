@@ -29,6 +29,7 @@ import torch
 from hero_tpu_torch.config.model_config import HeroConfig
 from hero_tpu_torch.models import encoder as enc
 from hero_tpu_torch.models import nn
+from hero_tpu_torch.parallel import dist
 
 Params = Dict[str, Any]
 
@@ -249,8 +250,14 @@ def forward_mfm(p: Params, cfg: HeroConfig, batch: Dict[str, torch.Tensor],
     if loss == "regression":
         err = (pred.float() - targets).square().sum(-1)
         return (err * masked).sum(), masked.sum() * targets.shape[-1]
-    return _mfm_nce_loss(pred, targets, masked, frame_valid * (1.0 - c_mask),
-                         cfg.nce_temp, mask_prob=mask_prob)
+    # rule (b) of parallel/dist: the NCE contrasts every masked frame with
+    # the global batch's targets and predictions, so its inputs are the
+    # gathered rows, the row cap and the masked-first order the global
+    # batch's; (sum, count) are then the global batch's on every rank
+    g = dist.gather_rows
+    return _mfm_nce_loss(g(pred), g(targets), g(masked),
+                         g(frame_valid * (1.0 - c_mask)), cfg.nce_temp,
+                         mask_prob=mask_prob)
 
 
 def _mfm_nce_row_cap(mask_prob: float, N: int, n_clips: int = 0) -> int:

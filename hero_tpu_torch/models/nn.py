@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from hero_tpu_torch.const import NEG_INF
 from hero_tpu_torch.ops import layernorm as _ln
 from hero_tpu_torch.ops.layernorm import layer_norm
+from hero_tpu_torch.parallel import dist
 
 Params = Dict[str, Any]
 
@@ -47,7 +48,8 @@ def dropout_add_layer_norm(p: Params, y: torch.Tensor, x: torch.Tensor,
     transformer keeps dropout, add and :func:`apply_layer_norm` apart,
     as the JAX package does."""
     return _ln.dropout_add_layer_norm(y, x, p["weight"], p["bias"],
-                                      rate=rate, seed=seed, eps=eps)
+                                      rate=rate, seed=dist.fold_rank(seed),
+                                      eps=eps)
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -55,9 +57,12 @@ def dropout(x: torch.Tensor, rate: float,
     """Inverted dropout with an exact Bernoulli(1 - rate) keep mask drawn
     from a generator on x's device seeded with ``seed``; the identity when
     ``seed`` is None or ``rate`` is 0 (``hero_tpu/models/nn.py:115-128``,
-    without its uint16 quantisation of the rate, a TPU workaround)."""
+    without its uint16 quantisation of the rate, a TPU workaround).  In a
+    data-parallel step the rank is folded into the seed
+    (``parallel/dist.fold_rank``)."""
     if seed is None or rate <= 0.0:
         return x
+    seed = dist.fold_rank(seed)
     gen = torch.Generator(device=x.device).manual_seed(seed)
     keep = torch.empty(x.shape, dtype=torch.float32,
                        device=x.device).bernoulli_(1.0 - rate, generator=gen)

@@ -27,6 +27,7 @@ from hero_tpu_torch.const import NEG_INF
 from hero_tpu_torch.models import encoder as enc
 from hero_tpu_torch.models import model as backbone
 from hero_tpu_torch.models import nn
+from hero_tpu_torch.parallel import dist
 
 Params = Dict[str, Any]
 
@@ -339,20 +340,27 @@ def forward_vsm(params: Params, cfg: HeroConfig, vsm: VsmConfig,
         gen = torch.Generator().manual_seed(nn.rng_for(seed, "drop_svmr"))
         keep_span = float(torch.rand((), generator=gen)) > vsm.drop_svmr_prob
     if keep_span:
+        # rule (a) of parallel/dist: each query's span is its own item
         targets = batch["targets"].reshape(B * Q, 2)
         st, ed = span_logits()
         s_sum, s_cnt = backbone.masked_cross_entropy(st, targets[:, 0])
         e_sum, e_cnt = backbone.masked_cross_entropy(ed, targets[:, 1])
-        loss_st_ed = (s_sum / torch.clamp(s_cnt, min=1.0)
-                      + e_sum / torch.clamp(e_cnt, min=1.0))
+        loss_st_ed = (dist.global_mean(s_sum, s_cnt)
+                      + dist.global_mean(e_sum, e_cnt))
 
     loss_neg_ctx = loss_neg_q = zero
-    scores = video_scores()
-    if scores is not None:
-        loss_neg_ctx, loss_neg_q = video_level_loss(
-            scores, q_mask, Q, vsm, use_hard_negative=use_hard_negative,
+    if vsm.lw_neg_ctx != 0 or vsm.lw_neg_q != 0:
+        # rule (b): every query ranks against every video of the global
+        # batch, so the scores are the gathered rows' (the hard-negative
+        # sort and the sampled uniforms see the global batch too)
+        g = dist.gather_rows
+        scores = get_video_level_scores(g(mod_query), g(frame_emb),
+                                        g(frame_mask))
+        loss_neg_ctx, loss_neg_q = (dist.replicated(x) for x in
+                                    video_level_loss(
+            scores, g(q_mask), Q, vsm, use_hard_negative=use_hard_negative,
             hard_pool_size=hard_pool_size, hard_neg_weight=hard_neg_weight,
-            seed=nn.rng_for(seed, "sampled_neg"))
+            seed=nn.rng_for(seed, "sampled_neg")))
     w_st_ed = vsm.lw_st_ed if lw_st_ed is None else lw_st_ed
     return (w_st_ed * loss_st_ed, vsm.lw_neg_ctx * loss_neg_ctx,
             vsm.lw_neg_q * loss_neg_q)

@@ -40,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from hero_tpu_torch.config.model_config import TransformerConfig
 from hero_tpu_torch.models import nn
+from hero_tpu_torch.parallel import dist
 from hero_tpu_torch.ops.attention import (merge_heads, multi_head_attention,
                                           packed_attention, split_heads)
 
@@ -85,7 +86,7 @@ def attention(p: Params, x: torch.Tensor, cfg: TransformerConfig, *,
     ctx = packed_attention(
         q, k, v, cfg.num_attention_heads, kv_mask=kv_mask, seg=seg,
         dropout_rate=_rate(cfg.attention_probs_dropout_prob, train, seed),
-        seed=nn.rng_for(seed, "attn_probs"), causal=causal)
+        seed=dist.fold_rank(nn.rng_for(seed, "attn_probs")), causal=causal)
     y = nn.linear(p["out"], ctx, dtype)
     y = nn.dropout(y, _rate(cfg.hidden_dropout_prob, train, seed),
                    nn.rng_for(seed, "attn_out"))

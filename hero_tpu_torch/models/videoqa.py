@@ -23,6 +23,7 @@ from hero_tpu_torch.config.model_config import HeroConfig
 from hero_tpu_torch.models import embed, nn, transformer
 from hero_tpu_torch.models import model as backbone
 from hero_tpu_torch.models.pretrain import FlatInit, init_flat_v_encoder
+from hero_tpu_torch.parallel import dist
 
 Params = Dict[str, Any]
 
@@ -132,8 +133,9 @@ def forward_videoqa(params: Params, cfg: HeroConfig,
     ts = batch["ts_targets"].reshape(Nv, 2)
     st_s, st_n = backbone.masked_cross_entropy(st_logits, ts[:, 0])
     ed_s, ed_n = backbone.masked_cross_entropy(ed_logits, ts[:, 1])
-    temporal_loss = (st_s / torch.clamp(st_n, min=1.0)
-                     + ed_s / torch.clamp(ed_n, min=1.0)) / 2.0
+    # rule (a) of parallel/dist: each question is its own item
+    temporal_loss = (dist.global_mean(st_s, st_n)
+                     + dist.global_mean(ed_s, ed_n)) / 2.0
     qa_s, qa_n = backbone.masked_cross_entropy(logits, targets)
-    qa_loss = qa_s / torch.clamp(qa_n, min=1.0)
+    qa_loss = dist.global_mean(qa_s, qa_n)
     return qa_loss, temporal_loss

@@ -18,6 +18,7 @@ from hero_tpu_torch.config.model_config import HeroConfig
 from hero_tpu_torch.models import nn
 from hero_tpu_torch.models.pretrain import FlatInit, init_flat_v_encoder
 from hero_tpu_torch.models.videoqa import _fuse_video_text
+from hero_tpu_torch.parallel import dist
 
 Params = Dict[str, Any]
 
@@ -69,4 +70,7 @@ def forward_violin(params: Params, cfg: HeroConfig,
     x = logits[..., 0].float()
     loss = (torch.clamp(x, min=0.0) - x * targets
             + torch.log1p(torch.exp(-x.abs())))
-    return loss.mean()
+    if dist.dp_size() == 1:
+        return loss.mean()
+    # rule (a) of parallel/dist: the mean over the global batch's pairs
+    return dist.global_mean(loss.sum(), loss.new_tensor(float(loss.numel())))

@@ -24,8 +24,9 @@ The device-to-host copy runs on the calling thread; only the file write
 goes to :class:`AsyncCheckpointWriter`'s thread.  Every write is tmp file
 plus rename, so a crash never truncates a checkpoint.  Each save appends
 ``{"step", "copy_ms", "write_ms", "bytes"}`` to the saver's ``records``
-(the write's fields once it has ended).  One process writes: the port
-runs on one card.
+(the write's fields once it has ended).  One process writes: on several
+ranks the primary (``drivers/common.primary_only``), the others restore
+from its files.
 """
 
 from __future__ import annotations
