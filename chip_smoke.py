@@ -3,9 +3,10 @@
 caption serving, TVC train step, four-task pretraining, TVC finetuning
 and captioning as programs, VCMR and VR finetuning from a reference
 ``.pt`` as programs, VideoQA and VIOLIN finetuning and inference as
-programs, data-parallel training and multi-process serving on ranks
-that share the card, VCMR serving as a program and kernel components on
-one GPU and check them.
+programs, data-parallel training and multi-process serving, ZeRO-1,
+pipeline, tensor and sequence parallelism on ranks that share the card,
+VCMR serving as a program and kernel components on one GPU and check
+them.
 
     python3 chip_smoke.py                  # on a machine with one CUDA card
     python3 chip_smoke.py --json-out F     # also write the full record to F
@@ -245,27 +246,38 @@ What the card run does, in order (any failure exits non-zero):
    (``hero_tpu_torch/parallel/dist.py``), its ranks subprocesses with
    RANK, WORLD_SIZE and a ``file://`` store in the environment: 2 ranks
    on the one card over gloo (each told ``cuda:0``) hold the VSM train
-   step at ``bench.py``'s layout as 2 x 16 videos, each bucket, dropout
+   step at ``bench.py``'s layout as 2 x 16 videos, the fit bucket, dropout
    off, against the primary's one-process 32-video step from the same
    weights (fp32 by ``step_parity``'s rule, bf16 by
    ``bf16_step_check``'s, the one-process fp32 step the yardstick), take
    3 bf16 steps with dropout 0.1 (every loss finite, the replicas'
    parameters bit-identical, the ranks' first dropout masks different),
    time a step on 2 ranks and on one process and the gradients'
-   all-reduce (ms and bytes), then run ``drivers/train_vcmr.main`` on
+   all-reduce (ms and bytes), hold each mode beyond data parallelism at
+   the fit bucket (ZeRO-1 over the 2 ranks; 2 pipeline stages with 2
+   micro-batches, 2 tensor-parallel and 2 sequence-parallel ranks of one
+   data rank: ``parallel/pipeline.py``, ``parallel/mesh.py``) against
+   the same one-process step, fp32 and bf16 with dropout off, time 3
+   bf16 dropout steps of each (ms, collective and transfer bytes, each
+   rank's peak memory; ZeRO-1's beside the replicated steps, equal bit
+   for bit after every step), then run ``drivers/train_vcmr.main`` on
    ``config/train-tvr.json`` from vcmr_program's ``.pt`` with
    ``distributed_eval``, 4 steps (run A: only the primary writes),
-   ``drivers/eval_vcmr.main`` on A's directory, and run B: the same run
-   with SIGTERM to rank 1 alone after step 2 (both ranks stop after
-   step 2), resumed on both ranks in the same processes, A's and B's
-   ``model_step_4.npz`` and ``restore.npz`` equal bit for bit; this
+   ``drivers/eval_vcmr.main`` on A's directory, run B: the same run
+   with ``--zero1`` and SIGTERM to rank 1 alone after step 2 (both ranks
+   stop after step 2), resumed on both ranks in the same processes, A's
+   and B's ``model_step_4.npz`` and ``restore.npz`` equal bit for bit,
+   and run C: the same run with ``--pp_stages 2`` (the f-encoder
+   pipelined, its validation too; every loss finite, its files every
+   key and shape of A's); this
    process runs ``eval_vcmr.main`` on A's directory in one process (the
    metrics within the 0.05 of the per-rank rounding, the merged
    submission the one-process one query by query, scores within 1e-4);
    then one rank a card over nccl (a world of 1 on one card) times the
-   all-reduce of the gradients' size; prints a ``dp`` line (the card,
-   the gloo and nccl times, the checks, each rank's launches of #1-#7,
-   also in the ``kernels`` line);
+   all-reduce of the gradients' size; this process holds #1-#3, #6 and
+   #7 at the modes' shapes against their plain versions; prints a ``dp``
+   line (the card, the gloo and nccl times, the modes, the checks, each
+   rank's launches of #1-#7, also in the ``kernels`` line);
 16. the serving_full phase, VCMR serving in full: runs
    ``validate_full_vcmr`` on the 512 queries and the resident 2000-video
    corpus with ``pack_queries`` (4 segments a row, 64 rows a call: the
@@ -2696,12 +2708,13 @@ def tvc_train_batches(ds, n_videos):
     return out
 
 
-def check_decoder_train(torch, F, att, B, Lq, Lk, D, H, causal):
+def check_decoder_train(torch, F, att, B, Lq, Lk, D, H, causal, mode=None):
     """#2 with dropout 0.1, saved probabilities and (self-attention) the
     causal bias, and #3 from those probabilities, at a TVC train decoder
-    shape, fp32 and bf16 at rate 0 and 0.1, against the plain versions;
-    the last batch row a padded clip slot with no valid key (finite);
-    repeats identical.  bf16 timings at rate 0.1."""
+    shape (or another Lq -> Lk shape, labelled ``mode``), fp32 and bf16
+    at rate 0 and 0.1, against the plain versions; the last batch row a
+    padded clip slot with no valid key (finite); repeats identical.  bf16
+    timings at rate 0.1."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11 * B + Lq + Lk)
     lens = torch.randint(2, Lk + 1, (B, 1), generator=gen, device=dev)
@@ -2783,8 +2796,8 @@ def check_decoder_train(torch, F, att, B, Lq, Lk, D, H, causal):
     bb, bby = bound_ms(p_bytes + (3 * Lq + 4 * Lk) * B * D * elt,
                        8 * B * H * Lq * Lk * d, "bfloat16")
     bf = checks["bfloat16_rate0.1"]
-    mode = ("tvc train: causal self-attention" if causal
-            else "tvc train: cross-attention") + ", dropout 0.1"
+    mode = (mode or ("tvc train: causal self-attention" if causal
+                     else "tvc train: cross-attention")) + ", dropout 0.1"
     shape = [B, Lq, Lk, D]
     return (
         {"shape": shape, "mode": mode + ", probs saved",
@@ -4334,6 +4347,64 @@ def check_vcmr_program_kernels(torch, cfg, tvr_batch, vr_batch, kernels):
     return {"tvr_rows": list(tm.shape), "vr_rows": list(vm.shape)}
 
 
+def check_dp_kernels(torch, cfg, b_fit, kernels):
+    """#1-#3, #6 and #7 at the shapes :func:`dp_modes` gives them at the
+    fit bucket, against their plain versions, added to the rows of
+    ``kernels``: PP, a stage's f-encoder micro-batch, #1/#3 at (64, 104,
+    768) and #6/#7 over its (6656, 768) rows; TP, a model rank's 6 heads
+    at width 384, #1/#3 at the f-encoder's (128, 104, 384) and #2/#3 at
+    the c-encoder's (32, 100, 384); SP, a seq rank's 50 frames against
+    the 100 keys, #2/#3 at (32, 50->100, 768) and #6/#7 over its (1600,
+    768) rows.  Returns the shapes."""
+    import torch.nn.functional as F
+    from hero_tpu_torch.ops import attention as att
+    from hero_tpu_torch.ops import layernorm as lnm
+    dev = torch.device("cuda")
+    D, H = cfg.f_config.hidden_size, cfg.f_config.num_attention_heads
+    B, S = b_fit["sub_mask"].shape
+    seg = np.concatenate([b_fit["sub_frame_seg"], b_fit["sub_txt_seg"]], 2)
+    seg = torch.from_numpy(seg.reshape(B * S, -1)).to(dev)
+    cm = torch.from_numpy(b_fit["c_attn_masks"]).to(dev)
+    n_tp = DP_MODES["tp"][1]
+    half = seg.shape[0] // DP_PP_MICRO
+    frames = cm.shape[1] // DP_MODES["sp"][1]
+
+    def dp(row, what):
+        return {**row, "mode": f"dp {what}, {row['mode']}"
+                if "mode" in row else f"dp {what}"}
+
+    new = {"attention_seg": [], "attention_valid": [], "attention_bwd": [],
+           "layer_norm": [], "layer_norm_bwd": []}
+    for key, mask, seg_mode, width, heads, what in (
+            ("attention_seg", seg[:half], True, D, H,
+             "pp: a stage's f-encoder micro-batch"),
+            ("attention_seg", seg, True, D // n_tp, H // n_tp,
+             "tp: a model rank's f-encoder heads"),
+            ("attention_valid", cm, False, D // n_tp, H // n_tp,
+             "tp: a model rank's c-encoder heads")):
+        f_row, b_row = check_attention_train(
+            torch, F, att, mask.shape[0], mask.shape[1], width, heads, mask,
+            seg_mode)
+        new[key].append(dp(f_row, what))
+        new["attention_bwd"].append(dp(b_row, what))
+    what = "sp: a seq rank's frames against every frame"
+    f_row, b_row = check_decoder_train(torch, F, att, B, frames,
+                                       cm.shape[1], D, H, False, what)
+    new["attention_valid"].append(dp(f_row, what))
+    new["attention_bwd"].append(dp(b_row, what))
+    gen = torch.Generator(device=dev).manual_seed(16)
+    for n, what in ((half * seg.shape[1], "pp: a stage's f-encoder rows"),
+                    (B * frames, "sp: a seq rank's c-encoder rows")):
+        x = torch.randn((n, D), generator=gen, device=dev).to(torch.bfloat16)
+        new["layer_norm"].append(dp(check_layer_norm(torch, F, lnm, n, D, x),
+                                    what))
+        new["layer_norm_bwd"].append(dp(check_layer_norm_bwd(torch, F, lnm,
+                                                             n, D), what))
+    for row in kernels:
+        row["shapes"] += new.get(row["name"], [])
+    return {k: [r["shape"] for r in v] for k, v in new.items()}
+
+
 def same_ranking(a, b, tasks, rtol):
     """Two submissions: the same query ids in every list, (video, st, ed)
     equal and scores within ``rtol``; returns the largest relative score
@@ -5268,7 +5339,14 @@ DP_TIMED_STEPS = 3                  # timed steps after one warm-up
 DP_SEED = 100
 DP_SIGTERM_RANK = 1                 # the one rank run B's SIGTERM goes to
 DP_TIMEOUT_S = 900                  # a world's time limit
-DP_FREE_BYTES = 12 << 30            # run A's and B's files, with room
+DP_FREE_BYTES = 12 << 30            # run A's, B's and C's files, with room
+# the grids of the modes beyond data parallelism (parallel/dist.init_grid):
+# ZeRO-1 over the 2 data ranks, and 2 pipeline stages (2 micro-batches),
+# 2 model (tensor-parallel) and 2 seq (sequence-parallel) ranks of one
+# data rank
+DP_MODES = {"zero1": ("data", 1), "pp": ("stage", 2), "tp": ("model", 2),
+            "sp": ("seq", 2)}
+DP_PP_MICRO = 2
 
 # one rank of a dp world (dp_rank); the rank, the world, the store and the
 # backend come from the environment the phase sets
@@ -5279,13 +5357,15 @@ dp_rank(*sys.argv[1:])
 """
 
 
-def rehearsal_config():
-    """The rehearsal's tiny model (hidden 64, one layer each)."""
+def rehearsal_config(f_layers=1):
+    """The rehearsal's tiny model (hidden 64, one layer each; the
+    f-encoder ``f_layers``)."""
     from hero_tpu_torch.config.model_config import (HeroConfig,
                                                     TransformerConfig)
     base = TransformerConfig(hidden_size=64, num_hidden_layers=1,
                              num_attention_heads=2, intermediate_size=128)
-    return HeroConfig(f_config=base, c_config=base,
+    return HeroConfig(f_config=base.replace(num_hidden_layers=f_layers),
+                      c_config=base,
                       q_config=base.replace(num_hidden_layers=0,
                                             type_vocab_size=1),
                       vfeat_dim=64)
@@ -5297,11 +5377,12 @@ def dp_rank(role, out_json, rehearse, *args):
     ``args`` the configs of runs A and B and A's directory): the
     data-parallel VSM step against this process's one-process step
     (:func:`dp_parity`), three dropout steps (:func:`dp_dropout`), the
-    step and all-reduce times (:func:`dp_times`), then ``train_vcmr`` run
-    A, ``eval_vcmr`` on its directory, and run B, stopped by SIGTERM to
-    rank :data:`DP_SIGTERM_RANK` alone after step 2 and then resumed;
-    "nccl" (one rank a card; ``args`` the gradients' element count): the
-    all-reduce's time alone."""
+    step and all-reduce times (:func:`dp_times`), the modes beyond data
+    parallelism (:func:`dp_modes`), then ``train_vcmr`` run A,
+    ``eval_vcmr`` on its directory, run B (``--zero1``), stopped by
+    SIGTERM to rank :data:`DP_SIGTERM_RANK` alone after step 2 and then
+    resumed, and run C (``--pp_stages 2``); "nccl" (one rank a card;
+    ``args`` the gradients' element count): the all-reduce's time alone."""
     import torch
     from hero_tpu_torch.config.model_config import flagship_config
     from hero_tpu_torch.parallel import dist
@@ -5313,12 +5394,13 @@ def dp_rank(role, out_json, rehearse, *args):
         rec["times"] = timed_all_reduce(
             torch, [torch.ones(int(args[0]), device=dev)], dev)
     else:
-        cfg_a, cfg_b, out_a = args
-        cfg = rehearsal_config() if rehearse else flagship_config()
+        cfg_a, cfg_b, cfg_c, out_a = args
+        cfg = rehearsal_config(2) if rehearse else flagship_config()
         setup = dp_setup(cfg, dev, rehearse)
         rec["parity"] = dp_parity(torch, cfg, *setup, dev)
         rec["dropout"] = dp_dropout(torch, cfg, *setup, dev)
         rec["times"] = dp_times(torch, cfg, *setup, dev)
+        rec["modes"] = dp_modes(torch, cfg, *setup, dev)
         del setup
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -5333,6 +5415,9 @@ def dp_rank(role, out_json, rehearse, *args):
         rec["run_b_resumed"] = train_program("train_vcmr", cfg_b, dev.type,
                                              0, ())
         rec["run_b_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec["run_c"] = train_program("train_vcmr", cfg_c, dev.type, 0, ())
+        rec["run_c_s"] = time.perf_counter() - t0
     dist.shutdown_distributed()
     with open(out_json, "w") as f:
         json.dump(rec, f)
@@ -5340,21 +5425,21 @@ def dp_rank(role, out_json, rehearse, *args):
 
 def dp_setup(cfg, dev, rehearse):
     """(VSM options, the seeded flagship weights on ``dev``, bench.py's
-    fit and overflow batches of the whole world): the same on every
-    rank."""
+    fit batch of the whole world): the same on every rank.  (The
+    2-rank parity holds the fit bucket alone, to keep the smoke under
+    1000 s: the ranks' step does not depend on the bucket's shape.)"""
     from hero_tpu_torch.convert.from_jax import load_jax_params
     from hero_tpu_torch.models.pretrain import VsmConfig, init_flat_params
     vsm = VsmConfig(**BENCH_VSM)
     params = load_jax_params(init_flat_params(cfg, vsm, seed=0), device=dev,
                              heads=False)
-    b_fit, b_over, _, _, _ = make_train_buckets(
-        cfg.vfeat_dim, 4 if rehearse else TRAIN_BS,
-        64 if rehearse else TRAIN_SAMPLED)
-    return vsm, params, {"fit": b_fit, "over": b_over}
+    b_fit = make_train_buckets(cfg.vfeat_dim, 4 if rehearse else TRAIN_BS,
+                               64 if rehearse else TRAIN_SAMPLED)[0]
+    return vsm, params, {"fit": b_fit}
 
 
 def dp_parity(torch, cfg, vsm, params, buckets, dev):
-    """Each bucket's VSM step, dropout off, fp32 then bf16: the ranks'
+    """The fit bucket's VSM step, dropout off, fp32 then bf16: the ranks'
     step on their rows (the gradients summed over the ranks) against the
     primary's one-process step on the whole batch from the same weights,
     by the primary while the other ranks wait.  fp32 by
@@ -5520,6 +5605,171 @@ def dp_times(torch, cfg, vsm, params, buckets, dev):
     return rec
 
 
+def _mode_grid(mode):
+    """Set the grid, the pipeline and sequence parallelism of ``mode`` (a
+    key of :data:`DP_MODES`; None: the plain world)."""
+    from hero_tpu_torch.parallel import dist, pipeline
+    axis, inner = DP_MODES[mode] if mode else ("data", 1)
+    dist.init_grid(axis, inner)
+    pipeline.enable_pipeline(axis == "stage", DP_PP_MICRO)
+    dist.enable_seq_parallel(axis == "seq")
+
+
+def dp_modes(torch, cfg, vsm, params, buckets, dev):
+    """The modes beyond data parallelism (:data:`DP_MODES`) at the fit
+    bucket, from the same flagship weights, on the ranks' grid of each:
+
+    - parity, dropout off: one fp32 and one bf16 step of each mode (the
+      gradients summed over the data ranks and gathered whole, the new
+      parameters gathered) against the primary's one-process step on the
+      whole batch, fp32 by :func:`step_parity`'s rule, bf16 by
+      :func:`bf16_step_check`'s (the one-process fp32 step the yardstick
+      of the bf16 rounding);
+    - times, bf16 with dropout: ms a step (median of
+      :data:`DP_TIMED_STEPS` after a warm-up, the ranks synchronised and
+      the card idle at each start), the bytes of every collective and
+      stage transfer a step (``dist.STATS``), the rank's peak memory
+      (``torch.cuda.max_memory_allocated``) and its launches;
+    - ZeRO-1 against the 2-rank replicated step over the same timed
+      steps: the parameters equal bit for bit after every step, and the
+      replicated step's ms and peak memory beside ZeRO-1's."""
+    from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
+    from hero_tpu_torch.parallel import dist
+    from hero_tpu_torch.training import optim
+    from hero_tpu_torch.training.step import (TrainSpec, TrainState,
+                                              gather_params, gather_state,
+                                              loss_and_grads,
+                                              make_train_step, shard_state)
+    spec = TrainSpec(**DP_SPEC)
+    b = buckets["fit"]
+    paths = optim.tree_paths(params)
+    names = ["/".join(p) for p in paths]
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    ref = {}
+    _mode_grid(None)
+    if dist.is_primary():
+        whole = batch_to_device(b, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            fn = vsm_loss_fn(cfg, vsm, dtype, False)
+            _, _, g1 = loss_and_grads(fn, params, whole, None)
+            st1, m1 = make_train_step(fn, spec, group=dist.ALONE)(
+                TrainState.create(params), whole, None)
+            # on the host: out of the peak memory the modes report
+            ref[dtype] = (float(m1["loss"]), float(m1["grad_norm"]),
+                          [x.float().cpu() for x in optim.tree_leaves(g1)],
+                          [x.cpu() for x in optim.tree_leaves(st1.params)])
+            del g1, st1
+        del whole
+    dist.barrier()
+    out = {}
+    for mode in DP_MODES:
+        _mode_grid(mode)
+        zero1 = mode == "zero1"
+        mine = batch_to_device(dist.shard_rows(b), dev)
+        rec = {"grid": [dist.data_world(), dist.inner_world()],
+               "rows": int(mine["sub_mask"].shape[0])}
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "fp32" if dtype == torch.float32 else "bf16"
+            fn = vsm_loss_fn(cfg, vsm, dtype, False)
+            state = shard_state(TrainState.create(params), zero1)
+            with dist.data_parallel(dist.data_group()):
+                _, _, g = loss_and_grads(fn, state.params, mine, None)
+            if dist.data_group() is not None:
+                g = dist.all_reduce_grads(g, dist.data_group())
+            gk = [x.float() for x in optim.tree_leaves(gather_params(g))]
+            st, m = make_train_step(fn, spec, zero1=zero1)(state, mine,
+                                                            None)
+            lk, nk = float(m["loss"]), float(m["grad_norm"])
+            pk = optim.tree_leaves(gather_state(st, zero1).params)
+            del g, st, state
+            if dist.is_primary():
+                lp, np_, gp, pp = ref[dtype]
+                gp, pp = ([x.to(dev) for x in t] for t in (gp, pp))
+                r = {"loss": [lk, lp], "grad_norm": [nk, np_]}
+                if tag == "fp32":
+                    wg, wp = parity_worst(paths, gk, gp, pk, pp, spec, None,
+                                          f"dp {mode} {tag}")
+                    r.update(loss_rel_err=abs(lk - lp) / abs(lp),
+                             worst_grad_err_over_tol=wg,
+                             worst_param_err_over_tol=wp)
+                    r["ok"] = (r["loss_rel_err"] <= 1e-5 and wg[0] <= 1.0
+                               and wp[0] <= 1.0
+                               and abs(nk - np_) <= 1e-4 * abs(np_))
+                else:
+                    lr, _, gr, _ = ref[torch.float32]
+                    worst = bf16_worst(names, gk, gp,
+                                       [x.to(dev) for x in gr])
+                    r.update(loss=[lk, lp, lr], loss_mode_vs_one=abs(lk - lp),
+                             loss_tol=4 * abs(lp - lr) + 2.0 ** -9 * abs(lr),
+                             worst_grad_err_over_tol=worst)
+                    r["ok"] = (r["loss_mode_vs_one"] <= r["loss_tol"]
+                               and worst[0] <= 1.0
+                               and all(math.isfinite(x) for x in r["loss"]))
+                rec[tag] = r
+                del gp, pp
+            del gk, pk
+            dist.barrier()
+        fn = vsm_loss_fn(cfg, vsm, torch.bfloat16, True)
+        runs = {"mode": make_train_step(fn, spec, zero1=zero1)}
+        if zero1:
+            runs["replicated"] = make_train_step(fn, spec)
+        ms = {k: [] for k in runs}
+        # ZeRO-1's parameters after each step, on the host (out of the
+        # peak memory the runs report)
+        kept, equal = [], []
+        for k in runs:
+            # one run's state at a time: the peak is its own
+            state = shard_state(TrainState.create(params),
+                                zero1 and k == "mode")
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            bytes0 = dist.STATS["collective_bytes"]
+            if k == "mode":
+                reset_counts()
+            for i in range(DP_TIMED_STEPS + 1):
+                dist.barrier()
+                sync()
+                t0 = time.perf_counter()
+                state, m = runs[k](state, mine, DP_SEED + i)
+                float(m["loss"])
+                sync()
+                ms[k].append(1e3 * (time.perf_counter() - t0))
+                leaves = [t.cpu() for t in optim.tree_leaves(
+                    state.params)] if zero1 else []
+                if k == "replicated":
+                    # the replicated run goes second, against ZeRO-1's
+                    # step i
+                    equal.append(all(torch.equal(a, c)
+                                     for a, c in zip(leaves, kept[i])))
+                else:
+                    kept.append(leaves)
+            steps = DP_TIMED_STEPS + 1
+            rec[k] = {"step_ms": float(np.median(ms[k][1:])),
+                      "step_ms_runs": ms[k],
+                      "collective_bytes_per_step":
+                          (dist.STATS["collective_bytes"] - bytes0) / steps,
+                      "max_memory_allocated": (
+                          torch.cuda.max_memory_allocated(dev) if cuda
+                          else None)}
+            if k == "mode":
+                rec["launches"] = read_counts()
+                rec["steps_counted"] = steps
+            del state
+        if zero1:
+            rec["bit_equal_by_step"] = equal
+        out[mode] = rec
+        del kept, mine
+        if cuda:
+            torch.cuda.empty_cache()
+    _mode_grid(None)
+    return out
+
+
 def timed_all_reduce(torch, leaves, dev, repeats=5):
     """ms (median of ``repeats`` after a warm-up) and bytes of
     ``dist.all_reduce_flat`` over ``leaves`` (the gradients' sizes), every
@@ -5649,21 +5899,26 @@ def dp_phase(torch, here, cfg, main_root, db, dev, sync, rehearse):
                 warmup_steps=PROGRAM_VCMR_WARMUP,
                 hard_negtiave_start_step=[PROGRAM_VCMR_HARD_AT],
                 distributed_eval=True)
-    cfg_a, cfg_b = (vcmr_run_config(here, root, n, "train-tvr.json", over,
-                                    rehearse) for n in ("a", "b"))
+    cfg_a, cfg_b, cfg_c = (
+        vcmr_run_config(here, root, n, "train-tvr.json", dict(over, **mode),
+                        rehearse)
+        for n, mode in (("a", {}), ("b", {"zero1": True}),
+                        ("c", {"pp_stages": 2,
+                               "pp_microbatches": DP_PP_MICRO})))
     opts_a = get_vcmr_args(["--config", cfg_a])
-    out_a, out_b = (os.path.join(root, n) for n in ("a", "b"))
+    out_a, out_b, out_c = (os.path.join(root, n) for n in ("a", "b", "c"))
     flag = "1" if rehearse else "0"
     if dev == "cuda":
         torch.cuda.empty_cache()
     stage("write_stores")
 
-    # the step world: parity, dropout, times, then train_vcmr run A,
-    # eval_vcmr on its directory and run B
+    # the step world: parity, dropout, times, the modes, then train_vcmr
+    # run A, eval_vcmr on its directory and runs B and C
     t = time.perf_counter()
     launch_world(here, root, "steps", DP_WORLD, "gloo", [
         [sys.executable, "-c", DP_RANK_RUN, "steps",
-         os.path.join(root, f"steps_{r}.json"), flag, cfg_a, cfg_b, out_a]
+         os.path.join(root, f"steps_{r}.json"), flag, cfg_a, cfg_b, cfg_c,
+         out_a]
         for r in range(DP_WORLD)], rehearse)
     rec["steps_world_s"] = time.perf_counter() - t
     ranks = []
@@ -5678,6 +5933,16 @@ def dp_phase(torch, here, cfg, main_root, db, dev, sync, rehearse):
     if not (all(d["finite"] and d["replicas_equal"] for d in drop)
             and drop[0]["masks_differ"]):
         raise AssertionError(f"dp dropout steps: {drop}")
+    modes = ranks[0]["modes"]
+    bad = {m: {t: r[t] for t in ("fp32", "bf16")}
+           for m, r in modes.items() if not (r["fp32"]["ok"]
+                                             and r["bf16"]["ok"])}
+    if bad:
+        raise AssertionError(f"dp modes against one process: {bad}")
+    z_equal = [r["modes"]["zero1"]["bit_equal_by_step"] for r in ranks]
+    if not all(all(e) and len(e) == DP_TIMED_STEPS + 1 for e in z_equal):
+        raise AssertionError(f"ZeRO-1 steps against the replicated steps: "
+                             f"{z_equal}")
     for r in ranks:
         run = r["run_a"]
         if run["global_step"] != PROGRAM_VCMR_STEPS or not all(
@@ -5689,6 +5954,10 @@ def dp_phase(torch, here, cfg, main_root, db, dev, sync, rehearse):
         raise AssertionError(f"run A's log.txt has {done} end lines: one "
                              "writer (the primary) was expected")
     rec.update(parity=parity, dropout=drop,
+               modes={m: {k: [r["modes"][m][k] for r in ranks]
+                          if k in ("mode", "replicated", "rows") else v
+                          for k, v in modes[m].items() if k != "launches"}
+                      for m in modes},
                gloo={k: ranks[0]["times"][k] for k in (
                    "videos", "step_ms", "step_ms_runs",
                    "one_process_step_ms", "one_process_runs",
@@ -5753,6 +6022,32 @@ def dp_phase(torch, here, cfg, main_root, db, dev, sync, rehearse):
     shutil.rmtree(out_b)
     stage("run_b")
 
+    # run C: the f-encoder pipelined over the 2 ranks, its validation too;
+    # every loss finite, the files every key and shape of run A's
+    steps_c = [r["run_c"]["global_step"] for r in ranks]
+    losses_c = ranks[0]["run_c"]["losses"]
+    if steps_c != [PROGRAM_VCMR_STEPS] * DP_WORLD or not all(
+            math.isfinite(x) for x in losses_c):
+        raise AssertionError(f"dp train_vcmr run C (--pp_stages 2): "
+                             f"{steps_c}, losses {losses_c}")
+    for name in (f"ckpt/model_step_{PROGRAM_VCMR_STEPS}.npz",
+                 "restore.npz"):
+        a = _npz(os.path.join(out_a, name))
+        c = _npz(os.path.join(out_c, name))
+        if {k: v.shape for k, v in a.items()} != {
+                k: v.shape for k, v in c.items()} or not all(
+                np.isfinite(v).all() for v in c.values()
+                if v.dtype.kind == "f"):
+            raise AssertionError(f"dp run C's {name}: not run A's keys and "
+                                 "shapes, or not finite")
+    if not os.path.exists(os.path.join(
+            out_c, f"results_{PROGRAM_VCMR_STEPS}_all.json")):
+        raise AssertionError("dp run C wrote no step-4 validation")
+    rec["run_c"] = {"losses": losses_c, "run_c_s": ranks[0]["run_c_s"],
+                    "files_like_run_a": True}
+    shutil.rmtree(out_c)
+    stage("run_c")
+
     # one rank a card over nccl: the all-reduce of the gradients' size
     paths = {}
     if not rehearse:
@@ -5773,6 +6068,9 @@ def dp_phase(torch, here, cfg, main_root, db, dev, sync, rehearse):
         paths[f"dp_eval_vcmr_rank{r}"] = res["eval"]["launches"]
         paths[f"dp_train_vcmr_resumed_rank{r}"] = (
             res["run_b_resumed"]["launches"])
+        paths[f"dp_train_vcmr_pp_rank{r}"] = res["run_c"]["launches"]
+        for m, mrec in res["modes"].items():
+            paths[f"dp_step_{m}_rank{r}"] = mrec["launches"]
     rec["launches_by_rank"] = paths
     return rec, paths
 
@@ -6971,6 +7269,9 @@ def main(argv=None):
         # the VSM step, train_vcmr and eval_vcmr on several ranks
         dp, dp_paths = dp_phase(torch, here, cfg, main_root, pre_db, dev,
                                 sync, rehearse)
+        if not rehearse:
+            dp["mode_kernels"] = check_dp_kernels(torch, cfg, b_fit,
+                                                  record["kernels"])
     finally:
         shutil.rmtree(main_root, ignore_errors=True)
     for name, counts in {**vprog_paths, **qprog_paths}.items():
@@ -7172,9 +7473,9 @@ def main(argv=None):
            "launches": {name: {k: c[k] for k in list(c)[:7]}
                         for name, c in qprog_paths.items()}}}))
     print(json.dumps({"dp": {k: dp[k] for k in (
-        "card", "note", "gloo", "nccl", "parity", "dropout", "eval",
-        "stopped_at", "resume_bit_equal", "tvr", "tvr_losses",
-        "steps_world_s", "run_b_s", "stage_s") if k in dp}
+        "card", "note", "gloo", "nccl", "parity", "dropout", "modes", "eval",
+        "stopped_at", "resume_bit_equal", "run_c", "tvr", "tvr_losses",
+        "steps_world_s", "run_b_s", "stage_s", "mode_kernels") if k in dp}
         | {"launches_by_rank": {name: {k: c[k] for k in list(c)[:7]}
                                 for name, c in dp_paths.items()}}}))
     print(json.dumps({"serving_full": {

@@ -16,7 +16,9 @@ hero_tpu_torch.drivers.train_tvc --config <json>``, ``python -m
 hero_tpu_torch.drivers.inf_tvc --output_dir D --checkpoint N``, scored by
 ``evaluation.caption_metrics``).  Every program starts from a JAX-layout
 ``.npz`` or the reference's ``.pt`` (``convert.torch_checkpoint``; e.g.
-the released ``hero-tv-ht100.pt``).
+the released ``hero-tv-ht100.pt``), and runs as one process or as ranks
+of ``torch.distributed`` (``parallel``: data parallelism, ``--zero1``,
+``--pp_stages``; tensor and sequence parallelism as library functions).
 
 A port of ``hero_tpu`` (the JAX/Pallas package beside it, which stays the
 reference) to one NVIDIA H100.  Module names mirror ``hero_tpu`` so each

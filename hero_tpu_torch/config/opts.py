@@ -68,10 +68,11 @@ def base_parser(desc: str = "hero_tpu_torch") -> argparse.ArgumentParser:
     p.add_argument("--warmup_steps", default=4000, type=int)
     p.add_argument("--lr_sched", default="warmup_linear",
                    choices=["warmup_linear", "noam", "vqa"])
-    # the JAX package's multi-device options: the port's ranks are
-    # data-parallel replicas (parallel/dist), so --zero1 on several ranks
-    # and --pp_stages > 1 raise (ROADMAP A8); --zero1 in a world of 1 is
-    # the replicated step's math
+    # the JAX package's multi-device options: --zero1 shards the AdamW
+    # moments over the ranks of a plain data-parallel world (in a world of
+    # 1 it is the replicated step), --pp_stages S splits the ranks into
+    # pipeline stages of S with --pp_microbatches micro-batches
+    # (parallel/pipeline.driver_grid)
     p.add_argument("--zero1", action="store_true")
     p.add_argument("--pp_stages", default=1, type=int)
     p.add_argument("--pp_microbatches", default=2, type=int)

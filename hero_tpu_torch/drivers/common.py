@@ -39,12 +39,13 @@ from hero_tpu_torch.data.video import (FixedShapes, VideoFeatSubTokDataset,
                                       VideoOnlyDataset)
 from hero_tpu_torch.models import nn
 from hero_tpu_torch.models import pretrain as pretrain_lib
-from hero_tpu_torch.parallel import dist
+from hero_tpu_torch.parallel import dist, pipeline
 from hero_tpu_torch.training import save as save_lib
 from hero_tpu_torch.training.optim import AdamWConfig
 from hero_tpu_torch.training.save import (flatten_tree, load_params,
                                           unflatten_tree)
-from hero_tpu_torch.training.step import TrainSpec, TrainState
+from hero_tpu_torch.training.step import (TrainSpec, TrainState,
+                                          gather_state, shard_state)
 from hero_tpu_torch.utils.logger import LOGGER as PACKAGE_LOGGER
 from hero_tpu_torch.utils.logger import (NoOp, RunningMeter, ScalarWriter,
                                          add_log_to_file)
@@ -60,27 +61,6 @@ CURRICULUM_KEYS = ("use_hard_negative", "hard_pool_size", "hard_neg_weight",
 # TVC's caption rows name their video; a rank's rows are rebased to its
 # own videos (dist.shard_rows)
 ROW_INDEX_KEYS = {"cap_vidx": "c_attn_masks"}
-
-
-def check_one_device(opts) -> None:
-    """Raise on the parallelism the port does not drive yet: its ranks
-    are data-parallel replicas (``parallel/dist``).  ``--pp_stages`` > 1
-    (with its ``--pp_microbatches``) asks for the JAX package's
-    pipeline-parallel mesh, and ``--zero1`` on several ranks for the AdamW
-    moments sharded over them; both wait for ROADMAP A8.  ``--zero1`` in a
-    world of 1 is the replicated step's math and passes."""
-    stages = getattr(opts, "pp_stages", 1) or 1
-    if stages > 1:
-        raise NotImplementedError(
-            f"--pp_stages {stages} (with --pp_microbatches "
-            f"{getattr(opts, 'pp_microbatches', None)}): pipeline "
-            "parallelism is not ported yet (ROADMAP A8); run with "
-            "--pp_stages 1")
-    if getattr(opts, "zero1", False) and dist.world_size() > 1:
-        raise NotImplementedError(
-            f"--zero1 on {dist.world_size()} ranks: ZeRO-1's sharded AdamW "
-            "moments are not ported yet (ROADMAP A8, ZeRO-1); drop "
-            "--zero1 to keep the moments replicated on every rank")
 
 
 def shapes_from_opts(opts) -> FixedShapes:
@@ -351,14 +331,17 @@ class Finetune:
     extras_fn: Optional[Callable] = None
 
 
-def start_run(opts, device):
+def start_run(opts, device, global_batch: Optional[int] = None):
     """The start of a training program: join the launch's process group
-    (``parallel/dist.init_distributed``: this rank's device), check the
-    options (:func:`check_one_device`), seed, and on the primary create
-    ``output_dir`` with ``log/hps.json`` and the ``log/log.txt`` handler.
-    Returns (device, the handler or None)."""
+    (``parallel/dist.init_distributed``: this rank's device), build its
+    grid from ``--pp_stages`` / ``--pp_microbatches``
+    (``parallel/pipeline.driver_grid`` over ``global_batch`` rows,
+    default ``opts.train_batch_size``; it refuses what the JAX package's
+    ``driver_mesh`` refuses, before any file is made), seed, and on the
+    primary create ``output_dir`` with ``log/hps.json`` and the
+    ``log/log.txt`` handler.  Returns (device, the handler or None)."""
     device = dist.init_distributed(device)
-    check_one_device(opts)
+    pipeline.driver_grid(opts, global_batch or opts.train_batch_size)
     set_random_seed(opts.seed)
     if not dist.is_primary():
         return device, None
@@ -404,7 +387,8 @@ def primary_only(*writers):
 
 
 def run_finetune(opts, prepare: Callable, *, tree: str = "pretrain",
-                 device="cuda", on_step: Optional[Callable] = None):
+                 device="cuda", on_step: Optional[Callable] = None,
+                 global_batch: Optional[int] = None):
     """A finetuning program's run on ``device``, or as this rank of the
     launch's data-parallel world (:func:`start_run`): ``output_dir`` with
     ``log/`` (``hps.json``, ``log.txt``, ``scalars.jsonl``,
@@ -415,10 +399,12 @@ def run_finetune(opts, prepare: Callable, *, tree: str = "pretrain",
     primary writes.  ``prepare(cfg, device)`` opens the stores and returns
     the program's :class:`Finetune`; ``tree`` is the parameter tree
     (``training/save.TREES``) the checkpoints hold.  ``on_step`` as
-    :func:`run_training`'s.  Returns the final train state.
-    ``--pp_stages`` > 1, and ``--zero1`` on several ranks, raise before
-    any work (ROADMAP A8)."""
-    device, log_file = start_run(opts, device)
+    :func:`run_training`'s.  Returns the final train state (this rank's
+    part of it).  ``--pp_stages`` S splits the world into pipeline stages
+    of S ranks and ``--zero1`` shards the AdamW moments over the ranks
+    (:func:`start_run`, ``training/step.shard_state``; ``global_batch``,
+    default ``opts.train_batch_size``, is the rows the grid checks)."""
+    device, log_file = start_run(opts, device, global_batch)
     ckpt_writer = save_lib.AsyncCheckpointWriter()   # I/O off the loop
     saver = restorer = None
     try:
@@ -436,6 +422,7 @@ def run_finetune(opts, prepare: Callable, *, tree: str = "pretrain",
             restorer.template = job.init(ckpt_info)
             state = TrainState.create(job.load(restorer.template,
                                                device=device))
+        state = shard_state(state, getattr(opts, "zero1", False))
         saver = save_lib.ModelSaver(
             os.path.join(opts.output_dir, "ckpt"), restorer.template,
             vocab_padded=ckpt_info.get("vocab_padded"), writer=ckpt_writer,
@@ -489,11 +476,14 @@ def run_training(opts, step_fn, state, batch_iter, *,
     and ``saver.save`` (a ``training/save.ModelSaver``);
     ``restorer.step`` (a ``TrainingRestorer``: ``restore.npz`` every
     ``opts.save_steps``).  A rank that writes no files passes no saver
-    and no restorer.  At the end the model is saved and validated unless
-    the last step was.  On SIGTERM (handled while the loop runs, when it
-    runs on the main thread) the step in flight finishes, ``restore.npz``
-    and the model are written, and the loop returns; the ranks agree on
-    it after every step (``dist.any_rank``), so a signal to one rank stops
+    and no restorer; on a grid that shards the state (pipeline stages,
+    ``--zero1``) every rank joins the gather of the whole state
+    (``training/step.gather_state``) at each of these points.  At the
+    end the model is saved and validated unless the last step was.  On
+    SIGTERM (handled while the loop runs, when it runs on the main
+    thread) the step in flight finishes, ``restore.npz`` and the model
+    are written, and the loop returns; the ranks agree on it after every
+    step (``dist.any_rank``), so a signal to one rank stops
     them all after the same step.  ``opts.profile_step`` = i traces
     step i + 1 with ``torch.profiler`` into ``output_dir/trace``.
     Returns the final state."""
@@ -565,9 +555,20 @@ def _train_loop(opts, step_fn, state, steps, global_step, device,
     profile_at = (getattr(opts, "profile_step", -1)
                   if output_dir and dist.is_primary() else -1)
     meters: Dict[str, RunningMeter] = {}
-    world = dist.world_size()
+    world = dist.data_world()
+    zero1 = bool(getattr(opts, "zero1", False))
+    save_steps = getattr(opts, "save_steps", None)
     t0, n_ex = time.time(), 0
     last_validated = last_saved = -1
+    whole = [None, None]              # (state, its whole state)
+
+    def files():
+        """The whole state for the files: every rank calls it at the same
+        points (a collective on a sharded grid)."""
+        if whole[0] is not state:
+            whole[:] = [state, gather_state(state, zero1)]
+        return whole[1]
+
     if global_step >= opts.num_train_steps:
         steps = ()                    # a finished run resumed: no step
     for task, batch in steps:
@@ -611,19 +612,23 @@ def _train_loop(opts, step_fn, state, steps, global_step, device,
             # in its collectives (hero_tpu/drivers/common.py:365-369)
             validate_fn(state, global_step)
             last_validated = global_step
+            params = files().params
             if saver is not None:
-                saver.save(state.params, global_step)
-                last_saved = global_step
+                saver.save(params, global_step)
+            last_saved = global_step
+        restoring = (files() if save_steps and global_step % save_steps == 0
+                     else state)
         if restorer is not None:
-            restorer.step(state, opts.save_steps)
+            restorer.step(restoring, save_steps)
         if dist.any_rank(preempted.is_set()):
+            final = files()
             if restorer is not None:
                 if restorer.saved_step != global_step:
-                    restorer.save(state)
+                    restorer.save(final)
                 restorer.flush()
             if saver is not None:
                 if last_saved != global_step:
-                    saver.save(state.params, global_step)
+                    saver.save(final.params, global_step)
                 saver.flush()
             dist.barrier()            # the files exist before any rank goes on
             LOGGER.warning("preempted at step %d: restore.npz written, "
@@ -631,8 +636,10 @@ def _train_loop(opts, step_fn, state, steps, global_step, device,
             return state
         if global_step >= opts.num_train_steps:
             break
-    if saver is not None and last_saved != global_step:
-        saver.save(state.params, global_step)
+    if last_saved != global_step:
+        params = files().params
+        if saver is not None:
+            saver.save(params, global_step)
     if saver is not None:
         saver.flush()
     if restorer is not None:

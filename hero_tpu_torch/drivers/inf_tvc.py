@@ -151,8 +151,8 @@ def main(args, device="cuda", dtype: torch.dtype = torch.float32):
                              max_txt_len=opts.max_txt_len)
     ds_kw = dict(clips_per_item=getattr(opts, "clips_per_item", 4),
                  seg_len=opts.max_clip_len,
-                 distributed=dist.world_size() > 1, rank=dist.rank(),
-                 world_size=dist.world_size())
+                 distributed=dist.data_world() > 1, rank=dist.data_rank(),
+                 world_size=dist.data_world())
     if args.target_clip:
         ds = TvcClipDataset.from_jsonl(video_db, args.target_clip, **ds_kw)
     else:
@@ -162,7 +162,7 @@ def main(args, device="cuda", dtype: torch.dtype = torch.float32):
         batch_size=getattr(opts, "val_batch_size", 8),
         max_gen_step=getattr(opts, "max_gen_step", 30), beam=args.beam,
         detok=detokenizer(), dtype=dtype, device=device)
-    records = [r for rs in dist.host_allgather(records) for r in rs]
+    records = [r for rs in dist.data_allgather(records) for r in rs]
     if not dist.is_primary():
         return records
     with open(args.submission, "w") as f:

@@ -33,11 +33,11 @@ from hero_tpu_torch.data.video import (VideoFeatSubTokDataset,
                                        suggest_shapes, video_fits_bucket)
 from hero_tpu_torch.drivers import common
 from hero_tpu_torch.models import pretrain as pretrain_lib
-from hero_tpu_torch.parallel import dist
+from hero_tpu_torch.parallel import dist, pipeline
 from hero_tpu_torch.training.optim import AdamWConfig
 from hero_tpu_torch.training.save import AsyncCheckpointWriter, ModelSaver
 from hero_tpu_torch.training.step import (TrainSpec, TrainState,
-                                          make_train_step)
+                                          make_train_step, shard_state)
 from hero_tpu_torch.utils.logger import LOGGER, configure_stdout
 
 DEFAULT_TASKS = {"mlm": 2, "mfm-nce": 2, "fom": 1, "vsm": 2}
@@ -229,11 +229,12 @@ def run_pretrain(opts, video_dbs: Dict[str, VideoFeatSubTokDataset],
     (default :func:`init_params` on ``device``); a state past step 0
     resumes the task schedule where it stood.  ``on_step``, ``saver`` and
     ``restorer`` are :func:`common.run_training`'s.  Returns the final
-    train state.  On several ranks (``parallel/dist``) every rank builds
-    the same task draws and batches and trains on its rows.
-    ``--pp_stages`` > 1, and ``--zero1`` on several ranks, raise (ROADMAP
-    A8)."""
-    common.check_one_device(opts)
+    train state.  On several ranks (``parallel/dist``) every data rank
+    builds the same task draws and batches and trains on its rows;
+    ``--pp_stages`` and ``--zero1`` shard the state as
+    ``common.start_run`` says (a ``state`` given is this rank's part).
+    The grid's checks run before any work."""
+    pipeline.driver_grid(opts, opts.train_batch_size)
     task_datasets = build_task_datasets(opts, video_dbs, name_ratios)
     LOGGER.info("pretraining targets %s, tasks %s", list(video_dbs),
                 {t: r for t, (_, r) in task_datasets.items()})
@@ -245,11 +246,13 @@ def run_pretrain(opts, video_dbs: Dict[str, VideoFeatSubTokDataset],
     step_fns = {t: make_train_step(make_loss(t, cfg, vsm,
                                              mask_prob=mask_prob,
                                              dtype=dtype),
-                                   spec, accum_steps=accum)
+                                   spec, accum_steps=accum,
+                                   zero1=getattr(opts, "zero1", False))
                 for t in task_datasets}
     if state is None:
-        state = TrainState.create(load_jax_params(
-            init_params(opts, cfg, vsm), device=device))
+        state = shard_state(TrainState.create(load_jax_params(
+            init_params(opts, cfg, vsm), device=device)),
+            getattr(opts, "zero1", False))
     loaders = {
         t: (dataset_iterator(ds, pt.build_batch, opts.train_batch_size,
                              seed=opts.seed), ratio)
@@ -303,8 +306,10 @@ def main(opts, device="cuda", on_step: Optional[Callable] = None
     resumed from when present (every rank restores the primary's file),
     written by the primary alone.  bf16 compute on fp32 parameters.
     ``on_step`` as :func:`common.run_training`'s.  Returns the final train
-    state.  ``--pp_stages`` > 1, and ``--zero1`` on several ranks, raise
-    before any work (ROADMAP A8)."""
+    state (this rank's part).  ``--zero1`` shards the AdamW moments over
+    the ranks and ``--pp_stages`` S runs the encoder stacks S divides as
+    a pipeline over stages of S ranks (``common.start_run``; launch
+    ``torchrun --nproc_per_node N`` with N a multiple of S)."""
     device, log_file = common.start_run(opts, device)
     ckpt_writer = AsyncCheckpointWriter()   # file I/O off the train loop
     saver = restorer = None
@@ -324,6 +329,7 @@ def main(opts, device="cuda", on_step: Optional[Callable] = None
             restorer.template = init_params(opts, cfg, vsm, info=ckpt_info)
             state = TrainState.create(load_jax_params(restorer.template,
                                                       device=device))
+        state = shard_state(state, getattr(opts, "zero1", False))
         saver = ModelSaver(os.path.join(opts.output_dir, "ckpt"),
                            restorer.template,
                            vocab_padded=ckpt_info.get("vocab_padded"),

@@ -23,7 +23,9 @@ records go to ``output_dir/tvc_gen_{step}.jsonl``.
 ``config/train-tvc.json``'s options: ``warmup_linear``, lr 1e-4 with
 ``lr_mul`` 10, warm-up 700 of 7000 steps, betas (0.9, 0.98), weight decay
 0.01, grad norm 1.0, label smoothing 0.1; the dropout rates, 0.1, come
-from the model config.  ``--pp_stages`` > 1 raises (ROADMAP A8).
+from the model config.  On several ranks ``--zero1`` and ``--pp_stages``
+work as in every training program (``common.start_run``; the decoder
+never pipelines).
 """
 
 from __future__ import annotations
@@ -87,7 +89,8 @@ def make_tvc_train_step(cfg: HeroConfig, opts: Dict[str, Any],
     return make_train_step(make_loss_fn(cfg, opts.get("lsr", 0.1), dtype),
                            train_spec(opts),
                            accum_steps=max(
-                               opts.get("gradient_accumulation_steps", 1), 1))
+                               opts.get("gradient_accumulation_steps", 1), 1),
+                           zero1=bool(opts.get("zero1", False)))
 
 
 def tvc_train_dataset(video_db, caption_db,
@@ -203,8 +206,7 @@ def main(opts, device="cuda", on_step: Optional[Callable] = None,
     partial checkpoint trains from other weights than the JAX driver's.
     ``on_step`` as :func:`common.run_training`'s.  On several ranks the
     validation runs on each and the primary writes.  Returns the final
-    train state.  ``--pp_stages`` > 1, and ``--zero1`` on several ranks,
-    raise before any work (ROADMAP A8)."""
+    train state (this rank's part: ``common.run_finetune``)."""
     hps = vars(opts)
 
     def prepare(cfg, device):

@@ -15,7 +15,9 @@ layout.  Every ``valid_steps`` it evaluates the whole corpus against
 ``val_query_txt_db`` (:func:`run_validation`: ``validate_full_vcmr``)
 and writes the reference-schema submission to
 ``output_dir/results_{step}_all.json``.  ``drivers/train_vr`` runs it
-for MSR-VTT video retrieval.  ``--pp_stages`` > 1 raises (ROADMAP A8).
+for MSR-VTT video retrieval.  On several ranks ``--zero1`` shards the
+AdamW moments over them and ``--pp_stages`` S runs the f-encoder as a
+pipeline over stages of S ranks (``common.start_run``).
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ def build_eval_inputs(video_db, query_db, opts):
         video2idx_global = {v: i for i, v in enumerate(video_ids)}
     video_ids = sorted(video2idx_global.keys())
 
-    world, rank = dist.world_size(), dist.rank()
+    world, rank = dist.data_world(), dist.data_rank()
 
     def video_batches():
         bs = getattr(opts, "vcmr_eval_video_batch_size", 50)
@@ -135,8 +137,7 @@ def main(opts, *, dataset_cls=VcmrDataset, query_store_cls=QueryTokStore,
     takes ``common.train_spec``'s hyper-parameters (``lr_mul`` on every
     parameter outside ``v_encoder``).
     ``on_step`` as :func:`common.run_training`'s.  Returns the final
-    train state.  ``--pp_stages`` > 1 raises before any work (ROADMAP
-    A8)."""
+    train state (this rank's part: ``common.run_finetune``)."""
     def prepare(cfg, device):
         shapes = common.shapes_from_opts(opts).replace(n_queries=1)
         video_db = common.load_task_video_dataset(opts, shapes)
@@ -171,7 +172,8 @@ def main(opts, *, dataset_cls=VcmrDataset, query_store_cls=QueryTokStore,
             load=load_jax_params,
             step_fn=make_train_step(
                 make_loss_fn(cfg, vsm, dtype), common.train_spec(vars(opts)),
-                accum_steps=max(opts.gradient_accumulation_steps, 1)),
+                accum_steps=max(opts.gradient_accumulation_steps, 1),
+                zero1=getattr(opts, "zero1", False)),
             batches=batches, validate=validate,
             extras_fn=common.Curriculum(opts).at)
 

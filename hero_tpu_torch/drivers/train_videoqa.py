@@ -17,7 +17,8 @@ kept) and writes the accuracy and the answers to
 ``output_dir/val_results_{step}.json``.  ``config/train-tvqa.json``
 (TVQA, 5 answers, ``lw_st_ed`` 0.4) is its config; ``drivers/eval_videoqa``
 serves a run.  :func:`run_qa_training` is the program of
-``drivers/train_violin`` too.  ``--pp_stages`` > 1 raises (ROADMAP A8).
+``drivers/train_violin`` too.  On several ranks ``--zero1`` and
+``--pp_stages`` work as in every training program (``common.start_run``).
 """
 
 from __future__ import annotations
@@ -51,8 +52,10 @@ class QaTask:
     bridge ``load(flat, device)``; ``dataset(video_db, store_path,
     opts)``; ``make_loss_fn(cfg, opts, dtype)``; ``train_batch(batch)``,
     a numpy micro-batch's last edit; ``validate(params, cfg, dataset,
-    opts, dtype, device) -> (log, results)``; and the task name of the
-    train batches (None: ``opts.task``)."""
+    opts, dtype, device) -> (log, results)``; ``rows(opts)``, the rows a
+    training item spans (the JAX driver's global batch is that many rows
+    an item); and the task name of the train batches (None:
+    ``opts.task``)."""
     tree: str
     init: Callable
     load: Callable
@@ -60,6 +63,7 @@ class QaTask:
     make_loss_fn: Callable
     train_batch: Callable
     validate: Callable
+    rows: Callable
     task: Optional[str] = None
 
 
@@ -124,7 +128,8 @@ VIDEOQA = QaTask(
     make_loss_fn=lambda cfg, opts, dtype: make_loss_fn(
         cfg, getattr(opts, "num_answers", 5), getattr(opts, "lw_st_ed", 0.4),
         dtype),
-    train_batch=lambda b: b, validate=_validate_videoqa)
+    train_batch=lambda b: b, validate=_validate_videoqa,
+    rows=lambda opts: getattr(opts, "num_answers", 5))
 
 
 def init_params(task: QaTask, opts, cfg: HeroConfig,
@@ -151,8 +156,8 @@ def run_qa_training(task: QaTask, opts, *, device="cuda",
     "results"}``) at every validation.  The step and the validation
     compute in ``dtype`` (bf16, as the JAX programs) on fp32 parameters.
     ``on_step`` as :func:`common.run_training`'s.  Returns the final
-    train state.  ``--pp_stages`` > 1 raises before any work (ROADMAP
-    A8)."""
+    train state (this rank's part: ``common.run_finetune``; the grid's
+    global batch is ``task.rows(opts)`` rows an item)."""
     def prepare(cfg, device):
         video_db = common.load_video_sub_dataset(
             opts, common.shapes_from_opts(opts))
@@ -191,11 +196,13 @@ def run_qa_training(task: QaTask, opts, *, device="cuda",
             step_fn=make_train_step(
                 task.make_loss_fn(cfg, opts, dtype),
                 common.train_spec(vars(opts)),
-                accum_steps=max(opts.gradient_accumulation_steps, 1)),
+                accum_steps=max(opts.gradient_accumulation_steps, 1),
+                zero1=getattr(opts, "zero1", False)),
             batches=batches, validate=validate)
 
-    return common.run_finetune(opts, prepare, tree=task.tree, device=device,
-                               on_step=on_step)
+    return common.run_finetune(
+        opts, prepare, tree=task.tree, device=device, on_step=on_step,
+        global_batch=opts.train_batch_size * task.rows(opts))
 
 
 def main(opts, *, device="cuda", on_step: Optional[Callable] = None,

@@ -88,7 +88,8 @@ VIOLIN = QaTask(
     tree="violin", init=violin_lib.init_hero_for_violin,
     load=from_jax.load_jax_violin_params, dataset=violin_dataset,
     make_loss_fn=lambda cfg, opts, dtype: make_loss_fn(cfg, dtype),
-    train_batch=_train_batch, validate=_validate_violin, task="violin")
+    train_batch=_train_batch, validate=_validate_violin,
+    rows=lambda opts: 2, task="violin")
 
 
 def main(opts, *, device="cuda", on_step: Optional[Callable] = None,

@@ -86,10 +86,11 @@ def embed_video_corpus(params, cfg: HeroConfig,
     """Phase 1: (Nv, max_clip_len, D) frame embeddings + (Nv, L) masks, on
     ``device``.  On W ranks, rank r embeds batches r, r + W, ... (another
     rank's batch may be None) and the whole corpus is all-gathered back
-    into the batches' order, the same on every rank."""
+    into the batches' order, the same on every rank.  W and r are the
+    data ranks' (the ranks of an inner group embed the same batches)."""
     device = resolve_device(device)
     params = nn.tree_to(without_task_heads(params), device)
-    world, rank = dist.world_size(), dist.rank()
+    world, rank = dist.data_world(), dist.data_rank()
     embs, masks = [], []
     n_batches = 0
     with torch.inference_mode():
@@ -108,18 +109,18 @@ def embed_video_corpus(params, cfg: HeroConfig,
 
 def _gather_batches(mine: List[torch.Tensor], n_batches: int, device
                     ) -> torch.Tensor:
-    """Every rank's batches (rank r held batches r, r + W, ...), all
-    rows of batch 0, then of batch 1, and so on: the single process's
+    """Every data rank's batches (data rank r held batches r, r + W, ...),
+    all rows of batch 0, then of batch 1, and so on: the single process's
     order.  Ranks may hold different counts and row counts."""
-    world = dist.world_size()
-    rows = dist.host_allgather([int(t.shape[0]) for t in mine])
-    like = dist.host_allgather(
+    world = dist.data_world()
+    rows = dist.data_allgather([int(t.shape[0]) for t in mine])
+    like = dist.data_allgather(
         (tuple(mine[0].shape[1:]), mine[0].dtype) if mine else None)
     tail, dtype = next(x for x in like if x is not None)
     most = max(sum(r) for r in rows)
     local = torch.zeros((most,) + tail, dtype=dtype, device=device)
     if mine:
-        local[:sum(rows[dist.rank()])] = torch.cat(mine, 0)
+        local[:sum(rows[dist.data_rank()])] = torch.cat(mine, 0)
     every = dist.all_gather_tensor(local).reshape((world, most) + tail)
     parts = []
     for i in range(n_batches):
@@ -524,8 +525,9 @@ def validate_full_vcmr(params, cfg: HeroConfig, vsm: VsmConfig,
             raise NotImplementedError(
                 f"corpus_chunk_videos={opts.corpus_chunk_videos} on "
                 f"{dist.world_size()} ranks: the chunked corpus is served "
-                "by one process (its sharding over ranks is ROADMAP A8); "
-                "run one process, or drop corpus_chunk_videos")
+                "by one process, as in the JAX package (its chunked path "
+                "takes a mesh of one device); run one process, or drop "
+                "corpus_chunk_videos")
         if opts.pack_queries:
             raise ValueError(
                 "pack_queries is not supported together with "
@@ -737,7 +739,7 @@ def aggregate_distributed_metrics(metrics, n_ex: int):
     """Example-count-weighted metric averaging across the ranks
     (``hero_tpu/evaluation/vcmr_eval.py:817-833``; reference
     eval_vcmr.py:430-448); the same value on every rank."""
-    return _weighted(dist.host_allgather(n_ex), dist.host_allgather(metrics),
+    return _weighted(dist.data_allgather(n_ex), dist.data_allgather(metrics),
                      metrics)
 
 
@@ -746,9 +748,9 @@ def _merge_process_submissions(submission):
     the whole query set (``hero_tpu/evaluation/vcmr_eval.py:801-814``;
     reference ``all_gather_list(results)``, eval_vcmr.py:125-140);
     identity for a single process."""
-    if dist.world_size() == 1:
+    if dist.data_world() == 1:
         return submission
-    subs = dist.host_allgather(submission)
+    subs = dist.data_allgather(submission)
     merged = {"video2idx": submission["video2idx"]}
     for task in ("SVMR", "VCMR", "VR"):
         rows = [r for s in subs for r in s.get(task, [])]

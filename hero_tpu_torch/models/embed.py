@@ -80,10 +80,14 @@ def image_embeddings(p: Params, img_feat: torch.Tensor,
 
 def frame_embeddings(p: Params, frame_feat: torch.Tensor, *,
                      dropout_rate: float = 0.0, seed: Optional[int] = None,
-                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """frame_feat (B, L, D), already in hidden space."""
+                     dtype: torch.dtype = torch.float32,
+                     offset: int = 0) -> torch.Tensor:
+    """frame_feat (B, L, D), already in hidden space; its frames sit at
+    positions ``offset``, ``offset + 1``, ... of the clip (a
+    sequence-parallel rank's frames start past the others')."""
     pos = nn.embedding_lookup(
-        p["pos_emb"], _arange_like(frame_feat, frame_feat.shape[1]), dtype)
+        p["pos_emb"], _arange_like(frame_feat, frame_feat.shape[1]) + offset,
+        dtype)
     x = nn.apply_layer_norm(p["ln"], frame_feat.to(dtype) + pos)
     return nn.dropout(x, dropout_rate, nn.rng_for(seed, "frame_emb"))
 

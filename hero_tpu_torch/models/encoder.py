@@ -20,6 +20,7 @@ import torch
 from hero_tpu_torch.config.model_config import TransformerConfig
 from hero_tpu_torch.const import PACK_MAX_SEGS
 from hero_tpu_torch.models import embed, nn, transformer
+from hero_tpu_torch.parallel import dist
 
 Params = Dict[str, Any]
 
@@ -122,14 +123,41 @@ def cross_modal_txt(p: Params, cfg: TransformerConfig, input_ids,
 
 def temporal_trm(p: Params, cfg: TransformerConfig, frame_feat, attn_mask,
                  *, train: bool = False, seed: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Clip-level temporal encoding (c-encoder)."""
+                 dtype: torch.dtype = torch.float32,
+                 offset: int = 0) -> torch.Tensor:
+    """Clip-level temporal encoding (c-encoder); ``frame_feat``'s frames
+    start at clip position ``offset``."""
     hidden = embed.frame_embeddings(
         p["embeddings"], frame_feat, dropout_rate=_emb_rate(cfg, train),
-        seed=nn.rng_for(seed, "emb"), dtype=dtype)
+        seed=nn.rng_for(seed, "emb"), dtype=dtype, offset=offset)
     return transformer.encoder(p["encoder"], hidden, cfg,
                                kv_mask=attn_mask.float(), train=train,
                                seed=nn.rng_for(seed, "enc"), dtype=dtype)
+
+
+def temporal_trm_seq_parallel(p: Params, cfg: TransformerConfig, frame_feat,
+                              attn_mask, *, train: bool = False,
+                              seed: Optional[int] = None,
+                              dtype: torch.dtype = torch.float32
+                              ) -> torch.Tensor:
+    """:func:`temporal_trm` over the grid's seq ranks
+    (``hero_tpu/parallel/mesh.py:217-241``): seq rank r of S encodes
+    frames [r F/S, (r+1) F/S) at their clip positions, its queries meeting
+    every rank's keys and values (``dist.gather_kv``: #2/#3 at Lq = F/S,
+    Lk = F), its dropout folding the seq rank; the outputs are gathered on
+    the frame axis, the same (B, F, D) on every rank.  The c-encoder's
+    parameters get their whole gradient on every rank
+    (``dist.sync_grads``)."""
+    n, r = dist.inner_world(), dist.inner_rank()
+    frames = frame_feat.shape[1]
+    if frames % n:
+        raise ValueError(f"{frames} frames do not split over {n} seq ranks")
+    p = dist.sync_grads(p)
+    mine = dist.seq_slice(frame_feat, 1)
+    with dist.seq_region():
+        out = temporal_trm(p, cfg, mine, attn_mask, train=train, seed=seed,
+                           dtype=dtype, offset=r * (frames // n))
+    return dist.seq_gather(out, 1)
 
 
 def get_modularized_queries(p: Params, query: torch.Tensor, query_mask,

@@ -109,9 +109,13 @@ def forward_repr(p: Params, cfg: HeroConfig, batch: Dict[str, torch.Tensor],
                                seed, dtype)
     if not encode_clip:
         return transformed
-    return enc.temporal_trm(p["c_encoder"], cfg.c_config, transformed,
-                            batch["c_attn_masks"], train=train,
-                            seed=nn.rng_for(seed, "c_enc"), dtype=dtype)
+    # sequence parallelism (dist.enable_seq_parallel), here alone, as the
+    # JAX package applies it (hero_tpu/models/model.py:252-256)
+    trm = (enc.temporal_trm_seq_parallel if dist.seq_parallel()
+           else enc.temporal_trm)
+    return trm(p["c_encoder"], cfg.c_config, transformed,
+               batch["c_attn_masks"], train=train,
+               seed=nn.rng_for(seed, "c_enc"), dtype=dtype)
 
 
 def _clip_inputs(p: Params, cfg: HeroConfig, batch, seq_out, c_feats_in,

@@ -76,7 +76,7 @@ def tree_to(p: Any, device) -> Any:
         return {k: tree_to(v, device) for k, v in p.items()}
     if isinstance(p, list):
         return [tree_to(v, device) for v in p]
-    return p.to(device)
+    return None if p is None else p.to(device)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

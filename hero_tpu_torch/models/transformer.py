@@ -29,6 +29,23 @@ the backward reruns it.  Every dropout site draws from an integer seed and
 the attention kernels regenerate their Philox bits, so the rerun redraws
 the same bits and rebuilds the kernels' saved probabilities; a remat step
 equals a plain step bit for bit.
+
+On several ranks (``parallel/dist`` grids):
+
+- an encoder stack sharded over pipeline stages (None in place of other
+  stages' layers) runs through ``parallel/pipeline.pipelined_encoder``
+  (``hero_tpu/models/transformer.py:185-190``);
+- an attention or FFN block whose weights are a model rank's part
+  (``parallel/mesh.tp_param_spec``, seen from their shapes) runs
+  Megatron's tensor parallelism: ``dist.copy_to_inner`` before the
+  column-parallel QKV / intermediate product, this rank's heads (H/S of
+  them) or hidden units, the row-parallel product summed over the model
+  ranks by ``dist.reduce_from_inner``, then the output bias once; the
+  attention dropout folds the model rank (each rank's heads are its
+  own);
+- inside ``dist.seq_region`` (sequence parallelism) self-attention takes
+  this rank's queries against every rank's keys and values
+  (``dist.gather_kv``).
 """
 
 from __future__ import annotations
@@ -40,7 +57,7 @@ from torch.utils.checkpoint import checkpoint
 
 from hero_tpu_torch.config.model_config import TransformerConfig
 from hero_tpu_torch.models import nn
-from hero_tpu_torch.parallel import dist
+from hero_tpu_torch.parallel import dist, pipeline
 from hero_tpu_torch.ops.attention import (merge_heads, multi_head_attention,
                                           packed_attention, split_heads)
 
@@ -76,21 +93,43 @@ def attention(p: Params, x: torch.Tensor, cfg: TransformerConfig, *,
     ``seg`` (B, L) segment ids select the mask mode; ``causal`` adds the
     decoder's causal bias."""
     D = x.shape[-1]
+    part = p["qkv"]["weight"].shape[0] // 3      # D/S on a model rank
+    tp = part != D
+    heads = cfg.num_attention_heads
+    if tp:
+        if D % part or heads % (D // part):
+            raise ValueError(f"{D // part} model ranks do not split "
+                             f"{heads} heads of width {D}")
+        heads //= D // part
+        x_in = dist.copy_to_inner(x)
+    else:
+        x_in = x
     if kv is None:
-        q, k, v = nn.linear(p["qkv"], x, dtype).split(D, dim=-1)
+        q, k, v = nn.linear(p["qkv"], x_in, dtype).split(part, dim=-1)
+        if dist.in_seq_region():
+            k, v = dist.gather_kv(k), dist.gather_kv(v)
     else:
         w, b = p["qkv"]["weight"], p["qkv"]["bias"]
-        q = nn.linear({"weight": w[:D], "bias": b[:D]}, x, dtype)
-        k, v = nn.linear({"weight": w[D:], "bias": b[D:]}, kv,
-                         dtype).split(D, dim=-1)
+        q = nn.linear({"weight": w[:part], "bias": b[:part]}, x_in, dtype)
+        k, v = nn.linear({"weight": w[part:], "bias": b[part:]}, kv,
+                         dtype).split(part, dim=-1)
     ctx = packed_attention(
-        q, k, v, cfg.num_attention_heads, kv_mask=kv_mask, seg=seg,
+        q, k, v, heads, kv_mask=kv_mask, seg=seg,
         dropout_rate=_rate(cfg.attention_probs_dropout_prob, train, seed),
-        seed=dist.fold_rank(nn.rng_for(seed, "attn_probs")), causal=causal)
-    y = nn.linear(p["out"], ctx, dtype)
+        seed=dist.fold_rank(nn.rng_for(seed, "attn_probs"), inner=tp),
+        causal=causal)
+    y = _row_parallel(p["out"], ctx, dtype) if tp else nn.linear(
+        p["out"], ctx, dtype)
     y = nn.dropout(y, _rate(cfg.hidden_dropout_prob, train, seed),
                    nn.rng_for(seed, "attn_out"))
     return nn.apply_layer_norm(p["out_ln"], y + x, cfg.layer_norm_eps)
+
+
+def _row_parallel(p: Params, x: torch.Tensor, dtype) -> torch.Tensor:
+    """A row-parallel linear: this rank's input columns' product, summed
+    over the model ranks, then the bias once."""
+    y = dist.reduce_from_inner(nn.linear({"weight": p["weight"]}, x, dtype))
+    return y + p["bias"].to(dtype)
 
 
 def ffn(p: Params, x: torch.Tensor, cfg: TransformerConfig, *,
@@ -98,8 +137,14 @@ def ffn(p: Params, x: torch.Tensor, cfg: TransformerConfig, *,
         dtype: torch.dtype = torch.float32) -> torch.Tensor:
     if cfg.hidden_act != "gelu":
         raise NotImplementedError(f"hidden_act {cfg.hidden_act!r}")
-    h = nn.gelu(nn.linear(p["intermediate"], x, dtype))
-    h = nn.linear(p["output"], h, dtype)
+    if p["intermediate"]["weight"].shape[0] != cfg.intermediate_size:
+        # a model rank's hidden units (tensor parallelism)
+        h = nn.gelu(nn.linear(p["intermediate"], dist.copy_to_inner(x),
+                              dtype))
+        h = _row_parallel(p["output"], h, dtype)
+    else:
+        h = nn.gelu(nn.linear(p["intermediate"], x, dtype))
+        h = nn.linear(p["output"], h, dtype)
     h = nn.dropout(h, _rate(cfg.hidden_dropout_prob, train, seed),
                    nn.rng_for(seed, "ffn"))
     return nn.apply_layer_norm(p["ln"], h + x, cfg.layer_norm_eps)
@@ -124,8 +169,13 @@ def encoder(p: Params, x: torch.Tensor, cfg: TransformerConfig, *,
     sub-seed ``layer{i}``.  Under :func:`set_remat` a training call with
     gradients on checkpoints each layer (non-reentrant, so the autograd
     graph, and with it every accumulation order, is the plain one; no
-    global RNG state is kept, since no site reads it)."""
+    global RNG state is kept, since no site reads it).  A stack sharded
+    over pipeline stages runs through the pipeline."""
     remat = _REMAT and train and torch.is_grad_enabled()
+    if any(layer is None for layer in p["layers"]):
+        return pipeline.pipelined_encoder(
+            p["layers"], x, cfg, kv_mask=kv_mask, seg=seg, train=train,
+            seed=seed, dtype=dtype, remat=remat, layer_fn=encoder_layer)
     for i, layer in enumerate(p["layers"]):
         kw = dict(kv_mask=kv_mask, seg=seg, train=train,
                   seed=nn.rng_for(seed, f"layer{i}"), dtype=dtype)

@@ -30,6 +30,20 @@ here (all-reduce, all-gather, the object gather; PyTorch 2.11 on an
 H100), copying them through the host itself, so the helpers hand every
 backend the tensors where they lie.  16-bit tensors travel as their
 bytes: gloo has no 16-bit types.
+
+A grid (:func:`init_grid`; the process half of ``get_pp_mesh`` /
+``get_2d_mesh`` / ``get_seq_mesh``, ``hero_tpu/parallel/mesh.py:194-241``)
+splits the W ranks as (data = W/S, inner = S) for an inner axis
+``stage`` (pipeline stages), ``model`` (tensor parallelism) or ``seq``
+(sequence parallelism): global rank g is data rank g // S and inner rank
+g % S.  The ranks of one inner group see the same rows; rows, queries
+and video batches split over the data ranks (:func:`data_rank`,
+:func:`data_world`), the train step reduces over the data group, and
+dropout folds the data rank.  A plain world is the grid (W, 1).  The
+inner axes' autograd pieces live here too: Megatron's pair
+(:func:`copy_to_inner`, :func:`reduce_from_inner`), the frame slice and
+gathers of sequence parallelism (:func:`seq_slice`, :func:`seq_gather`,
+:func:`gather_kv`) and :func:`sync_grads`.
 """
 
 from __future__ import annotations
@@ -40,7 +54,7 @@ import datetime
 import os
 import socket
 import zlib
-from typing import Any, Dict, Iterable, List, Optional, Sequence
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,8 +72,14 @@ TIMEOUT_S = 1800
 _STATE: Dict[str, Any] = {}
 
 # collectives issued by this process: calls and bytes of the gradient
-# all-reduces (read by benchmarks; never by the program)
-STATS = {"all_reduce_calls": 0, "all_reduce_bytes": 0}
+# all-reduces, and bytes of every tensor collective and transfer the
+# helpers here and in ``parallel/pipeline`` issue (read by benchmarks;
+# never by the program)
+STATS = {"all_reduce_calls": 0, "all_reduce_bytes": 0, "collective_bytes": 0}
+
+
+def count_bytes(t: torch.Tensor) -> None:
+    STATS["collective_bytes"] += t.numel() * t.element_size()
 
 
 def is_initialized() -> bool:
@@ -140,9 +160,12 @@ def _resolve(dev: torch.device) -> torch.device:
 
 def shutdown_distributed() -> None:
     """Leave the process group (a no-op in a world of 1)."""
+    global _GRID
     if is_initialized():
         tdist.destroy_process_group()
     _STATE.clear()
+    _GROUPS.clear()
+    _GRID = None
 
 
 def backend() -> Optional[str]:
@@ -158,8 +181,120 @@ def world_size() -> int:
 
 
 def is_primary() -> bool:
-    """Rank 0: the one process that writes files and logs."""
+    """Global rank 0: the one process that writes files and logs."""
     return rank() == 0
+
+
+# ---------------------------------------------------------------------------
+# the grid: (data, inner) over the world
+# ---------------------------------------------------------------------------
+
+INNER_AXES = ("stage", "model", "seq")
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """This rank's place in a (data, inner) split of the world: global
+    rank g = data_rank * inner_world + inner_rank.  ``data_group`` is the
+    group of the ranks with this inner rank (None when it holds this rank
+    alone), ``inner_group`` this rank's inner group (None in a plain
+    world), ``inner_ranks`` its global ranks in inner order."""
+    axis: str
+    data_world: int
+    inner_world: int
+    data_rank: int
+    inner_rank: int
+    data_group: Any
+    inner_group: Any
+    inner_ranks: Tuple[int, ...]
+    # the 2-rank groups of inner neighbours (i, i + 1) of this rank's
+    # inner group, by i: the pipeline's stage-to-stage transfers
+    pair_groups: Tuple[Any, ...] = ()
+
+
+_GRID: Optional[Grid] = None
+_GROUPS: Dict[Tuple[int, ...], Any] = {}
+
+
+def _group(ranks: Tuple[int, ...]):
+    """The process group of ``ranks``, made once (every rank makes every
+    group, in the same order)."""
+    if ranks not in _GROUPS:
+        _GROUPS[ranks] = tdist.new_group(list(ranks))
+    return _GROUPS[ranks]
+
+
+def _plain() -> Grid:
+    w, r = world_size(), rank()
+    return Grid("data", w, 1, r, 0, tdist.group.WORLD if w > 1 else None,
+                None, (r,))
+
+
+def init_grid(axis: str = "data", inner: int = 1) -> Grid:
+    """Split the world into (data = W/inner, ``inner``) on ``axis`` (one
+    of :data:`INNER_AXES`, or "data" with ``inner`` 1: the plain world)
+    and make it this process's grid; every rank calls it with the same
+    arguments (it makes the groups).  Raises when ``inner`` does not
+    divide the world."""
+    global _GRID
+    if axis == "data":
+        if inner != 1:
+            raise ValueError("the data axis has no inner groups")
+    elif axis not in INNER_AXES:
+        raise ValueError(f"axis {axis!r}: one of data, {INNER_AXES}")
+    w = world_size()
+    if inner < 1 or w % inner:
+        raise ValueError(
+            f"{w} rank{'s' if w > 1 else ''} cannot hold {inner} {axis} "
+            f"ranks a group: the {axis} count must divide the world")
+    if inner == 1:
+        _GRID = _plain()
+        return _GRID
+    n_data = w // inner
+    inner_sets = [tuple(d * inner + i for i in range(inner))
+                  for d in range(n_data)]
+    data_sets = ([tuple(d * inner + i for d in range(n_data))
+                  for i in range(inner)] if n_data > 1 else [])
+    pair_sets = ([(r[i], r[i + 1]) for r in inner_sets
+                  for i in range(inner - 1)] if axis == "stage" else [])
+    for ranks in inner_sets + data_sets + pair_sets:
+        _group(ranks)
+    d, i = divmod(rank(), inner)
+    mine = inner_sets[d]
+    _GRID = Grid(axis, n_data, inner, d, i,
+                 _GROUPS[data_sets[i]] if n_data > 1 else None,
+                 _GROUPS[mine], mine,
+                 tuple(_GROUPS[(mine[k], mine[k + 1])]
+                       for k in range(inner - 1)) if pair_sets else ())
+    return _GRID
+
+
+def grid() -> Grid:
+    """This process's grid: the last :func:`init_grid`'s, else the plain
+    world's."""
+    return _GRID if _GRID is not None else _plain()
+
+
+def data_rank() -> int:
+    return grid().data_rank
+
+
+def data_world() -> int:
+    return grid().data_world
+
+
+def inner_rank() -> int:
+    return grid().inner_rank
+
+
+def inner_world() -> int:
+    return grid().inner_world
+
+
+def inner_axis() -> Optional[str]:
+    """The grid's inner axis when it has several ranks, else None."""
+    g = grid()
+    return g.axis if g.inner_world > 1 else None
 
 
 def barrier() -> None:
@@ -192,6 +327,18 @@ def host_allgather(obj: Any) -> list:
     return out
 
 
+def data_allgather(obj: Any) -> list:
+    """:func:`host_allgather` over the data group: one ``obj`` a data
+    rank, in data-rank order (the ranks of an inner group hold the same
+    share of rows, so it counts once)."""
+    g = grid()
+    if g.data_world == 1:
+        return [obj]
+    out: List[Any] = [None] * g.data_world
+    tdist.all_gather_object(out, obj, group=g.data_group)
+    return out
+
+
 def any_rank(flag: bool) -> bool:
     """True on every rank when ``flag`` is true on any (a MAX all-reduce
     of one scalar)."""
@@ -208,16 +355,18 @@ def _collective_device() -> torch.device:
 
 def _all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
     """``t`` summed over the group's ranks, in place; returns ``t``."""
+    count_bytes(t)
     tdist.all_reduce(t, group=group)
     return t
 
 
 def all_gather_tensor(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``x`` (the same shape on each), concatenated on dim 0
-    in rank order; ``x`` in a world of 1.  No gradient."""
-    if world_size() == 1:
+    """Every data rank's ``x`` (the same shape on each), concatenated on
+    dim 0 in data-rank order; ``x`` with one data rank.  No gradient."""
+    g = grid()
+    if g.data_world == 1:
         return x
-    return _all_gather(x)
+    return _all_gather(x, g.data_group)
 
 
 def _all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -231,8 +380,50 @@ def _all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
         raw = raw.view(torch.uint8)
     out = torch.empty((world * raw.shape[0],) + tuple(raw.shape[1:]),
                       dtype=raw.dtype, device=raw.device)
+    count_bytes(out)
     tdist.all_gather(list(out.chunk(world)), raw, group=group)
     return out.view(x.dtype)
+
+
+def all_gather_flat(leaves: Sequence[torch.Tensor], group
+                    ) -> List[List[torch.Tensor]]:
+    """Every group rank's ``leaves`` (the same shapes and dtypes on each,
+    any dtypes), in rank order, through one flat fp32 all-gather: exact
+    copies."""
+    n = tdist.get_world_size(group)
+    flat = torch.cat([t.detach().reshape(-1).float() for t in leaves])
+    every = _all_gather(flat, group).reshape(n, -1)
+    out = []
+    for r in range(n):
+        at, mine = 0, []
+        for t in leaves:
+            mine.append(every[r, at:at + t.numel()].reshape(t.shape)
+                        .to(t.dtype))
+            at += t.numel()
+        out.append(mine)
+    return out
+
+
+def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every group rank's ``x``, concatenated on ``dim`` in rank order."""
+    if dim == 0:
+        return _all_gather(x, group)
+    out = _all_gather(x.movedim(dim, 0), group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _narrow(x: torch.Tensor, dim: int, r: int, n: int) -> torch.Tensor:
+    """Part ``r`` of ``n`` equal parts of ``x`` on ``dim``, contiguous."""
+    m = x.shape[dim] // n
+    return x.narrow(dim, r * m, m).contiguous()
+
+
+def all_reduce_cast(t: torch.Tensor, group) -> torch.Tensor:
+    """A new tensor: ``t`` summed over the group in fp32 (gloo has no
+    16-bit sums), in ``t``'s dtype."""
+    f = t.detach().to(torch.float32, copy=True)
+    _all_reduce_(f, group)
+    return f.to(t.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -246,9 +437,10 @@ ALONE = "alone"
 
 
 def data_group():
-    """The default group when the world has several ranks, else None
-    (the group ``make_train_step`` reduces over unless given one)."""
-    return tdist.group.WORLD if world_size() > 1 else None
+    """The grid's data group when it has several ranks, else None (the
+    group ``make_train_step`` reduces over unless given one; in a plain
+    world of several ranks the default group)."""
+    return grid().data_group
 
 
 def all_reduce_flat(tensors: Sequence[torch.Tensor], group=None
@@ -349,14 +541,190 @@ class _GatherRows(torch.autograd.Function):
         return grad[lo:lo + ctx.rows], None
 
 
-def fold_rank(seed: Optional[int]) -> Optional[int]:
-    """A dropout site's seed with the rank folded in while a step runs on
-    several ranks (their rows differ, so must their masks); the seed
-    itself otherwise.  Draws that every rank must share (span-loss skips,
-    sampled negatives, task and masking draws) never come here."""
-    if seed is None or _DP is None or _DP.size == 1:
+def fold_rank(seed: Optional[int], inner: bool = False) -> Optional[int]:
+    """A dropout site's seed with the data rank folded in while a step
+    runs on several data ranks (their rows differ, so must their masks);
+    the seed itself otherwise.  With ``inner`` (a tensor-parallel rank's
+    own heads), or inside :func:`seq_region` (a sequence-parallel rank's
+    own frames), the inner rank is folded in too: the ranks of an inner
+    group otherwise run replicated computation, which must draw the same
+    masks.  Draws that every rank must share (span-loss skips, sampled
+    negatives, task and masking draws) never come here."""
+    if seed is None:
         return seed
-    return zlib.crc32(f"rank{_DP.rank}".encode(), seed & 0xFFFFFFFF)
+    if _DP is not None and _DP.size > 1:
+        seed = zlib.crc32(f"rank{_DP.rank}".encode(), seed & 0xFFFFFFFF)
+    g = grid()
+    if (inner or _SEQ["region"]) and g.inner_world > 1:
+        seed = zlib.crc32(f"{g.axis}{g.inner_rank}".encode(),
+                          seed & 0xFFFFFFFF)
+    return seed
+
+
+# ---------------------------------------------------------------------------
+# the inner axes: tensor and sequence parallelism
+# ---------------------------------------------------------------------------
+
+class _CopyToInner(torch.autograd.Function):
+    """Megatron's f: identity forward, the inner group's sum backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_cast(g, grid().inner_group)
+
+
+class _ReduceFromInner(torch.autograd.Function):
+    """Megatron's g: the inner group's sum forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return all_reduce_cast(x, grid().inner_group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def copy_to_inner(x: torch.Tensor) -> torch.Tensor:
+    """Before a column-parallel product: ``x`` forward, its gradient
+    summed over the model group backward (each rank's heads add theirs)."""
+    return _CopyToInner.apply(x)
+
+
+def reduce_from_inner(x: torch.Tensor) -> torch.Tensor:
+    """After a row-parallel product: the partial products summed over the
+    model group forward (in fp32, in ``x``'s dtype), identity backward."""
+    return _ReduceFromInner.apply(x)
+
+
+# sequence parallelism: the toggle (enable_seq_parallel) and the region a
+# rank spends on its own frames (seq_region)
+_SEQ = {"enabled": False, "region": False}
+
+
+def enable_seq_parallel(enabled: bool) -> None:
+    """Turn sequence parallelism over the grid's ``seq`` groups on or off
+    for the calls that follow (``hero_tpu/parallel/mesh.py:217-225``):
+    ``models/model.forward_repr`` then runs the c-encoder on this rank's
+    frames (:func:`seq_parallel`)."""
+    if enabled and grid().axis != "seq":
+        raise ValueError(f"sequence parallelism needs a seq grid "
+                         f"(init_grid('seq', S)); the grid is "
+                         f"{grid().axis!r}")
+    _SEQ["enabled"] = bool(enabled)
+
+
+def seq_parallel() -> bool:
+    """True while sequence parallelism is on over several seq ranks."""
+    return _SEQ["enabled"] and grid().axis == "seq" and inner_world() > 1
+
+
+@contextlib.contextmanager
+def seq_region():
+    """While the block runs, the rank works on its own frames: dropout
+    folds the seq rank (:func:`fold_rank`) and self-attention meets every
+    rank's keys and values (:func:`gather_kv`)."""
+    prev = _SEQ["region"]
+    _SEQ["region"] = True
+    try:
+        yield
+    finally:
+        _SEQ["region"] = prev
+
+
+def in_seq_region() -> bool:
+    return _SEQ["region"]
+
+
+class _SeqSlice(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        g = grid()
+        ctx.dim = dim
+        return _narrow(x, dim, g.inner_rank, g.inner_world)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_dim(grad.contiguous(), ctx.dim,
+                           grid().inner_group), None
+
+
+class _SeqGather(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        return _gather_dim(x.contiguous(), dim, grid().inner_group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grid()
+        return _narrow(grad, ctx.dim, g.inner_rank, g.inner_world), None
+
+
+class _GatherKv(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim = dim
+        return _gather_dim(x.contiguous(), dim, grid().inner_group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # every rank's gradient of every frame's key, summed; each rank
+        # keeps its own frames' (a reduce-scatter)
+        g = grid()
+        total = all_reduce_cast(grad.contiguous(), g.inner_group)
+        return _narrow(total, ctx.dim, g.inner_rank, g.inner_world), None
+
+
+def seq_slice(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This seq rank's part of ``x`` on ``dim`` (replicated on the group);
+    backward: every rank's part gathered, so the replicated computation
+    before it gets the whole gradient on every rank."""
+    return _SeqSlice.apply(x, dim)
+
+
+def seq_gather(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Every seq rank's part of ``x`` on ``dim``, in rank order; backward:
+    this rank's slice (as ``_GatherRows`` does on dim 0)."""
+    return _SeqGather.apply(x, dim)
+
+
+def gather_kv(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """Every seq rank's keys (or values) of ``x`` on ``dim``; backward:
+    the gradients of this rank's frames summed over the ranks."""
+    return _GatherKv.apply(x, dim)
+
+
+class _SyncGrads(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, *leaves):
+        ctx.like = [(t.shape, t.dtype, t.device) for t in leaves]
+        return tuple(t.view_as(t) for t in leaves)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [torch.zeros(s, dtype=dt, device=dv) if g is None else g
+                 for g, (s, dt, dv) in zip(grads, ctx.like)]
+        return tuple(all_reduce_flat(grads, grid().inner_group))
+
+
+def sync_grads(tree):
+    """``tree``'s leaves forward; backward, their gradients summed over
+    the inner group in one flat buffer: parameters that each seq rank
+    applies to its own frames get the whole gradient on every rank."""
+    leaves = optim.tree_leaves(tree)
+    if not torch.is_grad_enabled() or not any(t.requires_grad
+                                              for t in leaves):
+        return tree
+    return optim.tree_unflatten(tree, list(_SyncGrads.apply(*leaves)))
 
 
 # ---------------------------------------------------------------------------
@@ -368,7 +736,7 @@ def shard_rows(batch: Dict[str, Any], accum_steps: int = 1, *,
                replicated_keys: Iterable[str] = (),
                row_index_keys: Optional[Dict[str, str]] = None
                ) -> Dict[str, Any]:
-    """This rank's contiguous rows of a global numpy batch
+    """This data rank's contiguous rows of a global numpy batch
     (``hero_tpu/parallel/mesh.py:108-134``): dim 0 of every array, or dim
     1 under a leading accumulation axis; ``replicated_keys`` and arrays
     without that axis (the curriculum's scalars) stay whole.  ``items``,
@@ -378,7 +746,7 @@ def shard_rows(batch: Dict[str, Any], accum_steps: int = 1, *,
     rows it indexes}, TVC's ``cap_vidx``) are rebased to the rank's own
     rows, which they must index.  A batch that does not divide by W
     raises."""
-    r, world = rank(), world_size()
+    r, world = data_rank(), data_world()
     if world == 1:
         return batch
     axis = 1 if accum_steps > 1 else 0
@@ -411,20 +779,25 @@ def shard_rows(batch: Dict[str, Any], accum_steps: int = 1, *,
 
 
 def check_replicas(tree, what: str = "parameters") -> None:
-    """Raise unless every rank's ``tree`` has bit-identical per-leaf fp64
-    sums: the replicas of a data-parallel run never drift."""
+    """Raise unless every rank's ``tree`` has the bit-identical per-leaf
+    fp64 sums of the first rank with its inner rank: the replicas of a
+    data-parallel run never drift (the ranks of an inner group hold
+    different stages or shards)."""
     if world_size() == 1:
         return
-    sums = host_allgather(torch.stack([
+    sums = host_allgather((inner_rank(), torch.stack([
         t.detach().double().sum()
-        for t in optim.tree_leaves(tree)]).cpu().numpy())
-    for r, s in enumerate(sums[1:], 1):
-        if s.tobytes() != sums[0].tobytes():
-            leaf = int(np.flatnonzero(s != sums[0])[0])
+        for t in optim.tree_leaves(tree)]).cpu().numpy()))
+    first = {}
+    for r, (i, s) in enumerate(sums):
+        r0 = first.setdefault(i, r)
+        ref = sums[r0][1]
+        if s.tobytes() != ref.tobytes():
+            leaf = int(np.flatnonzero(s != ref)[0])
             path = "/".join(optim.tree_paths(tree)[leaf])
             raise RuntimeError(
-                f"the {what} of rank {r} drifted from rank 0's (first at "
-                f"{path}: {s[leaf]!r} vs {sums[0][leaf]!r})")
+                f"the {what} of rank {r} drifted from rank {r0}'s (first "
+                f"at {path}: {s[leaf]!r} vs {ref[leaf]!r})")
 
 
 def assert_same_batch(batch: Dict[str, Any], what: str = "batch") -> None:

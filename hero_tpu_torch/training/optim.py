@@ -78,7 +78,10 @@ def get_lr(step: int, learning_rate: float, warmup_steps: int,
 
 def tree_paths(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, ...]]:
     """Key paths of the tensor leaves (list indices as strings), in the
-    order :func:`tree_leaves` gives the leaves."""
+    order :func:`tree_leaves` gives the leaves.  None is an empty subtree
+    (a pipeline stage's place for another stage's layer)."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [p for k, v in tree.items() for p in tree_paths(v, prefix
                                                                 + (str(k),))]
@@ -89,6 +92,8 @@ def tree_paths(tree, prefix: Tuple[str, ...] = ()) -> List[Tuple[str, ...]]:
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
     if isinstance(tree, list):
@@ -101,6 +106,8 @@ def tree_unflatten(like, leaves: List[Any]):
     it = iter(leaves)
 
     def build(t):
+        if t is None:
+            return None
         if isinstance(t, dict):
             return {k: build(v) for k, v in t.items()}
         if isinstance(t, list):
@@ -198,9 +205,11 @@ def global_norm(grads) -> torch.Tensor:
                           for g in tree_leaves(grads)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """torch.nn.utils.clip_grad_norm_ semantics: (clipped grads, norm).
-    The scale stays on the device: no host synchronisation."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm=None):
+    """torch.nn.utils.clip_grad_norm_ semantics: (clipped grads, norm);
+    ``norm`` when given is the global norm (of leaves sharded over
+    ranks).  The scale stays on the device: no host synchronisation."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), norm

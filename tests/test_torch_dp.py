@@ -60,6 +60,7 @@ from hero_tpu_torch.models import pretrain as tpre              # noqa: E402
 from hero_tpu_torch.models import transformer as ttrm           # noqa: E402
 from hero_tpu_torch.models import tvc as ttvc                   # noqa: E402
 from hero_tpu_torch.parallel import dist                        # noqa: E402
+from hero_tpu_torch.parallel import pipeline as tpipeline       # noqa: E402
 from hero_tpu_torch.training import optim as toptim             # noqa: E402
 from hero_tpu_torch.training import step as tstep               # noqa: E402
 
@@ -278,12 +279,11 @@ def _streams(root):
 
 
 def _guards(params):
-    """The messages of what a world of 2 refuses."""
+    """What a world of 2 accepts (``--zero1``: the plain grid of 2 data
+    ranks) and the messages of what it refuses."""
     msgs = {}
-    try:
-        tcommon.check_one_device(topts.get_pretrain_args(["--zero1"]))
-    except NotImplementedError as e:
-        msgs["zero1"] = str(e)
+    grid = tpipeline.driver_grid(topts.get_pretrain_args(["--zero1"]), B)
+    msgs["zero1"] = [grid.axis, grid.data_world, grid.inner_world]
     try:
         dist.shard_rows({"x": np.zeros((3, 2))})
     except ValueError as e:
@@ -695,14 +695,17 @@ def test_dropout_masks_differ_and_shared_draws_agree(worlds):
 
 
 def test_guards_raise_on_two_ranks(worlds):
-    """``--zero1`` on two ranks, a global batch of 3 rows or 3 items, and
-    the chunked corpus on two ranks raise, the A8 ones naming A8."""
+    """``--zero1`` on two ranks now runs (it builds the plain grid of 2
+    data ranks; its steps are ``tests/test_torch_parallel.py``'s); a
+    global batch of 3 rows or 3 items, and the chunked corpus on two
+    ranks, raise, the chunked corpus's message saying that the JAX
+    package serves it from one process too (no longer citing A8)."""
     for res in worlds.main:
         g = res["guards"]
-        assert "A8" in g["zero1"] and "ZeRO-1" in g["zero1"]
+        assert g["zero1"] == ["data", 2, 1]
         assert "3 rows" in g["indivisible"] and "2 ranks" in g["indivisible"]
         assert "3 items" in g["items"]
-        assert "A8" in g["chunked"]
+        assert "JAX package" in g["chunked"] and "A8" not in g["chunked"]
 
 
 def test_two_rank_eval_matches_single(worlds):

@@ -762,7 +762,8 @@ def test_tvc_programs_refuse_what_they_cannot_run(run, port_run, case,
     trains to run A's parameters and step-4 captions, bit for bit;
     ``inf_tvc`` from a ``.pt`` of run A's step-4 tree gives the records of
     ``--checkpoint 4``; the port's load of either equals the JAX
-    package's.  ``--pp_stages 2`` raises naming A8 before any work; the
+    package's.  ``--pp_stages 2`` in a world of 1 raises before any work
+    (one rank cannot hold 2 pipeline stages); the
     default device without a card raises instead of running on the
     CPU."""
     inf_args = tinf.build_argparser().parse_args(
@@ -798,7 +799,7 @@ def test_tvc_programs_refuse_what_they_cannot_run(run, port_run, case,
         out = str(tmp_path / "pp")
         opts = topts.get_tvc_args(["--config", run.cfg("pp"),
                                    "--pp_stages", "2", "--output_dir", out])
-        with pytest.raises(NotImplementedError, match="A8"):
+        with pytest.raises(ValueError, match="cannot hold 2 stages"):
             ttrain.main(opts, device="cpu")
         assert not os.path.exists(out)
     else:

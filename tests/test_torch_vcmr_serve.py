@@ -51,6 +51,7 @@ from hero_tpu_torch.drivers import train_vcmr as ttrain_vcmr
 from hero_tpu_torch.evaluation import vcmr_eval as teval
 from hero_tpu_torch.models import pretrain as tpre
 from hero_tpu_torch.models import vcmr as tvcmr
+from hero_tpu_torch.parallel import pipeline as tpipeline
 
 VSM = dict(lw_neg_ctx=1.0, lw_neg_q=1.0, lw_st_ed=0.01)
 INTERVAL = 1.5
@@ -508,15 +509,20 @@ def test_eval_vcmr_main_refuses_a_pt_checkpoint(run_dir):
 
 @pytest.mark.parametrize("entry", ["main", "run_pretrain"])
 def test_pp_stages_raises_and_names_a8(tmp_path, entry):
-    """``--pp_stages 2`` asks for the JAX package's pipeline mesh: both
-    pretraining entry points raise before any work (no output directory
-    is made); ``--zero1`` alone passes the guard."""
+    """``--pp_stages 2`` in a world of 1 (the name is the test's from when
+    the flag raised naming ROADMAP A8): one rank cannot hold 2 pipeline
+    stages, so both pretraining entry points raise before any work (no
+    output directory is made), as the JAX ``driver_mesh`` asserts; the
+    refusal no longer cites A8.  ``--zero1`` alone builds the plain grid
+    of one rank."""
     out = str(tmp_path / "run")
     opts = topts.get_pretrain_args(["--pp_stages", "2", "--pp_microbatches",
                                     "4", "--output_dir", out])
     fn = getattr(tpretrain_drv, entry)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="cannot hold 2 stages") as err:
         fn(opts, device="cpu") if entry == "main" else fn(opts, {},
                                                           device="cpu")
+    assert "A8" not in str(err.value)
     assert not os.path.exists(out)
-    tcommon.check_one_device(topts.get_pretrain_args(["--zero1"]))
+    grid = tpipeline.driver_grid(topts.get_pretrain_args(["--zero1"]), 8)
+    assert (grid.axis, grid.data_world, grid.inner_world) == ("data", 1, 1)
