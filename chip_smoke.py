@@ -5,8 +5,9 @@ and captioning as programs, VCMR and VR finetuning from a reference
 ``.pt`` as programs, VideoQA and VIOLIN finetuning and inference as
 programs, data-parallel training and multi-process serving, ZeRO-1,
 pipeline, tensor and sequence parallelism on ranks that share the card,
-VCMR serving as a program and kernel components on one GPU and check
-them.
+VCMR serving as a program, data preparation from raw files through
+the prepro entry points to serving, and kernel components on one GPU and
+check them.
 
     python3 chip_smoke.py                  # on a machine with one CUDA card
     python3 chip_smoke.py --json-out F     # also write the full record to F
@@ -299,7 +300,27 @@ What the card run does, in order (any failure exits non-zero):
    reference schema, every query once) and holds it and its printed
    metrics equal to ``drivers/eval_vcmr.main`` run in this process with
    the launch counters from 0; prints a ``serving_full`` line;
-17. the components phase (``tools/component_bench.py`` and the DALN
+17. the prepro phase, data preparation with the port: writes the raw
+   inputs of 32 TV videos (60-100 frames at 1.5 s; SlowFast (n, 2304)
+   and ResNet (n, 2048) float16 ``.npz``; a subtitle jsonl in
+   ``data/occupancy.sample_tv_video``'s distribution; 2 TVR queries a
+   video; 16 TVQA questions; a TVC clip a video), runs
+   ``python -m hero_tpu_torch.prepro.convert_videodb``, ``prepro_sub``,
+   ``prepro_query`` (TVR and TVQA) and ``prepro_tvc`` with
+   ``--tokenizer hash`` (each timed), checks the stores (the video rows
+   the ``.npz`` concatenation bit for bit, the frames partitioned among
+   the unique subs and the unmatched frames, the query and QA ids the
+   hash tokenizer's, ``emit_sub_len_sidecar`` equal to the prepro-written
+   sidecar), sizes a ``--pack_subs`` bucket with ``prepro.suggest_bucket``
+   (and the QA and caption budgets with ``suggest_downstream_lens``),
+   serves the 64 queries over ``load_data.load_video_sub_dataset`` in
+   that bucket through ``train_vcmr.build_eval_inputs`` and
+   ``validate_full_vcmr`` in bf16 with the launch counters from 0, checks
+   in fp32 that the kernel path ranks 16 of the videos as the plain path
+   on the CPU does, and holds #1 at the bucket's f-encoder rows and #2 at
+   the c-encoder's against their plain versions; prints a ``prepro``
+   line;
+18. the components phase (``tools/component_bench.py`` and the DALN
    checks of ``tools/kernel_smoke.py`` and ``tools/tpu_kernel_drive.py``):
    holds #6 and #7 at their edges (``check_ln_edges``: widths 1 to
    14528 about the 16-byte access and the warp's share, rows about the
@@ -329,7 +350,7 @@ one TVC train JSON line with ``tvc_train_captions_per_s``, one
 ``pretrain`` JSON line with ``pretrain_examples_per_s``, one
 ``pretrain_main`` JSON line, one ``tvc_program`` JSON line, one
 ``vcmr_program`` JSON line, one ``qa_program`` JSON line, one ``dp``
-JSON line, one ``serving_full`` JSON line, one
+JSON line, one ``serving_full`` JSON line, one ``prepro`` JSON line, one
 ``components`` JSON line, one ``kernels`` JSON line (all nine kernels,
 launches by path; #6, #7 and #9 with the device ms of their row pass and
 of the column pass, from profiler traces, those the run's own traces
@@ -6496,6 +6517,305 @@ def serving_full_phase(torch, here, cfg, flat, params, vsm, opts, batches,
 
 
 # ---------------------------------------------------------------------------
+# prepro: raw files -> the port's prepro entry points -> stores -> the
+# suggested bucket -> VCMR serving
+# ---------------------------------------------------------------------------
+
+PREPRO_VIDEOS = 32
+PREPRO_FRAMES = (60, 100)           # frames a video, 1.5 s apart
+PREPRO_QUERIES = 2                  # TVR queries a video
+PREPRO_QA = 16                      # TVQA questions, 5 answers each
+PREPRO_CHECK_VIDEOS = 16            # videos of the fp32 ranking check
+PREPRO_SEED = 17
+SLOWFAST_DIM = 2304                 # of the 4352-d features; ResNet 2048
+
+
+def _words(r, mean, lo, hi, caps=False):
+    """Text of lognormal(ln mean, 0.4) words clipped to [lo, hi] (the hash
+    tokenizer gives one id a word); ``caps``: ALL-CAPS with an HTML
+    entity, which the tokenizers normalise."""
+    n = int(np.clip(r.lognormal(np.log(mean), 0.40), lo, hi))
+    text = " ".join(f"w{int(i)}" for i in r.randint(0, 20000, n))
+    return f"{text.upper()} &amp; NO" if caps else text
+
+
+def write_prepro_raw(root, vfeat_dim, n_videos, seed=PREPRO_SEED):
+    """The raw inputs of the prepro phase under ``root``: per video a
+    SlowFast (n, 2304) and a ResNet (n, 2048) float16 ``.npz``, n in
+    ``PREPRO_FRAMES``; a subtitle jsonl in ``occupancy.sample_tv_video``'s
+    TV distribution (a sub every lognormal(ln 4.3, 0.35) s clipped to
+    [2, 12], lasting 0.7-1.0 of the gap, lognormal(ln 14, 0.4) words
+    clipped to [4, 60], every fifth ALL-CAPS); a TVR query jsonl of
+    ``PREPRO_QUERIES`` queries a video (N(15, 4) words in [5, 29], a span,
+    a type); a TVQA jsonl (``PREPRO_QA`` questions, 5 answers) and a TVC
+    caption jsonl (a clip a video, 1-3 captions).  Returns {vid: the
+    expected (n, vfeat_dim) float16 rows}."""
+    r = np.random.RandomState(seed)
+    sf_dim = vfeat_dim * SLOWFAST_DIM // 4352
+    for d in ("slowfast", "resnet"):
+        os.makedirs(os.path.join(root, d))
+    rows, subs, queries, qa, caps = {}, [], [], [], []
+    for i in range(n_videos):
+        vid = f"tv{i:03d}"
+        n = int(r.randint(PREPRO_FRAMES[0], PREPRO_FRAMES[1] + 1))
+        sf = r.standard_normal((n, sf_dim)).astype(np.float16)
+        rn = r.standard_normal((n, vfeat_dim - sf_dim)).astype(np.float16)
+        np.savez(os.path.join(root, "slowfast", f"{vid}.npz"), features=sf)
+        np.savez(os.path.join(root, "resnet", f"{vid}.npz"), features=rn)
+        rows[vid] = np.concatenate([sf, rn], -1)
+        duration, track, t = n * 1.5, [], float(r.uniform(0.0, 2.0))
+        while t < duration:
+            gap = float(np.clip(r.lognormal(np.log(4.3), 0.35), 2.0, 12.0))
+            ed = t + gap * float(r.uniform(0.7, 1.0))
+            track.append({"text": _words(r, 14.0, 4, 60,
+                                         caps=len(track) % 5 == 4),
+                          "start": round(t, 3),
+                          "end": round(min(ed, duration), 3)})
+            t += gap
+        subs.append({"vid_name": vid, "sub": track})
+        for q in range(PREPRO_QUERIES):
+            st = 1.5 * int(r.randint(0, n - 16))
+            queries.append({
+                "desc_id": len(queries), "vid_name": vid,
+                "desc": " ".join(f"w{int(k)}" for k in r.randint(
+                    0, 20000, int(np.clip(round(r.normal(15, 4)), 5, 29)))),
+                "ts": [st, st + 1.5 * int(r.randint(2, 16))],
+                "type": ("v", "t", "vt")[len(queries) % 3]})
+        if i < PREPRO_QA:
+            qa.append({"qid": f"tvqa{i}", "vid_name": vid,
+                       "q": _words(r, 10.0, 3, 30),
+                       "answers": [_words(r, 6.0, 1, 20) for _ in range(5)],
+                       "answer_idx": int(r.randint(5)),
+                       "ts": [3.0, 3.0 + 1.5 * int(r.randint(4, 30))]})
+        st = 1.5 * int(r.randint(0, n - 30))
+        caps.append({"vid_name": vid, "clip_id": f"{vid}_c0",
+                     "duration": duration,
+                     "ts": [st, st + 1.5 * int(r.randint(4, 30))],
+                     "descs": [{"desc_id": 10 * i + c,
+                                "desc": _words(r, 12.0, 4, 40)}
+                               for c in range(int(r.randint(1, 4)))]})
+    for name, items in (("subs.jsonl", subs), ("queries.jsonl", queries),
+                        ("tvqa.jsonl", qa), ("captions.jsonl", caps)):
+        with open(os.path.join(root, name), "w") as f:
+            f.writelines(json.dumps(x) + "\n" for x in items)
+    return rows, queries, qa
+
+
+def run_entry_point(here, name, args):
+    """``python -m hero_tpu_torch.prepro.<name> args`` in a subprocess;
+    returns (wall s, stdout).  A failure fails the run."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"hero_tpu_torch.prepro.{name}", *args],
+        cwd=here, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"prepro.{name} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    return wall, proc.stdout
+
+
+def check_prepro_stores(root, rows, queries, qa):
+    """What the entry points wrote: the video store's rows equal the
+    ``.npz`` concatenation bit for bit; every frame of every video lies in
+    exactly one unique sub or among the unmatched frames (the prepro
+    alignment's partition); the query and QA ids are the hash
+    tokenizer's; ``emit_sub_len_sidecar`` rewrites the prepro-written
+    ``vid2sub_len.json`` byte for byte."""
+    from hero_tpu_torch.data.store import HeroStore, VideoFeatStore
+    from hero_tpu_torch.prepro.build_dbs import emit_sub_len_sidecar
+    from hero_tpu_torch.prepro.tokenize import hash_tokenizer
+    tok = hash_tokenizer()
+    video = VideoFeatStore(os.path.join(root, "video_db"))
+    if video.name2nframe != {v: x.shape[0] for v, x in rows.items()}:
+        raise AssertionError("id2nframe.json differs from the features")
+    for vid, want in rows.items():
+        got = video[vid]
+        if got.dtype != np.float16 or not np.array_equal(
+                got.view(np.uint16), want.view(np.uint16)):
+            raise AssertionError(f"video store rows of {vid} differ")
+    sub_dir = os.path.join(root, "sub_db")
+    subs = HeroStore(sub_dir)
+    unmatched = 0
+    for vid, want in rows.items():
+        ex = subs[vid]
+        frames = [f for _, fs in ex["unique_sub2frames"] for f in fs]
+        unmatched += len(ex["unmatched_frames"])
+        if (len(frames) != len(set(frames)) or sorted(
+                frames + list(ex["unmatched_frames"]))
+                != list(range(want.shape[0]))):
+            raise AssertionError(f"{vid}: the subs do not partition the "
+                                 f"frames")
+    subs.close()
+    q_store = HeroStore(os.path.join(root, "query_db"))
+    for q in queries:
+        if q_store[str(q["desc_id"])]["input_ids"] != tok(q["desc"]):
+            raise AssertionError(f"query {q['desc_id']}: ids differ")
+    qa_store = HeroStore(os.path.join(root, "qa_db"))
+    for q in qa:
+        if qa_store[q["qid"]]["input_ids"] != [tok(q["q"])] + [
+                tok(a) for a in q["answers"]]:
+            raise AssertionError(f"question {q['qid']}: ids differ")
+    path = os.path.join(sub_dir, "vid2sub_len.json")
+    with open(path, "rb") as f:
+        written = f.read()
+    os.remove(path)
+    emit_sub_len_sidecar(sub_dir)
+    with open(path, "rb") as f:
+        if f.read() != written:
+            raise AssertionError("emit_sub_len_sidecar differs from the "
+                                 "prepro-written vid2sub_len.json")
+    return {"video_rows_bit_equal": True, "frames_partitioned": True,
+            "unmatched_frames": unmatched, "query_ids_equal": len(queries),
+            "qa_ids_equal": len(qa), "sidecar_equal": True}
+
+
+def prepro_phase(torch, here, cfg, flat, params, vsm, opts, dev, dtype,
+                 sync, rehearse, kernels):
+    """The raw inputs (:func:`write_prepro_raw`) through the four prepro
+    entry points as ``python -m`` subprocesses with ``--tokenizer hash``
+    (each timed), the stores checked (:func:`check_prepro_stores`), the
+    ``--pack_subs`` bucket ``prepro.suggest_bucket`` sizes from the sub
+    store (``suggest_packed_shapes``; and ``suggest_downstream_lens`` of
+    the QA and caption stores), then ``validate_full_vcmr`` over ``load_data.load_video_sub_dataset``
+    and the query store through ``train_vcmr.build_eval_inputs``, with
+    the launch counters from 0; in fp32 the kernel path's top-10 videos
+    those of the plain path on the CPU (``integration_check``, the first
+    ``PREPRO_CHECK_VIDEOS`` videos).  With ``kernels``, #1 at the
+    bucket's f-encoder rows and #2 at the c-encoder's are held against
+    their plain versions and timed.  Returns (record, launches)."""
+    import torch.nn.functional as F
+    from hero_tpu_torch.data import load_data
+    from hero_tpu_torch.data.downstream_tasks import suggest_downstream_lens
+    from hero_tpu_torch.data.store import QueryTokStore
+    from hero_tpu_torch.data.video import (FixedShapes, stack_items,
+                                           video_fits_bucket)
+    from hero_tpu_torch.drivers.train_vcmr import build_eval_inputs
+    from hero_tpu_torch.evaluation.vcmr_eval import validate_full_vcmr
+    from hero_tpu_torch.prepro import suggest_bucket
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="prepro_")
+    try:
+        n_videos = 8 if rehearse else PREPRO_VIDEOS
+        rows, queries, qa = write_prepro_raw(root, cfg.vfeat_dim, n_videos)
+        rec = {"videos": n_videos, "frames": sum(
+            x.shape[0] for x in rows.values()), "queries": len(queries),
+               "raw_s": time.perf_counter() - t_phase}
+
+        def path(name):
+            return os.path.join(root, name)
+
+        walls, out = {}, {}
+        for name, key, args in (
+                ("convert_videodb", "convert_videodb",
+                 ["--slowfast_dir", path("slowfast"), "--resnet_dir",
+                  path("resnet"), "--output", path("video_db")]),
+                ("prepro_sub", "prepro_sub",
+                 ["--sub_jsonl", path("subs.jsonl"), "--vid2nframe",
+                  path("video_db/id2nframe.json"), "--output",
+                  path("sub_db"), "--tokenizer", "hash"]),
+                ("prepro_query", "prepro_query_tvr",
+                 ["--query_jsonl", path("queries.jsonl"), "--task", "tvr",
+                  "--output", path("query_db"), "--tokenizer", "hash"]),
+                ("prepro_query", "prepro_query_tvqa",
+                 ["--query_jsonl", path("tvqa.jsonl"), "--task", "tvqa",
+                  "--output", path("qa_db"), "--tokenizer", "hash"]),
+                ("prepro_tvc", "prepro_tvc",
+                 ["--caption_jsonl", path("captions.jsonl"), "--output",
+                  path("tvc_db"), "--tokenizer", "hash"])):
+            walls[key], out[key] = run_entry_point(here, name, args)
+        if out["convert_videodb"].strip() != (f"converted {n_videos} videos "
+                                              f"(0 corrupted)"):
+            raise AssertionError(out["convert_videodb"])
+        rec["entry_point_wall_s"] = walls
+        rec["store_bytes"] = sum(
+            os.path.getsize(os.path.join(d, f))
+            for d, _, fs in os.walk(root) for f in fs
+            if "_db" in os.path.relpath(d, root))
+        rec["checks"] = check_prepro_stores(root, rows, queries, qa)
+
+        # the flags suggest_bucket prints for a --pack_subs run, as the
+        # drivers' options turn them into a bucket (common.shapes_from_opts)
+        flags = suggest_bucket.suggest(suggest_bucket.build_argparser(
+            ).parse_args(["--sub_txt_db", path("sub_db"), "--pack"]))
+        rec["bucket"] = flags
+        shapes = FixedShapes(
+            n_subs=flags["bucket_n_subs"], txt_len=flags["bucket_txt_len"],
+            frames_per_sub=flags["bucket_frames_per_sub"],
+            n_frames=flags["max_clip_len"], n_queries=1,
+            query_len=QUERY_SLOTS, vfeat_dim=cfg.vfeat_dim)
+        rec["downstream_lens"] = {
+            "tvqa": suggest_downstream_lens("tvqa", path("qa_db")),
+            "tvc": suggest_downstream_lens("tvc", path("tvc_db"))}
+        video_db = load_data.load_video_sub_dataset(
+            path("video_db"), path("sub_db"), shapes,
+            max_clip_len=flags["max_clip_len"], max_txt_len=60, pack=True)
+        opts = dataclasses.replace(opts, max_clip_len=flags["max_clip_len"])
+        rec["videos_in_bucket"] = sum(video_fits_bucket(video_db, v)
+                                      for v in video_db.vids)
+        if rec["videos_in_bucket"] < 0.99 * n_videos:
+            raise AssertionError(f"the suggested bucket holds "
+                                 f"{rec['videos_in_bucket']} of {n_videos}")
+        query_db = QueryTokStore(path("query_db"), max_txt_len=60)
+        eval_opts = types.SimpleNamespace(vcmr_eval_video_batch_size=VIDEO_BS,
+                                          vcmr_eval_batch_size=QUERY_BS)
+        rec["setup_s"] = time.perf_counter() - t_phase
+
+        vb, qb, video_ids, v2i, qdata = build_eval_inputs(video_db, query_db,
+                                                          eval_opts)
+        batches, query_batches = list(vb), list(qb)
+        reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        _, sub_out, metrics = validate_full_vcmr(
+            params, cfg, vsm, opts, batches, query_batches, video_ids, v2i,
+            qdata, dtype=dtype, device=dev)
+        sync()
+        rec["serve_wall_s"] = time.perf_counter() - t0
+        launches = read_counts()
+        check_submission(sub_out, metrics, len(queries), n_videos, opts)
+        rec["metrics"] = {t: metrics[t] for t in ("VCMR", "SVMR", "VR")}
+        rec["launches"] = launches
+        if video_db.truncation_report()["subs_dropped"]:
+            raise AssertionError(f"the bucket dropped subs: "
+                                 f"{video_db.truncation_report()}")
+        check = stack_items([video_db.video_item(v)
+                             for v in video_ids[:PREPRO_CHECK_VIDEOS]])
+        rec["integration_fp32"] = integration_check(
+            torch, cfg, flat, vsm, opts, [check], query_batches[0],
+            "cpu" if rehearse else "cuda", "cpu")
+        b = batches[0]
+        B, S, Lt = b["sub_input_ids"].shape
+        Fs = b["sub_frame_idx"].shape[2]
+        rec["f_encoder_rows"] = [B * S, Fs + Lt, cfg.f_config.hidden_size]
+        if kernels is not None:
+            att_dev = torch.device("cuda")
+            from hero_tpu_torch.ops import attention as att
+            D = cfg.f_config.hidden_size
+            seg = torch.from_numpy(np.concatenate(
+                [b["sub_frame_seg"], b["sub_txt_seg"]], 2).reshape(
+                    B * S, Fs + Lt)).to(att_dev)
+            cm = torch.from_numpy(b["c_attn_masks"]).to(att_dev)
+            new = {"attention_seg": check_attention(
+                       torch, F, att, B * S, Fs + Lt, D,
+                       cfg.f_config.num_attention_heads, seg, True,
+                       torch.bfloat16) | {
+                           "mode": "prepro: the suggested packed bucket's "
+                                   "f-encoder"},
+                   "attention_valid": check_attention(
+                       torch, F, att, B, cm.shape[1], D,
+                       cfg.c_config.num_attention_heads, cm, False,
+                       torch.bfloat16) | {"mode": "prepro: c-encoder"}}
+            for row in kernels:
+                if row["name"] in new:
+                    row["shapes"].append(new[row["name"]])
+        rec["phase_s"] = time.perf_counter() - t_phase
+        return rec, launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # components: tools/component_bench.py and the DALN checks of
 # tools/kernel_smoke.py and tools/tpu_kernel_drive.py
 # ---------------------------------------------------------------------------
@@ -7308,6 +7628,21 @@ def main(argv=None):
     record["serving_full"] = full
     mark("serving_full")
 
+    # data preparation: raw files through the port's prepro entry points,
+    # the stores, the suggested bucket, then VCMR serving over them
+    prep, prep_launches = prepro_phase(
+        torch, here, cfg, flat, params, vsm, opts, dev, dtype, sync,
+        rehearse, record["kernels"] if not rehearse else None)
+    if not rehearse and min(prep_launches[k] for k in serving) == 0:
+        raise AssertionError(f"a kernel of the prepro path was never "
+                             f"launched: {prep_launches}")
+    record["prepro"] = prep
+    mark("prepro")
+    log(f"prepro: {prep['videos']} videos through the entry points "
+        f"{prep['entry_point_wall_s']} s, bucket {prep['bucket']}, phase "
+        f"{prep['phase_s']:.1f} s, done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     # the components of tools/component_bench.py
     if not rehearse:
         from hero_tpu_torch.ops import layernorm as lnm
@@ -7484,6 +7819,11 @@ def main(argv=None):
         "program": {k: v for k, v in full["program"].items()
                     if k != "metrics"},
         "phase_s": full["phase_s"]}}))
+    print(json.dumps({"prepro": {k: prep[k] for k in (
+        "videos", "frames", "queries", "entry_point_wall_s", "store_bytes",
+        "checks", "bucket", "downstream_lens", "videos_in_bucket",
+        "f_encoder_rows", "serve_wall_s", "metrics", "integration_fp32",
+        "launches", "raw_s", "setup_s", "phase_s")}}))
     print(json.dumps({"components": {
         "ms": comps.get("ms"), "ffn_tflops": comps.get("ffn_tflops"),
         "shapes": comps["shapes"], "launches": comp_launches}}))
@@ -7495,7 +7835,7 @@ def main(argv=None):
              "pretrain": pre_launches, "pretrain_main": pmain_launches,
              "tvc_program": tprog_train, "tvc_program_inf": tprog_inf,
              **vprog_paths, **qprog_paths, **dp_paths, **full_paths,
-             "components": comp_launches}
+             "prepro": prep_launches, "components": comp_launches}
     kernels = [{k: row[k] for k in (
         "name", "route", "source", "replaces", "tpu_kernel", "shape", "dtype",
         "max_abs_err", "tol", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -19,6 +19,10 @@ hero_tpu_torch.drivers.inf_tvc --output_dir D --checkpoint N``, scored by
 the released ``hero-tv-ht100.pt``), and runs as one process or as ranks
 of ``torch.distributed`` (``parallel``: data parallelism, ``--zero1``,
 ``--pp_stages``; tensor and sequence parallelism as library functions).
+Its stores are prepared from raw features, subtitles, queries and
+captions by ``python -m hero_tpu_torch.prepro.convert_videodb``,
+``prepro_sub``, ``prepro_query`` and ``prepro_tvc``, and
+``prepro.suggest_bucket`` sizes the programs' buckets from them.
 
 A port of ``hero_tpu`` (the JAX/Pallas package beside it, which stays the
 reference) to one NVIDIA H100.  Module names mirror ``hero_tpu`` so each
@@ -32,14 +36,15 @@ too.  Entry points run on the card (``device="cuda"``) unless the caller
 passes ``device="cpu"``; with no card they raise instead of falling back.
 """
 
-import torch
-
 __version__ = "0.1.0"
 
 
-def resolve_device(device="cuda") -> torch.device:
+def resolve_device(device="cuda"):
     """``torch.device(device)``, raising when CUDA is asked for but absent
-    (the port never silently carries on on the CPU)."""
+    (the port never silently carries on on the CPU).  ``torch`` is
+    imported here, not with the package, so data preparation
+    (``prepro``) starts without it."""
+    import torch
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

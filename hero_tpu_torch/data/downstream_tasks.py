@@ -30,6 +30,8 @@ inputs give the same arrays).
   (``from_caption_db``) or a clip jsonl (``from_jsonl``).
 - :func:`build_tvc_clip_batch`: the backbone keys (with the four packed
   segment/position keys) plus the per-clip gather indices.
+- :func:`suggest_downstream_lens`: the QA, statement, caption, segment
+  and clip budgets of a task's stores, as ``bucket_*`` options.
 
 The caption store (``vid2caps``, ``pad``/``bos``/``eos``, ``store[cid]``)
 and the video store (``img_db.frame_interval``, ``video_item(vid)``, a
@@ -48,7 +50,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from hero_tpu_torch.data.store import HeroStore, _load_json
-from hero_tpu_torch.data.video import FixedShapes, pad_query
+from hero_tpu_torch.data.video import FixedShapes, pad_query, quantile_dim
 
 
 def get_st_ed_label(ts, max_idx: int, frame_interval: float,
@@ -148,6 +150,61 @@ class VcmrDataset:
 class VrDataset(VcmrDataset):
     """Video retrieval (reference data/vr.py:64-200): no span targets."""
     span_targets = False
+
+
+def suggest_downstream_lens(task: str, db_dir: str, coverage: float = 0.99,
+                            frame_interval: float = 1.5,
+                            max_clip_len: int = 100) -> Dict[str, int]:
+    """The downstream tasks' bucket lengths from their stores
+    (``hero_tpu/data/downstream_tasks.py:412-477``), as the drivers'
+    ``bucket_*`` options; each the ``coverage`` quantile rounded up to a
+    multiple of 8:
+
+    - ``tvqa``/``how2qa``/``videoqa``: ``bucket_query_len`` of the
+      ``[SEP] q [SEP] a`` unit over every (question, answer) pair
+      (reference videoQA.py:93-115), the QA input and the text appended
+      to every sub row or packed segment;
+    - ``violin``: ``bucket_query_len`` of ``[SEP] statement``;
+    - ``tvc`` (``db_dir`` holds ``cap.db`` and ``clip.db``):
+      ``bucket_cap_len`` of caption + BOS, ``bucket_seg_len`` of the
+      clips' frame spans (the rounded-end rule) and ``clips_per_item`` of
+      the clips a video (unrounded, at least 1)."""
+    def dim(vals, lo=8, mult=8):
+        return quantile_dim(vals, coverage, lo, mult)
+
+    if task in ("videoqa", "tvqa", "how2qa"):
+        store = HeroStore(db_dir)
+        units = []
+        for qid in _load_json(db_dir, "id2len.json", {}):
+            ex = store[qid]
+            q, answers = ex["input_ids"][0], ex["input_ids"][1:]
+            units.extend(2 + len(q) + len(a) for a in answers)
+        return {"bucket_query_len": dim(units)}
+    if task == "violin":
+        store = HeroStore(db_dir)
+        lens = [1 + len(store[qid]["input_ids"])
+                for qid in _load_json(db_dir, "id2len.json", {})]
+        return {"bucket_query_len": dim(lens)}
+    if task == "tvc":
+        cap_dir = os.path.join(db_dir, "cap.db")
+        cap = HeroStore(cap_dir)
+        cap_lens, spans = [], []
+        for cids in _load_json(cap_dir, "vid2caps.json", {}).values():
+            for cid in cids:
+                ex = cap[cid]
+                cap_lens.append(len(ex["input_ids"]) + 1)
+                if ex.get("ts") is not None:
+                    st, ed = get_st_ed_label(ex["ts"], max_clip_len,
+                                             frame_interval, round_ed=True)
+                    spans.append(ed - st)
+        clips = [len(c) for c in _load_json(
+            os.path.join(db_dir, "clip.db"), "vid2clips.json", {}).values()]
+        out = {"bucket_cap_len": dim(cap_lens),
+               "bucket_seg_len": dim(spans)}
+        if clips:
+            out["clips_per_item"] = dim(clips, lo=1, mult=1)
+        return out
+    raise ValueError(f"no downstream bucket suggester for task {task!r}")
 
 
 def build_batch(dataset, indices: Sequence[int],

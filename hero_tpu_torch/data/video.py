@@ -66,10 +66,7 @@ def scan_shape_stats(sub_store, max_txt_len: int = 60,
             frames_ps.append(len(frames))
             if lens is None:
                 lens = _sub_row_lens(sub_store, sidecar, vid, max_txt_len)
-            n = 1 + sum(lens[t]
-                        for t in range(sub_idx - sub_ctx_len, sub_idx + 1)
-                        if 0 <= t < len(lens))
-            toks_pr.append(n)
+            toks_pr.append(_row_tokens(lens, sub_idx, sub_ctx_len))
     return {"subs_per_video": np.asarray(subs_pv),
             "frames_per_video": np.asarray(frames_pv),
             "tokens_per_row": np.asarray(toks_pr),
@@ -85,17 +82,89 @@ def suggest_shapes(sub_store, coverage: float = 0.99,
     text budget for tasks that append tokens to every sub row."""
     base = base or FixedShapes()
     st = scan_shape_stats(sub_store, max_txt_len, sub_ctx_len)
-    q = 100.0 * coverage
 
     def dim(arr, lo):
-        v = int(np.ceil(np.percentile(arr, q))) if len(arr) else lo
-        return max(lo, -(-v // 8) * 8)
+        return quantile_dim(arr, coverage, lo)
 
     return base.replace(
         n_subs=dim(st["subs_per_video"], 8),
         txt_len=dim(st["tokens_per_row"] + append_len, 16),
         frames_per_sub=dim(st["frames_per_sub"], 8),
         n_frames=max(base.n_frames, dim(st["frames_per_video"], 8)))
+
+
+def suggest_packed_shapes(sub_store, coverage: float = 0.99,
+                          max_txt_len: int = 60, sub_ctx_len: int = 0,
+                          base: Optional[FixedShapes] = None,
+                          max_rows: int = 32,
+                          append_len: int = 0) -> FixedShapes:
+    """A ``--pack_subs`` bucket (row capacities) sized from the corpus
+    (``hero_tpu/data/video.py:102-168``): the cheapest (rows, txt_len,
+    frames_per_sub) by row-slot area for which >= ``coverage`` of the
+    videos pack with nothing dropped under :func:`pack_subs`.  Text
+    budgets are 1-4 times the per-sub quantile row, frame budgets the
+    per-sub quantile and its double, dims multiples of 8, as
+    :func:`suggest_shapes`; :func:`suggest_shapes` when nothing reaches
+    the coverage.  ``append_len``: text a packed segment carries on top
+    (VideoQA/VIOLIN append their tokens to every segment)."""
+    base = base or FixedShapes()
+    sidecar = getattr(sub_store, "vid2sub_lens", None)
+    per_video, frames_pv, all_toks, all_fs = [], [], [], []
+    for vid, sub2frames in sub_store.vid_sub2frame.items():
+        lens = _sub_row_lens(sub_store, sidecar, vid, max_txt_len)
+        rows = []
+        for sub_idx, frames in sub2frames:
+            n = append_len + _row_tokens(lens, sub_idx, sub_ctx_len)
+            rows.append((n, len(frames)))
+            all_toks.append(n)
+            all_fs.append(len(frames))
+        per_video.append(rows)
+        frames_pv.append(sub_store.id2len.get(vid, 0))
+    if not per_video:
+        return base
+
+    def dim(arr, lo):
+        return quantile_dim(arr, coverage, lo)
+
+    t_min, fs_min = dim(all_toks, 16), dim(all_fs, 8)
+    target = coverage * len(per_video)
+    best = None                       # (cost, n_rows, txt, fs)
+    for fs in (fs_min, 2 * fs_min):
+        for t_mult in (1, 2, 3, 4):
+            txt = t_min * t_mult
+            for n_rows in range(1, max_rows + 1):
+                fit = sum(all(p is not None
+                              for p in pack_subs(rows, n_rows, txt, fs))
+                          for rows in per_video)
+                if fit >= target:
+                    cost = n_rows * (txt + fs)
+                    if best is None or cost < best[0]:
+                        best = (cost, n_rows, txt, fs)
+                    break
+    if best is None:
+        return suggest_shapes(sub_store, coverage=coverage,
+                              max_txt_len=max_txt_len,
+                              sub_ctx_len=sub_ctx_len, base=base,
+                              append_len=append_len)
+    _, n_rows, txt, fs = best
+    return base.replace(n_subs=n_rows, txt_len=txt, frames_per_sub=fs,
+                        n_frames=max(base.n_frames, dim(frames_pv, 8)))
+
+
+def quantile_dim(values, coverage: float, lo: int, mult: int = 8) -> int:
+    """A bucket dimension: the ``coverage`` quantile of ``values`` rounded
+    up to a multiple of ``mult``, at least ``lo`` (``lo`` without
+    values)."""
+    v = (int(np.ceil(np.percentile(values, 100.0 * coverage)))
+         if len(values) else lo)
+    return max(lo, -(-v // mult) * mult)
+
+
+def _row_tokens(lens: List[int], sub_idx: int, sub_ctx_len: int) -> int:
+    """The tokens of sub ``sub_idx``'s row: [SEP] and the subs of its
+    context window."""
+    return 1 + sum(lens[t] for t in range(sub_idx - sub_ctx_len, sub_idx + 1)
+                   if 0 <= t < len(lens))
 
 
 def _sub_row_lens(sub_store, sidecar, vid: str,
@@ -127,9 +196,7 @@ def video_fits_bucket(db: "VideoFeatSubTokDataset", vid: str) -> bool:
             return False
         if lens is None:
             lens = _sub_row_lens(db.txt_db, sidecar, vid, db.max_txt_len)
-        n = 1 + sum(lens[t]
-                    for t in range(sub_idx - db.sub_ctx_len, sub_idx + 1)
-                    if 0 <= t < len(lens))
+        n = _row_tokens(lens, sub_idx, db.sub_ctx_len)
         if n > sp.txt_len:
             return False
         row_lens.append((n, len(frames)))

@@ -31,10 +31,9 @@ import torch
 from hero_tpu_torch import resolve_device
 from hero_tpu_torch.config.model_config import HeroConfig
 from hero_tpu_torch.convert.torch_checkpoint import load_and_convert
+from hero_tpu_torch.data import load_data
 from hero_tpu_torch.data.loader import PrefetchLoader
 from hero_tpu_torch.data.pretrain_tasks import mlm_row_cap
-from hero_tpu_torch.data.store import (SubTokStore, VideoFeatStore,
-                                      _load_json)
 from hero_tpu_torch.data.video import (FixedShapes, VideoFeatSubTokDataset,
                                       VideoOnlyDataset)
 from hero_tpu_torch.models import nn
@@ -92,15 +91,12 @@ def shapes_from_opts(opts) -> FixedShapes:
 def load_video_sub_dataset(opts, shapes: FixedShapes
                            ) -> VideoFeatSubTokDataset:
     """The sub and feature stores of ``opts.sub_txt_db`` /
-    ``opts.vfeat_db`` as one video dataset."""
-    sub = SubTokStore(opts.sub_txt_db, max_clip_len=opts.max_clip_len)
-    vfeat = VideoFeatStore(opts.vfeat_db,
-                           frame_interval=opts.vfeat_interval,
-                           max_clip_len=opts.max_clip_len)
-    return VideoFeatSubTokDataset(sub, vfeat, shapes,
-                                  max_txt_len=opts.max_txt_len,
-                                  sub_ctx_len=opts.sub_ctx_len,
-                                  pack=getattr(opts, "pack_subs", False))
+    ``opts.vfeat_db`` as one video dataset (``data/load_data``)."""
+    return load_data.load_video_sub_dataset(
+        opts.vfeat_db, opts.sub_txt_db, shapes,
+        vfeat_interval=opts.vfeat_interval, max_clip_len=opts.max_clip_len,
+        max_txt_len=opts.max_txt_len, sub_ctx_len=opts.sub_ctx_len,
+        pack=getattr(opts, "pack_subs", False))
 
 
 def load_video_only_dataset(opts, shapes: FixedShapes) -> VideoOnlyDataset:
@@ -113,23 +109,10 @@ def load_video_only_dataset(opts, shapes: FixedShapes) -> VideoOnlyDataset:
     has none."""
     meta_db = (getattr(opts, "train_query_txt_db", None)
                or getattr(opts, "val_query_txt_db", None))
-    meta = _load_json(meta_db, "meta.json", {}) if meta_db else {}
-
-    class _MetaTxt:
-        cls_ = meta.get("CLS", 0)
-        sep = meta.get("SEP", 2)
-        pad = meta.get("PAD", 1)
-        mask = meta.get("MASK", 50264)
-        id2len = {}
-
-    vfeat = VideoFeatStore(opts.vfeat_db,
-                           frame_interval=opts.vfeat_interval,
-                           max_clip_len=opts.max_clip_len)
-    shapes = shapes.replace(n_subs=1,
-                            frames_per_sub=max(shapes.frames_per_sub,
-                                               shapes.n_frames),
-                            txt_len=max(shapes.txt_len, 8))
-    return VideoOnlyDataset(vfeat, _MetaTxt(), shapes)
+    return load_data.load_video_only_dataset(
+        opts.vfeat_db, meta_db, shapes.replace(txt_len=max(shapes.txt_len,
+                                                           8)),
+        vfeat_interval=opts.vfeat_interval, max_clip_len=opts.max_clip_len)
 
 
 def is_video_only_task(task: str) -> bool:

@@ -42,10 +42,8 @@ from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
 from hero_tpu_torch.models import nn
 from hero_tpu_torch.models import tvc as tvc_lib
 from hero_tpu_torch.parallel import dist
+from hero_tpu_torch.prepro.tokenize import load_roberta
 from hero_tpu_torch.utils.logger import LOGGER, configure_stdout
-
-
-ROBERTA_VOCAB = 50265    # roberta-base's tokens (the model pads to 50272)
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,15 +56,11 @@ def detokenizer() -> Optional[Callable]:
     one of its 5 special tokens alone, which decodes every caption to
     ''."""
     try:
-        from transformers import RobertaTokenizer
-        tok = RobertaTokenizer.from_pretrained("roberta-base",
-                                               local_files_only=True)
-        if len(tok) < ROBERTA_VOCAB:
-            raise OSError(f"roberta-base tokenizer of {len(tok)} tokens")
-        return lambda ids: tok.decode(ids, skip_special_tokens=True)
-    except Exception:
+        tok = load_roberta()
+    except OSError:
         LOGGER.warning("RobertaTokenizer unavailable; emitting token ids")
         return None
+    return lambda ids: tok.decode(ids, skip_special_tokens=True)
 
 
 def cut_at_eos(ids, eos: int) -> List[int]:

@@ -1,5 +1,5 @@
 """TVR retrieval metrics and temporal NMS (a copy of
-``hero_tpu/evaluation/tvr_metrics.py``, without its CLI).
+``hero_tpu/evaluation/tvr_metrics.py``).
 
 Protocol-exact re-implementation of the reference evaluators
 (``utils/tvr_eval_utils.py``, ``utils/tvr_standalone_eval.py``), quirks
@@ -16,10 +16,17 @@ included, so submission files and evaluation servers agree:
 
 Submission schema: ``{"video2idx": {...}, "VCMR"|"SVMR"|"VR":
 [{"desc_id", "desc", "predictions": [[vidx, st, ed, score], ...]}]}``.
+
+Scoring a submission file against the ground-truth jsonl:
+
+    python -m hero_tpu_torch.evaluation.tvr_metrics \
+        --submission_path S.json --gt_path GT.jsonl --save_path R.json
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 from collections import OrderedDict, defaultdict
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
@@ -290,3 +297,28 @@ def eval_retrieval(submission, ground_truth, iou_thds=(0.5, 0.7),
         for t in tasks:
             eval_metrics[t + "_by_type"] = raw[t + "_by_type"]
     return eval_metrics
+
+
+def eval_main(argv=None) -> None:
+    """Score a submission file against the ground truth and write the
+    metrics (reference tvr_standalone_eval.py:286-303)."""
+    p = argparse.ArgumentParser(description="TVR Evaluation Script")
+    p.add_argument("--submission_path", type=str, required=True)
+    p.add_argument("--gt_path", type=str, required=True)
+    p.add_argument("--save_path", type=str, required=True)
+    p.add_argument("--not_verbose", action="store_true")
+    args = p.parse_args(argv)
+    with open(args.submission_path) as f:
+        submission = json.load(f)
+    with open(args.gt_path) as f:
+        gt = [json.loads(line) for line in f if line.strip()]
+    results = eval_retrieval(submission, gt, iou_thds=(0.5, 0.7),
+                             verbose=not args.not_verbose)
+    if not args.not_verbose:
+        print(json.dumps(results, indent=4))
+    with open(args.save_path, "w") as f:
+        json.dump(results, f, indent=4)
+
+
+if __name__ == "__main__":
+    eval_main()

@@ -165,3 +165,26 @@ def mlp_layer(p: Params, x: torch.Tensor,
 def mask_logits(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """logits + (1 - mask) * -1e4."""
     return logits + (1.0 - mask.to(logits.dtype)) * NEG_INF
+
+
+def prune_attention_heads(attn_params: Params, heads, n_heads: int
+                          ) -> Params:
+    """Remove ``heads`` of ``n_heads`` from an attention block
+    (``hero_tpu/models/nn.py:177-198``; reference prune_heads +
+    prune_linear_layer, model/layers.py:189-216, modeling_utils.py:
+    14-39): the kept heads' rows of each of the fused ``qkv``'s three
+    parts and their input columns of ``out``.  Returns new params; the
+    caller shrinks ``num_attention_heads`` in the config."""
+    qkv_w, qkv_b = attn_params["qkv"]["weight"], attn_params["qkv"]["bias"]
+    width = qkv_w.shape[0] // 3
+    head_dim = width // n_heads
+    drop = set(heads)
+    cols = torch.cat([torch.arange(h * head_dim, (h + 1) * head_dim,
+                                   device=qkv_w.device)
+                      for h in range(n_heads) if h not in drop])
+    rows = torch.cat([cols + i * width for i in range(3)])
+    out = dict(attn_params)
+    out["qkv"] = {"weight": qkv_w[rows], "bias": qkv_b[rows]}
+    out["out"] = dict(attn_params["out"],
+                      weight=attn_params["out"]["weight"][:, cols])
+    return out

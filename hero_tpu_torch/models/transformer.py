@@ -94,7 +94,9 @@ def attention(p: Params, x: torch.Tensor, cfg: TransformerConfig, *,
     decoder's causal bias."""
     D = x.shape[-1]
     part = p["qkv"]["weight"].shape[0] // 3      # D/S on a model rank
-    tp = part != D
+    # outside a model grid a narrow block is a pruned one
+    # (nn.prune_attention_heads), whose config counts its heads
+    tp = part != D and dist.inner_axis() == "model"
     heads = cfg.num_attention_heads
     if tp:
         if D % part or heads % (D // part):

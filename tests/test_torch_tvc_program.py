@@ -59,6 +59,7 @@ from hero_tpu_torch.evaluation import caption_metrics as tcm
 from hero_tpu_torch.evaluation import porter as tporter
 from hero_tpu_torch.evaluation import snowball as tsnowball
 from hero_tpu_torch.models.tvc import init_flat_tvc_params
+from hero_tpu_torch.prepro.tokenize import ROBERTA_VOCAB
 from hero_tpu_torch.training import optim as toptim
 from hero_tpu_torch.training import save as tsave
 from tests.test_drivers_all import MODEL_CFG as DRIVER_MODEL_CFG
@@ -841,7 +842,7 @@ def test_detokenizer_needs_roberta_vocabulary(installed, monkeypatch,
     def from_pretrained(name, **kw):
         calls.append((name, kw))
         return _FakeTokenizer(5 if installed == "vocabless"
-                              else tinf.ROBERTA_VOCAB)
+                              else ROBERTA_VOCAB)
 
     fake = types.SimpleNamespace(RobertaTokenizer=types.SimpleNamespace(
         from_pretrained=from_pretrained))
