@@ -13,6 +13,7 @@ check them.
     python3 chip_smoke.py --json-out F     # also write the full record to F
     python3 chip_smoke.py --rehearse       # CPU, tiny config, plain versions
     python3 chip_smoke.py --daln-times [ROOT]  # time #8/#9 of a checkout
+    python3 chip_smoke.py --bwd3-times [ROOT]  # time #3 of a checkout
 
 What the card run does, in order (any failure exits non-zero):
 
@@ -40,12 +41,14 @@ What the card run does, in order (any failure exits non-zero):
    Philox masks) against their plain versions in fp32 and bf16 at the
    train step's shapes, and the bf16 packed forward and backward at the
    tensor-core kernels' tile edges (``check_packed_edges``: 1, 17, 63,
-   65, 200 and 417 keys, the backward at 154 and 240 rows, one query over
-   each key count, fully masked rows in both modes, the keep bits read
-   back from both kernels); times the VSM train step at ``bench.py``'s layout
-   (32 TV videos a step, the packed bucket and its overflow bucket, bf16,
-   dropout 0.1, ``drop_svmr_prob`` 0.8) as the median of 3 runs of 20 fit
-   and 8 overflow steps with the launch counters read from 0 around them;
+   65, 200 and 417 keys, the backward also at 154, 240, 241, 256, 400
+   and 1024 rows from the plain forward's probabilities past the
+   forward's 752 keys, one query over each key count, fully masked rows
+   in both modes, the keep bits read back from both kernels); times the
+   VSM train step at ``bench.py``'s layout (32 TV videos a step, the
+   packed bucket and its overflow bucket, bf16, dropout 0.1,
+   ``drop_svmr_prob`` 0.8) as the median of 3 runs of 20 fit and 8
+   overflow steps with the launch counters read from 0 around them;
    checks that the loss falls over 20 steps on one batch; holds one
    fp32 train step through the kernels against the plain path on the
    CPU; and, in bf16 with dropout on both buckets at full depth, holds
@@ -180,8 +183,7 @@ What the card run does, in order (any failure exits non-zero):
    queries over the other 64) and MSR-VTT ones keyed by ``sen_id`` (768
    and 256); holds #2 and #3 at the programs' f-encoder rows against
    their plain versions: TVR's (1024, 77, 768) and MSR-VTT video-only's
-   (96, 161, 768) (bf16; its fp32 check at DiDeMo video-only's 81 slots,
-   since the fp32 backward takes at most 154 rows); runs
+   (96, 161, 768), in fp32 and bf16; runs
    ``drivers/train_vcmr.main`` on ``config/train-tvr.json`` with the
    paths substituted, the ``.pt``, 4 steps, validation and checkpoints
    at 4, warm-up 2 and hard negatives from step 2, in this process
@@ -215,14 +217,14 @@ What the card run does, in order (any failure exits non-zero):
    rows ((20, 132, 768): 100 frames + 32 QA tokens behind the mask
    ``[frames | pad frames | tokens | pad tokens]``, a video of fewer
    than 100 frames in the batch), and #1 and #3 at the ``--pack_subs``
-   rows ((160, 200, 768); fp32 at their first 154 slots, the fp32
-   backward's limit), and #6 and #7 at the step's LayerNorm widths,
-   against their plain versions; holds one fp32 step of the VideoQA loss
-   and one of the VIOLIN loss on the card against the CPU (2 + 1
-   layers, one question or pair on its first 8 sub rows: the loss,
-   every gradient, every new parameter) and one bf16 step of each,
-   dropout on, through the kernels against the plain attention versions
-   (``bf16_step_check``, 2 questions or pairs), the output biases of the
+   rows ((160, 200, 768)), in fp32 and bf16, and #6 and #7 at the
+   step's LayerNorm widths, against their plain versions; holds one
+   fp32 step of the VideoQA loss and one of the VIOLIN loss on the card
+   against the CPU (2 + 1 layers, one question or pair on its first 8
+   sub rows: the loss, every gradient, every new parameter) and one bf16
+   step of each, dropout on, through the kernels against the plain
+   attention versions (``bf16_step_check``, 2 questions or pairs), the
+   output biases of the
    heads held to analytic bounds (``zero_sum_bound``,
    ``violin_bias_bound``); runs ``drivers/train_videoqa.main`` on
    ``config/train-tvqa.json`` with the paths substituted and the ``.pt``,
@@ -365,8 +367,10 @@ head-major) ran in any of these bf16 windows, or if the greedy window ran
 no ``mha_attention_mma_kernel``.  ``--daln-times [ROOT]`` does nothing
 but time #8 and #9 of the ``hero_tpu_torch`` under ROOT (this checkout by
 default) at rates 0 and 0.1 and print one JSON line: run on two
-checkouts in turns, it compares them on one card.  Imports nothing of
-JAX.
+checkouts in turns, it compares them on one card.  ``--bwd3-times
+[ROOT]`` likewise times only #3 (``BWD3_TIME_SHAPES``, fp32 and bf16,
+dropout 0.1), with each shape's bound and, for this checkout, SDPA's
+backward.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -478,8 +482,8 @@ def _kernel_class(name):
         return "mha_attention_bwd_kernel"
     if "mha_attention" in name:
         return "mha_attention_kernel"
-    if "packed_attention_bwd_mma" in name:
-        return "attention_bwd_mma_kernel"
+    if "packed_attention_bwd" in name and "_mma_kernel" in name:
+        return "attention_bwd_mma_kernel"     # #3's dQ and dK/dV kernels
     if "packed_attention_mma" in name:
         return "attention_mma_kernel"
     if "packed_attention_bwd" in name:
@@ -924,11 +928,9 @@ def _train_tol(ref, dtype):
     return top * 2.0 ** -7
 
 
-def check_attention_train(torch, F, att, B, L, D, H, mask, seg_mode,
-                          fp32=True):
+def check_attention_train(torch, F, att, B, L, D, H, mask, seg_mode):
     """The forward with dropout and saved probabilities and the backward
-    kernel, in fp32 (unless ``fp32`` is False: the fp32 backward takes at
-    most 154 rows) and bf16, at rate 0 and 0.1, against the plain
+    kernel, in fp32 and bf16, at rate 0 and 0.1, against the plain
     versions on the same inputs; determinism; bf16 timings at rate 0.1."""
     dev = mask.device
     gen = torch.Generator(device=dev).manual_seed(7 * B + L)
@@ -936,7 +938,7 @@ def check_attention_train(torch, F, att, B, L, D, H, mask, seg_mode,
     launch = att.seg_attention_cuda if seg_mode else att.valid_attention_cuda
     d = D // H
     checks, rows = {}, {}
-    for dtype in ((torch.float32,) if fp32 else ()) + (torch.bfloat16,):
+    for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[1]
         qkv = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(dtype)
         q, k, v = qkv.split(D, dim=-1)
@@ -1168,12 +1170,14 @@ def check_train_kernels(torch, b_fit, b_over, cfg, kernels):
 
 
 # Shapes at the bf16 tensor-core kernels' tile edges (16-key chunks,
-# 16-row warp tiles, 64-row forward blocks): key counts, the old fp32
-# forward's limit at head_dim 64 (417 keys), and the longest rows the
-# backward takes (154, the fp32 kernel's limit; 240, the bf16 kernel's).
+# 16-row warp tiles, 64-row forward blocks, the backward's 64-row streamed
+# tiles): key counts, the old fp32 forward's limit at head_dim 64 (417
+# keys), and backward rows at and past the ceilings the backward had
+# before it streamed its tiles (fp32 154, bf16 240), past the bf16
+# forward's 752 keys at head_dim 64 (``EDGE_FWD_MAX``) included.
 EDGE_KEYS = (1, 17, 63, 65, 200, 417)
-EDGE_BWD = (154, 240)
-EDGE_BWD_MAX = 240
+EDGE_BWD = (154, 240, 241, 256, 400, 1024)
+EDGE_FWD_MAX = 752
 
 
 def _edge_segments(B, L, seed):
@@ -1195,22 +1199,24 @@ def check_packed_edges(torch, att, drop):
     train tolerances (one bf16 ulp of the largest value): self-attention
     at every ``EDGE_KEYS`` length in both mask modes, rate 0 and 0.1, saved
     probabilities, batch row 0 fully masked (finite); the backward at
-    every length it takes and at ``EDGE_BWD``; one query over each key
-    count (Lq = 1); and the keep bits read back from the kernels (value
-    rows e_j give drop(p), output-gradient rows e_i give dv = drop(p)^T)
-    equal to the plain Philox mask."""
+    every one of those lengths and at ``EDGE_BWD`` (from the plain
+    forward's probabilities past ``EDGE_FWD_MAX`` keys, which the forward
+    kernel does not take); one query over each key count (Lq = 1); and
+    the keep bits read back from the kernels (value rows e_j give drop(p),
+    output-gradient rows e_i give dv = drop(p)^T) equal to the plain
+    Philox mask."""
     dev = torch.device("cuda")
     H, d = 12, 64
     D = H * d
     gen = torch.Generator(device=dev).manual_seed(91)
     rows = []
 
-    def one(B, Lq, Lk, seg_mode, rate, backward):
+    def one(B, Lq, Lk, seg_mode, rate):
         q = torch.randn((B, Lq, D), generator=gen, device=dev).to(
             torch.bfloat16)
         kv = torch.randn((B, Lk, 3 * D), generator=gen, device=dev).to(
             torch.bfloat16)
-        k, v, dout = kv[..., :D], kv[..., D:2 * D], None
+        k, v = kv[..., :D], kv[..., D:2 * D]
         if seg_mode:
             qkv = torch.cat([q, kv[..., :2 * D]], -1)
             q, k, v = qkv.split(D, dim=-1)      # strided self-attention
@@ -1225,46 +1231,47 @@ def check_packed_edges(torch, att, drop):
             mask[0] = 0.0
             kw = {"kv_mask": mask}
             launch = att.valid_attention_cuda
-        out, probs = launch(q, k, v, H, mask, rate, TRAIN_SEED, True)
-        ref, rprobs = att.packed_forward_reference(
+        ref, probs = att.packed_forward_reference(
             q, k, v, H, dropout_rate=rate, seed=TRAIN_SEED, save_probs=True,
             **kw)
         rec = {"shape": [B, Lq, Lk, D], "mask": "segment" if seg_mode
-               else "validity", "rate": rate,
-               "fwd_err": _err(out, ref),
-               "fwd_tol": _train_tol(ref, "bfloat16"),
-               "probs_err": _err(probs, rprobs),
-               "probs_tol": _train_tol(rprobs, "bfloat16")}
-        ok = (rec["fwd_err"] <= rec["fwd_tol"]
-              and rec["probs_err"] <= rec["probs_tol"]
-              and bool(torch.isfinite(out).all()))
-        if backward:
-            dout = torch.randn((B, Lq, D), generator=gen, device=dev).to(
-                torch.bfloat16)
-            grads = att.attention_bwd_cuda(probs, q, k, v, dout, H, rate,
-                                           TRAIN_SEED)
-            rgrads = att.packed_backward_reference(probs, q, k, v, dout, H,
-                                                   rate, TRAIN_SEED)
-            again = att.attention_bwd_cuda(probs, q, k, v, dout, H, rate,
-                                           TRAIN_SEED)
-            rec["bwd_err"] = max(_err(a, b) for a, b in zip(grads, rgrads))
-            rec["bwd_tol"] = min(_train_tol(b, "bfloat16") for b in rgrads)
-            rec["deterministic"] = all(torch.equal(a, b)
-                                       for a, b in zip(grads, again))
-            ok = (ok and rec["bwd_err"] <= rec["bwd_tol"]
-                  and rec["deterministic"]
-                  and all(bool(torch.isfinite(g).all()) for g in grads))
-        rec["ok"] = ok
+               else "validity", "rate": rate}
+        ok = True
+        if Lk <= EDGE_FWD_MAX:
+            out, probs_k = launch(q, k, v, H, mask, rate, TRAIN_SEED, True)
+            rec.update(fwd_err=_err(out, ref),
+                       fwd_tol=_train_tol(ref, "bfloat16"),
+                       probs_err=_err(probs_k, probs),
+                       probs_tol=_train_tol(probs, "bfloat16"))
+            ok = (rec["fwd_err"] <= rec["fwd_tol"]
+                  and rec["probs_err"] <= rec["probs_tol"]
+                  and bool(torch.isfinite(out).all()))
+            probs = probs_k
+        dout = torch.randn((B, Lq, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        grads = att.attention_bwd_cuda(probs, q, k, v, dout, H, rate,
+                                       TRAIN_SEED)
+        rgrads = att.packed_backward_reference(probs, q, k, v, dout, H,
+                                               rate, TRAIN_SEED)
+        again = att.attention_bwd_cuda(probs, q, k, v, dout, H, rate,
+                                       TRAIN_SEED)
+        rec["bwd_err"] = max(_err(a, b) for a, b in zip(grads, rgrads))
+        rec["bwd_tol"] = min(_train_tol(b, "bfloat16") for b in rgrads)
+        rec["deterministic"] = all(torch.equal(a, b)
+                                   for a, b in zip(grads, again))
+        rec["ok"] = (ok and rec["bwd_err"] <= rec["bwd_tol"]
+                     and rec["deterministic"]
+                     and all(bool(torch.isfinite(g).all()) for g in grads))
         rows.append(rec)
-        if not ok:
+        if not rec["ok"]:
             raise AssertionError(f"packed attention edge shape: {rec}")
 
     for L in EDGE_KEYS + EDGE_BWD:
         for seg_mode in (False, True):
             for rate in (0.0, TRAIN_RATE):
-                one(2, L, L, seg_mode, rate, L <= EDGE_BWD_MAX)
+                one(2, L, L, seg_mode, rate)
     for Lk in EDGE_KEYS:
-        one(4, 1, Lk, False, TRAIN_RATE, Lk <= EDGE_BWD_MAX)
+        one(4, 1, Lk, False, TRAIN_RATE)
 
     B, L = 2, 60
     q, k, _ = torch.randn((B, L, 3 * D), generator=gen, device=dev).to(
@@ -4326,19 +4333,15 @@ def check_vcmr_program_kernels(torch, cfg, tvr_batch, vr_batch, kernels):
     video's 32 rows of 16 frames + 61 tokens) and MSR-VTT video-only's
     (96, 161, 768) (one row of 100 frames + 61 tokens a video), forward
     with dropout and saved probabilities and backward, against their
-    plain versions; added to the rows of ``kernels``.  At 161 rows the
-    fp32 CUDA-core backward (at most 154 rows) does not run, so the
-    video-only rows are checked in bf16, the programs' dtype, and in fp32
-    at DiDeMo video-only's 81 slots (20 frames + 61 tokens) of the same
-    videos."""
+    plain versions, in fp32 and bf16; added to the rows of
+    ``kernels``."""
     import torch.nn.functional as F
     from hero_tpu_torch.ops import attention as att
     dev = torch.device("cuda")
     D, H = cfg.f_config.hidden_size, cfg.f_config.num_attention_heads
 
-    def mask_of(b, frames=None):
-        fm = b["sub_frame_mask"][..., :frames]
-        m = np.concatenate([fm, b["sub_txt_mask"]], -1)
+    def mask_of(b):
+        m = np.concatenate([b["sub_frame_mask"], b["sub_txt_mask"]], -1)
         return torch.from_numpy(
             m.reshape(-1, m.shape[-1]).astype(np.float32)).to(dev)
 
@@ -4350,15 +4353,7 @@ def check_vcmr_program_kernels(torch, cfg, tvr_batch, vr_batch, kernels):
     t_fwd, t_bwd = check_attention_train(torch, F, att, tm.shape[0],
                                          tm.shape[1], D, H, tm, False)
     v_fwd, v_bwd = check_attention_train(torch, F, att, vm.shape[0],
-                                         vm.shape[1], D, H, vm, False,
-                                         fp32=False)
-    dm = mask_of(vr_batch, 20)
-    fp32_81 = check_attention_train(torch, F, att, dm.shape[0],
-                                    dm.shape[1], D, H, dm, False)[0]
-    v_fwd["checks_fp32_at"] = v_bwd["checks_fp32_at"] = {
-        "shape": list(dm.shape) + [D],
-        **{k: v for k, v in fp32_81["checks"].items()
-           if k.startswith("float32")}}
+                                         vm.shape[1], D, H, vm, False)
     new = {"attention_valid": [prog(t_fwd, "TVR f-encoder"),
                                prog(v_fwd, "MSR-VTT video-only f-encoder")],
            "attention_bwd": [prog(t_bwd, "TVR f-encoder"),
@@ -4763,7 +4758,6 @@ PROGRAM_VIOLIN_PAIRS = (192, 64)
 PROGRAM_QA_ANSWERS = 5              # config/train-tvqa.json's num_answers
 PROGRAM_QA_FREE_BYTES = 12 << 30    # the runs' checkpoints, with room
 PROGRAM_QA_CHECK_ITEMS = 2          # questions (pairs) of the bf16 checks
-FP32_BWD_ROWS = 154                 # the fp32 CUDA-core backward's rows
 
 
 def write_qa_stores(db, vids, vocab, root, sizes):
@@ -4837,9 +4831,8 @@ def check_qa_program_kernels(torch, cfg, qa_batch, packed_batch, kernels):
     x 32 subs of 16 frames + 120 tokens: (640, 136, 768)) and at the fused
     c-encoder rows (20 rows of 100 frames + 32 QA tokens: (20, 132, 768),
     the mask ``[frames | pad frames | tokens | pad tokens]``, not a
-    prefix), in fp32 and bf16; #1 and #3 at the ``--pack_subs`` rows (8
-    rows of 16 frames + 184 tokens a copy: (160, 200, 768)) in bf16, and
-    in fp32 at their first 154 slots (the fp32 backward's limit); #6 and
+    prefix), and #1 and #3 at the ``--pack_subs`` rows (8 rows of 16
+    frames + 184 tokens a copy: (160, 200, 768)), in fp32 and bf16; #6 and
     #7 at the step's LayerNorm widths (img_ln, the f- and c-encoders, the
     heads' MLP LayerNorms over the span rows and the answer rows).
     Returns the shapes."""
@@ -4873,15 +4866,7 @@ def check_qa_program_kernels(torch, cfg, qa_batch, packed_batch, kernels):
     c_fwd, c_bwd = check_attention_train(torch, F, att, cm.shape[0],
                                          cm.shape[1], D, H, cm, False)
     p_fwd, p_bwd = check_attention_train(torch, F, att, seg.shape[0],
-                                         seg.shape[1], D, H, seg, True,
-                                         fp32=False)
-    cut = seg[:, :FP32_BWD_ROWS].contiguous()
-    p32 = check_attention_train(torch, F, att, cut.shape[0], cut.shape[1],
-                                D, H, cut, True)[0]
-    p_fwd["checks_fp32_at"] = p_bwd["checks_fp32_at"] = {
-        "shape": list(cut.shape) + [D],
-        **{k: v for k, v in p32["checks"].items()
-           if k.startswith("float32")}}
+                                         seg.shape[1], D, H, seg, True)
     B, S, Fs = qa_batch["sub_frame_idx"].shape
     Nv = qa_batch["targets"].shape[0]
     F_ = frames.shape[1]
@@ -4898,8 +4883,7 @@ def check_qa_program_kernels(torch, cfg, qa_batch, packed_batch, kernels):
         "attention_seg": [prog(p_fwd, "TVQA --pack_subs f-encoder")],
         "attention_bwd": [prog(f_bwd, "TVQA f-encoder"),
                           prog(c_bwd, "TVQA fused c-encoder"),
-                          prog(p_bwd, "TVQA --pack_subs f-encoder, bf16 "
-                                      "only (fp32 at 154 slots)")],
+                          prog(p_bwd, "TVQA --pack_subs f-encoder")],
         "layer_norm": [prog(check_layer_norm(
             torch, F, lnm, n, w, torch.randn((n, w), generator=gen,
                                              device=dev).to(torch.bfloat16)),
@@ -7042,6 +7026,84 @@ def daln_ab(torch, lnm):
     return rows
 
 
+# #3's shapes for ``--bwd3-times``: (B, Lq, Lk, width, heads), every path
+# shape of PERF.md's #3 rows (the VSM train step's four, the TVC
+# decoder's causal and cross-attention, the components', pretraining's,
+# the programs', the dp modes') and square heads at and past the old
+# ceilings (fp32 154, bf16 240 rows at head_dim 64)
+BWD3_TIME_SHAPES = (
+    (128, 104, 104, 768, 12), (128, 144, 144, 768, 12),
+    (32, 100, 100, 768, 12), (64, 30, 30, 768, 12),
+    (8, 62, 62, 768, 12), (8, 62, 100, 768, 12),
+    (256, 56, 56, 768, 12), (256, 138, 138, 768, 12),
+    (160, 32, 32, 768, 12), (128, 136, 136, 768, 12),
+    (1024, 77, 77, 768, 12), (96, 161, 161, 768, 12),
+    (640, 136, 136, 768, 12), (20, 132, 132, 768, 12),
+    (160, 200, 200, 768, 12), (64, 104, 104, 768, 12),
+    (128, 104, 104, 384, 6), (32, 100, 100, 384, 6),
+    (32, 50, 100, 768, 12),
+    (16, 154, 154, 768, 12), (16, 240, 240, 768, 12),
+    (16, 241, 241, 768, 12), (16, 256, 256, 768, 12),
+    (16, 400, 400, 768, 12), (16, 1024, 1024, 768, 12))
+
+
+def bwd3_times(torch, att, library):
+    """#3 of the imported package at ``BWD3_TIME_SHAPES`` in bf16 and
+    fp32, dropout 0.1 and (``ms_rate0``) none: device ms (``time_ms``)
+    or the error a shape raised, the bound (``check_attention_train``'s
+    count: p, q, k, v and dO read once, dq, dk, dv written once; 8 Lq Lk
+    d flops a head) and, with ``library``, SDPA's backward on the same
+    inputs (autograd of ``F.scaled_dot_product_attention`` with an
+    additive zero mask and dropout_p 0.1).  The probabilities are a
+    softmax of random scores, so none is 0 and every element draws its
+    keep bit (the most the kernels draw; a path's masks give zeros that
+    draw nothing, as the smoke's own rows at the batches' masks show).
+    Checks nothing: an A/B of two checkouts on one card (``--bwd3-times
+    ROOT``, in turns)."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    rows = []
+    for B, Lq, Lk, D, H in BWD3_TIME_SHAPES:
+        d = D // H
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            gen = torch.Generator(device=dev).manual_seed(B + Lq + 3 * Lk)
+            q, dout = (torch.randn((B, Lq, D), generator=gen,
+                                   device=dev).to(dtype) for _ in range(2))
+            k, v = torch.randn((B, Lk, 2 * D), generator=gen,
+                               device=dev).to(dtype).split(D, dim=-1)
+            probs = torch.softmax(torch.randn(
+                (B, H, Lq, Lk), generator=gen, device=dev), -1).to(dtype)
+            elt = q.element_size()
+            b_ms, by = bound_ms(
+                (B * H * Lq * Lk + (3 * Lq + 4 * Lk) * B * D) * elt,
+                8 * B * H * Lq * Lk * d, name)
+            row = {"shape": [B, Lq, Lk, D], "heads": H, "dtype": name,
+                   "bound_ms": b_ms, "bound_by": by}
+            try:
+                for key, rate in (("ms", TRAIN_RATE), ("ms_rate0", 0.0)):
+                    row[key] = time_ms(torch, lambda: att.attention_bwd_cuda(
+                        probs, q, k, v, dout, H, rate, TRAIN_SEED))
+            except (ValueError, RuntimeError) as e:
+                row["refused"] = str(e)
+            if library:
+                hq, hk, hv = (t.reshape(B, -1, H, d).transpose(1, 2).detach(
+                    ).requires_grad_(True) for t in (q, k, v))
+                bias = torch.zeros((B, 1, Lq, Lk), device=dev, dtype=dtype)
+                with torch.enable_grad():
+                    out = F.scaled_dot_product_attention(
+                        hq, hk, hv, attn_mask=bias, dropout_p=TRAIN_RATE)
+                hdo = dout.reshape(B, Lq, H, d).transpose(1, 2)
+                row["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+                    out, (hq, hk, hv), hdo, retain_graph=True))
+                del out
+            rows.append(row)
+            log("bwd3", json.dumps(row))
+            del q, dout, k, v, probs
+            torch.cuda.empty_cache()
+    return rows
+
+
 def _component_row(row, what):
     return {**row, "mode": f"components: {what}"
             + (f", {row['mode']}" if "mode" in row else "")}
@@ -7276,6 +7338,11 @@ def main(argv=None):
                          "(default: this checkout) and print one JSON "
                          "line: an A/B of two checkouts on one card, run "
                          "in turns")
+    ap.add_argument("--bwd3-times", metavar="ROOT", nargs="?", const="",
+                    help="only time #3 (bf16 and fp32, dropout 0.1, "
+                         "BWD3_TIME_SHAPES) of the hero_tpu_torch package "
+                         "under ROOT (default: this checkout, with SDPA's "
+                         "backward beside it) and print one JSON line")
     args = ap.parse_args(argv)
 
     import torch
@@ -7291,6 +7358,14 @@ def main(argv=None):
         from hero_tpu_torch.ops import layernorm as lnm
         print(json.dumps({"root": root, "package": lnm.__file__,
                           "daln": daln_ab(torch, lnm),
+                          "card": gpu_identity()}))
+        return 0
+    if args.bwd3_times is not None:
+        root = os.path.abspath(args.bwd3_times or here)
+        sys.path.insert(0, root)
+        from hero_tpu_torch.ops import attention as att
+        print(json.dumps({"root": root, "package": att.__file__,
+                          "bwd3": bwd3_times(torch, att, root == here),
                           "card": gpu_identity()}))
         return 0
     sys.path.insert(0, here)

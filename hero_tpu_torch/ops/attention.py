@@ -34,9 +34,12 @@ layout) or recomputes them (the head-major one):
 :func:`multi_head_attention` through :class:`MultiHeadAttention`.  A CPU
 tensor takes the plain versions; a CUDA tensor launches
 ``csrc/attention.cu`` or raises.  On both layouts a bf16 call takes the
-tensor-core kernels and an fp32 call the CUDA-core ones, each dtype one
-kernel, chosen inside the C entry point; a shape whose tiles exceed a
-block's shared memory raises (``_check_smem``).  Probabilities are
+tensor-core kernels and an fp32 call the CUDA-core ones, chosen inside
+the C entry point.  The packed backward (#3) streams both lengths
+through shared memory in 64-row tiles and takes every Lq and Lk; the
+forward kernels and the head-major backward stage whole heads, and a
+shape whose tiles exceed a block's shared memory raises there
+(``_check_smem``).  Probabilities are
 written, and dropout drawn, only when the call needs a gradient or a rate
 is set, so a serving call launches the forward kernel exactly as an
 inference-only kernel would.
@@ -208,7 +211,7 @@ def _lib() -> ctypes.CDLL:
             [i32] + [vp] * 5 + [i32] * 6 + [i64] * 10
             + [f32, f32, f32, u32, u32, vp])
         lib.hero_packed_attention_bwd.argtypes = (
-            [i32] + [vp] * 8 + [i32] * 5 + [i64] * 14
+            [i32] + [vp] * 9 + [i32] * 5 + [i64] * 14
             + [f32, f32, f32, u32, u32, vp])
         lib.hero_dropout_keep_mask.argtypes = [u32, u32] + [i32] * 4 + [
             f32, vp, vp]
@@ -334,8 +337,10 @@ def valid_attention_cuda(q, k, v, n_heads: int, kv_mask: torch.Tensor,
 def attention_bwd_cuda(p, q, k, v, dout, n_heads: int,
                        dropout_rate: float = 0.0,
                        seed: Optional[int] = None):
-    """Backward kernel launch: (dq, dk, dv), contiguous packed tensors.
-    ``attention_bwd_cuda.launches`` counts the launches."""
+    """Backward kernel launch: (dq, dk, dv), contiguous packed tensors,
+    for every Lq and Lk.  A call launches two kernels in turn (dQ and the
+    rows' Delta, then dK and dV) with a (B, H, Lq) fp32 scratch between
+    them; ``attention_bwd_cuda.launches`` counts the calls."""
     _check_dropout(dropout_rate, seed)
     B, Lq, D = q.shape
     Lk = k.shape[1]
@@ -355,15 +360,15 @@ def attention_bwd_cuda(p, q, k, v, dout, n_heads: int,
     dv = torch.empty((B, Lk, D), dtype=v.dtype, device=q.device)
     if B == 0 or Lq == 0:
         return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, n_heads, Lq), dtype=torch.float32,
+                        device=q.device)
     lib = _lib()
-    _check_smem(lib, lib.hero_attention_smem_bytes(
-        cuda_build.DTYPE_CODES[q.dtype], 1, Lq, Lk, d),
-        "attention backward", Lq, Lk, d)
     with torch.cuda.device(q.device):
         err = lib.hero_packed_attention_bwd(
             cuda_build.DTYPE_CODES[q.dtype], p.data_ptr(), q.data_ptr(),
             k.data_ptr(), v.data_ptr(), dout.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, n_heads, Lq, Lk, d,
+            dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B, n_heads, Lq,
+            Lk, d,
             *(s for t in (q, k, v, dout, dq, dk, dv)
               for s in (t.stride(0), t.stride(1))),
             1.0 / (d ** 0.5), float(dropout_rate),

@@ -44,11 +44,13 @@
 // strides (q, k and v are column slices of one (B, L, 3*H*d) tensor), so
 // no head transposes.
 //
-// Each dtype has one kernel of each kind: bf16, the dtype of every timed
-// path, takes the tensor-core kernels (packed_attention_mma_kernel,
-// packed_attention_bwd_mma_kernel); fp32, which only the checks and the
-// fp32 card-versus-CPU parity runs use, takes the CUDA-core kernels
-// (packed_attention_kernel, packed_attention_bwd_kernel).
+// Each dtype has its own kernels: bf16, the dtype of every timed path,
+// takes the tensor-core kernels (packed_attention_mma_kernel; the
+// backward's pair packed_attention_bwd_dq_mma_kernel and
+// packed_attention_bwd_dkv_mma_kernel); fp32, which only the checks and
+// the fp32 card-versus-CPU parity runs use, takes the CUDA-core kernels
+// (packed_attention_kernel; packed_attention_bwd_dq_kernel and
+// packed_attention_bwd_dkv_kernel).
 //
 // Bound on the H100: per (row, head) the forward does ~4*L^2*d flops
 // against ~8*L*d bytes of q/k/v/out (plus, in training, the 2*L^2 bytes
@@ -97,43 +99,75 @@
 // for.  (Without dropout, the backward's pd = p is the saved bf16 p
 // itself and takes one mma.)
 //
-// bf16 backward: a block per (batch row, head) of up to 9 warps (the VSM
-// overflow bucket's 144 rows in one round); dO, V, K and the head's saved
-// p (as it lies in memory) staged by cp.async, all in flight at once.  dK
-// and dV are sums over query rows and dQ over keys, so the two reductions
-// go to two passes and neither needs atomics.  Pass A, a warp per 16 query
-// rows: dP = dO V^T on the tensor cores; sweep 1 draws the keep bits (kept
-// in shared memory, 16 bits a (row, 16-key chunk), for the later sweeps)
-// and Delta_i = sum_j dp_ij p_ij from the saved p in fp32, the rowsum of
-// _bwd3_kernel (not dO . O, which would read a rounded output); sweep 2
-// forms dS = p o (dp - Delta) again and accumulates dQ = dS K * scale.
-// Q then replaces K in shared memory, its copy in flight during pass B1, a
-// warp per 16 keys: dV = pd^T dO with pd^T read from the saved p; pass B2
-// forms dK = dS^T Q * scale with dP^T = V dO^T formed again.  Sharing K's
-// space keeps a 144-row head at 107 KB, two blocks an SM.  Each gradient
-// row is summed by one warp in a fixed order and written once, so the
-// gradients are the same bits from run to run.
+// Backward, both dtypes (#3): two kernels in turn on the stream, each
+// streaming through shared memory in 64-row tiles, so shared memory does
+// not grow with Lq or Lk and every length the forward takes is computed.
+// dK and dV are sums over query rows and dQ over keys: a block owns the
+// rows it writes, so neither needs atomics, and every sum runs in a fixed
+// order (the same bits from run to run).  The keep bits are drawn again
+// from Philox in each kernel (no bit mask that grows with Lk is kept), and
+// only where the saved p is not 0: a zero p makes every term of its
+// element exactly 0 whatever the bit, so the keys a packed segment does
+// not attend, and padded keys, draw nothing (a draw is ~40 integer
+// instructions, the largest cost of both kernels under dropout).
+//   1. dQ and Delta: a block per (b, h, tile of 64 query rows), dO's tile
+//      staged once; V, K and the saved p pass through shared memory in
+//      64-key tiles by cp.async, the next tile in flight.  Sweep 1 forms
+//      dP = dO V^T, applies the keep bits and sums
+//      Delta_i = sum_j dp_ij p_ij in fp32 from the saved p (the rowsum of
+//      _bwd3_kernel, not dO . O, which would read a rounded output);
+//      sweep 2 forms dS = p o (dp - Delta) and accumulates
+//      dQ = dS K * scale.  Delta goes to a (B, H, Lq) fp32 scratch.  The
+//      bf16 kernel's sweep 1 keeps the keep bits of the first 256 keys in
+//      4 registers a thread (sweep 2's elements are the same thread's),
+//      so sweep 2 draws again only past them.
+//   2. dK and dV: a block per (b, h, tile of 64 keys), V's tile staged
+//      once; tiles of 64 query rows of Q, dO, p (read transposed) and
+//      Delta stream through in order: dV += pd^T dO, dP^T = V dO^T,
+//      dS^T = p^T o (dP^T - Delta), dK += dS^T Q * scale.  K is not read:
+//      dK needs only dS and Q.
+// bf16 (tensor cores): 4 warps, a warp per 16 rows of the block's tile
+// (a tile of one or two 16-row groups -- a tail of a few rows, or a short
+// head -- splits the other side's chunks over the warps, whose partial
+// sums combine in a fixed order, as the forward's short tiles do);
+// products on mma.sync m16n8k16 with fp32 accumulation, p and dS split
+// into bf16 hi + lo (pd without dropout is the saved bf16 p itself, one
+// mma).  The saved p's rows start at any element (Lk is any length), so a
+// tile's row r lands in shared memory shifted by its start's offset in
+// its 16-byte chunk: every global chunk is one 16-byte cp.async, cut off
+// at the tile's edge by cp.async's source size (the chunk's leading
+// elements, from the row or the one before it, are never read).  Shared
+// memory at d = 32, 64, 128: dQ kernel 44,032, 64,512 and 105,472 bytes;
+// dK/dV kernel 44,544, 65,024 and 105,984 (dO or V, and two buffers of
+// the streamed tiles).  Registers are capped for three blocks an SM at
+// d <= 64 (at most 170 a thread), two at d = 128; ptxas (CUDA 12.8,
+// sm_90a), no spills: dQ 138, 156 and 210 registers at d = 32, 64, 128,
+// dK/dV 136, 161 and 255 (its two D-wide accumulators).  At d = 64 three
+// blocks of each fit an SM, by shared memory and by registers.
+// fp32 (CUDA cores): 8 warps, a warp per 8 rows of the block's tile; a
+// thread forms the dot products of its rows with 2 keys (lanes over
+// keys, V padded to d + 1 floats so the lanes hit distinct banks) and
+// then accumulates d / 32 channels of its rows' gradients; dS (and pd in
+// kernel 2) overwrite the saved p's tile in shared memory, element for
+// element, and the gradients' contraction reads them broadcast.  Shared
+// memory at d = 32, 64, 128: dQ kernel 74,240, 115,200 and 197,120
+// bytes, dK/dV kernel 74,496, 115,456 and 197,376: at d = 64 two blocks
+// an SM (228 KB, 1 KB a block reserved), at d = 128 one.  ptxas: 120, 118
+// and 146 registers (dQ), 123, 128 and 168 (dK/dV), no spills.  Every
+// copy is a cp.async (16 bytes where the rows allow, else 4).
 //
-// Shape limits (bytes of shared memory <= the 227 KB a block may use; the
-// wrappers ask hero_attention_smem_bytes and refuse larger shapes): the
-// bf16 forward takes Lk <= 752 keys at d = 64 (384 at d = 128; the fp32
-// forward 417 and 214), the bf16 backward Lq = Lk <= 240 at d = 64 (187
-// at d = 128; the fp32 backward, whose fp32 (Lq, Lk) tiles of PD and dS
-// cap it, 154 and 139).
+// The forward kernels still stage a whole head's K and V (bytes of shared
+// memory <= the 227 KB a block may use; the forward's wrappers ask
+// hero_attention_smem_bytes and refuse larger shapes): the bf16 forward
+// takes Lk <= 752 keys at d = 64 (384 at d = 128; the fp32 forward 417
+// and 214).
 //
 // fp32 forward design: one block per (batch row, head) stages K (padded
 // to d+1 floats per key, so lanes reading different keys hit different
 // banks) and V in shared memory once; each warp owns one query row at a
 // time -- lanes over keys for the scores, warp shuffles for the softmax
 // max/sum, lanes over d for P.V.
-//
-// fp32 backward design: one block per (batch row, head).  Pass A (a warp
-// per query row, lanes over keys, V staged in shared memory) writes the
-// fp32 tiles PD = drop(p) and dS for the whole head to shared memory; pass
-// B then stages dO, Q and K in turn in the space V used and forms dv, dk
-// and dq with one thread per (output row block, channel), each summing
-// its terms in a fixed order.  Shared memory is (max(Lq, Lk) * (d + 1)
-// + 2 * Lq * Lk + 8 * d) floats: 201 KB at L = 144, d = 64.
+
 #include <math.h>
 
 #include <type_traits>
@@ -359,115 +393,6 @@ __device__ void contract(const float* m, int sx, int sy, const float* xs,
   }
 }
 
-template <int DCH>
-__global__ void __launch_bounds__(kWarps * 32)
-    packed_attention_bwd_kernel(BwdArgs a) {
-  constexpr int D = DCH * 32;
-  const int Lq = a.Lq, Lk = a.Lk;
-  extern __shared__ float smem[];
-  float* region = smem;                                // [max(Lq,Lk)][D+1]
-  float* dsm = region + max(Lq, Lk) * (D + 1);         // [Lq][Lk] dS
-  float* pdm = dsm + Lq * Lk;                          // [Lq][Lk] drop(p)
-  float* dow = pdm + Lq * Lk;                          // [kWarps][D]
-
-  const int b = blockIdx.x / a.H;
-  const int h = blockIdx.x - b * a.H;
-  const float* pb = static_cast<const float*>(a.p) +
-                    static_cast<long long>(blockIdx.x) * Lq * Lk;
-  const float* qb = static_cast<const float*>(a.q) + b * a.q_bs + h * D;
-  const float* kb = static_cast<const float*>(a.k) + b * a.k_bs + h * D;
-  const float* vb = static_cast<const float*>(a.v) + b * a.v_bs + h * D;
-  const float* gb = static_cast<const float*>(a.dout) + b * a.do_bs + h * D;
-  const bool drop = a.rate > 0.f;
-
-  // pass A: PD and dS, a warp per query row, V padded against bank
-  // conflicts
-  for (int i = threadIdx.x; i < Lk * D; i += blockDim.x) {
-    const int j = i / D, c = i - j * D;
-    region[j * (D + 1) + c] = vb[j * a.v_rs + c];
-  }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* gw = dow + warp * D;
-  for (int r = warp; r < Lq; r += kWarps) {
-#pragma unroll
-    for (int c = 0; c < DCH; ++c)
-      gw[lane + 32 * c] = gb[r * a.do_rs + lane + 32 * c];
-    __syncwarp();
-    const float* pr = pb + static_cast<long long>(r) * Lk;
-    float* dsr = dsm + r * Lk;
-    float* pdr = pdm + r * Lk;
-    float acc = 0.f;
-    for (int j = lane; j < Lk; j += 32) {
-      const float* vr = region + j * (D + 1);
-      float dpd = 0.f;
-#pragma unroll 16
-      for (int c = 0; c < D; ++c) dpd = fmaf(gw[c], vr[c], dpd);
-      const float p = pr[j];
-      float dp = dpd, pd = p;
-      if (drop) {
-        const bool keep = dropout_keep(a.key, b, h, r, j, a.rate);
-        dp = keep ? dpd * a.keep_scale : 0.f;
-        pd = keep ? p * a.keep_scale : 0.f;
-      }
-      pdr[j] = pd;
-      dsr[j] = dp;
-      acc = fmaf(dp, p, acc);
-    }
-    const float rowsum = warp_sum(acc);
-    for (int j = lane; j < Lk; j += 32)
-      dsr[j] = pr[j] * (dsr[j] - rowsum);
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // pass B: dv = PD^T dO, dk = dS^T Q * scale, dq = dS K * scale
-  stage<float, D>(gb, a.do_rs, Lq, region);
-  __syncthreads();
-  contract<float, D>(pdm, 1, Lk, region, Lk, Lq, 1.f,
-                     static_cast<float*>(a.dv) + b * a.dv_bs + h * D, a.dv_rs);
-  __syncthreads();
-  stage<float, D>(qb, a.q_rs, Lq, region);
-  __syncthreads();
-  contract<float, D>(dsm, 1, Lk, region, Lk, Lq, a.scale,
-                     static_cast<float*>(a.dk) + b * a.dk_bs + h * D, a.dk_rs);
-  __syncthreads();
-  stage<float, D>(kb, a.k_rs, Lk, region);
-  __syncthreads();
-  contract<float, D>(dsm, Lk, 1, region, Lq, Lk, a.scale,
-                     static_cast<float*>(a.dq) + b * a.dq_bs + h * D, a.dq_rs);
-}
-
-size_t bwd_smem(int Lq, int Lk, int D) {
-  return sizeof(float) * (static_cast<size_t>(Lq > Lk ? Lq : Lk) * (D + 1)
-                          + 2 * static_cast<size_t>(Lq) * Lk + kWarps * D);
-}
-
-template <int DCH>
-cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
-  constexpr int D = DCH * 32;
-  const size_t smem = bwd_smem(a.Lq, a.Lk, D);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        packed_attention_bwd_kernel<DCH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  packed_attention_bwd_kernel<DCH>
-      <<<a.B * a.H, kWarps * 32, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-cudaError_t bwd_dim(const BwdArgs& a, int head_dim, cudaStream_t s) {
-  switch (head_dim) {
-    case 32: return launch_bwd<1>(a, s);
-    case 64: return launch_bwd<2>(a, s);
-    case 128: return launch_bwd<4>(a, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 __global__ void keep_mask_kernel(PhiloxKey key, int B, int H, int Lq, int Lk,
                                  float rate, unsigned char* out) {
   const long long n = static_cast<long long>(B) * H * Lq * Lk;
@@ -498,15 +423,9 @@ __global__ void keep_mask_kernel(PhiloxKey key, int B, int H, int Lq, int Lk,
 typedef __nv_bfloat16 bf16;
 
 constexpr int kTcFwdWarps = 4;   // a forward block: 64 query rows
-constexpr int kTcBwdWarps = 9;   // the VSM overflow bucket's 144 rows at once
+constexpr int kTcBwdWarps = 9;   // #5: a head's 144 rows in one round
 
 __host__ __device__ inline int round16(int n) { return (n + 15) & ~15; }
-
-// bf16 elements of the backward's buffer for a head's saved p: Lq * Lk
-// and up to 7 of alignment shift, rounded to 16 bytes.
-__host__ __device__ inline int p_stage_elems(int Lq, int Lk) {
-  return (Lq * Lk + 8 + 7) & ~7;
-}
 
 // Query rows of a forward block: up to 64, fewer for short queries (the
 // block keeps its 4 warps, which all stage K and V).
@@ -578,12 +497,28 @@ __device__ __forceinline__ void c_to_a(const float (&c)[2][4],
   split_bf16(c[1][2], c[1][3], hi[3], lo[3]);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool fill) {
+// 16 bytes by cp.async, of which the first ``bytes`` are read from src
+// and the rest written 0 (src 16-byte aligned, even when bytes is 0).
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src,
+                                             int bytes) {
   const uint32_t addr =
       static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr),
-               "l"(src), "r"(fill ? 16 : 0));
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool fill) {
+  cp_async16_n(dst, src, fill ? 16 : 0);
+}
+
+// One fp32 by cp.async (the mask); ``fill`` false writes 0.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool fill) {
+  const uint32_t addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(addr),
+               "l"(src), "r"(fill ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -637,23 +572,6 @@ __device__ void stage_rows(const bf16* src, long long rs, int n, int n_pad,
     }
     *reinterpret_cast<uint4*>(dst + tile_off<D, SWZ>(r, c)) = v.u;
   }
-}
-
-// Stage n contiguous bf16 elements at src into a 16-byte aligned buffer
-// at dst + (src's element offset mod 8), so that src and dst agree mod 16
-// bytes and the middle goes by 16-byte cp.async; returns that offset.
-__device__ int stage_flat(const bf16* src, int n, bf16* dst) {
-  const int shift = static_cast<int>(
-      (reinterpret_cast<uintptr_t>(src) / sizeof(bf16)) % 8);
-  const int head = min((8 - shift) % 8, n);
-  const int chunks = (n - head) / 8;
-  bf16* d = dst + shift;
-  for (int e = threadIdx.x; e < head; e += blockDim.x) d[e] = src[e];
-  for (int c = threadIdx.x; c < chunks; c += blockDim.x)
-    cp_async16(d + head + 8 * c, src + head + 8 * c, true);
-  for (int e = head + 8 * chunks + threadIdx.x; e < n; e += blockDim.x)
-    d[e] = src[e];
-  return shift;
 }
 
 // A fragments of the 16 rows [r0, r0 + 16) of a staged tile, all D/16
@@ -732,21 +650,6 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
     if (r_lo + 8 < n)
       *reinterpret_cast<uint32_t*>(out + (r_lo + 8) * rs + c) =
           pack_bf16(acc[nt][2] * scale, acc[nt][3] * scale);
-  }
-}
-
-// Saved probabilities p[i][j], j and j + 1, as fp32 (0 past Lk); ``even``:
-// Lk is even, so a pair at an even j is one aligned 4-byte load.
-__device__ __forceinline__ void load_p2(const bf16* row, int j, int Lk,
-                                        bool even, float& p0, float& p1) {
-  if (even && j < Lk) {
-    const float2 f = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(row + j));
-    p0 = f.x;
-    p1 = f.y;
-  } else {
-    p0 = j < Lk ? __bfloat162float(row[j]) : 0.f;
-    p1 = j + 1 < Lk ? __bfloat162float(row[j + 1]) : 0.f;
   }
 }
 
@@ -1026,259 +929,891 @@ cudaError_t fwd_mma_dim(const AttnArgs& a, int head_dim, cudaStream_t s) {
   }
 }
 
-// Backward: a block per (b, h); dO, V, K and the saved p staged as bf16.
-// Pass A, a warp per 16 query rows: dP = dO V^T on the tensor cores; sweep
-// 1 draws the keep bits (kept in shared memory for the later sweeps) and
-// forms Delta_i = sum_j dp_ij p_ij in fp32 from the saved p; sweep 2 forms
-// dS = p o (dp - Delta) again and accumulates dQ = dS K (dS hi + lo).  Q
-// then replaces K in shared memory, its copy in flight while pass B1, a
-// warp per 16 keys, forms dV = pd^T dO from the saved p; pass B2 forms
-// dK = dS^T Q with dP^T = V dO^T formed again.  Every gradient row is
-// summed by one warp in a fixed order and written once: no atomics.  At
-// d <= 64 two blocks of 9 warps fit an SM's registers.
+// ---------------------------------------------------------------------------
+// packed attention backward (#3): the dQ kernel, then the dK/dV kernel
+// ---------------------------------------------------------------------------
+//
+// See the note at the head of the file.  Both kernels of a dtype take the
+// same BwdArgs; the dQ kernel writes Delta to a (B, H, Lq) fp32 scratch
+// the dK/dV kernel reads.  Tiles past Lq or Lk are zero in shared memory
+// (zero rows of dO, Q, K, V, zero p and Delta), so a padded row or key
+// adds exactly 0 to every sum and no mask is needed.
+
+constexpr int kBwdTile = 64;       // query rows or keys of a block's tile
+constexpr int kBwdWarps = 4;       // bf16 blocks: a warp per 16 rows
+constexpr int kF32BwdWarps = 8;    // fp32 blocks: a warp per 8 rows
+constexpr int kPStride = kBwdTile + 8;   // bf16 elements of a staged p row
+constexpr int kBitTiles = 4;   // key tiles whose keep bits the dQ kernel's
+                               // sweep 1 keeps for sweep 2 (256 keys)
+
+// Element offset of a bf16 address within its 16-byte chunk.
+__device__ __forceinline__ int chunk_shift(const bf16* p) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(p) >> 1) & 7);
+}
+
+// Stage rows [0, nr) x columns [0, nc) of one head's saved bf16 p, row r
+// at first + r * Lk, into dst[kBwdTile][kPStride]: row r from column
+// chunk_shift(its start) on, so every 16-byte chunk of global memory is
+// one 16-byte chunk of shared memory and one cp.async.  The source size
+// cuts each row at column nc and zero-fills the rest of the row, and
+// every row from nr on.  A row's first chunk also brings the elements
+// before the row's start in its chunk (of the row, or of the one before
+// it, inside the tensor's allocation); they are never read.
+__device__ void stage_p_tile(const bf16* first, long long Lk, int nr, int nc,
+                             bf16* dst) {
+  constexpr int C = kPStride / 8;      // 9 chunks a row
+  const bf16* dummy = first - chunk_shift(first);   // an aligned source
+  for (int e = threadIdx.x; e < kBwdTile * C; e += blockDim.x) {
+    const int r = e / C, u = e - r * C;
+    const bf16* row = first + r * Lk;
+    const int sh = chunk_shift(row);
+    const int n = r < nr ? min(8, max(0, sh + nc - 8 * u)) : 0;
+    cp_async16_n(dst + r * kPStride + 8 * u, n ? row - sh + 8 * u : dummy,
+                 2 * n);
+  }
+}
+
+// p of row r, column c of a tile staged by stage_p_tile, whose first
+// element's chunk_shift is sh0 (rows Lk elements apart: row r's shift is
+// sh0 + r * Lk mod 8).
+__device__ __forceinline__ float p_tile_at(const bf16* pt, int sh0, int lk8,
+                                           int r, int c) {
+  return __bfloat162float(pt[r * kPStride + ((sh0 + r * lk8) & 7) + c]);
+}
+
+// Warps a 16-row group of a tile of n rows splits the other side's
+// chunks over: 4 for one group, 2 for two, else 1 (as tc_fwd_split); 1
+// when the other side is shorter than a tile, whose few chunks do not pay
+// for the parts' combination.
+__host__ __device__ inline int bwd_split(int n, int other) {
+  return other < kBwdTile ? 1 : max(1, kBwdWarps / ((n + 15) / 16));
+}
+
+// acc <- the sum, in part order, of the accumulators of the ``split``
+// warps of acc's 16-row group (warp - part .. + split), through obuf
+// [kBwdWarps][16][D + 4]; every thread of the block calls it.
 template <int D>
-__global__ void __launch_bounds__(kTcBwdWarps * 32, D <= 64 ? 2 : 1)
-    packed_attention_bwd_mma_kernel(BwdArgs a, int vec) {
-  constexpr int S = D + 8, KS = D / 16;
-  const int Lq = a.Lq, Lk = a.Lk;
-  const int lq_pad = round16(Lq), lk_pad = round16(Lk), kw = lk_pad / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* gs = reinterpret_cast<bf16*>(smem_raw);    // [lq_pad][S] dO
-  bf16* vs = gs + lq_pad * S;                      // [lk_pad][S]
-  bf16* ks = vs + lk_pad * S;                      // [max(lq, lk)_pad][S]
-  bf16* qs = ks;                                   // Q, after pass A
-  bf16* praw = ks + max(lq_pad, lk_pad) * S;       // [Lq * Lk + 8]
-  float* delta = reinterpret_cast<float*>(praw + p_stage_elems(Lq, Lk));
-  uint16_t* keep =
-      reinterpret_cast<uint16_t*>(delta + lq_pad);  // [lq_pad][kw]
-
-  const int b = blockIdx.x / a.H;
-  const int h = blockIdx.x - b * a.H;
-  stage_rows<D>(static_cast<const bf16*>(a.dout) + b * a.do_bs + h * D,
-                a.do_rs, Lq, lq_pad, vec & 8, gs);
-  stage_rows<D>(static_cast<const bf16*>(a.k) + b * a.k_bs + h * D, a.k_rs,
-                Lk, lk_pad, vec & 2, ks);
-  stage_rows<D>(static_cast<const bf16*>(a.v) + b * a.v_bs + h * D, a.v_rs,
-                Lk, lk_pad, vec & 4, vs);
-  // the head's saved p, read four times below, from shared memory
-  const bf16* p_head = static_cast<const bf16*>(a.p) +
-                       static_cast<long long>(blockIdx.x) * Lq * Lk;
-  const int shift = stage_flat(p_head, Lq * Lk, praw);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const bf16* pb = praw + shift;                   // [Lq][Lk]
-  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5;
+__device__ __forceinline__ void combine_parts(float (&acc)[D / 8][4],
+                                              float* obuf, int warp,
+                                              int part, int split) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const bool drop = a.rate > 0.f, even = ((Lk | shift) & 1) == 0;
-
-  // pass A: Delta and dQ, a warp per 16 query rows
-  for (int r0 = warp * 16; r0 < lq_pad; r0 += nw * 16) {
-    uint32_t gf[KS][4];
-    load_a<D>(gs, r0, gf);
-    const int row[2] = {r0 + g, r0 + g + 8};
-    float dsum[2] = {0.f, 0.f};
-    for (int j0 = 0; j0 < lk_pad; j0 += 16) {
-      float dp[2][4];
-      mma_abt<D>(gf, vs, j0, dp);
+  __syncthreads();
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = row[r];
-        uint32_t bits = 0;
-        if (i < Lq) {
+  for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
-          for (int n = 0; n < 2; ++n) {
-            const int j = j0 + 8 * n + 2 * t;
-            float p0, p1;
-            load_p2(pb + static_cast<long long>(i) * Lk, j, Lk, even, p0,
-                    p1);
-            float d0 = dp[n][2 * r], d1 = dp[n][2 * r + 1];
-            if (drop) {
-              const bool k0 = j < Lk &&
-                              dropout_keep(a.key, b, h, i, j, a.rate);
-              const bool k1 = j + 1 < Lk &&
-                              dropout_keep(a.key, b, h, i, j + 1, a.rate);
-              d0 = k0 ? d0 * a.keep_scale : 0.f;
-              d1 = k1 ? d1 * a.keep_scale : 0.f;
-              bits |= (k0 ? 1u : 0u) << (8 * n + 2 * t);
-              bits |= (k1 ? 1u : 0u) << (8 * n + 2 * t + 1);
-            }
-            dsum[r] = fmaf(d0, p0, dsum[r]);
-            dsum[r] = fmaf(d1, p1, dsum[r]);
-          }
-        }
-        if (drop) {
-          bits |= __shfl_xor_sync(0xffffffffu, bits, 1);
-          bits |= __shfl_xor_sync(0xffffffffu, bits, 2);
-          if (t == 0) keep[i * kw + j0 / 16] = static_cast<uint16_t>(bits);
-        }
-      }
+    for (int e = 0; e < 4; ++e)
+      obuf[(warp * 16 + g + 8 * (e >> 1)) * (D + 4) + nt * 8 + 2 * t +
+           (e & 1)] = acc[nt][e];
+  __syncthreads();
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float* x = obuf + ((warp - part) * 16 + g + 8 * (e >> 1)) *
+                                  (D + 4) + nt * 8 + 2 * t + (e & 1);
+      float sum = 0.f;
+#pragma unroll
+      for (int k = 0; k < kBwdWarps; ++k)
+        if (k < split) sum += x[k * 16 * (D + 4)];
+      acc[nt][e] = sum;
     }
+}
+
+// bf16 dQ kernel: a block per (b, h, tile of 64 query rows), a warp per
+// 16 rows (a tile of one or two 16-row groups splits their keys over the
+// four warps).  Sweep 1: dP = dO V^T a 16-key chunk at a time, the keep bits,
+// Delta_i = sum_j dp_ij p_ij (fp32, from the saved p); sweep 2: dP again,
+// dS = p o (dp - Delta) in bf16 hi + lo, dQ += dS K.
+template <int D>
+__global__ void __launch_bounds__(kBwdWarps * 32, D <= 64 ? 3 : 2)
+    packed_attention_bwd_dq_mma_kernel(BwdArgs a, float* delta, int vec) {
+  constexpr int S = D + 8, KS = D / 16, T = kBwdTile;
+  constexpr int SB = 2 * T * S + T * kPStride;   // a buffer: V, K, p
+  const int Lq = a.Lq, Lk = a.Lk;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H;
+  const int q0 = blockIdx.y * T, nq = min(T, Lq - q0);
+  const int n_tiles = (Lk + T - 1) / T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* gs = reinterpret_cast<bf16*>(smem_raw);    // [T][S] dO
+  bf16* bufs = gs + T * S;
+  auto vbuf = [&](int buf) { return bufs + buf * SB; };            // [T][S]
+  auto kbuf = [&](int buf) { return bufs + buf * SB + T * S; };    // [T][S]
+  auto pbuf = [&](int buf) { return bufs + buf * SB + 2 * T * S; };
+
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_bs + h * D;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_bs + h * D;
+  const bf16* ph = static_cast<const bf16*>(a.p) +
+                   static_cast<long long>(bh) * Lq * Lk;
+  const bf16* p_rows = ph + static_cast<long long>(q0) * Lk;
+  stage_rows<D>(static_cast<const bf16*>(a.dout) + b * a.do_bs + h * D +
+                    static_cast<long long>(q0) * a.do_rs,
+                a.do_rs, nq, T, vec & 8, gs);
+  // Step s < n_tiles is sweep 1's tile s (V and p), the rest sweep 2's
+  // tile s - n_tiles (V, K and p), each into buffer s & 1.  With one tile,
+  // step 0 brings all three and sweep 2 reads them again.  Every step
+  // commits a group, empty past the end, so "all but the newest group" is
+  // always the step being consumed.
+  auto issue = [&](int s) {
+    if (s < 2 * n_tiles && (n_tiles > 1 || s == 0)) {
+      const int buf = s & 1, j0 = (s < n_tiles ? s : s - n_tiles) * T;
+      const int nk = min(T, Lk - j0), nk_pad = round16(nk);
+      stage_rows<D>(vb + static_cast<long long>(j0) * a.v_rs, a.v_rs, nk,
+                    nk_pad, vec & 4, vbuf(buf));
+      if (s >= n_tiles || n_tiles == 1)
+        stage_rows<D>(kb + static_cast<long long>(j0) * a.k_rs, a.k_rs, nk,
+                      nk_pad, vec & 2, kbuf(buf));
+      stage_p_tile(p_rows + j0, Lk, nq, nk, pbuf(buf));
+    }
+    cp_async_commit();
+  };
+  issue(0);   // with dO
+  issue(1);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // warp w takes the tile's 16-row group w / split and every split-th
+  // 16-key chunk from w % split: a tile of one or two groups (a tail, or
+  // a short query) spreads its keys over the warps instead of walking
+  // them on one, and the parts combine in a fixed order below
+  const int split = bwd_split(nq, Lk), part = warp % split;
+  const int r0 = (warp / split) * 16;        // the warp's rows in the tile
+  const bool active = r0 < nq;
+  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  const bool drop = a.rate > 0.f;
+  const uint32_t thr = keep_threshold(a.rate);
+  const int lk8 = static_cast<int>(Lk & 7);
+  uint32_t gf[KS][4];
+
+  // dp of the warp's 16 rows and keys [16 c, + 16) of buffer buf's tile
+  // (C layout), and the saved p of each element
+  auto dp_chunk = [&](int buf, int c, const bf16* pt, int sh0,
+                      float (&x)[2][4], float (&pv)[2][4]) {
+    mma_abt<D>(gf, vbuf(buf), 16 * c, x);
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pv[n][e] = p_tile_at(pt, sh0, lk8, r0 + g + 8 * (e >> 1),
+                             16 * c + 8 * n + 2 * t + (e & 1));
+  };
+  // the chunk's keep bits (bit 4 n + e), 0 where p is 0: a zero p makes
+  // every term of its element exactly 0 whatever the bit (tile padding is
+  // zero too), so a chunk of the warp without a nonzero p (a key segment
+  // its rows do not attend) draws nothing.  Otherwise all eight draws run
+  // unconditionally, eight independent chains the compiler interleaves.
+  auto draw = [&](int j0, int c, const float (&pv)[2][4]) {
+    bool any = false;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) any |= pv[n][e] != 0.f;
+    uint32_t m = 0;
+    if (!__any_sync(0xffffffffu, any)) return m;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool kp = dropout_keep_thr(
+            a.key, b, h, row[e >> 1], j0 + 16 * c + 8 * n + 2 * t + (e & 1),
+            thr);
+        m |= (kp && pv[n][e] != 0.f ? 1u : 0u) << (4 * n + e);
+      }
+    return m;
+  };
+  auto apply = [&](uint32_t m, float (&x)[2][4]) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[n][e] = (m >> (4 * n + e)) & 1u ? x[n][e] * a.keep_scale : 0.f;
+  };
+  // sweep 1 keeps the keep bits of the first kBitTiles tiles, 8 bits a
+  // chunk and 32 a tile, in registers for sweep 2, whose elements are the
+  // same thread's: a fixed 4 words a thread whatever Lk, and past them
+  // sweep 2 draws again
+  uint32_t kc[kBitTiles];
+#pragma unroll
+  for (int u = 0; u < kBitTiles; ++u) kc[u] = 0u;
+
+  float dsum[2] = {0.f, 0.f};
+  for (int s = 0; s < n_tiles; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();
+    if (s == 0) load_a<D>(gs, r0, gf);
+    const int buf = s & 1, j0 = s * T;
+    const int chunks = (min(T, Lk - j0) + 15) / 16;
+    const bf16* pt = pbuf(buf);
+    const int sh0 = chunk_shift(p_rows + j0);
+    for (int c = part; active && c < chunks; c += split) {
+      float x[2][4], pv[2][4];
+      dp_chunk(buf, c, pt, sh0, x, pv);
+      if (drop) {
+        const uint32_t m = draw(j0, c, pv);
+#pragma unroll
+        for (int u = 0; u < kBitTiles; ++u)
+          if (u == s) kc[u] |= m << (8 * c);
+        apply(m, x);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+            dsum[r] = fmaf(x[n][2 * r + k], pv[n][2 * r + k], dsum[r]);
+    }
+    __syncthreads();
+    issue(s + 2);
+  }
+  // the quad's four threads hold the row's columns; the butterfly is
+  // symmetric, so all four end with the same bits
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 1);
+    dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 2);
+  }
+  if (split > 1) {   // the parts' sums, added in part order (dO's tile is
+                     // free: every warp has its fragments)
+    float* red = reinterpret_cast<float*>(gs);     // [4][16]
+    if (t == 0)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) red[warp * 16 + g + 8 * r] = dsum[r];
+    __syncthreads();
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 1);
-      dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 2);
-      if (t == 0) delta[row[r]] = dsum[r];
+      dsum[r] = 0.f;
+#pragma unroll
+      for (int k = 0; k < kBwdWarps; ++k)
+        if (k < split) dsum[r] += red[(warp - part + k) * 16 + g + 8 * r];
     }
-    __syncwarp();
-
-    float dq[D / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dq[nt][e] = 0.f;
-    for (int j0 = 0; j0 < lk_pad; j0 += 16) {
-      float ds[2][4];
-      mma_abt<D>(gf, vs, j0, ds);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = row[r];
-        const uint32_t bits = drop && i < Lq ? keep[i * kw + j0 / 16] : 0u;
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          const int j = j0 + 8 * n + 2 * t;
-          float p0 = 0.f, p1 = 0.f;
-          if (i < Lq)
-            load_p2(pb + static_cast<long long>(i) * Lk, j, Lk, even, p0,
-                    p1);
-          float d0 = ds[n][2 * r], d1 = ds[n][2 * r + 1];
-          if (drop) {
-            d0 = (bits >> (8 * n + 2 * t)) & 1u ? d0 * a.keep_scale : 0.f;
-            d1 = (bits >> (8 * n + 2 * t + 1)) & 1u ? d1 * a.keep_scale
-                                                     : 0.f;
-          }
-          ds[n][2 * r] = p0 * (d0 - dsum[r]);
-          ds[n][2 * r + 1] = p1 * (d1 - dsum[r]);
-        }
-      }
-      uint32_t hi[4], lo[4];
-      c_to_a(ds, hi, lo);
-      mma_ay<D>(hi, lo, true, ks, j0, dq);
-    }
-    store_rows<D>(dq, a.scale,
-                  static_cast<bf16*>(a.dq) + b * a.dq_bs + h * D, a.dq_rs,
-                  row[0], Lq);
   }
-  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    if (t == 0 && part == 0 && row[r] < Lq)
+      delta[static_cast<long long>(bh) * Lq + row[r]] = dsum[r];
 
-  // pass B1: dV = pd^T dO, a warp per 16 keys, the A fragment (key,
-  // query) read from the saved p; Q replaces K meanwhile
-  stage_rows<D>(static_cast<const bf16*>(a.q) + b * a.q_bs + h * D, a.q_rs,
-                Lq, lq_pad, vec & 1, qs);
-  cp_async_commit();
-  for (int j0 = warp * 16; j0 < lk_pad; j0 += nw * 16) {
-    const int key[2] = {j0 + g, j0 + g + 8};
-    float acc[D / 8][4];
+  float dq[D / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
+  for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-    for (int i0 = 0; i0 < lq_pad; i0 += 16) {
-      float pd[2][4];
+    for (int e = 0; e < 4; ++e) dq[nt][e] = 0.f;
+  for (int s = n_tiles; s < 2 * n_tiles; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const int tile = s - n_tiles, buf = n_tiles == 1 ? 0 : s & 1;
+    const int j0 = tile * T, chunks = (min(T, Lk - j0) + 15) / 16;
+    const bf16* pt = pbuf(buf);
+    const int sh0 = chunk_shift(p_rows + j0);
+    uint32_t cached = 0;
+#pragma unroll
+    for (int u = 0; u < kBitTiles; ++u)
+      if (u == tile) cached = kc[u];
+    for (int c = part; active && c < chunks; c += split) {
+      float x[2][4], pv[2][4];
+      dp_chunk(buf, c, pt, sh0, x, pv);
+      if (drop)
+        apply(tile < kBitTiles ? (cached >> (8 * c)) & 0xffu
+                               : draw(j0, c, pv),
+              x);
 #pragma unroll
       for (int n = 0; n < 2; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = key[e >> 1], i = i0 + 8 * n + 2 * t + (e & 1);
-          float p = 0.f;
-          if (i < Lq && j < Lk) {
-            p = __bfloat162float(pb[i * Lk + j]);
-            if (drop)
-              p = (keep[i * kw + j0 / 16] >> (j - j0)) & 1u
-                      ? p * a.keep_scale
-                      : 0.f;
-          }
-          pd[n][e] = p;
-        }
+        for (int e = 0; e < 4; ++e)
+          x[n][e] = pv[n][e] * (x[n][e] - dsum[e >> 1]);
       uint32_t hi[4], lo[4];
-      c_to_a(pd, hi, lo);   // without dropout p is bf16 and lo is 0
-      mma_ay<D>(hi, lo, drop, gs, i0, acc);
+      c_to_a(x, hi, lo);
+      mma_ay<D>(hi, lo, true, kbuf(buf), 16 * c, dq);
     }
-    store_rows<D>(acc, 1.f, static_cast<bf16*>(a.dv) + b * a.dv_bs + h * D,
-                  a.dv_rs, key[0], Lk);
+    __syncthreads();
+    issue(s + 2);
   }
   cp_async_wait<0>();
-  __syncthreads();
+  bf16* dqb = static_cast<bf16*>(a.dq) + b * a.dq_bs + h * D;
+  if (split == 1) {
+    if (active) store_rows<D>(dq, a.scale, dqb, a.dq_rs, row[0], Lq);
+    return;
+  }
+  // the parts' partial dQ, summed in part order by the group's first warp
+  // (the stage buffers are free: every tile has been used)
+  float* obuf = reinterpret_cast<float*>(bufs);    // [4][16][D + 4]
+  combine_parts<D>(dq, obuf, warp, part, split);
+  if (active && part == 0)
+    store_rows<D>(dq, a.scale, dqb, a.dq_rs, row[0], Lq);
+}
 
-  // pass B2: dK = dS^T Q * scale, dP^T = V dO^T formed again
-  for (int j0 = warp * 16; j0 < lk_pad; j0 += nw * 16) {
-    const int key[2] = {j0 + g, j0 + g + 8};
-    uint32_t vf[KS][4];
-    load_a<D>(vs, j0, vf);
-    float acc[D / 8][4];
+// bf16 dK/dV kernel: a block per (b, h, tile of 64 keys), a warp per 16
+// keys (a tile of one or two 16-key groups splits their query chunks over
+// the four warps), V's A fragments loaded once; query tiles of Q, dO, p and Delta
+// stream through in order.  A 16-query chunk: dP^T = V dO^T; pd^T and
+// dS^T from the saved p read transposed, the keep bits and Delta; dV +=
+// pd^T dO, dK += dS^T Q.
+template <int D>
+__global__ void __launch_bounds__(kBwdWarps * 32, D <= 64 ? 3 : 2)
+    packed_attention_bwd_dkv_mma_kernel(BwdArgs a, const float* delta,
+                                        int vec) {
+  constexpr int S = D + 8, KS = D / 16, T = kBwdTile;
+  constexpr int SB = 2 * T * S + T * kPStride;   // a buffer: Q, dO, p
+  const int Lq = a.Lq, Lk = a.Lk;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H;
+  const int k0 = blockIdx.y * T, nk = min(T, Lk - k0);
+  const int n_tiles = (Lq + T - 1) / T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* vs = reinterpret_cast<bf16*>(smem_raw);    // [T][S] V
+  bf16* bufs = vs + T * S;
+  float* dls = reinterpret_cast<float*>(bufs + 2 * SB);   // [2][T] Delta
+  auto qbuf = [&](int buf) { return bufs + buf * SB; };            // [T][S]
+  auto gbuf = [&](int buf) { return bufs + buf * SB + T * S; };    // [T][S]
+  auto pbuf = [&](int buf) { return bufs + buf * SB + 2 * T * S; };
+
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_bs + h * D;
+  const bf16* gb = static_cast<const bf16*>(a.dout) + b * a.do_bs + h * D;
+  const bf16* ph = static_cast<const bf16*>(a.p) +
+                   static_cast<long long>(bh) * Lq * Lk;
+  const float* dlh = delta + static_cast<long long>(bh) * Lq;
+  stage_rows<D>(static_cast<const bf16*>(a.v) + b * a.v_bs + h * D +
+                    static_cast<long long>(k0) * a.v_rs,
+                a.v_rs, nk, T, vec & 4, vs);
+  auto issue = [&](int s) {
+    if (s < n_tiles) {
+      const int buf = s & 1, i0 = s * T;
+      const int nq = min(T, Lq - i0), nq_pad = round16(nq);
+      stage_rows<D>(qb + static_cast<long long>(i0) * a.q_rs, a.q_rs, nq,
+                    nq_pad, vec & 1, qbuf(buf));
+      stage_rows<D>(gb + static_cast<long long>(i0) * a.do_rs, a.do_rs, nq,
+                    nq_pad, vec & 8, gbuf(buf));
+      stage_p_tile(ph + static_cast<long long>(i0) * Lk + k0, Lk, nq, nk,
+                   pbuf(buf));
+      for (int e = threadIdx.x; e < T; e += blockDim.x)
+        cp_async4(dls + buf * T + e, e < nq ? dlh + i0 + e : dlh, e < nq);
+    }
+    cp_async_commit();
+  };
+  issue(0);   // with V
+  issue(1);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // a tile of one or two 16-key groups splits their query chunks over
+  // the warps, as the dQ kernel splits its keys
+  const int split = bwd_split(nk, Lq), part = warp % split;
+  const int kr0 = (warp / split) * 16;       // the warp's keys in the tile
+  const bool active = kr0 < nk;
+  const bool drop = a.rate > 0.f;
+  const uint32_t thr = keep_threshold(a.rate);
+  const int lk8 = static_cast<int>(Lk & 7);
+  uint32_t vf[KS][4];
+  float accv[D / 8][4], acck[D / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
+  for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-    for (int i0 = 0; i0 < lq_pad; i0 += 16) {
-      float ds[2][4];
-      mma_abt<D>(vf, gs, i0, ds);
+    for (int e = 0; e < 4; ++e) accv[nt][e] = acck[nt][e] = 0.f;
+
+  for (int s = 0; s < n_tiles; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();
+    if (s == 0) load_a<D>(vs, kr0, vf);
+    const int buf = s & 1, i0 = s * T;
+    const int chunks = (min(T, Lq - i0) + 15) / 16;
+    const bf16* pt = pbuf(buf);
+    const float* dl = dls + buf * T;
+    const int sh0 = chunk_shift(ph + static_cast<long long>(i0) * Lk + k0);
+    for (int c = part; active && c < chunks; c += split) {
+      float x[2][4], pd[2][4];
+      mma_abt<D>(vf, gbuf(buf), 16 * c, x);   // dP^T: rows keys, cols queries
+      // p^T of the chunk (query 16 c + 8 n + 2 t + (e & 1), key g + 8 (e >>
+      // 1)); the keep bits drawn where p != 0 only, as in the dQ kernel
+      bool any = false;
 #pragma unroll
       for (int n = 0; n < 2; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int j = key[e >> 1], i = i0 + 8 * n + 2 * t + (e & 1);
-          float x = 0.f;
-          if (i < Lq && j < Lk) {
-            const float p = __bfloat162float(pb[i * Lk + j]);
-            float d = ds[n][e];
-            if (drop)
-              d = (keep[i * kw + j0 / 16] >> (j - j0)) & 1u
-                      ? d * a.keep_scale
-                      : 0.f;
-            x = p * (d - delta[i]);
-          }
-          ds[n][e] = x;
+          pd[n][e] = p_tile_at(pt, sh0, lk8, 16 * c + 8 * n + 2 * t + (e & 1),
+                               kr0 + g + 8 * (e >> 1));
+          any |= pd[n][e] != 0.f;
         }
+      if (drop && __any_sync(0xffffffffu, any)) {
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = pd[n][e];   // every draw runs: ILP
+            const bool kp =
+                dropout_keep_thr(a.key, b, h, i0 + 16 * c + 8 * n + 2 * t +
+                                 (e & 1), k0 + kr0 + g + 8 * (e >> 1), thr) &&
+                p != 0.f;
+            x[n][e] = p * ((kp ? x[n][e] * a.keep_scale : 0.f) -
+                           dl[16 * c + 8 * n + 2 * t + (e & 1)]);
+            pd[n][e] = kp ? p * a.keep_scale : 0.f;
+          }
+      } else {
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = pd[n][e];   // without dropout pd is p
+            x[n][e] = p * ((drop ? 0.f : x[n][e]) -
+                           dl[16 * c + 8 * n + 2 * t + (e & 1)]);
+          }
+      }
       uint32_t hi[4], lo[4];
-      c_to_a(ds, hi, lo);
-      mma_ay<D>(hi, lo, true, qs, i0, acc);
+      c_to_a(pd, hi, lo);   // without dropout p is bf16 and lo is 0
+      mma_ay<D>(hi, lo, drop, gbuf(buf), 16 * c, accv);
+      c_to_a(x, hi, lo);
+      mma_ay<D>(hi, lo, true, qbuf(buf), 16 * c, acck);
     }
-    store_rows<D>(acc, a.scale,
-                  static_cast<bf16*>(a.dk) + b * a.dk_bs + h * D, a.dk_rs,
-                  key[0], Lk);
+    __syncthreads();
+    issue(s + 2);
+  }
+  cp_async_wait<0>();
+  if (split > 1) {   // the parts' dV and dK, summed in part order
+    float* obuf = reinterpret_cast<float*>(bufs);  // 2 x [4][16][D + 4]
+    combine_parts<D>(accv, obuf, warp, part, split);
+    combine_parts<D>(acck, obuf + kBwdWarps * 16 * (D + 4), warp, part,
+                     split);
+  }
+  if (!active || part != 0) return;
+  const int key0 = k0 + kr0 + g;
+  store_rows<D>(accv, 1.f, static_cast<bf16*>(a.dv) + b * a.dv_bs + h * D,
+                a.dv_rs, key0, Lk);
+  store_rows<D>(acck, a.scale,
+                static_cast<bf16*>(a.dk) + b * a.dk_bs + h * D, a.dk_rs,
+                key0, Lk);
+}
+
+// Stage rows [0, n) of D fp32 columns (row stride rs) into dst rows of
+// ``ds`` floats, rows n..n_pad zero; ``vec``: 16-byte copies (source
+// rows and ds 16-byte aligned), else 4-byte ones.
+template <int D>
+__device__ void stage_rows_f32(const float* src, long long rs, int n,
+                               int n_pad, int ds, bool vec, float* dst) {
+  if (vec) {
+    constexpr int C = D / 4;
+    for (int e = threadIdx.x; e < n_pad * C; e += blockDim.x) {
+      const int r = e / C, c = (e - r * C) * 4;
+      cp_async16(dst + r * ds + c, r < n ? src + r * rs + c : src, r < n);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < n_pad * D; e += blockDim.x) {
+    const int r = e / D, c = e - r * D;
+    cp_async4(dst + r * ds + c, r < n ? src + r * rs + c : src, r < n);
+  }
+}
+
+// Stage the fp32 saved-p block rows [0, nr) x columns [0, nc) (row r at
+// first + r * Lk) into dst[kBwdTile][kBwdTile], zero past nr and nc.
+__device__ void stage_p_tile_f32(const float* first, long long Lk, int nr,
+                                 int nc, float* dst) {
+  constexpr int T = kBwdTile;
+  for (int e = threadIdx.x; e < T * T; e += blockDim.x) {
+    const int r = e / T, c = e - r * T;
+    const bool ok = r < nr && c < nc;
+    cp_async4(dst + e, ok ? first + r * Lk + c : first, ok);
+  }
+}
+
+// dp[r][k] = x[r] . ys[lane + 32 k] for the RW rows of x (D floats apart,
+// read broadcast) and the tile rows of ys (D + 1 floats apart).
+template <int D, int RW>
+__device__ __forceinline__ void dots_f32(const float* x, const float* ys,
+                                         float (&dp)[RW][2]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < RW; ++r) dp[r][0] = dp[r][1] = 0.f;
+  const float* y0 = ys + lane * (D + 1);
+  const float* y1 = ys + (lane + 32) * (D + 1);
+#pragma unroll 4
+  for (int c = 0; c < D; ++c) {
+    const float v0 = y0[c], v1 = y1[c];
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      const float xv = x[r * D + c];
+      dp[r][0] = fmaf(xv, v0, dp[r][0]);
+      dp[r][1] = fmaf(xv, v1, dp[r][1]);
+    }
+  }
+}
+
+// acc[r][c] += sum_{y < ny} m[y * T + x0 + r] * ys[y * D + lane + 32 c]:
+// the warp's RW output rows (columns x0.. of the T-wide tile m, read
+// broadcast) and D / 32 channels a lane, summed in y order.
+template <int D, int RW>
+__device__ __forceinline__ void contract_f32(const float* m, int x0,
+                                             const float* ys, int ny,
+                                             float (&acc)[RW][D / 32]) {
+  constexpr int DCH = D / 32, T = kBwdTile;
+  const int lane = threadIdx.x & 31;
+  for (int y = 0; y < ny; ++y) {
+    float yv[DCH];
+#pragma unroll
+    for (int c = 0; c < DCH; ++c) yv[c] = ys[y * D + lane + 32 * c];
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      const float mv = m[y * T + x0 + r];
+#pragma unroll
+      for (int c = 0; c < DCH; ++c) acc[r][c] = fmaf(mv, yv[c], acc[r][c]);
+    }
+  }
+}
+
+// fp32 dQ kernel: a block per (b, h, tile of 64 query rows), a warp per 8
+// rows.  A lane forms dp of its warp's rows with keys lane and lane + 32 of
+// each tile (sweep 1: Delta, summed over the lane's keys in tile order and
+// then over the warp by a symmetric butterfly; sweep 2: dS, written over p
+// in shared memory), then dQ of its rows at channels lane + 32 c.
+template <int D>
+__global__ void __launch_bounds__(kF32BwdWarps * 32, D <= 64 ? 2 : 1)
+    packed_attention_bwd_dq_kernel(BwdArgs a, float* delta, int vec) {
+  constexpr int T = kBwdTile, DP = D + 1, RW = T / kF32BwdWarps;
+  constexpr int DCH = D / 32;
+  constexpr int SB = T * DP + T * D + T * T;   // a buffer: V, K, p
+  const int Lq = a.Lq, Lk = a.Lk;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H;
+  const int q0 = blockIdx.y * T, nq = min(T, Lq - q0);
+  const int n_tiles = (Lk + T - 1) / T;
+  extern __shared__ __align__(16) float fsm[];
+  float* gs = fsm;                                  // [T][D] dO
+  float* bufs = gs + T * D;
+  auto vbuf = [&](int buf) { return bufs + buf * SB; };              // [T][DP]
+  auto kbuf = [&](int buf) { return bufs + buf * SB + T * DP; };     // [T][D]
+  auto pbuf = [&](int buf) { return bufs + buf * SB + T * DP + T * D; };
+
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_bs + h * D;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_bs + h * D;
+  const float* p_rows = static_cast<const float*>(a.p) +
+                        (static_cast<long long>(bh) * Lq + q0) * Lk;
+  stage_rows_f32<D>(static_cast<const float*>(a.dout) + b * a.do_bs +
+                        h * D + static_cast<long long>(q0) * a.do_rs,
+                    a.do_rs, nq, T, D, vec & 8, gs);
+  // the steps of the bf16 dQ kernel
+  auto issue = [&](int s) {
+    if (s < 2 * n_tiles && (n_tiles > 1 || s == 0)) {
+      const int buf = s & 1, j0 = (s < n_tiles ? s : s - n_tiles) * T;
+      const int nk = min(T, Lk - j0);
+      stage_rows_f32<D>(vb + static_cast<long long>(j0) * a.v_rs, a.v_rs,
+                        nk, T, DP, false, vbuf(buf));
+      if (s >= n_tiles || n_tiles == 1)
+        stage_rows_f32<D>(kb + static_cast<long long>(j0) * a.k_rs, a.k_rs,
+                          nk, T, D, vec & 2, kbuf(buf));
+      stage_p_tile_f32(p_rows + j0, Lk, nq, nk, pbuf(buf));
+    }
+    cp_async_commit();
+  };
+  issue(0);   // with dO
+  issue(1);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * RW;                  // the warp's rows in the tile
+  const bool drop = a.rate > 0.f;
+  const uint32_t thr = keep_threshold(a.rate);
+  // dp of the warp's rows and keys lane, lane + 32 of buffer buf's tile
+  // j0, with the keep bits applied where p != 0 (as in the bf16 kernel: a
+  // zero p makes its element's terms 0 whatever the bit)
+  auto dp_tile = [&](int buf, int j0, float (&dp)[RW][2]) {
+    dots_f32<D, RW>(gs + r0 * D, vbuf(buf), dp);
+    if (!drop) return;
+    const float* pt = pbuf(buf) + r0 * T + lane;
+    bool any = false;
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) any |= pt[r * T + 32 * k] != 0.f;
+    if (!__any_sync(0xffffffffu, any)) return;
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const bool kp = dropout_keep_thr(a.key, b, h, q0 + r0 + r,
+                                         j0 + lane + 32 * k, thr);
+        if (pt[r * T + 32 * k] != 0.f)
+          dp[r][k] = kp ? dp[r][k] * a.keep_scale : 0.f;
+      }
+  };
+
+  float dsum[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) dsum[r] = 0.f;
+  for (int s = 0; s < n_tiles; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const int buf = s & 1;
+    float dp[RW][2];
+    dp_tile(buf, s * T, dp);
+    const float* pt = pbuf(buf);
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        dsum[r] = fmaf(dp[r][k], pt[(r0 + r) * T + lane + 32 * k], dsum[r]);
+    __syncthreads();
+    issue(s + 2);
+  }
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    dsum[r] = warp_sum(dsum[r]);   // symmetric: every lane the same bits
+    if (lane == 0 && q0 + r0 + r < Lq)
+      delta[static_cast<long long>(bh) * Lq + q0 + r0 + r] = dsum[r];
+  }
+
+  float acc[RW][DCH];
+#pragma unroll
+  for (int r = 0; r < RW; ++r)
+#pragma unroll
+    for (int c = 0; c < DCH; ++c) acc[r][c] = 0.f;
+  for (int s = n_tiles; s < 2 * n_tiles; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const int buf = n_tiles == 1 ? 0 : s & 1, j0 = (s - n_tiles) * T;
+    float dp[RW][2];
+    dp_tile(buf, j0, dp);
+    float* pt = pbuf(buf);
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        float& x = pt[(r0 + r) * T + lane + 32 * k];   // p, then dS
+        x = x * (dp[r][k] - dsum[r]);
+      }
+    __syncthreads();
+    // dQ[i] += sum_j dS[i][j] K[j], summed in key order
+    const float* ks = kbuf(buf);
+    const int nk = min(T, Lk - j0);
+    for (int j = 0; j < nk; ++j) {
+      float kv[DCH];
+#pragma unroll
+      for (int c = 0; c < DCH; ++c) kv[c] = ks[j * D + lane + 32 * c];
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const float x = pt[(r0 + r) * T + j];
+#pragma unroll
+        for (int c = 0; c < DCH; ++c) acc[r][c] = fmaf(x, kv[c], acc[r][c]);
+      }
+    }
+    __syncthreads();
+    issue(s + 2);
+  }
+  cp_async_wait<0>();
+  float* dqb = static_cast<float*>(a.dq) + b * a.dq_bs + h * D;
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const int i = q0 + r0 + r;
+    if (i < Lq)
+#pragma unroll
+      for (int c = 0; c < DCH; ++c)
+        dqb[i * a.dq_rs + lane + 32 * c] = acc[r][c] * a.scale;
+  }
+}
+
+// fp32 dK/dV kernel: a block per (b, h, tile of 64 keys), 8 warps; query
+// tiles of Q, dO, p and Delta stream through in order.  A lane forms
+// dP^T of keys lane and lane + 32 with its warp's 8 query rows, then pd
+// and dS in registers; pd overwrites p in shared memory for dV, then dS
+// overwrites pd for dK; the contractions give a warp 8 keys and a lane
+// d / 32 channels, summed in query order.
+template <int D>
+__global__ void __launch_bounds__(kF32BwdWarps * 32, D <= 64 ? 2 : 1)
+    packed_attention_bwd_dkv_kernel(BwdArgs a, const float* delta, int vec) {
+  constexpr int T = kBwdTile, DP = D + 1, RW = T / kF32BwdWarps;
+  constexpr int DCH = D / 32;
+  constexpr int SB = 2 * T * D + T * T + T;   // a buffer: Q, dO, p, Delta
+  const int Lq = a.Lq, Lk = a.Lk;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H;
+  const int k0 = blockIdx.y * T, nk = min(T, Lk - k0);
+  const int n_tiles = (Lq + T - 1) / T;
+  extern __shared__ __align__(16) float fsm[];
+  float* vs = fsm;                                  // [T][DP] V
+  float* bufs = vs + T * DP;
+  auto qbuf = [&](int buf) { return bufs + buf * SB; };              // [T][D]
+  auto gbuf = [&](int buf) { return bufs + buf * SB + T * D; };      // [T][D]
+  auto pbuf = [&](int buf) { return bufs + buf * SB + 2 * T * D; };  // [T][T]
+  auto dbuf = [&](int buf) { return bufs + buf * SB + 2 * T * D + T * T; };
+
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_bs + h * D;
+  const float* gb = static_cast<const float*>(a.dout) + b * a.do_bs + h * D;
+  const float* ph = static_cast<const float*>(a.p) +
+                    static_cast<long long>(bh) * Lq * Lk;
+  const float* dlh = delta + static_cast<long long>(bh) * Lq;
+  stage_rows_f32<D>(static_cast<const float*>(a.v) + b * a.v_bs + h * D +
+                        static_cast<long long>(k0) * a.v_rs,
+                    a.v_rs, nk, T, DP, false, vs);
+  auto issue = [&](int s) {
+    if (s < n_tiles) {
+      const int buf = s & 1, i0 = s * T, nq = min(T, Lq - i0);
+      stage_rows_f32<D>(qb + static_cast<long long>(i0) * a.q_rs, a.q_rs, nq,
+                        T, D, vec & 1, qbuf(buf));
+      stage_rows_f32<D>(gb + static_cast<long long>(i0) * a.do_rs, a.do_rs,
+                        nq, T, D, vec & 8, gbuf(buf));
+      stage_p_tile_f32(ph + static_cast<long long>(i0) * Lk + k0, Lk, nq, nk,
+                       pbuf(buf));
+      for (int e = threadIdx.x; e < T; e += blockDim.x)
+        cp_async4(dbuf(buf) + e, e < nq ? dlh + i0 + e : dlh, e < nq);
+    }
+    cp_async_commit();
+  };
+  issue(0);   // with V
+  issue(1);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * RW;   // the warp's query rows, then its keys
+  const bool drop = a.rate > 0.f;
+  const uint32_t thr = keep_threshold(a.rate);
+  float accv[RW][DCH], acck[RW][DCH];
+#pragma unroll
+  for (int r = 0; r < RW; ++r)
+#pragma unroll
+    for (int c = 0; c < DCH; ++c) accv[r][c] = acck[r][c] = 0.f;
+
+  for (int s = 0; s < n_tiles; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const int buf = s & 1, i0 = s * T, nq = min(T, Lq - i0);
+    float* pt = pbuf(buf);
+    const float* gt = gbuf(buf);
+    const float* dl = dbuf(buf);
+    float dp[RW][2];
+    dots_f32<D, RW>(gt + r0 * D, vs, dp);   // dP[i][j] = dO_i . V_j
+    // the keep bits where p != 0, as in the dQ kernel
+    bool any = false;
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        any |= pt[(r0 + r) * T + lane + 32 * k] != 0.f;
+    const bool draws = drop && __any_sync(0xffffffffu, any);
+    float ds[RW][2];
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        float& x = pt[(r0 + r) * T + lane + 32 * k];   // p, then pd
+        const float p = x;
+        float d = dp[r][k];
+        if (drop) {
+          const bool kp = draws &&
+                          dropout_keep_thr(a.key, b, h, i0 + r0 + r,
+                                           k0 + lane + 32 * k, thr) &&
+                          p != 0.f;
+          d = kp ? d * a.keep_scale : 0.f;
+          x = kp ? p * a.keep_scale : 0.f;
+        }
+        ds[r][k] = p * (d - dl[r0 + r]);
+      }
+    __syncthreads();
+    contract_f32<D, RW>(pt, r0, gt, nq, accv);   // dV[j] += pd[i][j] dO[i]
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        pt[(r0 + r) * T + lane + 32 * k] = ds[r][k];
+    __syncthreads();
+    contract_f32<D, RW>(pt, r0, qbuf(buf), nq, acck);   // dK[j] += dS Q
+    __syncthreads();
+    issue(s + 2);
+  }
+  cp_async_wait<0>();
+  float* dvb = static_cast<float*>(a.dv) + b * a.dv_bs + h * D;
+  float* dkb = static_cast<float*>(a.dk) + b * a.dk_bs + h * D;
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const int j = k0 + r0 + r;
+    if (j < Lk)
+#pragma unroll
+      for (int c = 0; c < DCH; ++c) {
+        dvb[j * a.dv_rs + lane + 32 * c] = accv[r][c];
+        dkb[j * a.dk_rs + lane + 32 * c] = acck[r][c] * a.scale;
+      }
+  }
+}
+
+// Shared memory of the dQ and the dK/dV kernel: no term depends on Lq or
+// Lk.
+size_t bwd_smem_dq(int dtype, int D) {
+  constexpr size_t T = kBwdTile;
+  if (dtype == kBFloat16)
+    return (T * (D + 8) + 2 * (2 * T * (D + 8) + T * kPStride)) *
+           sizeof(bf16);
+  return (T * D + 2 * (T * (D + 1) + T * D + T * T)) * sizeof(float);
+}
+
+size_t bwd_smem_dkv(int dtype, int D) {
+  constexpr size_t T = kBwdTile;
+  if (dtype == kBFloat16) return bwd_smem_dq(dtype, D) + 2 * T * sizeof(float);
+  return (T * (D + 1) + 2 * (2 * T * D + T * T + T)) * sizeof(float);
+}
+
+bool rows_aligned16_f32(const void* p, long long bs, long long rs) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && bs % 4 == 0 &&
+         rs % 4 == 0;
+}
+
+template <typename K>
+cudaError_t prepare(K kernel, size_t smem) {
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  return e;
+}
+
+// The dQ kernel and then the dK/dV kernel on the stream.
+template <int D>
+cudaError_t launch_bwd(const BwdArgs& a, int dtype, float* delta,
+                       cudaStream_t stream) {
+  const bool bf = dtype == kBFloat16;
+  auto aligned = [&](const void* p, long long bs, long long rs) {
+    return bf ? rows_aligned16(p, bs, rs) : rows_aligned16_f32(p, bs, rs);
+  };
+  const int vec = (aligned(a.q, a.q_bs, a.q_rs) ? 1 : 0) |
+                  (aligned(a.k, a.k_bs, a.k_rs) ? 2 : 0) |
+                  (aligned(a.v, a.v_bs, a.v_rs) ? 4 : 0) |
+                  (aligned(a.dout, a.do_bs, a.do_rs) ? 8 : 0);
+  const size_t smem_dq = bwd_smem_dq(dtype, D);
+  const size_t smem_dkv = bwd_smem_dkv(dtype, D);
+  const dim3 grid_q(a.B * a.H, (a.Lq + kBwdTile - 1) / kBwdTile);
+  const dim3 grid_k(a.B * a.H, (a.Lk + kBwdTile - 1) / kBwdTile);
+  cudaError_t e;
+  if (bf) {
+    e = prepare(packed_attention_bwd_dq_mma_kernel<D>, smem_dq);
+    if (e != cudaSuccess) return e;
+    packed_attention_bwd_dq_mma_kernel<D>
+        <<<grid_q, kBwdWarps * 32, smem_dq, stream>>>(a, delta, vec);
+    if ((e = cudaGetLastError()) != cudaSuccess || a.Lk == 0) return e;
+    e = prepare(packed_attention_bwd_dkv_mma_kernel<D>, smem_dkv);
+    if (e != cudaSuccess) return e;
+    packed_attention_bwd_dkv_mma_kernel<D>
+        <<<grid_k, kBwdWarps * 32, smem_dkv, stream>>>(a, delta, vec);
+    return cudaGetLastError();
+  }
+  e = prepare(packed_attention_bwd_dq_kernel<D>, smem_dq);
+  if (e != cudaSuccess) return e;
+  packed_attention_bwd_dq_kernel<D>
+      <<<grid_q, kF32BwdWarps * 32, smem_dq, stream>>>(a, delta, vec);
+  if ((e = cudaGetLastError()) != cudaSuccess || a.Lk == 0) return e;
+  e = prepare(packed_attention_bwd_dkv_kernel<D>, smem_dkv);
+  if (e != cudaSuccess) return e;
+  packed_attention_bwd_dkv_kernel<D>
+      <<<grid_k, kF32BwdWarps * 32, smem_dkv, stream>>>(a, delta, vec);
+  return cudaGetLastError();
+}
+
+cudaError_t bwd_dim(const BwdArgs& a, int dtype, int head_dim, float* delta,
+                    cudaStream_t s) {
+  switch (head_dim) {
+    case 32: return launch_bwd<32>(a, dtype, delta, s);
+    case 64: return launch_bwd<64>(a, dtype, delta, s);
+    case 128: return launch_bwd<128>(a, dtype, delta, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 // a warp per 16-row tile of the longer side, at least 4 to stage
 int tc_bwd_warps(int Lq, int Lk) {
   return min(kTcBwdWarps, max(4, max((Lq + 15) / 16, (Lk + 15) / 16)));
-}
-
-size_t bwd_mma_smem(int Lq, int Lk, int D) {
-  const size_t lq = round16(Lq), lk = round16(Lk);
-  return (lq + lk + (lq > lk ? lq : lk)) * (D + 8) * sizeof(bf16) +
-         p_stage_elems(Lq, Lk) * sizeof(bf16) + lq * sizeof(float) +
-         lq * (lk / 16) * sizeof(uint16_t);
-}
-
-template <int D>
-cudaError_t launch_bwd_mma(const BwdArgs& a, cudaStream_t stream) {
-  const size_t smem = bwd_mma_smem(a.Lq, a.Lk, D);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        packed_attention_bwd_mma_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const int vec = (rows_aligned16(a.q, a.q_bs, a.q_rs) ? 1 : 0) |
-                  (rows_aligned16(a.k, a.k_bs, a.k_rs) ? 2 : 0) |
-                  (rows_aligned16(a.v, a.v_bs, a.v_rs) ? 4 : 0) |
-                  (rows_aligned16(a.dout, a.do_bs, a.do_rs) ? 8 : 0);
-  packed_attention_bwd_mma_kernel<D>
-      <<<a.B * a.H, tc_bwd_warps(a.Lq, a.Lk) * 32, smem, stream>>>(a, vec);
-  return cudaGetLastError();
-}
-
-cudaError_t bwd_mma_dim(const BwdArgs& a, int head_dim, cudaStream_t s) {
-  switch (head_dim) {
-    case 32: return launch_bwd_mma<32>(a, s);
-    case 64: return launch_bwd_mma<64>(a, s);
-    case 128: return launch_bwd_mma<128>(a, s);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1712,15 +2247,6 @@ cudaError_t mha_bwd_dim(const MhaBwdArgs& a, int head_dim, cudaStream_t s) {
 // unpadded in shared memory.  Tile padding (keys or
 // queries past Lk or Lq, up to a multiple of 16) is zero rows, and a
 // padded key scores -inf, so its probability is exactly 0.
-
-// One fp32 by cp.async (the mask); ``fill`` false writes 0.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool fill) {
-  const uint32_t addr =
-      static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(addr),
-               "l"(src), "r"(fill ? 4 : 0));
-}
 
 // (x0, x1) = hi + mid + lo, three bf16 pairs: the fp32 values to ~2^-26
 // relative (hi + lo leaves up to 2^-17).
@@ -2350,14 +2876,18 @@ cudaError_t mha_bwd_mma_dim(const MhaBwdArgs& a, int head_dim,
 }  // namespace
 
 // Shared memory (bytes) the kernels need at these shapes, so the wrapper
-// can refuse a shape before launching.
+// can refuse a forward shape before launching (the backward's does not
+// depend on Lq or Lk: the larger of its two kernels').
 extern "C" long long hero_attention_smem_bytes(int dtype, int backward,
                                                int Lq, int Lk, int head_dim) {
-  if (dtype == kBFloat16)
-    return static_cast<long long>(backward ? bwd_mma_smem(Lq, Lk, head_dim)
-                                           : fwd_mma_smem(Lq, Lk, head_dim));
-  return static_cast<long long>(backward ? bwd_smem(Lq, Lk, head_dim)
-                                         : fwd_smem(Lk, head_dim));
+  if (backward) {
+    const size_t dq = bwd_smem_dq(dtype, head_dim);
+    const size_t dkv = bwd_smem_dkv(dtype, head_dim);
+    return static_cast<long long>(dq > dkv ? dq : dkv);
+  }
+  return static_cast<long long>(dtype == kBFloat16
+                                    ? fwd_mma_smem(Lq, Lk, head_dim)
+                                    : fwd_smem(Lk, head_dim));
 }
 
 extern "C" long long hero_attention_smem_limit() { return kMaxSmem; }
@@ -2405,28 +2935,27 @@ extern "C" int hero_packed_attention_fwd(
 }
 
 // Returns a cudaError_t code (0 = launched).  p: contiguous
-// (B, H, Lq, Lk); the others packed with batch/row strides in elements.
+// (B, H, Lq, Lk); the others packed with batch/row strides in elements;
+// delta: a (B, H, Lq) fp32 scratch, written by the dQ kernel and read by
+// the dK/dV kernel.
 extern "C" int hero_packed_attention_bwd(
     int dtype, const void* p, const void* q, const void* k, const void* v,
-    const void* dout, void* dq, void* dk, void* dv, int B, int H, int Lq,
-    int Lk, int head_dim, long long q_bs, long long q_rs, long long k_bs,
-    long long k_rs, long long v_bs, long long v_rs, long long do_bs,
-    long long do_rs, long long dq_bs, long long dq_rs, long long dk_bs,
-    long long dk_rs, long long dv_bs, long long dv_rs, float scale,
-    float rate, float keep_scale, unsigned int seed_lo, unsigned int seed_hi,
-    void* stream) {
+    const void* dout, void* dq, void* dk, void* dv, void* delta, int B,
+    int H, int Lq, int Lk, int head_dim, long long q_bs, long long q_rs,
+    long long k_bs, long long k_rs, long long v_bs, long long v_rs,
+    long long do_bs, long long do_rs, long long dq_bs, long long dq_rs,
+    long long dk_bs, long long dk_rs, long long dv_bs, long long dv_rs,
+    float scale, float rate, float keep_scale, unsigned int seed_lo,
+    unsigned int seed_hi, void* stream) {
   const BwdArgs a{p, q, k, v, dout, dq, dk, dv, B, H, Lq, Lk,
                   q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, do_bs, do_rs,
                   dq_bs, dq_rs, dk_bs, dk_rs, dv_bs, dv_rs,
                   scale, rate, keep_scale, PhiloxKey{seed_lo, seed_hi}};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (dtype) {
-    case kFloat32: e = bwd_dim(a, head_dim, s); break;
-    case kBFloat16: e = bwd_mma_dim(a, head_dim, s); break;
-    default: e = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(e);
+  if (dtype != kFloat32 && dtype != kBFloat16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(bwd_dim(a, dtype, head_dim,
+                                  static_cast<float*>(delta),
+                                  static_cast<cudaStream_t>(stream)));
 }
 
 // Head-major attention.  Returns a cudaError_t code (0 = launched).

@@ -62,6 +62,22 @@ __device__ __forceinline__ bool dropout_keep(PhiloxKey key, int b, int h,
                   rate);
 }
 
+// keep_bit's test as one integer compare, for kernels that draw many
+// bits at one rate: with thr = keep_threshold(rate) (rate in [0, 1), so
+// rate * 2^24 is exact in fp32 and its ceiling fits 24 bits),
+// (bits >> 8) * 2^-24 >= rate  <=>  bits >> 8 >= thr >> 8  <=>  bits >= thr.
+__device__ __forceinline__ uint32_t keep_threshold(float rate) {
+  return static_cast<uint32_t>(ceilf(rate * 16777216.0f)) << 8;
+}
+
+__device__ __forceinline__ bool dropout_keep_thr(PhiloxKey key, int b,
+                                                 int h, int i, int j,
+                                                 uint32_t thr) {
+  return philox_bits(key, static_cast<uint32_t>(j), static_cast<uint32_t>(i),
+                     static_cast<uint32_t>(h), static_cast<uint32_t>(b)) >=
+         thr;
+}
+
 // Keep bits of row-tensor elements (row, 4 q) .. (row, 4 q + 3): bit k
 // for column 4 q + k, from one Philox call.  keep_bit's test without the
 // conversion to float: with thr = ceil(rate * 2^24) << 8 (the wrapper,

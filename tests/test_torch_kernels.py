@@ -17,9 +17,13 @@ fused dropout-add-LayerNorm forward and backward (#8, #9) with their
 Philox row mask.  The packed forward in segment mode is held at the
 packed query rows of serving (1 to 4 queries of 1 to 30 tokens a row, pad
 slots, all-pad rows).  The bf16 packed forward and backward (tensor-core
-kernels) are held at their tile edges (1 to 417 keys, backward rows to
-240, one query), for bit-identical gradients, and for keep bits equal
-to the plain Philox mask; so are the bf16 head-major forward and
+kernels) are held at their tile edges (1 to 417 keys, one query), for
+bit-identical gradients, and for keep bits equal to the plain Philox
+mask; the backward (#3), which streams 64-row tiles, in both dtypes at
+every length about its tiles' edges and past its old ceilings (1 to
+1024 rows, cross and causal heads, head_dim 32, 64 and 128), with
+shared memory that does not grow with the lengths; so are the bf16
+head-major forward and
 backward (1 to 1000 keys, 1 to 65 queries, backward heads to 400 rows),
 whose shared-memory limits are held against the fp32 kernels'.  The
 LayerNorm forward and backward are held at their edges: widths about the
@@ -197,19 +201,22 @@ def test_attention_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
         tatt.packed_attention(q, k, v, 3, dropout_rate=0.1)
     with pytest.raises(TypeError):
         tatt.packed_attention(q.half(), k.half(), v.half(), 3)
-    # the backward's fp32 tiles for 144 keys at head_dim 128 exceed the
-    # shared memory a block may use
-    q, k, v = _qkv(15, 1, 144, 256, cuda, torch.float32)
-    p = torch.zeros((1, 2, 144, 144), device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        tatt.attention_bwd_cuda(p, q, k, v, q.contiguous(), 2)
-    # the bf16 kernels: the backward's Q, dO, K, V and p tiles for 384
-    # rows at head_dim 64, and the forward's K and V for 500 keys at head_dim
-    # 128, exceed it too
-    q, k, v = _qkv(15, 1, 384, 128, cuda, torch.bfloat16)
-    p = torch.zeros((1, 2, 384, 384), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="shared memory"):
-        tatt.attention_bwd_cuda(p, q, k, v, q.contiguous(), 2)
+    # the backward streams its tiles and takes what its fp32 kernel once
+    # refused (144 rows at head_dim 128) and its bf16 kernel too (384 rows
+    # at head_dim 64): both against the plain version
+    for L, D, dtype in ((144, 256, torch.float32),
+                        (384, 128, torch.bfloat16)):
+        q, k, v = _qkv(15, 1, L, D, cuda, dtype)
+        g = _qkv(16, 1, L, D, cuda, dtype)[0]
+        _, p = tatt.packed_forward_reference(q, k, v, 2, save_probs=True)
+        got = tatt.attention_bwd_cuda(p, q, k, v, g, 2)
+        want = tatt.packed_backward_reference(p, q, k, v, g, 2)
+        for a, b in zip(got, want):
+            assert bool(torch.isfinite(a).all())
+            assert float((a.float() - b.float()).abs().max()) <= \
+                _grad_tol(b, dtype)
+    # the forward's K and V for 500 keys at head_dim 128 exceed the shared
+    # memory a block may use
     q, k, v = _qkv(15, 1, 500, 128, cuda, torch.bfloat16)
     with pytest.raises(ValueError, match="shared memory"):
         tatt.packed_attention(q, k, v, 1)
@@ -255,7 +262,7 @@ BWD_SHAPES = [  # (B, L, heads, head_dim): the train step's rows, cut in B
     (2, 17, 2, 32),
     (2, 9, 1, 128),
     # the tile edges of the bf16 tensor-core kernels, and the longest
-    # row the fp32 backward takes at head_dim 64 (154)
+    # row the fp32 backward took at head_dim 64 before it streamed (154)
     (3, 1, 12, 64),
     (2, 17, 12, 64),
     (2, 63, 12, 64),
@@ -314,11 +321,12 @@ def test_attention_training_kernels_match_plain(cuda, rate, mode, dtype,
 @pytest.mark.parametrize("mode", ["validity", "segment"])
 @pytest.mark.parametrize("L", [200, 240])
 def test_bf16_training_kernels_past_the_fp32_limit(cuda, rate, mode, L):
-    """The bf16 tensor-core kernels take rows the fp32 backward refuses
-    (its fp32 tiles stop at 154 keys at head_dim 64): 240 is the longest
-    the bf16 backward takes.  Forward with saved probabilities and
-    dropout, then the backward, against the plain versions; one bf16 ulp
-    of the largest value, as in the test above."""
+    """The bf16 kernels at rows the fp32 backward once refused (its whole
+    head's fp32 tiles stopped at 154 keys at head_dim 64); 240 was the
+    longest the bf16 backward took before both streamed.  Forward with
+    saved probabilities and dropout, then the backward, against the
+    plain versions; one bf16 ulp of the largest value, as in the test
+    above."""
     B, H, d = 1, 12, 64
     dtype = torch.bfloat16
     q, k, v = _qkv(36, B, L, H * d, cuda, dtype)
@@ -345,6 +353,108 @@ def test_bf16_training_kernels_past_the_fp32_limit(cuda, rate, mode, L):
     for a, b in zip(got, ref):
         assert bool(torch.isfinite(a).all())
         assert float((a.float() - b.float()).abs().max()) <= _tol(b, dtype)
+
+
+# #3 at every length: the edges of its 64-row tiles and 16-row warp
+# tiles, the old kernels' ceilings (fp32 154, bf16 240 rows at head_dim 64)
+# and past them; (Lq, Lk, causal): self-attention, the TVC decoder's
+# cross-attention and a query row over 700 keys, causal heads
+BWD3_SQUARE = (1, 16, 63, 64, 65, 128, 129, 154, 155, 161, 200, 240, 241,
+               256, 400, 1024)
+BWD3_CASES = ([(L, L, False) for L in BWD3_SQUARE]
+              + [(62, 100, False), (3, 700, False), (62, 62, True),
+                 (300, 300, True)])
+
+
+def _bwd3_case(cuda, B, H, d, Lq, Lk, causal, mode, rate, dtype, seed):
+    """#3's inputs: q (B, Lq, H*d), k and v column slices of one
+    (B, Lk, 2*H*d) tensor (as the model passes them), the output
+    gradient, batch row 0 fully masked, and the saved probabilities of
+    the plain forward (the forward kernels stage whole heads and stop at
+    752 keys).  Returns (probs, q, k, v, g, Philox seed)."""
+    r = np.random.RandomState(seed)
+    q, g = (torch.from_numpy(r.randn(B, Lq, H * d).astype(np.float32)).to(
+        cuda, dtype) for _ in range(2))
+    kv = torch.from_numpy(r.randn(B, Lk, 2 * H * d).astype(np.float32)).to(
+        cuda, dtype)
+    k, v = kv.split(H * d, dim=-1)
+    if mode == "segment":
+        seg = _segments(seed, B, Lk).to(cuda)
+        seg[0] = -1
+        kw = {"seg": seg}
+    else:
+        mask = _validity_mask(seed, B, Lk).to(cuda)
+        mask[0] = 0.0
+        kw = {"kv_mask": mask}
+    pseed = 2 ** 33 + seed
+    _, probs = tatt.packed_forward_reference(
+        q, k, v, H, dropout_rate=rate, seed=pseed, save_probs=True,
+        causal=causal, **kw)
+    return probs, q, k, v, g, pseed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Lq, Lk, causal", BWD3_CASES,
+                         ids=lambda x: str(x))
+def test_packed_backward_takes_every_length(cuda, Lq, Lk, causal, dtype,
+                                            d):
+    """#3 in both dtypes at every length of ``BWD3_CASES``, head_dim 32,
+    64 and 128, rates 0 and 0.1, the validity mode and (self-attention)
+    the segment mode, against ``packed_backward_reference``: none
+    raises, every gradient is finite (the fully masked batch row's too)
+    and within the file's tolerances of the plain version (fp32 1e-4 of
+    the largest gradient, bf16 one ulp); a call counts one launch."""
+    H = 2
+    modes = ["validity"] + (["segment"] if Lq == Lk and not causal else [])
+    for mode in modes:
+        for rate in (0.0, 0.1):
+            probs, q, k, v, g, seed = _bwd3_case(
+                cuda, 2, H, d, Lq, Lk, causal, mode, rate, dtype,
+                Lq + 7 * Lk + d)
+            before = tatt.attention_bwd_cuda.launches
+            got = tatt.attention_bwd_cuda(probs, q, k, v, g, H, rate, seed)
+            torch.cuda.synchronize()
+            assert tatt.attention_bwd_cuda.launches == before + 1
+            want = tatt.packed_backward_reference(probs, q, k, v, g, H, rate,
+                                                  seed)
+            for a, b in zip(got, want):
+                assert a.shape == b.shape and a.dtype == b.dtype
+                assert bool(torch.isfinite(a).all())
+                assert float((a.float() - b.float()).abs().max()) <= \
+                    _grad_tol(b, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_backward_is_bit_identical_at_400_rows(cuda, dtype):
+    """Past every old ceiling the two kernels still sum each gradient in
+    a fixed order with no atomics: three calls give the same bits."""
+    probs, q, k, v, g, seed = _bwd3_case(cuda, 2, 12, 64, 400, 400, False,
+                                         "segment", 0.1, dtype, 400)
+    first = tatt.attention_bwd_cuda(probs, q, k, v, g, 12, 0.1, seed)
+    for _ in range(2):
+        again = tatt.attention_bwd_cuda(probs, q, k, v, g, 12, 0.1, seed)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_packed_backward_shared_memory_is_constant(cuda):
+    """The backward's shared memory does not depend on Lq or Lk, and at
+    head_dim 64 two blocks of it fit an SM (228 KB, 1 KB a block
+    reserved)."""
+    lib = tatt._lib()
+    limit = lib.hero_attention_smem_limit()
+    for dtype in (torch.float32, torch.bfloat16):
+        code = tatt.cuda_build.DTYPE_CODES[dtype]
+        for d in tatt.KERNEL_HEAD_DIMS:
+            need = {lib.hero_attention_smem_bytes(code, 1, L, L2, d)
+                    for L, L2 in ((64, 64), (100000, 100000), (1, 100000),
+                                  (100000, 1), (161, 200))}
+            assert len(need) == 1 and need.pop() <= limit
+        at64 = lib.hero_attention_smem_bytes(code, 1, 64, 64, 64)
+        assert 2 * (at64 + 1024) <= 228 * 1024
 
 
 @pytest.mark.cuda

@@ -124,22 +124,25 @@ def test_attention_dropout_is_not_served():
         tatt.packed_attention(q, k, v, HEADS, dropout_rate=0.1)
 
 
+@pytest.mark.parametrize("L2", [64, 161, 256])
 @pytest.mark.parametrize("mode", ["validity", "segment"])
-def test_plain_attention_backward_matches_pallas_interpret(mode):
+def test_plain_attention_backward_matches_pallas_interpret(mode, L2):
     """The plain saved-probabilities backward (through the autograd
     Function) against ``jax.grad`` of the Pallas path in interpret mode,
-    which runs ``_bwd3_kernel``.  Lk = 64 is a multiple of the Pallas key
-    padding, so no padded column joins any softmax."""
+    which runs ``_bwd3_kernel``, at Lk = 64 and at 161 and 256 rows, past
+    the ceilings the port's kernels once had (fp32 154, bf16 240).  The
+    Pallas path pads Lk to a multiple of 64; the padded columns join the
+    softmax of fully masked rows only, and no row here is fully masked
+    (row 1 keeps 37 keys; every slot is in one of 8 segments)."""
     r = np.random.RandomState(20)
-    L2 = 64
     q, k, v, g = (r.randn(B, L2, D).astype(np.float32) for _ in range(4))
     if mode == "validity":
         lens = np.array([L2, 37])
         m = (np.arange(L2)[None, :] < lens[:, None]).astype(np.float32)
         jmask, tkw = jnp.asarray(m), {"kv_mask": _t(m)}
     else:
-        seg = np.repeat(np.arange(8, dtype=np.int32)[None], B, 0)
-        seg = np.repeat(seg, 8, axis=1)                       # 8 x 8 slots
+        seg = (np.arange(L2, dtype=np.int32) * 8 // L2)[None]   # 8 segments
+        seg = np.repeat(seg, B, 0)
         jmask = jax.nn.one_hot(seg, 16, dtype=jnp.float32)
         tkw = {"seg": _t(seg)}
 
@@ -152,7 +155,7 @@ def test_plain_attention_backward_matches_pallas_interpret(mode):
     out = tatt.packed_attention(tq, tk, tv, HEADS, **tkw)
     got = torch.autograd.grad(out, (tq, tk, tv), _t(g))
     for a, b in zip(got, want):
-        # 64-term fp32 products in other orders; grads are O(10)
+        # fp32 sums of 64-256 products in other orders; grads are O(10)
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
                                    rtol=0)
 
