@@ -12,8 +12,7 @@ check them.
     python3 chip_smoke.py                  # on a machine with one CUDA card
     python3 chip_smoke.py --json-out F     # also write the full record to F
     python3 chip_smoke.py --rehearse       # CPU, tiny config, plain versions
-    python3 chip_smoke.py --daln-times [ROOT]  # time #8/#9 of a checkout
-    python3 chip_smoke.py --bwd3-times [ROOT]  # time #3 of a checkout
+    python3 chip_smoke.py --times KERNEL [ROOT]  # daln, bwd3 or fwd of one
 
 What the card run does, in order (any failure exits non-zero):
 
@@ -40,11 +39,12 @@ What the card run does, in order (any failure exits non-zero):
    and saved probabilities, the attention and LayerNorm backwards, the
    Philox masks) against their plain versions in fp32 and bf16 at the
    train step's shapes, and the bf16 packed forward and backward at the
-   tensor-core kernels' tile edges (``check_packed_edges``: 1, 17, 63,
-   65, 200 and 417 keys, the backward also at 154, 240, 241, 256, 400
-   and 1024 rows from the plain forward's probabilities past the
-   forward's 752 keys, one query over each key count, fully masked rows
-   in both modes, the keep bits read back from both kernels); times the
+   tensor-core kernels' tile edges (``check_packed_edges``: 1 to 1024
+   keys and rows, the forward past its old 752 keys, its probabilities
+   fed to the backward, exactly 0 wherever the plain ones are, both
+   mask modes and the causal bias, bf16 and fp32, one query over each
+   key count, fully masked rows, the keep bits read back from both
+   kernels); times the
    VSM train step at ``bench.py``'s layout (32 TV videos a step, the
    packed bucket and its overflow bucket, bf16, dropout 0.1,
    ``drop_svmr_prob`` 0.8) as the median of 3 runs of 20 fit and 8
@@ -62,9 +62,10 @@ What the card run does, in order (any failure exits non-zero):
    fully masked row; its dropout bits against the plain Philox mask) and
    #2 at the decoder's causal and cross-attention shapes; holds the bf16
    #4 and #5 at their tile edges (``check_mha_edges``: 1 to 1000 keys, 1
-   to 65 queries, head_dim 32, 64 and 128, the backward to 400 rows, rate
-   0 and 0.1, fully masked rows, keep bits read back from both kernels,
-   repeats of the backward bit-identical); builds 64
+   to 65 queries, head_dim 32, 64 and 128, the backward to 1024 rows in
+   bf16 and fp32, the fp32 forward past its old 14,464 keys, rate 0 and
+   0.1, fully masked rows, keep bits read back from both kernels, repeats
+   of the backward bit-identical); builds 64
    synthetic TV videos with 4 clips each in an in-memory store; times
    greedy ``generate_clip_captions`` over all 256 clips in bf16 (8
    videos = 32 caption rows a batch, 30 steps; median of 3 runs after a
@@ -364,20 +365,25 @@ fit-bucket train step, one greedy TVC batch, one TVC train step, one
 optimizer step of each pretraining task and one packed and one unpacked
 pass over the 512 queries to the JSON record, and fails if a CUDA-core attention kernel (packed or
 head-major) ran in any of these bf16 windows, or if the greedy window ran
-no ``mha_attention_mma_kernel``.  ``--daln-times [ROOT]`` does nothing
-but time #8 and #9 of the ``hero_tpu_torch`` under ROOT (this checkout by
-default) at rates 0 and 0.1 and print one JSON line: run on two
-checkouts in turns, it compares them on one card.  ``--bwd3-times
-[ROOT]`` likewise times only #3 (``BWD3_TIME_SHAPES``, fp32 and bf16,
-dropout 0.1), with each shape's bound and, for this checkout, SDPA's
-backward.  Imports nothing of JAX.
+no ``mha_attention_mma_kernel``.  ``--times KERNEL [ROOT]`` does nothing
+but time one kernel group of the ``hero_tpu_torch`` under ROOT (this
+checkout by default, with the library call beside it) and print one JSON
+line: run on two checkouts in turns, it compares them on one card.
+``daln`` times #8 and #9 at rates 0 and 0.1; ``bwd3`` times #3
+(``BWD3_TIME_SHAPES``, fp32 and bf16, dropout 0.1) with each shape's
+bound and SDPA's backward; ``fwd`` times #1/#2 (bf16) at every path shape
+(``FWD_TIME_SHAPES``) with masks modelled on the path's and with every
+key valid, with the share of chunks the skip rule leaves out, and #5
+(bf16, dropout 0.1) at ``MHA_BWD_TIME_SHAPES``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -931,7 +937,9 @@ def _train_tol(ref, dtype):
 def check_attention_train(torch, F, att, B, L, D, H, mask, seg_mode):
     """The forward with dropout and saved probabilities and the backward
     kernel, in fp32 and bf16, at rate 0 and 0.1, against the plain
-    versions on the same inputs; determinism; bf16 timings at rate 0.1."""
+    versions on the same inputs, the saved p exactly 0 wherever the plain
+    p is; determinism; bf16 timings at rate 0.1; the share of chunks the
+    skip rule leaves out at this mask (``skip_share``)."""
     dev = mask.device
     gen = torch.Generator(device=dev).manual_seed(7 * B + L)
     kw = {"seg": mask} if seg_mode else {"kv_mask": mask}
@@ -958,12 +966,16 @@ def check_attention_train(torch, F, att, B, L, D, H, mask, seg_mode):
             rec = {"fwd_err": _err(out, ref), "fwd_tol": _train_tol(ref, name),
                    "probs_err": _err(probs, rprobs),
                    "probs_tol": _train_tol(rprobs, name),
+                   # the forward skips chunks no row of a tile attends:
+                   # its p is exactly 0 wherever the plain p is
+                   "zeros_exact": bool(((rprobs == 0) <= (probs == 0)).all()),
                    "bwd_err": max(_err(a, b) for a, b in zip(grads, rgrads)),
                    "bwd_tol": min(_train_tol(b, name) for b in rgrads),
                    "deterministic": bool(torch.equal(out, out2) and all(
                        torch.equal(a, b) for a, b in zip(grads, again)))}
             rec["ok"] = (rec["fwd_err"] <= rec["fwd_tol"]
                          and rec["probs_err"] <= rec["probs_tol"]
+                         and rec["zeros_exact"]
                          and rec["bwd_err"] <= rec["bwd_tol"]
                          and rec["deterministic"]
                          and all(bool(torch.isfinite(g).all())
@@ -1018,7 +1030,9 @@ def check_attention_train(torch, F, att, B, L, D, H, mask, seg_mode):
         {"shape": [B, L, D], "mode": "train: dropout 0.1, probs saved",
          "max_abs_err": bf["fwd_err"], "tol": bf["fwd_tol"], "ms": fwd_ms,
          "plain_ms": fwd_plain, "bound_ms": fb, "bound_by": fby,
-         "library_ms": lib_fwd, "checks": checks},
+         "library_ms": lib_fwd, "checks": checks,
+         "skip_share": skip_share(np, mask.cpu().numpy(), L, False,
+                                  seg_mode)},
         {"shape": [B, L, D], "heads": H, "dtype": "bfloat16",
          "mask": "segment" if seg_mode else "validity",
          "max_abs_err": bf["bwd_err"], "tol": bf["bwd_tol"], "ms": bwd_ms,
@@ -1169,15 +1183,17 @@ def check_train_kernels(torch, b_fit, b_over, cfg, kernels):
          "shapes": ln}]
 
 
-# Shapes at the bf16 tensor-core kernels' tile edges (16-key chunks,
-# 16-row warp tiles, 64-row forward blocks, the backward's 64-row streamed
-# tiles): key counts, the old fp32 forward's limit at head_dim 64 (417
-# keys), and backward rows at and past the ceilings the backward had
-# before it streamed its tiles (fp32 154, bf16 240), past the bf16
-# forward's 752 keys at head_dim 64 (``EDGE_FWD_MAX``) included.
-EDGE_KEYS = (1, 17, 63, 65, 200, 417)
-EDGE_BWD = (154, 240, 241, 256, 400, 1024)
-EDGE_FWD_MAX = 752
+# Shapes at the packed kernels' tile edges (16-key chunks, 16-row warp
+# tiles, 64-row blocks, the bf16 forward's whole-head limit of 112 keys
+# and its streamed 48- and 112-key tiles, the fp32 forward's and the
+# backward's 64-row tiles): key counts, the
+# old fp32 forward's limit at head_dim 64 (417 keys), and rows at and past
+# the ceilings the backward had before it streamed its tiles (fp32 154,
+# bf16 240) and the bf16 forward's (752 keys at head_dim 64); fp32 at
+# ``EDGE_F32`` of them.
+EDGE_KEYS = (1, 17, 63, 65, 112, 113, 200, 417)
+EDGE_BWD = (154, 240, 241, 256, 400, 753, 1024)
+EDGE_F32 = (113, 753, 1024)
 
 
 def _edge_segments(B, L, seed):
@@ -1194,28 +1210,29 @@ def _edge_segments(B, L, seed):
 
 
 def check_packed_edges(torch, att, drop):
-    """The bf16 packed forward (#1/#2) and backward (#3) at the tile-edge
-    shapes, against the plain versions on the same inputs, with the
-    train tolerances (one bf16 ulp of the largest value): self-attention
-    at every ``EDGE_KEYS`` length in both mask modes, rate 0 and 0.1, saved
-    probabilities, batch row 0 fully masked (finite); the backward at
-    every one of those lengths and at ``EDGE_BWD`` (from the plain
-    forward's probabilities past ``EDGE_FWD_MAX`` keys, which the forward
-    kernel does not take); one query over each key count (Lq = 1); and
-    the keep bits read back from the kernels (value rows e_j give drop(p),
-    output-gradient rows e_i give dv = drop(p)^T) equal to the plain
-    Philox mask."""
+    """The packed forward (#1/#2) and backward (#3) at the tile-edge
+    shapes, 12 heads of 64 (the flagship's) at every length, against the plain versions on the same inputs, with the
+    train tolerances (one bf16 ulp of the largest value; fp32 1e-4 of
+    it): self-attention at every ``EDGE_KEYS`` and ``EDGE_BWD`` length in
+    both mask modes, and the causal bias over each of those key counts
+    with a third as many query rows, rate 0 and 0.1, the forward kernel's
+    saved probabilities (past the 752 keys it once refused) exactly 0
+    wherever the plain ones are and fed to the backward, batch row 0
+    fully masked (finite), in bf16 and (at ``EDGE_F32``) fp32; one query
+    over each key count (Lq = 1); and the keep bits read back from the
+    kernels (value rows e_j give drop(p), output-gradient rows e_i give
+    dv = drop(p)^T) equal to the plain Philox mask."""
     dev = torch.device("cuda")
+    t0 = time.perf_counter()
     H, d = 12, 64
     D = H * d
     gen = torch.Generator(device=dev).manual_seed(91)
     rows = []
 
-    def one(B, Lq, Lk, seg_mode, rate):
-        q = torch.randn((B, Lq, D), generator=gen, device=dev).to(
-            torch.bfloat16)
-        kv = torch.randn((B, Lk, 3 * D), generator=gen, device=dev).to(
-            torch.bfloat16)
+    def one(B, Lq, Lk, seg_mode, rate, causal=False, dtype=torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        q = torch.randn((B, Lq, D), generator=gen, device=dev).to(dtype)
+        kv = torch.randn((B, Lk, 3 * D), generator=gen, device=dev).to(dtype)
         k, v = kv[..., :D], kv[..., D:2 * D]
         if seg_mode:
             qkv = torch.cat([q, kv[..., :2 * D]], -1)
@@ -1229,34 +1246,32 @@ def check_packed_edges(torch, att, drop):
                                  device=dev)
             mask = (torch.arange(Lk, device=dev)[None] < lens).float()
             mask[0] = 0.0
-            kw = {"kv_mask": mask}
-            launch = att.valid_attention_cuda
+            kw = {"kv_mask": mask, "causal": causal}
+            launch = functools.partial(att.valid_attention_cuda,
+                                       causal=causal)
         ref, probs = att.packed_forward_reference(
             q, k, v, H, dropout_rate=rate, seed=TRAIN_SEED, save_probs=True,
             **kw)
-        rec = {"shape": [B, Lq, Lk, D], "mask": "segment" if seg_mode
-               else "validity", "rate": rate}
-        ok = True
-        if Lk <= EDGE_FWD_MAX:
-            out, probs_k = launch(q, k, v, H, mask, rate, TRAIN_SEED, True)
-            rec.update(fwd_err=_err(out, ref),
-                       fwd_tol=_train_tol(ref, "bfloat16"),
-                       probs_err=_err(probs_k, probs),
-                       probs_tol=_train_tol(probs, "bfloat16"))
-            ok = (rec["fwd_err"] <= rec["fwd_tol"]
-                  and rec["probs_err"] <= rec["probs_tol"]
-                  and bool(torch.isfinite(out).all()))
-            probs = probs_k
-        dout = torch.randn((B, Lq, D), generator=gen, device=dev).to(
-            torch.bfloat16)
-        grads = att.attention_bwd_cuda(probs, q, k, v, dout, H, rate,
+        rec = {"shape": [B, Lq, Lk, D], "dtype": name,
+               "mask": "segment" if seg_mode else "validity",
+               "causal": causal, "rate": rate}
+        out, probs_k = launch(q, k, v, H, mask, rate, TRAIN_SEED, True)
+        rec.update(fwd_err=_err(out, ref), fwd_tol=_train_tol(ref, name),
+                   probs_err=_err(probs_k, probs),
+                   probs_tol=_train_tol(probs, name),
+                   zeros_exact=bool(((probs == 0) <= (probs_k == 0)).all()))
+        ok = (rec["fwd_err"] <= rec["fwd_tol"]
+              and rec["probs_err"] <= rec["probs_tol"]
+              and rec["zeros_exact"] and bool(torch.isfinite(out).all()))
+        dout = torch.randn((B, Lq, D), generator=gen, device=dev).to(dtype)
+        grads = att.attention_bwd_cuda(probs_k, q, k, v, dout, H, rate,
                                        TRAIN_SEED)
-        rgrads = att.packed_backward_reference(probs, q, k, v, dout, H,
+        rgrads = att.packed_backward_reference(probs_k, q, k, v, dout, H,
                                                rate, TRAIN_SEED)
-        again = att.attention_bwd_cuda(probs, q, k, v, dout, H, rate,
+        again = att.attention_bwd_cuda(probs_k, q, k, v, dout, H, rate,
                                        TRAIN_SEED)
         rec["bwd_err"] = max(_err(a, b) for a, b in zip(grads, rgrads))
-        rec["bwd_tol"] = min(_train_tol(b, "bfloat16") for b in rgrads)
+        rec["bwd_tol"] = min(_train_tol(b, name) for b in rgrads)
         rec["deterministic"] = all(torch.equal(a, b)
                                    for a, b in zip(grads, again))
         rec["ok"] = (ok and rec["bwd_err"] <= rec["bwd_tol"]
@@ -1267,9 +1282,12 @@ def check_packed_edges(torch, att, drop):
             raise AssertionError(f"packed attention edge shape: {rec}")
 
     for L in EDGE_KEYS + EDGE_BWD:
-        for seg_mode in (False, True):
+        for dtype in ((torch.bfloat16, torch.float32) if L in EDGE_F32
+                      else (torch.bfloat16,)):
             for rate in (0.0, TRAIN_RATE):
-                one(2, L, L, seg_mode, rate)
+                for seg_mode in (False, True):
+                    one(2, L, L, seg_mode, rate, dtype=dtype)
+                one(2, max(1, L // 3), L, False, rate, True, dtype)
     for Lk in EDGE_KEYS:
         one(4, 1, Lk, False, TRAIN_RATE)
 
@@ -1294,32 +1312,42 @@ def check_packed_edges(torch, att, drop):
     if not (masks["forward_equals_plain"]
             and masks["backward_equals_plain"]):
         raise AssertionError(f"packed attention keep bits: {masks}")
-    return {"cases": rows, "n_cases": len(rows), "keep_bits": masks}
+    torch.cuda.synchronize()
+    return {"cases": rows, "n_cases": len(rows), "keep_bits": masks,
+            "seconds": time.perf_counter() - t0}
 
 
 # Shapes at the bf16 head-major kernels' tile edges (16-key chunks, 64-key
 # streamed tiles, 16-row warp tiles, 64-row forward blocks): every query
 # count of MHA_EDGE_QUERIES over every key count of MHA_EDGE_KEYS at
-# head_dim 64, and (B, H, Lq, Lk, head_dim, causal, backward) beside them:
-# a forward past the packed forward's 752 keys, head_dim 32 and 128, and
-# the backward at the fp32 kernel's longest square head (154 rows) and
-# the bf16 kernel's (400 at head_dim 64, 208 at 128).
+# head_dim 64, and (B, H, Lq, Lk, head_dim, causal, backward, dtype)
+# beside them: a forward past the packed forward's old 752 keys, head_dim
+# 32 and 128, the backward at and past the ceilings of the whole-head
+# kernels it replaced (fp32 154 rows, bf16 400 at head_dim 64 and 208 at
+# 128) to 1024 rows, and the fp32 forward past its old 14,464 keys.
 MHA_EDGE_KEYS = (1, 16, 17, 64, 65, 129)
 MHA_EDGE_QUERIES = (1, 16, 17, 65)
-MHA_EDGE_EXTRA = ((2, 2, 3, 1000, 64, False, False),
-                  (3, 2, 17, 65, 32, True, True),
-                  (3, 2, 17, 65, 128, True, True),
-                  (2, 4, 154, 154, 64, True, True),
-                  (2, 2, 400, 400, 64, False, True),
-                  (2, 2, 208, 208, 128, True, True))
+MHA_EDGE_EXTRA = ((2, 2, 3, 1000, 64, False, False, "bfloat16"),
+                  (3, 2, 17, 65, 32, True, True, "bfloat16"),
+                  (3, 2, 17, 65, 128, True, True, "bfloat16"),
+                  (2, 4, 154, 154, 64, True, True, "bfloat16"),
+                  (2, 2, 400, 400, 64, False, True, "bfloat16"),
+                  (2, 2, 401, 401, 64, True, True, "bfloat16"),
+                  (2, 2, 1024, 1024, 64, False, True, "bfloat16"),
+                  (2, 2, 208, 208, 128, True, True, "bfloat16"),
+                  (2, 2, 209, 209, 128, False, True, "bfloat16"),
+                  (2, 2, 401, 401, 64, True, True, "float32"),
+                  (2, 2, 1024, 1024, 64, False, True, "float32"),
+                  (2, 2, 1, 14465, 64, False, False, "float32"))
 
 
 def check_mha_edges(torch, att, drop):
-    """The bf16 head-major forward (#4) and backward (#5) at their tile
-    edges, against the plain versions on the same inputs with the train
-    tolerances (one bf16 ulp of each output's largest value), at rate 0
-    and 0.1: every ``MHA_EDGE_QUERIES`` x ``MHA_EDGE_KEYS`` pair at
-    head_dim 64, causal and not, and ``MHA_EDGE_EXTRA``; the last batch
+    """The head-major forward (#4) and backward (#5) at their tile edges,
+    against the plain versions on the same inputs with the train
+    tolerances (one bf16 ulp of each output's largest value; fp32 1e-4
+    of it), at rate 0 and 0.1: every ``MHA_EDGE_QUERIES`` x
+    ``MHA_EDGE_KEYS`` pair at head_dim 64, causal and not, in bf16, and
+    ``MHA_EDGE_EXTRA`` in its dtypes; the last batch
     row fully masked (finite, and the unmasked attention up to the
     rounding of s - 1e4, as in :func:`check_mha` and
     :func:`check_mha_bwd`); every backward repeated bit for bit; and the
@@ -1327,17 +1355,17 @@ def check_mha_edges(torch, att, drop):
     output-gradient rows e_i give dv = drop(p)^T) equal to the plain
     Philox mask."""
     dev = torch.device("cuda")
-    dt = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(93)
     rows = []
 
-    def over_tol(got, want):
-        # the worst |got - want| / one bf16 ulp of max |want| of the
+    def over_tol(got, want, name):
+        # the worst |got - want| / the tolerance of max |want| of the
         # outputs; a gradient that is exactly 0 (one key: dq) must be 0
-        return max(_err(a, w) / max(_train_tol(w, "bfloat16"), 1e-30)
+        return max(_err(a, w) / max(_train_tol(w, name), 1e-30)
                    for a, w in zip(got, want))
 
-    def one(B, H, Lq, Lk, d, causal, rate, backward):
+    def one(B, H, Lq, Lk, d, causal, rate, backward, name="bfloat16"):
+        dt = getattr(torch, name)
         q, g = (torch.randn((B, H, Lq, d), generator=gen, device=dev).to(dt)
                 for _ in range(2))
         k, v = (torch.randn((B, H, Lk, d), generator=gen, device=dev).to(dt)
@@ -1347,15 +1375,16 @@ def check_mha_edges(torch, att, drop):
         mask[-1] = 0.0
         out = att.mha_attention_cuda(q, k, v, mask, rate, TRAIN_SEED, causal)
         ref = att.mha_reference(q, k, v, mask, rate, TRAIN_SEED, causal)
-        rec = {"shape": [B, H, Lq, Lk, d], "causal": causal, "rate": rate,
-               "fwd_err_over_tol": over_tol([out[:-1]], [ref[:-1]]),
+        rec = {"shape": [B, H, Lq, Lk, d], "dtype": name, "causal": causal,
+               "rate": rate,
+               "fwd_err_over_tol": over_tol([out[:-1]], [ref[:-1]], name),
                "finite": bool(torch.isfinite(out).all())}
         ok = rec["fwd_err_over_tol"] <= 1.0 and rec["finite"]
         if not rate:
             free = att.mha_reference(q[-1:], k[-1:], v[-1:], causal=causal)
             rec["masked_row_err"] = _err(out[-1:], free)
             rec["masked_row_tol"] = (2.0 ** -9 * float(v[-1].float().abs().max())
-                                     + _train_tol(ref[:-1], "bfloat16"))
+                                     + _train_tol(ref[:-1], name))
             ok = ok and rec["masked_row_err"] <= rec["masked_row_tol"]
         if backward:
             args = (q, k, v, mask, g, rate, TRAIN_SEED, causal)
@@ -1364,7 +1393,7 @@ def check_mha_edges(torch, att, drop):
             again = att.mha_attention_bwd_cuda(*args)
             top = max(float(w.float().abs().max()) for w in want)
             rec["bwd_err_over_tol"] = over_tol([a[:-1] for a in grads],
-                                               [w[:-1] for w in want])
+                                               [w[:-1] for w in want], name)
             rec["bwd_masked_row_err"] = max(_err(a[-1], w[-1])
                                             for a, w in zip(grads, want))
             rec["bwd_masked_row_tol"] = 2.0 ** -6 * max(1.0, top)
@@ -1384,11 +1413,11 @@ def check_mha_edges(torch, att, drop):
             for causal in (False, True):
                 for rate in (0.0, TRAIN_RATE):
                     one(3, 2, Lq, Lk, 64, causal, rate, True)
-    for B, H, Lq, Lk, d, causal, backward in MHA_EDGE_EXTRA:
+    for B, H, Lq, Lk, d, causal, backward, name in MHA_EDGE_EXTRA:
         for rate in (0.0, TRAIN_RATE):
-            one(B, H, Lq, Lk, d, causal, rate, backward)
+            one(B, H, Lq, Lk, d, causal, rate, backward, name)
 
-    B, H, L, d = 2, 12, 60, 64
+    B, H, L, d, dt = 2, 12, 60, 64, torch.bfloat16
     q, k = (torch.randn((B, H, L, d), generator=gen, device=dev).to(dt)
             for _ in range(2))
     eye = torch.eye(L, d, device=dev, dtype=dt).expand(B, H, L, d)
@@ -2740,9 +2769,10 @@ def check_decoder_train(torch, F, att, B, Lq, Lk, D, H, causal, mode=None):
     """#2 with dropout 0.1, saved probabilities and (self-attention) the
     causal bias, and #3 from those probabilities, at a TVC train decoder
     shape (or another Lq -> Lk shape, labelled ``mode``), fp32 and bf16
-    at rate 0 and 0.1, against the plain versions; the last batch row a
-    padded clip slot with no valid key (finite); repeats identical.  bf16
-    timings at rate 0.1."""
+    at rate 0 and 0.1, against the plain versions, the saved p exactly 0
+    wherever the plain p is; the last batch row a padded clip slot with
+    no valid key (finite); repeats identical.  bf16 timings at rate
+    0.1."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11 * B + Lq + Lk)
     lens = torch.randint(2, Lk + 1, (B, 1), generator=gen, device=dev)
@@ -2772,6 +2802,7 @@ def check_decoder_train(torch, F, att, B, Lq, Lk, D, H, causal, mode=None):
                    "fwd_tol": _train_tol(ref, name),
                    "probs_err": _err(probs[:-1], rprobs[:-1]),
                    "probs_tol": _train_tol(rprobs, name),
+                   "zeros_exact": bool(((rprobs == 0) <= (probs == 0)).all()),
                    "bwd_err": max(_err(a, b) for a, b in zip(grads, rgrads)),
                    "bwd_tol": min(_train_tol(b, name) for b in rgrads),
                    "finite": all(bool(torch.isfinite(t).all())
@@ -2780,6 +2811,7 @@ def check_decoder_train(torch, F, att, B, Lq, Lk, D, H, causal, mode=None):
                                         for a, b in zip(grads, again))}
             rec["ok"] = (rec["fwd_err"] <= rec["fwd_tol"]
                          and rec["probs_err"] <= rec["probs_tol"]
+                         and rec["zeros_exact"]
                          and rec["bwd_err"] <= rec["bwd_tol"]
                          and rec["finite"] and rec["deterministic"])
             checks[f"{name}_rate{rate}"] = rec
@@ -6810,6 +6842,16 @@ DALN_SHAPES = ((COMP_ROWS * COMP_LEN, 768), (COMP_ROWS, 4352))
 DALN_KEEP_BANDS = {(1024, 768): (0.88, 0.92), (256, 4352): (0.87, 0.93)}
 
 
+def mha_bwd_bound(B, H, Lq, Lk, d, elt):
+    """(bound ms, bound_by) of #5 at (B, H, Lq, Lk, d) of ``elt``-byte
+    elements: q and dO read and dq written (Lq rows), k and v read and dk
+    and dv written (Lk rows), each once, the fp32 key mask read; the
+    probabilities recomputed (2 Lq Lk d flops a head), dp, dv, dq and dk
+    (2 Lq Lk d each) on the tensor cores."""
+    return bound_ms((3 * Lq + 4 * Lk) * B * H * d * elt + B * Lk * 4,
+                    10 * B * H * Lq * Lk * d, "bfloat16")
+
+
 def check_mha_bwd(torch, F, att, B, H, Lq, Lk, d, causal):
     """#5 against ``mha_backward_reference``, fp32 and bf16 at rate 0 and
     0.1, with a partial key mask and a fully masked last batch row
@@ -6870,12 +6912,7 @@ def check_mha_bwd(torch, F, att, B, H, Lq, Lk, d, causal):
                                                  dropout_p=rate)
     lib_ms = time_ms(torch, lambda: torch.autograd.grad(
         lib_out, (hq, hk, hv), g, retain_graph=True))
-    elt = q.element_size()
-    # q, do read and dq written (Lq rows), k, v read and dk, dv written (Lk
-    # rows), each once, the mask read; the probabilities recomputed
-    # (2 Lq Lk d), dp, dv, dq, dk (2 Lq Lk d each)
-    b_ms, by = bound_ms((3 * Lq + 4 * Lk) * B * H * d * elt + B * Lk * 4,
-                        10 * B * H * Lq * Lk * d, "bfloat16")
+    b_ms, by = mha_bwd_bound(B, H, Lq, Lk, d, q.element_size())
     bf = checks["bfloat16_rate0.1"]
     return {"shape": [B, H, Lq, Lk, d],
             "mode": ("causal, " if causal else "") + "dropout 0.1",
@@ -7008,7 +7045,7 @@ def daln_times(torch, lnm, y, x, w, b, g, rate):
 def daln_ab(torch, lnm):
     """#8 and #9 of the imported package, bf16, at ``DALN_SHAPES`` and
     (1024, 768): device ms at rates 0 (no draw) and 0.1.  For an A/B of
-    two checkouts on one card (``--daln-times ROOT``, in turns); checks
+    two checkouts on one card (``--times daln ROOT``, in turns); checks
     nothing."""
     dev = torch.device("cuda")
     rows = []
@@ -7026,7 +7063,7 @@ def daln_ab(torch, lnm):
     return rows
 
 
-# #3's shapes for ``--bwd3-times``: (B, Lq, Lk, width, heads), every path
+# #3's shapes for ``--times bwd3``: (B, Lq, Lk, width, heads), every path
 # shape of PERF.md's #3 rows (the VSM train step's four, the TVC
 # decoder's causal and cross-attention, the components', pretraining's,
 # the programs', the dp modes') and square heads at and past the old
@@ -7058,7 +7095,7 @@ def bwd3_times(torch, att, library):
     softmax of random scores, so none is 0 and every element draws its
     keep bit (the most the kernels draw; a path's masks give zeros that
     draw nothing, as the smoke's own rows at the batches' masks show).
-    Checks nothing: an A/B of two checkouts on one card (``--bwd3-times
+    Checks nothing: an A/B of two checkouts on one card (``--times bwd3
     ROOT``, in turns)."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
@@ -7102,6 +7139,263 @@ def bwd3_times(torch, att, library):
             del q, dout, k, v, probs
             torch.cuda.empty_cache()
     return rows
+
+
+# #1/#2's shapes for ``--times fwd``: every path shape of PERF.md's #1/#2
+# rows as (name, B, Lq, Lk, width, heads, mask, causal, rate).  The masks
+# are modelled on the paths', not taken from their batches (the smoke's
+# own rows at the batches' masks give the share the skip rule leaves out
+# there): mask "packed F T" is packed f-encoder rows ([F frame slots | T
+# text slots], 4 subs a row, each sub's frames and tokens one segment, pad
+# slots -1),
+# "queries N" packed query rows of 30 slots (1-N queries a row, pad slots;
+# "queries 0": one row of queries, the rest all-pad rows), "frames" a
+# valid prefix of frames, "tokens" a valid prefix of tokens, "unpacked F
+# T" [frames | tokens] each a valid prefix, "fused" the fused c-encoder's
+# [frames, pad frames, QA tokens, pad], "all" every key valid; rate 0.1
+# saves the probabilities (training), rate 0 does not (serving).
+FWD_TIME_SHAPES = (
+    ("serving f-encoder", 200, 104, 104, 768, 12, "packed 16 88", False, 0.0),
+    ("packed queries, first call", 64, 30, 30, 768, 12, "queries 4", False,
+     0.0),
+    ("packed queries, last call", 64, 30, 30, 768, 12, "queries 0", False,
+     0.0),
+    ("train f-encoder", 128, 104, 104, 768, 12, "packed 16 88", False, 0.1),
+    ("train f-encoder overflow", 128, 144, 144, 768, 12, "packed 24 120",
+     False, 0.1),
+    ("pretrain f-encoder", 256, 138, 138, 768, 12, "packed 18 120", False,
+     0.0),
+    ("pretrain f-encoder train", 256, 138, 138, 768, 12, "packed 18 120",
+     False, 0.1),
+    ("qa --pack_subs f-encoder train", 160, 200, 200, 768, 12,
+     "packed 40 160", False, 0.1),
+    ("dp PP f-encoder train", 64, 104, 104, 768, 12, "packed 16 88", False,
+     0.1),
+    ("dp TP f-encoder train", 128, 104, 104, 384, 6, "packed 16 88", False,
+     0.1),
+    ("prepro f-encoder", 256, 96, 96, 768, 12, "packed 16 80", False, 0.0),
+    ("serving c-encoder", 50, 100, 100, 768, 12, "frames", False, 0.0),
+    ("serving queries", 64, 30, 30, 768, 12, "tokens", False, 0.0),
+    ("train c-encoder", 32, 100, 100, 768, 12, "frames", False, 0.1),
+    ("train queries", 64, 30, 30, 768, 12, "tokens", False, 0.1),
+    ("tvc causal", 32, 31, 31, 768, 12, "all", True, 0.0),
+    ("tvc cross", 32, 1, 100, 768, 12, "frames", False, 0.0),
+    ("tvc train causal", 8, 62, 62, 768, 12, "all", True, 0.1),
+    ("tvc train cross", 8, 62, 100, 768, 12, "frames", False, 0.1),
+    ("components f-encoder", 256, 56, 56, 768, 12, "all", False, 0.0),
+    ("components f-encoder train", 256, 56, 56, 768, 12, "all", False, 0.1),
+    ("components c-encoder train", 32, 100, 100, 768, 12, "all", False,
+     0.1),
+    ("pretrain VSM queries train", 160, 32, 32, 768, 12, "tokens", False,
+     0.1),
+    ("tvc_program f-encoder train", 128, 136, 136, 768, 12,
+     "unpacked 16 120", False, 0.1),
+    ("tvc_program validation f-encoder", 256, 136, 136, 768, 12,
+     "unpacked 16 120", False, 0.0),
+    ("vcmr_program TVR f-encoder train", 1024, 77, 77, 768, 12,
+     "unpacked 16 61", False, 0.1),
+    ("vcmr_program MSR-VTT f-encoder train", 96, 161, 161, 768, 12,
+     "unpacked 40 121", False, 0.1),
+    ("qa_program TVQA f-encoder train", 640, 136, 136, 768, 12,
+     "unpacked 16 120", False, 0.1),
+    ("qa_program fused c-encoder train", 20, 132, 132, 768, 12, "fused",
+     False, 0.1),
+    ("dp TP c-encoder train", 32, 100, 100, 384, 6, "frames", False, 0.1),
+    ("dp SP seq rank train", 32, 50, 100, 768, 12, "frames", False, 0.1),
+    ("prepro c-encoder", 32, 100, 100, 768, 12, "frames", False, 0.0),
+)
+# #5's shapes for ``--times fwd``: (name, B, H, Lq, Lk, head_dim, causal),
+# dropout 0.1: the components' and TVC's, and past the old ceilings
+MHA_BWD_TIME_SHAPES = (
+    ("components", 256, 12, 56, 56, 64, False),
+    ("tvc causal", 32, 12, 31, 31, 64, True),
+    ("tvc cross", 8, 12, 62, 100, 64, False),
+    ("square 400", 4, 12, 400, 400, 64, False),
+    ("square 401", 4, 12, 401, 401, 64, False),
+    ("square 1024", 2, 12, 1024, 1024, 64, True),
+)
+
+
+def fwd_time_mask(np, kind, B, Lk, seed):
+    """The key mask of ``FWD_TIME_SHAPES``' ``kind`` for B rows of Lk
+    slots: int32 segment ids (the packed kinds) or float validity."""
+    r = np.random.RandomState(seed)
+    words = kind.split()
+    if words[0] == "packed":
+        nf, nt = int(words[1]), int(words[2])
+        seg = np.full((B, Lk), -1, np.int32)
+        for b in range(B):
+            cuts = np.sort(r.choice(np.arange(1, nf), 3, replace=False))
+            fl = np.diff(np.concatenate([[0], cuts, [nf]]))
+            used = int(r.randint(nt * 3 // 4, nt + 1))
+            cuts = np.sort(r.choice(np.arange(4, used - 3), 3,
+                                    replace=False))
+            tl = np.diff(np.concatenate([[0], cuts, [used]]))
+            f0, t0 = 0, nf
+            for s in range(4):
+                seg[b, f0:f0 + fl[s]] = s
+                seg[b, t0:t0 + tl[s]] = s
+                f0, t0 = f0 + fl[s], t0 + tl[s]
+        return seg
+    if words[0] == "queries":
+        seg = np.full((B, Lk), -1, np.int32)
+        rows = 1 if words[1] == "0" else B
+        for b in range(rows):
+            pos, s = 0, 0
+            for _ in range(int(r.randint(1, max(2, int(words[1]) + 1)))):
+                n = int(r.randint(4, 12))
+                if pos + n > Lk:
+                    break
+                seg[b, pos:pos + n] = s
+                pos, s = pos + n, s + 1
+        return seg
+    if words[0] == "all":
+        return np.ones((B, Lk), np.float32)
+    if words[0] == "unpacked":
+        nf, nt = int(words[1]), int(words[2])
+        m = np.zeros((B, Lk), np.float32)
+        fl = r.randint(nf // 2, nf + 1, B)
+        tl = r.randint(nt // 3, nt + 1, B)
+        for b in range(B):
+            m[b, :fl[b]] = 1.0
+            m[b, nf:nf + tl[b]] = 1.0
+        return m
+    if words[0] == "fused":
+        m = np.zeros((B, Lk), np.float32)
+        for b in range(B):
+            m[b, :int(r.randint(50, 101))] = 1.0
+            m[b, 100:100 + int(r.randint(10, 33))] = 1.0
+        return m
+    lo = Lk // 2 if words[0] == "frames" else 4
+    lens = r.randint(lo, Lk + 1, B)
+    return (np.arange(Lk)[None] < lens[:, None]).astype(np.float32)
+
+
+def skip_share(np, mask, Lq, causal, seg):
+    """The share of (16-row tile, 16-key chunk) pairs that the bf16
+    forward's skip rule leaves out at these masks (segment ids if
+    ``seg``, else key validity), computed here from the rule, not counted
+    by the kernel: no row of the tile attends a key of the chunk, every
+    row of the tile attends some key, and the chunk is one of the first
+    64.  The kernel marks a chunk only once its rows' running max holds an
+    attended key, and not where scores spread past its 1000 margin
+    (``kSkipGap``), so it skips at most this share."""
+    B, Lk = mask.shape
+    nt, nc = (Lq + 15) // 16, (Lk + 15) // 16
+    if seg:
+        rows = mask[:, :Lq]
+        allowed = (rows[:, :, None] == mask[:, None]) & (rows >= 0)[:, :, None]
+    else:
+        allowed = np.broadcast_to(mask[:, None] > 0, (B, Lq, Lk))
+    if causal:
+        allowed = allowed & (np.arange(Lk)[None]
+                             <= np.arange(Lq)[:, None] + (Lk - Lq))
+    attends = np.ones((B, 16 * nt), bool)
+    attends[:, :Lq] = allowed.any(2)
+    tile_ok = attends.reshape(B, nt, 16).all(2)
+    grid = np.zeros((B, 16 * nt, 16 * nc), bool)
+    grid[:, :Lq, :Lk] = allowed
+    dead = ~grid.reshape(B, nt, 16, nc, 16).any((2, 4))
+    dead[:, :, 64:] = False
+    return float((dead & tile_ok[:, :, None]).sum()) / (B * nt * nc)
+
+
+def fwd_times(torch, att, library):
+    """#1/#2 (bf16) of the imported package at ``FWD_TIME_SHAPES`` with the
+    masks modelled on the path's and with every key valid (one segment, no
+    pad slot), and #5 (bf16, dropout 0.1) at ``MHA_BWD_TIME_SHAPES``:
+    device ms (``time_ms``) or the error a shape raised, the bound (#1/#2:
+    q, k, v and the output once, the mask, the saved p in training, 4 Lq
+    Lk d flops a head; #5: ``mha_bwd_bound``), the share of chunks the
+    skip rule leaves out at the modelled masks (``skip_share``) and, with
+    ``library``, SDPA on the same inputs (the additive mask; #5: its
+    backward with dropout 0.1).  Checks nothing: an A/B of two checkouts
+    on one card (``--times fwd ROOT``, in turns)."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    dtype = torch.bfloat16
+    rows = []
+    for name, B, Lq, Lk, D, H, kind, causal, rate in FWD_TIME_SHAPES:
+        d = D // H
+        gen = torch.Generator(device=dev).manual_seed(B + Lq + 3 * Lk)
+        q = torch.randn((B, Lq, D), generator=gen, device=dev).to(dtype)
+        k, v = torch.randn((B, Lk, 2 * D), generator=gen,
+                           device=dev).to(dtype).split(D, dim=-1)
+        mask_np = fwd_time_mask(np, kind, B, Lk, B + Lk)
+        seg_mode = mask_np.dtype == np.int32
+        dense = (np.zeros((B, Lk), np.int32) if seg_mode
+                 else np.ones((B, Lk), np.float32))
+        save = rate > 0
+        n_bytes = (2 * B * Lq * D + 2 * B * Lk * D) * 2 + B * Lk * 4 + (
+            B * H * Lq * Lk * 2 if save else 0)
+        b_ms, by = bound_ms(n_bytes, 4 * B * H * Lq * Lk * d, "bfloat16")
+        row = {"name": name, "shape": [B, Lq, Lk, D], "heads": H,
+               "mask": kind, "causal": causal, "rate": rate,
+               "bound_ms": b_ms, "bound_by": by,
+               "skip_share": skip_share(np, mask_np, Lq, causal, seg_mode)}
+        for key, m_np in (("ms", mask_np), ("dense_ms", dense)):
+            mask = torch.from_numpy(m_np).to(dev)
+            launch = (att.seg_attention_cuda if seg_mode else
+                      functools.partial(att.valid_attention_cuda,
+                                        causal=causal))
+            try:
+                row[key] = time_ms(torch, lambda: launch(
+                    q, k, v, H, mask, rate, TRAIN_SEED, save))
+            except (ValueError, RuntimeError) as e:
+                row[key] = None
+                row["refused"] = str(e)
+        if library:
+            m = torch.from_numpy(mask_np).to(dev)
+            if seg_mode:
+                sq = m[:, :Lq]
+                allowed = (sq[:, :, None] == m[:, None, :]) & (
+                    sq >= 0)[:, :, None]
+            else:
+                allowed = (m[:, None, :] > 0).expand(B, Lq, Lk)
+            if causal:
+                allowed = allowed & (torch.arange(Lk, device=dev)[None]
+                                     <= torch.arange(Lq, device=dev)[:, None]
+                                     + (Lk - Lq))
+            bias = torch.where(allowed, 0.0, -1e4).to(dtype)[:, None]
+
+            def heads(t, n):
+                return t.reshape(B, n, H, d).transpose(1, 2)
+            row["library_ms"] = time_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    heads(q, Lq), heads(k, Lk), heads(v, Lk),
+                    attn_mask=bias, dropout_p=rate))
+        rows.append(row)
+        log("fwd", json.dumps(row))
+        del q, k, v
+        torch.cuda.empty_cache()
+    bwd = []
+    for name, B, H, Lq, Lk, d, causal in MHA_BWD_TIME_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(B + Lq + 3 * Lk)
+        q, g = (torch.randn((B, H, Lq, d), generator=gen, device=dev).to(
+            dtype) for _ in range(2))
+        k, v = (torch.randn((B, H, Lk, d), generator=gen, device=dev).to(
+            dtype) for _ in range(2))
+        mask = torch.ones((B, Lk), device=dev)
+        b_ms, by = mha_bwd_bound(B, H, Lq, Lk, d, q.element_size())
+        row = {"name": name, "shape": [B, H, Lq, Lk, d], "causal": causal,
+               "rate": TRAIN_RATE, "bound_ms": b_ms, "bound_by": by}
+        try:
+            row["ms"] = time_ms(torch, lambda: att.mha_attention_bwd_cuda(
+                q, k, v, mask, g, TRAIN_RATE, TRAIN_SEED, causal))
+        except (ValueError, RuntimeError) as e:
+            row["ms"] = None
+            row["refused"] = str(e)
+        if library:
+            hq, hk, hv = (t.detach().requires_grad_(True) for t in (q, k, v))
+            with torch.enable_grad():
+                out = F.scaled_dot_product_attention(
+                    hq, hk, hv, dropout_p=TRAIN_RATE, is_causal=causal)
+            row["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+                out, (hq, hk, hv), g, retain_graph=True))
+            del out
+        bwd.append(row)
+        log("mha_bwd", json.dumps(row))
+    return {"fwd": rows, "mha_bwd": bwd}
 
 
 def _component_row(row, what):
@@ -7332,18 +7626,20 @@ def main(argv=None):
                          "one unpacked pass over the queries with "
                          "torch.profiler and record device time by kernel "
                          "class (in the --json-out record)")
-    ap.add_argument("--daln-times", metavar="ROOT", nargs="?", const="",
-                    help="only time #8 and #9 (bf16, rates 0 and 0.1) "
-                         "of the hero_tpu_torch package under ROOT "
-                         "(default: this checkout) and print one JSON "
-                         "line: an A/B of two checkouts on one card, run "
-                         "in turns")
-    ap.add_argument("--bwd3-times", metavar="ROOT", nargs="?", const="",
-                    help="only time #3 (bf16 and fp32, dropout 0.1, "
-                         "BWD3_TIME_SHAPES) of the hero_tpu_torch package "
-                         "under ROOT (default: this checkout, with SDPA's "
-                         "backward beside it) and print one JSON line")
+    ap.add_argument("--times", nargs="+", metavar=("KERNEL", "ROOT"),
+                    help="only time KERNEL of the hero_tpu_torch package "
+                         "under ROOT (default: this checkout, with the "
+                         "library call beside it) and print one JSON line: "
+                         "daln (#8 and #9, bf16, rates 0 and 0.1), bwd3 (#3, "
+                         "bf16 and fp32, dropout 0.1, BWD3_TIME_SHAPES) or "
+                         "fwd (#1/#2, bf16, FWD_TIME_SHAPES, the modelled "
+                         "masks and every key valid; #5, bf16, dropout 0.1, "
+                         "MHA_BWD_TIME_SHAPES); an A/B of two checkouts on "
+                         "one card, run in turns")
     args = ap.parse_args(argv)
+    if args.times and (args.times[0] not in ("daln", "bwd3", "fwd")
+                       or len(args.times) > 2):
+        ap.error("--times takes daln, bwd3 or fwd and at most one ROOT")
 
     import torch
     rehearse = args.rehearse
@@ -7352,20 +7648,18 @@ def main(argv=None):
             "needs one CUDA card")
         return 2
     here = os.path.dirname(os.path.abspath(__file__))
-    if args.daln_times is not None:
-        root = os.path.abspath(args.daln_times or here)
-        sys.path.insert(0, root)
-        from hero_tpu_torch.ops import layernorm as lnm
-        print(json.dumps({"root": root, "package": lnm.__file__,
-                          "daln": daln_ab(torch, lnm),
-                          "card": gpu_identity()}))
-        return 0
-    if args.bwd3_times is not None:
-        root = os.path.abspath(args.bwd3_times or here)
+    if args.times:
+        what = args.times[0]
+        root = os.path.abspath(args.times[1] if len(args.times) > 1 else here)
         sys.path.insert(0, root)
         from hero_tpu_torch.ops import attention as att
-        print(json.dumps({"root": root, "package": att.__file__,
-                          "bwd3": bwd3_times(torch, att, root == here),
+        from hero_tpu_torch.ops import layernorm as lnm
+        library = root == here
+        rows = {"daln": lambda: {"daln": daln_ab(torch, lnm)},
+                "bwd3": lambda: {"bwd3": bwd3_times(torch, att, library)},
+                "fwd": lambda: fwd_times(torch, att, library)}[what]()
+        print(json.dumps({"root": root, "kernel": what,
+                          "package": os.path.dirname(att.__file__), **rows,
                           "card": gpu_identity()}))
         return 0
     sys.path.insert(0, here)
@@ -7397,10 +7691,15 @@ def main(argv=None):
         record["versions"] = {"python": sys.version.split()[0],
                               "torch": torch.__version__,
                               "cuda": torch.version.cuda}
-        t0 = time.perf_counter()
-        cuda_build.build()
-        record["build_s"] = time.perf_counter() - t0
-        log(f"kernels built in {record['build_s']:.1f} s")
+        # the kernels build (one nvcc a source) while the corpus, the
+        # queries and the weights are made on the host
+        t_build = time.perf_counter()
+
+        def build():
+            cuda_build.build()
+            return time.perf_counter() - t_build
+        build_pool = concurrent.futures.ThreadPoolExecutor(1)
+        built = build_pool.submit(build)
         cfg = flagship_config()
         n_videos, video_bs = N_VIDEOS, VIDEO_BS
         n_queries, query_bs = N_QUERIES, QUERY_BS
@@ -7423,6 +7722,10 @@ def main(argv=None):
     record["setup_s"] = time.perf_counter() - t0
     record["subs_dropped_frac"] = dropped
     log(f"setup (corpus, queries, weights) {record['setup_s']:.1f} s")
+    if not rehearse:
+        record["build_s"] = built.result()
+        build_pool.shutdown()
+        log(f"kernels built in {record['build_s']:.1f} s, beside the setup")
 
     if not rehearse:
         from hero_tpu_torch.evaluation.vcmr_eval import pack_query_arrays

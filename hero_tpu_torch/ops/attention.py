@@ -35,13 +35,14 @@ layout) or recomputes them (the head-major one):
 tensor takes the plain versions; a CUDA tensor launches
 ``csrc/attention.cu`` or raises.  On both layouts a bf16 call takes the
 tensor-core kernels and an fp32 call the CUDA-core ones, chosen inside
-the C entry point.  The packed backward (#3) streams both lengths
-through shared memory in 64-row tiles and takes every Lq and Lk; the
-forward kernels and the head-major backward stage whole heads, and a
-shape whose tiles exceed a block's shared memory raises there
-(``_check_smem``).  Probabilities are
-written, and dropout drawn, only when the call needs a gradient or a rate
-is set, so a serving call launches the forward kernel exactly as an
+the C entry point.  No kernel refuses a length: the packed forward
+stages a head of up to 112 keys whole and streams longer ones, and skips
+the chunks where its p is exactly 0; the packed backward (#3) and the
+head-major backward (#5) are two kernels each that stream 64-row tiles;
+the head-major forward streams its keys (bf16) or keeps a 64-key tile of
+scores (fp32).  Shared memory does not grow with Lq or Lk.  Probabilities
+are written, and dropout drawn, only when the call needs a gradient or a
+rate is set, so a serving call launches the forward kernel exactly as an
 inference-only kernel would.
 """
 
@@ -222,7 +223,7 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.hero_attention_smem_bytes.restype = i64
         lib.hero_mha_attention_bwd.argtypes = (
-            [i32] + [vp] * 8 + [i32] * 6 + [i64] * 13
+            [i32] + [vp] * 9 + [i32] * 6 + [i64] * 13
             + [f32, f32, f32, u32, u32, vp])
         lib.hero_mha_attention_bwd.restype = ctypes.c_int
         lib.hero_mha_smem_bytes.argtypes = [i32] * 4
@@ -232,15 +233,6 @@ def _lib() -> ctypes.CDLL:
         lib.hero_attention_smem_limit.argtypes = []
         lib.hero_attention_smem_limit.restype = i64
     return lib
-
-
-def _check_smem(lib, need: int, what: str, Lq: int, Lk: int, d: int
-                ) -> None:
-    limit = lib.hero_attention_smem_limit()
-    if need > limit:
-        raise ValueError(
-            f"{what} kernel needs {need} bytes of shared memory at Lq={Lq}, "
-            f"Lk={Lk}, head_dim={d}; a block may use {limit}")
 
 
 def _check_qkv(q, k, v, kv_shape, d: int) -> None:
@@ -291,9 +283,6 @@ def _launch(q, k, v, n_heads: int, mask: torch.Tensor, seg_mode: bool,
     if B == 0 or Lq == 0:
         return out, probs
     lib = _lib()
-    _check_smem(lib, lib.hero_attention_smem_bytes(
-        cuda_build.DTYPE_CODES[q.dtype], 0, Lq, Lk, d), "attention forward",
-        Lq, Lk, d)
     with torch.cuda.device(q.device):
         err = lib.hero_packed_attention_fwd(
             cuda_build.DTYPE_CODES[q.dtype], int(seg_mode), int(causal),
@@ -409,9 +398,6 @@ def mha_attention_cuda(q, k, v, kv_mask: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = _lib()
-    _check_smem(lib, lib.hero_mha_smem_bytes(
-        cuda_build.DTYPE_CODES[q.dtype], Lq, Lk, d), "head-major attention",
-        Lq, Lk, d)
     with torch.cuda.device(q.device):
         err = lib.hero_mha_attention_fwd(
             cuda_build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
@@ -430,8 +416,10 @@ def mha_attention_bwd_cuda(q, k, v, kv_mask: torch.Tensor, dout,
                            seed: Optional[int] = None, causal: bool = False):
     """Head-major backward kernel launch (#5): (dq, dk, dv), contiguous
     (B, H, L, d) tensors, for the forward's q, k, v, mask, rate, seed and
-    causal flag.  ``mha_attention_bwd_cuda.launches`` counts the
-    launches."""
+    causal flag, at every Lq and Lk.  A call launches two kernels in turn
+    (dQ and the rows' softmax statistics and Delta, then dK and dV) with
+    a (B, H, Lq, 3) fp32 scratch between them;
+    ``mha_attention_bwd_cuda.launches`` counts the calls."""
     B, H, Lq, d = q.shape
     Lk = k.shape[2]
     mask = _check_mha(q, k, v, kv_mask, dropout_rate, seed)
@@ -446,15 +434,15 @@ def mha_attention_bwd_cuda(q, k, v, kv_mask: torch.Tensor, dout,
     dv = torch.empty((B, H, Lk, d), dtype=v.dtype, device=q.device)
     if dq.numel() == 0 or Lk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    stats = torch.empty((B, H, Lq, 3), dtype=torch.float32,
+                        device=q.device)
     lib = _lib()
-    _check_smem(lib, lib.hero_mha_bwd_smem_bytes(
-        cuda_build.DTYPE_CODES[q.dtype], Lq, Lk, d),
-        "head-major attention backward", Lq, Lk, d)
     with torch.cuda.device(q.device):
         err = lib.hero_mha_attention_bwd(
             cuda_build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
             v.data_ptr(), dout.data_ptr(), mask.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, H, Lq, Lk, d, int(causal),
+            dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), B, H, Lq, Lk, d,
+            int(causal),
             *(s for t in (q, k, v, dout) for s in t.stride()[:3]),
             mask.stride(0), 1.0 / (d ** 0.5), float(dropout_rate),
             keep_scale(dropout_rate),

@@ -69,26 +69,59 @@
 // causal and padding fix-ups run only on the chunks that can hold them.
 //
 // bf16 forward: a block per (batch row, head, tile of up to 64 query
-// rows) of 4 warps, a warp per 16 rows.  K, V and the tile's Q are staged
-// in shared memory by cp.async, all copies in flight at once (Q and K in
-// a first group, V in a second that lands during sweep 1), as bf16 rows of
-// d + 8 elements: the 8 of padding put the 8 rows of every fragment load
-// and ldmatrix in distinct banks (K and V take 32 KB at Lk = 104); padded
-// keys are zero rows.  Sweep 1 forms S = Q K^T on the tensor cores
-// (mma.sync m16n8k16, fp32 accumulation; bf16 x bf16 products are exact
-// in fp32, so the sums are the CUDA-core kernel's in another order) a
-// 16-key chunk at a time, masks it and keeps the online row max and sum,
-// combined over the 4 lanes of a row by shuffles.  Sweep 2 forms S again
-// and p = exp(s - m) / l, final before P.V as the plain version has it
-// (no rescaling of the accumulator, no register ceiling on Lk), writes p
-// if asked, applies the Philox bit of (b, h, i, j) at each accumulator
-// element and accumulates O += P V.  A key past Lk scores -inf, so its p
-// is exactly 0 and it never joins the softmax (a -1e4 pad would change
-// fully masked rows).  A tile of one or two 16-row groups (the decode
-// step's single query, the 30-token query rows) would leave warps idle
-// and walk every key on one warp, so its warps split the key chunks
-// instead and combine their (max, sum) and partial outputs through shared
-// memory in a fixed order.
+// rows) of 4 warps, a warp per 16 rows.  The tile's Q is staged once.  A
+// head of up to 112 keys is staged whole by cp.async (Q, K and the mask in
+// a first group, V in a second that lands during sweep 1), as the whole-
+// head kernel this replaces did; a longer one streams through two buffers
+// of 112 key rows, the next tile in flight while this one is used: sweep
+// 1, which reads only K, in 112-key tiles of K, sweep 2 in 48-key tiles
+// of K and V (each buffer holds either), so K is read twice (the
+// head-major forward's stream, with sweep 1's tiles larger).  Either way
+// the kernel takes 224 key rows and the tile's 64 rows of Q, so shared
+// memory does not depend on Lq or Lk: 42,880 bytes at d = 64, five blocks
+// an SM.  The two ways are two instantiations of one kernel: the whole-
+// head kernel keeps within 96 registers a thread at d = 64 (five blocks
+// an SM, the occupancy of the kernel it replaces; ptxas, CUDA 12.8: 94-96,
+// 8 bytes of spill in segment mode), the streaming loop's state takes
+// 120-127 (four blocks).
+// Tiles are bf16 rows of d + 8 elements: the 8 of padding put the 8 rows
+// of every fragment load and ldmatrix in distinct banks; padded keys are
+// zero rows.  Sweep 1 forms S = Q K^T on the tensor cores (mma.sync
+// m16n8k16, fp32 accumulation; bf16 x bf16 products are exact in fp32, so
+// the sums are the CUDA-core kernel's in another order) a 16-key chunk at
+// a time, masks it and keeps the online row max and sum, combined over
+// the 4 lanes of a row by shuffles.  Sweep 2 forms S again and
+// p = exp(s - m) / l, final before P.V as the plain version has it (no
+// rescaling of the accumulator, no register ceiling on Lk), writes p if
+// asked, applies the Philox bit of (b, h, i, j) at each accumulator
+// element and accumulates O += P V.  A key past Lk scores -inf, so its p is exactly 0 and it never
+// joins the softmax (a -1e4 pad would change fully masked rows).  A tile
+// of one or two 16-row groups (the decode step's single query, the
+// 30-token query rows) would leave warps idle and walk every key on one
+// warp, so its warps split the key chunks instead and combine their (max,
+// sum) and partial outputs through shared memory in a fixed order.
+//
+// Dead chunks.  A packed row holds several segments and a token attends
+// only its own, so for many (row, key) pairs p is exactly 0.  Sweep 1
+// marks every (16-row tile, 16-key chunk) pair whose scores all lie
+// kSkipGap (1000) or more below the running max of their rows once the
+// chunk is in it -- a lower bound of each row's max, so exp(s - m) is 0 in
+// fp32 at every element of the pair, in the plain version as here -- and
+// sweep 2 skips the marked pairs: no exp, no Philox draw, no P.V product,
+// and zeros written to the saved p; m, l, p and the output do not change
+// by a bit.  Only a pair that no row of the tile may attend (every score
+// carries a -1e4: another segment, invalid keys, keys past the causal
+// limit) lies so low; a tile holding a fully masked row (a pad slot, a
+// batch row with no valid key) has that row's scores near its max and
+// never skips, and neither do scores spread past ~1e4.  The test costs a
+// vote a chunk, and four shuffles and a vote more where every score lies
+// under -1000; the marks of the first 64 chunks (1024 keys) are kept in
+// two registers.  In segment mode (self-
+// attention, Lq <= Lk) sweep 1 starts at the tile of the block's rows and
+// each warp at its rows' own chunk, which every row attends, so the
+// running max holds a key the row attends before the chunks it does not.
+// Elsewhere the keep bits are drawn only where the warp holds a nonzero p
+// (a zero p adds 0 whatever its bit).
 //
 // The hi/lo split: p (and dS in the backward) are fp32 values that meet a
 // bf16 tensor core.  Rounding them to bf16, as the Pallas kernel rounds p,
@@ -101,7 +134,7 @@
 //
 // Backward, both dtypes (#3): two kernels in turn on the stream, each
 // streaming through shared memory in 64-row tiles, so shared memory does
-// not grow with Lq or Lk and every length the forward takes is computed.
+// not grow with Lq or Lk and every length is computed.
 // dK and dV are sums over query rows and dQ over keys: a block owns the
 // rows it writes, so neither needs atomics, and every sum runs in a fixed
 // order (the same bits from run to run).  The keep bits are drawn again
@@ -156,17 +189,17 @@
 // and 146 registers (dQ), 123, 128 and 168 (dK/dV), no spills.  Every
 // copy is a cp.async (16 bytes where the rows allow, else 4).
 //
-// The forward kernels still stage a whole head's K and V (bytes of shared
-// memory <= the 227 KB a block may use; the forward's wrappers ask
-// hero_attention_smem_bytes and refuse larger shapes): the bf16 forward
-// takes Lk <= 752 keys at d = 64 (384 at d = 128; the fp32 forward 417
-// and 214).
-//
-// fp32 forward design: one block per (batch row, head) stages K (padded
-// to d+1 floats per key, so lanes reading different keys hit different
-// banks) and V in shared memory once; each warp owns one query row at a
-// time -- lanes over keys for the scores, warp shuffles for the softmax
-// max/sum, lanes over d for P.V.
+// fp32 forward design (packed_attention_kernel): a block per (batch row,
+// head, tile of 64 query rows) of 8 warps, warp w owning rows w, w + 8,
+// ..., w + 56; K (padded to d + 1 floats per key, so lanes reading
+// different keys hit different banks), V and the mask stream through
+// shared memory in 64-key tiles, two buffers; lanes over keys for
+// the scores (q read broadcast), warp shuffles for the running max, a
+// lane's share of the sum, and lanes over d for P.V, p passing through the
+// warp's tile of shared memory.  Two passes over the tiles (max and sum,
+// then p and P.V) and no row's scores over every key in shared memory, so
+// shared memory does not depend on Lq or Lk (91,136 bytes at d = 64).  It
+// skips dead half tiles (32 keys) under the bf16 kernel's rule.
 
 #include <math.h>
 
@@ -197,142 +230,6 @@ struct AttnArgs {
   PhiloxKey key;
 };
 
-template <int DCH, bool SEG>
-__global__ void __launch_bounds__(kWarps * 32)
-    packed_attention_kernel(AttnArgs a) {
-  constexpr int D = DCH * 32;
-  const int Lk = a.Lk;
-  extern __shared__ float smem[];
-  float* ks = smem;                // [Lk][D + 1]
-  float* vs = ks + Lk * (D + 1);   // [Lk][D]
-  float* kbias = vs + Lk * D;      // [Lk] validity bias, or segment ids
-  int* kseg = reinterpret_cast<int*>(kbias);
-  float* qs = kbias + Lk;          // [kWarps][D]
-  float* ps = qs + kWarps * D;     // [kWarps][Lk]
-
-  const int b = blockIdx.x / a.H;
-  const int h = blockIdx.x - b * a.H;
-  const float* qb = static_cast<const float*>(a.q) + b * a.q_bs + h * D;
-  const float* kb = static_cast<const float*>(a.k) + b * a.k_bs + h * D;
-  const float* vb = static_cast<const float*>(a.v) + b * a.v_bs + h * D;
-  float* ob = static_cast<float*>(a.out) + b * a.o_bs + h * D;
-  float* pb = a.probs == nullptr
-                  ? nullptr
-                  : static_cast<float*>(a.probs) +
-                        static_cast<long long>(blockIdx.x) * a.Lq * Lk;
-  const bool drop = a.rate > 0.f;
-
-  for (int i = threadIdx.x; i < Lk * D; i += blockDim.x) {
-    const int j = i / D, c = i - j * D;
-    ks[j * (D + 1) + c] = kb[j * a.k_rs + c];
-    vs[j * D + c] = vb[j * a.v_rs + c];
-  }
-  for (int j = threadIdx.x; j < Lk; j += blockDim.x) {
-    const long long m = static_cast<long long>(b) * Lk + j;
-    if (SEG)
-      kseg[j] = static_cast<const int*>(a.mask)[m];
-    else
-      kbias[j] = (1.f - static_cast<const float*>(a.mask)[m]) * kNegInf;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* qw = qs + warp * D;
-  float* pw = ps + warp * Lk;
-  for (int r = warp; r < a.Lq; r += kWarps) {
-#pragma unroll
-    for (int c = 0; c < DCH; ++c)
-      qw[lane + 32 * c] = qb[r * a.q_rs + lane + 32 * c];
-    const int sq = SEG ? kseg[r] : 0;
-    const int last = a.causal ? r + (Lk - a.Lq) : Lk;  // last causal key
-    __syncwarp();
-
-    float mx = -INFINITY;
-    for (int j = lane; j < Lk; j += 32) {
-      const float* kr = ks + j * (D + 1);
-      float acc = 0.f;
-#pragma unroll 16
-      for (int c = 0; c < D; ++c) acc = fmaf(qw[c], kr[c], acc);
-      float s = acc * a.scale;
-      if (SEG) {
-        s += (kseg[j] == sq && sq >= 0) ? 0.f : kNegInf;
-      } else {
-        s += kbias[j];
-        if (j > last) s += kNegInf;
-      }
-      pw[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < Lk; j += 32) {
-      const float e = expf(pw[j] - mx);
-      pw[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < Lk; j += 32) {
-      float p = pw[j] / sum;
-      if (pb != nullptr) pb[static_cast<long long>(r) * Lk + j] = p;
-      if (drop)
-        p = dropout_keep(a.key, b, h, r, j, a.rate) ? p * a.keep_scale : 0.f;
-      pw[j] = p;
-    }
-    __syncwarp();
-
-    float acc[DCH];
-#pragma unroll
-    for (int c = 0; c < DCH; ++c) acc[c] = 0.f;
-    for (int j = 0; j < Lk; ++j) {
-      const float p = pw[j];
-#pragma unroll
-      for (int c = 0; c < DCH; ++c)
-        acc[c] = fmaf(p, vs[j * D + lane + 32 * c], acc[c]);
-    }
-#pragma unroll
-    for (int c = 0; c < DCH; ++c)
-      ob[r * a.o_rs + lane + 32 * c] = acc[c];
-    __syncwarp();
-  }
-}
-
-size_t fwd_smem(int Lk, int D) {
-  return sizeof(float) * (static_cast<size_t>(Lk) * (2 * D + 2)
-                          + kWarps * (D + Lk));
-}
-
-template <int DCH, bool SEG>
-cudaError_t launch_fwd(const AttnArgs& a, cudaStream_t stream) {
-  constexpr int D = DCH * 32;
-  const size_t smem = fwd_smem(a.Lk, D);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        packed_attention_kernel<DCH, SEG>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  packed_attention_kernel<DCH, SEG>
-      <<<a.B * a.H, kWarps * 32, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <bool SEG>
-cudaError_t fwd_dim(const AttnArgs& a, int head_dim, cudaStream_t s) {
-  switch (head_dim) {
-    case 32: return launch_fwd<1, SEG>(a, s);
-    case 64: return launch_fwd<2, SEG>(a, s);
-    case 128: return launch_fwd<4, SEG>(a, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-cudaError_t fwd_mode(const AttnArgs& a, int seg, int head_dim,
-                     cudaStream_t s) {
-  return seg ? fwd_dim<true>(a, head_dim, s)
-             : fwd_dim<false>(a, head_dim, s);
-}
-
 // ---------------------------------------------------------------------------
 // backward
 // ---------------------------------------------------------------------------
@@ -352,46 +249,6 @@ struct BwdArgs {
   float scale, rate, keep_scale;
   PhiloxKey key;
 };
-
-constexpr int kRowBlock = 4;  // output rows per thread in pass B
-
-// Stage rows [0, n) of one head of a packed (., L, H*D) tensor into
-// xs[n][D] as fp32.
-template <typename T, int D>
-__device__ void stage(const T* src, long long row_stride, int n, float* xs) {
-  for (int i = threadIdx.x; i < n * D; i += blockDim.x) {
-    const int r = i / D, c = i - r * D;
-    xs[i] = to_float(src[r * row_stride + c]);
-  }
-}
-
-// out[x][c] = scale * sum_{y < ny} m[x * sx + y * sy] * xs[y][c] for
-// x < nx, c < D, written to out[x * out_rs + c] in T.  Each thread owns
-// one channel and kRowBlock output rows at a time and sums in y order.
-template <typename T, int D>
-__device__ void contract(const float* m, int sx, int sy, const float* xs,
-                         int nx, int ny, float scale, T* out,
-                         long long out_rs) {
-  const int c = threadIdx.x % D;
-  const int group = threadIdx.x / D, n_groups = blockDim.x / D;
-  for (int x0 = group * kRowBlock; x0 < nx; x0 += n_groups * kRowBlock) {
-    int rows[kRowBlock];
-#pragma unroll
-    for (int t = 0; t < kRowBlock; ++t) rows[t] = min(x0 + t, nx - 1);
-    float acc[kRowBlock];
-#pragma unroll
-    for (int t = 0; t < kRowBlock; ++t) acc[t] = 0.f;
-    for (int y = 0; y < ny; ++y) {
-      const float xv = xs[y * D + c];
-#pragma unroll
-      for (int t = 0; t < kRowBlock; ++t)
-        acc[t] = fmaf(m[rows[t] * sx + y * sy], xv, acc[t]);
-    }
-#pragma unroll
-    for (int t = 0; t < kRowBlock; ++t)
-      if (x0 + t < nx) out[(x0 + t) * out_rs + c] = from_float<T>(acc[t] * scale);
-  }
-}
 
 __global__ void keep_mask_kernel(PhiloxKey key, int B, int H, int Lq, int Lk,
                                  float rate, unsigned char* out) {
@@ -423,7 +280,20 @@ __global__ void keep_mask_kernel(PhiloxKey key, int B, int H, int Lq, int Lk,
 typedef __nv_bfloat16 bf16;
 
 constexpr int kTcFwdWarps = 4;   // a forward block: 64 query rows
-constexpr int kTcBwdWarps = 9;   // #5: a head's 144 rows in one round
+constexpr int kFwdTile = 48;     // keys of a streamed K/V tile (forward)
+// Sweep 2 of the forward skips a chunk whose scores sweep 1 found at least
+// this far below their rows' running max: exp of anything under -104 is 0
+// in fp32, so the margin covers every difference of summation order.
+constexpr float kSkipGap = 1000.f;
+// The bf16 forward's key rows of shared memory: a head of up to kFwdWhole
+// keys staged whole (K, then V), or two buffers of kFwdWhole rows, each
+// one of sweep 1's tiles of K or one of sweep 2's kFwdTile-key tiles of K
+// and V.  With the block's 64 rows of Q, at d = 64 five blocks fit an SM
+// (228 KB, 1 KB a block reserved).
+constexpr int kFwdWhole = 112;
+constexpr int kFwdKeyRows = 2 * kFwdWhole;
+static_assert(2 * kFwdTile <= kFwdWhole, "a buffer holds K and V");
+
 
 __host__ __device__ inline int round16(int n) { return (n + 15) & ~15; }
 
@@ -654,47 +524,83 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
 }
 
 // Forward: a block per (b, h, tile of up to 64 query rows), a warp per 16
-// rows; K, V and the block's Q staged as bf16.  Sweep 1 forms S = Q K^T a
+// rows.  A head of up to kFwdWhole keys is staged whole (K and the mask in
+// a first group, V in a second that lands during sweep 1); a longer one
+// streams through two buffers by cp.async, the next tile in flight while
+// this one is used: sweep 1, which reads only K, in kFwdWhole-key tiles,
+// sweep 2 in kFwdTile-key tiles of K and V.  Sweep 1 forms S = Q K^T a
 // 16-key chunk at a time on the tensor cores, masks it and keeps the
 // running row max and sum; sweep 2 forms S again, p = exp(s - m) / l
 // (final before P.V, as the plain version has it), writes p if asked,
-// applies the Philox keep bit of (b, h, i, j) and accumulates O += P V with
-// p split into bf16 hi + lo.
-template <int D, bool SEG>
-__global__ void __launch_bounds__(kTcFwdWarps * 32)
+// applies the Philox keep bit of (b, h, i, j) and accumulates O += P V
+// with p split into bf16 hi + lo.  A chunk whose every score sweep 1 finds
+// kSkipGap below its row's running max is skipped by sweep 2: no exp, draw
+// or product, and zeros in the saved p.
+template <int D, bool SEG, bool STREAM>
+__global__ void __launch_bounds__(kTcFwdWarps * 32,
+                                  D > 64 ? 2 : STREAM ? 4 : 5)
     packed_attention_mma_kernel(AttnArgs a, int vec) {
   constexpr int S = D + 8, KS = D / 16;
-  const int Lq = a.Lq, Lk = a.Lk, lk_pad = round16(Lk);
+  // keys of a tile: sweep 1's (K only), and sweep 2's (K and V)
+  constexpr int TK1 = kFwdWhole, TK2 = STREAM ? kFwdTile : kFwdWhole;
+  const int Lq = a.Lq, Lk = a.Lk;
   const int rows = tc_fwd_rows(Lq), q0 = blockIdx.y * rows;
+  const int n1 = STREAM ? (Lk + TK1 - 1) / TK1 : 1;
+  const int n2 = STREAM ? (Lk + TK2 - 1) / TK2 : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);    // [lk_pad][S]
-  bf16* vs = ks + lk_pad * S;                      // [lk_pad][S]
-  bf16* qs = vs + lk_pad * S;                      // [rows][S]
-  float* kbias = reinterpret_cast<float*>(qs + rows * S);  // [lk_pad]
-  int* kseg = reinterpret_cast<int*>(kbias);
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);            // [64][S]
+  bf16* bufs = qs + 16 * kTcFwdWarps * S;     // [kFwdKeyRows][S]: K, V
+  float* mbuf = reinterpret_cast<float*>(bufs + kFwdKeyRows * S);  // mask
+  float* mlbuf = mbuf + kFwdKeyRows;                       // [4][16][2]
+  float* obuf = reinterpret_cast<float*>(bufs);   // [4][16][D + 4], at the end
 
   const int b = blockIdx.x / a.H;
   const int h = blockIdx.x - b * a.H;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_bs + h * D;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_bs + h * D;
+  const float* mrow = static_cast<const float*>(a.mask) +
+                      static_cast<long long>(b) * Lk;   // or int32 ids
+  // Step s < n1 is sweep 1's tile tile_of(s) (K and the mask), the rest
+  // sweep 2's tile s - n1 (K, the mask and V).  Streaming, step s takes
+  // buffer s & 1, rows [TK1 (s & 1), + TK1) of the key rows: sweep 1's K
+  // tile, or sweep 2's K tile and its V tile after it, so a step's
+  // buffer is its predecessor-but-one's across the sweeps too.  Whole,
+  // step 0 brings K and the mask and step 1 only V, after K, both in
+  // flight from the start; sweep 2 reads step 0's K.  Every streamed
+  // step commits a group, empty past the end.  In segment mode (Lq <=
+  // Lk) sweep 1 starts at the tile of the block's own rows, and each warp
+  // at the chunk of its own rows there: every row attends its own key,
+  // so the running max holds a key the row attends before the chunks it
+  // does not.
+  const int t_first = SEG && STREAM ? (q0 / TK1) % n1 : 0;
+  auto tile_of = [&](int s) {
+    return s < n1 ? (t_first + s) % n1 : s - n1;
+  };
+  auto key0 = [&](int s) { return tile_of(s) * (s < n1 ? TK1 : TK2); };
+  auto kbase = [&](int s) { return bufs + (STREAM ? (s & 1) * TK1 * S : 0); };
+  auto vbase = [&](int s) { return kbase(s) + (STREAM ? TK2 : TK1) * S; };
+  auto mbase = [&](int s) { return mbuf + (STREAM ? (s & 1) * TK1 : 0); };
+  auto issue = [&](int s) {
+    if (s < n1 + n2) {
+      const int j0 = key0(s);
+      const int n = min(s < n1 ? TK1 : TK2, Lk - j0), n_pad = round16(n);
+      if (s < n1 || STREAM) {
+        stage_rows<D>(kb + j0 * a.k_rs, a.k_rs, n, n_pad, vec & 2,
+                      kbase(s));
+        for (int j = threadIdx.x; j < n_pad; j += blockDim.x)
+          cp_async4(mbase(s) + j, mrow + j0 + min(j, n - 1), j < n);
+      }
+      if (s >= n1)
+        stage_rows<D>(vb + j0 * a.v_rs, a.v_rs, n, n_pad, vec & 4,
+                      vbase(s));
+    }
+    cp_async_commit();
+  };
   stage_rows<D>(static_cast<const bf16*>(a.q) + b * a.q_bs + h * D +
                     q0 * a.q_rs,
                 a.q_rs, min(Lq - q0, rows), rows, vec & 1, qs);
-  stage_rows<D>(static_cast<const bf16*>(a.k) + b * a.k_bs + h * D, a.k_rs,
-                Lk, lk_pad, vec & 2, ks);
-  cp_async_commit();   // group 1: Q and K, for sweep 1
-  stage_rows<D>(static_cast<const bf16*>(a.v) + b * a.v_bs + h * D, a.v_rs,
-                Lk, lk_pad, vec & 4, vs);
-  cp_async_commit();   // group 2: V, arriving during sweep 1
-  for (int j = threadIdx.x; j < lk_pad; j += blockDim.x) {
-    const long long m = static_cast<long long>(b) * Lk + j;
-    if (SEG)
-      kseg[j] = j < Lk ? static_cast<const int*>(a.mask)[m] : -1;
-    else
-      kbias[j] = j < Lk
-                     ? (1.f - static_cast<const float*>(a.mask)[m]) * kNegInf
-                     : 0.f;
-  }
-  cp_async_wait<1>();
-  __syncthreads();
+  issue(0);   // with Q
+  issue(1);
 
   // every warp stages; warp w takes the 16-row tile w / split of the
   // block's rows and every split-th 16-key chunk from w % split, so a short
@@ -703,51 +609,59 @@ __global__ void __launch_bounds__(kTcFwdWarps * 32)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int split = tc_fwd_split(rows), part = warp % split;
-  const int r0 = (warp / split) * 16, n_chunks = lk_pad / 16;
+  const int r0 = (warp / split) * 16;
   const bool active = r0 < rows && q0 + r0 < Lq;
   const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  const int shift = Lk - Lq;   // causal: row i attends no key j > i + shift
   int sq[2] = {-1, -1}, last[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (SEG && row[r] < Lq)
       sq[r] = static_cast<const int*>(a.mask)[static_cast<long long>(b) *
                                               Lk + row[r]];
-    last[r] = a.causal ? row[r] + (Lk - Lq) : Lk;  // last causal key
+    last[r] = a.causal ? row[r] + shift : Lk;   // last causal key
   }
   uint32_t qf[KS][4];
-  if (active) load_a<D>(qs, r0, qf);
 
-  // the masked, scaled scores of keys [j0, j0 + 16); -inf past Lk (the
-  // causal bias and the padding only where a chunk can hold them)
-  auto scores = [&](int j0, float (&s)[2][4]) {
-    mma_abt<D>(qf, ks, j0, s);
+  // the masked, scaled scores of chunk c (keys from j0) of step s's tile;
+  // -inf past Lk (the causal bias and the padding only where a chunk can
+  // hold them)
+  auto scores = [&](int s, int c, int j0, float (&x)[2][4]) {
+    mma_abt<D>(qf, kbase(s), 16 * c, x);
+    const float* mk = mbase(s) + 16 * c;
 #pragma unroll
     for (int n = 0; n < 2; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, j = j0 + 8 * n + 2 * t + (e & 1);
-        float x = s[n][e] * a.scale;
-        if (SEG)
-          x += (kseg[j] == sq[r] && sq[r] >= 0) ? 0.f : kNegInf;
-        else
-          x += kbias[j];
-        s[n][e] = x;
+        const int r = e >> 1, jj = 8 * n + 2 * t + (e & 1);
+        float v = x[n][e] * a.scale;
+        if (SEG) {
+          const int id = __float_as_int(mk[jj]);
+          v += (id == sq[r] && sq[r] >= 0) ? 0.f : kNegInf;
+        } else {
+          v += (1.f - mk[jj]) * kNegInf;
+        }
+        x[n][e] = v;
       }
     // the causal bias, from the first chunk past the last key of the
     // warp's first row
-    if (!SEG && a.causal && j0 + 15 > q0 + r0 + (Lk - Lq))
+    if (!SEG && a.causal && j0 + 15 > q0 + r0 + shift)
 #pragma unroll
       for (int n = 0; n < 2; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           if (j0 + 8 * n + 2 * t + (e & 1) > last[e >> 1])
-            s[n][e] += kNegInf;
+            x[n][e] += kNegInf;
     if (j0 + 16 > Lk)
 #pragma unroll
       for (int n = 0; n < 2; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (j0 + 8 * n + 2 * t + (e & 1) >= Lk) s[n][e] = -INFINITY;
+          if (j0 + 8 * n + 2 * t + (e & 1) >= Lk) x[n][e] = -INFINITY;
+  };
+  // 16-key chunks of step s's tile
+  auto chunks = [&](int s) {
+    return (min(s < n1 ? TK1 : TK2, Lk - key0(s)) + 15) / 16;
   };
   // (m, l) <- the softmax statistics of both key sets; -inf is "none yet"
   auto combine = [](float& m, float& l, float mo, float lo) {
@@ -757,21 +671,67 @@ __global__ void __launch_bounds__(kTcFwdWarps * 32)
     m = mn;
   };
 
+  // Sweep 1 marks, in ``skip`` (bit j / 16 for the chunk from key j, the
+  // first 64 chunks), every chunk whose scores all lie kSkipGap or more
+  // below the quad's running max of their rows after it, a lower bound of
+  // the row max: exp(s - m) is then 0 in fp32 for each of them, in the
+  // plain version as here, so sweep 2 skips the chunk and no bit of m, l,
+  // p or the output changes.  Only a chunk that no row of the tile may
+  // attend (every score carries a -1e4) lies so low; a fully masked row (a
+  // pad slot, a batch row with no valid key) has scores near its max and
+  // keeps its tile from skipping, as do scores spread past ~1e4.
+  uint32_t skip[2] = {0u, 0u};
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int c = part; active && c < n_chunks; c += split) {
-    float s[2][4];
-    scores(16 * c, s);
+  for (int s = 0; s < n1; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();
+    if (s == 0 && active) load_a<D>(qs, r0, qf);
+    const int tj = key0(s), nc = chunks(s);
+    // the warp's chunks part, part + split, ... from the first at or past
+    // its own rows' chunk (segment mode, the first tile), wrapping round
+    const int cnt = part < nc ? (nc - part + split - 1) / split : 0;
+    int k0 = 0;
+    if (SEG && s == 0 && cnt > 0)
+      k0 = min((max((q0 + r0 - tj) / 16, part) - part + split - 1) / split,
+               cnt - 1);
+    for (int kk = 0; active && kk < cnt; ++kk) {
+      const int c = part + (k0 + kk < cnt ? k0 + kk : k0 + kk - cnt) * split;
+      float x[2][4], mcs[2];
+      scores(s, c, tj + 16 * c, x);
+      bool low = true;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float mn = fmaxf(m[r], fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
-                                         fmaxf(s[1][2 * r], s[1][2 * r + 1])));
-      if (mn == -INFINITY) continue;   // only padded keys so far
-      float sum = 0.f;
+      for (int r = 0; r < 2; ++r) {
+        const float mc = fmaxf(fmaxf(x[0][2 * r], x[0][2 * r + 1]),
+                               fmaxf(x[1][2 * r], x[1][2 * r + 1]));
+        const float mn = fmaxf(m[r], mc);
+        if (mn != -INFINITY) {   // else only padded keys so far
+          float sum = 0.f;
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
-        sum += exp_fast(s[n][2 * r] - mn) + exp_fast(s[n][2 * r + 1] - mn);
-      l[r] = l[r] * exp_fast(m[r] - mn) + sum;
-      m[r] = mn;
+          for (int n = 0; n < 2; ++n)
+            sum += exp_fast(x[n][2 * r] - mn) + exp_fast(x[n][2 * r + 1] - mn);
+          l[r] = l[r] * exp_fast(m[r] - mn) + sum;
+          m[r] = mn;
+        }
+        mcs[r] = mc;
+        low &= row[r] >= Lq || mc <= -kSkipGap;
+      }
+      // a chunk whose scores are not all far below 0 holds a key its rows
+      // attend (scores of O(10)): only the others take the exact test
+      const int bit = tj / 16 + c;
+      if (__all_sync(0xffffffffu, low) && bit < 64) {
+        low = true;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mq = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+          mq = fmaxf(mq, __shfl_xor_sync(0xffffffffu, mq, 2));
+          low &= row[r] >= Lq || mcs[r] <= mq - kSkipGap;
+        }
+        if (__all_sync(0xffffffffu, low)) skip[bit >> 5] |= 1u << (bit & 31);
+      }
+    }
+    if (STREAM) {
+      __syncthreads();
+      issue(s + 2);
     }
   }
   // the quad's four threads hold the row's columns: combine (m, l); the
@@ -783,17 +743,14 @@ __global__ void __launch_bounds__(kTcFwdWarps * 32)
       combine(m[r], l[r], __shfl_xor_sync(0xffffffffu, m[r], o),
               __shfl_xor_sync(0xffffffffu, l[r], o));
   // the tile's key parts: every warp of it combines them in part order
-  float* obuf = kbias + lk_pad;                    // [4][16][D + 4]
-  float* mlbuf = obuf + kTcFwdWarps * 16 * (D + 4);  // [4][16][2]
-  if (split > 1 && t == 0)
+  if (split > 1) {
+    if (t == 0)
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mlbuf[(warp * 16 + g + 8 * r) * 2] = m[r];
-      mlbuf[(warp * 16 + g + 8 * r) * 2 + 1] = l[r];
-    }
-  cp_async_wait<0>();
-  __syncthreads();
-  if (split > 1)
+      for (int r = 0; r < 2; ++r) {
+        mlbuf[(warp * 16 + g + 8 * r) * 2] = m[r];
+        mlbuf[(warp * 16 + g + 8 * r) * 2 + 1] = l[r];
+      }
+    __syncthreads();
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       m[r] = -INFINITY;
@@ -805,63 +762,89 @@ __global__ void __launch_bounds__(kTcFwdWarps * 32)
           combine(m[r], l[r], x[0], x[1]);
         }
     }
+  }
 
   bf16* pb = a.probs == nullptr
                  ? nullptr
                  : static_cast<bf16*>(a.probs) +
                        static_cast<long long>(blockIdx.x) * Lq * Lk;
   const bool drop = a.rate > 0.f, even = (Lk & 1) == 0;
+  const uint32_t thr = keep_threshold(a.rate);
   const float inv_l[2] = {1.f / l[0], 1.f / l[1]};
   float o[D / 8][4];
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
-  for (int c = part; active && c < n_chunks; c += split) {
-    const int j0 = 16 * c;
-    float s[2][4];
-    scores(j0, s);
+  for (int s = n1; s < n1 + n2; ++s) {
+    if (STREAM)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    const int tj = key0(s), nc = chunks(s);
+    for (int c = part; active && c < nc; c += split) {
+      const int j0 = tj + 16 * c, bit = tj / 16 + c;
+      const bool skipped = bit < 64 && ((skip[bit >> 5] >> (bit & 31)) & 1u);
+      float x[2][4];
+      if (!skipped) scores(s, c, j0, x);
+      bool any = false;   // a nonzero p of the thread's real elements
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
+      for (int n = 0; n < 2; ++n)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = row[r], j = j0 + 8 * n + 2 * t;
-        float p0 = exp_fast(s[n][2 * r] - m[r]) * inv_l[r];
-        float p1 = exp_fast(s[n][2 * r + 1] - m[r]) * inv_l[r];
-        if (i < Lq) {
-          if (pb != nullptr) {
-            bf16* pr = pb + static_cast<long long>(i) * Lk + j;
-            if (even && j < Lk) {
-              *reinterpret_cast<uint32_t*>(pr) = pack_bf16(p0, p1);
-            } else {
-              if (j < Lk) pr[0] = __float2bfloat16_rn(p0);
-              if (j + 1 < Lk) pr[1] = __float2bfloat16_rn(p1);
+        for (int r = 0; r < 2; ++r) {
+          const int i = row[r], j = j0 + 8 * n + 2 * t;
+          float p0 = 0.f, p1 = 0.f;
+          if (!skipped) {
+            p0 = exp_fast(x[n][2 * r] - m[r]) * inv_l[r];
+            p1 = exp_fast(x[n][2 * r + 1] - m[r]) * inv_l[r];
+          }
+          if (i < Lq) {
+            any |= p0 != 0.f || p1 != 0.f;
+            if (pb != nullptr) {
+              bf16* pr = pb + static_cast<long long>(i) * Lk + j;
+              if (even && j < Lk) {
+                *reinterpret_cast<uint32_t*>(pr) = pack_bf16(p0, p1);
+              } else {
+                if (j < Lk) pr[0] = __float2bfloat16_rn(p0);
+                if (j + 1 < Lk) pr[1] = __float2bfloat16_rn(p1);
+              }
             }
           }
-          if (drop) {
-            if (j < Lk)
-              p0 = dropout_keep(a.key, b, h, i, j, a.rate) ? p0 * a.keep_scale
-                                                           : 0.f;
-            if (j + 1 < Lk)
-              p1 = dropout_keep(a.key, b, h, i, j + 1, a.rate)
-                       ? p1 * a.keep_scale
-                       : 0.f;
-          }
+          x[n][2 * r] = p0;
+          x[n][2 * r + 1] = p1;
         }
-        s[n][2 * r] = p0;
-        s[n][2 * r + 1] = p1;
-      }
-    uint32_t hi[4], lo[4];
-    c_to_a(s, hi, lo);
-    mma_ay<D>(hi, lo, true, vs, j0, o);
+      if (skipped) continue;
+      // the keep bits, only where the warp holds a nonzero p (a zero p
+      // adds 0 whatever its bit): then all eight draws run, eight
+      // independent chains the compiler interleaves
+      if (drop && __any_sync(0xffffffffu, any))
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool kp = dropout_keep_thr(
+                a.key, b, h, row[e >> 1], j0 + 8 * n + 2 * t + (e & 1), thr);
+            x[n][e] = kp ? x[n][e] * a.keep_scale : 0.f;
+          }
+      uint32_t hi[4], lo[4];
+      c_to_a(x, hi, lo);
+      mma_ay<D>(hi, lo, true, vbase(s), 16 * c, o);
+    }
+    if (STREAM) {
+      __syncthreads();
+      issue(s + 2);
+    }
   }
+  cp_async_wait<0>();
   bf16* ob = static_cast<bf16*>(a.out) + b * a.o_bs + h * D;
   if (split == 1) {
     if (active) store_rows<D>(o, 1.f, ob, a.o_rs, row[0], Lq);
     return;
   }
   // the key parts' partial outputs, summed in part order by the tile's
-  // first warp
+  // first warp (the K/V buffers are free once every warp is past them)
+  if (!STREAM) __syncthreads();
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt)
 #pragma unroll
@@ -885,13 +868,10 @@ __global__ void __launch_bounds__(kTcFwdWarps * 32)
   store_rows<D>(o, 1.f, ob, a.o_rs, row[0], Lq);
 }
 
-size_t fwd_mma_smem(int Lq, int Lk, int D) {
-  const size_t lk = round16(Lk), rows = tc_fwd_rows(Lq);
-  const size_t parts = tc_fwd_split(rows) > 1
-                           ? kTcFwdWarps * 16 * (D + 4 + 2) * sizeof(float)
-                           : 0;
-  return (2 * lk + rows) * (D + 8) * sizeof(bf16) + lk * sizeof(float) +
-         parts;
+// Shared memory of the bf16 forward: no term depends on Lq or Lk.
+size_t fwd_mma_smem(int D) {
+  return (16 * kTcFwdWarps + kFwdKeyRows) * (D + 8) * sizeof(bf16) +
+         (kFwdKeyRows + kTcFwdWarps * 32) * sizeof(float);
 }
 
 bool rows_aligned16(const void* p, long long bs, long long rs) {
@@ -899,13 +879,12 @@ bool rows_aligned16(const void* p, long long bs, long long rs) {
          rs % 8 == 0;
 }
 
-template <int D, bool SEG>
+template <int D, bool SEG, bool STREAM>
 cudaError_t launch_fwd_mma(const AttnArgs& a, cudaStream_t stream) {
-  const size_t smem = fwd_mma_smem(a.Lq, a.Lk, D);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const size_t smem = fwd_mma_smem(D);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        packed_attention_mma_kernel<D, SEG>,
+        packed_attention_mma_kernel<D, SEG, STREAM>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
@@ -914,9 +893,18 @@ cudaError_t launch_fwd_mma(const AttnArgs& a, cudaStream_t stream) {
                   (rows_aligned16(a.v, a.v_bs, a.v_rs) ? 4 : 0);
   const int rows = tc_fwd_rows(a.Lq);
   const dim3 grid(a.B * a.H, (a.Lq + rows - 1) / rows);
-  packed_attention_mma_kernel<D, SEG>
+  packed_attention_mma_kernel<D, SEG, STREAM>
       <<<grid, kTcFwdWarps * 32, smem, stream>>>(a, vec);
   return cudaGetLastError();
+}
+
+// A head of up to kFwdWhole keys takes the kernel that stages it whole, a
+// longer one the streaming kernel, whose loop state takes registers the
+// whole-head kernel does without (five blocks an SM at d = 64, four).
+template <int D, bool SEG>
+cudaError_t launch_fwd_mma(const AttnArgs& a, cudaStream_t stream) {
+  return a.Lk > kFwdWhole ? launch_fwd_mma<D, SEG, true>(a, stream)
+                          : launch_fwd_mma<D, SEG, false>(a, stream);
 }
 
 template <bool SEG>
@@ -1747,6 +1735,257 @@ bool rows_aligned16_f32(const void* p, long long bs, long long rs) {
          rs % 4 == 0;
 }
 
+// fp32 forward (CUDA cores): a block per (b, h, tile of 64 query rows) of
+// 8 warps; warp w owns rows w, w + 8, ..., w + 56 of the tile, so a short
+// query spreads over the warps.  K (rows padded to d + 1 floats, so lanes
+// reading different keys hit different banks), V and the key mask stream
+// through shared memory in 64-key tiles by cp.async, the next tile in
+// flight, with the bf16 kernel's steps (sweep 1's tiles from the block's
+// own in segment mode).  A lane takes keys lane and lane + 32 of a tile for
+// the scores, q read broadcast; pass 1 keeps each row's running max
+// (warp-wide, a half tile at a time) and the lane's share of the sum;
+// pass 2 forms p = exp(s - m) / l, writes it if asked, applies the keep
+// bit where p != 0 and accumulates P.V with lanes over d, p passing
+// through the warp's tile of shared memory.  Pass 2 skips a half tile (32
+// keys) whose scores pass 1 found kSkipGap below its rows' running max,
+// the bf16 kernel's rule.
+constexpr int kF32FwdRows = 64;                 // rows of a block's tile
+constexpr int kF32FwdRw = kF32FwdRows / kWarps;  // rows of a warp
+constexpr int kF32KeyTile = 64;   // keys of a tile of the fp32 kernels
+
+template <int D, bool SEG>
+__global__ void __launch_bounds__(kWarps * 32)
+    packed_attention_kernel(AttnArgs a, int vec) {
+  constexpr int T = kF32KeyTile, DP = D + 1, RW = kF32FwdRw, DCH = D / 32;
+  constexpr int SB = T * DP + T * D;     // floats of a buffer: K, V
+  const int Lq = a.Lq, Lk = a.Lk;
+  const int q0 = blockIdx.y * kF32FwdRows, nq = min(kF32FwdRows, Lq - q0);
+  const int n_tiles = (Lk + T - 1) / T;
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                             // [64][D]
+  float* bufs = qs + kF32FwdRows * D;          // 2 x SB
+  float* mbuf = bufs + 2 * SB;                 // [2][T] mask
+  float* pws = mbuf + 2 * T;                   // [kWarps][RW][32]
+
+  const int b = blockIdx.x / a.H;
+  const int h = blockIdx.x - b * a.H;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_bs + h * D;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_bs + h * D;
+  const float* mrow = static_cast<const float*>(a.mask) +
+                      static_cast<long long>(b) * Lk;   // or int32 ids
+  const int t_first = SEG && n_tiles > 0 ? (q0 / T) % n_tiles : 0;
+  auto tile_of = [&](int s) {
+    return s < n_tiles ? (t_first + s) % n_tiles : s - n_tiles;
+  };
+  auto buf_of = [&](int s) { return n_tiles == 1 ? 0 : s & 1; };
+  auto issue = [&](int s) {
+    if (s < 2 * n_tiles) {
+      const int j0 = tile_of(s) * T, buf = buf_of(s);
+      const int n = min(T, Lk - j0);
+      float* kt = bufs + buf * SB;
+      if (s < n_tiles || n_tiles > 1) {
+        stage_rows_f32<D>(kb + j0 * a.k_rs, a.k_rs, n, T, DP, false, kt);
+        for (int j = threadIdx.x; j < T; j += blockDim.x)
+          cp_async4(mbuf + buf * T + j, mrow + j0 + min(j, n - 1), j < n);
+      }
+      if (s >= n_tiles)
+        stage_rows_f32<D>(vb + j0 * a.v_rs, a.v_rs, n, T, D, vec & 4,
+                          kt + T * DP);
+    }
+    cp_async_commit();
+  };
+  stage_rows_f32<D>(static_cast<const float*>(a.q) + b * a.q_bs + h * D +
+                        q0 * a.q_rs,
+                    a.q_rs, nq, kF32FwdRows, D, vec & 1, qs);
+  issue(0);   // with Q
+  issue(1);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int shift = Lk - Lq;   // causal: row i attends no key j > i + shift
+  bool real[RW];
+  int sq[RW], last[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const int i = q0 + warp + kWarps * r;
+    real[r] = i < Lq;
+    sq[r] = -1;
+    if (SEG && real[r])
+      sq[r] = static_cast<const int*>(a.mask)[static_cast<long long>(b) *
+                                              Lk + i];
+    last[r] = a.causal ? i + shift : Lk;   // last causal key
+  }
+
+  // the masked, scaled scores of rows r and key jh0 + lane (half hh of
+  // buffer buf); -inf past Lk
+  auto scores = [&](int buf, int hh, int jh0, float (&x)[RW]) {
+    const float* kr = bufs + buf * SB + (32 * hh + lane) * DP;
+#pragma unroll
+    for (int r = 0; r < RW; ++r) x[r] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < D; ++c) {
+      const float kv = kr[c];
+#pragma unroll
+      for (int r = 0; r < RW; ++r)
+        x[r] = fmaf(qs[(warp + kWarps * r) * D + c], kv, x[r]);
+    }
+    const int j = jh0 + lane;
+    const float mv = mbuf[buf * T + 32 * hh + lane];
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      float s = x[r] * a.scale;
+      if (SEG) {
+        s += (__float_as_int(mv) == sq[r] && sq[r] >= 0) ? 0.f : kNegInf;
+      } else {
+        s += (1.f - mv) * kNegInf;
+        if (j > last[r]) s += kNegInf;
+      }
+      x[r] = j < Lk ? s : -INFINITY;
+    }
+  };
+
+  // pass 1 marks, in ``skip`` (bit 2 tile + half, the first 64 halves),
+  // every half whose scores all lie kSkipGap or more below the running
+  // max of their rows (the bf16 kernel's rule)
+  uint32_t skip[2] = {0u, 0u};
+  float m[RW], ls[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    m[r] = -INFINITY;
+    ls[r] = 0.f;
+  }
+  for (int s = 0; s < n_tiles; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const int buf = buf_of(s), tj = tile_of(s) * T;
+    for (int hh = 0; hh < 2 && tj + 32 * hh < Lk; ++hh) {
+      float x[RW];
+      scores(buf, hh, tj + 32 * hh, x);
+      bool low = true;
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const float mh = warp_max(x[r]);
+        const float mn = fmaxf(m[r], mh);
+        ls[r] = ls[r] * expf(m[r] - mn) + expf(x[r] - mn);
+        m[r] = mn;
+        low &= !real[r] || mh <= mn - kSkipGap;
+      }
+      const int bit = 2 * tile_of(s) + hh;
+      if (low && bit < 64) skip[bit >> 5] |= 1u << (bit & 31);
+    }
+    __syncthreads();
+    issue(s + 2);
+  }
+  float l[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) l[r] = warp_sum(ls[r]);
+
+  float* pb = a.probs == nullptr
+                  ? nullptr
+                  : static_cast<float*>(a.probs) +
+                        static_cast<long long>(blockIdx.x) * Lq * Lk;
+  const bool drop = a.rate > 0.f;
+  const uint32_t thr = keep_threshold(a.rate);
+  float* pw = pws + warp * RW * 32;
+  float acc[RW][DCH];
+#pragma unroll
+  for (int r = 0; r < RW; ++r)
+#pragma unroll
+    for (int c = 0; c < DCH; ++c) acc[r][c] = 0.f;
+  for (int s = n_tiles; s < 2 * n_tiles; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const int buf = buf_of(s), tile = s - n_tiles, tj = tile * T;
+    for (int hh = 0; hh < 2 && tj + 32 * hh < Lk; ++hh) {
+      const int jh0 = tj + 32 * hh, nkh = min(32, Lk - jh0);
+      const int j = jh0 + lane, bit = 2 * tile + hh;
+      if (bit < 64 && ((skip[bit >> 5] >> (bit & 31)) & 1u)) {
+        if (pb != nullptr && lane < nkh)
+#pragma unroll
+          for (int r = 0; r < RW; ++r)
+            if (real[r])
+              pb[static_cast<long long>(q0 + warp + kWarps * r) * Lk + j] =
+                  0.f;
+        continue;
+      }
+      float x[RW];
+      scores(buf, hh, jh0, x);
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const int i = q0 + warp + kWarps * r;
+        float p = expf(x[r] - m[r]) / l[r];
+        if (pb != nullptr && real[r] && lane < nkh)
+          pb[static_cast<long long>(i) * Lk + j] = p;
+        if (drop && p != 0.f)
+          p = dropout_keep_thr(a.key, b, h, i, j, thr) ? p * a.keep_scale
+                                                       : 0.f;
+        pw[r * 32 + lane] = p;
+      }
+      __syncwarp();
+      const float* vt = bufs + buf * SB + T * DP + 32 * hh * D;
+      for (int jj = 0; jj < nkh; ++jj) {
+        float vv[DCH];
+#pragma unroll
+        for (int c = 0; c < DCH; ++c) vv[c] = vt[jj * D + lane + 32 * c];
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          const float p = pw[r * 32 + jj];
+#pragma unroll
+          for (int c = 0; c < DCH; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
+        }
+      }
+      __syncwarp();
+    }
+    __syncthreads();
+    issue(s + 2);
+  }
+  cp_async_wait<0>();
+  float* ob = static_cast<float*>(a.out) + b * a.o_bs + h * D;
+#pragma unroll
+  for (int r = 0; r < RW; ++r)
+    if (real[r])
+#pragma unroll
+      for (int c = 0; c < DCH; ++c)
+        ob[(q0 + warp + kWarps * r) * a.o_rs + lane + 32 * c] = acc[r][c];
+}
+
+// Shared memory of the fp32 forward: no term depends on Lq or Lk.
+size_t fwd_smem(int D) {
+  const size_t T = kF32KeyTile;
+  return sizeof(float) * (kF32FwdRows * D + 2 * (T * (D + 1) + T * D) +
+                          2 * T + kWarps * kF32FwdRw * 32);
+}
+
+template <int D, bool SEG>
+cudaError_t launch_fwd(const AttnArgs& a, cudaStream_t stream) {
+  const size_t smem = fwd_smem(D);
+  const cudaError_t e = cudaFuncSetAttribute(
+      packed_attention_kernel<D, SEG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const int vec = (rows_aligned16_f32(a.q, a.q_bs, a.q_rs) ? 1 : 0) |
+                  (rows_aligned16_f32(a.v, a.v_bs, a.v_rs) ? 4 : 0);
+  const dim3 grid(a.B * a.H, (a.Lq + kF32FwdRows - 1) / kF32FwdRows);
+  packed_attention_kernel<D, SEG>
+      <<<grid, kWarps * 32, smem, stream>>>(a, vec);
+  return cudaGetLastError();
+}
+
+template <bool SEG>
+cudaError_t fwd_dim(const AttnArgs& a, int head_dim, cudaStream_t s) {
+  switch (head_dim) {
+    case 32: return launch_fwd<32, SEG>(a, s);
+    case 64: return launch_fwd<64, SEG>(a, s);
+    case 128: return launch_fwd<128, SEG>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t fwd_mode(const AttnArgs& a, int seg, int head_dim,
+                     cudaStream_t s) {
+  return seg ? fwd_dim<true>(a, head_dim, s)
+             : fwd_dim<false>(a, head_dim, s);
+}
+
 template <typename K>
 cudaError_t prepare(K kernel, size_t smem) {
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
@@ -1811,11 +2050,6 @@ cudaError_t bwd_dim(const BwdArgs& a, int dtype, int head_dim, float* delta,
   }
 }
 
-// a warp per 16-row tile of the longer side, at least 4 to stage
-int tc_bwd_warps(int Lq, int Lk) {
-  return min(kTcBwdWarps, max(4, max((Lq + 15) / 16, (Lk + 15) / 16)));
-}
-
 // ---------------------------------------------------------------------------
 // head-major attention
 // ---------------------------------------------------------------------------
@@ -1874,11 +2108,13 @@ int tc_bwd_warps(int Lq, int Lk) {
 // capped for five blocks an SM).
 //
 // fp32 design (mha_attention_kernel): a warp per query row, kMhaWarps rows
-// per block, nothing staged in shared memory but the row's q and its
-// scores: lanes over keys for the scores (warp shuffles for the max and
-// the sum), lanes over d for P.V, which reads each value row coalesced.
-// Shared memory is kMhaWarps * (d + Lk) floats, so Lk is bounded by the
-// 227 KB a block may use: 14,464 keys at d = 64.
+// per block, K and V read from memory, nothing in shared memory but the
+// row's q and a 64-key tile of its probabilities: pass 1 walks the key
+// tiles for the running max (warp-wide) and the lane's share of the sum,
+// lanes over keys; pass 2 forms the tile's scores again, p = exp(s - m) /
+// l and the keep bits, and accumulates P.V with lanes over d, which reads
+// each value row coalesced.  Shared memory is kMhaWarps * (d + 64) floats
+// whatever Lk.
 
 constexpr int kMhaWarps = 4;
 
@@ -1897,12 +2133,12 @@ struct MhaArgs {
 template <int DCH>
 __global__ void __launch_bounds__(kMhaWarps * 32)
     mha_attention_kernel(MhaArgs a) {
-  constexpr int D = DCH * 32;
+  constexpr int D = DCH * 32, T = kF32KeyTile;
   const int Lk = a.Lk;
   extern __shared__ float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* qw = smem + warp * (D + Lk);  // [D] the query row
-  float* pw = qw + D;                  // [Lk] its scores, then probabilities
+  float* qw = smem + warp * (D + T);   // [D] the query row
+  float* pw = qw + D;                  // [T] a key tile's probabilities
 
   const long long row = static_cast<long long>(blockIdx.x) * kMhaWarps + warp;
   if (row >= static_cast<long long>(a.B) * a.H * a.Lq) return;
@@ -1922,64 +2158,75 @@ __global__ void __launch_bounds__(kMhaWarps * 32)
     qw[lane + 32 * c] = qr[lane + 32 * c];
   __syncwarp();
 
-  float mx = -INFINITY;
-  for (int j = lane; j < Lk; j += 32) {
-    const float* kr = kb + j * a.k_rs;
-    float acc = 0.f;
+  // the masked, scaled scores of keys j0 + lane and j0 + lane + 32; -inf
+  // past Lk
+  auto scores = [&](int j0, float (&s)[2]) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int j = j0 + lane + 32 * k;
+      s[k] = -INFINITY;
+      if (j >= Lk) continue;
+      const float* kr = kb + j * a.k_rs;
+      float acc = 0.f;
 #pragma unroll 16
-    for (int c = 0; c < D; ++c) acc = fmaf(qw[c], kr[c], acc);
-    float s = acc * a.scale;
-    s += (1.f - mr[j]) * kNegInf;
-    if (j > last) s += kNegInf;
-    pw[j] = s;
-    mx = fmaxf(mx, s);
+      for (int c = 0; c < D; ++c) acc = fmaf(qw[c], kr[c], acc);
+      float x = acc * a.scale;
+      x += (1.f - mr[j]) * kNegInf;
+      if (j > last) x += kNegInf;
+      s[k] = x;
+    }
+  };
+  // pass 1: the running max (warp-wide, a tile at a time) and the lane's
+  // share of the sum
+  float mx = -INFINITY, ls = 0.f;
+  for (int j0 = 0; j0 < Lk; j0 += T) {
+    float s[2];
+    scores(j0, s);
+    const float mn = fmaxf(mx, warp_max(fmaxf(s[0], s[1])));
+    ls = ls * expf(mx - mn) + expf(s[0] - mn) + expf(s[1] - mn);
+    mx = mn;
   }
-  mx = warp_max(mx);
-  float sum = 0.f;
-  for (int j = lane; j < Lk; j += 32) {
-    const float e = expf(pw[j] - mx);
-    pw[j] = e;
-    sum += e;
-  }
-  sum = warp_sum(sum);
+  const float sum = warp_sum(ls);
+  // pass 2: p = exp(s - m) / l through the warp's tile, then P.V with
+  // lanes over d, each value row read coalesced
   const bool drop = a.rate > 0.f;
-  for (int j = lane; j < Lk; j += 32) {
-    float p = pw[j] / sum;
-    if (drop)
-      p = dropout_keep(a.key, b, h, i, j, a.rate) ? p * a.keep_scale : 0.f;
-    pw[j] = p;
-  }
-  __syncwarp();
-
   float acc[DCH];
 #pragma unroll
   for (int c = 0; c < DCH; ++c) acc[c] = 0.f;
-  for (int j = 0; j < Lk; ++j) {
-    const float p = pw[j];
-    const float* vr = vb + j * a.v_rs;
+  for (int j0 = 0; j0 < Lk; j0 += T) {
+    float s[2];
+    scores(j0, s);
 #pragma unroll
-    for (int c = 0; c < DCH; ++c)
-      acc[c] = fmaf(p, vr[lane + 32 * c], acc[c]);
+    for (int k = 0; k < 2; ++k) {
+      const int j = j0 + lane + 32 * k;
+      float p = expf(s[k] - mx) / sum;
+      if (drop && j < Lk)
+        p = dropout_keep(a.key, b, h, i, j, a.rate) ? p * a.keep_scale : 0.f;
+      pw[lane + 32 * k] = p;
+    }
+    __syncwarp();
+    const int n = min(T, Lk - j0);
+    for (int j = 0; j < n; ++j) {
+      const float p = pw[j];
+      const float* vr = vb + (j0 + j) * a.v_rs;
+#pragma unroll
+      for (int c = 0; c < DCH; ++c)
+        acc[c] = fmaf(p, vr[lane + 32 * c], acc[c]);
+    }
+    __syncwarp();
   }
 #pragma unroll
   for (int c = 0; c < DCH; ++c) orow[lane + 32 * c] = acc[c];
 }
 
-size_t mha_smem(int Lk, int D) {
-  return sizeof(float) * kMhaWarps * (static_cast<size_t>(D) + Lk);
+size_t mha_smem(int D) {
+  return sizeof(float) * kMhaWarps * (static_cast<size_t>(D) + kF32KeyTile);
 }
 
 template <int DCH>
 cudaError_t launch_mha(const MhaArgs& a, cudaStream_t stream) {
   constexpr int D = DCH * 32;
-  const size_t smem = mha_smem(a.Lk, D);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mha_attention_kernel<DCH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
+  const size_t smem = mha_smem(D);
   const long long rows = static_cast<long long>(a.B) * a.H * a.Lq;
   const long long blocks = (rows + kMhaWarps - 1) / kMhaWarps;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -2014,57 +2261,19 @@ cudaError_t mha_dim(const MhaArgs& a, int head_dim, cudaStream_t s) {
 // k, v and do are read through batch, head and row strides; dq, dk, dv
 // are contiguous (B, H, L, d).
 //
-// Each dtype has one kernel, chosen in hero_mha_attention_bwd: bf16 takes
-// mha_attention_bwd_mma_kernel on the tensor cores (at the end of the
-// file), fp32 (checks and parity runs only) mha_attention_bwd_kernel below.
+// Each dtype has a pair of kernels, chosen in hero_mha_attention_bwd and
+// launched in turn (a dQ kernel, then a dK/dV kernel; the design is at
+// the pair, after the bf16 head-major forward): bf16 takes
+// mha_attention_bwd_dq_mma_kernel and mha_attention_bwd_dkv_mma_kernel on
+// the tensor cores, fp32 (checks and parity runs only)
+// mha_attention_bwd_dq_kernel and mha_attention_bwd_dkv_kernel.  Shared
+// memory does not depend on Lq or Lk: every length is computed.
 //
 // Bound on the H100: at the component shape (B*H = 3072 heads of
 // 56 x 56, d = 64) each head reads q, k, v, do and writes dq, dk, dv
 // (7 * 56 * 64 elements: 154 MB, 46 us) for ~10 * 56^2 * 64 flops (6.2
 // GFLOP, 6 us on the tensor cores): memory-bound, as the forward is, once
 // the products leave the CUDA cores.
-//
-// bf16 design (mha_attention_bwd_mma_kernel): the saved-probabilities
-// backward's two passes with the probabilities recomputed: a block per
-// (b, h) of up to 9 warps; Q, dO, K, V and the mask staged once by
-// cp.async into swizzled tiles.  Pass A, a warp per 16 query rows, forms
-// S and dP = dO V^T on the tensor cores, draws the Philox bits once (16
-// bits a (row, 16-key chunk) in shared memory), and keeps the online row
-// max, sum and u = sum_j exp(s_j - m) dp_j, so Delta = u / l is
-// sum_j dp_j p_j in fp32 without a third sweep; its second sweep forms dS
-// and dQ = dS K.  Pass B, a warp per 16 keys, recomputes P^T from K Q^T
-// and the rows' lse = m + log l, and forms dV = PD^T dO (B1) and dK =
-// dS^T Q with dP^T = V dO^T (B2).  pd and dS meet the tensor cores as
-// three bf16 parts, hi + mid + lo (~2^-26 relative): with hi + lo alone
-// (up to 2^-17) about one gradient element in 2^8 rounds to the other
-// bf16 neighbour of the plain version's, and at the component shape's
-// 11M elements of each gradient such a flip lands among the largest ones
-// (an 8-16 dK or dV element one bf16 ulp, 0.0625, off); with three parts
-// the flips are as rare as between two fp32 summation orders.  Every
-// gradient row is summed by one warp in a fixed order and written once,
-// the rows of keys that no query attends included: no atomics, the same
-// bits from run to run.  Shared memory is
-// 4 * (Lq + Lk) * d bf16 (each rounded up to 16 rows), Lk fp32 of mask,
-// Lq fp32 each of lse and Delta and Lq * Lk / 16 keep words: 33 KB at
-// 56 x 56, 120 KB at 224 x 224 (d = 64).  So a head takes 400 rows at
-// d = 64 and 208 at d = 128 (Lq = Lk).  Of the shapes the fp32 kernel
-// below takes, the bf16 one refuses only those with at most 3 keys and
-// 849-859 query rows at d = 64 (417-435 at d = 128, none at d = 32):
-// there the 16-row zero padding of K, V and Q outweighs the bytes the
-// bf16 tiles save.  ptxas (CUDA 12.8, sm_90a): 92 and 137 registers at
-// d = 32 and 64, no spills; 168 at d = 128 with 140 bytes of spill
-// stores (no path runs d = 128).
-//
-// fp32 design (mha_attention_bwd_kernel): one block per (b, h).  Pass 0 (a
-// warp per query row, K staged in shared memory padded against bank
-// conflicts) writes the fp32 probabilities to a shared (Lq, Lk) tile;
-// pass A (V staged) turns them into drop(p) and dS tiles; pass B stages
-// dO, Q and K in turn and forms dv, dk and dq with one thread per (output
-// rows, channel), each summing its terms in a fixed order, so the
-// gradients are the same from run to run.  Shared memory is
-// (max(Lq, Lk) * (d + 1) + 2 * Lq * Lk + 8 * d + Lk) floats: 42 KB at
-// 56 x 56, d = 64, and a square head of up to 154 rows at d = 64 (139 at
-// d = 128); the wrapper refuses a shape over the 227 KB a block may use.
 
 struct MhaBwdArgs {
   const void* q;
@@ -2081,161 +2290,6 @@ struct MhaBwdArgs {
   float scale, rate, keep_scale;
   PhiloxKey key;
 };
-
-// Stage rows [0, n) of a (., L, D) head into xs[n][D + 1].
-template <int D>
-__device__ void stage_padded(const float* src, long long row_stride, int n,
-                             float* xs) {
-  for (int i = threadIdx.x; i < n * D; i += blockDim.x) {
-    const int r = i / D, c = i - r * D;
-    xs[r * (D + 1) + c] = src[r * row_stride + c];
-  }
-}
-
-template <int DCH>
-__global__ void __launch_bounds__(kWarps * 32)
-    mha_attention_bwd_kernel(MhaBwdArgs a) {
-  constexpr int D = DCH * 32;
-  const int Lq = a.Lq, Lk = a.Lk;
-  extern __shared__ float smem[];
-  float* region = smem;                                // [max(Lq,Lk)][D+1]
-  float* dsm = region + max(Lq, Lk) * (D + 1);         // [Lq][Lk] dS
-  float* pdm = dsm + Lq * Lk;                          // [Lq][Lk] p, drop(p)
-  float* rows = pdm + Lq * Lk;                         // [kWarps][D]
-  float* kbias = rows + kWarps * D;                    // [Lk]
-
-  const int b = blockIdx.x / a.H;
-  const int h = blockIdx.x - b * a.H;
-  const float* qb = static_cast<const float*>(a.q) + b * a.q_bs + h * a.q_hs;
-  const float* kb = static_cast<const float*>(a.k) + b * a.k_bs + h * a.k_hs;
-  const float* vb = static_cast<const float*>(a.v) + b * a.v_bs + h * a.v_hs;
-  const float* gb =
-      static_cast<const float*>(a.dout) + b * a.do_bs + h * a.do_hs;
-  const float* mr = a.mask + b * a.m_bs;
-  const bool drop = a.rate > 0.f;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* w = rows + warp * D;
-
-  // pass 0: the probabilities, a warp per query row
-  stage_padded<D>(kb, a.k_rs, Lk, region);
-  for (int j = threadIdx.x; j < Lk; j += blockDim.x)
-    kbias[j] = (1.f - mr[j]) * kNegInf;
-  __syncthreads();
-  for (int r = warp; r < Lq; r += kWarps) {
-#pragma unroll
-    for (int c = 0; c < DCH; ++c)
-      w[lane + 32 * c] = qb[r * a.q_rs + lane + 32 * c];
-    __syncwarp();
-    const int last = a.causal ? r + (Lk - Lq) : Lk;  // last causal key
-    float* pr = pdm + r * Lk;
-    float mx = -INFINITY;
-    for (int j = lane; j < Lk; j += 32) {
-      const float* kr = region + j * (D + 1);
-      float acc = 0.f;
-#pragma unroll 16
-      for (int c = 0; c < D; ++c) acc = fmaf(w[c], kr[c], acc);
-      float s = acc * a.scale;
-      s += kbias[j];
-      if (j > last) s += kNegInf;
-      pr[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int j = lane; j < Lk; j += 32) {
-      const float e = expf(pr[j] - mx);
-      pr[j] = e;
-      sum += e;
-    }
-    sum = warp_sum(sum);
-    for (int j = lane; j < Lk; j += 32) pr[j] = pr[j] / sum;
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // pass A: dS and drop(p), a warp per query row, V staged
-  stage_padded<D>(vb, a.v_rs, Lk, region);
-  __syncthreads();
-  for (int r = warp; r < Lq; r += kWarps) {
-#pragma unroll
-    for (int c = 0; c < DCH; ++c)
-      w[lane + 32 * c] = gb[r * a.do_rs + lane + 32 * c];
-    __syncwarp();
-    float* pr = pdm + r * Lk;
-    float* dsr = dsm + r * Lk;
-    float acc = 0.f;
-    for (int j = lane; j < Lk; j += 32) {
-      const float* vr = region + j * (D + 1);
-      float dpd = 0.f;
-#pragma unroll 16
-      for (int c = 0; c < D; ++c) dpd = fmaf(w[c], vr[c], dpd);
-      float dp = dpd;
-      if (drop)
-        dp = dropout_keep(a.key, b, h, r, j, a.rate) ? dpd * a.keep_scale
-                                                      : 0.f;
-      dsr[j] = dp;
-      acc = fmaf(dp, pr[j], acc);
-    }
-    const float rowsum = warp_sum(acc);
-    for (int j = lane; j < Lk; j += 32) {
-      const float p = pr[j];
-      dsr[j] = p * (dsr[j] - rowsum);
-      if (drop)
-        pr[j] = dropout_keep(a.key, b, h, r, j, a.rate) ? p * a.keep_scale
-                                                         : 0.f;
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  // pass B: dv = PD^T dO, dk = dS^T Q * scale, dq = dS K * scale
-  const long long head = static_cast<long long>(blockIdx.x);
-  stage<float, D>(gb, a.do_rs, Lq, region);
-  __syncthreads();
-  contract<float, D>(pdm, 1, Lk, region, Lk, Lq, 1.f,
-                     static_cast<float*>(a.dv) + head * Lk * D, D);
-  __syncthreads();
-  stage<float, D>(qb, a.q_rs, Lq, region);
-  __syncthreads();
-  contract<float, D>(dsm, 1, Lk, region, Lk, Lq, a.scale,
-                     static_cast<float*>(a.dk) + head * Lk * D, D);
-  __syncthreads();
-  stage<float, D>(kb, a.k_rs, Lk, region);
-  __syncthreads();
-  contract<float, D>(dsm, Lk, 1, region, Lq, Lk, a.scale,
-                     static_cast<float*>(a.dq) + head * Lq * D, D);
-}
-
-size_t mha_bwd_smem(int Lq, int Lk, int D) {
-  return sizeof(float) * (static_cast<size_t>(Lq > Lk ? Lq : Lk) * (D + 1)
-                          + 2 * static_cast<size_t>(Lq) * Lk + kWarps * D
-                          + Lk);
-}
-
-template <int DCH>
-cudaError_t launch_mha_bwd(const MhaBwdArgs& a, cudaStream_t stream) {
-  constexpr int D = DCH * 32;
-  const size_t smem = mha_bwd_smem(a.Lq, a.Lk, D);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mha_attention_bwd_kernel<DCH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  mha_attention_bwd_kernel<DCH>
-      <<<a.B * a.H, kWarps * 32, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-cudaError_t mha_bwd_dim(const MhaBwdArgs& a, int head_dim, cudaStream_t s) {
-  switch (head_dim) {
-    case 32: return launch_mha_bwd<1>(a, s);
-    case 64: return launch_mha_bwd<2>(a, s);
-    case 128: return launch_mha_bwd<4>(a, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16 head-major attention on the tensor cores (forward and backward)
@@ -2597,117 +2651,193 @@ cudaError_t mha_mma_dim(const MhaArgs& a, int head_dim, cudaStream_t s) {
   }
 }
 
-// Backward: a block per (b, h) of tc_bwd_warps(Lq, Lk) warps; Q, dO, K, V
-// and the mask staged once by cp.async.  Pass A, a warp per 16 query
-// rows: sweep 1 forms S = Q K^T and dP = dO V^T, draws the keep bits once
-// (16 bits a (row, 16-key chunk), kept in shared memory) and keeps the
-// running row max m, sum l and u = sum_j exp(s_j - m) dp_j, rescaled with
-// m, so Delta = u / l = sum_j dp_j p_j in fp32 (not dO . O); sweep 2
-// forms p = exp(s - lse) and dS = p o (dp - Delta) again and accumulates
-// dQ = dS K.  lse = m + log l and Delta go to shared memory.  Pass B, a
-// warp per 16 keys, recomputes P^T = exp(K Q^T - lse) over the query
-// tiles in order: B1 accumulates dV = PD^T dO, B2 dK = dS^T Q with
-// dP^T = V dO^T formed again (two sub-passes keep a warp's accumulators
-// to one D-wide tile).  Every gradient row, every key's included, is
-// summed by one warp in a fixed order and written once: no atomics.
+// Backward (#5), both dtypes: two kernels in turn on the stream, #3's
+// design with p recomputed from q, k, the mask and the rows' statistics
+// instead of read saved; each streams through shared memory in 64-row
+// tiles, so shared memory does not grow with Lq or Lk.
+//   1. dQ: a block per (b, h, tile of 64 query rows), Q's and dO's tiles
+//      staged once; K, V and the mask pass through shared memory in 64-key
+//      tiles by cp.async, the next tile in flight.  Sweep 1 forms
+//      S = Q K^T and dP = dO V^T, applies the keep bits and keeps the
+//      running row max m, sum l and u = sum_j exp(s_j - m) dp_j, rescaled
+//      with m, so Delta = u / l = sum_j dp_j p_j in fp32 (not dO . O)
+//      without a third sweep; sweep 2 forms p = exp(s - m) / l and
+//      dS = p o (dp - Delta) again and accumulates dQ = dS K.  m, 1 / l and
+//      Delta go to a (B, H, Lq, 3) fp32 scratch (not lse = m + log l,
+//      which a row no key may attend rounds to the grid of |m| ~ 2e4,
+//      moving its p by up to 0.1%).
+//   2. dK and dV: a block per (b, h, tile of 64 keys), K's, V's and the
+//      mask's tiles staged once; tiles of 64 query rows of Q, dO and the
+//      scratch stream through in order: P^T = exp(K Q^T - m) / l,
+//      dP^T = V dO^T, dV += PD^T dO, dK += dS^T Q * scale.
+// Every gradient row is summed by one warp (or, for a tile of one or two
+// 16-row groups, by parts combined in a fixed order) and written once: no
+// atomics, the same bits from run to run.  The keep bits are drawn from
+// Philox in each kernel: the dQ kernel's sweep 1 keeps those of the first
+// 256 keys in 4 registers a thread for sweep 2, and sweep 2 (past them)
+// and the dK/dV kernel draw only where the warp holds a nonzero p.
+// bf16 (tensor cores): 4 warps, a warp per 16 rows, products on mma.sync
+// with fp32 accumulation; pd and dS meet the tensor cores as three bf16
+// parts, hi + mid + lo (~2^-26 relative): with hi + lo alone (up to 2^-17)
+// about one gradient element in 2^8 rounds to the other bf16 neighbour of
+// the plain version's, and at the component shape's 11M elements of each
+// gradient such a flip lands among the largest ones (an 8-16 dK or dV
+// element one bf16 ulp, 0.0625, off); with three parts the flips are as
+// rare as between two fp32 summation orders.  Tiles are swizzled
+// (tile_off), unpadded.  Shared memory at d = 64: 50,432 bytes (dQ) and
+// 50,944 (dK/dV), 12 * 64 * d bf16 and the mask, statistics and partial
+// sums; at d = 128 the dK/dV kernel reloads K's and V's fragments for each
+// query chunk instead of holding them.  ptxas (CUDA 12.8, sm_90a), no
+// spills: dQ 150, 164 and 240 registers at d = 32, 64 and 128, dK/dV 142,
+// 168 and 255; three blocks an SM at d <= 64.
+// fp32 (CUDA cores): 8 warps, a warp per 8 rows, #3's fp32 kernels'
+// products (lanes over keys for the dots, K and V padded to d + 1 floats;
+// lanes over channels for the contractions); shared memory 116,224 and
+// 116,992 bytes at d = 64.
+
 template <int D>
-__global__ void __launch_bounds__(kTcBwdWarps * 32)
-    mha_attention_bwd_mma_kernel(MhaBwdArgs a, int vec) {
-  constexpr int KS = D / 16;
+__global__ void __launch_bounds__(kBwdWarps * 32, D <= 64 ? 3 : 2)
+    mha_attention_bwd_dq_mma_kernel(MhaBwdArgs a, float* stats, int vec) {
+  constexpr int KS = D / 16, T = kBwdTile;
+  constexpr int SB = 2 * T * D;          // bf16 elements of a buffer: K, V
   const int Lq = a.Lq, Lk = a.Lk;
-  const int lq_pad = round16(Lq), lk_pad = round16(Lk), kw = lk_pad / 16;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H;
+  const int q0 = blockIdx.y * T, nq = min(T, Lq - q0);
+  const int n_tiles = (Lk + T - 1) / T;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);    // [lq_pad][D]
-  bf16* gs = qs + lq_pad * D;                      // [lq_pad][D] dO
-  bf16* ks = gs + lq_pad * D;                      // [lk_pad][D]
-  bf16* vs = ks + lk_pad * D;                      // [lk_pad][D]
-  float* mraw = reinterpret_cast<float*>(vs + lk_pad * D);   // [lk_pad]
-  float* lse = mraw + lk_pad;                      // [lq_pad]
-  float* delta = lse + lq_pad;                     // [lq_pad]
-  uint16_t* keep = reinterpret_cast<uint16_t*>(delta + lq_pad);  // [lq_pad][kw]
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);            // [T][D]
+  bf16* gs = qs + T * D;                                   // [T][D] dO
+  bf16* bufs = gs + T * D;                                 // 2 x SB
+  float* mbuf = reinterpret_cast<float*>(bufs + 2 * SB);   // [2][T] mask
+  float* red = mbuf + 2 * T;                               // [4][16][3]
+  auto kbuf = [&](int buf) { return bufs + buf * SB; };
+  auto vbuf = [&](int buf) { return bufs + buf * SB + T * D; };
 
-  const int b = blockIdx.x / a.H, h = blockIdx.x - b * a.H;
-  const long long head = blockIdx.x;
-  stage_rows<D, true>(
-      static_cast<const bf16*>(a.q) + b * a.q_bs + h * a.q_hs, a.q_rs, Lq,
-      lq_pad, vec & 1, qs);
-  stage_rows<D, true>(
-      static_cast<const bf16*>(a.dout) + b * a.do_bs + h * a.do_hs, a.do_rs,
-      Lq, lq_pad, vec & 8, gs);
-  stage_rows<D, true>(
-      static_cast<const bf16*>(a.k) + b * a.k_bs + h * a.k_hs, a.k_rs, Lk,
-      lk_pad, vec & 2, ks);
-  stage_rows<D, true>(
-      static_cast<const bf16*>(a.v) + b * a.v_bs + h * a.v_hs, a.v_rs, Lk,
-      lk_pad, vec & 4, vs);
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_bs + h * a.k_hs;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_bs + h * a.v_hs;
   const float* mb = a.mask + b * a.m_bs;
-  for (int j = threadIdx.x; j < lk_pad; j += blockDim.x)
-    cp_async4(mraw + j, mb + min(j, Lk - 1), j < Lk);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
+  stage_rows<D, true>(static_cast<const bf16*>(a.q) + b * a.q_bs +
+                          h * a.q_hs + static_cast<long long>(q0) * a.q_rs,
+                      a.q_rs, nq, T, vec & 1, qs);
+  stage_rows<D, true>(static_cast<const bf16*>(a.dout) + b * a.do_bs +
+                          h * a.do_hs + static_cast<long long>(q0) * a.do_rs,
+                      a.do_rs, nq, T, vec & 8, gs);
+  // #3's steps: s < n_tiles is sweep 1's tile s, the rest sweep 2's tile
+  // s - n_tiles, each K, V and the mask into buffer s & 1; with one tile,
+  // step 0 only, read by both sweeps
+  auto issue = [&](int s) {
+    if (s < 2 * n_tiles && (n_tiles > 1 || s == 0)) {
+      const int buf = s & 1, j0 = (s < n_tiles ? s : s - n_tiles) * T;
+      const int n = min(T, Lk - j0), n_pad = round16(n);
+      stage_rows<D, true>(kb + static_cast<long long>(j0) * a.k_rs, a.k_rs,
+                          n, n_pad, vec & 2, kbuf(buf));
+      stage_rows<D, true>(vb + static_cast<long long>(j0) * a.v_rs, a.v_rs,
+                          n, n_pad, vec & 4, vbuf(buf));
+      for (int j = threadIdx.x; j < n_pad; j += blockDim.x)
+        cp_async4(mbuf + buf * T + j, mb + j0 + min(j, n - 1), j < n);
+    }
+    cp_async_commit();
+  };
+  issue(0);   // with Q and dO
+  issue(1);
 
-  const int nw = blockDim.x >> 5, warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // a tile of one or two 16-row groups splits its keys over the warps
+  const int split = bwd_split(nq, Lk), part = warp % split;
+  const int r0 = (warp / split) * 16;
+  const bool active = r0 < nq;
+  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  const int shift = Lk - Lq;   // causal: row i attends no key j > i + shift
   const bool drop = a.rate > 0.f;
-  const int shift = Lk - Lq;   // causal: row i sees no key j > i + shift
+  const uint32_t thr = keep_threshold(a.rate);
+  uint32_t qf[KS][4], gf[KS][4];
 
-  // pass A: Delta, lse and dQ, a warp per 16 query rows
-  for (int r0 = warp * 16; r0 < lq_pad; r0 += nw * 16) {
-    uint32_t qf[KS][4], gf[KS][4];
-    load_a<D, true>(qs, r0, qf);
-    load_a<D, true>(gs, r0, gf);
-    const int row[2] = {r0 + g, r0 + g + 8};
-    // the masked, scaled scores of keys [j0, j0 + 16); -inf past Lk
-    auto scores = [&](int j0, float (&x)[2][4]) {
-      mma_abt<D, true>(qf, ks, j0, x);
+  // the masked, scaled scores of chunk c (keys from j0) of buffer buf;
+  // -inf past Lk
+  auto scores = [&](int buf, int c, int j0, float (&x)[2][4]) {
+    mma_abt<D, true>(qf, kbuf(buf), 16 * c, x);
+    const float* mk = mbuf + buf * T + 16 * c;
 #pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        const float2 mm =
-            *reinterpret_cast<const float2*>(mraw + j0 + 8 * n + 2 * t);
+    for (int n = 0; n < 2; ++n) {
+      const float2 mm = *reinterpret_cast<const float2*>(mk + 8 * n + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[n][e] = x[n][e] * a.scale + (1.f - (e & 1 ? mm.y : mm.x)) * kNegInf;
+    }
+    if (a.causal && j0 + 15 > q0 + r0 + shift)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          x[n][e] = x[n][e] * a.scale + (1.f - (e & 1 ? mm.y : mm.x)) * kNegInf;
-      }
-      if (a.causal && j0 + 15 > r0 + shift)
+          if (j0 + 8 * n + 2 * t + (e & 1) > row[e >> 1] + shift)
+            x[n][e] += kNegInf;
+    if (j0 + 16 > Lk)
 #pragma unroll
-        for (int n = 0; n < 2; ++n)
+      for (int n = 0; n < 2; ++n)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (j0 + 8 * n + 2 * t + (e & 1) > row[e >> 1] + shift)
-              x[n][e] += kNegInf;
-      if (j0 + 16 > Lk)
+        for (int e = 0; e < 4; ++e)
+          if (j0 + 8 * n + 2 * t + (e & 1) >= Lk) x[n][e] = -INFINITY;
+  };
+  // the chunk's keep bits (bit 4 n + e): eight independent draws
+  auto draw = [&](int j0) {
+    uint32_t m = 0;
 #pragma unroll
-        for (int n = 0; n < 2; ++n)
+    for (int n = 0; n < 2; ++n)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (j0 + 8 * n + 2 * t + (e & 1) >= Lk) x[n][e] = -INFINITY;
-    };
+      for (int e = 0; e < 4; ++e)
+        m |= (dropout_keep_thr(a.key, b, h, row[e >> 1],
+                               j0 + 8 * n + 2 * t + (e & 1), thr)
+                  ? 1u
+                  : 0u)
+             << (4 * n + e);
+    return m;
+  };
+  auto apply = [&](uint32_t m, float (&x)[2][4]) {
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[n][e] = (m >> (4 * n + e)) & 1u ? x[n][e] * a.keep_scale : 0.f;
+  };
+  // (m, l, u) <- the statistics of both key sets; -inf is "none yet"
+  auto combine = [](float& m, float& l, float& u, float mo, float lo,
+                    float uo) {
+    const float mn = fmaxf(m, mo);
+    const float fa = m == -INFINITY ? 0.f : exp_fast(m - mn);
+    const float fb = mo == -INFINITY ? 0.f : exp_fast(mo - mn);
+    l = l * fa + lo * fb;
+    u = u * fa + uo * fb;
+    m = mn;
+  };
+  uint32_t kc[kBitTiles];
+#pragma unroll
+  for (int w = 0; w < kBitTiles; ++w) kc[w] = 0u;
 
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
-    for (int j0 = 0; j0 < lk_pad; j0 += 16) {
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
+  for (int s = 0; s < n_tiles; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();
+    if (s == 0 && active) {
+      load_a<D, true>(qs, r0, qf);
+      load_a<D, true>(gs, r0, gf);
+    }
+    const int buf = s & 1, tj = s * T;
+    const int chunks = (min(T, Lk - tj) + 15) / 16;
+    for (int c = part; active && c < chunks; c += split) {
+      const int j0 = tj + 16 * c;
       float x[2][4], dp[2][4];
-      scores(j0, x);
-      mma_abt<D, true>(gf, vs, j0, dp);
+      scores(buf, c, j0, x);
+      mma_abt<D, true>(gf, vbuf(buf), 16 * c, dp);
+      if (drop) {
+        const uint32_t bits = draw(j0);
+#pragma unroll
+        for (int w = 0; w < kBitTiles; ++w)
+          if (w == s) kc[w] |= bits << (8 * c);
+        apply(bits, dp);
+      }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        if (drop) {
-          const int i = row[r];
-          uint32_t bits = 0;
-#pragma unroll
-          for (int n = 0; n < 2; ++n)
-#pragma unroll
-            for (int k = 0; k < 2; ++k) {
-              const int j = j0 + 8 * n + 2 * t + k;
-              const bool kp = i < Lq && j < Lk &&
-                              dropout_keep(a.key, b, h, i, j, a.rate);
-              dp[n][2 * r + k] = kp ? dp[n][2 * r + k] * a.keep_scale : 0.f;
-              bits |= (kp ? 1u : 0u) << (8 * n + 2 * t + k);
-            }
-          bits |= __shfl_xor_sync(0xffffffffu, bits, 1);
-          bits |= __shfl_xor_sync(0xffffffffu, bits, 2);
-          if (t == 0) keep[i * kw + j0 / 16] = static_cast<uint16_t>(bits);
-        }
         const float mc = fmaxf(fmaxf(x[0][2 * r], x[0][2 * r + 1]),
                                fmaxf(x[1][2 * r], x[1][2 * r + 1]));
         const float mn = fmaxf(m[r], mc);
@@ -2727,167 +2857,658 @@ __global__ void __launch_bounds__(kTcBwdWarps * 32)
         m[r] = mn;
       }
     }
-    // combine the quad's (m, l, u); symmetric, so the four agree
-    float lse_r[2], dl[2];
+    __syncthreads();
+    issue(s + 2);
+  }
+  // the quad's four threads hold the row's columns; the butterfly is
+  // symmetric, so all four end with the same bits
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
+  for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int o = 1; o <= 2; o <<= 1) {
-        const float mo = __shfl_xor_sync(0xffffffffu, m[r], o);
-        const float lo = __shfl_xor_sync(0xffffffffu, l[r], o);
-        const float uo = __shfl_xor_sync(0xffffffffu, u[r], o);
-        const float mn = fmaxf(m[r], mo);
-        const float fa = m[r] == -INFINITY ? 0.f : exp_fast(m[r] - mn);
-        const float fb = mo == -INFINITY ? 0.f : exp_fast(mo - mn);
-        l[r] = l[r] * fa + lo * fb;
-        u[r] = u[r] * fa + uo * fb;
-        m[r] = mn;
-      }
-      lse_r[r] = m[r] + logf(l[r]);
-      dl[r] = u[r] / l[r];
-      if (t == 0) {
-        lse[row[r]] = lse_r[r];
-        delta[row[r]] = dl[r];
-      }
-    }
-    __syncwarp();   // the keep words, written by each quad's first lane
-
-    float dq[D / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dq[nt][e] = 0.f;
-    for (int j0 = 0; j0 < lk_pad; j0 += 16) {
-      float x[2][4], dp[2][4];
-      scores(j0, x);
-      mma_abt<D, true>(gf, vs, j0, dp);
+    for (int o = 1; o <= 2; o <<= 1)
+      combine(m[r], l[r], u[r], __shfl_xor_sync(0xffffffffu, m[r], o),
+              __shfl_xor_sync(0xffffffffu, l[r], o),
+              __shfl_xor_sync(0xffffffffu, u[r], o));
+  if (split > 1) {   // the key parts, combined in part order
+    if (t == 0)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const uint32_t bits = drop ? keep[row[r] * kw + j0 / 16] : 0u;
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-          for (int k = 0; k < 2; ++k) {
-            float d = dp[n][2 * r + k];
-            if (drop)
-              d = (bits >> (8 * n + 2 * t + k)) & 1u ? d * a.keep_scale : 0.f;
-            const float p = exp_fast(x[n][2 * r + k] - lse_r[r]);
-            x[n][2 * r + k] = p * (d - dl[r]);
-          }
+        float* x = red + (warp * 16 + g + 8 * r) * 3;
+        x[0] = m[r];
+        x[1] = l[r];
+        x[2] = u[r];
       }
-      mma_ay3<D>(x, ks, j0, dq);
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[r] = -INFINITY;
+      l[r] = u[r] = 0.f;
+#pragma unroll
+      for (int k = 0; k < kBwdWarps; ++k)
+        if (k < split) {
+          const float* x = red + ((warp - part + k) * 16 + g + 8 * r) * 3;
+          combine(m[r], l[r], u[r], x[0], x[1], x[2]);
+        }
     }
-    store_rows<D>(dq, a.scale, static_cast<bf16*>(a.dq) + head * Lq * D, D,
-                  row[0], Lq);
   }
-  __syncthreads();
-
-  // pass B: a warp per 16 keys over the query tiles in order; B1 (DK
-  // false) dV = PD^T dO, B2 (DK true) dK = dS^T Q * scale
-  auto pass_b = [&](auto dk_pass) {
-    constexpr bool DK = decltype(dk_pass)::value;
-    for (int j0 = warp * 16; j0 < lk_pad; j0 += nw * 16) {
-      uint32_t kf[KS][4], vf[KS][4];
-      load_a<D, true>(ks, j0, kf);
-      if (DK) load_a<D, true>(vs, j0, vf);
-      const int key[2] = {j0 + g, j0 + g + 8};
-      const float kbias[2] = {(1.f - mraw[key[0]]) * kNegInf,
-                              (1.f - mraw[key[1]]) * kNegInf};
-      float acc[D / 8][4];
+  float il[2], dl[2];
 #pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-      for (int i0 = 0; i0 < lq_pad; i0 += 16) {
-        float x[2][4], dpt[2][4];
-        mma_abt<D, true>(kf, qs, i0, x);   // S^T: rows keys, columns queries
-        if (DK) mma_abt<D, true>(vf, gs, i0, dpt);
-        const bool causal = a.causal && j0 + 15 > i0 + shift;
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-          for (int k = 0; k < 2; ++k) {
-            const int i = i0 + 8 * n + 2 * t + k;
-            const float li = lse[i], di = DK ? delta[i] : 0.f;
-            const uint32_t bits = drop ? keep[i * kw + j0 / 16] : 0u;
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-              const int j = key[r], e = 2 * r + k;
-              float s = x[n][e] * a.scale + kbias[r];
-              if (causal && j > i + shift) s += kNegInf;
-              const float p = i < Lq && j < Lk ? exp_fast(s - li) : 0.f;
-              const bool kp = !drop || ((bits >> (j - j0)) & 1u);
-              if (DK) {
-                const float d = kp ? dpt[n][e] * (drop ? a.keep_scale : 1.f)
-                                   : 0.f;
-                x[n][e] = p * (d - di);
-              } else {
-                x[n][e] = kp ? p * (drop ? a.keep_scale : 1.f) : 0.f;
-              }
-            }
-          }
-        mma_ay3<D>(x, DK ? qs : gs, i0, acc);
-      }
-      store_rows<D>(acc, DK ? a.scale : 1.f,
-                    static_cast<bf16*>(DK ? a.dk : a.dv) + head * Lk * D, D,
-                    key[0], Lk);
+  for (int r = 0; r < 2; ++r) {
+    il[r] = 1.f / l[r];
+    dl[r] = u[r] / l[r];
+    if (active && t == 0 && part == 0 && row[r] < Lq) {
+      float* st = stats + (static_cast<long long>(bh) * Lq + row[r]) * 3;
+      st[0] = m[r];
+      st[1] = il[r];
+      st[2] = dl[r];
     }
-  };
-  pass_b(std::false_type{});
-  pass_b(std::true_type{});
-}
+  }
 
-size_t mha_bwd_mma_smem(int Lq, int Lk, int D) {
-  const size_t lq = round16(Lq), lk = round16(Lk);
-  return 2 * (lq + lk) * D * sizeof(bf16) + (lk + 2 * lq) * sizeof(float) +
-         lq * (lk / 16) * sizeof(uint16_t);
+  float dq[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[nt][e] = 0.f;
+  for (int s = n_tiles; s < 2 * n_tiles; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const int tile = s - n_tiles, buf = n_tiles == 1 ? 0 : s & 1;
+    const int tj = tile * T, chunks = (min(T, Lk - tj) + 15) / 16;
+    uint32_t cached = 0;
+#pragma unroll
+    for (int w = 0; w < kBitTiles; ++w)
+      if (w == tile) cached = kc[w];
+    for (int c = part; active && c < chunks; c += split) {
+      const int j0 = tj + 16 * c;
+      float x[2][4], dp[2][4];
+      scores(buf, c, j0, x);
+      mma_abt<D, true>(gf, vbuf(buf), 16 * c, dp);
+      bool any = false;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          x[n][e] = exp_fast(x[n][e] - m[e >> 1]) * il[e >> 1];   // p
+          any |= x[n][e] != 0.f;
+        }
+      if (drop) {
+        uint32_t bits = 0;
+        if (tile < kBitTiles)
+          bits = (cached >> (8 * c)) & 0xffu;
+        else if (__any_sync(0xffffffffu, any))   // a zero p adds nothing
+          bits = draw(j0);
+        apply(bits, dp);
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[n][e] = x[n][e] * (dp[n][e] - dl[e >> 1]);
+      mma_ay3<D>(x, kbuf(buf), 16 * c, dq);
+    }
+    __syncthreads();
+    issue(s + 2);
+  }
+  cp_async_wait<0>();
+  bf16* dqb = static_cast<bf16*>(a.dq) + static_cast<long long>(bh) * Lq * D;
+  if (split == 1) {
+    if (active) store_rows<D>(dq, a.scale, dqb, D, row[0], Lq);
+    return;
+  }
+  // the parts' partial dQ, summed in part order (the K/V buffers are free)
+  combine_parts<D>(dq, reinterpret_cast<float*>(bufs), warp, part, split);
+  if (active && part == 0) store_rows<D>(dq, a.scale, dqb, D, row[0], Lq);
 }
 
 template <int D>
-cudaError_t launch_mha_bwd_mma(const MhaBwdArgs& a, cudaStream_t stream) {
-  const size_t smem = mha_bwd_mma_smem(a.Lq, a.Lk, D);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mha_attention_bwd_mma_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
+__global__ void __launch_bounds__(kBwdWarps * 32, D <= 64 ? 3 : 2)
+    mha_attention_bwd_dkv_mma_kernel(MhaBwdArgs a, const float* stats,
+                                     int vec) {
+  constexpr int KS = D / 16, T = kBwdTile;
+  constexpr int SB = 2 * T * D;          // bf16 elements of a buffer: Q, dO
+  constexpr bool kHold = D <= 64;        // K's and V's fragments held in
+                                         // registers (at d = 128 reloaded)
+  const int Lq = a.Lq, Lk = a.Lk;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H;
+  const int k0 = blockIdx.y * T, nk = min(T, Lk - k0);
+  const int n_tiles = (Lq + T - 1) / T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);            // [T][D]
+  bf16* vs = ks + T * D;                                   // [T][D]
+  bf16* bufs = vs + T * D;                                 // 2 x SB
+  float* sbuf = reinterpret_cast<float*>(bufs + 2 * SB);   // [2][T][3]
+  float* mk = sbuf + 2 * 3 * T;                            // [T] mask
+  auto qbuf = [&](int buf) { return bufs + buf * SB; };
+  auto gbuf = [&](int buf) { return bufs + buf * SB + T * D; };
+
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_bs + h * a.q_hs;
+  const bf16* gb =
+      static_cast<const bf16*>(a.dout) + b * a.do_bs + h * a.do_hs;
+  const float* st = stats + static_cast<long long>(bh) * Lq * 3;
+  stage_rows<D, true>(static_cast<const bf16*>(a.k) + b * a.k_bs +
+                          h * a.k_hs + static_cast<long long>(k0) * a.k_rs,
+                      a.k_rs, nk, T, vec & 2, ks);
+  stage_rows<D, true>(static_cast<const bf16*>(a.v) + b * a.v_bs +
+                          h * a.v_hs + static_cast<long long>(k0) * a.v_rs,
+                      a.v_rs, nk, T, vec & 4, vs);
+  const float* mb = a.mask + b * a.m_bs + k0;
+  for (int j = threadIdx.x; j < T; j += blockDim.x)
+    cp_async4(mk + j, mb + min(j, nk - 1), j < nk);
+  auto issue = [&](int s) {
+    if (s < n_tiles) {
+      const int buf = s & 1, i0 = s * T;
+      const int n = min(T, Lq - i0), n_pad = round16(n);
+      stage_rows<D, true>(qb + static_cast<long long>(i0) * a.q_rs, a.q_rs,
+                          n, n_pad, vec & 1, qbuf(buf));
+      stage_rows<D, true>(gb + static_cast<long long>(i0) * a.do_rs,
+                          a.do_rs, n, n_pad, vec & 8, gbuf(buf));
+      for (int e = threadIdx.x; e < 3 * T; e += blockDim.x)
+        cp_async4(sbuf + buf * 3 * T + e, e < 3 * n ? st + 3 * i0 + e : st,
+                  e < 3 * n);
+    }
+    cp_async_commit();
+  };
+  issue(0);   // with K, V and the mask
+  issue(1);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // a tile of one or two 16-key groups splits its query chunks over the
+  // warps, as the dQ kernel splits its keys
+  const int split = bwd_split(nk, Lq), part = warp % split;
+  const int kr0 = (warp / split) * 16;       // the warp's keys in the tile
+  const bool active = kr0 < nk;
+  const int key[2] = {k0 + kr0 + g, k0 + kr0 + g + 8};
+  const int shift = Lk - Lq;   // causal: row i attends no key j > i + shift
+  const bool drop = a.rate > 0.f;
+  const uint32_t thr = keep_threshold(a.rate);
+  uint32_t kf[KS][4], vf[KS][4];
+  float kbias[2] = {0.f, 0.f};
+  float accv[D / 8][4], acck[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) accv[nt][e] = acck[nt][e] = 0.f;
+
+  for (int s = 0; s < n_tiles; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();
+    if (s == 0) {
+      kbias[0] = (1.f - mk[kr0 + g]) * kNegInf;
+      kbias[1] = (1.f - mk[kr0 + g + 8]) * kNegInf;
+      if (kHold && active) {
+        load_a<D, true>(ks, kr0, kf);
+        load_a<D, true>(vs, kr0, vf);
+      }
+    }
+    const int buf = s & 1, i0 = s * T;
+    const int chunks = (min(T, Lq - i0) + 15) / 16;
+    const float* sb = sbuf + buf * 3 * T;
+    for (int c = part; active && c < chunks; c += split) {
+      if (!kHold) {
+        load_a<D, true>(ks, kr0, kf);
+        load_a<D, true>(vs, kr0, vf);
+      }
+      float x[2][4], dpt[2][4];
+      mma_abt<D, true>(kf, qbuf(buf), 16 * c, x);   // S^T: rows keys
+      mma_abt<D, true>(vf, gbuf(buf), 16 * c, dpt);
+      const int ic = i0 + 16 * c;
+      const bool causal = a.causal && k0 + kr0 + 15 > ic + shift;
+      float p[2][4];
+      bool any = false;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int il = 16 * c + 8 * n + 2 * t + (e & 1), i = i0 + il;
+          const int j = key[e >> 1];
+          float sv = x[n][e] * a.scale + kbias[e >> 1];
+          if (causal && j > i + shift) sv += kNegInf;
+          p[n][e] = i < Lq && j < Lk
+                        ? exp_fast(sv - sb[3 * il]) * sb[3 * il + 1]
+                        : 0.f;
+          any |= p[n][e] != 0.f;
+        }
+      // the keep bits where the warp holds a nonzero p (a zero p makes its
+      // terms 0 whatever the bit): then all eight draws run
+      const bool draws = drop && __any_sync(0xffffffffu, any);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int il = 16 * c + 8 * n + 2 * t + (e & 1);
+          float d = dpt[n][e], pd = p[n][e];
+          if (drop) {
+            const bool kp = draws && dropout_keep_thr(a.key, b, h, i0 + il,
+                                                      key[e >> 1], thr);
+            d = kp ? d * a.keep_scale : 0.f;
+            pd = kp ? pd * a.keep_scale : 0.f;
+          }
+          x[n][e] = p[n][e] * (d - sb[3 * il + 2]);   // dS^T
+          dpt[n][e] = pd;
+        }
+      mma_ay3<D>(dpt, gbuf(buf), 16 * c, accv);
+      mma_ay3<D>(x, qbuf(buf), 16 * c, acck);
+    }
+    __syncthreads();
+    issue(s + 2);
   }
-  const int vec =
-      (rows_aligned16(a.q, a.q_bs, a.q_hs, a.q_rs) ? 1 : 0) |
-      (rows_aligned16(a.k, a.k_bs, a.k_hs, a.k_rs) ? 2 : 0) |
-      (rows_aligned16(a.v, a.v_bs, a.v_hs, a.v_rs) ? 4 : 0) |
-      (rows_aligned16(a.dout, a.do_bs, a.do_hs, a.do_rs) ? 8 : 0);
-  mha_attention_bwd_mma_kernel<D>
-      <<<a.B * a.H, tc_bwd_warps(a.Lq, a.Lk) * 32, smem, stream>>>(a, vec);
+  cp_async_wait<0>();
+  if (split > 1) {   // the parts' dV and dK, summed in part order
+    float* obuf = reinterpret_cast<float*>(bufs);   // [4][16][D + 4]
+    combine_parts<D>(accv, obuf, warp, part, split);
+    combine_parts<D>(acck, obuf, warp, part, split);
+  }
+  if (!active || part != 0) return;
+  const long long head = static_cast<long long>(bh) * Lk * D;
+  store_rows<D>(accv, 1.f, static_cast<bf16*>(a.dv) + head, D, key[0], Lk);
+  store_rows<D>(acck, a.scale, static_cast<bf16*>(a.dk) + head, D, key[0],
+                Lk);
+}
+
+// fp32 dQ kernel: a block per (b, h, tile of 64 query rows), a warp per 8
+// rows.  A lane forms s and dp of its warp's rows with keys lane and
+// lane + 32 of each tile (sweep 1: its share of (m, l, u), then combined
+// over the warp by a symmetric butterfly; sweep 2: dS, written to the
+// warp's rows of a shared tile), then dQ of its rows at channels
+// lane + 32 c.
+template <int D>
+__global__ void __launch_bounds__(kF32BwdWarps * 32, 1)
+    mha_attention_bwd_dq_kernel(MhaBwdArgs a, float* stats, int vec) {
+  constexpr int T = kBwdTile, DP = D + 1, RW = T / kF32BwdWarps;
+  constexpr int DCH = D / 32;
+  constexpr int SB = 2 * T * DP + T;     // floats of a buffer: K, V, mask
+  const int Lq = a.Lq, Lk = a.Lk;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H;
+  const int q0 = blockIdx.y * T, nq = min(T, Lq - q0);
+  const int n_tiles = (Lk + T - 1) / T;
+  extern __shared__ __align__(16) float fsm[];
+  float* qs = fsm;                      // [T][D]
+  float* gs = qs + T * D;               // [T][D] dO
+  float* bufs = gs + T * D;             // 2 x SB
+  float* dss = bufs + 2 * SB;           // [T][T] dS
+  auto kbuf = [&](int buf) { return bufs + buf * SB; };
+  auto vbuf = [&](int buf) { return bufs + buf * SB + T * DP; };
+  auto mkb = [&](int buf) { return bufs + buf * SB + 2 * T * DP; };
+
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_bs + h * a.k_hs;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_bs + h * a.v_hs;
+  const float* mb = a.mask + b * a.m_bs;
+  stage_rows_f32<D>(static_cast<const float*>(a.q) + b * a.q_bs +
+                        h * a.q_hs + static_cast<long long>(q0) * a.q_rs,
+                    a.q_rs, nq, T, D, vec & 1, qs);
+  stage_rows_f32<D>(static_cast<const float*>(a.dout) + b * a.do_bs +
+                        h * a.do_hs + static_cast<long long>(q0) * a.do_rs,
+                    a.do_rs, nq, T, D, vec & 8, gs);
+  auto issue = [&](int s) {   // the bf16 dQ kernel's steps
+    if (s < 2 * n_tiles && (n_tiles > 1 || s == 0)) {
+      const int buf = s & 1, j0 = (s < n_tiles ? s : s - n_tiles) * T;
+      const int n = min(T, Lk - j0);
+      stage_rows_f32<D>(kb + static_cast<long long>(j0) * a.k_rs, a.k_rs, n,
+                        T, DP, false, kbuf(buf));
+      stage_rows_f32<D>(vb + static_cast<long long>(j0) * a.v_rs, a.v_rs, n,
+                        T, DP, false, vbuf(buf));
+      for (int j = threadIdx.x; j < T; j += blockDim.x)
+        cp_async4(mkb(buf) + j, mb + j0 + min(j, n - 1), j < n);
+    }
+    cp_async_commit();
+  };
+  issue(0);   // with Q and dO
+  issue(1);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * RW;                  // the warp's rows in the tile
+  const int shift = Lk - Lq;   // causal: row i attends no key j > i + shift
+  const bool drop = a.rate > 0.f;
+  const uint32_t thr = keep_threshold(a.rate);
+  // s and dp of the warp's rows and keys lane, lane + 32 of buffer buf's
+  // tile (keys from j0); s is masked and scaled, -inf past Lk
+  auto tile_dots = [&](int buf, int j0, float (&x)[RW][2],
+                       float (&dp)[RW][2]) {
+    dots_f32<D, RW>(qs + r0 * D, kbuf(buf), x);
+    dots_f32<D, RW>(gs + r0 * D, vbuf(buf), dp);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int j = j0 + lane + 32 * k;
+      const float bias = (1.f - mkb(buf)[lane + 32 * k]) * kNegInf;
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        float s = x[r][k] * a.scale + bias;
+        if (a.causal && j > q0 + r0 + r + shift) s += kNegInf;
+        x[r][k] = j < Lk ? s : -INFINITY;
+      }
+    }
+  };
+  auto combine = [](float& m, float& l, float& u, float mo, float lo,
+                    float uo) {
+    const float mn = fmaxf(m, mo);
+    const float fa = m == -INFINITY ? 0.f : expf(m - mn);
+    const float fb = mo == -INFINITY ? 0.f : expf(mo - mn);
+    l = l * fa + lo * fb;
+    u = u * fa + uo * fb;
+    m = mn;
+  };
+
+  float m[RW], l[RW], u[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    m[r] = -INFINITY;
+    l[r] = u[r] = 0.f;
+  }
+  for (int s = 0; s < n_tiles; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const int buf = s & 1, j0 = s * T;
+    float x[RW][2], dp[RW][2];
+    tile_dots(buf, j0, x, dp);
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      if (drop)
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+          dp[r][k] = dropout_keep_thr(a.key, b, h, q0 + r0 + r,
+                                      j0 + lane + 32 * k, thr)
+                         ? dp[r][k] * a.keep_scale
+                         : 0.f;
+      const float mn = fmaxf(m[r], fmaxf(x[r][0], x[r][1]));
+      if (mn == -INFINITY) continue;   // only padded keys so far
+      const float f = expf(m[r] - mn);
+      const float e0 = expf(x[r][0] - mn), e1 = expf(x[r][1] - mn);
+      l[r] = l[r] * f + (e0 + e1);
+      u[r] = u[r] * f + (e0 * dp[r][0] + e1 * dp[r][1]);
+      m[r] = mn;
+    }
+    __syncthreads();
+    issue(s + 2);
+  }
+  float dl[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)   // symmetric: every lane the same bits
+      combine(m[r], l[r], u[r], __shfl_xor_sync(0xffffffffu, m[r], o),
+              __shfl_xor_sync(0xffffffffu, l[r], o),
+              __shfl_xor_sync(0xffffffffu, u[r], o));
+    dl[r] = u[r] / l[r];
+    if (lane == 0 && q0 + r0 + r < Lq) {
+      float* st = stats + (static_cast<long long>(bh) * Lq + q0 + r0 + r) * 3;
+      st[0] = m[r];
+      st[1] = 1.f / l[r];
+      st[2] = dl[r];
+    }
+  }
+
+  float acc[RW][DCH];
+#pragma unroll
+  for (int r = 0; r < RW; ++r)
+#pragma unroll
+    for (int c = 0; c < DCH; ++c) acc[r][c] = 0.f;
+  float* dsw = dss + r0 * T;            // the warp's rows of dS
+  for (int s = n_tiles; s < 2 * n_tiles; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const int buf = n_tiles == 1 ? 0 : s & 1, j0 = (s - n_tiles) * T;
+    float x[RW][2], dp[RW][2];
+    tile_dots(buf, j0, x, dp);
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float p = expf(x[r][k] - m[r]) / l[r];
+        float d = dp[r][k];
+        if (drop)   // a zero p adds nothing whatever its bit
+          d = p != 0.f && dropout_keep_thr(a.key, b, h, q0 + r0 + r,
+                                           j0 + lane + 32 * k, thr)
+                  ? d * a.keep_scale
+                  : 0.f;
+        dsw[r * T + lane + 32 * k] = p * (d - dl[r]);
+      }
+    __syncwarp();
+    // dQ[i] += sum_j dS[i][j] K[j], summed in key order
+    const float* kt = kbuf(buf);
+    const int nk = min(T, Lk - j0);
+    for (int j = 0; j < nk; ++j) {
+      float kv[DCH];
+#pragma unroll
+      for (int c = 0; c < DCH; ++c) kv[c] = kt[j * DP + lane + 32 * c];
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const float x = dsw[r * T + j];
+#pragma unroll
+        for (int c = 0; c < DCH; ++c) acc[r][c] = fmaf(x, kv[c], acc[r][c]);
+      }
+    }
+    __syncthreads();
+    issue(s + 2);
+  }
+  cp_async_wait<0>();
+  float* dqb = static_cast<float*>(a.dq) + static_cast<long long>(bh) * Lq * D;
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const int i = q0 + r0 + r;
+    if (i < Lq)
+#pragma unroll
+      for (int c = 0; c < DCH; ++c)
+        dqb[i * D + lane + 32 * c] = acc[r][c] * a.scale;
+  }
+}
+
+// fp32 dK/dV kernel: a block per (b, h, tile of 64 keys), 8 warps, K and V
+// staged once; query tiles of Q, dO and the rows' statistics stream
+// through in order.  A lane forms s and dp of keys lane and lane + 32 with
+// its warp's 8 query rows, then p, pd and dS in registers; pd goes to a
+// shared tile for dV, then dS for dK; the contractions give a warp 8 keys
+// and a lane d / 32 channels, summed in query order (#3's fp32 dK/dV).
+template <int D>
+__global__ void __launch_bounds__(kF32BwdWarps * 32, 1)
+    mha_attention_bwd_dkv_kernel(MhaBwdArgs a, const float* stats, int vec) {
+  constexpr int T = kBwdTile, DP = D + 1, RW = T / kF32BwdWarps;
+  constexpr int DCH = D / 32;
+  constexpr int SB = 2 * T * D + 3 * T;  // floats of a buffer: Q, dO, stats
+  const int Lq = a.Lq, Lk = a.Lk;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh - b * a.H;
+  const int k0 = blockIdx.y * T, nk = min(T, Lk - k0);
+  const int n_tiles = (Lq + T - 1) / T;
+  extern __shared__ __align__(16) float fsm[];
+  float* ks = fsm;                      // [T][DP]
+  float* vs = ks + T * DP;              // [T][DP]
+  float* mk = vs + T * DP;              // [T] mask
+  float* bufs = mk + T;                 // 2 x SB
+  float* pt = bufs + 2 * SB;            // [T][T] pd, then dS
+  auto qbuf = [&](int buf) { return bufs + buf * SB; };
+  auto gbuf = [&](int buf) { return bufs + buf * SB + T * D; };
+  auto sbuf = [&](int buf) { return bufs + buf * SB + 2 * T * D; };
+
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_bs + h * a.q_hs;
+  const float* gb =
+      static_cast<const float*>(a.dout) + b * a.do_bs + h * a.do_hs;
+  const float* st = stats + static_cast<long long>(bh) * Lq * 3;
+  stage_rows_f32<D>(static_cast<const float*>(a.k) + b * a.k_bs +
+                        h * a.k_hs + static_cast<long long>(k0) * a.k_rs,
+                    a.k_rs, nk, T, DP, false, ks);
+  stage_rows_f32<D>(static_cast<const float*>(a.v) + b * a.v_bs +
+                        h * a.v_hs + static_cast<long long>(k0) * a.v_rs,
+                    a.v_rs, nk, T, DP, false, vs);
+  const float* mb = a.mask + b * a.m_bs + k0;
+  for (int j = threadIdx.x; j < T; j += blockDim.x)
+    cp_async4(mk + j, mb + min(j, nk - 1), j < nk);
+  auto issue = [&](int s) {
+    if (s < n_tiles) {
+      const int buf = s & 1, i0 = s * T, n = min(T, Lq - i0);
+      stage_rows_f32<D>(qb + static_cast<long long>(i0) * a.q_rs, a.q_rs, n,
+                        T, D, vec & 1, qbuf(buf));
+      stage_rows_f32<D>(gb + static_cast<long long>(i0) * a.do_rs, a.do_rs,
+                        n, T, D, vec & 8, gbuf(buf));
+      for (int e = threadIdx.x; e < 3 * T; e += blockDim.x)
+        cp_async4(sbuf(buf) + e, e < 3 * n ? st + 3 * i0 + e : st, e < 3 * n);
+    }
+    cp_async_commit();
+  };
+  issue(0);   // with K, V and the mask
+  issue(1);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * RW;   // the warp's query rows, then its keys
+  const int shift = Lk - Lq;   // causal: row i attends no key j > i + shift
+  const bool drop = a.rate > 0.f;
+  const uint32_t thr = keep_threshold(a.rate);
+  float accv[RW][DCH], acck[RW][DCH];
+#pragma unroll
+  for (int r = 0; r < RW; ++r)
+#pragma unroll
+    for (int c = 0; c < DCH; ++c) accv[r][c] = acck[r][c] = 0.f;
+
+  for (int s = 0; s < n_tiles; ++s) {
+    cp_async_wait<1>();
+    __syncthreads();
+    const int buf = s & 1, i0 = s * T, nq = min(T, Lq - i0);
+    const float* sb = sbuf(buf);
+    float x[RW][2], dp[RW][2];
+    dots_f32<D, RW>(qbuf(buf) + r0 * D, ks, x);    // s[i][j] = Q_i . K_j
+    dots_f32<D, RW>(gbuf(buf) + r0 * D, vs, dp);   // dP[i][j] = dO_i . V_j
+    float ds[RW][2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int j = k0 + lane + 32 * k;
+      const float bias = (1.f - mk[lane + 32 * k]) * kNegInf;
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const int i = i0 + r0 + r;
+        float sv = x[r][k] * a.scale + bias;
+        if (a.causal && j > i + shift) sv += kNegInf;
+        const float* sr = sb + 3 * (r0 + r);   // the row's m, 1 / l, Delta
+        const float p = i < Lq && j < Lk ? expf(sv - sr[0]) * sr[1] : 0.f;
+        float d = dp[r][k], pd = p;
+        if (drop) {   // a zero p adds nothing whatever its bit
+          const bool kp =
+              p != 0.f && dropout_keep_thr(a.key, b, h, i, j, thr);
+          d = kp ? d * a.keep_scale : 0.f;
+          pd = kp ? p * a.keep_scale : 0.f;
+        }
+        ds[r][k] = p * (d - sr[2]);
+        pt[(r0 + r) * T + lane + 32 * k] = pd;
+      }
+    }
+    __syncthreads();
+    contract_f32<D, RW>(pt, r0, gbuf(buf), nq, accv);   // dV[j] += pd dO
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) pt[(r0 + r) * T + lane + 32 * k] = ds[r][k];
+    __syncthreads();
+    contract_f32<D, RW>(pt, r0, qbuf(buf), nq, acck);   // dK[j] += dS Q
+    __syncthreads();
+    issue(s + 2);
+  }
+  cp_async_wait<0>();
+  const long long head = static_cast<long long>(bh) * Lk * D;
+  float* dvb = static_cast<float*>(a.dv) + head;
+  float* dkb = static_cast<float*>(a.dk) + head;
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const int j = k0 + r0 + r;
+    if (j < Lk)
+#pragma unroll
+      for (int c = 0; c < DCH; ++c) {
+        dvb[j * D + lane + 32 * c] = accv[r][c];
+        dkb[j * D + lane + 32 * c] = acck[r][c] * a.scale;
+      }
+  }
+}
+
+// Shared memory of #5's dQ and dK/dV kernels: no term depends on Lq or Lk.
+size_t mha_bwd_smem_dq(int dtype, int D) {
+  constexpr size_t T = kBwdTile;
+  if (dtype == kBFloat16)
+    return 6 * T * D * sizeof(bf16) + (2 * T + kBwdWarps * 16 * 3) *
+                                          sizeof(float);
+  return (2 * T * D + 2 * (2 * T * (D + 1) + T) + T * T) * sizeof(float);
+}
+
+size_t mha_bwd_smem_dkv(int dtype, int D) {
+  constexpr size_t T = kBwdTile;
+  if (dtype == kBFloat16)
+    return 6 * T * D * sizeof(bf16) + (6 * T + T) * sizeof(float);
+  return (2 * T * (D + 1) + T + 2 * (2 * T * D + 3 * T) + T * T) *
+         sizeof(float);
+}
+
+bool rows_aligned16_f32(const void* p, long long bs, long long hs,
+                        long long rs) {
+  return rows_aligned16_f32(p, bs, rs) && hs % 4 == 0;
+}
+
+// The dQ kernel and then the dK/dV kernel on the stream.
+template <int D>
+cudaError_t launch_mha_bwd(const MhaBwdArgs& a, int dtype, float* stats,
+                           cudaStream_t stream) {
+  const bool bf = dtype == kBFloat16;
+  auto aligned = [&](const void* p, long long bs, long long hs,
+                     long long rs) {
+    return bf ? rows_aligned16(p, bs, hs, rs)
+              : rows_aligned16_f32(p, bs, hs, rs);
+  };
+  const int vec = (aligned(a.q, a.q_bs, a.q_hs, a.q_rs) ? 1 : 0) |
+                  (aligned(a.k, a.k_bs, a.k_hs, a.k_rs) ? 2 : 0) |
+                  (aligned(a.v, a.v_bs, a.v_hs, a.v_rs) ? 4 : 0) |
+                  (aligned(a.dout, a.do_bs, a.do_hs, a.do_rs) ? 8 : 0);
+  const size_t smem_dq = mha_bwd_smem_dq(dtype, D);
+  const size_t smem_dkv = mha_bwd_smem_dkv(dtype, D);
+  const dim3 grid_q(a.B * a.H, (a.Lq + kBwdTile - 1) / kBwdTile);
+  const dim3 grid_k(a.B * a.H, (a.Lk + kBwdTile - 1) / kBwdTile);
+  cudaError_t e;
+  if (bf) {
+    e = prepare(mha_attention_bwd_dq_mma_kernel<D>, smem_dq);
+    if (e != cudaSuccess) return e;
+    mha_attention_bwd_dq_mma_kernel<D>
+        <<<grid_q, kBwdWarps * 32, smem_dq, stream>>>(a, stats, vec);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    e = prepare(mha_attention_bwd_dkv_mma_kernel<D>, smem_dkv);
+    if (e != cudaSuccess) return e;
+    mha_attention_bwd_dkv_mma_kernel<D>
+        <<<grid_k, kBwdWarps * 32, smem_dkv, stream>>>(a, stats, vec);
+    return cudaGetLastError();
+  }
+  e = prepare(mha_attention_bwd_dq_kernel<D>, smem_dq);
+  if (e != cudaSuccess) return e;
+  mha_attention_bwd_dq_kernel<D>
+      <<<grid_q, kF32BwdWarps * 32, smem_dq, stream>>>(a, stats, vec);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  e = prepare(mha_attention_bwd_dkv_kernel<D>, smem_dkv);
+  if (e != cudaSuccess) return e;
+  mha_attention_bwd_dkv_kernel<D>
+      <<<grid_k, kF32BwdWarps * 32, smem_dkv, stream>>>(a, stats, vec);
   return cudaGetLastError();
 }
 
-cudaError_t mha_bwd_mma_dim(const MhaBwdArgs& a, int head_dim,
-                            cudaStream_t s) {
+cudaError_t mha_bwd_dim(const MhaBwdArgs& a, int dtype, int head_dim,
+                        float* stats, cudaStream_t s) {
   switch (head_dim) {
-    case 32: return launch_mha_bwd_mma<32>(a, s);
-    case 64: return launch_mha_bwd_mma<64>(a, s);
-    case 128: return launch_mha_bwd_mma<128>(a, s);
+    case 32: return launch_mha_bwd<32>(a, dtype, stats, s);
+    case 64: return launch_mha_bwd<64>(a, dtype, stats, s);
+    case 128: return launch_mha_bwd<128>(a, dtype, stats, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Shared memory (bytes) the kernels need at these shapes, so the wrapper
-// can refuse a forward shape before launching (the backward's does not
-// depend on Lq or Lk: the larger of its two kernels').
+// Shared memory (bytes) a block of the kernels takes at these shapes.  No
+// attention kernel refuses a length: the packed forward and backward (the
+// larger of its two kernels'), #4 in fp32 and #5 (the larger of its two)
+// take the same at every Lq and Lk; #4 in bf16 less for Lk < 64.
 extern "C" long long hero_attention_smem_bytes(int dtype, int backward,
                                                int Lq, int Lk, int head_dim) {
+  (void)Lq;
+  (void)Lk;
   if (backward) {
     const size_t dq = bwd_smem_dq(dtype, head_dim);
     const size_t dkv = bwd_smem_dkv(dtype, head_dim);
     return static_cast<long long>(dq > dkv ? dq : dkv);
   }
-  return static_cast<long long>(dtype == kBFloat16
-                                    ? fwd_mma_smem(Lq, Lk, head_dim)
-                                    : fwd_smem(Lk, head_dim));
+  return static_cast<long long>(dtype == kBFloat16 ? fwd_mma_smem(head_dim)
+                                                   : fwd_smem(head_dim));
 }
 
 extern "C" long long hero_attention_smem_limit() { return kMaxSmem; }
@@ -2896,14 +3517,16 @@ extern "C" long long hero_mha_smem_bytes(int dtype, int Lq, int Lk,
                                          int head_dim) {
   return static_cast<long long>(dtype == kBFloat16
                                     ? mha_mma_smem(Lq, Lk, head_dim)
-                                    : mha_smem(Lk, head_dim));
+                                    : mha_smem(head_dim));
 }
 
 extern "C" long long hero_mha_bwd_smem_bytes(int dtype, int Lq, int Lk,
                                              int head_dim) {
-  return static_cast<long long>(dtype == kBFloat16
-                                    ? mha_bwd_mma_smem(Lq, Lk, head_dim)
-                                    : mha_bwd_smem(Lq, Lk, head_dim));
+  (void)Lq;
+  (void)Lk;
+  const size_t dq = mha_bwd_smem_dq(dtype, head_dim);
+  const size_t dkv = mha_bwd_smem_dkv(dtype, head_dim);
+  return static_cast<long long>(dq > dkv ? dq : dkv);
 }
 
 // Returns a cudaError_t code (0 = launched).  Strides are in elements.
@@ -2987,29 +3610,28 @@ extern "C" int hero_mha_attention_fwd(
 // Head-major attention backward.  Returns a cudaError_t code (0 =
 // launched).  q/k/v/dout: (B, H, L, d) with unit stride over d, the other
 // strides in elements; mask: float (B, Lk) with unit stride over keys and
-// batch stride m_bs (0 = one row for every batch); dq, dk, dv contiguous.
+// batch stride m_bs (0 = one row for every batch); dq, dk, dv contiguous;
+// stats: a (B, H, Lq, 3) fp32 scratch (each row's m, 1 / l, Delta), written
+// by the dQ kernel and read by the dK/dV kernel.
 extern "C" int hero_mha_attention_bwd(
     int dtype, const void* q, const void* k, const void* v, const void* dout,
-    const void* mask, void* dq, void* dk, void* dv, int B, int H, int Lq,
-    int Lk, int head_dim, int causal, long long q_bs, long long q_hs,
-    long long q_rs, long long k_bs, long long k_hs, long long k_rs,
-    long long v_bs, long long v_hs, long long v_rs, long long do_bs,
-    long long do_hs, long long do_rs, long long m_bs, float scale,
-    float rate, float keep_scale, unsigned int seed_lo, unsigned int seed_hi,
-    void* stream) {
+    const void* mask, void* dq, void* dk, void* dv, void* stats, int B,
+    int H, int Lq, int Lk, int head_dim, int causal, long long q_bs,
+    long long q_hs, long long q_rs, long long k_bs, long long k_hs,
+    long long k_rs, long long v_bs, long long v_hs, long long v_rs,
+    long long do_bs, long long do_hs, long long do_rs, long long m_bs,
+    float scale, float rate, float keep_scale, unsigned int seed_lo,
+    unsigned int seed_hi, void* stream) {
   const MhaBwdArgs a{q, k, v, dout, static_cast<const float*>(mask),
                      dq, dk, dv, B, H, Lq, Lk, causal,
                      q_bs, q_hs, q_rs, k_bs, k_hs, k_rs, v_bs, v_hs, v_rs,
                      do_bs, do_hs, do_rs, m_bs,
                      scale, rate, keep_scale, PhiloxKey{seed_lo, seed_hi}};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (dtype) {
-    case kFloat32: e = mha_bwd_dim(a, head_dim, s); break;
-    case kBFloat16: e = mha_bwd_mma_dim(a, head_dim, s); break;
-    default: e = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(e);
+  if (dtype != kFloat32 && dtype != kBFloat16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(mha_bwd_dim(a, dtype, head_dim,
+                                      static_cast<float*>(stats),
+                                      static_cast<cudaStream_t>(stream)));
 }
 
 // The (B, H, Lq, Lk) uint8 keep mask the kernels draw, for checking them

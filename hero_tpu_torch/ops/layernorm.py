@@ -141,7 +141,7 @@ def layer_norm_cuda(x: torch.Tensor, weight: torch.Tensor,
 LN_BWD_GROUPS = 264
 # row groups of the fused dropout-add-LayerNorm backward's row pass (#9):
 # two an SM too, which beat one, three and four an SM at (14336, 768) and
-# (1024, 768) on the H100 (chip_smoke.py --daln-times; PERF.md)
+# (1024, 768) on the H100 (chip_smoke.py --times daln; PERF.md)
 DALN_BWD_GROUPS = 264
 
 

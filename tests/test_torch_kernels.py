@@ -16,16 +16,24 @@ saved-probabilities backward (#3) at the TVC decoder's shapes, and the
 fused dropout-add-LayerNorm forward and backward (#8, #9) with their
 Philox row mask.  The packed forward in segment mode is held at the
 packed query rows of serving (1 to 4 queries of 1 to 30 tokens a row, pad
-slots, all-pad rows).  The bf16 packed forward and backward (tensor-core
-kernels) are held at their tile edges (1 to 417 keys, one query), for
-bit-identical gradients, and for keep bits equal to the plain Philox
+slots, all-pad rows).  The packed forward (#1/#2), which streams its key
+tiles past 112 keys and skips the chunks no row of a tile attends, is
+held in both dtypes at every length about its tiles' edges and past its
+old ceilings (1 to 2048 keys, head_dim 32, 64 and 128, both mask modes
+and the causal bias at Lq != Lk, rates 0 and 0.1), its saved p exactly 0
+wherever the plain p is, repeats bit for bit, scores spread past 1e4
+(which the skip must leave to the full computation), the skip itself
+(NaN value rows no tile attends stay unread), and shared memory that
+does not grow with the lengths; the bf16 kernels at their tile edges,
+for bit-identical gradients, and for keep bits equal to the plain Philox
 mask; the backward (#3), which streams 64-row tiles, in both dtypes at
 every length about its tiles' edges and past its old ceilings (1 to
-1024 rows, cross and causal heads, head_dim 32, 64 and 128), with
-shared memory that does not grow with the lengths; so are the bf16
-head-major forward and
-backward (1 to 1000 keys, 1 to 65 queries, backward heads to 400 rows),
-whose shared-memory limits are held against the fp32 kernels'.  The
+1024 rows, cross and causal heads, head_dim 32, 64 and 128), with shared
+memory that does not grow with the lengths; so are the bf16 head-major
+forward and backward (1 to 1000 keys, 1 to 65 queries, backward heads to
+400 rows), the head-major backward (#5), two streamed kernels, in both
+dtypes at 1 to 1024 rows, and the fp32 head-major forward (#4) past its
+old 14,464 keys, with shared memory the same at every length.  The
 LayerNorm forward and backward are held at their edges: widths about the
 16-byte access and a warp's share, single-element widths and the widest
 row the wrappers take, row counts about the backward's row groups; so
@@ -34,6 +42,8 @@ are the fused dropout-add-LayerNorm kernels (#8, #9), at rates 0 and
 mixed y/x dtypes.  The embedding lookup's backward (not a kernel of its
 own) is held for bit-identical repeats at the position table's shape.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -215,11 +225,14 @@ def test_attention_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
             assert bool(torch.isfinite(a).all())
             assert float((a.float() - b.float()).abs().max()) <= \
                 _grad_tol(b, dtype)
-    # the forward's K and V for 500 keys at head_dim 128 exceed the shared
-    # memory a block may use
+    # the forward streams K and V past 112 keys and takes what it once
+    # refused (500 keys at head_dim 128 staged whole): against the plain
+    # version
     q, k, v = _qkv(15, 1, 500, 128, cuda, torch.bfloat16)
-    with pytest.raises(ValueError, match="shared memory"):
-        tatt.packed_attention(q, k, v, 1)
+    got = tatt.packed_attention(q, k, v, 1)
+    want = tatt.packed_reference(q, k, v, 1)
+    assert float((got.float() - want.float()).abs().max()) <= _tol(
+        want, torch.bfloat16)
 
 
 # The LayerNorm kernels' edges: widths about the 16-byte access (8 bf16, 4
@@ -455,6 +468,214 @@ def test_packed_backward_shared_memory_is_constant(cuda):
             assert len(need) == 1 and need.pop() <= limit
         at64 = lib.hero_attention_smem_bytes(code, 1, 64, 64, 64)
         assert 2 * (at64 + 1024) <= 228 * 1024
+
+
+# #1/#2 at every length: the edges of the 16-key chunks, the bf16
+# kernel's whole-head limit (112 keys) and its 48- and 112-key streamed
+# tiles, the fp32 kernel's 64-key tiles, the old forward's ceilings at
+# head_dim 64 (fp32 417, bf16 752 keys) and past them
+FWD_LENGTHS = (1, 16, 17, 48, 49, 63, 64, 65, 112, 113, 128, 129, 224, 225,
+               417, 418, 752, 753, 1024, 2048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", FWD_LENGTHS)
+def test_packed_forward_takes_every_length(cuda, L, dtype, d):
+    """#1/#2 at L keys, head_dim 32, 64 and 128: self-attention in the
+    validity and the segment mode (runs of 3-20 slots, pad slots), and
+    the causal bias with Lq = L // 3 query rows (Lq != Lk), at rates 0
+    and 0.1 with saved probabilities; batch row 0 fully masked.  Output
+    and p within the file's tolerances of ``packed_forward_reference``
+    (the rows that may attend nothing -- pad slots, batch row 0 -- up to
+    the rounding of s - 1e4 besides, 2^-9 of max |v|, as in
+    ``test_attention_kernel_matches_plain``), p exactly 0.0 wherever the
+    plain p is (the chunks the kernel skips write zeros), every value
+    finite, and a second launch the same bit for bit."""
+    H, B = 2, 2
+    for mode, Lq, causal in (("validity", L, False), ("segment", L, False),
+                             ("validity", max(1, L // 3), True)):
+        for rate in (0.0, 0.1):
+            r = np.random.RandomState(L + d + Lq)
+            q = torch.from_numpy(r.randn(B, Lq, H * d).astype(
+                np.float32)).to(cuda, dtype)
+            kv = torch.from_numpy(r.randn(B, L, 2 * H * d).astype(
+                np.float32)).to(cuda, dtype)
+            k, v = kv.split(H * d, dim=-1)
+            if mode == "segment":
+                mask = _segments(L + d, B, L).to(cuda)
+                mask[0] = -1
+                launch, kw = tatt.seg_attention_cuda, {"seg": mask}
+            else:
+                mask = _validity_mask(L + d, B, L).to(cuda)
+                mask[0] = 0.0
+                launch = functools.partial(tatt.valid_attention_cuda,
+                                           causal=causal)
+                kw = {"kv_mask": mask, "causal": causal}
+            seed = 2 ** 33 + L
+            out, p = launch(q, k, v, H, mask, rate, seed, True)
+            want, wp = tatt.packed_forward_reference(
+                q, k, v, H, dropout_rate=rate, seed=seed, save_probs=True,
+                **kw)
+            if mode == "segment":
+                sq = mask[:, :Lq]
+                allowed = (sq[:, :, None] == mask[:, None, :]) & (
+                    sq >= 0)[:, :, None]
+            else:
+                allowed = (mask[:, None, :] > 0).expand(B, Lq, L)
+                if causal:
+                    allowed = allowed & (
+                        torch.arange(L, device=cuda)[None] <=
+                        torch.arange(Lq, device=cuda)[:, None] + (L - Lq))
+            free = ~allowed.any(-1)                        # (B, Lq)
+            err = (out.float() - want.float()).abs().amax(-1)
+            assert bool(torch.isfinite(out).all())
+            if bool((~free).any()):
+                assert float(err[~free].max()) <= _tol(want, dtype)
+            if bool(free.any()):
+                assert float(err[free].max()) <= _tol(want, dtype) + \
+                    2.0 ** -9 * float(v.float().abs().max())
+            assert float((p.float() - wp.float()).abs().max()) <= \
+                _tol(wp, dtype)
+            assert bool(((wp == 0) <= (p == 0)).all())
+            again = launch(q, k, v, H, mask, rate, seed, True)
+            assert torch.equal(again[0], out) and torch.equal(again[1], p)
+
+
+@pytest.mark.cuda
+def test_packed_forward_shared_memory_is_constant(cuda):
+    """The forward's shared memory does not depend on Lq or Lk, in either
+    dtype, and at head_dim 64 five bf16 blocks fit an SM (228 KB, 1 KB a
+    block reserved)."""
+    lib = tatt._lib()
+    limit = lib.hero_attention_smem_limit()
+    for dtype in (torch.float32, torch.bfloat16):
+        code = tatt.cuda_build.DTYPE_CODES[dtype]
+        for d in tatt.KERNEL_HEAD_DIMS:
+            need = {lib.hero_attention_smem_bytes(code, 0, Lq, Lk, d)
+                    for Lq, Lk in ((1, 1), (64, 64), (104, 104), (1, 128),
+                                   (1, 129), (417, 417), (753, 753),
+                                   (100000, 100000), (1, 100000))}
+            assert len(need) == 1 and need.pop() <= limit
+    at64 = lib.hero_attention_smem_bytes(
+        tatt.cuda_build.DTYPE_CODES[torch.bfloat16], 0, 64, 64, 64)
+    assert 5 * (at64 + 1024) <= 228 * 1024
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_forward_computes_what_the_skip_guard_keeps(cuda, dtype):
+    """Scores spread past 1e4 defeat the skip: the rows of segment 0 score
+    the keys of segment 1 ~1e4 above their own, so the -1e4 of the mask
+    leaves those p near their own keys' and far from 0.  The kernel must
+    compute every chunk of such rows and match the plain version (within
+    the file's tolerance plus the rounding of scores near 1e4, 2^-9 of
+    max |v|, as for the fully masked rows)."""
+    B, L, H, d = 2, 104, 1, 64
+    q, k, v = _qkv(95, B, L, H * d, cuda, torch.float32)
+    seg = torch.from_numpy(np.repeat(np.arange(4, dtype=np.int32),
+                                     26)[None].repeat(B, 0)).to(cuda)
+    q, k = q.clone(), k.clone()
+    q[..., 0] = 10.0
+    k[:, 26:52, 0] = 8000.0
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    out, p = tatt.seg_attention_cuda(q, k, v, H, seg, 0.0, None, True)
+    want, wp = tatt.packed_forward_reference(q, k, v, H, seg=seg,
+                                             save_probs=True)
+    assert float(wp[:, :, :26, 26:52].float().max()) > 0.01
+    tol = _tol(want, dtype) + 2.0 ** -9 * float(v.float().abs().max())
+    assert float((out.float() - want.float()).abs().max()) <= tol
+    assert float((p.float() - wp.float()).abs().max()) <= \
+        _tol(wp, dtype) + 2.0 ** -9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_forward_skips_chunks_no_row_attends(cuda, dtype):
+    """The skip is taken: with NaN in the value rows of segment 0 (keys
+    0-25 of four 26-slot segments), every row whose 16-row tile (bf16) or
+    warp (fp32, 8 rows of a 64-row tile) attends no key of a chunk that
+    holds them never touches them and stays finite -- rows 64-103 -- and
+    equals the plain version at finite values; the plain version itself
+    multiplies the NaN by p = 0 everywhere."""
+    B, L, H, d = 1, 104, 1, 64
+    q, k, v = _qkv(96, B, L, H * d, cuda, dtype)
+    seg = torch.from_numpy(np.repeat(np.arange(4, dtype=np.int32),
+                                     26)[None]).to(cuda)
+    vn = v.clone()
+    vn[:, :26] = float("nan")
+    out = tatt.seg_attention_cuda(q, k, vn, H, seg)[0]
+    assert bool(torch.isfinite(out[:, 64:]).all())
+    want = tatt.packed_reference(q, k, v, H, seg=seg)
+    assert float((out[:, 64:].float() - want[:, 64:].float()).abs().max()) \
+        <= _tol(want, dtype)
+
+
+# #5 at every length: the edges of its 64-row tiles and 16-row warp
+# tiles and the old whole-head kernels' ceilings (fp32 154 / 139, bf16
+# 400 / 208 rows at head_dim 64 / 128) and past them
+MHA_BWD_LENGTHS = (1, 16, 17, 63, 64, 65, 128, 129, 139, 140, 154, 155,
+                   208, 209, 400, 401, 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", MHA_BWD_LENGTHS)
+def test_mha_backward_takes_every_length(cuda, L, dtype, d):
+    """#5 (the dQ kernel, then the dK/dV kernel) at L rows, head_dim 32,
+    64 and 128: square heads causal and not, and L // 3 query rows over L
+    keys with the causal bias, rates 0 and 0.1; a partial key mask and a
+    fully masked last batch row.  Against ``mha_backward_reference``
+    with the file's tolerances (the masked row within 2^-6 of the largest
+    gradient), finite, a call one count of ``launches``, a second call
+    the same bit for bit."""
+    for Lq, causal in ((L, False), (L, True), (max(1, L // 3), True)):
+        for rate in (0.0, 0.1):
+            q, k, v, mask = _mha_inputs(L + d + Lq, 2, 2, Lq, L, d, "valid",
+                                        cuda, dtype)
+            r = np.random.RandomState(L + Lq)
+            g = torch.from_numpy(r.randn(2, 2, Lq, d).astype(
+                np.float32)).to(cuda, dtype)
+            seed = 2 ** 34 + L
+            before = tatt.mha_attention_bwd_cuda.launches
+            got = tatt.mha_attention_bwd_cuda(q, k, v, mask, g, rate, seed,
+                                              causal)
+            torch.cuda.synchronize()
+            assert tatt.mha_attention_bwd_cuda.launches == before + 1
+            want = tatt.mha_backward_reference(q, k, v, mask, g, rate, seed,
+                                               causal)
+            for a, b in zip(got, want):
+                assert bool(torch.isfinite(a).all())
+                assert float((a[:-1].float() - b[:-1].float()).abs().max()) \
+                    <= _grad_tol(b[:-1], dtype)
+                assert float((a[-1].float() - b[-1].float()).abs().max()) <= \
+                    2.0 ** -6 * max(1.0, float(b.float().abs().max()))
+            again = tatt.mha_attention_bwd_cuda(q, k, v, mask, g, rate, seed,
+                                                causal)
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, Lq, Lk, d", [(1, 1, 14465, 64),
+                                          (2, 3, 20000, 32),
+                                          (1, 2, 16000, 128)])
+def test_fp32_mha_forward_past_its_old_ceiling(cuda, B, Lq, Lk, d):
+    """fp32 #4 keeps a 64-key tile of scores, not a row's: one to three
+    queries over 14,465 to 20,000 keys (its old ceiling 14,464 keys at
+    head_dim 64) against ``mha_reference``, within 1e-5 (each p ~1e-4,
+    so the long sums stay far below it), the last batch row fully masked
+    as in ``test_mha_kernel_matches_plain``."""
+    q, k, v, mask = _mha_inputs(Lk, B, 2, Lq, Lk, d, "valid", cuda,
+                                torch.float32)
+    if B == 1:
+        mask[-1] = 1.0
+    got = tatt.multi_head_attention(q, k, v, mask)
+    want = tatt.mha_reference(q, k, v, mask)
+    rows = slice(0, max(1, B - 1))
+    assert bool(torch.isfinite(got).all())
+    assert float((got[rows] - want[rows]).abs().max()) <= 1e-5
 
 
 @pytest.mark.cuda
@@ -856,7 +1077,7 @@ def test_mha_backward_kernel_matches_plain(cuda, rate, dtype, shape):
 @pytest.mark.cuda
 def test_mha_backward_kernel_reads_strided_views(cuda):
     """Head views of a packed projection give the gradients of contiguous
-    copies; a shape over the shared-memory limit raises."""
+    copies; the shapes the whole-head kernels once refused compute."""
     r = np.random.RandomState(72)
     B, L, H, d = 4, 40, 3, 64
     proj = torch.from_numpy(r.randn(B, L, 3 * H * d).astype(np.float32)).to(
@@ -875,20 +1096,26 @@ def test_mha_backward_kernel_reads_strided_views(cuda):
                                     mask, g.bfloat16(), 0.1, 5)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     # fp32: the (Lq, Lk) fp32 tiles of 300 rows at head_dim 128; bf16: Q,
-    # dO, K and V of 416 rows at head_dim 64 (the bf16 kernel takes 400)
+    # dO, K and V of 416 rows at head_dim 64 -- past the whole-head
+    # kernels' shared memory, now streamed: against the plain version
     for L, d, dtype in ((300, 128, torch.float32), (416, 64, torch.bfloat16)):
-        big = torch.zeros((1, 1, L, d), device=cuda, dtype=dtype)
-        with pytest.raises(ValueError, match="shared memory"):
-            tatt.mha_attention_bwd_cuda(big, big, big,
-                                        torch.ones((1, L), device=cuda), big)
+        q, k, v, g = (torch.from_numpy(r.randn(1, 1, L, d).astype(
+            np.float32)).to(cuda, dtype) for _ in range(4))
+        ones = torch.ones((1, L), device=cuda)
+        got = tatt.mha_attention_bwd_cuda(q, k, v, ones, g)
+        want = tatt.mha_backward_reference(q, k, v, ones, g)
+        for x, y in zip(got, want):
+            assert float((x.float() - y.float()).abs().max()) <= \
+                _grad_tol(y, dtype)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("L, d", [(240, 64), (400, 64), (208, 128)])
 def test_bf16_mha_backward_past_the_fp32_limit(cuda, rate, L, d):
-    """The bf16 backward takes square heads the fp32 kernel refuses (154
-    rows at head_dim 64, 139 at 128): 400 and 208 are the longest.
+    """The bf16 backward at square heads the fp32 kernel once refused (154
+    rows at head_dim 64, 139 at 128) up to the longest the bf16 kernel
+    took before both streamed (400 and 208).
     Against the plain version, one bf16 ulp of the largest gradient, as
     in the test above; a fully masked batch row stays finite."""
     B, H = 2, 2
@@ -941,28 +1168,25 @@ def test_mha_backward_dropout_is_the_philox_mask(cuda, dtype):
 @pytest.mark.cuda
 def test_bf16_mha_kernels_take_every_fp32_shape(cuda):
     """The bf16 forward streams K and V, so its shared memory does not
-    grow with Lk; the bf16 backward takes every shape the fp32 backward
-    takes but those with at most 3 keys and 849-859 query rows at
-    head_dim 64 (417-435 at 128), where the 16-row zero padding costs
-    more than the bf16 tiles save."""
+    grow with Lk past one 64-key tile; the fp32 forward keeps a 64-key
+    tile of scores, not a row's, and both backwards stream 64-row tiles:
+    their shared memory is the same at every Lq and Lk, within what a
+    block may use, so every shape of either dtype is taken."""
     lib = tatt._lib()
     limit = lib.hero_attention_smem_limit()
     f32, b16 = (tatt.cuda_build.DTYPE_CODES[t]
                 for t in (torch.float32, torch.bfloat16))
+    pairs = [(Lq, Lk) for Lq in (1, 16, 17, 154, 400, 401, 1024, 100000)
+             for Lk in (1, 3, 64, 65, 14464, 14465, 100000)]
     for d in tatt.KERNEL_HEAD_DIMS:
         assert lib.hero_mha_smem_bytes(b16, 64, 65, d) == \
             lib.hero_mha_smem_bytes(b16, 64, 100000, d) <= limit
-        refused = set()
-        for Lq in range(1, 900):
-            for Lk in list(range(1, 20)) + list(range(20, 900, 7)):
-                if lib.hero_mha_bwd_smem_bytes(f32, Lq, Lk, d) <= limit < \
-                        lib.hero_mha_bwd_smem_bytes(b16, Lq, Lk, d):
-                    refused.add((Lq, Lk))
-        want = {32: set(),
-                64: {(q, 1) for q in range(849, 860)},
-                128: {(q, k) for q in range(417, 436) for k in (1, 2, 3)
-                      if lib.hero_mha_bwd_smem_bytes(f32, q, k, d) <= limit}}
-        assert refused == want[d]
+        fwd = {lib.hero_mha_smem_bytes(f32, Lq, Lk, d) for Lq, Lk in pairs}
+        assert len(fwd) == 1 and fwd.pop() <= limit
+        for code in (f32, b16):
+            bwd = {lib.hero_mha_bwd_smem_bytes(code, Lq, Lk, d)
+                   for Lq, Lk in pairs}
+            assert len(bwd) == 1 and bwd.pop() <= limit
 
 
 @pytest.mark.cuda
