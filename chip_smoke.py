@@ -133,7 +133,9 @@ What the card run does, in order (any failure exits non-zero):
    more to resume to step 6 (run B); checks that A's and B's
    ``model_step_6.npz`` are equal bit for bit, that A's file bridged
    back equals A's final state bit for bit, and that A started from the
-   checkpoint (its poolers, every parameter within 1e-5 of it); prints
+   checkpoint (every parameter within 1e-5 of it, the poolers, which no
+   loss reads, decayed by ``lr * wd`` a step as JAX's AdamW decays them);
+   prints
    a ``pretrain_main`` line (videos/s of A's steps 2, 3 and 6 from disk,
    the card synchronised before and after them only, beside the
    in-memory rate; each save's ms and bytes, the restore's ms, the
@@ -141,7 +143,7 @@ What the card run does, in order (any failure exits non-zero):
 12. the tvc_program phase, TVC finetuning and captioning as programs at
    ``config/hero_tvc.json``'s model: keeps pretrain_main's stores and
    run A's last checkpoint (the rest of its files go); writes a caption
-   store over 64 of its videos (``cap.db`` with 2-6 captions a video of
+   store over 16 of its videos (``cap.db`` with 2-6 captions a video of
    ids from a 10-id band,
    ``clip.db`` with 4 clips a video, ``meta.json``), a reference jsonl
    and a 3-clip ``--target_clip`` jsonl; holds #2 at the program's
@@ -180,9 +182,9 @@ What the card run does, in order (any failure exits non-zero):
    that of the ``.npz`` bit for bit on every key but the 7 padded word
    and LM-bias rows, which are 0, with ``vocab_padded`` True (the load's
    ms and the file's bytes); writes TVR-layout query stores with span
-   targets (512 train queries over 192 of the 256 videos, 256 val
+   targets (512 train queries over 192 of the 256 videos, 128 val
    queries over the other 64) and MSR-VTT ones keyed by ``sen_id`` (768
-   and 256); holds #2 and #3 at the programs' f-encoder rows against
+   and 128); holds #2 and #3 at the programs' f-encoder rows against
    their plain versions: TVR's (1024, 77, 768) and MSR-VTT video-only's
    (96, 161, 768), in fp32 and bf16; runs
    ``drivers/train_vcmr.main`` on ``config/train-tvr.json`` with the
@@ -210,8 +212,8 @@ What the card run does, in order (any failure exits non-zero):
    head: the heads start from the seeded init) at
    ``config/hero_finetune.json``'s model: writes TVQA-layout question
    stores over the 256 videos (256 train questions over 192 of them and
-   64 val over the other 64, ``[q] + 5 answers`` ids, an answer index
-   and a ``ts`` span) and VIOLIN statement stores (192 and 64 ``_0`` /
+   32 val over the other 64, ``[q] + 5 answers`` ids, an answer index
+   and a ``ts`` span) and VIOLIN statement stores (192 and 32 ``_0`` /
    ``_1`` pairs, one true); holds #2 and #3 at the program's unpacked
    f-encoder rows (a micro-batch of 4 questions x 5 answers x 32 subs of
    16 frames + 120 tokens: (640, 136, 768)) and at its fused c-encoder
@@ -254,15 +256,16 @@ What the card run does, in order (any failure exits non-zero):
    off, against the primary's one-process 32-video step from the same
    weights (fp32 by ``step_parity``'s rule, bf16 by
    ``bf16_step_check``'s, the one-process fp32 step the yardstick), take
-   3 bf16 steps with dropout 0.1 (every loss finite, the replicas'
+   2 bf16 steps with dropout 0.1 (every loss finite, the replicas'
    parameters bit-identical, the ranks' first dropout masks different),
    time a step on 2 ranks and on one process and the gradients'
    all-reduce (ms and bytes), hold each mode beyond data parallelism at
    the fit bucket (ZeRO-1 over the 2 ranks; 2 pipeline stages with 2
    micro-batches, 2 tensor-parallel and 2 sequence-parallel ranks of one
    data rank: ``parallel/pipeline.py``, ``parallel/mesh.py``) against
-   the same one-process step, fp32 and bf16 with dropout off, time 3
-   bf16 dropout steps of each (ms, collective and transfer bytes, each
+   the same one-process step, fp32 and bf16 with dropout off, time a
+   bf16 dropout step of each after a warm-up step (ms, collective and
+   transfer bytes, each
    rank's peak memory; ZeRO-1's beside the replicated steps, equal bit
    for bit after every step), then run ``drivers/train_vcmr.main`` on
    ``config/train-tvr.json`` from vcmr_program's ``.pt`` with
@@ -1914,6 +1917,48 @@ def train_throughput(torch, cfg, flat, b_fit, b_over, p_over, dev, dtype,
     return rec
 
 
+def step_rates(torch):
+    """``--times steps``: ``train_examples_per_s`` (:func:`train_throughput`
+    at ``bench.py``'s layout) and ``tvc_train_captions_per_s``
+    (:func:`tvc_train_rate`) of the ``hero_tpu_torch`` on ``sys.path``,
+    measured as the full run measures them, with the count of parameter
+    leaves each step's AdamW loops over."""
+    from hero_tpu_torch.config.model_config import (flagship_config,
+                                                    flagship_tvc_config)
+    from hero_tpu_torch.convert import from_jax
+    from hero_tpu_torch.models.pretrain import VsmConfig, init_flat_params
+    from hero_tpu_torch.models.tvc import init_flat_tvc_params
+    from hero_tpu_torch.training.optim import tree_leaves
+
+    def sync():
+        torch.cuda.synchronize()
+
+    cfg = flagship_config()
+    flat = init_flat_params(cfg, VsmConfig(**BENCH_VSM), seed=0)
+    b_fit, b_over, p_over, _, _ = make_train_buckets(
+        cfg.vfeat_dim, TRAIN_BS, TRAIN_SAMPLED)
+    train = train_throughput(
+        torch, cfg, flat, b_fit, b_over, p_over, "cuda", torch.bfloat16,
+        (WARMUP_STEPS, FIT_STEPS, OVER_STEPS, TRAIN_RUNS), sync, False)
+    vsm_leaves = len(tree_leaves(from_jax.load_jax_params(
+        flat, device="meta", heads=False)))
+    del flat
+    tcfg = flagship_tvc_config()
+    tvc_flat = init_flat_tvc_params(tcfg, seed=0)
+    store, _, _ = make_tvc_data(TVC_VIDEOS, tcfg.vfeat_dim)
+    ds = tvc_train_data(store, tcfg.f_config.vocab_size)
+    tvc = tvc_train_rate(torch, tcfg, tvc_flat, ds, "cuda", torch.bfloat16,
+                         sync, False)[0]
+    tvc_leaves = len(tree_leaves(from_jax.load_jax_tvc_params(
+        tvc_flat, device="meta")))
+    return {"train_examples_per_s": train["train_examples_per_s"],
+            "runs_examples_per_s": train["runs_examples_per_s"],
+            "vsm_step_leaves": vsm_leaves,
+            "tvc_train_captions_per_s": tvc["tvc_train_captions_per_s"],
+            "runs_captions_per_s": tvc["runs_captions_per_s"],
+            "tvc_step_leaves": tvc_leaves}
+
+
 def learning_signal(torch, cfg, flat, b_fit, dev, dtype, n_steps):
     """On one fixed batch with dropout and drop_svmr off (train=False),
     lr 1e-4 from the first step (warm-up 1): the loss of the last step
@@ -2941,18 +2986,16 @@ def tvc_train_parity(torch, cfg, batch, caps_per_video, dev_kernel,
     return dict(rec, depth=[2, 1, 1], caption_rows=rows)
 
 
-def tvc_train_phase(torch, cfg, flat, ds, dev, dtype, sync, rehearse,
-                    profile):
+def tvc_train_rate(torch, cfg, flat, ds, dev, dtype, sync, rehearse):
     """The TVC train step (``drivers/train_tvc.make_tvc_train_step`` with
     ``config/train-tvc.json``'s options, bf16, dropout 0.1) on 4 videos x
     2 captions a step: the median of ``TVC_TRAIN_STEPS[2]`` runs of
     ``TVC_TRAIN_STEPS[1]`` steps after the warm-up, the launch counters
-    read from 0 around the timed runs; then the learning signal, the
-    fp32 card-vs-CPU step and the bf16 kernels-vs-plain step."""
+    read from 0 around the timed runs.  Returns (record, the step, its
+    state holder, the host batches, the device batches)."""
     from hero_tpu_torch.convert.from_jax import load_jax_tvc_params
     from hero_tpu_torch.drivers import train_tvc
     from hero_tpu_torch.evaluation.vcmr_eval import batch_to_device
-    from hero_tpu_torch.training import optim
     from hero_tpu_torch.training.step import TrainState
     n_videos = 2 if rehearse else TVC_TRAIN_VIDEOS
     host = tvc_train_batches(ds, n_videos)
@@ -2998,6 +3041,19 @@ def tvc_train_phase(torch, cfg, flat, ds, dev, dtype, sync, rehearse,
                      f"cap_len {ds.cap_len}, seg_len {ds.seg_len}, "
                      "videos packed 4x(16 f + 88 t)",
            "captions": len(ds.caption_db.caps)}
+    return rec, step, st, host, batches
+
+
+def tvc_train_phase(torch, cfg, flat, ds, dev, dtype, sync, rehearse,
+                    profile):
+    """:func:`tvc_train_rate`, then the learning signal, the fp32
+    card-vs-CPU step and the bf16 kernels-vs-plain step."""
+    from hero_tpu_torch.convert.from_jax import load_jax_tvc_params
+    from hero_tpu_torch.drivers import train_tvc
+    from hero_tpu_torch.training import optim
+    rec, step, st, host, batches = tvc_train_rate(torch, cfg, flat, ds, dev,
+                                                  dtype, sync, rehearse)
+    opts = train_tvc.load_train_opts()
     if profile:
         rec["profile_step"] = profile_breakdown(
             torch, lambda: step(st["state"], batches[0], 7), iters=2)
@@ -3589,14 +3645,13 @@ def pretrain_main_phase(torch, here, cfg, db, dev, sync, rehearse, root):
     counts of run A)."""
     import signal
     from hero_tpu_torch.config.opts import get_pretrain_args
-    from hero_tpu_torch.convert.from_jax import (UNUSED_JAX_KEYS,
-                                                 load_jax_params)
+    from hero_tpu_torch.convert.from_jax import load_jax_params
     from hero_tpu_torch.data.store import SubTokStore, VideoFeatStore
     from hero_tpu_torch.data.video import VideoFeatSubTokDataset
     from hero_tpu_torch.drivers import pretrain as drv
     from hero_tpu_torch.drivers.common import vsm_config_from_opts
     from hero_tpu_torch.models.pretrain import init_flat_params
-    from hero_tpu_torch.training.optim import tree_leaves, tree_paths
+    from hero_tpu_torch.training.optim import get_lr, tree_leaves, tree_paths
     from hero_tpu_torch.training.save import save_params
     stage_s, t0 = {}, time.perf_counter()
 
@@ -3699,7 +3754,8 @@ def pretrain_main_phase(torch, here, cfg, db, dev, sync, rehearse, root):
 
         # A's and B's last checkpoints bit for bit; A's file bridged back
         # is A's final state bit for bit; the weights came from the init
-        # checkpoint (its poolers, the rest within the 6 steps' reach)
+        # checkpoint (within the 6 steps' reach; the poolers, which no
+        # loss reads, decayed by lr * wd a step as JAX's AdamW decays them)
         name = f"model_step_{MAIN_STEPS}.npz"
         a = _npz(os.path.join(out_a, "ckpt", name))
         b = _npz(os.path.join(out_b, "ckpt", name))
@@ -3717,14 +3773,22 @@ def pretrain_main_phase(torch, here, cfg, db, dev, sync, rehearse, root):
             raise AssertionError(f"checkpoint bridged back differs from "
                                  f"the final state at {differ[:5]}")
         del back, state_a
-        rec["poolers_from_init"] = all(np.array_equal(a[k], init[k])
-                                       for k in UNUSED_JAX_KEYS)
+        spec = drv.train_spec_from_opts(opts_a)
+        keep = np.float32(1.0)
+        for step in range(1, MAIN_STEPS + 1):
+            keep *= np.float32(1.0 - spec.adamw.weight_decay * get_lr(
+                step, spec.learning_rate, spec.warmup_steps,
+                spec.num_train_steps, spec.lr_schedule))
+        rec["poolers_decayed"] = all(
+            np.array_equal(a[k], init[k]) if k.endswith("/bias")
+            else np.allclose(a[k], init[k] * keep, rtol=1e-6, atol=0)
+            for k in init if "pooler" in k.split("/"))
         rec["max_abs_from_init"] = max(float(np.abs(a[k] - init[k]).max())
                                        for k in init)
-        if not rec["poolers_from_init"] or rec["max_abs_from_init"] > 1e-5:
+        if not rec["poolers_decayed"] or rec["max_abs_from_init"] > 1e-5:
             raise AssertionError(
                 f"run A's weights are not the init checkpoint's: poolers "
-                f"equal {rec['poolers_from_init']}, max |diff| "
+                f"decayed {rec['poolers_decayed']}, max |diff| "
                 f"{rec['max_abs_from_init']}")
         rec["resume_bit_equal"] = True
         rec["checkpoint_bridged_equal"] = True
@@ -4244,8 +4308,8 @@ PROGRAM_VR_STEPS = 4
 PROGRAM_VCMR_WINDOWS = PROGRAM_VR_WINDOWS = ((1, 3),)
 # train and val queries: TVR's over the first 192 and the last 64 of
 # pretrain_main's videos, MSR-VTT's likewise; an epoch covers the steps
-PROGRAM_VCMR_QUERIES = (512, 256)
-PROGRAM_VR_QUERIES = (768, 256)
+PROGRAM_VCMR_QUERIES = (512, 128)
+PROGRAM_VR_QUERIES = (768, 128)
 PROGRAM_VCMR_TRAIN_VIDEOS = 192
 PROGRAM_VCMR_FREE_BYTES = 12 << 30  # the .pt and the runs' files, with room
 # the kernels of the unpacked programs: the train steps (their bf16
@@ -4785,8 +4849,8 @@ PROGRAM_VIOLIN_STEPS = 4
 PROGRAM_QA_WINDOWS = PROGRAM_VIOLIN_WINDOWS = ((1, 3),)
 # TVQA questions and VIOLIN statement pairs, train over the first 192 of
 # pretrain_main's videos and val over the other 64
-PROGRAM_QA_QUESTIONS = (256, 64)
-PROGRAM_VIOLIN_PAIRS = (192, 64)
+PROGRAM_QA_QUESTIONS = (256, 32)
+PROGRAM_VIOLIN_PAIRS = (192, 32)
 PROGRAM_QA_ANSWERS = 5              # config/train-tvqa.json's num_answers
 PROGRAM_QA_FREE_BYTES = 12 << 30    # the runs' checkpoints, with room
 PROGRAM_QA_CHECK_ITEMS = 2          # questions (pairs) of the bf16 checks
@@ -5371,8 +5435,8 @@ def qa_program_phase(torch, here, cfg, main_root, db, dev, sync, rehearse,
 DP_WORLD = 2                        # ranks that share the one card (gloo)
 DP_SPEC = dict(learning_rate=1e-4, warmup_steps=1, num_train_steps=1000,
                grad_norm=2.0)
-DP_DROPOUT_STEPS = 3
-DP_TIMED_STEPS = 3                  # timed steps after one warm-up
+DP_DROPOUT_STEPS = 2
+DP_TIMED_STEPS = 1                  # timed steps after one warm-up
 DP_SEED = 100
 DP_SIGTERM_RANK = 1                 # the one rank run B's SIGTERM goes to
 DP_TIMEOUT_S = 900                  # a world's time limit
@@ -5418,8 +5482,9 @@ def dp_rank(role, out_json, rehearse, *args):
     parallelism (:func:`dp_modes`), then ``train_vcmr`` run A,
     ``eval_vcmr`` on its directory, run B (``--zero1``), stopped by
     SIGTERM to rank :data:`DP_SIGTERM_RANK` alone after step 2 and then
-    resumed, and run C (``--pp_stages 2``); "nccl" (one rank a card;
-    ``args`` the gradients' element count): the all-reduce's time alone."""
+    resumed, and run C (``--pp_stages 2``), with each stage's seconds
+    (``stage_s``); "nccl" (one rank a card; ``args`` the gradients'
+    element count): the all-reduce's time alone."""
     import torch
     from hero_tpu_torch.config.model_config import flagship_config
     from hero_tpu_torch.parallel import dist
@@ -5432,18 +5497,34 @@ def dp_rank(role, out_json, rehearse, *args):
             torch, [torch.ones(int(args[0]), device=dev)], dev)
     else:
         cfg_a, cfg_b, cfg_c, out_a = args
+        stage_s, t_stage = {}, time.perf_counter()
+        rec["stage_s"] = stage_s
+
+        def stage(name):
+            nonlocal t_stage
+            now = time.perf_counter()
+            stage_s[name] = now - t_stage
+            t_stage = now
+
         cfg = rehearsal_config(2) if rehearse else flagship_config()
         setup = dp_setup(cfg, dev, rehearse)
+        stage("setup")
         rec["parity"] = dp_parity(torch, cfg, *setup, dev)
+        stage("parity")
         rec["dropout"] = dp_dropout(torch, cfg, *setup, dev)
+        stage("dropout")
         rec["times"] = dp_times(torch, cfg, *setup, dev)
+        stage("times")
         rec["modes"] = dp_modes(torch, cfg, *setup, dev)
+        stage("modes")
         del setup
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         rec["run_a"] = train_program("train_vcmr", cfg_a, dev.type, 0,
                                      PROGRAM_VCMR_WINDOWS)
+        stage("run_a")
         rec["eval"] = dp_eval(torch, out_a, "val", dev)
+        stage("eval")
         t0 = time.perf_counter()
         rec["run_b_stopped"] = train_program(
             "train_vcmr", cfg_b, dev.type,
@@ -5452,9 +5533,11 @@ def dp_rank(role, out_json, rehearse, *args):
         rec["run_b_resumed"] = train_program("train_vcmr", cfg_b, dev.type,
                                              0, ())
         rec["run_b_s"] = time.perf_counter() - t0
+        stage("run_b")
         t0 = time.perf_counter()
         rec["run_c"] = train_program("train_vcmr", cfg_c, dev.type, 0, ())
         rec["run_c_s"] = time.perf_counter() - t0
+        stage("run_c")
     dist.shutdown_distributed()
     with open(out_json, "w") as f:
         json.dump(rec, f)
@@ -6002,6 +6085,7 @@ def dp_phase(torch, here, cfg, main_root, db, dev, sync, rehearse):
                    "all_reduce_bytes_per_step")}
                | {"world": DP_WORLD,
                   "step_ms_by_rank": [r["times"]["step_ms"] for r in ranks]},
+               rank_stage_s=[r["stage_s"] for r in ranks],
                tvr_losses=ranks[0]["run_a"]["losses"],
                tvr=dict(train_batch_size=opts_a.train_batch_size,
                         gradient_accumulation_steps=(
@@ -7579,6 +7663,70 @@ def make_components(torch, cfg, enc_params, dev, dtype, small):
     return comps, shapes
 
 
+ACT_ROWS, ACT_LEN = 8, 64          # the activation checks' f-encoder rows
+
+
+def check_acts_and_poolers(torch, cfg, flat, dev_kernel, dev_plain):
+    """In fp32, dropout off, on ``dev_kernel`` (#2, #3, #6, #7 on the
+    card) against ``dev_plain`` (the CPU): the first f-encoder layer and
+    the tied LM head under each ``hidden_act`` of ``nn.ACT2FN`` on
+    (``ACT_ROWS``, ``ACT_LEN``) rows with pad keys (the logits, and for
+    the smooth activations the input's gradient of a fixed random
+    projection of them: relu's derivative jumps at 0, where fp32 sums in
+    another order move a pre-activation across), and the f- and c-encoder
+    poolers (``transformer.pooler``) on the same rows.  Each result
+    within 2e-5 of its largest magnitude (at least 1): fp32 sums in other
+    orders.  Returns {check: max |diff| / tol}."""
+    from hero_tpu_torch.convert.from_jax import load_jax_params
+    from hero_tpu_torch.models import nn, transformer
+    full = load_jax_params(flat, device="cpu")
+    fe = full["v_encoder"]["f_encoder"]
+    part = {"layer": fe["encoder"]["layers"][0], "lm_head": fe["lm_head"],
+            "word_emb": fe["embeddings"]["word_emb"],
+            "f_pooler": fe["pooler"],
+            "c_pooler": full["v_encoder"]["c_encoder"]["pooler"]}
+    del full
+    D = cfg.f_config.hidden_size
+    r = np.random.RandomState(61)
+    x = torch.from_numpy(r.randn(ACT_ROWS, ACT_LEN, D).astype(np.float32))
+    mask = torch.from_numpy((np.arange(ACT_LEN)[None] < r.randint(
+        ACT_LEN // 2, ACT_LEN + 1, (ACT_ROWS, 1))).astype(np.float32))
+    xc = torch.from_numpy(r.randn(ACT_ROWS, ACT_LEN,
+                                  cfg.c_config.hidden_size)
+                          .astype(np.float32))
+
+    def run(dev, act):
+        p = nn.tree_to(part, dev)
+        fcfg = cfg.f_config.replace(hidden_act=act, hidden_dropout_prob=0.0,
+                                    attention_probs_dropout_prob=0.0)
+        xi = x.to(dev).requires_grad_(True)
+        h = transformer.encoder_layer(p["layer"], xi, fcfg,
+                                      kv_mask=mask.to(dev))
+        logits = transformer.lm_head(p["lm_head"], p["word_emb"], h, fcfg)
+        w = torch.Generator(device="cpu").manual_seed(62)
+        proj = torch.randn(logits.shape[-1], generator=w).to(dev)
+        out = {"logits": logits.detach()}
+        if act != "relu":
+            (out["grad_x"],) = torch.autograd.grad((logits @ proj).sum(),
+                                                   xi)
+        if act == "gelu":
+            out["f_pooler"] = transformer.pooler(p["f_pooler"], x.to(dev))
+            out["c_pooler"] = transformer.pooler(p["c_pooler"], xc.to(dev))
+        return {k: v.detach().float().cpu() for k, v in out.items()}
+
+    rec = {}
+    for act in nn.ACT2FN:
+        got, want = run(dev_kernel, act), run(dev_plain, act)
+        for k, w in want.items():
+            tol = 2e-5 * max(1.0, float(w.abs().max()))
+            err = float((got[k] - w).abs().max())
+            rec[f"{act} {k}" if "pooler" not in k else k] = err / tol
+            if not err <= tol:
+                raise AssertionError(f"hidden_act {act}, {k}: max |diff| "
+                                     f"{err} > {tol}")
+    return rec
+
+
 def components_phase(torch, cfg, params, dev, dtype, sync, rehearse):
     """Drive every component once with the launch counters read from 0
     around (the component path), then time each with ``time_ms``."""
@@ -7634,12 +7782,15 @@ def main(argv=None):
                          "bf16 and fp32, dropout 0.1, BWD3_TIME_SHAPES) or "
                          "fwd (#1/#2, bf16, FWD_TIME_SHAPES, the modelled "
                          "masks and every key valid; #5, bf16, dropout 0.1, "
-                         "MHA_BWD_TIME_SHAPES); an A/B of two checkouts on "
-                         "one card, run in turns")
+                         "MHA_BWD_TIME_SHAPES) or steps (train_examples_per_s "
+                         "and tvc_train_captions_per_s as the full run "
+                         "measures them); an A/B of two checkouts on one "
+                         "card, run in turns")
     args = ap.parse_args(argv)
-    if args.times and (args.times[0] not in ("daln", "bwd3", "fwd")
+    if args.times and (args.times[0] not in ("daln", "bwd3", "fwd", "steps")
                        or len(args.times) > 2):
-        ap.error("--times takes daln, bwd3 or fwd and at most one ROOT")
+        ap.error("--times takes daln, bwd3, fwd or steps and at most one "
+                 "ROOT")
 
     import torch
     rehearse = args.rehearse
@@ -7657,7 +7808,8 @@ def main(argv=None):
         library = root == here
         rows = {"daln": lambda: {"daln": daln_ab(torch, lnm)},
                 "bwd3": lambda: {"bwd3": bwd3_times(torch, att, library)},
-                "fwd": lambda: fwd_times(torch, att, library)}[what]()
+                "fwd": lambda: fwd_times(torch, att, library),
+                "steps": lambda: {"steps": step_rates(torch)}}[what]()
         print(json.dumps({"root": root, "kernel": what,
                           "package": os.path.dirname(att.__file__), **rows,
                           "card": gpu_identity()}))
@@ -8034,6 +8186,10 @@ def main(argv=None):
         record["kernels"] += check_component_kernels(torch, cfg, tvc_ds,
                                                      record["kernels"])
         log("component kernel checks passed")
+    record["act_checks"] = check_acts_and_poolers(
+        torch, cfg, flat, dev, "cpu")
+    log(f"{len(record['act_checks'])} activation and pooler checks "
+        f"passed, worst {max(record['act_checks'].values()):.3f} of tol")
     comps = components_phase(torch, cfg, params, dev, dtype, sync, rehearse)
     comp_launches = comps["main_path_launches"]
     if not rehearse and min(comp_launches[k] for k in COMPONENT_KERNELS) == 0:
@@ -8204,7 +8360,8 @@ def main(argv=None):
         "launches", "raw_s", "setup_s", "phase_s")}}))
     print(json.dumps({"components": {
         "ms": comps.get("ms"), "ffn_tflops": comps.get("ffn_tflops"),
-        "shapes": comps["shapes"], "launches": comp_launches}}))
+        "shapes": comps["shapes"], "launches": comp_launches,
+        "act_checks_over_tol": record["act_checks"]}}))
     if rehearse:
         log(f"rehearsal passed in {record['total_s']:.1f} s")
         return 0

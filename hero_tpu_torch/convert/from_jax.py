@@ -8,16 +8,15 @@ the encoder layers are stacked on a leading axis.  The port's tree
 ``weight``/``bias``, one fused ``qkv`` projection per self-attention block
 (rows ordered query, key, value), and a list of per-layer dicts per encoder.
 
-The bridge fails on any missing or unexpected key: every JAX key is either
-read into the port's tree or named in :data:`UNUSED_JAX_KEYS` (the
-pretraining tree: the two poolers; with ``heads=False`` also
-:data:`TASK_HEAD_JAX_KEYS`) or :data:`UNUSED_TVC_JAX_KEYS`
-(``init_hero_for_tvc``'s tree, :func:`load_jax_tvc_params`, which reads
-the LM head of the task heads).  The VideoQA and VIOLIN trees
-(:func:`load_jax_videoqa_params`, :func:`load_jax_violin_params`) hold
-the whole backbone, the pretraining task heads included, which no loss
-of theirs reads but the AdamW step decays, and their own heads; only
-the poolers stay unread.
+The bridge reads every key of the JAX pretraining, TVC, VideoQA and
+VIOLIN trees and fails on any missing or unexpected key.  Each tree holds
+the whole backbone: the f- and c-encoder poolers and every pretraining
+task head (MLM's tied LM head, MFM's mask embeddings and feature
+regression, FOM's head), although no loss of a finetuning task reads
+them, because the JAX AdamW decays every parameter every step
+(``hero_tpu/training/optim.py:118-150``) and the port's step does the
+same.  Only ``load_jax_params(..., heads=False)``, the serving trees,
+leaves :data:`TASK_HEAD_JAX_KEYS` unread.
 
 The map is linear (transpose, concatenation, per-layer split), so it
 carries any tree shaped like the parameters: AdamW's ``mu`` and ``nu``
@@ -30,16 +29,13 @@ VideoQA and VIOLIN trees ``to_jax_{tvc,videoqa,violin}_params`` and
 ``..._train_state``; what the port's checkpoints write): the forward
 map run over element numbers instead of values says where each element
 of the port's tree sits in the JAX layout, and one scatter on the
-tensors' device puts it back there.
-
-The inverse takes a ``template``, the flat JAX tree the run started from
-(its init or checkpoint): the keys the port does not hold (the two
-poolers; for TVC also the task heads other than the LM head) are
-written from it, with zero AdamW moments.  The JAX package's
-AdamW decays the pooler kernels every step although no pretraining loss
-reads them (``hero_tpu/training/optim.py:142-144``,
-``hero_tpu/models/encoder.py:155,187``); the port leaves them as they
-were, so its files differ from a JAX run's there and nowhere else.
+tensors' device puts it back there.  Every element of the file comes
+from the port's tree, so the files of a port run equal a JAX run's at
+every key.  The inverse's ``template`` is a flat JAX tree of the same
+model (the run's init or checkpoint): it gives the file's keys, their
+order and their shapes, which the port's tree alone does not say (the
+JAX layout stacks layers and splits ``qkv``); none of its values is
+read.
 """
 
 from __future__ import annotations
@@ -51,26 +47,15 @@ import torch
 
 from hero_tpu_torch import resolve_device
 
-# JAX keys that no path of the port reads: the f- and c-encoder poolers
-# (``hero_tpu/models/encoder.py:155,186``).
-UNUSED_JAX_KEYS = frozenset({
-    "v_encoder/f_encoder/pooler/dense/kernel",
-    "v_encoder/f_encoder/pooler/dense/bias",
-    "v_encoder/c_encoder/pooler/dense/kernel",
-    "v_encoder/c_encoder/pooler/dense/bias",
-})
-
 # The pretraining task heads: MLM's tied LM head, MFM's two mask
 # embeddings and feature regression, FOM's head.  ``heads=False`` leaves
-# them unread (the serving and VSM paths), and TVC reads the LM head only.
-LM_HEAD_JAX_KEYS = frozenset({
+# them unread (the serving paths).
+TASK_HEAD_JAX_KEYS = frozenset({
     "v_encoder/f_encoder/lm_head/dense/kernel",
     "v_encoder/f_encoder/lm_head/dense/bias",
     "v_encoder/f_encoder/lm_head/ln/scale",
     "v_encoder/f_encoder/lm_head/ln/bias",
     "v_encoder/f_encoder/lm_head/bias",
-})
-TASK_HEAD_JAX_KEYS = LM_HEAD_JAX_KEYS | frozenset({
     "v_encoder/f_encoder/img_embeddings/mask_emb",
     "v_encoder/feat_regress/dense_1/kernel",
     "v_encoder/feat_regress/dense_1/bias",
@@ -86,8 +71,6 @@ TASK_HEAD_JAX_KEYS = LM_HEAD_JAX_KEYS | frozenset({
     "v_encoder/fom_output/linear_2/kernel",
     "v_encoder/fom_output/linear_2/bias",
 })
-UNUSED_TVC_JAX_KEYS = UNUSED_JAX_KEYS | (TASK_HEAD_JAX_KEYS
-                                         - LM_HEAD_JAX_KEYS)
 
 Getter = Callable[[str], torch.Tensor]
 
@@ -134,8 +117,9 @@ def _encoder(get: Getter, key: str) -> Dict[str, Any]:
                     "ffn": _ffn(get, f"{key}/layers/ffn")})
 
 
-def _v_encoder(get: Getter, lm_head: bool,
-               task_heads: bool = False) -> Dict[str, Any]:
+def _v_encoder(get: Getter, heads: bool) -> Dict[str, Any]:
+    """The backbone with its two poolers, and with ``heads`` every
+    pretraining task head."""
     fe, ce = "v_encoder/f_encoder", "v_encoder/c_encoder"
     f_encoder = {
         "embeddings": {
@@ -148,11 +132,8 @@ def _v_encoder(get: Getter, lm_head: bool,
             "img_linear": _linear(get, f"{fe}/img_embeddings/img_linear"),
             "pos_emb": get(f"{fe}/img_embeddings/pos_emb"),
             "ln": _ln(get, f"{fe}/img_embeddings/ln")},
-        "encoder": _encoder(get, f"{fe}/encoder")}
-    if lm_head or task_heads:
-        f_encoder["lm_head"] = {"dense": _linear(get, f"{fe}/lm_head/dense"),
-                                "ln": _ln(get, f"{fe}/lm_head/ln"),
-                                "bias": get(f"{fe}/lm_head/bias")}
+        "encoder": _encoder(get, f"{fe}/encoder"),
+        "pooler": {"dense": _linear(get, f"{fe}/pooler/dense")}}
     out = {
         "f_encoder": f_encoder,
         "frame_transform": {
@@ -162,9 +143,13 @@ def _v_encoder(get: Getter, lm_head: bool,
             "embeddings": {
                 "pos_emb": get(f"{ce}/embeddings/pos_emb"),
                 "ln": _ln(get, f"{ce}/embeddings/ln")},
-            "encoder": _encoder(get, f"{ce}/encoder")},
+            "encoder": _encoder(get, f"{ce}/encoder"),
+            "pooler": {"dense": _linear(get, f"{ce}/pooler/dense")}},
     }
-    if task_heads:
+    if heads:
+        f_encoder["lm_head"] = {"dense": _linear(get, f"{fe}/lm_head/dense"),
+                                "ln": _ln(get, f"{fe}/lm_head/ln"),
+                                "bias": get(f"{fe}/lm_head/bias")}
         f_encoder["img_embeddings"]["mask_emb"] = get(
             f"{fe}/img_embeddings/mask_emb")
         fr, fo = "v_encoder/feat_regress", "v_encoder/fom_output"
@@ -182,7 +167,7 @@ def _v_encoder(get: Getter, lm_head: bool,
 def _port_tree(get: Getter, heads: bool = True) -> Dict[str, Any]:
     qa = "head/q_feat_attn"
     return {
-        "v_encoder": _v_encoder(get, lm_head=False, task_heads=heads),
+        "v_encoder": _v_encoder(get, heads),
         "head": {
             "video_query_linear": _linear(get, "head/video_query_linear"),
             "video_st_predictor": {
@@ -206,7 +191,7 @@ def _port_tree(get: Getter, heads: bool = True) -> Dict[str, Any]:
 def _tvc_tree(get: Getter) -> Dict[str, Any]:
     dec = "decoder/layers"
     return {
-        "v_encoder": _v_encoder(get, lm_head=True),
+        "v_encoder": _v_encoder(get, heads=True),
         "position_embeddings": get("position_embeddings"),
         "emb_ln": _ln(get, "emb_ln"),
         "decoder": _layers({
@@ -229,8 +214,7 @@ def _head_tree(pools: Tuple[str, ...], mlps: Tuple[str, ...]):
     def tree(get: Getter) -> Dict[str, Any]:
         head = {p: _linear(get, f"head/{p}", bias=False) for p in pools}
         head.update({m: _mlp(get, f"head/{m}") for m in mlps})
-        return {"v_encoder": _v_encoder(get, lm_head=True, task_heads=True),
-                "head": head}
+        return {"v_encoder": _v_encoder(get, heads=True), "head": head}
     return tree
 
 
@@ -259,10 +243,10 @@ def convert(flat: Mapping[str, np.ndarray], device="cuda",
     return tree(get), used
 
 
-def _load(flat, device, tree, unused_keys) -> Dict[str, Any]:
+def _load(flat, device, tree, unread=frozenset()) -> Dict[str, Any]:
     params, used = convert(flat, device, tree)
-    missing = unused_keys - set(flat)
-    unexpected = set(flat) - used - unused_keys
+    missing = unread - set(flat)
+    unexpected = set(flat) - used - unread
     if missing or unexpected:
         raise KeyError(f"JAX parameters do not match the port: missing "
                        f"{sorted(missing)}, unexpected {sorted(unexpected)}")
@@ -273,41 +257,41 @@ def load_jax_params(flat: Mapping[str, np.ndarray], device="cuda",
                     heads: bool = True) -> Dict[str, Any]:
     """The port's fp32 parameter tree from flat JAX parameters: the whole
     pretraining tree, or with ``heads=False`` the tree without the task
-    heads (:data:`TASK_HEAD_JAX_KEYS`, left unread: what VCMR serving and
-    the VSM step read).  Raises KeyError if a key is missing or not
-    accounted for."""
+    heads (:data:`TASK_HEAD_JAX_KEYS`, left unread: what VCMR serving
+    reads).  Raises KeyError if a key is missing or unexpected."""
     if heads:
-        return _load(flat, device, _port_tree, UNUSED_JAX_KEYS)
+        return _load(flat, device, _port_tree)
     return _load(flat, device, lambda get: _port_tree(get, heads=False),
-                 UNUSED_JAX_KEYS | TASK_HEAD_JAX_KEYS)
+                 TASK_HEAD_JAX_KEYS)
 
 
 def load_jax_tvc_params(flat: Mapping[str, np.ndarray], device="cuda"
                         ) -> Dict[str, Any]:
     """The port's fp32 TVC tree from the flat parameters of
     ``init_hero_for_tvc`` (``hero_tpu/models/tvc.py:35-46``): the backbone
-    with its tied LM head, the decoder position embedding and LayerNorm,
+    with its poolers and every pretraining task head (the LM head tied to
+    the decoder's output), the decoder position embedding and LayerNorm,
     and the decoder layers (self-attention, cross-attention, FFN; each
     attention block with one fused ``qkv``).  Raises KeyError if a key is
-    missing or not accounted for (:data:`UNUSED_TVC_JAX_KEYS`)."""
-    return _load(flat, device, _tvc_tree, UNUSED_TVC_JAX_KEYS)
+    missing or unexpected."""
+    return _load(flat, device, _tvc_tree)
 
 
 def load_jax_videoqa_params(flat: Mapping[str, np.ndarray], device="cuda"
                             ) -> Dict[str, Any]:
     """The port's fp32 VideoQA tree from the flat parameters of
-    ``init_hero_for_videoqa``: the backbone with every pretraining task
-    head, and ``head`` with ``qa_pool``, ``qa_pred_head``,
-    ``st_ed_pool`` and ``st_ed_pred_head``.  Raises KeyError if a key
-    is missing or not accounted for (:data:`UNUSED_JAX_KEYS`)."""
-    return _load(flat, device, _videoqa_tree, UNUSED_JAX_KEYS)
+    ``init_hero_for_videoqa``: the backbone with its poolers and every
+    pretraining task head, and ``head`` with ``qa_pool``,
+    ``qa_pred_head``, ``st_ed_pool`` and ``st_ed_pred_head``.  Raises
+    KeyError if a key is missing or unexpected."""
+    return _load(flat, device, _videoqa_tree)
 
 
 def load_jax_violin_params(flat: Mapping[str, np.ndarray], device="cuda"
                            ) -> Dict[str, Any]:
     """:func:`load_jax_videoqa_params` for ``init_hero_for_violin``'s
     tree: ``head`` with ``violin_pool`` and ``violin_pred_head``."""
-    return _load(flat, device, _violin_tree, UNUSED_JAX_KEYS)
+    return _load(flat, device, _violin_tree)
 
 
 def _train_state(load, flat_params, flat_mu, flat_nu, opt_step,
@@ -328,9 +312,9 @@ def load_jax_train_state(flat_params: Mapping[str, np.ndarray],
                          heads: bool = True):
     """The port's ``TrainState`` from the flat parameters, AdamW moments
     and step counters of a JAX pretraining ``TrainState``: every
-    parameter with its moments, the task heads included (``heads=False``
-    drops them as :func:`load_jax_params` does).  The poolers' moments
-    (:data:`UNUSED_JAX_KEYS`) are dropped with their parameters."""
+    parameter with its moments, the poolers and task heads included
+    (``heads=False`` drops the task heads as :func:`load_jax_params`
+    does)."""
     return _train_state(load_jax_params, flat_params, flat_mu, flat_nu,
                         opt_step, global_step, device, heads=heads)
 
@@ -364,13 +348,12 @@ def load_jax_violin_train_state(flat_params, flat_mu, flat_nu,
 
 
 def _layout(template: Mapping[str, np.ndarray], device,
-            tree: Callable[[Getter], Dict[str, Any]],
-            unused_keys: frozenset):
-    """(the tree of element numbers, the keys it reads, {key: (offset,
-    shape)}, total elements): the forward map ``tree`` applied to the
-    position of every element of ``template`` laid end to end.  A
-    template key that ``tree`` does not read and ``unused_keys`` does not
-    name raises."""
+            tree: Callable[[Getter], Dict[str, Any]]):
+    """(the tree of element numbers, {key: (offset, shape)}, total
+    elements): the forward map ``tree`` applied to the position of every
+    element of ``template`` laid end to end.  A template key that
+    ``tree`` does not read raises, and so does a tree that holds another
+    number of elements than the template."""
     offsets, total = {}, 0
     for key, value in template.items():
         shape = tuple(np.shape(value))
@@ -388,25 +371,30 @@ def _layout(template: Mapping[str, np.ndarray], device,
         return torch.arange(off, off + n, device=device).reshape(shape)
 
     index = tree(get)
-    unexpected = set(template) - used - unused_keys
+    unexpected = set(template) - used
     if unexpected:
         raise KeyError(f"template keys the port does not hold: "
                        f"{sorted(unexpected)}")
-    return index, used, offsets, total
+    # the forward map is a permutation: as many elements as the template,
+    # so the scatter writes every element of its buffer
+    from hero_tpu_torch.training.optim import tree_leaves
+    read = sum(idx.numel() for idx in tree_leaves(index))
+    if read != total:
+        raise ValueError(f"the port's tree holds {read} elements, the "
+                         f"template {total}")
+    return index, offsets, total
 
 
-def _scatter_to_jax(tree, index, used, offsets, total, fill
-                    ) -> Dict[str, np.ndarray]:
+def _scatter_to_jax(tree, index, offsets, total) -> Dict[str, np.ndarray]:
     """``tree`` (the port's layout) as a flat JAX-layout dict of fp32
-    numpy arrays: one scatter on the device, one copy to the host; keys
-    outside ``used`` come from ``fill(key)``."""
+    numpy arrays: one scatter on the device, one copy to the host."""
     from hero_tpu_torch.training.optim import tree_leaves, tree_paths
     idx_leaves, leaves = tree_leaves(index), tree_leaves(tree)
     if len(idx_leaves) != len(leaves):
         raise ValueError(f"the tree has {len(leaves)} leaves, the JAX "
                          f"layout {len(idx_leaves)}")
     device = idx_leaves[0].device
-    buf = torch.zeros(total, dtype=torch.float32, device=device)
+    buf = torch.empty(total, dtype=torch.float32, device=device)
     for path, idx, leaf in zip(tree_paths(index), idx_leaves, leaves):
         if tuple(idx.shape) != tuple(leaf.shape):
             raise ValueError(f"{'/'.join(path)}: shape {tuple(leaf.shape)}"
@@ -414,12 +402,8 @@ def _scatter_to_jax(tree, index, used, offsets, total, fill
         buf.index_copy_(0, idx.reshape(-1),
                         leaf.detach().reshape(-1).to(device, torch.float32))
     host = buf.cpu().numpy()
-    out = {}
-    for key, (off, shape) in offsets.items():
-        n = int(np.prod(shape, dtype=np.int64))
-        out[key] = (host[off:off + n].reshape(shape) if key in used
-                    else fill(key))
-    return out
+    return {key: host[off:off + int(np.prod(shape, dtype=np.int64))]
+            .reshape(shape) for key, (off, shape) in offsets.items()}
 
 
 def _device_of(tree) -> torch.device:
@@ -427,36 +411,26 @@ def _device_of(tree) -> torch.device:
     return tree_leaves(tree)[0].device
 
 
-def _to_jax_params(params, template, tree, unused_keys):
-    index, used, offsets, total = _layout(template, _device_of(params),
-                                          tree, unused_keys)
-    return _scatter_to_jax(params, index, used, offsets, total,
-                           lambda k: np.asarray(template[k], np.float32))
+def _to_jax_params(params, template, tree):
+    return _scatter_to_jax(params, *_layout(template, _device_of(params),
+                                            tree))
 
 
-def _to_jax_train_state(state, template, tree, unused_keys):
-    index, used, offsets, total = _layout(template,
-                                          _device_of(state.params), tree,
-                                          unused_keys)
-
-    def zeros(k):
-        return np.zeros(np.shape(template[k]), np.float32)
-
-    flat = [_scatter_to_jax(t, index, used, offsets, total, fill)
-            for t, fill in ((state.params,
-                             lambda k: np.asarray(template[k], np.float32)),
-                            (state.opt.mu, zeros), (state.opt.nu, zeros))]
-    return flat[0], flat[1], flat[2], int(state.global_step)
+def _to_jax_train_state(state, template, tree):
+    layout = _layout(template, _device_of(state.params), tree)
+    return (*(_scatter_to_jax(t, *layout)
+              for t in (state.params, state.opt.mu, state.opt.nu)),
+            int(state.global_step))
 
 
 def to_jax_params(params, template: Mapping[str, np.ndarray]
                   ) -> Dict[str, np.ndarray]:
     """The flat JAX-layout dict of the port's pretraining tree ``params``
     (inverse of :func:`load_jax_params`; kernels transposed back, ``qkv``
-    split, layers stacked), fp32 numpy, keys in ``template``'s order; the
-    poolers are ``template``'s (see the module docstring).  Exact both
-    ways: ``load_jax_params(to_jax_params(p, t)) == p``."""
-    return _to_jax_params(params, template, _port_tree, UNUSED_JAX_KEYS)
+    split, layers stacked), fp32 numpy, keys, order and shapes
+    ``template``'s (see the module docstring).  Exact both ways:
+    ``load_jax_params(to_jax_params(p, t)) == p``."""
+    return _to_jax_params(params, template, _port_tree)
 
 
 def to_jax_train_state(state, template: Mapping[str, np.ndarray]
@@ -464,21 +438,17 @@ def to_jax_train_state(state, template: Mapping[str, np.ndarray]
                                   Dict[str, np.ndarray],
                                   Dict[str, np.ndarray], int]:
     """(flat params, flat mu, flat nu, step) of the port's pretraining
-    ``TrainState`` in the JAX layout (inverse of
-    :func:`load_jax_train_state`): the poolers' parameters from
-    ``template`` and their moments zero; ``step`` the optimizer steps
-    taken."""
-    return _to_jax_train_state(state, template, _port_tree, UNUSED_JAX_KEYS)
+    ``TrainState`` in the JAX layout of ``template`` (inverse of
+    :func:`load_jax_train_state`); ``step`` the optimizer steps taken."""
+    return _to_jax_train_state(state, template, _port_tree)
 
 
 def to_jax_tvc_params(params, template: Mapping[str, np.ndarray]
                       ) -> Dict[str, np.ndarray]:
     """:func:`to_jax_params` for the TVC tree (inverse of
-    :func:`load_jax_tvc_params`): the keys the TVC tree does not hold
-    (:data:`UNUSED_TVC_JAX_KEYS`: the poolers and the task heads other
-    than the LM head) are ``template``'s.  Exact both ways:
+    :func:`load_jax_tvc_params`).  Exact both ways:
     ``load_jax_tvc_params(to_jax_tvc_params(p, t)) == p``."""
-    return _to_jax_params(params, template, _tvc_tree, UNUSED_TVC_JAX_KEYS)
+    return _to_jax_params(params, template, _tvc_tree)
 
 
 def to_jax_tvc_train_state(state, template: Mapping[str, np.ndarray]
@@ -486,33 +456,29 @@ def to_jax_tvc_train_state(state, template: Mapping[str, np.ndarray]
                                       Dict[str, np.ndarray],
                                       Dict[str, np.ndarray], int]:
     """:func:`to_jax_train_state` for the TVC tree (inverse of
-    :func:`load_jax_tvc_train_state`): the keys of
-    :data:`UNUSED_TVC_JAX_KEYS` from ``template``, with zero moments."""
-    return _to_jax_train_state(state, template, _tvc_tree,
-                               UNUSED_TVC_JAX_KEYS)
+    :func:`load_jax_tvc_train_state`)."""
+    return _to_jax_train_state(state, template, _tvc_tree)
 
 
 def to_jax_videoqa_params(params, template: Mapping[str, np.ndarray]
                           ) -> Dict[str, np.ndarray]:
     """:func:`to_jax_params` for the VideoQA tree (inverse of
-    :func:`load_jax_videoqa_params`): the poolers are ``template``'s."""
-    return _to_jax_params(params, template, _videoqa_tree, UNUSED_JAX_KEYS)
+    :func:`load_jax_videoqa_params`)."""
+    return _to_jax_params(params, template, _videoqa_tree)
 
 
 def to_jax_videoqa_train_state(state, template: Mapping[str, np.ndarray]):
     """:func:`to_jax_train_state` for the VideoQA tree."""
-    return _to_jax_train_state(state, template, _videoqa_tree,
-                               UNUSED_JAX_KEYS)
+    return _to_jax_train_state(state, template, _videoqa_tree)
 
 
 def to_jax_violin_params(params, template: Mapping[str, np.ndarray]
                          ) -> Dict[str, np.ndarray]:
     """:func:`to_jax_params` for the VIOLIN tree (inverse of
     :func:`load_jax_violin_params`)."""
-    return _to_jax_params(params, template, _violin_tree, UNUSED_JAX_KEYS)
+    return _to_jax_params(params, template, _violin_tree)
 
 
 def to_jax_violin_train_state(state, template: Mapping[str, np.ndarray]):
     """:func:`to_jax_train_state` for the VIOLIN tree."""
-    return _to_jax_train_state(state, template, _violin_tree,
-                               UNUSED_JAX_KEYS)
+    return _to_jax_train_state(state, template, _violin_tree)

@@ -396,7 +396,7 @@ def run_finetune(opts, prepare: Callable, *, tree: str = "pretrain",
         restorer, resume = make_restorer(opts, ckpt_writer, tree)
         ckpt_info: Dict = {}
         if resume:
-            # the restored parameters are the template: no init needed
+            # the restored parameters give the files' layout: no init needed
             state = restorer.restore(device)
             if getattr(opts, "checkpoint", None):
                 ckpt_info["vocab_padded"] = checkpoint_vocab_padded(

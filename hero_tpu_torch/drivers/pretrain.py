@@ -320,7 +320,7 @@ def main(opts, device="cuda", on_step: Optional[Callable] = None
         restorer, resume = common.make_restorer(opts, ckpt_writer)
         ckpt_info: Dict = {}
         if resume:
-            # the restored parameters are the template: no init needed
+            # the restored parameters give the files' layout: no init needed
             state = restorer.restore(device)
             if getattr(opts, "checkpoint", None):
                 ckpt_info["vocab_padded"] = common.checkpoint_vocab_padded(

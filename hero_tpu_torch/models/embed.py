@@ -25,6 +25,16 @@ from hero_tpu_torch.models import nn
 Params = Dict[str, Any]
 
 MAX_POS_ID = 511     # collate clamp (reference data/data.py:429)
+PAD_IDX = 1          # RoBERTa padding token id
+
+
+def roberta_position_ids(input_ids: torch.Tensor,
+                         padding_idx: int = PAD_IDX) -> torch.Tensor:
+    """Positions = padding_idx + the running count of non-pad tokens;
+    padded tokens keep padding_idx (``hero_tpu/models/embed.py:36-41``,
+    reference embed.py:60-70)."""
+    mask = (input_ids != padding_idx).to(torch.int32)
+    return torch.cumsum(mask, dim=-1, dtype=torch.int32) * mask + padding_idx
 
 
 def _arange_like(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -78,16 +88,18 @@ def image_embeddings(p: Params, img_feat: torch.Tensor,
     return nn.dropout(x, dropout_rate, nn.rng_for(seed, "img_emb"))
 
 
-def frame_embeddings(p: Params, frame_feat: torch.Tensor, *,
+def frame_embeddings(p: Params, frame_feat: torch.Tensor,
+                     position_ids: Optional[torch.Tensor] = None, *,
                      dropout_rate: float = 0.0, seed: Optional[int] = None,
                      dtype: torch.dtype = torch.float32,
                      offset: int = 0) -> torch.Tensor:
     """frame_feat (B, L, D), already in hidden space; its frames sit at
-    positions ``offset``, ``offset + 1``, ... of the clip (a
-    sequence-parallel rank's frames start past the others')."""
-    pos = nn.embedding_lookup(
-        p["pos_emb"], _arange_like(frame_feat, frame_feat.shape[1]) + offset,
-        dtype)
+    ``position_ids`` ((L,) or (B, L)), by default the positions
+    ``offset``, ``offset + 1``, ... of the clip (a sequence-parallel
+    rank's frames start past the others')."""
+    if position_ids is None:
+        position_ids = _arange_like(frame_feat, frame_feat.shape[1]) + offset
+    pos = nn.embedding_lookup(p["pos_emb"], position_ids, dtype)
     x = nn.apply_layer_norm(p["ln"], frame_feat.to(dtype) + pos)
     return nn.dropout(x, dropout_rate, nn.rng_for(seed, "frame_emb"))
 

@@ -121,18 +121,32 @@ def cross_modal_txt(p: Params, cfg: TransformerConfig, input_ids,
                                **kw)
 
 
+def cross_modal_pooled(p: Params, seq_out: torch.Tensor,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The f-encoder's pooler over its output's first token: (N, D)
+    (``hero_tpu/models/encoder.py:155-157``)."""
+    return transformer.pooler(p["pooler"], seq_out, dtype)
+
+
 def temporal_trm(p: Params, cfg: TransformerConfig, frame_feat, attn_mask,
-                 *, train: bool = False, seed: Optional[int] = None,
+                 *, position_ids=None, pool: bool = False,
+                 train: bool = False, seed: Optional[int] = None,
                  dtype: torch.dtype = torch.float32,
                  offset: int = 0) -> torch.Tensor:
-    """Clip-level temporal encoding (c-encoder); ``frame_feat``'s frames
-    start at clip position ``offset``."""
+    """Clip-level temporal encoding (c-encoder,
+    ``hero_tpu/models/encoder.py:173-188``): (B, F, D), or with ``pool``
+    the c-encoder's pooler over the first frame, (B, D).  The frames sit
+    at ``position_ids``, by default clip positions from ``offset``."""
     hidden = embed.frame_embeddings(
-        p["embeddings"], frame_feat, dropout_rate=_emb_rate(cfg, train),
-        seed=nn.rng_for(seed, "emb"), dtype=dtype, offset=offset)
-    return transformer.encoder(p["encoder"], hidden, cfg,
-                               kv_mask=attn_mask.float(), train=train,
-                               seed=nn.rng_for(seed, "enc"), dtype=dtype)
+        p["embeddings"], frame_feat, position_ids,
+        dropout_rate=_emb_rate(cfg, train), seed=nn.rng_for(seed, "emb"),
+        dtype=dtype, offset=offset)
+    out = transformer.encoder(p["encoder"], hidden, cfg,
+                              kv_mask=attn_mask.float(), train=train,
+                              seed=nn.rng_for(seed, "enc"), dtype=dtype)
+    if pool:
+        return transformer.pooler(p["pooler"], out, dtype)
+    return out
 
 
 def temporal_trm_seq_parallel(p: Params, cfg: TransformerConfig, frame_feat,

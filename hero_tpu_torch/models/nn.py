@@ -17,6 +17,7 @@ derives a named sub-seed, and each dropout site draws from a
 
 from __future__ import annotations
 
+import math
 import zlib
 from typing import Any, Dict, Optional
 
@@ -82,6 +83,23 @@ def tree_to(p: Any, device) -> Any:
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU: x * 0.5 * (1 + erf(x / sqrt(2)))."""
     return F.gelu(x)
+
+
+def gelu_new(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation of GELU (``hero_tpu/models/nn.py:47-49``):
+    0.5 x (1 + tanh(sqrt(2 / pi) (x + 0.044715 x^3)))."""
+    return 0.5 * x * (1.0 + torch.tanh(
+        math.sqrt(2.0 / math.pi) * (x + 0.044715 * torch.pow(x, 3.0))))
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+# ``hidden_act`` of a TransformerConfig -> the activation of the FFN and
+# the LM head (``hero_tpu/models/nn.py:56-57``)
+ACT2FN = {"gelu": gelu, "relu": torch.relu, "swish": swish,
+          "gelu_new": gelu_new}
 
 
 def linear(p: Params, x: torch.Tensor,

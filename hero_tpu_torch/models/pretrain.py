@@ -129,13 +129,20 @@ def get_video_level_scores(mod_query: torch.Tensor, frame_emb: torch.Tensor,
 
 
 def get_st_ed_logits(head: Params, mod_query: torch.Tensor,
-                     frame_emb: torch.Tensor, frame_mask: torch.Tensor
+                     frame_emb: torch.Tensor, frame_mask: torch.Tensor,
+                     cross: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Paired-mode span logits: query n scores its own video.
     mod_query (B, Q, D), frame_emb (B, L, D), frame_mask (B, L) ->
     st, ed (B, Q, L) fp32 (``hero_tpu/models/pretrain.py:164-181``; the
     JAX package repeats each video's frames per query, the einsum over
-    the video axis gives the same products)."""
+    the video axis gives the same products).  With ``cross`` every query
+    scores every video: mod_query (Nq, D), frame_emb (Nv, L, D) ->
+    (Nq, Nv, L)."""
+    if cross:
+        return conv_st_ed_masked(head, get_st_ed_sim(head, mod_query,
+                                                     frame_emb),
+                                 frame_mask[None])
     q = nn.linear(head["video_query_linear"], mod_query, mod_query.dtype)
     sim = torch.einsum("bqd,bld->bql", q.float(), frame_emb.float())
     return conv_st_ed_masked(head, sim, frame_mask[:, None, :])

@@ -137,15 +137,15 @@ def _row_parallel(p: Params, x: torch.Tensor, dtype) -> torch.Tensor:
 def ffn(p: Params, x: torch.Tensor, cfg: TransformerConfig, *,
         train: bool = False, seed: Optional[int] = None,
         dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    if cfg.hidden_act != "gelu":
-        raise NotImplementedError(f"hidden_act {cfg.hidden_act!r}")
+    """intermediate -> ``cfg.hidden_act`` -> output -> dropout -> residual
+    LayerNorm (``hero_tpu/models/transformer.py:121-129``)."""
+    act = nn.ACT2FN[cfg.hidden_act]
     if p["intermediate"]["weight"].shape[0] != cfg.intermediate_size:
         # a model rank's hidden units (tensor parallelism)
-        h = nn.gelu(nn.linear(p["intermediate"], dist.copy_to_inner(x),
-                              dtype))
+        h = act(nn.linear(p["intermediate"], dist.copy_to_inner(x), dtype))
         h = _row_parallel(p["output"], h, dtype)
     else:
-        h = nn.gelu(nn.linear(p["intermediate"], x, dtype))
+        h = act(nn.linear(p["intermediate"], x, dtype))
         h = nn.linear(p["output"], h, dtype)
     h = nn.dropout(h, _rate(cfg.hidden_dropout_prob, train, seed),
                    nn.rng_for(seed, "ffn"))
@@ -190,18 +190,24 @@ def encoder(p: Params, x: torch.Tensor, cfg: TransformerConfig, *,
 
 
 # ---------------------------------------------------------------------------
-# LM head
+# pooler and LM head
 # ---------------------------------------------------------------------------
+
+def pooler(p: Params, x: torch.Tensor,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """tanh(dense(first token)): (B, L, D) -> (B, D)
+    (``hero_tpu/models/transformer.py:217-219``; reference
+    model/layers.py:275-287)."""
+    return torch.tanh(nn.linear(p["dense"], x[:, 0], dtype))
+
 
 def lm_head(p: Params, word_emb: torch.Tensor, x: torch.Tensor,
             cfg: TransformerConfig,
             dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Tied LM head: dense -> GELU -> LN -> (.) @ word_emb^T + bias
-    (``hero_tpu/models/transformer.py:234-247``).  The logits stay in the
-    model dtype, as in the JAX package."""
-    if cfg.hidden_act != "gelu":
-        raise NotImplementedError(f"hidden_act {cfg.hidden_act!r}")
-    h = nn.gelu(nn.linear(p["dense"], x, dtype))
+    """Tied LM head: dense -> ``cfg.hidden_act`` -> LN -> (.) @ word_emb^T
+    + bias (``hero_tpu/models/transformer.py:234-247``).  The logits stay
+    in the model dtype, as in the JAX package."""
+    h = nn.ACT2FN[cfg.hidden_act](nn.linear(p["dense"], x, dtype))
     h = nn.apply_layer_norm(p["ln"], h)
     return torch.matmul(h.to(dtype), word_emb.to(dtype).T) + p["bias"].to(
         dtype)

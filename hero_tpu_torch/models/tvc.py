@@ -173,12 +173,13 @@ def _top_k(x: torch.Tensor, k: int):
 def beam_decode(params: Params, cfg: HeroConfig,
                 batch: Dict[str, torch.Tensor], *, max_step: int, bos: int,
                 eos: int, beam: int = 4,
+                length_penalty: float = LENGTH_PENALTY,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Length-normalised beam search with the KV cache
     (``hero_tpu/models/tvc.py:173-234``): the best ids (Ncap, max_step)
     int32.  Finished beams extend only with EOS at no cost; each step
     reorders every layer's cache along the batch axis (a copy).  Scores
-    are divided by length ** ``LENGTH_PENALTY`` at the end."""
+    are divided by length ** ``length_penalty`` at the end."""
     enc_out = encode(params, cfg, batch, dtype=dtype)
     dev = enc_out.device
     enc_mask = batch["seg_mask"].float()
@@ -215,7 +216,7 @@ def beam_decode(params: Params, cfg: HeroConfig,
         done = done[flat_src] | (next_tok == eos)
         tok, scores = next_tok, top_scores.reshape(-1)
     lengths = ((seqs == eos).int().cumsum(dim=1) == 0).sum(dim=1) + 1
-    norm = scores / lengths.float() ** LENGTH_PENALTY
+    norm = scores / lengths.float() ** length_penalty
     best = torch.argmax(norm.reshape(N, beam), dim=1)
     return seqs.reshape(N, beam, max_step)[torch.arange(N, device=dev), best]
 

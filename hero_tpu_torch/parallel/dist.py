@@ -51,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import math
 import os
 import socket
 import zlib
@@ -74,7 +75,10 @@ _STATE: Dict[str, Any] = {}
 # collectives issued by this process: calls and bytes of the gradient
 # all-reduces, and bytes of every tensor collective and transfer the
 # helpers here and in ``parallel/pipeline`` issue (read by benchmarks;
-# never by the program)
+# never by the program).  A gradient leaf that no loss reads (None in the
+# train step's leaf list) still travels in the all-reduce, as zeros: a
+# rank cannot know that it is None on every other rank without a
+# collective of its own, so its bytes count here.
 STATS = {"all_reduce_calls": 0, "all_reduce_bytes": 0, "collective_bytes": 0}
 
 
@@ -443,19 +447,35 @@ def data_group():
     return grid().data_group
 
 
-def all_reduce_flat(tensors: Sequence[torch.Tensor], group=None
+def all_reduce_flat(tensors: Sequence[Optional[torch.Tensor]], group=None,
+                    like: Optional[Sequence[torch.Tensor]] = None
                     ) -> List[torch.Tensor]:
     """The tensors summed over the group's ranks, as one flat fp32 buffer
     in the given order: one collective, deterministic for a fixed world
-    and backend.  Each result has its input's shape and dtype."""
-    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    and backend.  Each result has its input's shape and dtype.  A None
+    entry is zeros of the shape of ``like``'s entry at its index (a
+    gradient no loss reads; its result is fp32): an expanded view of one
+    zero in the concatenation, no tensor of its own."""
+    zero = None
+    parts = []
+    for i, t in enumerate(tensors):
+        if t is None:
+            if zero is None:
+                zero = torch.zeros(1, dtype=torch.float32,
+                                   device=like[i].device)
+            parts.append(zero.expand(like[i].numel()))
+        else:
+            parts.append(t.detach().reshape(-1).float())
+    flat = torch.cat(parts)
     STATS["all_reduce_calls"] += 1
     STATS["all_reduce_bytes"] += flat.numel() * 4
     _all_reduce_(flat, group)
     out, at = [], 0
-    for t in tensors:
-        n = t.numel()
-        out.append(flat[at:at + n].reshape(t.shape).to(t.dtype))
+    for i, t in enumerate(tensors):
+        shape = like[i].shape if t is None else t.shape
+        n = math.prod(shape)
+        view = flat[at:at + n].reshape(shape)
+        out.append(view if t is None else view.to(t.dtype))
         at += n
     return out
 

@@ -14,13 +14,21 @@
 The schedule runs on the host from the step counter (a Python int), so the
 learning rate is a Python float.  Updates are out of place: they return new
 tensors and leave the inputs as they were.
+
+Gradients come as the list of the parameters' leaves in
+:func:`tree_leaves` order, in which None is a gradient of exactly zero: a
+leaf that no loss reads (the poolers, a finetuning run's pretraining task
+heads), where ``jax.grad`` gives zeros.  AdamW still moves such a leaf as
+the JAX package's does -- its moments scaled by beta1 and beta2, the
+parameter stepped by the remaining first moment and decayed -- with no
+zero tensor made for it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
@@ -173,20 +181,27 @@ def adamw_init(params) -> AdamWState:
                       nu=tree_map(zeros, params))
 
 
-def adamw_update(grads, state: AdamWState, params, lr: float,
+def adamw_update(grads: List[Optional[torch.Tensor]], state: AdamWState,
+                 params, lr: float,
                  cfg: AdamWConfig) -> Tuple[Params, AdamWState]:
-    """One AdamW step: (new params, new state)."""
+    """One AdamW step: (new params, new state).  A None gradient is
+    exactly zero: ``m`` and ``v`` are only scaled, as
+    ``b * m + (1 - b) * 0`` is ``b * m``."""
     step = state.step + 1
     b1, b2 = cfg.beta1, cfg.beta2
     sf = (math.sqrt(1.0 - b2 ** step) / (1.0 - b1 ** step)
           if cfg.correct_bias else 1.0)
     out_p, out_m, out_v = [], [], []
-    for path, g, m, v, p in zip(tree_paths(params), tree_leaves(grads),
+    for path, g, m, v, p in zip(tree_paths(params), grads,
                                 tree_leaves(state.mu), tree_leaves(state.nu),
                                 tree_leaves(params)):
-        g = g.float()
-        m = b1 * m + (1.0 - b1) * g
-        v = b2 * v + (1.0 - b2) * g * g
+        if g is None:
+            m = b1 * m
+            v = b2 * v
+        else:
+            g = g.float()
+            m = b1 * m + (1.0 - b1) * g
+            v = b2 * v + (1.0 - b2) * g * g
         leaf_lr = lr * (cfg.lr_mul if is_top(path) else 1.0)
         p_new = p.float() - (leaf_lr * sf) * m / (v.sqrt() + cfg.eps)
         if decays(path):
@@ -199,17 +214,22 @@ def adamw_update(grads, state: AdamWState, params, lr: float,
                        nu=tree_unflatten(params, out_v)))
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, fp32 (a 0-d tensor)."""
-    return torch.sqrt(sum(g.float().square().sum()
-                          for g in tree_leaves(grads)))
+def global_norm(grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, fp32 (a 0-d tensor); a
+    None leaf adds nothing."""
+    leaves = [g for g in grads if g is not None]
+    return torch.sqrt(sum((g.float().square().sum() for g in leaves[1:]),
+                          leaves[0].float().square().sum()))
 
 
-def clip_by_global_norm(grads, max_norm: float, norm=None):
+def clip_by_global_norm(grads: List[Optional[torch.Tensor]],
+                        max_norm: float, norm=None):
     """torch.nn.utils.clip_grad_norm_ semantics: (clipped grads, norm);
     ``norm`` when given is the global norm (of leaves sharded over
-    ranks).  The scale stays on the device: no host synchronisation."""
+    ranks).  The scale stays on the device: no host synchronisation.
+    None leaves stay None."""
     if norm is None:
         norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
-    return tree_map(lambda g: (g * scale).to(g.dtype), grads), norm
+    return [None if g is None else (g * scale).to(g.dtype)
+            for g in grads], norm

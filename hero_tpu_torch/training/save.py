@@ -15,10 +15,13 @@
 The port's trees go through the inverse bridge
 (``convert/from_jax.to_jax_params``, or ``to_jax_tvc_params`` for a TVC
 run, ``to_jax_videoqa_params`` / ``to_jax_violin_params`` for VideoQA /
-VIOLIN: the ``tree`` argument, a key of :data:`TREES`) with the run's
-``template``, the flat JAX tree it started from, so
-``hero_tpu.training.save.load_params`` and ``TrainingRestorer.restore``
-read these files and the port reads theirs.
+VIOLIN: the ``tree`` argument, a key of :data:`TREES`): every key of a
+file comes from the port's state, the poolers and the task heads that no
+loss of the run reads included, so the files equal a JAX run's at every
+key, ``hero_tpu.training.save.load_params`` and
+``TrainingRestorer.restore`` read them and the port reads theirs.  The
+run's ``template``, the flat JAX tree it started from, gives the files'
+keys, order and shapes, none of their values.
 
 The device-to-host copy runs on the calling thread; only the file write
 goes to :class:`AsyncCheckpointWriter`'s thread.  Every write is tmp file
@@ -195,7 +198,7 @@ def _write_job(path: str, flat: Dict[str, np.ndarray], record: dict,
 class ModelSaver:
     """``{prefix}_{step}.{suffix}`` snapshots of the parameters in the JAX
     layout.  ``template`` is the flat JAX tree the run started from (the
-    inverse bridge takes the keys the port does not hold from it);
+    file's keys, order and shapes; its values are not read);
     ``vocab_padded`` the pad decision of the checkpoint conversion, None
     when unknown (no marker is written); ``tree`` the parameter tree the
     run trains (:data:`TREES`)."""
@@ -268,8 +271,8 @@ class TrainingRestorer:
     ``restore.npz`` every ``save_steps`` (:meth:`step`) and on demand
     (:meth:`save`), read back by :meth:`restore`.  ``template`` as
     :class:`ModelSaver`'s, needed before the first save; :meth:`restore`
-    sets it to the restored parameters, which then carry the keys the
-    port does not hold.  ``tree`` as :class:`ModelSaver`'s."""
+    sets it to the restored parameters.  ``tree`` as
+    :class:`ModelSaver`'s."""
 
     def __init__(self, output_dir: str, hps: Dict[str, Any],
                  template: Optional[Mapping[str, np.ndarray]] = None,

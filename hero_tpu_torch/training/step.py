@@ -7,10 +7,13 @@ data-parallel world (``parallel/dist``).
 and a dict of 0-d tensors; ``seed`` is the step's integer seed (None turns
 dropout off).  The step differentiates the loss with respect to every
 parameter leaf with ``torch.autograd.grad``; the state's tensors are never
-marked as requiring grad themselves.  On W ranks each rank holds the whole
-state and 1/W of the global batch's rows; the loss is the rank's share of
-the global batch's (``dist.data_parallel``), and the summed gradients are
-the global loss's.
+marked as requiring grad themselves.  A leaf the loss does not reach (a
+pooler, a task head another loss reads) gets no gradient tensor: its
+gradient is None, which clipping, the all-reduce and AdamW take as an
+exact zero, so AdamW moves it as the JAX package's does.  On W ranks
+each rank holds the whole state and 1/W of the global batch's rows; the
+loss is the rank's share of the global batch's (``dist.data_parallel``),
+and the summed gradients are the global loss's.
 
 On a grid (``parallel/dist.init_grid``) the state is this rank's
 (:func:`shard_state` cuts a whole one; :func:`gather_state` puts the
@@ -64,18 +67,28 @@ class TrainSpec:
     lr_schedule: str = "warmup_linear"   # | "noam" | "vqa"
 
 
-def loss_and_grads(loss_fn: Callable, params, batch, seed: Optional[int]):
-    """(loss, aux, grads) of one micro-batch; grads have the params' tree
-    and are zero for a parameter the loss does not reach."""
+def leaf_grads(loss_fn: Callable, params, batch, seed: Optional[int]):
+    """(loss, aux, grads) of one micro-batch; grads is the list of the
+    params' leaves' gradients (``optim.tree_leaves`` order), None for a
+    leaf the loss does not reach: a zero gradient, as ``jax.grad`` gives
+    it, with no tensor made for it (``optim.adamw_update``)."""
     leaves = [p.detach().requires_grad_(True)
               for p in optim_lib.tree_leaves(params)]
     loss, aux = loss_fn(optim_lib.tree_unflatten(params, leaves), batch,
                         seed)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(leaves, grads)]
-    return (loss.detach(), {k: v.detach() for k, v in aux.items()},
-            optim_lib.tree_unflatten(params, grads))
+    grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+    return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+
+
+def loss_and_grads(loss_fn: Callable, params, batch, seed: Optional[int]):
+    """(loss, aux, grads) of one micro-batch; grads have the params' tree
+    and are zero for a parameter the loss does not reach, as
+    ``jax.grad`` gives them: the form the parity checks compare.  The
+    train step and the optimizer take :func:`leaf_grads`' list."""
+    loss, aux, grads = leaf_grads(loss_fn, params, batch, seed)
+    return loss, aux, optim_lib.tree_unflatten(params, [
+        torch.zeros_like(p) if g is None else g
+        for p, g in zip(optim_lib.tree_leaves(params), grads)])
 
 
 def _zero1_on(zero1: bool) -> bool:
@@ -228,32 +241,35 @@ def gather_state(state: TrainState, zero1: bool = False) -> TrainState:
 
 
 def _global_norm(grads, sharded) -> torch.Tensor:
-    """The global norm of a tree whose ``sharded`` leaves are this inner
-    rank's own: their squares summed over the inner group, the
-    replicated leaves' counted once."""
-    leaves = optim_lib.tree_leaves(grads)
-    zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    rep = sum((g.float().square().sum() for g, s in zip(leaves, sharded)
-               if not s), zero)
-    own = sum((g.float().square().sum() for g, s in zip(leaves, sharded)
-               if s), zero)
+    """The global norm of a leaf list whose ``sharded`` leaves are this
+    inner rank's own: their squares summed over the inner group, the
+    replicated leaves' counted once; a None leaf adds nothing."""
+    zero = torch.zeros((), dtype=torch.float32,
+                       device=next(g for g in grads if g is not None).device)
+    rep = sum((g.float().square().sum() for g, s in zip(grads, sharded)
+               if g is not None and not s), zero)
+    own = sum((g.float().square().sum() for g, s in zip(grads, sharded)
+               if g is not None and s), zero)
     own = dist.all_reduce_cast(own, dist.grid().inner_group)
     return torch.sqrt(rep + own)
 
 
 def _zero1_adamw(grads, state: TrainState, lr: float, cfg: AdamWConfig,
                  specs):
-    """AdamW on this data rank's slices (views of the parameters and
-    gradients; its moments are slices already): (the new slices, the new
-    AdamW state)."""
+    """AdamW on this data rank's slices (views of the parameters and of
+    the gradient list; its moments are slices already): (the new slices,
+    the new AdamW state)."""
     g = dist.grid()
 
-    def mine(tree):
-        return optim_lib.tree_unflatten(tree, [
-            t if sh is None else t.chunk(g.data_world, sh.dim)[g.data_rank]
-            for t, sh in zip(optim_lib.tree_leaves(tree), specs)])
-    return optim_lib.adamw_update(mine(grads), state.opt, mine(state.params),
-                                  lr, cfg)
+    def mine(t, sh):
+        return (t if sh is None or t is None
+                else t.chunk(g.data_world, sh.dim)[g.data_rank])
+    params = optim_lib.tree_unflatten(state.params, [
+        mine(t, sh) for t, sh in zip(optim_lib.tree_leaves(state.params),
+                                     specs)])
+    return optim_lib.adamw_update(
+        [mine(t, sh) for t, sh in zip(grads, specs)], state.opt, params, lr,
+        cfg)
 
 
 def make_train_step(loss_fn: Callable, spec: TrainSpec, *,
@@ -290,13 +306,13 @@ def make_train_step(loss_fn: Callable, spec: TrainSpec, *,
         with dist.data_parallel(grp):
             loss, aux, grads = _grads(state, batch, seed)
         if grp is not None:
-            leaves = optim_lib.tree_leaves(grads)
             keys = sorted(aux)
             summed = dist.all_reduce_flat(
-                leaves + [loss] + [aux[k] for k in keys], grp)
-            grads = optim_lib.tree_unflatten(grads, summed[:len(leaves)])
-            loss = summed[len(leaves)]
-            aux = dict(zip(keys, summed[len(leaves) + 1:]))
+                grads + [loss] + [aux[k] for k in keys], grp,
+                like=optim_lib.tree_leaves(state.params))
+            n = len(grads)
+            grads, loss = summed[:n], summed[n]
+            aux = dict(zip(keys, summed[n + 1:]))
         new_step = state.global_step + 1
         lr = optim_lib.get_lr(new_step, spec.learning_rate,
                               spec.warmup_steps, spec.num_train_steps,
@@ -325,25 +341,26 @@ def make_train_step(loss_fn: Callable, spec: TrainSpec, *,
                           global_step=new_step), metrics
 
     def _grads(state, batch, seed):
-        """(loss, aux, grads) of the step's batch, averaged over its
-        micro-batches."""
+        """(loss, aux, gradient leaf list) of the step's batch, averaged
+        over its micro-batches."""
         if accum_steps > 1:
             grads = aux = None
             loss = 0.0
             for i in range(accum_steps):
                 micro = {k: v[i] for k, v in batch.items()}
-                l_i, a_i, g_i = loss_and_grads(
+                l_i, a_i, g_i = leaf_grads(
                     loss_fn, state.params, micro, nn.rng_for(seed,
                                                              f"micro{i}"))
                 loss = loss + l_i
-                grads = g_i if grads is None else optim_lib.tree_map(
-                    torch.add, grads, g_i)
+                grads = g_i if grads is None else [
+                    b if a is None else a if b is None else a + b
+                    for a, b in zip(grads, g_i)]
                 aux = a_i if aux is None else {k: aux[k] + a_i[k]
                                                for k in aux}
-            grads = optim_lib.tree_map(lambda g: g / accum_steps, grads)
+            grads = [None if g is None else g / accum_steps for g in grads]
             loss = loss / accum_steps
             aux = {k: v / accum_steps for k, v in aux.items()}
             return loss, aux, grads
-        return loss_and_grads(loss_fn, state.params, batch, seed)
+        return leaf_grads(loss_fn, state.params, batch, seed)
 
     return step

@@ -72,13 +72,26 @@ def get_show_name(vid_name: str) -> str:
     return vid_name_prefix if vid_name_prefix in show_list else "bbt"
 
 
-def make_zipfile(src_dir: str, save_path: str, exclude_dirs=()) -> None:
+def make_zipfile(src_dir: str, save_path: str, enclosing_dir: str = "",
+                 exclude_dirs=(), exclude_extensions=(),
+                 exclude_dirs_substring=None) -> None:
     """Zip the tree under ``src_dir`` (the code's snapshot where git is
-    absent), leaving out directories named in ``exclude_dirs``."""
+    absent) below ``enclosing_dir`` in the archive, each directory an
+    entry of its own, leaving out directories named in ``exclude_dirs``
+    (and what is below them), the files of a directory whose path holds
+    ``exclude_dirs_substring``, and files whose extension is in
+    ``exclude_extensions`` (``hero_tpu/utils/basic_utils.py:68-90``)."""
     src = os.path.abspath(src_dir)
     with zipfile.ZipFile(save_path, "w") as zf:
         for dirname, subdirs, files in os.walk(src):
+            if exclude_dirs_substring is not None and \
+                    exclude_dirs_substring in dirname:
+                continue
             subdirs[:] = [d for d in subdirs if d not in exclude_dirs]
+            arcname = os.path.join(enclosing_dir, dirname[len(src) + 1:])
+            zf.write(dirname, arcname)
             for filename in files:
-                path = os.path.join(dirname, filename)
-                zf.write(path, os.path.relpath(path, src))
+                if os.path.splitext(filename)[1] in exclude_extensions:
+                    continue
+                zf.write(os.path.join(dirname, filename),
+                         os.path.join(arcname, filename))

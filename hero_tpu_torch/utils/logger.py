@@ -51,7 +51,8 @@ class NoOp:
 
 class ScalarWriter:
     """Scalar metric writer: ``scalars.jsonl`` always, TensorBoard too if
-    importable."""
+    importable.  A scalar without a step takes the one :meth:`set_step`
+    set last (0 at first)."""
 
     def __init__(self, log_dir: str):
         os.makedirs(log_dir, exist_ok=True)
@@ -63,15 +64,21 @@ class ScalarWriter:
             SummaryWriter = None
         if SummaryWriter is not None:
             self._tb = SummaryWriter(log_dir)
+        self._global_step = 0
 
-    def add_scalar(self, tag: str, value: float, step: int) -> None:
+    def set_step(self, step: int) -> None:
+        self._global_step = step
+
+    def add_scalar(self, tag: str, value: float,
+                   step: Optional[int] = None) -> None:
+        step = self._global_step if step is None else step
         value = float(value)
         self._jsonl.write(json.dumps({"step": step, tag: value}) + "\n")
         self._jsonl.flush()
         if self._tb is not None:
             self._tb.add_scalar(tag, value, step)
 
-    def log_scalar_dict(self, d: dict, step: int) -> None:
+    def log_scalar_dict(self, d: dict, step: Optional[int] = None) -> None:
         for k, v in d.items():
             if isinstance(v, (int, float)):
                 self.add_scalar(k, v, step)
@@ -89,7 +96,7 @@ class RunningMeter:
     SMOOTH = 0.99
 
     def __init__(self, name: str):
-        self.name = name
+        self._name = name
         self._val: Optional[float] = None
 
     def __call__(self, value: float) -> None:
@@ -103,3 +110,7 @@ class RunningMeter:
     @property
     def val(self) -> float:
         return 0.0 if self._val is None else self._val
+
+    @property
+    def name(self) -> str:
+        return self._name

@@ -628,6 +628,12 @@ def test_specs_cut_and_join_every_leaf():
     assert pp["v_encoder/f_encoder/encoder/layers/0/ffn/ln/weight"] == 0
     assert pp["v_encoder/c_encoder/encoder/layers/0/ffn/ln/weight"] is None
     assert pp[HEAD] is None
+    # the poolers, which no loss reads, are replicated, as JAX's specs
+    # place every leaf outside the stacked encoder layers
+    for enc in ("f_encoder", "c_encoder"):
+        for leaf in ("weight", "bias"):
+            path = f"v_encoder/{enc}/pooler/dense/{leaf}"
+            assert tp[path] is None and pp[path] is None, path
     assert pipeline.pp_param_spec({"decoder": {"layers": [
         {"w": torch.zeros(1)}] * 2}}, 2) == [None, None]
 

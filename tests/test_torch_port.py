@@ -50,23 +50,21 @@ def jax_flat():
 
 @pytest.mark.parametrize("heads", [True, False])
 def test_bridge_maps_every_jax_key(jax_flat, heads):
-    """The keys the bridge reads and the keys it names as unused are
-    disjoint and together exactly the JAX keys: with the task heads, only
-    the two poolers go unread; without them (the serving and VSM paths)
-    also the LM head, MFM's mask embeddings and regression head, and
-    FOM's head."""
+    """Every JAX key is read: with the task heads, the whole pretraining
+    tree, the two poolers included; without them (the serving paths)
+    every key but the LM head, MFM's mask embeddings and regression head,
+    and FOM's head."""
     if heads:
         _, used = from_jax.convert(jax_flat, device="cpu")
-        unused = from_jax.UNUSED_JAX_KEYS
+        unread = frozenset()
     else:
         _, used = from_jax.convert(
             jax_flat, device="cpu",
             tree=lambda get: from_jax._port_tree(get, heads=False))
-        unused = from_jax.UNUSED_JAX_KEYS | from_jax.TASK_HEAD_JAX_KEYS
-    assert not used & unused
-    assert used | unused == set(jax_flat)
-    for k in from_jax.UNUSED_JAX_KEYS:
-        assert "pooler" in k.split("/"), k
+        unread = from_jax.TASK_HEAD_JAX_KEYS
+    assert not used & unread
+    assert used | unread == set(jax_flat)
+    assert {k for k in jax_flat if "pooler" in k.split("/")} <= used
     heads_of = {"lm_head", "mask_emb", "mask_embedding", "feat_regress",
                 "fom_output"}
     for k in from_jax.TASK_HEAD_JAX_KEYS:
@@ -75,6 +73,8 @@ def test_bridge_maps_every_jax_key(jax_flat, heads):
     v = p["v_encoder"]
     assert ("fom_output" in v) == ("lm_head" in v["f_encoder"]) == heads
     assert ("mask_emb" in v["f_encoder"]["img_embeddings"]) == heads
+    for enc in ("f_encoder", "c_encoder"):
+        assert set(v[enc]["pooler"]["dense"]) == {"weight", "bias"}
     if not heads:
         # what the serving paths move to the card
         full = from_jax.load_jax_params(jax_flat, device="cpu")
@@ -144,7 +144,10 @@ def test_bridge_loads_a_jax_pretraining_train_state(jax_flat, heads):
          m["fom_output"]["linear_1"]["weight"],
          "v_encoder/fom_output/linear_1/kernel", True),
         (v["fom_output"]["ln"]["bias"], m["fom_output"]["ln"]["bias"],
-         "v_encoder/fom_output/ln/bias", False)]
+         "v_encoder/fom_output/ln/bias", False),
+        (v["c_encoder"]["pooler"]["dense"]["weight"],
+         m["c_encoder"]["pooler"]["dense"]["weight"],
+         "v_encoder/c_encoder/pooler/dense/kernel", True)]
     for param, moment, key, transposed in cases:
         want = jax_flat[key].T if transposed else jax_flat[key]
         np.testing.assert_array_equal(param.numpy(), want, err_msg=key)

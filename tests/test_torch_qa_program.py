@@ -50,7 +50,6 @@ from hero_tpu.models import violin as jviolin
 from hero_tpu.training import save as jsave
 from hero_tpu_torch.config import opts as topts
 from hero_tpu_torch.convert import from_jax
-from hero_tpu_torch.convert.from_jax import UNUSED_JAX_KEYS
 from hero_tpu_torch.data import downstream_tasks as tdt
 from hero_tpu_torch.data import testing as ttesting
 from hero_tpu_torch.data.store import QueryTokStore, SubTokStore, \
@@ -121,6 +120,24 @@ def no_tensorboard():
 def _npz(path):
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
+
+
+# the pooler kernels: no loss reads them, and AdamW decays them
+POOLER_KERNELS = tuple(f"v_encoder/{e}/pooler/dense/kernel"
+                       for e in ("f_encoder", "c_encoder"))
+
+
+def _assert_restore_files_close(tdir, jdir):
+    """The port's ``restore.npz`` against the JAX run's: the same keys,
+    the step equal, every parameter and AdamW moment within the
+    parameters' atol 1e-5."""
+    got = _npz(os.path.join(tdir, "restore.npz"))
+    want = _npz(os.path.join(jdir, "restore.npz"))
+    assert sorted(got) == sorted(want)
+    assert int(got.pop("__step__")) == int(want.pop("__step__"))
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-5,
+                                   err_msg=k)
 
 
 def _json(path):
@@ -509,11 +526,11 @@ def programs(env):
 def test_train_program_matches_jax(env, programs, task):
     """Twins of ``test_drivers_all::test_videoqa_driver_and_eval`` /
     ``test_violin_driver_and_eval`` (their training halves), against the
-    JAX programs on the same config from the same ``.pt``: every
-    parameter of ``model_step_4.npz`` within atol 1e-5 of the JAX run's
-    but the poolers, which the port writes from the template (the JAX
-    AdamW decays them), the pretraining task heads moved by weight decay
-    alone as JAX's were; both files marked ``__vocab_padded__``;
+    JAX programs on the same config from the same ``.pt``: every key of
+    ``model_step_4.npz``, and every parameter and moment of
+    ``restore.npz``, within atol 1e-5 of the JAX run's, the poolers and
+    the pretraining task heads (which no loss reads) moved by weight
+    decay alone as JAX's were; both files marked ``__vocab_padded__``;
     ``restore.npz`` at steps 2 and 4 in ``log/checkpoints.json``; the
     step-4 validation's answers and accuracy in ``val_results_4.json``;
     the port's step-4 file bridged back equal to its final state."""
@@ -528,13 +545,13 @@ def test_train_program_matches_jax(env, programs, task):
     assert bool(want.pop("__vocab_padded__")) is True
     moved = 0
     for k in want:
-        if k in UNUSED_JAX_KEYS:
-            np.testing.assert_array_equal(got[k], template[k], err_msg=k)
-            continue
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-5,
                                    err_msg=k)
         moved += not np.array_equal(want[k], template[k])
     assert moved > len(want) // 2
+    for k in POOLER_KERNELS:
+        assert not np.array_equal(got[k], template[k]), k
+    _assert_restore_files_close(tdir, jdir)
     for k in ("v_encoder/fom_output/linear_1/kernel",
               "v_encoder/f_encoder/lm_head/dense/kernel"):
         assert not np.array_equal(got[k], template[k]), k

@@ -43,7 +43,8 @@ from hero_tpu_torch.training.step import TrainState
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 MAX_FRAMES = 16
-POOLERS = sorted(from_jax.UNUSED_JAX_KEYS)
+POOLERS = sorted(k for k in init_flat_params(tiny_hero_config(), seed=0)
+                 if "pooler" in k.split("/"))
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -386,27 +387,27 @@ def _assert_trees_equal(got, want):
 
 def test_inverse_bridge_is_exact_both_ways(template):
     """``to_jax_params(load_jax_params(f), f) == f`` on every key, and
-    ``load_jax_params(to_jax_params(p, t)) == p`` for any tree ``p``; the
-    poolers come from the template, their moments are zero."""
+    ``load_jax_params(to_jax_params(p, t)) == p`` for any tree ``p``:
+    every key of the file, the poolers' parameters and moments included,
+    is the state's, none the template's."""
+    assert len(POOLERS) == 4
     _assert_flat_equal(from_jax.to_jax_params(
         from_jax.load_jax_params(template, device="cpu"), template),
         template)
     other = _random_like(template, 1)
     p = from_jax.load_jax_params(other, device="cpu")
     back = from_jax.to_jax_params(p, template)
-    _assert_flat_equal(back, other, skip=POOLERS)
-    for k in POOLERS:
-        np.testing.assert_array_equal(back[k], template[k])
+    _assert_flat_equal(back, other)
     _assert_trees_equal(from_jax.load_jax_params(back, device="cpu"), p)
     mu, nu = _random_like(template, 2), _random_like(template, 3, True)
     state = from_jax.load_jax_train_state(other, mu, nu, 7, 7, device="cpu")
     fp, fm, fn, step = from_jax.to_jax_train_state(state, template)
     assert step == 7
     _assert_flat_equal(fp, back)
-    _assert_flat_equal(fm, mu, skip=POOLERS)
-    _assert_flat_equal(fn, nu, skip=POOLERS)
+    _assert_flat_equal(fm, mu)
+    _assert_flat_equal(fn, nu)
     for k in POOLERS:
-        assert not fm[k].any() and not fn[k].any()
+        assert not np.array_equal(back[k], template[k]) and fm[k].any()
     with pytest.raises(KeyError, match="template"):
         from_jax.to_jax_params(p, {**template, "v_encoder/extra": np.ones(1)})
 
@@ -454,8 +455,8 @@ def test_jax_restore_file_restores_in_the_port(tmp_path, template):
 def test_port_checkpoints_read_by_jax(tmp_path, template):
     """The port's ``model_step_N.npz`` (with the vocab-pad marker) and
     ``restore.npz``, written through the checkpoint thread, read in the
-    JAX package as the inverse bridge's trees: the poolers are the
-    template's, with zero moments."""
+    JAX package as the inverse bridge's trees: the state's at every key,
+    the poolers' parameters and moments included."""
     other = _random_like(template, 7)
     mu, nu = _random_like(template, 8), _random_like(template, 9, True)
     state = from_jax.load_jax_train_state(other, mu, nu, 5, 5, device="cpu")
@@ -480,9 +481,9 @@ def test_port_checkpoints_read_by_jax(tmp_path, template):
     _assert_flat_equal(jsave.flatten_tree(jstate.params), want_p)
     _assert_flat_equal(jsave.flatten_tree(jstate.opt.mu), want_mu)
     _assert_flat_equal(jsave.flatten_tree(jstate.opt.nu), want_nu)
-    for k in POOLERS:
-        np.testing.assert_array_equal(want_p[k], template[k])
-        assert not want_mu[k].any() and not want_nu[k].any()
+    _assert_flat_equal(want_p, other)
+    _assert_flat_equal(want_mu, mu)
+    _assert_flat_equal(want_nu, nu)
 
 
 def test_async_writer_raises_a_failed_write():
@@ -753,8 +754,10 @@ def test_main_loads_the_checkpoint_and_writes_jax_files(main_runs):
     """Run A started from the JAX-written checkpoint (the init at another
     seed): ``init_params`` is the checkpoint's tree; its model and restore
     files read in the JAX package, with the pad marker threaded through
-    and the poolers of the checkpoint; the hps and the git record are
-    the JAX package's schema."""
+    and the checkpoint's poolers moved as the JAX AdamW moves a leaf no
+    loss reads (zero moments: the kernels decayed by ``lr * wd`` each
+    step, the biases kept); the hps and the git record are the JAX
+    package's schema."""
     r = main_runs
     opts = topts.get_pretrain_args(["--config", r.cfg_a])
     cfg = tcommon.model_config_from_opts(opts)
@@ -766,8 +769,19 @@ def test_main_loads_the_checkpoint_and_writes_jax_files(main_runs):
     path = os.path.join(r.root, "a", "ckpt", "model_step_6.npz")
     assert jsave.checkpoint_vocab_padded(path) is False
     got = jsave.flatten_tree(jsave.load_params(path))
+    spec = tdrv.train_spec_from_opts(opts)
+    keep = np.float32(1.0)
+    for step in range(1, 7):
+        lr = toptim.get_lr(step, spec.learning_rate, spec.warmup_steps,
+                           spec.num_train_steps, spec.lr_schedule)
+        keep *= np.float32(1.0 - lr * spec.adamw.weight_decay)
     for k in POOLERS:
-        np.testing.assert_array_equal(got[k], r.init[k])
+        if k.endswith("/bias"):
+            np.testing.assert_array_equal(got[k], r.init[k])
+        else:
+            np.testing.assert_allclose(got[k], r.init[k] * keep,
+                                       rtol=1e-6, err_msg=k)
+            assert not np.array_equal(got[k], r.init[k]), k
     jstate = jsave.TrainingRestorer(
         os.path.join(r.root, "a"),
         {"num_train_steps": 6, "learning_rate": 1e-3}).restore(None)

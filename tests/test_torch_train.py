@@ -112,6 +112,13 @@ def test_group_masks_match_jax(setup):
     """The port's decay and top-lr rules on its own key paths give the JAX
     masks, carried through the bridge leaf by leaf."""
     _, params, tparams = setup
+    paths = {"/".join(p) for p in toptim.tree_paths(tparams)}
+    # the leaves no VSM loss reads take part: poolers and task heads
+    assert {"v_encoder/f_encoder/pooler/dense/weight",
+            "v_encoder/c_encoder/pooler/dense/bias",
+            "v_encoder/f_encoder/lm_head/ln/weight",
+            "v_encoder/fom_output/linear_1/weight",
+            "v_encoder/mask_embedding"} <= paths
     for jmask, tmask in ((joptim.no_decay_mask, toptim.no_decay_mask),
                          (joptim.top_lr_mask, toptim.top_lr_mask)):
         full = jax.tree.map(lambda m, p: np.full(p.shape, m, np.float32),
@@ -155,19 +162,15 @@ def test_adamw_and_clipping_match_jax(setup, start_step):
         nu = dict(mu)
     jstate = joptim.AdamWState(step=jnp.asarray(start_step, jnp.int32),
                                mu=unflatten_tree(mu), nu=unflatten_tree(nu))
-    # the bridge drops the keys outside the slice; their grads take no
-    # part here, so leave them out of the JAX norm too
-    from hero_tpu_torch.convert.from_jax import UNUSED_JAX_KEYS
-    g_in = {k: (np.zeros_like(v) if k in UNUSED_JAX_KEYS else v)
-            for k, v in g.items()}
-    jg, jnorm, jp, jst = _jax_clip_adamw(unflatten_tree(g_in), jstate,
+    jg, jnorm, jp, jst = _jax_clip_adamw(unflatten_tree(g), jstate,
                                          unflatten_tree(flat))
     tstate = load_jax_train_state(flat, mu, nu, start_step, 0, device="cpu")
     tg, tnorm = toptim.clip_by_global_norm(
-        load_jax_params(g_in, device="cpu"), 2.0)
+        toptim.tree_leaves(load_jax_params(g, device="cpu")), 2.0)
     assert float(tnorm) == pytest.approx(float(jnorm), rel=1e-6)
     tp, tst = toptim.adamw_update(tg, tstate.opt, tstate.params, 2e-3,
                                   toptim.AdamWConfig(lr_mul=3.0))
+    tg = toptim.tree_unflatten(tstate.params, tg)
     assert tst.step == int(jst.step) == start_step + 1
     # fp32 elementwise updates in the same order, up to the bias
     # correction taken in fp64 (JAX: fp32), ~1e-7 relative
@@ -175,6 +178,45 @@ def test_adamw_and_clipping_match_jax(setup, start_step):
     _assert_trees_close(tst.mu, _to_port(jst.mu), atol=1e-9, rtol=1e-6)
     _assert_trees_close(tst.nu, _to_port(jst.nu), atol=1e-12, rtol=1e-6)
     _assert_trees_close(tp, _to_port(jp), atol=1e-7, rtol=1e-6)
+
+
+def test_adamw_takes_a_none_gradient_as_zero(setup):
+    """A gradient leaf list with None for the leaves no loss reads (what
+    the train step passes) gives the clip, the norm and the AdamW update
+    of the same list with zeros there, bit for bit, from carried
+    moments: the unread leaves' moments scaled, the kernels decayed."""
+    _, _, tparams = setup
+    paths = toptim.tree_paths(tparams)
+    leaves = toptim.tree_leaves(tparams)
+    r = np.random.RandomState(5)
+    unread = [bool({"pooler", "fom_output", "feat_regress"} & set(p))
+              for p in paths]
+    assert 4 <= sum(unread) < len(leaves)
+    grads = [None if u else _t(r.randn(*p.shape).astype(np.float32))
+             for u, p in zip(unread, leaves)]
+    zeros = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, leaves)]
+
+    def moments(positive):
+        return toptim.tree_unflatten(tparams, [
+            _t(np.abs(x) if positive else x) for x in
+            (r.randn(*p.shape).astype(np.float32) * 1e-3 for p in leaves)])
+    state = toptim.AdamWState(step=3, mu=moments(False), nu=moments(True))
+    cfg = toptim.AdamWConfig(lr_mul=3.0)
+    g_none, n_none = toptim.clip_by_global_norm(grads, 0.5)
+    g_zero, n_zero = toptim.clip_by_global_norm(zeros, 0.5)
+    assert torch.equal(n_none, n_zero)
+    assert all(g is None for g, u in zip(g_none, unread) if u)
+    p_none, s_none = toptim.adamw_update(g_none, state, tparams, 2e-3, cfg)
+    p_zero, s_zero = toptim.adamw_update(g_zero, state, tparams, 2e-3, cfg)
+    for t_none, t_zero in ((p_none, p_zero), (s_none.mu, s_zero.mu),
+                           (s_none.nu, s_zero.nu)):
+        for path, a, b in zip(paths, toptim.tree_leaves(t_none),
+                              toptim.tree_leaves(t_zero)):
+            assert torch.equal(a, b), "/".join(path)
+    moved = [not torch.equal(a, b) for a, b, u in zip(
+        toptim.tree_leaves(p_none), leaves, unread) if u]
+    assert all(moved)
 
 
 # ---------------------------------------------------------------------------

@@ -66,7 +66,13 @@ from tests.test_drivers_all import MODEL_CFG as DRIVER_MODEL_CFG
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 MAX_FRAMES = 16
-UNUSED_TVC = sorted(from_jax.UNUSED_TVC_JAX_KEYS)
+# the keys of the TVC tree that no TVC loss reads: the two poolers and the
+# pretraining task heads but the LM head
+UNREAD_TVC = sorted({k for k in from_jax.TASK_HEAD_JAX_KEYS
+                     if "lm_head" not in k}
+                    | {f"v_encoder/{e}/pooler/dense/{n}"
+                       for e in ("f_encoder", "c_encoder")
+                       for n in ("kernel", "bias")})
 MODEL_CFG = {name: dict(c, hidden_dropout_prob=0.0,
                         attention_probs_dropout_prob=0.0)
              for name, c in DRIVER_MODEL_CFG.items()}
@@ -336,18 +342,17 @@ def _assert_trees_equal(got, want):
 def test_tvc_inverse_bridge_is_exact_both_ways(template):
     """``to_jax_tvc_params(load_jax_tvc_params(f), f) == f`` on every key,
     and ``load_jax_tvc_params(to_jax_tvc_params(p, t)) == p`` for any
-    tree; the keys the TVC tree does not hold (poolers, task heads other
-    than the LM head) come from the template, their moments zero."""
+    tree: every key of the file, the poolers and the task heads no TVC
+    loss reads included, with their moments, is the state's, none the
+    template's."""
     t = template
-    assert set(UNUSED_TVC) <= set(t)
+    assert set(UNREAD_TVC) <= set(t)
     _assert_flat_equal(from_jax.to_jax_tvc_params(
         from_jax.load_jax_tvc_params(t, device="cpu"), t), t)
     other = _random_like(t, 1)
     p = from_jax.load_jax_tvc_params(other, device="cpu")
     back = from_jax.to_jax_tvc_params(p, t)
-    _assert_flat_equal(back, other, skip=UNUSED_TVC)
-    for k in UNUSED_TVC:
-        np.testing.assert_array_equal(back[k], t[k])
+    _assert_flat_equal(back, other)
     _assert_trees_equal(from_jax.load_jax_tvc_params(back, device="cpu"), p)
     mu, nu = _random_like(t, 2), _random_like(t, 3, True)
     state = from_jax.load_jax_tvc_train_state(other, mu, nu, 7, 7,
@@ -355,10 +360,10 @@ def test_tvc_inverse_bridge_is_exact_both_ways(template):
     fp, fm, fn, step = from_jax.to_jax_tvc_train_state(state, t)
     assert step == 7
     _assert_flat_equal(fp, back)
-    _assert_flat_equal(fm, mu, skip=UNUSED_TVC)
-    _assert_flat_equal(fn, nu, skip=UNUSED_TVC)
-    for k in UNUSED_TVC:
-        assert not fm[k].any() and not fn[k].any()
+    _assert_flat_equal(fm, mu)
+    _assert_flat_equal(fn, nu)
+    for k in UNREAD_TVC:
+        assert not np.array_equal(back[k], t[k]) and fm[k].any(), k
     with pytest.raises(KeyError, match="template"):
         from_jax.to_jax_tvc_params(p, {**t, "decoder/extra": np.ones(1)})
     with pytest.raises(KeyError):        # the pretraining layout
@@ -510,25 +515,27 @@ def _jsonl(path):
 def test_train_tvc_main_matches_jax(run, jax_run, port_run):
     """Twin of ``test_tvc_driver_and_inf``'s training half, against the
     JAX program on the same config from the same init checkpoint (the
-    ``clip.db`` branch): every parameter the TVC tree holds within atol
-    1e-5 of the JAX run's ``model_step_4.npz`` (the tolerance of
-    ``test_tvc_train_step_matches_jax``); the other keys are the
-    checkpoint's, where the JAX AdamW decays them; the step-4 caption
-    records equal, every clip once; the JAX package reads the port's
-    files; ``log/`` holds the JAX schema and the checkpoint records."""
+    ``clip.db`` branch): every key within atol 1e-5 of the JAX run's
+    ``model_step_4.npz`` (the tolerance of
+    ``test_tvc_train_step_matches_jax``), the poolers and the task heads
+    no TVC loss reads included, which the port moved from the checkpoint
+    where the JAX AdamW did; the step-4 caption records equal, every clip
+    once; the JAX package reads the port's files; ``log/`` holds the JAX
+    schema and the checkpoint records."""
     got = _npz(os.path.join(port_run.out, "ckpt", "model_step_4.npz"))
     want = _npz(os.path.join(jax_run, "ckpt", "model_step_4.npz"))
     assert sorted(got) == sorted(want) == sorted(run.flat)
     moved = 0
     for k in want:
-        if k in UNUSED_TVC:
-            np.testing.assert_array_equal(got[k], run.flat[k], err_msg=k)
-            continue
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-5,
                                    err_msg=k)
         moved += not np.array_equal(want[k], run.flat[k])
     assert moved > len(want) // 2
-    assert any(not np.array_equal(want[k], run.flat[k]) for k in UNUSED_TVC)
+    unread_moved = [k for k in UNREAD_TVC
+                    if not np.array_equal(want[k], run.flat[k])]
+    assert unread_moved == [k for k in UNREAD_TVC
+                            if not np.array_equal(got[k], run.flat[k])]
+    assert unread_moved
     recs = _jsonl(os.path.join(port_run.out, "tvc_gen_4.jsonl"))
     assert recs == _jsonl(os.path.join(jax_run, "tvc_gen_4.jsonl"))
     clips = jdt.TvcCaptionStore(run.cap).clip2vid

@@ -57,7 +57,7 @@ from hero_tpu_torch.config import opts as topts
 from hero_tpu_torch.config.model_config import tiny_hero_config
 from hero_tpu_torch.convert import roberta_init as troberta
 from hero_tpu_torch.convert import torch_checkpoint as ttc
-from hero_tpu_torch.convert.from_jax import UNUSED_JAX_KEYS, load_jax_params
+from hero_tpu_torch.convert.from_jax import load_jax_params
 from hero_tpu_torch.data import downstream_tasks as tdt
 from hero_tpu_torch.data import testing as ttesting
 from hero_tpu_torch.data.store import QueryTokStore
@@ -123,6 +123,24 @@ def _assert_trees_equal(got, want, path=""):
 def _npz(path):
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
+
+
+# the pooler kernels: no loss reads them, and AdamW decays them
+POOLER_KERNELS = tuple(f"v_encoder/{e}/pooler/dense/kernel"
+                       for e in ("f_encoder", "c_encoder"))
+
+
+def _assert_restore_files_close(tdir, jdir):
+    """The port's ``restore.npz`` against the JAX run's: the same keys,
+    the step equal, every parameter and AdamW moment within the
+    parameters' atol 1e-5."""
+    got = _npz(os.path.join(tdir, "restore.npz"))
+    want = _npz(os.path.join(jdir, "restore.npz"))
+    assert sorted(got) == sorted(want)
+    assert int(got.pop("__step__")) == int(want.pop("__step__"))
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-5,
+                                   err_msg=k)
 
 
 # ---------------------------------------------------------------------------
@@ -600,10 +618,11 @@ def test_train_program_matches_jax(env, programs, name):
     """Twins of ``test_train_vcmr_driver_end_to_end``,
     ``test_train_and_eval_vcmr_pack_subs`` (its training half),
     ``test_vr_driver`` and ``test_vr_video_only_driver``, against the JAX
-    programs on the same config from the same ``.pt``: every parameter of
-    ``model_step_4.npz`` within atol 1e-5 of the JAX run's but the
-    poolers, which the port writes from the ``.pt`` (the JAX AdamW decays
-    them); both files marked ``__vocab_padded__``; the step-4 submission's
+    programs on the same config from the same ``.pt``: every key of
+    ``model_step_4.npz``, and every parameter and moment of
+    ``restore.npz``, within atol 1e-5 of the JAX run's, the poolers
+    included (no loss reads them; both AdamWs decay their kernels); both
+    files marked ``__vocab_padded__``; the step-4 submission's
     ids and (video, st, ed) equal and its scores within rtol 1e-4 (VR
     only for the video-only VR run, none without a validation store);
     ``log/`` with the checkpoint records of steps 2 and 4."""
@@ -617,13 +636,13 @@ def test_train_program_matches_jax(env, programs, name):
     assert bool(want.pop("__vocab_padded__")) is True
     moved = 0
     for k in want:
-        if k in UNUSED_JAX_KEYS:
-            np.testing.assert_array_equal(got[k], env.template[k], err_msg=k)
-            continue
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-5,
                                    err_msg=k)
         moved += not np.array_equal(want[k], env.template[k])
     assert moved > len(want) // 2
+    for k in POOLER_KERNELS:
+        assert not np.array_equal(got[k], env.template[k]), k
+    _assert_restore_files_close(tdir, jdir)
     results = os.path.join(tdir, "results_4_all.json")
     if topt.val_query_txt_db is None:
         assert not os.path.exists(results)
